@@ -1,0 +1,26 @@
+"""mitsuba2_tpu_torch — the PyTorch + CUDA port of mitsuba2_tpu.
+
+A second package beside the JAX one, which stays the reference. It
+renders forward on an NVIDIA H100 through hand-written CUDA traversal
+kernels (csrc/cluster_walk.cu) and plain PyTorch around them:
+
+    import mitsuba2_tpu_torch as mt
+    scene = mt.mesh_gallery(subdiv=4)          # tensors on the CUDA device
+    img = mt.render(scene, mt.RenderConfig(width=256, height=256, spp=16,
+                                           spp_per_pass=16, max_depth=3))
+
+Entry points run on CUDA unless the caller passes `device="cpu"`; without
+a CUDA device and without that argument they raise. Importing this
+package touches no CUDA device and builds no kernel: the kernels are
+built with nvcc at their first launch. It imports torch, numpy and the
+standard library only, never jax or mitsuba2_tpu.
+"""
+from .config import RenderConfig
+from .convert import scene_from_numpy
+from .scene.presets import cornell_box, mesh_gallery
+from .scene.scene import SceneData, build_scene, to_device
+from .render.integrators import render, render_pass
+
+__all__ = ["RenderConfig", "SceneData", "build_scene", "cornell_box",
+           "mesh_gallery", "render", "render_pass", "scene_from_numpy",
+           "to_device"]

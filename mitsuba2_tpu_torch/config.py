@@ -1,0 +1,81 @@
+"""Render configuration (counterpart of mitsuba2_tpu/config.py).
+
+Same fields as the JAX package's `RenderConfig`, so a configuration reads
+the same in both. The port renders a subset of what the fields can name;
+a value it does not render yet raises `NotImplementedError` when the
+config is made, never later and never silently.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+COLOR_MODES = ("mono", "rgb", "spectral")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    color_mode: str = "rgb"           # mono | rgb (spectral: later slice)
+    polarized: bool = False
+    max_depth: int = 2                # path depth; 2 = direct illumination
+    rr_depth: int = 5                 # start Russian roulette at this depth
+    spp: int = 64                     # samples per pixel
+    spp_per_pass: int = 64            # wavefront chunk (memory bound)
+    width: int = 256
+    height: int = 256
+    seed: int = 0
+    rfilter: str = "box"
+    film_width: Optional[int] = None  # crop window (films/hdrfilm.cpp)
+    film_height: Optional[int] = None
+    crop_x: int = 0
+    crop_y: int = 0
+    hide_emitters: bool = False
+    sampler: str = "independent"
+    integrator: str = "path"
+    aovs: tuple = ()
+    aov_child: str = "path"
+    remat: bool = False               # adjoint memory knob; no effect forward
+    compact: bool = False
+    reparam: bool = False
+    reparam_kaux: int = 16
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.color_mode not in COLOR_MODES:
+            raise ValueError(f"unknown color_mode {self.color_mode!r}")
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        if self.integrator not in ("path", "volpath", "volpathmis", "direct",
+                                   "depth", "aov", "moment", "stokes"):
+            raise ValueError(f"unknown integrator {self.integrator!r}")
+        unsupported = [
+            (self.dtype == "float64", "dtype='float64'"),
+            (self.color_mode == "spectral", "color_mode='spectral'"),
+            (self.polarized, "polarized=True"),
+            (self.rfilter != "box", f"rfilter={self.rfilter!r}"),
+            (self.integrator != "path", f"integrator={self.integrator!r}"),
+            (self.sampler != "independent", f"sampler={self.sampler!r}"),
+            (self.compact, "compact=True"),
+            (self.reparam, "reparam=True"),
+        ]
+        for bad, what in unsupported:
+            if bad:
+                raise NotImplementedError(
+                    f"mitsuba2_tpu_torch does not render {what} yet")
+
+    @property
+    def float_dtype(self) -> torch.dtype:
+        return torch.float32
+
+    @property
+    def n_channels(self) -> int:
+        return {"mono": 1, "rgb": 3}[self.color_mode]
+
+    @property
+    def n_image_channels(self) -> int:
+        return self.n_channels
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)

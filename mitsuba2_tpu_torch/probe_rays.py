@@ -1,0 +1,100 @@
+"""Probe wavefronts for checking the traversal kernels (numpy, seeded).
+
+Four kinds of rays over a built scene, the kinds a forward render sends
+through traversal: camera rays, first-bounce rays cosine-sampled from the
+camera hits, shadow rays from those hits toward points on the emitters
+(t_max = dist * (1 - 1e-3)), and uniform random rays from inside the
+scene bounds. The tests hand the same arrays to both packages, and
+chip_smoke.py uses them to hold each CUDA kernel against its twin.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+RAY_EPSILON = float(np.finfo(np.float32).eps) / 2 * 1500.0
+KINDS = ("camera", "bounce", "shadow", "random")
+
+
+def _normalize(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _frame(n):
+    """Orthonormal (s, t) around unit normals n (Duff et al. 2017)."""
+    sign = np.where(n[:, 2] >= 0, 1.0, -1.0)
+    a = -1.0 / (sign + n[:, 2])
+    b = n[:, 0] * n[:, 1] * a
+    s = np.stack([1.0 + sign * n[:, 0] ** 2 * a, sign * b, -sign * n[:, 0]], -1)
+    t = np.stack([b, sign + n[:, 1] ** 2 * a, -n[:, 1]], -1)
+    return s, t
+
+
+def probe_rays(scene, n: int, seed: int, closest_hit):
+    """{kind: (o (n, 3), d (n, 3), t_max (n,))} float32 arrays.
+
+    `closest_hit(o, d, t_max) -> (t, prim)` (numpy in and out) finds the
+    camera hits the bounce and shadow rays start from."""
+    rng = np.random.default_rng(seed)
+    tab = {k: getattr(scene, k).cpu().numpy() for k in (
+        "cam_to_world", "cam_fov_x", "prim_p0", "prim_e1", "prim_e2",
+        "emitter_prims", "bvh_min", "bvh_max")}
+    mat = tab["cam_to_world"]
+    tan_x = np.tan(np.deg2rad(float(tab["cam_fov_x"])) * 0.5)
+    uv = rng.uniform(0.0, 1.0, (n, 2))
+    local = np.stack([(1 - 2 * uv[:, 0]) * tan_x, (1 - 2 * uv[:, 1]) * tan_x,
+                      np.ones(n)], -1)
+    cam_d = _normalize(local @ mat[:3, :3].T.astype(np.float64))
+    cam_o = np.broadcast_to(mat[:3, 3], (n, 3)).astype(np.float64)
+    inf = np.full(n, np.inf)
+    out = {"camera": (cam_o, cam_d, inf)}
+
+    t, prim = closest_hit(cam_o.astype(np.float32), cam_d.astype(np.float32),
+                          inf.astype(np.float32))
+    hit = np.nonzero(prim >= 0)[0]
+    if hit.size == 0:
+        raise ValueError("no camera ray hits the scene")
+    pick = hit[rng.integers(0, hit.size, n)]
+    p = cam_o[pick] + cam_d[pick] * t[pick, None].astype(np.float64)
+    e1, e2 = tab["prim_e1"][prim[pick]], tab["prim_e2"][prim[pick]]
+    ng = _normalize(np.cross(e1, e2).astype(np.float64))
+    ng = np.where((np.sum(ng * cam_d[pick], -1) > 0)[:, None], -ng, ng)
+    org = p + ng * (RAY_EPSILON * (1.0 + np.abs(p).max(-1)))[:, None]
+
+    u = rng.uniform(0.0, 1.0, (n, 2))
+    r, phi = np.sqrt(u[:, 0]), 2 * np.pi * u[:, 1]
+    s, tt = _frame(ng)
+    cz = np.sqrt(np.maximum(1.0 - r * r, 0.0))
+    bd = (s * (r * np.cos(phi))[:, None] + tt * (r * np.sin(phi))[:, None]
+          + ng * cz[:, None])
+    out["bounce"] = (org, _normalize(bd), inf)
+
+    # shadow rays as next-event estimation casts them: only where the
+    # light's emitting side faces the origin and the origin's side faces
+    # the light (elsewhere the NEE pdf is 0 and the renderer casts none)
+    lights = tab["emitter_prims"].reshape(-1)
+    lights = lights[lights >= 0]
+    m = 8 * n
+    src = rng.integers(0, n, m)
+    lp = lights[rng.integers(0, lights.size, m)]
+    b = rng.uniform(0.0, 1.0, (m, 2))
+    sq = np.sqrt(1.0 - b[:, 0])
+    b0, b1 = 1.0 - sq, sq * b[:, 1]
+    e1, e2 = tab["prim_e1"][lp], tab["prim_e2"][lp]
+    target = tab["prim_p0"][lp] + e1 * b0[:, None] + e2 * b1[:, None]
+    sd = target - org[src]
+    dist = np.linalg.norm(sd, axis=-1)
+    sd = sd / dist[:, None]
+    n_light = _normalize(np.cross(e1, e2).astype(np.float64))
+    ok = np.nonzero((np.sum(n_light * sd, -1) < 0)
+                    & (np.sum(ng[src] * sd, -1) > 0))[0]
+    if ok.size < n:
+        raise ValueError("too few camera hits see the emitting side of a light")
+    keep = ok[:n]
+    out["shadow"] = (org[src[keep]], sd[keep], dist[keep] * (1.0 - 1e-3))
+
+    lo, hi = tab["bvh_min"][0], tab["bvh_max"][0]
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo) * 0.95
+    ro = mid + rng.uniform(-1.0, 1.0, (n, 3)) * half
+    out["random"] = (ro, _normalize(rng.normal(size=(n, 3))), inf)
+    return {k: tuple(np.ascontiguousarray(a, dtype=np.float32) for a in v)
+            for k, v in out.items()}

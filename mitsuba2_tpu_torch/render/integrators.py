@@ -1,0 +1,163 @@
+"""The wavefront path tracer and the render driver (counterpart of
+render/integrators.py).
+
+`lax.scan` over bounces becomes a Python loop over bounces, and the
+passes run as a Python loop with the JAX package's pass seeds, so both
+packages draw the same PCG32 numbers in the same order: the pixel jitter
+first, then per bounce u_nee, u2_nee, u1_b, u2_b and, only when
+rr_depth < max_depth, u_rr.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import RenderConfig
+from ..core.geometry import Ray
+from ..core.spec import Spec, swhere
+from ..device import resolve_device
+from . import bsdf as bsdf_mod
+from . import emitters, film as film_mod, sensors
+from .sampler import Sampler, make_sampler
+
+M32 = 0xFFFFFFFF
+
+
+def mis_weight(pdf_a, pdf_b):
+    """Power heuristic, beta = 2 (path.cpp::mis_weight)."""
+    a2 = pdf_a * pdf_a
+    return torch.where(pdf_a > 0,
+                       a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-38), 0.0)
+
+
+def _path_bounce(scene, config: RenderConfig, depth: int, carry):
+    """One bounce of path.cpp's loop: NEE (+MIS), BSDF sampling, the
+    emitter hit along the new ray (+MIS), Russian roulette."""
+    from ..scene import scene as scene_mod
+    si, active, throughput, result, sampler = carry
+
+    flags = bsdf_mod.lane_flags(scene, si)
+    is_smooth = (flags & bsdf_mod.F_SMOOTH) != 0
+    u_nee, sampler = sampler.next_1d()
+    u2_nee, sampler = sampler.next_2d()
+    ds, e_val = emitters.sample_direction(scene, si.p, u_nee, u2_nee, config)
+    nee_active = active & is_smooth & (ds.pdf > 0)
+    shadow_ray = si.spawn_ray_d(
+        ds.d, maxt=torch.where(nee_active, ds.dist * (1.0 - 1e-3), 0.0))
+
+    u1_b, sampler = sampler.next_1d()
+    u2_b, sampler = sampler.next_2d()
+    bs, b_weight = bsdf_mod.sample(scene, si, u1_b, u2_b, config)
+    bounce_d = si.to_world(bs.wo)
+    next_ray = si.spawn_ray_d(bounce_d)
+
+    occluded = scene_mod.ray_test(scene, shadow_ray)
+    wo_local = si.to_local(ds.d)
+    f_val = bsdf_mod.eval_(scene, si, wo_local, config)
+    f_pdf = bsdf_mod.pdf(scene, si, wo_local, config)
+    w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, f_pdf))
+    contrib = throughput * e_val * f_val * \
+        (w_nee / torch.clamp_min(ds.pdf, 1e-20))
+    result = result + contrib.masked(nee_active & ~occluded)
+
+    throughput = throughput * swhere(active, b_weight, 1.0)
+    active = active & (bs.pdf > 0) & b_weight.any_positive()
+    next_ray.maxt = torch.where(active, float("inf"), 0.0)
+    si_next = scene_mod.ray_intersect(scene, next_ray)
+
+    delta_sample = (bs.sampled_flags & bsdf_mod.F_DELTA) != 0
+    em_pdf_hit = emitters.pdf_direction_hit(scene, si.p, si_next, config)
+    em_pdf_env = emitters.pdf_direction_env(scene, bounce_d)
+    em_pdf = torch.where(si_next.valid, em_pdf_hit, em_pdf_env)
+    em_pdf = torch.where(delta_sample, 0.0, em_pdf)
+    w_bsdf = mis_weight(bs.pdf, em_pdf)
+    L = swhere(si_next.valid, emitters.eval_hit(scene, si_next, config),
+               emitters.eval_env(scene, bounce_d, config))
+    result = result + (throughput * L * w_bsdf).masked(active)
+
+    if config.rr_depth < config.max_depth:
+        do_rr = (depth + 1 >= config.rr_depth) and (depth + 1 < config.max_depth)
+        q = (torch.clamp_max(throughput.hmax() * bs.eta * bs.eta, 0.95)
+             if do_rr else torch.ones_like(bs.eta))
+        u_rr, sampler = sampler.next_1d()
+        throughput = throughput / torch.clamp_min(q, 1e-8)
+        active = active & (u_rr < q)
+
+    active = active & si_next.valid
+    return si_next, active, throughput, result, sampler
+
+
+def sample_path(scene, ray: Ray, sampler: Sampler, config: RenderConfig
+                ) -> Tuple[Spec, Sampler]:
+    """Path-trace one wavefront (src/integrators/path.cpp)."""
+    from ..scene import scene as scene_mod
+    n, dev = ray.o.x.shape[0], ray.o.x.device
+    C = config.n_channels
+    # primary rays are already coherent in (spp, H, W) order: no presort
+    si = scene_mod.ray_intersect(scene, ray, sort=False)
+    active = si.valid
+    throughput = Spec.ones(n, C, dev)
+    result = Spec.zeros(n, C, dev)
+    if not config.hide_emitters:
+        result = result + emitters.eval_hit(scene, si, config)
+        result = result + emitters.eval_env(scene, ray.d, config).masked(
+            ~si.valid)
+    carry = (si, active, throughput, result, sampler)
+    for depth in range(1, config.max_depth):
+        carry = _path_bounce(scene, config, depth, carry)
+    return carry[3], carry[4]
+
+
+def render_pass(scene, config: RenderConfig, seed: int, device=None
+                ) -> Tuple[torch.Tensor, int]:
+    """One pass of (spp_per_pass x H x W) lanes -> ((H, W, C) image sum,
+    weight), on `device` (None = the CUDA device; raises without one),
+    moving the scene there if it is elsewhere."""
+    from ..scene.scene import to_device
+    dev = resolve_device(device)
+    scene = to_device(scene, dev)
+    H, W = config.height, config.width
+    sppc = config.spp_per_pass
+    n = sppc * H * W
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    sampler = make_sampler(config.sampler, int(seed) & M32, lane)
+    pix = torch.arange(n, dtype=torch.int64, device=dev) % (H * W)
+    x = (pix % W).to(torch.float32)
+    y = (pix // W).to(torch.float32)
+    jitter, sampler = sampler.next_2d()
+    uv = sensors.film_uv(x, y, jitter, W, H,
+                         crop=(config.crop_x, config.crop_y,
+                               config.film_width, config.film_height))
+    ray = sensors.sample_ray(scene, uv)
+    spec, _ = sample_path(scene, ray, sampler, config)
+    image = torch.zeros((H, W, config.n_image_channels), dtype=torch.float32,
+                        device=dev)
+    return film_mod.accumulate_pass(image, 0, spec, config)
+
+
+def pass_seeds(seed: int, n_passes: int):
+    """The JAX package's pass seeds: seed * 0x9E3779B1 + p (mod 2^32)."""
+    return [((seed & M32) * 0x9E3779B1 + p) & M32 for p in range(n_passes)]
+
+
+def render(scene, config: RenderConfig, seed: int = None, device=None
+           ) -> torch.Tensor:
+    """SamplingIntegrator::render: spp in passes of spp_per_pass, then
+    develop. Runs on `device` (None = the CUDA device; raises without
+    one), moving the scene there if it is elsewhere. Returns (H, W, C)."""
+    from ..scene.scene import to_device
+    dev = resolve_device(device)
+    scene = to_device(scene, dev)
+    if seed is None:
+        seed = config.seed
+    sppc = min(config.spp_per_pass, config.spp)
+    config = config.replace(spp_per_pass=sppc)
+    n_passes = (config.spp + sppc - 1) // sppc
+    image, wsum = None, 0
+    with torch.inference_mode():
+        for s in pass_seeds(seed, n_passes):
+            img_p, w_p = render_pass(scene, config, s, dev)
+            image = img_p if image is None else image + img_p
+            wsum += w_p
+    return film_mod.develop(image, wsum)

@@ -1,0 +1,468 @@
+"""Scene: the host build pipeline, the shading record and the traversal
+dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
+
+The build half packs meshes, diffuse materials, area emitters and a
+perspective camera into numpy tables byte-equal to the JAX package's
+`SceneData` fields of the same names (tests/test_torch_scene.py), then
+uploads them with `convert.scene_from_numpy`. Anything else a scene can
+hold raises `NotImplementedError` naming the feature.
+
+The dispatch half picks brute force for scenes of 192 prims or fewer and
+the cluster walk (kernels/traverse.py) above, behind the same coherence
+presort as the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.geometry import Frame, Ray
+from ..core.vec import Vec2, Vec3
+from ..render import bsdf as bsdf_mod
+from ..render import emitters as emitters_mod
+from ..render.interaction import SurfaceInteraction
+from . import bvh as bvh_mod
+from .shapes import MeshData
+
+PRIM_TRI = 0
+PRIM_SPHERE = 1
+
+# The JAX SceneData fields this slice reads, all byte-equal between the
+# two packages' builds; `convert.scene_from_numpy` takes exactly these.
+FIELDS = (
+    "prim_p0", "prim_e1", "prim_e2", "prim_n0", "prim_n1", "prim_n2",
+    "prim_uv0", "prim_uv1", "prim_uv2", "prim_type", "prim_shape",
+    "prim_area", "bvh_min", "bvh_max", "shape_mat", "shape_emitter",
+    "mat_type", "mat_flags", "mat_data", "emitter_type", "emitter_data",
+    "emitter_shape", "emitter_prims", "emitter_prim_cdf", "emitter_area",
+    "cam_to_world", "cam_fov_x", "cam_data", "mxu_node_f", "mxu_link",
+    "cluster_slot_prim", "mxu_feat")
+
+
+@dataclasses.dataclass
+class SceneData:
+    """The scene as tensors on one device, plus static metadata."""
+    prim_p0: torch.Tensor    # (P, 3) tri vertex 0, BVH order
+    prim_e1: torch.Tensor    # (P, 3) edge 1
+    prim_e2: torch.Tensor    # (P, 3) edge 2
+    prim_n0: torch.Tensor    # (P, 3) per-corner shading normals
+    prim_n1: torch.Tensor
+    prim_n2: torch.Tensor
+    prim_uv0: torch.Tensor   # (P, 2)
+    prim_uv1: torch.Tensor
+    prim_uv2: torch.Tensor
+    prim_type: torch.Tensor  # (P,) i32
+    prim_shape: torch.Tensor  # (P,) i32
+    prim_area: torch.Tensor  # (P,)
+    bvh_min: torch.Tensor    # (B, 3) BVH2 node bounds (root = scene bounds)
+    bvh_max: torch.Tensor
+    shape_mat: torch.Tensor      # (S,) i32
+    shape_emitter: torch.Tensor  # (S,) i32, -1 = none
+    mat_type: torch.Tensor   # (M,) i32
+    mat_flags: torch.Tensor  # (M,) i32
+    mat_data: torch.Tensor   # (M, MAT_W)
+    emitter_type: torch.Tensor      # (E,) i32
+    emitter_data: torch.Tensor      # (E, EMIT_W)
+    emitter_shape: torch.Tensor     # (E,) i32
+    emitter_prims: torch.Tensor     # (E, Fmax) i32, padded -1
+    emitter_prim_cdf: torch.Tensor  # (E, Fmax) area cumsum
+    emitter_area: torch.Tensor      # (E,)
+    cam_to_world: torch.Tensor  # (4, 4)
+    cam_fov_x: torch.Tensor     # () degrees
+    cam_data: torch.Tensor      # (12,) see build_fields
+    mxu_node_f: torch.Tensor    # (R, 16) f32 pruned cut tree
+    mxu_link: torch.Tensor      # (R, 16) i32 [hit8 | miss8]
+    cluster_slot_prim: torch.Tensor  # (C*CK,) i32 prim id per slot, -1 pad
+    mxu_feat: torch.Tensor      # (16, 4*C*CK) f32 plane rows, as built
+    cluster_feat: torch.Tensor  # (C*CK, 20) f32 slot-major copy for the walk
+    mat_families: Tuple[int, ...] = ()
+    n_emitters: int = 0
+    n_shapes: int = 0
+    cluster_k: int = 128
+    cam_type: str = "perspective"
+
+    @property
+    def n_prims(self) -> int:
+        return self.prim_p0.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.prim_p0.device
+
+
+def to_device(scene: SceneData, device) -> SceneData:
+    """The scene with every tensor on `device` (None = the CUDA device;
+    raises without one)."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    if scene.device == dev:
+        return scene
+    return dataclasses.replace(scene, **{
+        f.name: getattr(scene, f.name).to(dev)
+        for f in dataclasses.fields(scene)
+        if torch.is_tensor(getattr(scene, f.name))})
+
+
+# ---------------------------------------------------------------------------
+# Host build
+# ---------------------------------------------------------------------------
+
+def build_scene(shapes: List[MeshData], sensor: dict, emitters=(),
+                device=None) -> SceneData:
+    """Pack shapes + a perspective sensor into a SceneData on `device`
+    (None = the CUDA device; raises without one)."""
+    from ..convert import scene_from_numpy
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    return scene_from_numpy(build_fields(shapes, sensor, emitters), dev)
+
+
+def _pick_cluster_k(n_prims: int) -> int:
+    """The JAX package's cluster-size policy (CK=256 from 250k prims)."""
+    if bvh_mod.CK_FORCED:
+        return bvh_mod.CLUSTER_K
+    return 256 if n_prims >= 250_000 else bvh_mod.CLUSTER_K
+
+
+def _refuse_unsupported(shapes, sensor, emitters):
+    if len(emitters):
+        raise NotImplementedError(
+            "mitsuba2_tpu_torch does not support shapeless emitters "
+            "(constant, envmap, point, ...) yet")
+    for sh in shapes:
+        if not isinstance(sh, MeshData):
+            raise NotImplementedError(
+                "mitsuba2_tpu_torch does not support instancing "
+                f"({type(sh).__name__}) yet")
+        if sh.sphere_center is not None:
+            raise NotImplementedError(
+                "mitsuba2_tpu_torch does not support analytic spheres yet")
+        if sh.interior is not None:
+            raise NotImplementedError(
+                "mitsuba2_tpu_torch does not support participating media yet")
+    kind = sensor.get("type", "perspective")
+    if kind != "perspective":
+        raise NotImplementedError(
+            f"mitsuba2_tpu_torch does not support {kind!r} sensors yet")
+    if "to_world_keys" in sensor:
+        raise NotImplementedError(
+            "mitsuba2_tpu_torch does not support camera motion blur yet")
+
+
+def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
+    """Host build: shapes + sensor -> dict of numpy tables (FIELDS), the
+    same arithmetic as the JAX package's _build_scene_impl for the
+    features this slice supports."""
+    _refuse_unsupported(shapes, sensor, emitters)
+    mats, mat_key2idx = [], {}
+
+    def add_material(desc) -> int:
+        desc = desc or {"type": "diffuse"}
+        key = repr(desc)
+        if key not in mat_key2idx:
+            mat_key2idx[key] = bsdf_mod.build_material(desc, mats)
+        return mat_key2idx[key]
+
+    p0s, e1s, e2s, n0s, n1s, n2s, uv0s, uv1s, uv2s = ([] for _ in range(9))
+    ptypes, pshapes, pareas = [], [], []
+    shape_mat, shape_emitter = [], []
+    emitter_descs = []   # (desc, shape index)
+    for s_idx, sh in enumerate(shapes):
+        shape_mat.append(add_material(sh.bsdf))
+        if sh.emitter is not None:
+            shape_emitter.append(len(emitter_descs))
+            emitter_descs.append((sh.emitter, s_idx))
+        else:
+            shape_emitter.append(-1)
+        v, f = sh.vertices, sh.faces
+        if f.shape[0] == 0:
+            continue
+        a, b, c = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+        e1, e2 = b - a, c - a
+        face_n = np.cross(e1, e2)
+        face_area = 0.5 * np.linalg.norm(face_n, axis=-1)
+        face_n = face_n / np.maximum(
+            np.linalg.norm(face_n, axis=-1, keepdims=True), 1e-20)
+        if sh.normals is not None:
+            nn0, nn1, nn2 = (sh.normals[f[:, k]] for k in range(3))
+        else:
+            nn0 = nn1 = nn2 = face_n.astype(np.float32)
+        if sh.uvs is not None:
+            u0, u1, u2 = (sh.uvs[f[:, k]] for k in range(3))
+        else:
+            u0 = u1 = u2 = np.zeros((f.shape[0], 2), np.float32)
+        p0s.append(a.astype(np.float32))
+        e1s.append(e1.astype(np.float32))
+        e2s.append(e2.astype(np.float32))
+        n0s.append(nn0.astype(np.float32))
+        n1s.append(nn1.astype(np.float32))
+        n2s.append(nn2.astype(np.float32))
+        uv0s.append(u0.astype(np.float32))
+        uv1s.append(u1.astype(np.float32))
+        uv2s.append(u2.astype(np.float32))
+        ptypes.append(np.full(f.shape[0], PRIM_TRI, np.int32))
+        pshapes.append(np.full(f.shape[0], s_idx, np.int32))
+        pareas.append(face_area.astype(np.float32))
+
+    p0, e1, e2 = (np.concatenate(x) for x in (p0s, e1s, e2s))
+    n0, n1, n2 = (np.concatenate(x) for x in (n0s, n1s, n2s))
+    uv0, uv1, uv2 = (np.concatenate(x) for x in (uv0s, uv1s, uv2s))
+    ptype, pshape = np.concatenate(ptypes), np.concatenate(pshapes)
+    parea = np.concatenate(pareas)
+
+    # --- prim AABBs, BVH, cluster cut ------------------------------------
+    bb_min = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
+    bb_max = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
+    tree = bvh_mod.build_bvh(bb_min, bb_max)
+    oct_hit8, oct_miss8 = bvh_mod.build_octant_links(tree)
+    CK = _pick_cluster_k(p0.shape[0])
+    cl_id, cl_starts, cl_counts = bvh_mod.cluster_cut(tree, max_prims=CK)
+    cut_min, cut_max, cut_hit8, cut_miss8, cl_id_c = \
+        bvh_mod.cut_tree_tables(tree, cl_id, oct_hit8, oct_miss8)
+    R = cut_min.shape[0]
+    mxu_slot = np.where(cl_id_c >= 0, cl_id_c * CK, -1).astype(np.int32)
+    if len(cl_starts) * CK >= (1 << 24):
+        raise ValueError("cluster slot ids exceed the f32 exact-integer range")
+    mxu_node_f = np.concatenate(
+        [cut_min, cut_max, mxu_slot[:, None].astype(np.float32),
+         np.zeros((R, 9), np.float32)], -1)
+    mxu_link = np.concatenate(
+        [cut_hit8.reshape(R, 8), cut_miss8.reshape(R, 8)], -1)
+    slot_prim = np.full(max(len(cl_starts), 1) * CK, -1, np.int32)
+    for c, (s0, cnt) in enumerate(zip(cl_starts, cl_counts)):
+        slot_prim[c * CK: c * CK + cnt] = np.arange(s0, s0 + cnt)
+    perm = tree.prim_order
+    p0, e1, e2 = p0[perm], e1[perm], e2[perm]
+    n0, n1, n2 = n0[perm], n1[perm], n2[perm]
+    uv0, uv1, uv2 = uv0[perm], uv1[perm], uv2[perm]
+    ptype, pshape, parea = ptype[perm], pshape[perm], parea[perm]
+
+    # --- cluster plane rows (recentred at each cluster's centroid) -------
+    sidx = np.maximum(slot_prim, 0)
+    valid = (slot_prim >= 0)[:, None].astype(np.float32)
+    cp0, ce1, ce2 = p0[sidx] * valid, e1[sidx] * valid, e2[sidx] * valid
+    Sn = slot_prim.shape[0]
+    C = Sn // CK
+    vcnt = np.maximum(valid.reshape(C, CK).sum(1), 1.0)
+    cl_c = (cp0.reshape(C, CK, 3).sum(1) / vcnt[:, None]).astype(np.float32)
+    cp0 = cp0 - np.repeat(cl_c, CK, 0) * valid
+    cn = np.cross(ce1, ce2)
+    fv = np.zeros((C, 4, CK, 16), np.float32)
+    fv[:, 0, :, 0:3] = -cn.reshape(C, CK, 3)
+    fv[:, 1, :, 0:3] = np.cross(cp0, ce2).reshape(C, CK, 3)
+    fv[:, 1, :, 3:6] = ce2.reshape(C, CK, 3)
+    fv[:, 2, :, 0:3] = -np.cross(cp0, ce1).reshape(C, CK, 3)
+    fv[:, 2, :, 3:6] = -ce1.reshape(C, CK, 3)
+    fv[:, 3, :, 6:9] = cn.reshape(C, CK, 3)
+    fv[:, 3, :, 9] = -np.sum(cp0 * cn, -1).reshape(C, CK)
+    feat = np.ascontiguousarray(fv.reshape(4 * Sn, 16).T)
+    is_cl_node = cl_id_c >= 0
+    mxu_node_f[is_cl_node, 8:11] = cl_c[cl_id_c[is_cl_node]]
+
+    # --- emitter tables ----------------------------------------------------
+    E = max(len(emitter_descs), 1)
+    emitter_rows = np.zeros((E, emitters_mod.EMIT_W), np.float32)
+    emitter_types = np.zeros(E, np.int32)
+    emitter_shapes = np.full(E, -1, np.int32)
+    for e_idx, (desc, s_idx) in enumerate(emitter_descs):
+        etype, row = emitters_mod.pack_emitter(desc)
+        emitter_types[e_idx] = etype
+        emitter_rows[e_idx] = row
+        emitter_shapes[e_idx] = s_idx
+    prim_lists = []
+    for e_idx in range(E):
+        s_idx = emitter_descs[e_idx][1] if e_idx < len(emitter_descs) else -1
+        prim_lists.append(np.nonzero(pshape == s_idx)[0].astype(np.int32)
+                          if s_idx >= 0 else np.zeros(0, np.int32))
+    Fmax = max([1] + [len(p) for p in prim_lists])
+    emitter_prims = np.full((E, Fmax), -1, np.int32)
+    emitter_cdf = np.zeros((E, Fmax), np.float32)
+    emitter_area = np.zeros(E, np.float32)
+    for e_idx, prims in enumerate(prim_lists):
+        if len(prims) == 0:
+            continue
+        emitter_prims[e_idx, :len(prims)] = prims
+        cs = np.cumsum(parea[prims].astype(np.float64))
+        emitter_cdf[e_idx, :len(prims)] = cs
+        emitter_cdf[e_idx, len(prims):] = cs[-1]
+        emitter_area[e_idx] = cs[-1]
+
+    # --- sensor -------------------------------------------------------------
+    cam_to_world = np.asarray(sensor["to_world"], np.float32).reshape(4, 4)
+    cam_data = np.zeros(12, np.float32)
+    cam_data[8] = float(sensor.get("near_clip", 0.0))
+    cam_data[9] = float(sensor.get("far_clip", np.inf))
+    cam_data[10] = float(sensor.get("shutter_open", -np.inf))
+    cam_data[11] = float(sensor.get("shutter_close", np.inf))
+    cam_data[0] = float(sensor.get("aperture_radius", 0.0))
+    cam_data[1] = float(sensor.get("focus_distance", 1.0))
+    n_min, n_max = tree.bounds_min, tree.bounds_max
+    cam_data[4:7] = 0.5 * (n_min[0] + n_max[0])
+    cam_data[7] = max(float(np.linalg.norm(n_max[0] - n_min[0])) * 0.5, 1e-3)
+
+    return dict(
+        prim_p0=p0, prim_e1=e1, prim_e2=e2, prim_n0=n0, prim_n1=n1,
+        prim_n2=n2, prim_uv0=uv0, prim_uv1=uv1, prim_uv2=uv2,
+        prim_type=ptype, prim_shape=pshape, prim_area=parea,
+        bvh_min=n_min, bvh_max=n_max,
+        shape_mat=np.asarray(shape_mat, np.int32),
+        shape_emitter=np.asarray(shape_emitter, np.int32),
+        mat_type=np.asarray([mt[0] for mt in mats], np.int32),
+        mat_flags=np.asarray([mt[1] for mt in mats], np.int32),
+        mat_data=np.stack([mt[2] for mt in mats]),
+        emitter_type=emitter_types, emitter_data=emitter_rows,
+        emitter_shape=emitter_shapes, emitter_prims=emitter_prims,
+        emitter_prim_cdf=emitter_cdf, emitter_area=emitter_area,
+        cam_to_world=cam_to_world,
+        cam_fov_x=np.float32(sensor.get("fov", 45.0)),
+        cam_data=cam_data,
+        mxu_node_f=mxu_node_f.astype(np.float32),
+        mxu_link=mxu_link.astype(np.int32),
+        cluster_slot_prim=slot_prim, mxu_feat=feat)
+
+
+# ---------------------------------------------------------------------------
+# Shading record (Shape::compute_surface_interaction, triangles)
+# ---------------------------------------------------------------------------
+
+def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v
+                                ) -> SurfaceInteraction:
+    """Preliminary hit (t, prim, u, v) -> full shading record, with the
+    exact f32 Möller–Trumbore re-solve of (u, v, t) for the winning
+    triangle (the cluster walk emits u = v = 0)."""
+    idx = torch.clamp_min(prim, 0).long()
+    valid = torch.isfinite(t) & (prim >= 0)
+    ptype = scene.prim_type[idx]
+    p0x, p0y, p0z = scene.prim_p0[idx].unbind(1)
+    e1x, e1y, e1z = scene.prim_e1[idx].unbind(1)
+    e2x, e2y, e2z = scene.prim_e2[idx].unbind(1)
+
+    def norm3(x, y, z):
+        inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
+        return x * inv, y * inv, z * inv
+
+    d, o = ray.d, ray.o
+    pvx = d.y * e2z - d.z * e2y
+    pvy = d.z * e2x - d.x * e2z
+    pvz = d.x * e2y - d.y * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = torch.where(det.abs() < 1e-18, 0.0, 1.0 / det)
+    tvx, tvy, tvz = o.x - p0x, o.y - p0y, o.z - p0z
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    u_x = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    v_x = (d.x * qvx + d.y * qvy + d.z * qvz) * inv
+    t_x = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    ok_x = (valid & (ptype == PRIM_TRI) & (inv != 0.0) &
+            torch.isfinite(t_x) & (t_x > 0.0))
+    u = torch.where(ok_x, u_x, u)
+    v = torch.where(ok_x, v_x, v)
+    w = 1.0 - u - v
+    t_ref = torch.where(ok_x, t_x, t)
+
+    p = Vec3(p0x + e1x * u + e2x * v, p0y + e1y * u + e2y * v,
+             p0z + e1z * u + e2z * v)
+    ng = Vec3(*norm3(e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
+                     e1x * e2y - e1y * e2x))
+    n0x, n0y, n0z = scene.prim_n0[idx].unbind(1)
+    n1x, n1y, n1z = scene.prim_n1[idx].unbind(1)
+    n2x, n2y, n2z = scene.prim_n2[idx].unbind(1)
+    ns = Vec3(*norm3(n0x * w + n1x * u + n2x * v,
+                     n0y * w + n1y * u + n2y * v,
+                     n0z * w + n1z * u + n2z * v))
+    u0x, u0y = scene.prim_uv0[idx].unbind(1)
+    u1x, u1y = scene.prim_uv1[idx].unbind(1)
+    u2x, u2y = scene.prim_uv2[idx].unbind(1)
+    uv = Vec2(u0x * w + u1x * u + u2x * v, u0y * w + u1y * u + u2y * v)
+    sh_frame = Frame.from_n(ns)
+    return SurfaceInteraction(
+        valid=valid,
+        t=torch.where(valid, t_ref, float("inf")),
+        p=p, n=ng, sh_frame=sh_frame, uv=uv,
+        wi=sh_frame.to_local(-ray.d),
+        shape=torch.where(valid, scene.prim_shape[idx], -1),
+        prim_index=torch.where(valid, idx, -1).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Traversal dispatch (Scene::ray_intersect / ray_test)
+# ---------------------------------------------------------------------------
+
+SORT_MIN_LANES = 16384
+SORT_DIRBITS = 9    # direction bucket: 3 bits per axis, as the JAX default
+
+
+def _pick_backend(scene) -> str:
+    from ..kernels import brute
+    return "brute" if scene.n_prims <= brute.MAX_BRUTE_PRIMS else "cluster"
+
+
+def coherence_key(scene, ray_o: Vec3, ray_d: Vec3, t_max):
+    """Presort key (int64 holding uint32): origin Morton cell (major) and a
+    direction bucket of SORT_DIRBITS bits; dead lanes (t_max <= 0) get
+    0xFFFFFFFF and sort to the back."""
+    from ..kernels import compact
+    morton = compact.morton3(ray_o, scene.bvh_min[0], scene.bvh_max[0])
+    db = SORT_DIRBITS
+    b = db // 3
+    half = float(1 << (b - 1))
+    top = float((1 << b) - 1)
+
+    def qb(c):
+        return torch.clamp((c + 1.0) * half, 0.0, top).to(torch.int64)
+
+    dbucket = (qb(ray_d.x) << (2 * b)) | (qb(ray_d.y) << b) | qb(ray_d.z)
+    key = ((morton >> db) << db) | dbucket
+    return torch.where(t_max <= 0.0, 0xFFFFFFFF, key)
+
+
+def _presorted(scene, ray_o, ray_d, t_max, fn):
+    """Run `fn` on the rays in presort order; returns (outputs, lane) with
+    `lane` the original lane of each sorted position."""
+    key = coherence_key(scene, ray_o, ray_d, t_max)
+    _, lane = torch.sort(key, stable=True)
+    o = Vec3(ray_o.x[lane], ray_o.y[lane], ray_o.z[lane])
+    d = Vec3(ray_d.x[lane], ray_d.y[lane], ray_d.z[lane])
+    return fn(scene, o, d, t_max[lane]), lane
+
+
+def _unsort(values, lane):
+    out = torch.empty_like(values)
+    out[lane] = values
+    return out
+
+
+def _preliminary_dispatch(scene, ray: Ray, sort=None):
+    """Closest-hit query: (t, prim, u, v). `sort=None` presorts wavefronts
+    of SORT_MIN_LANES lanes or more; False skips it (primary rays)."""
+    from ..kernels import brute, traverse
+    if _pick_backend(scene) == "brute":
+        return brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt)
+    n = ray.o.x.shape[0]
+    if (n >= SORT_MIN_LANES) if sort is None else sort:
+        (t, prim, u, v), lane = _presorted(
+            scene, ray.o, ray.d, ray.maxt, traverse.ray_intersect_preliminary)
+        return _unsort(t, lane), _unsort(prim, lane), u, v
+    return traverse.ray_intersect_preliminary(scene, ray.o, ray.d, ray.maxt)
+
+
+def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
+    """Scene::ray_intersect — closest hit + shading record."""
+    t, prim, u, v = _preliminary_dispatch(scene, ray, sort=sort)
+    return compute_surface_interaction(scene, ray, t, prim, u, v)
+
+
+def ray_test(scene, ray: Ray) -> torch.Tensor:
+    """Scene::ray_test — occlusion within ray.maxt."""
+    from ..kernels import brute, traverse
+    if _pick_backend(scene) == "brute":
+        return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
+    if ray.o.x.shape[0] >= SORT_MIN_LANES:
+        occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt,
+                               traverse.ray_test)
+        return _unsort(occ, lane)
+    return traverse.ray_test(scene, ray.o, ray.d, ray.maxt)

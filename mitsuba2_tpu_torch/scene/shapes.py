@@ -1,0 +1,83 @@
+"""Procedural shape constructors (host, numpy; counterpart of
+scene/shapes.py, triangle meshes only)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class MeshData:
+    """One triangle mesh with its scene wiring. `sphere_center` and
+    `interior` exist so a scene naming them can be refused by name."""
+    vertices: np.ndarray                   # (V, 3) f32
+    faces: np.ndarray                      # (F, 3) i32
+    normals: Optional[np.ndarray] = None   # (V, 3) f32 vertex normals
+    uvs: Optional[np.ndarray] = None       # (V, 2) f32
+    sphere_center: Optional[np.ndarray] = None
+    sphere_radius: Optional[float] = None
+    bsdf: Optional[object] = None          # bsdf descriptor (dict)
+    emitter: Optional[object] = None       # emitter descriptor (dict) or None
+    interior: Optional[object] = None      # interior medium descriptor
+    id: str = ""
+
+    def transformed(self, to_world) -> "MeshData":
+        """Apply a host 4x4 matrix."""
+        mat = np.asarray(to_world, np.float32).reshape(4, 4)
+        out = dataclasses.replace(self)
+        v = self.vertices @ mat[:3, :3].T + mat[:3, 3]
+        out.vertices = v.astype(np.float32)
+        if self.normals is not None:
+            inv_t = np.linalg.inv(mat[:3, :3]).T
+            n = self.normals @ inv_t.T
+            n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+            out.normals = n.astype(np.float32)
+        return out
+
+
+def rectangle(bsdf=None, emitter=None, id="") -> MeshData:
+    """Unit rectangle on z=0 spanning [-1,1]^2, normal +z."""
+    v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    return MeshData(vertices=v, faces=f, normals=n, uvs=uv,
+                    bsdf=bsdf, emitter=emitter, id=id)
+
+
+_CUBE_QUADS = [
+    ([(-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)], (0, 0, 1)),
+    ([(-1, -1, -1), (-1, 1, -1), (1, 1, -1), (1, -1, -1)], (0, 0, -1)),
+    ([(1, -1, -1), (1, 1, -1), (1, 1, 1), (1, -1, 1)], (1, 0, 0)),
+    ([(-1, -1, -1), (-1, -1, 1), (-1, 1, 1), (-1, 1, -1)], (-1, 0, 0)),
+    ([(-1, 1, -1), (-1, 1, 1), (1, 1, 1), (1, 1, -1)], (0, 1, 0)),
+    ([(-1, -1, -1), (1, -1, -1), (1, -1, 1), (-1, -1, 1)], (0, -1, 0)),
+]
+
+
+def cube(bsdf=None, emitter=None, id="") -> MeshData:
+    """Axis-aligned cube [-1,1]^3 with outward normals."""
+    verts, faces, normals, uvs = [], [], [], []
+    for quad, n in _CUBE_QUADS:
+        base = len(verts)
+        verts.extend(quad)
+        normals.extend([n] * 4)
+        uvs.extend([(0, 0), (1, 0), (1, 1), (0, 1)])
+        faces.append([base, base + 1, base + 2])
+        faces.append([base, base + 2, base + 3])
+    return MeshData(vertices=np.asarray(verts, np.float32),
+                    faces=np.asarray(faces, np.int32),
+                    normals=np.asarray(normals, np.float32),
+                    uvs=np.asarray(uvs, np.float32),
+                    bsdf=bsdf, emitter=emitter, id=id)
+
+
+def mesh(vertices, faces, normals=None, uvs=None, bsdf=None, emitter=None,
+         id="") -> MeshData:
+    return MeshData(vertices=np.asarray(vertices, np.float32),
+                    faces=np.asarray(faces, np.int32),
+                    normals=None if normals is None else np.asarray(normals, np.float32),
+                    uvs=None if uvs is None else np.asarray(uvs, np.float32),
+                    bsdf=bsdf, emitter=emitter, id=id)
