@@ -29,9 +29,7 @@ import shutil
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -102,38 +100,22 @@ def phase_device(torch):
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
-def _ptxas_report(nvcc, flags):
-    """Registers and spills per kernel, from a cubin build with -Xptxas -v."""
-    with tempfile.TemporaryDirectory() as d:
-        cmd = ([nvcc, "--cubin"] + [f for f in flags if f not in
-                                    ("-shared", "-Xcompiler", "-fPIC")]
-               + ["-Xptxas", "-v", SRC, "-o", os.path.join(d, "k.cubin")])
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
-    check(proc.returncode == 0, f"ptxas report failed: {proc.stderr}")
-    return [ln.strip() for ln in proc.stderr.splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-
-
 def phase_build():
     from mitsuba2_tpu_torch import native
     from mitsuba2_tpu_torch.kernels import traverse
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        cuda = pool.submit(traverse.load_cuda_library)
-        bvh = pool.submit(native.build_bvh_native,
-                          np.zeros((1, 3), np.float32),
-                          np.ones((1, 3), np.float32))
-        ptx = pool.submit(_ptxas_report, traverse.nvcc_path(),
-                          traverse.NVCC_FLAGS)
-        cuda.result()
-        bvh.result()
-        ptx_lines = ptx.result()
+    traverse.load_cuda_library()
+    native.build_bvh_native(np.zeros((1, 3), np.float32),
+                            np.ones((1, 3), np.float32))
     log(f"phase 1: built {SRC} (route cuda: nvcc {' '.join(traverse.NVCC_FLAGS)}"
         f" -> ctypes) and the C++ BVH builder in "
         f"{time.perf_counter() - t0:.1f} s")
-    for ln in ptx_lines:
-        log(f"  ptxas: {ln}")
+    report = native.BUILD_LOG.get("cluster_walk")
+    if report is None:
+        log("  ptxas: library found built, no report")
+    for ln in (report or "").splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            log(f"  ptxas: {ln.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +299,9 @@ def phase_main_path(torch, mt, scene, card):
         check(passes(c), f"{name} launch {i} disagrees with its twin: {c}")
         closest = name == "cluster_closest_hit"
         st = c["closest_stats" if closest else "any_stats"]
-        ops = (st.get("cluster_visits", 0) * ck * FLOPS_PER_SLOT
+        # the slot tests this run's rays need: an any-hit lane stops at
+        # its first hit, so it tests only part of its last cluster
+        ops = (st.get("slot_tests", 0) * FLOPS_PER_SLOT
                + st.get("node_steps", 0) * FLOPS_PER_NODE)
         nbytes = n * 7 * 4 + tabs_bytes + n * (8 if closest else 1)
         t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
@@ -332,8 +316,8 @@ def phase_main_path(torch, mt, scene, card):
         log(f"  {name} launch {i}: {n} lanes, {ms:.3f} ms (kernel), "
             f"{p['plain_ms'][-1]:.1f} ms (twin), bound {p['bound_ms'][-1]:.4f}"
             f" ms by {p['bound_by'][-1]}; {st.get('cluster_visits', 0) / n:.3f}"
-            f" cluster visits and {st.get('node_steps', 0) / n:.2f} node steps"
-            f" per lane; hit {c['hit_frac']:.4f}, occ-agree "
+            f" cluster visits, {st.get('slot_tests', 0) / n:.2f} slot tests and"
+            f" {st.get('node_steps', 0) / n:.2f} node steps per lane; hit {c['hit_frac']:.4f}, occ-agree "
             f"{c['occ_agree']:.6f}")
     rows = []
     for name, p in per.items():
@@ -410,9 +394,7 @@ def phase_profile(torch, mt, scene, render_ms):
             if us > 0:
                 rows.append((us / 1e3, e.count, e.key))
     dev_ms = sum(r[0] for r in rows)
-    if dev_ms == 0:
-        log("phase 5: the profiler shows no device time: not measured")
-        return
+    check(dev_ms > 0, "the profiler shows no device time")
     rows.sort(reverse=True)
     cats = {}
     for ms, n, key in rows:

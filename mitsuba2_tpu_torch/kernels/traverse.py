@@ -30,9 +30,11 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "cluster_walk.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum as the twins' separate torch ops do and the two agree
-# bit for bit on the card
+# bit for bit on the card. -Xptxas -v: registers and spills per kernel in
+# the build log (native.BUILD_LOG)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
 
 
 def nvcc_path() -> str:
@@ -243,10 +245,18 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats):
               & (t > 0.0))
         tl = tb[visit][:, None]
         if any_hit:
-            h = (ok & (t <= tl)).any(1)
+            hm = ok & (t <= tl)
+            h = hm.any(1)
             occ[lanes[h]] = True
             node[lanes[h]] = -1           # a thread stops at its first hit
+            if stats is not None:         # slots 0..k tested, k the first hit
+                tested = torch.where(h, hm.int().argmax(1) + 1, cluster_k)
+                stats["slot_tests"] = (stats.get("slot_tests", 0)
+                                       + int(tested.sum()))
             continue
+        if stats is not None:
+            stats["slot_tests"] = (stats.get("slot_tests", 0)
+                                   + lanes.numel() * cluster_k)
         ok = ok & (t < tl)
         t_m = torch.where(ok, t, float("inf"))
         t_c = t_m.amin(1)
@@ -275,7 +285,8 @@ def _chunked(fn, rays, chunk):
 def closest_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
                       cluster_k: int, chunk: int = 8192, stats=None):
     """The twin of the closest-hit kernel: same function, torch ops. With
-    a `stats` dict it also counts node steps and cluster visits."""
+    a `stats` dict it also counts the kernel's work: node steps, cluster
+    visits and slot tests."""
     return _chunked(
         lambda r: _walk_plain(node_f, link, feat, r, cluster_k, False, stats),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
@@ -283,7 +294,8 @@ def closest_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
 
 def any_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
                   cluster_k: int, chunk: int = 8192, stats=None):
-    """The twin of the any-hit kernel."""
+    """The twin of the any-hit kernel. Its `stats` count a lane's slot
+    tests up to its first hit, where the kernel's thread stops."""
     return _chunked(
         lambda r: _walk_plain(node_f, link, feat, r, cluster_k, True, stats),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)

@@ -20,6 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _LOCK = threading.Lock()
 _LIBS = {}
+BUILD_LOG = {}   # name -> the compiler's stderr, for libraries built here
 
 
 def _host_fingerprint() -> bytes:
@@ -59,6 +60,7 @@ def build_library(name: str, src: str, cmd_prefix: list) -> str:
                 if proc.returncode != 0:
                     raise subprocess.CalledProcessError(
                         proc.returncode, proc.args, proc.stdout, proc.stderr)
+                BUILD_LOG[name] = proc.stderr
                 os.replace(tmp, so)
             finally:
                 if os.path.exists(tmp):

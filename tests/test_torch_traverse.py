@@ -198,7 +198,17 @@ _SHIM = r"""
 struct float4 { float x, y, z, w; };
 struct dim3_ { unsigned x; };
 static dim3_ blockIdx, threadIdx, blockDim;
-template <class T> inline T __ldg(const T* p) { return *p; }
+// loads that fall in each of two tables, counted as the kernels make them
+extern "C" {
+const char* emu_lo[2];
+const char* emu_hi[2];
+long long emu_loads[2];
+}
+template <class T> inline T __ldg(const T* p) {
+  for (int i = 0; i < 2; ++i)
+    if ((const char*)p >= emu_lo[i] && (const char*)p < emu_hi[i]) ++emu_loads[i];
+  return *p;
+}
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float fabsf(float x) { return std::fabs(x); }
 inline float fminf(float a, float b) { return std::fmin(a, b); }
@@ -214,7 +224,9 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 """
 
 
-def _emulated_library(tmp_path):
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    tmp_path = tmp_path_factory.mktemp("cluster_walk_emu")
     src = open(traverse._SRC).read()
     src, n = re.subn(r"(\w+_kernel)<<<grid, BLOCK, 0, \(cudaStream_t\)stream>>>\(",
                      r"EMU_LAUNCH(grid, BLOCK, \1, ", src)
@@ -230,8 +242,8 @@ def _emulated_library(tmp_path):
     return lib
 
 
-def test_cuda_source_emulated_matches_twins(case, tmp_path):
-    lib = _emulated_library(tmp_path)
+def test_cuda_source_emulated_matches_twins(case, emulated):
+    lib = emulated
     st = case.st
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
     for kind in KINDS:
@@ -252,6 +264,49 @@ def test_cuda_source_emulated_matches_twins(case, tmp_path):
         # the same f32 operations in the same order: bit-equal
         assert torch.equal(slot, slot_p) and torch.equal(occ, occ_p)
         assert torch.equal(t, t_p)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_twin_counts_kernel_work(case, emulated, kind):
+    """The walk work the twins count (the kernels' bound in chip_smoke.py
+    rests on it) equals the loads the kernels' source makes, counted in
+    the emulation: a node step reads two float4 of its row and a cluster
+    visit a third (the centroid); a slot test reads its five float4 of
+    plane rows, and an any-hit thread stops at its first hit."""
+    lib, st = emulated, case.st
+    tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
+    o, d, tm = case.rays[kind]
+    rays = (*planar(o).__dict__.values(), *planar(d).__dict__.values(),
+            torch.from_numpy(tm))
+    n = tm.shape[0]
+    lo = (ctypes.c_void_p * 2).in_dll(lib, "emu_lo")
+    hi = (ctypes.c_void_p * 2).in_dll(lib, "emu_hi")
+    loads = (ctypes.c_longlong * 2).in_dll(lib, "emu_loads")
+    for i, a in enumerate((st.mxu_node_f, st.cluster_feat)):
+        lo[i] = a.data_ptr()
+        hi[i] = a.data_ptr() + a.numel() * a.element_size()
+    ptrs = [a.data_ptr() for a in tabs + rays]
+    dims = (n, st.mxu_node_f.shape[0], st.cluster_k, None)
+    out = (torch.empty(n), torch.empty(n, dtype=torch.int32))
+    occ = torch.empty(n, dtype=torch.bool)
+    for any_hit in (False, True):
+        loads[0] = loads[1] = 0
+        if any_hit:
+            assert lib.mts_cluster_any_hit(*ptrs, occ.data_ptr(), *dims) == 0
+        else:
+            assert lib.mts_cluster_closest_hit(
+                *ptrs, *(a.data_ptr() for a in out), *dims) == 0
+        stats = {}
+        twin = traverse.any_hit_plain if any_hit else traverse.closest_hit_plain
+        twin(*tabs, *rays, st.cluster_k, chunk=500, stats=stats)
+        visits = stats.get("cluster_visits", 0)
+        assert loads[0] == 2 * stats["node_steps"] + visits
+        assert loads[1] == 5 * stats.get("slot_tests", 0)
+        if not any_hit:
+            assert stats.get("slot_tests", 0) == visits * st.cluster_k
+        elif bool(occ.any()):
+            # lanes that hit stop early: fewer tests than whole clusters
+            assert stats["slot_tests"] < visits * st.cluster_k
 
 
 @pytest.fixture
