@@ -3,21 +3,29 @@
 
     python3 chip_smoke.py
 
+Two main paths, each a forward render at 256x256, 16 spp in one pass,
+max_depth 3 through `mitsuba2_tpu_torch.render`:
+  gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
+             (K1 closest hit, K2 any hit);
+  instanced  instanced_field(n=1024, subdiv=4), 1 024 shared-BLAS instances
+             of one 5 120-triangle blob, 5 242 882 effective triangles: the
+             instanced cluster walk (K5 closest hit and any hit).
+
 Phase 0  the card, torch, CUDA and nvcc.
 Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu, nvcc -> ctypes) and
          the C++ BVH builder from the checkout's sources.
 Phase 2  holds each kernel against its plain PyTorch twin on the card, on
-         mesh_gallery(subdiv=4) with 65 536 rays of each kind a forward
-         render traces (camera, first bounce, shadow, random).
-Phase 3  renders mesh_gallery(subdiv=4) at 256x256, 16 spp in one pass,
-         max_depth 3 through `mitsuba2_tpu_torch.render` (the main path):
-         launch counts, time, Mrays/s, peak memory. Each kernel is then
-         timed and held against its twin on the very inputs the main path
-         gave it, beside its bound.
+         each path's scene with 65 536 rays of each kind a forward render
+         traces (camera, first bounce, shadow, random).
+Phase 3  renders each path: launch counts (set to 0 just before the path's
+         renders, read just after), time, Mrays/s, peak memory. Each kernel
+         is then timed and held against its twin on the very inputs the
+         main path gave it, beside its bound.
 Phase 4  small renders on the card against the same renders on the CPU
-         (twins and brute force there), the cluster and brute-force paths.
-Phase 5  one main-path render under torch.profiler: device time by kernel
-         and by kind, and the device's busy share.
+         (twins and brute force there): the cluster, instanced and
+         brute-force paths.
+Phase 5  one render of each path under torch.profiler: device time by
+         kernel and by kind, and the device's busy share.
 
 Prints the card's `nvidia-smi` name and power limit, a JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Exits non-zero
@@ -43,8 +51,11 @@ PEAK_FP32_PER_S = 67e12
 FLOPS_PER_SLOT = 38
 # one slab test of a cut-tree node: 6 subtractions and 6 multiplications
 FLOPS_PER_NODE = 12
-# the slice: mesh_gallery(subdiv=4) at bench.py's forward-render config
+# one instance entry: the 3x4 transform of o (18) and d (15), 3 reciprocals
+FLOPS_PER_ENTRY = 36
+# the two paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
+FIELD = dict(n=1024, subdiv=4)
 RENDER = dict(width=256, height=256, spp=16, spp_per_pass=16, max_depth=3,
               rr_depth=8)
 RAYS_PER_PASS = (RENDER["width"] * RENDER["height"] * RENDER["spp_per_pass"]
@@ -53,13 +64,20 @@ N_PROBE = 65536
 DEVICE = "cuda:0"
 KERNEL_REPS = 20
 SRC = "mitsuba2_tpu_torch/csrc/cluster_walk.cu"
+PALLAS = "mitsuba2_tpu/kernels/traverse_pallas.py"
 REPLACES = {
-    "cluster_closest_hit": ("mitsuba2_tpu/kernels/traverse_pallas.py:671",
-                            "mitsuba2_tpu/kernels/traverse_pallas.py:877"),
-    "cluster_any_hit": ("mitsuba2_tpu/kernels/traverse_pallas.py:755",
-                        "mitsuba2_tpu/kernels/traverse_pallas.py:944"),
+    "cluster_closest_hit": (f"{PALLAS}:671", f"{PALLAS}:877"),
+    "cluster_any_hit": (f"{PALLAS}:755", f"{PALLAS}:944"),
+    "inst_cluster_closest_hit": (f"{PALLAS}:1746", None),
+    "inst_cluster_any_hit": (f"{PALLAS}:1856", None),
 }
-EXPECTED_LAUNCHES = {"cluster_closest_hit": 3, "cluster_any_hit": 2}
+# launches per render of each path
+EXPECTED_LAUNCHES = {
+    "gallery": {"cluster_closest_hit": 3, "cluster_any_hit": 2,
+                "inst_cluster_closest_hit": 0, "inst_cluster_any_hit": 0},
+    "instanced": {"cluster_closest_hit": 0, "cluster_any_hit": 0,
+                  "inst_cluster_closest_hit": 3, "inst_cluster_any_hit": 2},
+}
 
 
 class SmokeFailure(Exception):
@@ -127,28 +145,55 @@ def planar(torch, a, dev):
             for i in range(3)]
 
 
-def compare(torch, scene, rays):
-    """Both kernels and both twins on the same CUDA tensors: agreement,
-    the twins' times (ms, CUDA events) and the walk work they counted."""
+def kernels_of(scene):
+    """The path's two kernel wrappers, their twins, tables and trailing
+    arguments: the instanced walk on an instanced scene, else the flat."""
     from mitsuba2_tpu_torch.kernels import traverse
-    tabs = (scene.mxu_node_f, scene.mxu_link, scene.cluster_feat)
-    ck = scene.cluster_k
-    t_k, slot_k = traverse.cluster_closest_hit(*tabs, *rays, ck)
-    occ_k = traverse.cluster_any_hit(*tabs, *rays, ck)
+    if scene.has_instances:
+        return dict(
+            closest="inst_cluster_closest_hit", any="inst_cluster_any_hit",
+            closest_plain=traverse.inst_closest_hit_plain,
+            any_plain=traverse.inst_any_hit_plain,
+            tabs=(scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
+                  scene.inst_inv),
+            extra=(scene.cluster_k, scene.inst_mxu_fuel + 64))
+    return dict(
+        closest="cluster_closest_hit", any="cluster_any_hit",
+        closest_plain=traverse.closest_hit_plain,
+        any_plain=traverse.any_hit_plain,
+        tabs=(scene.mxu_node_f, scene.mxu_link, scene.cluster_feat),
+        extra=(scene.cluster_k,))
+
+
+def wrapper(name):
+    from mitsuba2_tpu_torch.kernels import traverse
+    return getattr(traverse, name)
+
+
+def compare(torch, ks, rays):
+    """Both kernels and both twins on the same CUDA tensors, every lane:
+    agreement, the twins' times (ms, CUDA events) and the walk work they
+    counted."""
+    tabs, extra = ks["tabs"], ks["extra"]
+    out_k = wrapper(ks["closest"])(*tabs, *rays, *extra)
+    occ_k = wrapper(ks["any"])(*tabs, *rays, *extra)
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     st_c, st_a = {}, {}
     ev[0].record()
-    t_p, slot_p = traverse.closest_hit_plain(*tabs, *rays, ck, chunk=65536,
-                                             stats=st_c)
+    out_p = ks["closest_plain"](*tabs, *rays, *extra, chunk=65536,
+                                stats=st_c)
     ev[1].record()
-    occ_p = traverse.any_hit_plain(*tabs, *rays, ck, chunk=65536,
-                                   stats=st_a)
+    occ_p = ks["any_plain"](*tabs, *rays, *extra, chunk=65536, stats=st_a)
     ev[2].record()
     torch.cuda.synchronize()
+    t_k, t_p = out_k[0], out_p[0]
     hit_k, hit_p = torch.isfinite(t_k), torch.isfinite(t_p)
     both = hit_k & hit_p
-    same = (slot_k == slot_p) & both
+    # slot, and on the instanced walk the instance, of the same hit
+    same = both
+    for a, b in zip(out_k[1:], out_p[1:]):
+        same = same & (a == b)
     n_hit = int(hit_p.sum())
     dt = (t_k - t_p).abs()
     tol = 1e-5 * t_p.abs()
@@ -173,49 +218,70 @@ def passes(c):
 
 
 def phase_kernels_vs_twins(torch, mt, dev):
+    """Each path's scene (gallery, instanced) and its kernels against
+    their twins on probe rays; returns the scenes."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
-    scene = mt.mesh_gallery(subdiv=SUBDIV, device=dev)
-
-    def closest_np(o, d, t_max):
-        t, prim, _, _ = traverse.ray_intersect_preliminary(
-            scene, Vec3(*planar(torch, o, dev)), Vec3(*planar(torch, d, dev)),
-            torch.from_numpy(t_max).to(dev))
-        return t.cpu().numpy(), prim.cpu().numpy()
-
-    rays = probe_rays(scene, N_PROBE, 0, closest_np)
+    t0 = time.perf_counter()
+    scenes = {"gallery": mt.mesh_gallery(subdiv=SUBDIV, device=dev),
+              "instanced": mt.instanced_field(**FIELD, device=dev)}
+    field = scenes["instanced"]
+    check(field.has_instances, "instanced_field was flattened, not shared")
+    log(f"phase 2: built mesh_gallery(subdiv={SUBDIV}) and "
+        f"instanced_field(n={FIELD['n']}, subdiv={FIELD['subdiv']}) in "
+        f"{time.perf_counter() - t0:.1f} s; instanced: {field.n_prims} "
+        f"stored prims, {field.inst_inv.shape[0]} instances, walk fuel "
+        f"{field.inst_mxu_fuel + 64}")
     ok = True
-    for kind in KINDS:
-        o, d, tm = rays[kind]
-        args = (planar(torch, o, dev) + planar(torch, d, dev)
-                + [torch.from_numpy(tm).to(dev)])
-        c = compare(torch, scene, args)
-        good = passes(c)
-        ok &= good
-        log(f"phase 2: {kind:7s} {'ok  ' if good else 'FAIL'} "
-            f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
-            f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
-            f"{c['t_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f}")
+    for path, scene in scenes.items():
+        def closest_np(o, d, t_max):
+            o, d = Vec3(*planar(torch, o, dev)), Vec3(*planar(torch, d, dev))
+            t_max = torch.from_numpy(t_max).to(dev)
+            if scene.has_instances:
+                t, prim, _, _, inst = traverse.ray_intersect_instanced(
+                    scene, o, d, t_max)
+                return (t.cpu().numpy(), prim.cpu().numpy(),
+                        inst.cpu().numpy())
+            t, prim, _, _ = traverse.ray_intersect_preliminary(
+                scene, o, d, t_max)
+            return t.cpu().numpy(), prim.cpu().numpy(), None
+
+        rays = probe_rays(scene, N_PROBE, 0, closest_np)
+        ks = kernels_of(scene)
+        for kind in KINDS:
+            o, d, tm = rays[kind]
+            args = (planar(torch, o, dev) + planar(torch, d, dev)
+                    + [torch.from_numpy(tm).to(dev)])
+            c = compare(torch, ks, args)
+            good = passes(c)
+            ok &= good
+            log(f"phase 2: {path:9s} {kind:7s} {'ok  ' if good else 'FAIL'} "
+                f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
+                f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
+                f"{c['t_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f}")
     check(ok, "a kernel disagrees with its twin on the probe rays")
-    return scene
+    return scenes
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
+ENTRY_KERNELS = {"ray_intersect_preliminary": "cluster_closest_hit",
+                 "ray_test": "cluster_any_hit",
+                 "ray_intersect_instanced": "inst_cluster_closest_hit",
+                 "ray_test_instanced": "inst_cluster_any_hit"}
+
+
 def _recorders(traverse, record):
     """Stand-ins for the traversal entry points that keep a copy of each
     call's rays (the kernel wrappers' inputs) and then make the call."""
-    orig = {"ray_intersect_preliminary": traverse.ray_intersect_preliminary,
-            "ray_test": traverse.ray_test}
-    kernel = {"ray_intersect_preliminary": "cluster_closest_hit",
-              "ray_test": "cluster_any_hit"}
+    orig = {k: getattr(traverse, k) for k in ENTRY_KERNELS}
 
     def wrap(name):
         def rec(scene, ray_o, ray_d, t_max):
-            record.append((kernel[name], [a.clone() for a in (
+            record.append((ENTRY_KERNELS[name], [a.clone() for a in (
                 ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z,
                 t_max)]))
             return orig[name](scene, ray_o, ray_d, t_max)
@@ -236,13 +302,14 @@ def kernel_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def phase_main_path(torch, mt, scene, card):
+def phase_main_path(torch, mt, path, scene, card):
+    """Renders `path`: warm-up (recording each kernel call's inputs), then
+    3 timed renders with every wrapper's count set to 0 before each; then
+    each launch of the path's kernels timed and held against its twin."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
-    wrappers = {"cluster_closest_hit": traverse.cluster_closest_hit,
-                "cluster_any_hit": traverse.cluster_any_hit}
+    names = list(EXPECTED_LAUNCHES[path])
 
-    # warm-up render, recording each kernel call's inputs for the timings
     record = []
     orig, rec = _recorders(traverse, record)
     for k, f in rec.items():
@@ -257,53 +324,59 @@ def phase_main_path(torch, mt, scene, card):
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
     for r in range(3):
-        for w in wrappers.values():
-            w.launches = 0
+        for k in names:
+            wrapper(k).launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = mt.render(scene, cfg, seed=r)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        run_counts = {k: w.launches for k, w in wrappers.items()}
+        run_counts = {k: wrapper(k).launches for k in names}
         counts = counts or run_counts
-        check(run_counts == counts, f"launch counts vary: {run_counts}")
+        check(run_counts == counts, f"{path}: launch counts vary: {run_counts}")
         img = img.float()
         check(tuple(img.shape) == (cfg.height, cfg.width, 3),
-              f"image shape {tuple(img.shape)}")
-        check(bool(torch.isfinite(img).all()), "image has non-finite values")
+              f"{path}: image shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()),
+              f"{path}: image has non-finite values")
         mean = float(img.mean())
-        check(mean > 0.0, f"image mean {mean}")
+        check(mean > 0.0, f"{path}: image mean {mean}")
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
-    log(f"phase 3: render {cfg.width}x{cfg.height}x{cfg.spp}spp depth "
-        f"{cfg.max_depth} of mesh_gallery(subdiv={SUBDIV}) on {card}: median "
-        f"{med * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
+    log(f"phase 3: {path}: render {cfg.width}x{cfg.height}x{cfg.spp}spp "
+        f"depth {cfg.max_depth} on {card}: median {med * 1e3:.1f} ms of "
+        f"{[round(t * 1e3, 1) for t in times]}, "
         f"{RAYS_PER_PASS / med / 1e6:.3f} Mrays/s, peak memory "
         f"{peak / 2**20:.0f} MiB, image mean {mean:.6f}")
     log(f"kernels launched per render: {json.dumps(counts)}")
-    for k, n in EXPECTED_LAUNCHES.items():
-        check(counts[k] > 0, f"{k} was not launched on the main path")
-        check(counts[k] == n, f"{k}: {counts[k]} launches, expected {n}")
+    for k, n in EXPECTED_LAUNCHES[path].items():
+        check(counts[k] == n, f"{path}: {k}: {counts[k]} launches, "
+                              f"expected {n}")
+        check(n == 0 or counts[k] > 0, f"{k} was not launched on {path}")
 
     # each kernel at the main path's shapes: time, twin, bound
+    ks = kernels_of(scene)
     per = {k: {"ms": [], "plain_ms": [], "bound_ms": [], "err": 0.0,
-               "bound_by": []} for k in wrappers}
-    ck = scene.cluster_k
-    tabs = (scene.mxu_node_f, scene.mxu_link, scene.cluster_feat)
+               "bound_by": []} for k in (ks["closest"], ks["any"])}
+    tabs, extra = ks["tabs"], ks["extra"]
     tabs_bytes = sum(a.numel() * a.element_size() for a in tabs)
     for i, (name, rays) in enumerate(record):
+        check(name in per, f"{path}: {name} was called on the main path")
         n = rays[0].numel()
-        ms = kernel_ms(torch, lambda: wrappers[name](*tabs, *rays, ck),
+        ms = kernel_ms(torch, lambda: wrapper(name)(*tabs, *rays, *extra),
                        KERNEL_REPS)
-        c = compare(torch, scene, list(rays))
+        c = compare(torch, ks, list(rays))
         check(passes(c), f"{name} launch {i} disagrees with its twin: {c}")
-        closest = name == "cluster_closest_hit"
+        closest = name == ks["closest"]
         st = c["closest_stats" if closest else "any_stats"]
-        # the slot tests this run's rays need: an any-hit lane stops at
-        # its first hit, so it tests only part of its last cluster
+        # the work this run's rays need: an any-hit lane stops at its first
+        # hit, so it tests only part of its last cluster
         ops = (st.get("slot_tests", 0) * FLOPS_PER_SLOT
-               + st.get("node_steps", 0) * FLOPS_PER_NODE)
-        nbytes = n * 7 * 4 + tabs_bytes + n * (8 if closest else 1)
+               + st.get("node_steps", 0) * FLOPS_PER_NODE
+               + st.get("instance_entries", 0) * FLOPS_PER_ENTRY)
+        # t and slot (and the instance) a lane, or the occlusion byte
+        out_bytes = (12 if scene.has_instances else 8) if closest else 1
+        nbytes = n * 7 * 4 + tabs_bytes + n * out_bytes
         t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
         p = per[name]
         p["ms"].append(ms)
@@ -314,16 +387,19 @@ def phase_main_path(torch, mt, scene, card):
         p["err"] = max(p["err"], c["t_max_abs_err"] if closest
                        else c["occ_max_abs_err"])
         log(f"  {name} launch {i}: {n} lanes, {ms:.3f} ms (kernel), "
-            f"{p['plain_ms'][-1]:.1f} ms (twin), bound {p['bound_ms'][-1]:.4f}"
-            f" ms by {p['bound_by'][-1]}; {st.get('cluster_visits', 0) / n:.3f}"
-            f" cluster visits, {st.get('slot_tests', 0) / n:.2f} slot tests and"
-            f" {st.get('node_steps', 0) / n:.2f} node steps per lane; hit {c['hit_frac']:.4f}, occ-agree "
-            f"{c['occ_agree']:.6f}")
+            f"{p['plain_ms'][-1]:.1f} ms (twin, all lanes), "
+            f"bound {p['bound_ms'][-1]:.4f} ms by {p['bound_by'][-1]}; "
+            f"per lane {st.get('cluster_visits', 0) / n:.3f} cluster visits, "
+            f"{st.get('slot_tests', 0) / n:.2f} slot tests, "
+            f"{st.get('node_steps', 0) / n:.2f} node steps, "
+            f"{st.get('instance_entries', 0) / n:.3f} instance entries; "
+            f"hit {c['hit_frac']:.4f}, prim-agree {c['slot_agree']:.6f}, "
+            f"occ-agree {c['occ_agree']:.6f}")
     rows = []
     for name, p in per.items():
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[name][0], "also_replaces": REPLACES[name][1],
+            "replaces": REPLACES[name][0],
             "launches": counts[name],
             "max_abs_err": p["err"],
             "ms": statistics.fmean(p["ms"]),
@@ -331,7 +407,10 @@ def phase_main_path(torch, mt, scene, card):
             "bound_ms": statistics.fmean(p["bound_ms"]),
             "bound_by": max(set(p["bound_by"]), key=p["bound_by"].count),
             "library_ms": None,
-        })
+        }
+        if REPLACES[name][1]:
+            row["also_replaces"] = REPLACES[name][1]
+        rows.append(row)
     return rows, med * 1e3
 
 
@@ -339,11 +418,29 @@ def phase_main_path(torch, mt, scene, card):
 # Phase 4: small renders on the card against the CPU
 # ---------------------------------------------------------------------------
 
+def _shared_field(mt, device):
+    """instanced_field(n=6, subdiv=2) with shared BLAS forced: the port
+    keeps the JAX package's policy, which flattens a scene this small."""
+    old = os.environ.get("MI_FLATTEN_INSTANCES")
+    os.environ["MI_FLATTEN_INSTANCES"] = "0"
+    try:
+        scene = mt.instanced_field(n=6, subdiv=2, device=device)
+    finally:
+        if old is None:
+            del os.environ["MI_FLATTEN_INSTANCES"]
+        else:
+            os.environ["MI_FLATTEN_INSTANCES"] = old
+    check(scene.has_instances, "instanced_field(n=6) was flattened")
+    return scene
+
+
 def phase_small_renders(torch, mt, dev):
     cfg = mt.RenderConfig(width=32, height=32, spp=2, spp_per_pass=1,
                           max_depth=3, rr_depth=2)
     for name, mk in (("mesh_gallery(subdiv=1)",
                       lambda d: mt.mesh_gallery(subdiv=1, device=d)),
+                     ("instanced_field(n=6, subdiv=2), shared BLAS",
+                      lambda d: _shared_field(mt, d)),
                      ("cornell_box", lambda d: mt.cornell_box(device=d))):
         img_c = mt.render(mk("cpu"), cfg, seed=5, device="cpu").numpy()
         img_g = mt.render(mk(dev), cfg, seed=5).cpu().numpy()
@@ -371,8 +468,8 @@ def _category(name):
     return "elementwise and reductions"
 
 
-def phase_profile(torch, mt, scene, render_ms):
-    """One main-path render under torch.profiler: device time by kernel
+def phase_profile(torch, mt, path, scene, render_ms):
+    """One render of `path` under torch.profiler: device time by kernel
     and by kind, and the device's busy share of the render's wall time,
     profiled (the profiler's host cost inflates it) and unprofiled
     (`render_ms`, phase 3's median)."""
@@ -401,9 +498,9 @@ def phase_profile(torch, mt, scene, render_ms):
         c = cats.setdefault(_category(key), [0.0, 0])
         c[0] += ms
         c[1] += n
-    log(f"phase 5: profiled render: {dev_ms:.2f} ms of device kernels in "
-        f"{sum(r[1] for r in rows)} launches; device busy {dev_ms / wall_ms:.3f}"
-        f" of the profiled wall time ({wall_ms:.1f} ms), "
+    log(f"phase 5: {path}: profiled render: {dev_ms:.2f} ms of device "
+        f"kernels in {sum(r[1] for r in rows)} launches; device busy "
+        f"{dev_ms / wall_ms:.3f} of the profiled wall time ({wall_ms:.1f} ms), "
         f"{dev_ms / render_ms:.3f} of phase 3's median ({render_ms:.1f} ms)")
     for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
         log(f"  {c}: {ms:.2f} ms ({ms / dev_ms:.3f}) in {n} launches")
@@ -424,10 +521,15 @@ def main():
         import mitsuba2_tpu_torch as mt
         dev = torch.device(DEVICE)
         phase_build()
-        scene = phase_kernels_vs_twins(torch, mt, dev)
-        rows, render_ms = phase_main_path(torch, mt, scene, card)
+        scenes = phase_kernels_vs_twins(torch, mt, dev)
+        rows, render_ms = [], {}
+        for path, scene in scenes.items():
+            r, render_ms[path] = phase_main_path(torch, mt, path, scene,
+                                                 card)
+            rows += r
         phase_small_renders(torch, mt, dev)
-        phase_profile(torch, mt, scene, render_ms)
+        for path, scene in scenes.items():
+            phase_profile(torch, mt, path, scene, render_ms[path])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

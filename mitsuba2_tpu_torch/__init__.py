@@ -2,7 +2,8 @@
 
 A second package beside the JAX one, which stays the reference. It
 renders forward on an NVIDIA H100 through hand-written CUDA traversal
-kernels (csrc/cluster_walk.cu) and plain PyTorch around them:
+kernels (csrc/cluster_walk.cu: the cluster walk and its instanced
+two-level form) and plain PyTorch around them:
 
     import mitsuba2_tpu_torch as mt
     scene = mt.mesh_gallery(subdiv=4)          # tensors on the CUDA device
@@ -17,10 +18,10 @@ standard library only, never jax or mitsuba2_tpu.
 """
 from .config import RenderConfig
 from .convert import scene_from_numpy
-from .scene.presets import cornell_box, mesh_gallery
+from .scene.presets import cornell_box, instanced_field, mesh_gallery
 from .scene.scene import SceneData, build_scene, to_device
 from .render.integrators import render, render_pass
 
 __all__ = ["RenderConfig", "SceneData", "build_scene", "cornell_box",
-           "mesh_gallery", "render", "render_pass", "scene_from_numpy",
+           "instanced_field", "mesh_gallery", "render", "render_pass", "scene_from_numpy",
            "to_device"]

@@ -1,13 +1,14 @@
 """Scene tables from numpy: the port's way of carrying a scene across.
 
 `scene_from_numpy` takes the JAX `SceneData`'s arrays, fetched as numpy
-(the keys of scene.FIELDS), and returns the port's scene on `device`. The
-port's own build goes through it too, so a converted JAX scene and a
-scene the port built itself are the same object for the same inputs.
-The static metadata is derived from the tables; a table that names a
-feature this slice does not render (spheres, environment or other
-non-area emitters, BSDF families other than diffuse, twosided BSDFs,
-textured colors) raises.
+(the keys of scene.FIELDS, and on a shared-BLAS instanced scene those of
+scene.INST_FIELDS: two tables and two walk bounds), and returns the
+port's scene on `device`. The port's own build goes through it too, so a
+converted JAX scene and a scene the port built itself are the same object
+for the same inputs. The rest of the static metadata is derived from the
+tables; a table that names a feature this slice does not render (spheres,
+emitters other than area and constant ones, BSDF families other than
+diffuse, twosided BSDFs, textured colors) raises.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .kernels.traverse import FEAT_W
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
 from .render.spectra import SLOT_TEX_BASE
-from .scene.scene import FIELDS, PRIM_SPHERE, SceneData
+from .scene.scene import FIELDS, INST_FIELDS, PRIM_SPHERE, SceneData
 
 
 def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
@@ -48,14 +49,22 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     if (f["prim_type"] == PRIM_SPHERE).any():
         raise NotImplementedError(
             "mitsuba2_tpu_torch does not support analytic spheres yet")
-    # area emitters sit on a shape; a shapeless row is either the all-zero
-    # padding of an emitter-less scene or an emitter this slice lacks
-    shapeless = f["emitter_shape"] < 0
-    if ((f["emitter_type"][~shapeless] != emitters_mod.AREA).any()
-            or f["emitter_data"][shapeless].any()):
+    # area emitters sit on a shape, the constant one on none; a shapeless
+    # area row is the all-zero padding of an emitter-less scene
+    etype, shaped = f["emitter_type"], f["emitter_shape"] >= 0
+    pad = ~shaped & (etype == emitters_mod.AREA)
+    if ((etype[shaped] != emitters_mod.AREA).any()
+            or (etype[~shaped & ~pad] != emitters_mod.CONSTANT).any()
+            or f["emitter_data"][pad].any()):
         raise NotImplementedError(
-            "mitsuba2_tpu_torch supports area emitters only")
-    n_emitters = int((~shapeless).sum())
+            "mitsuba2_tpu_torch supports area and constant emitters only")
+    n_emitters = int((~pad).sum())
+    env = np.nonzero(etype[:n_emitters] == emitters_mod.CONSTANT)[0]
+    inst = fields.get("inst_inv") is not None
+    if inst:
+        missing = [k for k in INST_FIELDS if fields.get(k) is None]
+        if missing:
+            raise KeyError(f"scene_from_numpy: missing fields {missing}")
     families = tuple(sorted({int(t) for t in f["mat_type"]}))
     for fid in families:
         if fid not in bsdf_mod.FAMILIES:
@@ -78,5 +87,12 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     return SceneData(
         **{k: up(f[k]) for k in FIELDS},
         cluster_feat=up(slot_major_feat(f["mxu_feat"], cluster_k)),
+        inst_inv=up(fields["inst_inv"]) if inst else None,
+        inst_fwd=up(fields["inst_fwd"]) if inst else None,
         mat_families=families, n_emitters=n_emitters,
-        n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k)
+        env_emitter=int(env[0]) if env.size else -1,
+        emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),
+        n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
+        has_instances=inst,
+        inst_fuel=int(fields["inst_fuel"]) if inst else 0,
+        inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0)

@@ -1,5 +1,5 @@
-"""Sampling warps the diffuse BSDF and the area emitter draw with
-(counterpart of core/warp.py; same formulas, planar tensors)."""
+"""Sampling warps the diffuse BSDF and the area and constant emitters
+draw with (counterpart of core/warp.py; same formulas, planar tensors)."""
 from __future__ import annotations
 
 import math
@@ -10,6 +10,7 @@ from . import math as m
 from .vec import Vec3
 
 INV_PI = 1.0 / math.pi
+INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
 
 def square_to_uniform_disk_concentric(ua, ub):
@@ -41,3 +42,10 @@ def square_to_uniform_triangle(ua, ub):
     """Uniform barycentrics (b0, b1) on the standard triangle."""
     t = m.safe_sqrt(1.0 - ua)
     return 1.0 - t, t * ub
+
+
+def square_to_uniform_sphere(ua, ub) -> Vec3:
+    z = 1.0 - 2.0 * ua
+    r = m.safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * ub
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)

@@ -1,11 +1,14 @@
-// Cluster-walk ray traversal for Hopper (sm_90a): closest hit and any hit.
+// Cluster-walk ray traversal for Hopper (sm_90a): closest hit and any hit,
+// over one cut tree or over a TLAS of instances.
 //
-// REPLACES the four MXU cluster-leaf kernels of the JAX package,
+// REPLACES the six MXU cluster-leaf kernels of the JAX package,
 // mitsuba2_tpu/kernels/traverse_pallas.py:
 //   cluster_closest_hit_kernel <- _closest_hit_mxu_kernel (:671) and
 //                                 _closest_hit_mxu2_kernel (:877)
 //   cluster_any_hit_kernel     <- _any_hit_mxu_kernel (:755) and
 //                                 _any_hit_mxu2_kernel (:944)
+//   inst_cluster_closest_hit_kernel <- _closest_hit_instmxu_kernel (:1746)
+//   inst_cluster_any_hit_kernel     <- _any_hit_instmxu_kernel (:1856)
 // mxu and mxu2 compute one function; they differ only in how the TPU
 // interleaves two 4096-ray lockstep walks, which has no meaning here.
 //
@@ -43,6 +46,21 @@
 // Ties: within a cluster the lowest slot wins an equal t, across clusters
 // the first one visited keeps it (strictly closer replaces).
 //
+// INSTANCED WALK (walk<.., true>): the table is [TLAS | per-group cut
+// trees], the groups' clusters in local space. Instancing is one level
+// deep, so one saved continuation replaces a stack: at a TLAS instance leaf
+// (col 7 = instance id >= 0) whose slab the ray hits, the thread moves its
+// ray to instance space (o and the unnormalised d through inst_inv's 3x4,
+// so t is kept and t_best stays comparable), recomputes 1/d and the
+// octant, saves the leaf's miss link and jumps to the group's cut-tree root
+// (inst_inv col 13). A BLAS_EXIT (-2) link pops: back to the saved row with
+// the world ray. The winning instance is the one current when t_best last
+// strictly improved. The walk is capped at the scene's inst_mxu_fuel + 64
+// steps (cut-tree rows are revisited once per instance entered). Each entry
+// costs 4 float4 loads and 36 FP32 operations (33 for the transform, 3
+// reciprocals); the world ray is kept in registers, so a pop recomputes
+// nothing.
+//
 // C ABI (loaded with ctypes by kernels/traverse.py); each entry point
 // launches on the given stream, allocates nothing, and returns
 // cudaGetLastError().
@@ -54,6 +72,7 @@ namespace {
 
 constexpr int FEAT_W4 = 5;       // float4s per slot in cluster_feat (20 floats)
 constexpr int BLOCK = 128;
+constexpr int BLAS_EXIT = -2;    // scene/bvh.py: leave an instance's cut tree
 
 struct RayState {
     float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -65,19 +84,37 @@ __device__ __forceinline__ float safe_inv(float d) {
     return 1.0f / dd;
 }
 
-__device__ __forceinline__ RayState load_ray(
-        const float* ox, const float* oy, const float* oz,
-        const float* dx, const float* dy, const float* dz, int i) {
+__device__ __forceinline__ RayState make_ray(float ox, float oy, float oz,
+                                             float dx, float dy, float dz) {
     RayState r;
-    r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
-    r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
-    r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-    r.oct = (r.dx < 0.0f ? 1 : 0) | (r.dy < 0.0f ? 2 : 0) |
-            (r.dz < 0.0f ? 4 : 0);
+    r.ox = ox; r.oy = oy; r.oz = oz;
+    r.dx = dx; r.dy = dy; r.dz = dz;
+    r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
+    r.oct = (dx < 0.0f ? 1 : 0) | (dy < 0.0f ? 2 : 0) | (dz < 0.0f ? 4 : 0);
     return r;
 }
 
-// Node row: a = (min.x, min.y, min.z, max.x), b = (max.y, max.z, slot, pad)
+__device__ __forceinline__ RayState load_ray(
+        const float* ox, const float* oy, const float* oz,
+        const float* dx, const float* dy, const float* dz, int i) {
+    return make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
+}
+
+// World ray -> instance space through one inst_inv row (m0..m2: the 3x4
+// world->local matrix), in traverse_pallas._inst_rays's order of operations
+__device__ __forceinline__ RayState to_local(const float4& m0,
+                                             const float4& m1,
+                                             const float4& m2,
+                                             const RayState& w) {
+    return make_ray(m0.x * w.ox + m0.y * w.oy + m0.z * w.oz + m0.w,
+                    m1.x * w.ox + m1.y * w.oy + m1.z * w.oz + m1.w,
+                    m2.x * w.ox + m2.y * w.oy + m2.z * w.oz + m2.w,
+                    m0.x * w.dx + m0.y * w.dy + m0.z * w.dz,
+                    m1.x * w.dx + m1.y * w.dy + m1.z * w.dz,
+                    m2.x * w.dx + m2.y * w.dy + m2.z * w.dz);
+}
+
+// Node row: a = (min.x, min.y, min.z, max.x), b = (max.y, max.z, slot, inst)
 __device__ __forceinline__ bool slab(const float4& a, const float4& b,
                                      const RayState& r, float t_best) {
     float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
@@ -111,15 +148,19 @@ __device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
            (u + v <= 1.0f) && (t > 0.0f);
 }
 
-template <bool ANY_HIT>
+// The walk of one ray. INST = false: one cut tree, `world` is the ray
+// throughout. INST = true: the instanced walk described above.
+template <bool ANY_HIT, bool INST>
 __device__ __forceinline__ void walk(
         const float4* __restrict__ node_f, const int* __restrict__ link,
-        const float4* __restrict__ feat, const RayState& r, float t_max,
-        int n_nodes, int ck, float* t_best_io, int* best_io, bool* occ_io) {
+        const float4* __restrict__ feat, const float4* __restrict__ inst_inv,
+        const RayState& world, float t_max, int fuel_cap, int ck,
+        float* t_best_io, int* best_io, int* inst_io, bool* occ_io) {
+    RayState r = world;   // the ray in the current space
     float t_best = t_max;
     int best = -1;
+    int binst = -1, cinst = -1, ret = -1;
     int node = 0;
-    const int fuel_cap = n_nodes + 64;
     for (int fuel = 0; node >= 0 && fuel < fuel_cap; ++fuel) {
         const float4 a = __ldg(node_f + 4 * node);
         const float4 b = __ldg(node_f + 4 * node + 1);
@@ -148,17 +189,34 @@ __device__ __forceinline__ void walk(
                     } else if (ok && t < t_best) {
                         t_best = t;           // t_best <= tl: strict < keeps
                         best = slot_base + k; // the lowest slot on a tie
+                        if (INST) binst = cinst;
                     }
                 }
             }
             node = miss_link;
+        } else if (INST && hit && (int)b.w >= 0) {
+            const int iid = (int)b.w;         // enter instance iid
+            const float4* m = inst_inv + 4 * (size_t)iid;
+            const float4 m0 = __ldg(m), m1 = __ldg(m + 1), m2 = __ldg(m + 2),
+                         m3 = __ldg(m + 3);
+            r = to_local(m0, m1, m2, world);
+            ret = miss_link;
+            cinst = iid;
+            node = (int)m3.y;                 // col 13: the cut-tree root
         } else {
             node = hit ? hit_link : miss_link;
+        }
+        if (INST && node == BLAS_EXIT) {      // pop to the TLAS
+            node = ret;
+            ret = -1;
+            cinst = -1;
+            r = world;
         }
     }
     if (!ANY_HIT) {
         *t_best_io = best >= 0 ? t_best : __int_as_float(0x7f800000);
         *best_io = best;
+        if (INST) *inst_io = best >= 0 ? binst : -1;
     }
 }
 
@@ -183,8 +241,8 @@ cluster_closest_hit_kernel(const float4* __restrict__ node_f,
     int slot = -1;
     if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<false>(node_f, link, feat, r, tm, n_nodes, ck, &t, &slot,
-                    nullptr);
+        walk<false, false>(node_f, link, feat, nullptr, r, tm, n_nodes + 64,
+                           ck, &t, &slot, nullptr, nullptr);
     }
     t_out[i] = t;
     slot_out[i] = slot;
@@ -209,8 +267,65 @@ cluster_any_hit_kernel(const float4* __restrict__ node_f,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<true>(node_f, link, feat, r, tm, n_nodes, ck, nullptr, nullptr,
-                   &occ);
+        walk<true, false>(node_f, link, feat, nullptr, r, tm, n_nodes + 64,
+                          ck, nullptr, nullptr, nullptr, &occ);
+    }
+    occ_out[i] = occ;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+inst_cluster_closest_hit_kernel(const float4* __restrict__ node_f,
+                                const int* __restrict__ link,
+                                const float4* __restrict__ feat,
+                                const float4* __restrict__ inst_inv,
+                                const float* __restrict__ ox,
+                                const float* __restrict__ oy,
+                                const float* __restrict__ oz,
+                                const float* __restrict__ dx,
+                                const float* __restrict__ dy,
+                                const float* __restrict__ dz,
+                                const float* __restrict__ tmax,
+                                float* __restrict__ t_out,
+                                int* __restrict__ slot_out,
+                                int* __restrict__ inst_out,
+                                int n, int fuel, int ck) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    float t = __int_as_float(0x7f800000);
+    int slot = -1, inst = -1;
+    if (tm > 0.0f) {
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        walk<false, true>(node_f, link, feat, inst_inv, r, tm, fuel, ck, &t,
+                          &slot, &inst, nullptr);
+    }
+    t_out[i] = t;
+    slot_out[i] = slot;
+    inst_out[i] = inst;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
+                            const int* __restrict__ link,
+                            const float4* __restrict__ feat,
+                            const float4* __restrict__ inst_inv,
+                            const float* __restrict__ ox,
+                            const float* __restrict__ oy,
+                            const float* __restrict__ oz,
+                            const float* __restrict__ dx,
+                            const float* __restrict__ dy,
+                            const float* __restrict__ dz,
+                            const float* __restrict__ tmax,
+                            bool* __restrict__ occ_out,
+                            int n, int fuel, int ck) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    bool occ = false;
+    if (tm > 0.0f) {
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        walk<true, true>(node_f, link, feat, inst_inv, r, tm, fuel, ck,
+                         nullptr, nullptr, nullptr, &occ);
     }
     occ_out[i] = occ;
 }
@@ -245,6 +360,40 @@ int mts_cluster_any_hit(const void* node_f, const void* link, const void* feat,
         (const float*)ox, (const float*)oy, (const float*)oz,
         (const float*)dx, (const float*)dy, (const float*)dz,
         (const float*)tmax, (bool*)occ_out, n, n_nodes, ck);
+    return (int)cudaGetLastError();
+}
+
+// fuel: the walk's step cap, the scene's inst_mxu_fuel + 64
+int mts_inst_cluster_closest_hit(const void* node_f, const void* link,
+                                 const void* feat, const void* inst_inv,
+                                 const void* ox, const void* oy,
+                                 const void* oz, const void* dx,
+                                 const void* dy, const void* dz,
+                                 const void* tmax, void* t_out,
+                                 void* slot_out, void* inst_out, int n,
+                                 int fuel, int ck, void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    inst_cluster_closest_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)node_f, (const int*)link, (const float4*)feat,
+        (const float4*)inst_inv, (const float*)ox, (const float*)oy,
+        (const float*)oz, (const float*)dx, (const float*)dy,
+        (const float*)dz, (const float*)tmax, (float*)t_out, (int*)slot_out,
+        (int*)inst_out, n, fuel, ck);
+    return (int)cudaGetLastError();
+}
+
+int mts_inst_cluster_any_hit(const void* node_f, const void* link,
+                             const void* feat, const void* inst_inv,
+                             const void* ox, const void* oy, const void* oz,
+                             const void* dx, const void* dy, const void* dz,
+                             const void* tmax, void* occ_out, int n, int fuel,
+                             int ck, void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    inst_cluster_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)node_f, (const int*)link, (const float4*)feat,
+        (const float4*)inst_inv, (const float*)ox, (const float*)oy,
+        (const float*)oz, (const float*)dx, (const float*)dy,
+        (const float*)dz, (const float*)tmax, (bool*)occ_out, n, fuel, ck);
     return (int)cudaGetLastError();
 }
 

@@ -1,22 +1,29 @@
-"""Cluster-walk traversal: the two hand-written CUDA kernels, their
-wrappers and their plain PyTorch twins (counterpart of the MXU path of
-kernels/traverse_pallas.py).
+"""Cluster-walk traversal: the hand-written CUDA kernels, their wrappers
+and their plain PyTorch twins (counterpart of the MXU paths of
+kernels/traverse_pallas.py, flat and instanced).
 
 Tables (scene/scene.py builds them exactly as the JAX package does):
     mxu_node_f   (R, 16) f32  pruned cut tree: [min.xyz, max.xyz, slot
-                 base (-1 at inner nodes), pad, centroid.xyz, pad]
-    mxu_link     (R, 16) i32  [hit8 | miss8] per-octant threaded links
+                 base (-1 at inner nodes), instance id (-1 except at a
+                 TLAS instance leaf), centroid.xyz, pad]
+    mxu_link     (R, 16) i32  [hit8 | miss8] per-octant threaded links;
+                 BLAS_EXIT (-2) leaves an instance's cut tree
     cluster_feat (S, 20) f32  slot-major copy of the Möller–Trumbore
                  plane rows of `mxu_feat`, made once at scene upload:
                  [det(3) | u(6) | v(6) | t(4) | pad] against the ray
                  features [d, (o-c) x d, o-c, 1] (c = cluster centroid)
+    inst_inv     (K, 16) f32  instanced scenes: [world->local 3x4 | BVH2
+                 root | cut-tree root | pad]
 
-`cluster_closest_hit` and `cluster_any_hit` are the wrappers. A CPU
-tensor goes to the plain twin, a CUDA tensor to the kernel; nothing falls
-back from one to the other. Each wrapper counts its kernel launches in
-its `launches` attribute. `ray_intersect_preliminary` and `ray_test` are
-the entry points, the counterparts of traverse_pallas's functions of the
-same names: they map cluster slots to prim ids.
+`cluster_closest_hit` and `cluster_any_hit` (K1/K2: one cut tree) and
+`inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS over
+instances, each entered into its group's local-space cut tree) are the
+wrappers. A CPU tensor goes to the plain twin, a CUDA tensor to the
+kernel; nothing falls back from one to the other. Each wrapper counts its
+kernel launches in its `launches` attribute. `ray_intersect_preliminary`,
+`ray_test`, `ray_intersect_instanced` and `ray_test_instanced` are the
+entry points, the counterparts of traverse_pallas's functions of the same
+names: they map cluster slots to prim ids.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import os
 import torch
 
 FEAT_W = 20  # floats per slot in cluster_feat
+BLAS_EXIT = -2   # scene/bvh.py: a link that leaves an instance's cut tree
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "cluster_walk.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round every
@@ -50,6 +58,10 @@ def _declare(lib):
                       (lib.mts_cluster_any_hit, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
+    for fn, n_out in ((lib.mts_inst_cluster_closest_hit, 3),
+                      (lib.mts_inst_cluster_any_hit, 1)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p
     lib.mts_cuda_error_string.argtypes = [ctypes.c_int]
 
@@ -66,12 +78,20 @@ def load_cuda_library():
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check(node_f, link, feat, rays, cluster_k):
+def _check(node_f, link, feat, rays, cluster_k, inst_inv=None):
     n = rays[0].shape[0]
     dev = rays[0].device
-    for name, a, dt in (("mxu_node_f", node_f, torch.float32),
-                        ("mxu_link", link, torch.int32),
-                        ("cluster_feat", feat, torch.float32)):
+    tabs = [("mxu_node_f", node_f, torch.float32),
+            ("mxu_link", link, torch.int32),
+            ("cluster_feat", feat, torch.float32)]
+    if inst_inv is not None:
+        tabs.append(("inst_inv", inst_inv, torch.float32))
+        if inst_inv.dim() != 2 or inst_inv.shape[1] != 16:
+            raise ValueError("inst_inv must be (K, 16)")
+        if inst_inv.data_ptr() % 16:
+            raise ValueError("inst_inv must be 16-byte aligned (the "
+                             "kernels read it as float4)")
+    for name, a, dt in tabs:
         if a.dtype != dt or a.dim() != 2 or not a.is_contiguous():
             raise ValueError(f"{name}: need a contiguous 2-D {dt} tensor, "
                              f"got {a.dtype} {tuple(a.shape)}")
@@ -100,6 +120,20 @@ def _raise_on_error(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def _launch(what, tabs, rays, outs, size, cluster_k):
+    """Launch the kernel behind wrapper `what` (C entry mts_<what>) on the
+    tensors' own card and stream; `size` is the walk's table rows (flat)
+    or step cap (instanced). Raises on a launch error."""
+    lib = load_cuda_library()
+    dev = rays[0].device
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"mts_{what}")(
+            *(a.data_ptr() for a in tabs), *(a.data_ptr() for a in rays),
+            *(a.data_ptr() for a in outs), rays[0].shape[0], size,
+            cluster_k, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(lib, rc, what)
+
+
 def cluster_closest_hit(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
                         cluster_k: int):
     """Closest hit over the cluster cut tree: (t (N,) f32, slot (N,) i32),
@@ -108,20 +142,14 @@ def cluster_closest_hit(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
     n, dev = _check(node_f, link, feat, rays, cluster_k)
     if dev.type == "cpu":
         return closest_hit_plain(node_f, link, feat, *rays, cluster_k)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    outs = (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
     if n == 0:
-        return t, slot
-    lib = load_cuda_library()
-    with torch.cuda.device(dev):   # launch on the tensors' own card
-        rc = lib.mts_cluster_closest_hit(
-            node_f.data_ptr(), link.data_ptr(), feat.data_ptr(),
-            *(a.data_ptr() for a in rays), t.data_ptr(), slot.data_ptr(),
-            n, node_f.shape[0], cluster_k,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(lib, rc, "cluster_closest_hit")
+        return outs
+    _launch("cluster_closest_hit", (node_f, link, feat), rays, outs,
+            node_f.shape[0], cluster_k)
     cluster_closest_hit.launches += 1
-    return t, slot
+    return outs
 
 
 cluster_closest_hit.launches = 0
@@ -138,19 +166,58 @@ def cluster_any_hit(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    lib = load_cuda_library()
-    with torch.cuda.device(dev):   # launch on the tensors' own card
-        rc = lib.mts_cluster_any_hit(
-            node_f.data_ptr(), link.data_ptr(), feat.data_ptr(),
-            *(a.data_ptr() for a in rays), occ.data_ptr(),
-            n, node_f.shape[0], cluster_k,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(lib, rc, "cluster_any_hit")
+    _launch("cluster_any_hit", (node_f, link, feat), rays, (occ,),
+            node_f.shape[0], cluster_k)
     cluster_any_hit.launches += 1
     return occ
 
 
 cluster_any_hit.launches = 0
+
+
+def inst_cluster_closest_hit(node_f, link, feat, inst_inv, ox, oy, oz, dx,
+                             dy, dz, t_max, cluster_k: int, fuel: int):
+    """Closest hit over the TLAS and the instances' cut trees: (t (N,) f32,
+    slot (N,) i32, inst (N,) i32); t = +inf, slot = inst = -1 on a miss.
+    `fuel` caps a walk's steps (the scene's inst_mxu_fuel + 64)."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check(node_f, link, feat, rays, cluster_k, inst_inv)
+    if dev.type == "cpu":
+        return inst_closest_hit_plain(node_f, link, feat, inst_inv, *rays,
+                                      cluster_k, fuel)
+    outs = (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    if n == 0:
+        return outs
+    _launch("inst_cluster_closest_hit", (node_f, link, feat, inst_inv), rays,
+            outs, fuel, cluster_k)
+    inst_cluster_closest_hit.launches += 1
+    return outs
+
+
+inst_cluster_closest_hit.launches = 0
+
+
+def inst_cluster_any_hit(node_f, link, feat, inst_inv, ox, oy, oz, dx, dy,
+                         dz, t_max, cluster_k: int, fuel: int):
+    """Occlusion over the TLAS and the instances' cut trees: (N,) bool,
+    True iff a triangle of some instance is hit at 0 < t <= t_max."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check(node_f, link, feat, rays, cluster_k, inst_inv)
+    if dev.type == "cpu":
+        return inst_any_hit_plain(node_f, link, feat, inst_inv, *rays,
+                                  cluster_k, fuel)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    _launch("inst_cluster_any_hit", (node_f, link, feat, inst_inv), rays,
+            (occ,), fuel, cluster_k)
+    inst_cluster_any_hit.launches += 1
+    return occ
+
+
+inst_cluster_any_hit.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -201,76 +268,132 @@ def _cluster_planes(feat, base, nf, ox, oy, oz, dx, dy, dz, cluster_k):
     return unum * inv, vnum * inv, tnum * inv, inv
 
 
-def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats):
+def _octant(dx, dy, dz):
+    return ((dx < 0).long() | ((dy < 0).long() << 1)
+            | ((dz < 0).long() << 2))
+
+
+def _to_local(it, ox, oy, oz, dx, dy, dz):
+    """World rays -> instance space from (m, 16) inst_inv rows, in the
+    kernels' order of operations; d stays unnormalised, so t is kept."""
+    return (it[:, 0] * ox + it[:, 1] * oy + it[:, 2] * oz + it[:, 3],
+            it[:, 4] * ox + it[:, 5] * oy + it[:, 6] * oz + it[:, 7],
+            it[:, 8] * ox + it[:, 9] * oy + it[:, 10] * oz + it[:, 11],
+            it[:, 0] * dx + it[:, 1] * dy + it[:, 2] * dz,
+            it[:, 4] * dx + it[:, 5] * dy + it[:, 6] * dz,
+            it[:, 8] * dx + it[:, 9] * dy + it[:, 10] * dz)
+
+
+def _count(stats, key, k):
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + k
+
+
+def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
+                inst_inv=None, fuel=None):
+    """The kernels' walk for every lane at once, each lane with its own
+    cursor. With `inst_inv` it is the instanced walk: a lane entering an
+    instance leaf saves the leaf's miss link, continues at the group's
+    cut-tree root with its ray in instance space, and at a BLAS_EXIT link
+    pops back to the saved row and its world ray."""
     ox, oy, oz, dx, dy, dz, t_max = rays
     n, dev = ox.shape[0], ox.device
-    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-    octant = ((dx < 0).long() | ((dy < 0).long() << 1)
-              | ((dz < 0).long() << 2))
+    # the lane's ray in its current space: o, d, 1/d and the octant
+    world = [ox, oy, oz, dx, dy, dz, _safe_inv(dx), _safe_inv(dy),
+             _safe_inv(dz), _octant(dx, dy, dz)]
+    inst = inst_inv is not None
+    cur = [a.clone() for a in world] if inst else world
     # lanes with t_max <= 0 cannot hit (0 < t < t_max): they never walk
     node = torch.where(t_max > 0, 0, -1).long()
     t_best = t_max.clone()
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    if inst:
+        ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
     BIG = 1 << 30
-    for _ in range(node_f.shape[0] + 64):
+    for _ in range(node_f.shape[0] + 64 if fuel is None else fuel):
         act = torch.nonzero(node >= 0).squeeze(1)
         if act.numel() == 0:
             break
+        lox, loy, loz, ldx, ldy, ldz, lix, liy, liz, loc = \
+            (a[act] for a in cur)
         nd = node[act]
         nf = node_f[nd]
         lk = link[nd]
-        oc = octant[act, None]
-        hit_l = lk.gather(1, oc).squeeze(1).long()
-        miss_l = lk.gather(1, oc + 8).squeeze(1).long()
+        hit_l = lk.gather(1, loc[:, None]).squeeze(1).long()
+        miss_l = lk.gather(1, loc[:, None] + 8).squeeze(1).long()
         tb = t_max[act] if any_hit else t_best[act]
-        hit = _slab(nf, ox[act], oy[act], oz[act], ix[act], iy[act], iz[act],
-                    tb)
+        hit = _slab(nf, lox, loy, loz, lix, liy, liz, tb)
         base = nf[:, 6].long()
         is_cl = base >= 0
-        node[act] = torch.where(is_cl | ~hit, miss_l, hit_l)
-        if stats is not None:
-            stats["node_steps"] = stats.get("node_steps", 0) + act.numel()
+        nxt = torch.where(is_cl | ~hit, miss_l, hit_l)
+        _count(stats, "node_steps", act.numel())
         visit = is_cl & hit
-        if not bool(visit.any()):
-            continue
-        lanes = act[visit]
-        if stats is not None:
-            stats["cluster_visits"] = (stats.get("cluster_visits", 0)
-                                       + lanes.numel())
-        u, v, t, inv = _cluster_planes(
-            feat, base[visit], nf[visit], ox[lanes], oy[lanes], oz[lanes],
-            dx[lanes], dy[lanes], dz[lanes], cluster_k)
-        ok = ((inv != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-              & (t > 0.0))
-        tl = tb[visit][:, None]
-        if any_hit:
-            hm = ok & (t <= tl)
-            h = hm.any(1)
-            occ[lanes[h]] = True
-            node[lanes[h]] = -1           # a thread stops at its first hit
-            if stats is not None:         # slots 0..k tested, k the first hit
+        if bool(visit.any()):
+            lanes = act[visit]
+            _count(stats, "cluster_visits", lanes.numel())
+            u, v, t, inv = _cluster_planes(
+                feat, base[visit], nf[visit], lox[visit], loy[visit],
+                loz[visit], ldx[visit], ldy[visit], ldz[visit], cluster_k)
+            ok = ((inv != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                  & (t > 0.0))
+            tl = tb[visit][:, None]
+            if any_hit:
+                hm = ok & (t <= tl)
+                h = hm.any(1)
+                occ[lanes[h]] = True
+                nxt[visit.nonzero().squeeze(1)[h]] = -1  # stop at a hit
+                # slots 0..k tested, k the first hit
                 tested = torch.where(h, hm.int().argmax(1) + 1, cluster_k)
-                stats["slot_tests"] = (stats.get("slot_tests", 0)
-                                       + int(tested.sum()))
-            continue
-        if stats is not None:
-            stats["slot_tests"] = (stats.get("slot_tests", 0)
-                                   + lanes.numel() * cluster_k)
-        ok = ok & (t < tl)
-        t_m = torch.where(ok, t, float("inf"))
-        t_c = t_m.amin(1)
-        win = ok & (t_m <= t_c[:, None])
-        k = torch.arange(cluster_k, device=dev)
-        k_c = torch.where(win, k, BIG).amin(1)    # lowest slot wins a tie
-        closer = t_c < tl[:, 0]
-        sel = lanes[closer]
-        t_best[sel] = t_c[closer]
-        best[sel] = base[visit][closer] + k_c[closer]
+                _count(stats, "slot_tests", int(tested.sum()))
+            else:
+                _count(stats, "slot_tests", lanes.numel() * cluster_k)
+                ok = ok & (t < tl)
+                t_m = torch.where(ok, t, float("inf"))
+                t_c = t_m.amin(1)
+                win = ok & (t_m <= t_c[:, None])
+                k = torch.arange(cluster_k, device=dev)
+                k_c = torch.where(win, k, BIG).amin(1)  # lowest slot wins
+                closer = t_c < tl[:, 0]
+                sel = lanes[closer]
+                t_best[sel] = t_c[closer]
+                best[sel] = base[visit][closer] + k_c[closer]
+                if inst:
+                    binst[sel] = cinst[sel]
+        if inst:
+            iid = nf[:, 7].long()
+            enter = ~is_cl & (iid >= 0) & hit
+            if bool(enter.any()):
+                e = act[enter]
+                _count(stats, "instance_entries", e.numel())
+                it = inst_inv[iid[enter]]
+                loc_ray = _to_local(it, *(a[e] for a in world[:6]))
+                for k_, a in enumerate(loc_ray):
+                    cur[k_][e] = a
+                for k_ in range(3):
+                    cur[6 + k_][e] = _safe_inv(loc_ray[3 + k_])
+                cur[9][e] = _octant(*loc_ray[3:])
+                ret[e] = miss_l[enter]
+                cinst[e] = iid[enter]
+                nxt[enter] = it[:, 13].long()
+            pop = nxt == BLAS_EXIT
+            if bool(pop.any()):
+                p_ = act[pop]
+                nxt[pop] = ret[p_]
+                ret[p_] = -1
+                cinst[p_] = -1
+                for c_, w_ in zip(cur, world):
+                    c_[p_] = w_[p_]
+        node[act] = nxt
     if any_hit:
         return occ
-    return (torch.where(best >= 0, t_best, float("inf")),
-            best.to(torch.int32))
+    t_out = torch.where(best >= 0, t_best, float("inf"))
+    if inst:
+        return (t_out, best.to(torch.int32),
+                torch.where(best >= 0, binst, -1).to(torch.int32))
+    return t_out, best.to(torch.int32)
 
 
 def _chunked(fn, rays, chunk):
@@ -301,6 +424,27 @@ def any_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
+def inst_closest_hit_plain(node_f, link, feat, inst_inv, ox, oy, oz, dx, dy,
+                           dz, t_max, cluster_k: int, fuel: int,
+                           chunk: int = 8192, stats=None):
+    """The twin of the instanced closest-hit kernel: (t, slot, inst). Its
+    `stats` also count instance entries."""
+    return _chunked(
+        lambda r: _walk_plain(node_f, link, feat, r, cluster_k, False, stats,
+                              inst_inv, fuel),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def inst_any_hit_plain(node_f, link, feat, inst_inv, ox, oy, oz, dx, dy, dz,
+                       t_max, cluster_k: int, fuel: int, chunk: int = 8192,
+                       stats=None):
+    """The twin of the instanced any-hit kernel."""
+    return _chunked(
+        lambda r: _walk_plain(node_f, link, feat, r, cluster_k, True, stats,
+                              inst_inv, fuel),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
 # ---------------------------------------------------------------------------
 # Entry points (traverse_pallas.ray_intersect_preliminary / ray_test)
 # ---------------------------------------------------------------------------
@@ -326,3 +470,29 @@ def ray_test(scene, ray_o, ray_d, t_max):
         scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
         ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
         scene.cluster_k)
+
+
+def _inst_args(scene, ray_o, ray_d, t_max):
+    return (scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
+            scene.inst_inv, ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y,
+            ray_d.z, t_max, scene.cluster_k, scene.inst_mxu_fuel + 64)
+
+
+def ray_intersect_instanced(scene, ray_o, ray_d, t_max):
+    """Closest hit on a shared-BLAS instanced scene: (t, prim, u, v, inst),
+    prim and inst -1 on a miss, u = v = 0. Every instanced scene the port
+    holds takes this walk (traverse_pallas._use_instmxu's route): groups
+    with spheres, which the JAX package walks with its scalar instanced
+    kernels, are refused at scene build."""
+    t, slot, inst = inst_cluster_closest_hit(
+        *_inst_args(scene, ray_o, ray_d, t_max))
+    prim = torch.where(
+        slot >= 0, scene.cluster_slot_prim[torch.clamp_min(slot, 0).long()],
+        -1)
+    z = torch.zeros_like(t)
+    return t, prim, z, z, inst
+
+
+def ray_test_instanced(scene, ray_o, ray_d, t_max):
+    """Any-hit occlusion within t_max on a shared-BLAS instanced scene."""
+    return inst_cluster_any_hit(*_inst_args(scene, ray_o, ray_d, t_max))

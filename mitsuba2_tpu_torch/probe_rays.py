@@ -2,7 +2,8 @@
 
 Four kinds of rays over a built scene, the kinds a forward render sends
 through traversal: camera rays, first-bounce rays cosine-sampled from the
-camera hits, shadow rays from those hits toward points on the emitters
+camera hits, shadow rays from those hits toward points on the area
+emitters, or toward the constant emitter in a scene lit by one alone
 (t_max = dist * (1 - 1e-3)), and uniform random rays from inside the
 scene bounds. The tests hand the same arrays to both packages, and
 chip_smoke.py uses them to hold each CUDA kernel against its twin.
@@ -10,6 +11,8 @@ chip_smoke.py uses them to hold each CUDA kernel against its twin.
 from __future__ import annotations
 
 import numpy as np
+
+from .render.emitters import ENV_DIST
 
 RAY_EPSILON = float(np.finfo(np.float32).eps) / 2 * 1500.0
 KINDS = ("camera", "bounce", "shadow", "random")
@@ -32,8 +35,9 @@ def _frame(n):
 def probe_rays(scene, n: int, seed: int, closest_hit):
     """{kind: (o (n, 3), d (n, 3), t_max (n,))} float32 arrays.
 
-    `closest_hit(o, d, t_max) -> (t, prim)` (numpy in and out) finds the
-    camera hits the bounce and shadow rays start from."""
+    `closest_hit(o, d, t_max) -> (t, prim, inst)` (numpy in and out, inst
+    None on a scene without instances) finds the camera hits the bounce
+    and shadow rays start from."""
     rng = np.random.default_rng(seed)
     tab = {k: getattr(scene, k).cpu().numpy() for k in (
         "cam_to_world", "cam_fov_x", "prim_p0", "prim_e1", "prim_e2",
@@ -48,15 +52,22 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     inf = np.full(n, np.inf)
     out = {"camera": (cam_o, cam_d, inf)}
 
-    t, prim = closest_hit(cam_o.astype(np.float32), cam_d.astype(np.float32),
-                          inf.astype(np.float32))
+    t, prim, inst = closest_hit(cam_o.astype(np.float32),
+                                cam_d.astype(np.float32),
+                                inf.astype(np.float32))
     hit = np.nonzero(prim >= 0)[0]
     if hit.size == 0:
         raise ValueError("no camera ray hits the scene")
     pick = hit[rng.integers(0, hit.size, n)]
     p = cam_o[pick] + cam_d[pick] * t[pick, None].astype(np.float64)
     e1, e2 = tab["prim_e1"][prim[pick]], tab["prim_e2"][prim[pick]]
-    ng = _normalize(np.cross(e1, e2).astype(np.float64))
+    ng = np.cross(e1, e2).astype(np.float64)
+    if inst is not None:
+        # local-space normal -> world: the inverse transpose, i.e. the
+        # transpose of the instance's world->local 3x3
+        inv = scene.inst_inv.cpu().numpy()[inst[pick], :12].reshape(n, 3, 4)
+        ng = np.einsum("nji,nj->ni", inv[:, :, :3].astype(np.float64), ng)
+    ng = _normalize(ng)
     ng = np.where((np.sum(ng * cam_d[pick], -1) > 0)[:, None], -ng, ng)
     org = p + ng * (RAY_EPSILON * (1.0 + np.abs(p).max(-1)))[:, None]
 
@@ -73,6 +84,13 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     # the light (elsewhere the NEE pdf is 0 and the renderer casts none)
     lights = tab["emitter_prims"].reshape(-1)
     lights = lights[lights >= 0]
+    if lights.size == 0:
+        # the constant emitter: uniform directions, turned into the
+        # origin's hemisphere, out to its sample distance
+        sd = _normalize(rng.normal(size=(n, 3)))
+        sd = np.where((np.sum(ng * sd, -1) < 0)[:, None], -sd, sd)
+        out["shadow"] = (org, sd, np.full(n, ENV_DIST * (1.0 - 1e-3)))
+        return _finish(out, tab, rng, n)
     m = 8 * n
     src = rng.integers(0, n, m)
     lp = lights[rng.integers(0, lights.size, m)]
@@ -91,10 +109,14 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
         raise ValueError("too few camera hits see the emitting side of a light")
     keep = ok[:n]
     out["shadow"] = (org[src[keep]], sd[keep], dist[keep] * (1.0 - 1e-3))
+    return _finish(out, tab, rng, n)
 
+
+def _finish(out, tab, rng, n):
     lo, hi = tab["bvh_min"][0], tab["bvh_max"][0]
     mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo) * 0.95
     ro = mid + rng.uniform(-1.0, 1.0, (n, 3)) * half
-    out["random"] = (ro, _normalize(rng.normal(size=(n, 3))), inf)
+    out["random"] = (ro, _normalize(rng.normal(size=(n, 3))),
+                     np.full(n, np.inf))
     return {k: tuple(np.ascontiguousarray(a, dtype=np.float32) for a in v)
             for k, v in out.items()}

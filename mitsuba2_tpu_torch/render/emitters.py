@@ -1,10 +1,10 @@
-"""Area emitters: packing, evaluation, NEE sampling and pdfs
-(counterpart of render/emitters.py).
+"""Area and constant emitters: packing, evaluation, NEE sampling and
+pdfs (counterpart of render/emitters.py).
 
 Emitter row layout (EMIT_W = 16): [0:8] radiance slot, the rest unused by
-area lights. Environment emitters come in a later slice: a scene without
-one gets zeros from the env functions, and building a scene with one
-raises.
+these two kinds. A scene holds at most one environment emitter (the
+constant one here, `scene.env_emitter`); envmaps and the delta emitters
+come in a later slice, and building a scene with one raises.
 """
 from __future__ import annotations
 
@@ -20,18 +20,20 @@ from .spectra import LaneRows, SLOT_W, eval_spectrum_slot, pack_color
 
 EMIT_W = 16
 AREA = 0
+CONSTANT = 2
+ENV_DIST = 1e7   # the constant emitter's sample distance, as in the JAX package
 
 
 def pack_emitter(desc: dict):
     """Host: emitter descriptor -> (type id, packed row)."""
     t = desc.get("type")
-    if t != "area":
+    if t not in ("area", "constant"):
         raise NotImplementedError(
             f"mitsuba2_tpu_torch does not support {t!r} emitters yet")
     row = np.zeros(EMIT_W, np.float32)
     row[0:SLOT_W] = pack_color(desc.get("radiance", [1, 1, 1]),
                                illuminant=True)
-    return AREA, row
+    return (AREA if t == "area" else CONSTANT), row
 
 
 def eval_hit(scene, si, config) -> Spec:
@@ -44,8 +46,14 @@ def eval_hit(scene, si, config) -> Spec:
 
 
 def eval_env(scene, d_world: Vec3, config) -> Spec:
-    """Environment radiance for escaped rays: none in this slice's scenes."""
-    return Spec.zeros(d_world.z.shape[0], config.n_channels, d_world.z.device)
+    """Environment radiance for escaped rays: the constant emitter's, or
+    zero without one."""
+    n, dev = d_world.z.shape[0], d_world.z.device
+    if scene.env_emitter < 0:
+        return Spec.zeros(n, config.n_channels, dev)
+    idx = torch.full((n,), scene.env_emitter, dtype=torch.int64, device=dev)
+    return eval_spectrum_slot(LaneRows(scene.emitter_data, idx),
+                              config.color_mode)
 
 
 def sample_direction(scene, ref_p: Vec3, u1, u2, config):
@@ -65,8 +73,26 @@ def sample_direction(scene, ref_p: Vec3, u1, u2, config):
     e_idx = torch.clamp(scaled.to(torch.int32), 0, E - 1)
     etype = scene.emitter_type[e_idx]
     row = LaneRows(scene.emitter_data, e_idx)
-    return _sample_area(scene, ref_p, e_idx, etype, row, scaled, u2,
-                        1.0 / E, ds, val, config)
+    if AREA in scene.emitter_kinds:
+        ds, val = _sample_area(scene, ref_p, e_idx, etype, row, scaled, u2,
+                               1.0 / E, ds, val, config)
+    if CONSTANT in scene.emitter_kinds:
+        ds, val = _sample_constant(etype, row, u2, 1.0 / E, ds, val, config)
+    return ds, val
+
+
+def _sample_constant(etype, row, u2, pick_pdf, ds, val, config):
+    """Constant environment (emitters/constant.cpp): a uniform direction
+    on the sphere, at ENV_DIST."""
+    is_const = etype == CONSTANT
+    d_c = warp.square_to_uniform_sphere(*u2)
+    ds = DirectionSample(
+        d=vwhere(is_const, d_c, ds.d),
+        dist=torch.where(is_const, ENV_DIST, ds.dist),
+        pdf=torch.where(is_const, pick_pdf * warp.INV_FOUR_PI, ds.pdf),
+        delta=ds.delta)
+    return ds, swhere(is_const, eval_spectrum_slot(row, config.color_mode),
+                      val)
 
 
 def _sample_area(scene, ref_p, e_idx, etype, row, scaled, u2, pick_pdf,
@@ -140,5 +166,8 @@ def pdf_direction_hit(scene, ref_p: Vec3, si_hit, config) -> torch.Tensor:
 
 
 def pdf_direction_env(scene, d_world: Vec3) -> torch.Tensor:
-    """NEE pdf of an escaped direction: zero without an environment."""
-    return torch.zeros_like(d_world.z)
+    """NEE pdf of an escaped direction (for MIS): the constant emitter's
+    uniform-sphere pdf with the 1/E pick, zero without one."""
+    if scene.n_emitters == 0 or scene.env_emitter < 0:
+        return torch.zeros_like(d_world.z)
+    return torch.full_like(d_world.z, warp.INV_FOUR_PI / scene.n_emitters)

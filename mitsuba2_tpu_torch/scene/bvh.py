@@ -2,7 +2,8 @@
 
 The port's copy of mitsuba2_tpu/scene/bvh.py, cut to what the cluster walk
 needs: the binned-SAH BVH2 build flattened in DFS order with miss links,
-the per-octant threaded links, the cluster cut and the pruned cut tree.
+the per-octant threaded links, the cluster cut and the pruned cut tree,
+and the two-level (TLAS over instances + per-group BLAS) stitching.
 It must stay decision-for-decision equal to the JAX package's builder, so
 that the scene tables of both packages are byte-equal. The C++ builder
 (native/bvh_builder.cpp) is taken for scenes above 512 prims, the same
@@ -202,16 +203,22 @@ def build_octant_links(bvh: BVH):
 
 
 def build_bvh(prim_bb_min: np.ndarray, prim_bb_max: np.ndarray,
-              native: bool = True) -> BVH:
+              native: bool = True, leaf_k: int = None) -> BVH:
     """Binned-SAH BVH2 over primitive AABBs, flattened with miss links.
 
     Scenes above 512 prims take the C++ builder (native/bvh_builder.cpp);
     a toolchain failure raises rather than falling back to this numpy
-    builder, whose tree would differ from the JAX package's."""
+    builder, whose tree would differ from the JAX package's. `leaf_k`
+    overrides the leaf size (the TLAS takes 1, one instance a leaf) and
+    then forces the numpy builder, which alone takes it."""
     P = prim_bb_min.shape[0]
     if P == 0:
         raise ValueError("cannot build a BVH over zero primitives")
-    LEAF = LEAF_K
+    if leaf_k is None:
+        leaf_k = LEAF_K
+    else:
+        native = False
+    LEAF = leaf_k
     if native and P > 512:  # tiny scenes: numpy is fast enough
         from .. import native as native_mod
         (n_min, n_max, l_start, l_count,
@@ -361,3 +368,168 @@ def build_bvh(prim_bb_min: np.ndarray, prim_bb_max: np.ndarray,
                leaf_count=leaf_count.astype(np.int32),
                miss=miss.astype(np.int32),
                prim_order=np.asarray(prim_order, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Two-level (TLAS/BLAS) stitching for shared instances (instance.cpp, the
+# OptiX IAS analog)
+# ---------------------------------------------------------------------------
+
+BLAS_EXIT = -2   # link sentinel: BLAS exhausted -> pop to the saved TLAS row
+
+
+def build_tlas(inst_bb_min, inst_bb_max):
+    """The TLAS over instance world boxes, one instance a leaf: (tree,
+    hit8, miss8, inst_ids (T,) i32 = the instance at each leaf row, -1 at
+    inner rows). Both stitchings below start with these rows."""
+    tlas = build_bvh(np.asarray(inst_bb_min, np.float32),
+                     np.asarray(inst_bb_max, np.float32), leaf_k=1)
+    t_hit8, t_miss8 = build_octant_links(tlas)
+    t_leaf = tlas.leaf_start >= 0
+    inst_ids = np.where(t_leaf, tlas.prim_order[
+        np.minimum(np.maximum(tlas.leaf_start, 0),
+                   len(tlas.prim_order) - 1)], -1).astype(np.int32)
+    return tlas, t_hit8, t_miss8, inst_ids
+
+
+def build_two_level(blas_list, inst_group, tlas_parts):
+    """Stitch per-group BLASes behind the TLAS into one BVH2 node table:
+    rows [0, T) the TLAS, whose leaves are instance leaves (leaf_start =
+    instance id, leaf_count = 0), then each group's BLAS block in local
+    space with its exit links (-1) turned into BLAS_EXIT.
+
+    blas_list: [(BVH, hit8, miss8, prim_base)] per group; inst_group: (K,)
+    group per instance; tlas_parts: build_tlas's result. Returns the
+    stitched node arrays, each group's BLAS root row per instance
+    (blas_root) and the walk fuel bound."""
+    if len(inst_group) == 0:
+        raise ValueError("two-level build needs at least one instance")
+    tlas, t_hit8, t_miss8, inst_ids = tlas_parts
+    T = tlas.miss.shape[0]
+
+    blas_base = []
+    off = T
+    for (tree, _, _, _) in blas_list:
+        blas_base.append(off)
+        off += tree.miss.shape[0]
+    total = off
+
+    node_min = np.empty((total, 3), np.float32)
+    node_max = np.empty((total, 3), np.float32)
+    leaf_start = np.empty(total, np.int32)
+    leaf_count = np.empty(total, np.int32)
+    miss = np.empty(total, np.int32)
+    hit8 = np.empty(total * 8, np.int32)
+    miss8 = np.empty(total * 8, np.int32)
+
+    node_min[:T] = tlas.bounds_min
+    node_max[:T] = tlas.bounds_max
+    leaf_start[:T] = inst_ids
+    leaf_count[:T] = 0            # count == 0 everywhere in the TLAS
+    miss[:T] = tlas.miss
+    hit8[:T * 8] = t_hit8
+    miss8[:T * 8] = t_miss8
+
+    for g, (tree, b_hit8, b_miss8, prim_base) in enumerate(blas_list):
+        b0 = blas_base[g]
+        n = tree.miss.shape[0]
+        sl = slice(b0, b0 + n)
+        node_min[sl] = tree.bounds_min
+        node_max[sl] = tree.bounds_max
+        leaf_start[sl] = np.where(tree.leaf_start >= 0,
+                                  tree.leaf_start + prim_base, -1)
+        leaf_count[sl] = tree.leaf_count
+
+        def _shift(links):
+            return np.where(links >= 0, links + b0, BLAS_EXIT).astype(np.int32)
+
+        miss[sl] = _shift(tree.miss)
+        hit8[b0 * 8:(b0 + n) * 8] = _shift(b_hit8)
+        miss8[b0 * 8:(b0 + n) * 8] = _shift(b_miss8)
+
+    blas_root = np.asarray([blas_base[g] for g in inst_group], np.int32)
+    # fuel: TLAS visited once; each instance's BLAS visited at most once
+    fuel = T + int(sum(blas_list[g][0].miss.shape[0] for g in inst_group)) + 64
+    return dict(node_min=node_min, node_max=node_max,
+                leaf_start=leaf_start, leaf_count=leaf_count, miss=miss,
+                hit8=hit8, miss8=miss8, blas_root=blas_root, fuel=fuel)
+
+
+def build_two_level_mxu(blas_list, inst_group, tlas_parts, max_prims: int):
+    """The TLAS stitched to each group's pruned cluster cut tree: the
+    tables of the instanced cluster walk. Cluster slots are global across
+    groups (group g's clusters follow group g-1's); each group's plane
+    rows are built by the caller from its local-space prims about local
+    centroids, so one table serves every instance of a group.
+
+    Returns dict(
+      node_f (R, 16) f32 [min 3 | max 3 | slot | inst_id | centroid 3
+             (caller fills) | pad 5]: slot >= 0 marks a cluster row,
+             inst_id >= 0 a TLAS instance leaf
+      link (R, 16) i32 [hit8 | miss8], group exits BLAS_EXIT
+      slot_prim (S,) i32 prim index per padded slot, -1 padding
+      row_cluster (R,) i32 global cluster id at cluster rows, -1 else
+      blas_root (G,) i32 each group's cut-tree root row
+      fuel: walk bound (TLAS once + each instance's cut tree once))"""
+    if len(inst_group) == 0:
+        raise ValueError("two-level build needs at least one instance")
+    tlas, t_hit8, t_miss8, inst_ids = tlas_parts
+    T = tlas.miss.shape[0]
+
+    mins, maxs = [tlas.bounds_min], [tlas.bounds_max]
+    slots = [np.full(T, -1, np.int32)]
+    insts = [inst_ids]
+    row_cl = [np.full(T, -1, np.int32)]
+    hits = [t_hit8.reshape(T, 8)]
+    misses = [t_miss8.reshape(T, 8)]
+    slot_parts = []
+    blas_root, cut_rows = [], []
+    off, ccount = T, 0
+    for (tree_g, h8, m8, prim_base) in blas_list:
+        cl_id, starts, counts = cluster_cut(tree_g, max_prims=max_prims)
+        cmin, cmax, ch8, cm8, cl_id_c = cut_tree_tables(tree_g, cl_id,
+                                                        h8, m8)
+        R = cmin.shape[0]
+        blas_root.append(off)
+        cut_rows.append(R)
+
+        def _shift(links):
+            return np.where(links >= 0, links + off,
+                            BLAS_EXIT).astype(np.int32)
+
+        mins.append(cmin)
+        maxs.append(cmax)
+        hits.append(_shift(ch8).reshape(R, 8))
+        misses.append(_shift(cm8).reshape(R, 8))
+        slots.append(np.where(cl_id_c >= 0,
+                              (cl_id_c + ccount) * max_prims,
+                              -1).astype(np.int32))
+        insts.append(np.full(R, -1, np.int32))
+        row_cl.append(np.where(cl_id_c >= 0, cl_id_c + ccount,
+                               -1).astype(np.int32))
+        sp = np.full(len(starts) * max_prims, -1, np.int32)
+        for c, (s0, cnt) in enumerate(zip(starts, counts)):
+            sp[c * max_prims: c * max_prims + cnt] = \
+                prim_base + np.arange(s0, s0 + cnt)
+        slot_parts.append(sp)
+        ccount += len(starts)
+        off += R
+    if ccount * max_prims >= (1 << 24):
+        raise ValueError("instanced cluster slot ids exceed the f32 "
+                         "exact-integer range")
+
+    node_min = np.concatenate(mins, 0).astype(np.float32)
+    node_max = np.concatenate(maxs, 0).astype(np.float32)
+    Rt = node_min.shape[0]
+    node_f = np.concatenate(
+        [node_min, node_max,
+         np.concatenate(slots)[:, None].astype(np.float32),
+         np.concatenate(insts)[:, None].astype(np.float32),
+         np.zeros((Rt, 8), np.float32)], -1)
+    link = np.concatenate([np.concatenate(hits, 0),
+                           np.concatenate(misses, 0)], -1).astype(np.int32)
+    fuel = T + int(sum(cut_rows[g] for g in inst_group)) + 64
+    return dict(node_f=node_f, link=link,
+                slot_prim=np.concatenate(slot_parts),
+                row_cluster=np.concatenate(row_cl),
+                blas_root=np.asarray(blas_root, np.int32), fuel=fuel)

@@ -1,6 +1,6 @@
-"""Built-in scenes (counterpart of scene/presets.py): the Cornell box and
-the mesh gallery, built from the same host geometry as the JAX package's
-presets so their tables are byte-equal."""
+"""Built-in scenes (counterpart of scene/presets.py): the Cornell box, the
+mesh gallery and the instanced field, built from the same host geometry
+as the JAX package's presets so their tables are byte-equal."""
 from __future__ import annotations
 
 import numpy as np
@@ -141,3 +141,48 @@ def mesh_gallery(subdiv: int = 4, grid: tuple = (3, 2),
                              target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
     sensor = {"type": "perspective", "to_world": cam.matrix, "fov": 50.0}
     return build_scene(s, sensor, device=device)
+
+
+def instanced_field(n: int = 64, subdiv: int = 3, flatten: bool = False,
+                    device=None) -> SceneData:
+    """Shared-BLAS instancing scene: n instances of one displaced-icosphere
+    blob (20*4^subdiv triangles, stored once) over a two-triangle ground
+    plane, under a constant sky. With the defaults that is 64 * 1 280 =
+    81 920 effective blob triangles from 1 282 stored prims; n=1024,
+    subdiv=4 resolves 5 242 882 effective triangles from 5 122 stored.
+    Whether the build keeps shared BLAS or flattens the instances is the
+    JAX package's policy (scene._should_flatten_instances: shared above 4M
+    effective prims, or as MI_FLATTEN_INSTANCES forces); flatten=True
+    duplicates the transformed prims at the preset instead."""
+    rng = np.random.default_rng(7)
+    base_v, faces = _icosphere(subdiv)
+    v = _displace(base_v.copy(), seed=3)
+    grp = shapes.shapegroup([shapes.mesh(
+        v, faces, bsdf={"type": "diffuse", "reflectance": [0.55, 0.5, 0.4]},
+        id="blob")], id="blob_grp")
+
+    side = int(np.ceil(np.sqrt(n)))
+    s = [_quad([-side, 0, -side], [-side, 0, side], [side, 0, side],
+               [side, 0, -side], bsdf={"type": "diffuse",
+                                       "reflectance": WHITE}, id="ground")]
+    for k in range(n):
+        i, j = divmod(k, side)
+        t = (Transform4.translate([2.0 * i - side + 1.0,
+                                   0.45 + 0.15 * float(rng.uniform()),
+                                   2.0 * j - side + 1.0])
+             @ Transform4.rotate([0, 1, 0], float(rng.uniform(0, 360)))
+             @ Transform4.scale([0.35 + 0.15 * float(rng.uniform())] * 3))
+        inst = shapes.instance(grp, np.asarray(t.matrix), id=f"b{k}",
+                               flatten=flatten)
+        if flatten:
+            s.extend(inst)
+        else:
+            s.append(inst)
+
+    cam = Transform4.look_at(origin=[0.0, side * 0.8, -side * 1.6],
+                             target=[0.0, 0.3, 0.0], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 55.0}
+    return build_scene(s, sensor,
+                       [{"type": "constant", "radiance": [0.9, 0.95, 1.0]}],
+                       device=device)

@@ -1,20 +1,24 @@
 """Scene: the host build pipeline, the shading record and the traversal
 dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
 
-The build half packs meshes, diffuse materials, area emitters and a
-perspective camera into numpy tables byte-equal to the JAX package's
-`SceneData` fields of the same names (tests/test_torch_scene.py), then
-uploads them with `convert.scene_from_numpy`. Anything else a scene can
-hold raises `NotImplementedError` naming the feature.
+The build half packs meshes, shared-BLAS instances of triangle-mesh
+groups, diffuse materials, area and constant emitters and a perspective
+camera into numpy tables byte-equal to the JAX package's `SceneData`
+fields of the same names (tests/test_torch_scene.py,
+tests/test_torch_instancing.py), then uploads them with
+`convert.scene_from_numpy`. Anything else a scene can hold raises
+`NotImplementedError` naming the feature.
 
-The dispatch half picks brute force for scenes of 192 prims or fewer and
-the cluster walk (kernels/traverse.py) above, behind the same coherence
-presort as the JAX package.
+The dispatch half picks the instanced cluster walk for instanced scenes,
+brute force for other scenes of 192 prims or fewer and the cluster walk
+(kernels/traverse.py) above, behind the same coherence presort as the JAX
+package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +29,7 @@ from ..render import bsdf as bsdf_mod
 from ..render import emitters as emitters_mod
 from ..render.interaction import SurfaceInteraction
 from . import bvh as bvh_mod
-from .shapes import MeshData
+from .shapes import Instance, MeshData
 
 PRIM_TRI = 0
 PRIM_SPHERE = 1
@@ -40,6 +44,9 @@ FIELDS = (
     "emitter_shape", "emitter_prims", "emitter_prim_cdf", "emitter_area",
     "cam_to_world", "cam_fov_x", "cam_data", "mxu_node_f", "mxu_link",
     "cluster_slot_prim", "mxu_feat")
+# ...and those of an instanced scene (absent, or None, on the others): the
+# per-instance transforms and the two walk bounds
+INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
 
 
 @dataclasses.dataclass
@@ -57,7 +64,8 @@ class SceneData:
     prim_type: torch.Tensor  # (P,) i32
     prim_shape: torch.Tensor  # (P,) i32
     prim_area: torch.Tensor  # (P,)
-    bvh_min: torch.Tensor    # (B, 3) BVH2 node bounds (root = scene bounds)
+    bvh_min: torch.Tensor    # (B, 3) BVH2 node bounds (root = world bounds;
+                             # instanced: the stitched TLAS + BLAS table)
     bvh_max: torch.Tensor
     shape_mat: torch.Tensor      # (S,) i32
     shape_emitter: torch.Tensor  # (S,) i32, -1 = none
@@ -78,11 +86,23 @@ class SceneData:
     cluster_slot_prim: torch.Tensor  # (C*CK,) i32 prim id per slot, -1 pad
     mxu_feat: torch.Tensor      # (16, 4*C*CK) f32 plane rows, as built
     cluster_feat: torch.Tensor  # (C*CK, 20) f32 slot-major copy for the walk
+    # instanced scenes: mxu_node_f/mxu_link are then [TLAS | per-group cut
+    # trees] (col 7 of a TLAS leaf row = its instance id) and the prim
+    # tables hold each group's prims once, in local space.
+    # inst_inv (K, 16) f32 [world->local 3x4 | BVH2 BLAS root | cut-tree
+    # root | pad]; inst_fwd (K, 16) f32 [local->world 3x4 | cbrt|det| | pad]
+    inst_inv: Optional[torch.Tensor] = None
+    inst_fwd: Optional[torch.Tensor] = None
     mat_families: Tuple[int, ...] = ()
     n_emitters: int = 0
+    env_emitter: int = -1       # index of the constant emitter, -1 = none
+    emitter_kinds: Tuple[int, ...] = ()
     n_shapes: int = 0
     cluster_k: int = 128
     cam_type: str = "perspective"
+    has_instances: bool = False
+    inst_fuel: int = 0          # BVH2 two-level walk bound (K4's)
+    inst_mxu_fuel: int = 0      # instanced cluster walk bound (K5's)
 
     @property
     def n_prims(self) -> int:
@@ -112,8 +132,9 @@ def to_device(scene: SceneData, device) -> SceneData:
 
 def build_scene(shapes: List[MeshData], sensor: dict, emitters=(),
                 device=None) -> SceneData:
-    """Pack shapes + a perspective sensor into a SceneData on `device`
-    (None = the CUDA device; raises without one)."""
+    """Pack shapes (meshes and `shapes.Instance` records) + a perspective
+    sensor (+ shapeless emitters) into a SceneData on `device` (None = the
+    CUDA device; raises without one)."""
     from ..convert import scene_from_numpy
     from ..device import resolve_device
     dev = resolve_device(device)
@@ -127,16 +148,79 @@ def _pick_cluster_k(n_prims: int) -> int:
     return 256 if n_prims >= 250_000 else bvh_mod.CLUSTER_K
 
 
-def _refuse_unsupported(shapes, sensor, emitters):
-    if len(emitters):
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support shapeless emitters "
-            "(constant, envmap, point, ...) yet")
+def _prim_count(m) -> int:
+    return 1 if m.sphere_center is not None else len(m.faces)
+
+
+def _should_flatten_instances(inst_records, plain) -> bool:
+    """The JAX package's policy for instanced scenes, read from the same
+    variables: MI_FLATTEN_INSTANCES=0|1 forces shared BLAS or flattening;
+    by default a scene is flattened up to MI_FLATTEN_MAX (4M) effective
+    prims and keeps shared BLAS above."""
+    mode = os.environ.get("MI_FLATTEN_INSTANCES", "auto").lower()
+    if mode in ("0", "false"):
+        return False
+    if mode in ("1", "true"):
+        return True
+    cap = int(os.environ.get("MI_FLATTEN_MAX", "4000000"))
+    eff = sum(_prim_count(m) for m in plain)
+    for rec in inst_records:
+        eff += sum(_prim_count(m) for m in rec.group)
+    return eff <= cap
+
+
+def _check_group_shape(sh):
+    """What a shapegroup may not hold, whichever side of the flatten cap
+    the scene lands on (instance.cpp rejects the same)."""
+    if isinstance(sh, Instance):
+        raise ValueError("nested instancing is unsupported "
+                         "(shapegroup inside shapegroup)")
+    if sh.emitter is not None:
+        raise ValueError("emitters inside instanced shapegroups are "
+                         "unsupported (matches the reference: "
+                         "instance.cpp rejects nested emitters)")
+    if sh.interior is not None:
+        raise ValueError("interior media inside instanced shapegroups "
+                         "are unsupported")
+
+
+def _split_instances(shapes):
+    """Instance records and plain shapes -> (shapes in build order,
+    records, distinct groups, group index by group identity, first shape
+    of each group + the end). Flattened records become plain shapes; the
+    groups' shapes follow the plain ones, each group's once."""
+    inst_records = [s for s in shapes if isinstance(s, Instance)]
+    plain = [s for s in shapes if not isinstance(s, Instance)]
+    if inst_records and _should_flatten_instances(inst_records, plain):
+        for rec in inst_records:
+            for i, m in enumerate(rec.group):
+                _check_group_shape(m)
+                mi_ = (m.transformed(rec.to_world)
+                       if rec.to_world is not None else m.copy())
+                mi_.id = f"{rec.id}_g{i}" if rec.id else f"{m.id}_flat{i}"
+                plain.append(mi_)
+        inst_records = []
+    groups, group_of = [], {}
+    for rec in inst_records:
+        if id(rec.group) not in group_of:
+            group_of[id(rec.group)] = len(groups)
+            groups.append(rec.group)
+    ordered, group_shape0 = list(plain), []
+    for grp in groups:
+        if len(grp) == 0:
+            raise ValueError("instanced shapegroup is empty")
+        for sh in grp:
+            _check_group_shape(sh)
+        group_shape0.append(len(ordered))
+        ordered.extend(grp)
+    group_shape0.append(len(ordered))
+    return ordered, inst_records, group_of, group_shape0
+
+
+def _refuse_unsupported(shapes, sensor):
     for sh in shapes:
         if not isinstance(sh, MeshData):
-            raise NotImplementedError(
-                "mitsuba2_tpu_torch does not support instancing "
-                f"({type(sh).__name__}) yet")
+            raise TypeError(f"not a shape: {type(sh).__name__}")
         if sh.sphere_center is not None:
             raise NotImplementedError(
                 "mitsuba2_tpu_torch does not support analytic spheres yet")
@@ -152,11 +236,106 @@ def _refuse_unsupported(shapes, sensor, emitters):
             "mitsuba2_tpu_torch does not support camera motion blur yet")
 
 
-def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
-    """Host build: shapes + sensor -> dict of numpy tables (FIELDS), the
-    same arithmetic as the JAX package's _build_scene_impl for the
-    features this slice supports."""
-    _refuse_unsupported(shapes, sensor, emitters)
+def _flat_accel(bb_min, bb_max, CK):
+    """One BVH over every prim, cut into clusters: the cluster walk's cut
+    tree (rows [min, max, slot, pad, centroid (filled later), pad])."""
+    tree = bvh_mod.build_bvh(bb_min, bb_max)
+    oct_hit8, oct_miss8 = bvh_mod.build_octant_links(tree)
+    cl_id, cl_starts, cl_counts = bvh_mod.cluster_cut(tree, max_prims=CK)
+    cut_min, cut_max, cut_hit8, cut_miss8, cl_id_c = \
+        bvh_mod.cut_tree_tables(tree, cl_id, oct_hit8, oct_miss8)
+    R = cut_min.shape[0]
+    mxu_slot = np.where(cl_id_c >= 0, cl_id_c * CK, -1).astype(np.int32)
+    if len(cl_starts) * CK >= (1 << 24):
+        raise ValueError("cluster slot ids exceed the f32 exact-integer range")
+    slot_prim = np.full(max(len(cl_starts), 1) * CK, -1, np.int32)
+    for c, (s0, cnt) in enumerate(zip(cl_starts, cl_counts)):
+        slot_prim[c * CK: c * CK + cnt] = np.arange(s0, s0 + cnt)
+    return dict(
+        bvh_min=tree.bounds_min, bvh_max=tree.bounds_max,
+        mxu_node_f=np.concatenate(
+            [cut_min, cut_max, mxu_slot[:, None].astype(np.float32),
+             np.zeros((R, 9), np.float32)], -1),
+        mxu_link=np.concatenate(
+            [cut_hit8.reshape(R, 8), cut_miss8.reshape(R, 8)], -1),
+        slot_prim=slot_prim, row_cluster=cl_id_c, perm=tree.prim_order)
+
+
+def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
+                     bb_min, bb_max, CK):
+    """One BLAS per group (the plain shapes form the world group, entered
+    as instance 0 with the identity) and a TLAS over the instances' world
+    boxes, stitched twice: the BVH2 table (bvh_min/max, the K4 walk's)
+    and the cluster walk's [TLAS | per-group cut trees]."""
+    shape_bounds = np.concatenate([[0], np.cumsum(
+        np.bincount(pshape, minlength=n_shapes))]).astype(np.int64)
+    n_groups = len(group_shape0) - 1
+    g_ranges = [(shape_bounds[group_shape0[g]],
+                 shape_bounds[group_shape0[g + 1]]) for g in range(n_groups)]
+    world_range = (0, shape_bounds[group_shape0[0]])
+    world = world_range[1] > 0
+    blas_list, perm_parts = [], []
+    for (pb, pe) in ([world_range] if world else []) + g_ranges:
+        if pe == pb:
+            raise ValueError("instanced shapegroup has no primitives")
+        tree_g = bvh_mod.build_bvh(bb_min[pb:pe], bb_max[pb:pe])
+        h8, m8 = bvh_mod.build_octant_links(tree_g)
+        blas_list.append((tree_g, h8, m8, int(pb)))
+        perm_parts.append(tree_g.prim_order + pb)
+
+    inst_group = [0] if world else []
+    inst_mats = [np.eye(4, dtype=np.float32)] if world else []
+    goff = 1 if world else 0
+    for rec in inst_records:
+        inst_group.append(goff + group_of[id(rec.group)])
+        inst_mats.append(np.eye(4, dtype=np.float32)
+                         if rec.to_world is None else rec.to_world)
+    K = len(inst_group)
+    ib_min = np.empty((K, 3), np.float32)
+    ib_max = np.empty((K, 3), np.float32)
+    inst_inv = np.zeros((K, 16), np.float32)
+    inst_fwd = np.zeros((K, 16), np.float32)
+    for k, (g, M) in enumerate(zip(inst_group, inst_mats)):
+        # world box: the group root box's eight corners, moved in f32
+        lo = blas_list[g][0].bounds_min[0]
+        hi = blas_list[g][0].bounds_max[0]
+        corners = np.array([[lo[0] if i & 1 else hi[0],
+                             lo[1] if i & 2 else hi[1],
+                             lo[2] if i & 4 else hi[2]]
+                            for i in range(8)], np.float32)
+        wc = corners @ M[:3, :3].T + M[:3, 3]
+        ib_min[k], ib_max[k] = wc.min(0), wc.max(0)
+        det = float(np.linalg.det(M[:3, :3]))
+        if abs(det) < 1e-20:
+            raise ValueError("singular instance to_world transform")
+        inv = np.linalg.inv(M.astype(np.float64))[:3].astype(np.float32)
+        inst_inv[k, 0:12] = inv.reshape(-1)
+        inst_fwd[k, 0:12] = M[:3].reshape(-1)
+        inst_fwd[k, 12] = np.cbrt(abs(det))
+    tlas = bvh_mod.build_tlas(ib_min, ib_max)
+    stitched = bvh_mod.build_two_level(blas_list, inst_group, tlas)
+    two = bvh_mod.build_two_level_mxu(blas_list, inst_group, tlas, CK)
+    for k in range(K):
+        # col 12 indexes the per-instance root array by group id, exactly
+        # as the JAX package's build does (byte-equal tables)
+        inst_inv[k, 12] = float(stitched["blas_root"][inst_group[k]])
+        inst_inv[k, 13] = float(two["blas_root"][inst_group[k]])
+    return dict(
+        bvh_min=stitched["node_min"], bvh_max=stitched["node_max"],
+        mxu_node_f=two["node_f"], mxu_link=two["link"],
+        slot_prim=two["slot_prim"], row_cluster=two["row_cluster"],
+        perm=np.concatenate(perm_parts).astype(np.int32),
+        inst_inv=inst_inv, inst_fwd=inst_fwd,
+        inst_fuel=int(stitched["fuel"]), inst_mxu_fuel=int(two["fuel"]))
+
+
+def build_fields(shapes, sensor: dict, emitters=()) -> dict:
+    """Host build: shapes (meshes and Instance records) + sensor + shapeless
+    emitters -> dict of numpy tables (FIELDS, and INST_FIELDS for a
+    shared-BLAS scene), the same arithmetic as the JAX package's
+    _build_scene_impl for the features this slice supports."""
+    shapes, inst_records, group_of, group_shape0 = _split_instances(shapes)
+    _refuse_unsupported(shapes, sensor)
     mats, mat_key2idx = [], {}
 
     def add_material(desc) -> int:
@@ -169,7 +348,8 @@ def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
     p0s, e1s, e2s, n0s, n1s, n2s, uv0s, uv1s, uv2s = ([] for _ in range(9))
     ptypes, pshapes, pareas = [], [], []
     shape_mat, shape_emitter = [], []
-    emitter_descs = []   # (desc, shape index)
+    # (desc, shape index): the shapeless emitters first, as in the JAX build
+    emitter_descs = [(e, -1) for e in emitters]
     for s_idx, sh in enumerate(shapes):
         shape_mat.append(add_material(sh.bsdf))
         if sh.emitter is not None:
@@ -216,31 +396,22 @@ def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
     # --- prim AABBs, BVH, cluster cut ------------------------------------
     bb_min = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
     bb_max = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
-    tree = bvh_mod.build_bvh(bb_min, bb_max)
-    oct_hit8, oct_miss8 = bvh_mod.build_octant_links(tree)
     CK = _pick_cluster_k(p0.shape[0])
-    cl_id, cl_starts, cl_counts = bvh_mod.cluster_cut(tree, max_prims=CK)
-    cut_min, cut_max, cut_hit8, cut_miss8, cl_id_c = \
-        bvh_mod.cut_tree_tables(tree, cl_id, oct_hit8, oct_miss8)
-    R = cut_min.shape[0]
-    mxu_slot = np.where(cl_id_c >= 0, cl_id_c * CK, -1).astype(np.int32)
-    if len(cl_starts) * CK >= (1 << 24):
-        raise ValueError("cluster slot ids exceed the f32 exact-integer range")
-    mxu_node_f = np.concatenate(
-        [cut_min, cut_max, mxu_slot[:, None].astype(np.float32),
-         np.zeros((R, 9), np.float32)], -1)
-    mxu_link = np.concatenate(
-        [cut_hit8.reshape(R, 8), cut_miss8.reshape(R, 8)], -1)
-    slot_prim = np.full(max(len(cl_starts), 1) * CK, -1, np.int32)
-    for c, (s0, cnt) in enumerate(zip(cl_starts, cl_counts)):
-        slot_prim[c * CK: c * CK + cnt] = np.arange(s0, s0 + cnt)
-    perm = tree.prim_order
+    if inst_records:
+        acc = _instanced_accel(inst_records, group_of, group_shape0,
+                               len(shapes), pshape, bb_min, bb_max, CK)
+    else:
+        acc = _flat_accel(bb_min, bb_max, CK)
+    mxu_node_f, slot_prim = acc["mxu_node_f"], acc["slot_prim"]
+    row_cluster = acc["row_cluster"]
+    perm = acc["perm"]
     p0, e1, e2 = p0[perm], e1[perm], e2[perm]
     n0, n1, n2 = n0[perm], n1[perm], n2[perm]
     uv0, uv1, uv2 = uv0[perm], uv1[perm], uv2[perm]
     ptype, pshape, parea = ptype[perm], pshape[perm], parea[perm]
 
-    # --- cluster plane rows (recentred at each cluster's centroid) -------
+    # --- cluster plane rows (recentred at each cluster's centroid; local
+    # space in an instanced scene) ------------------------------------------
     sidx = np.maximum(slot_prim, 0)
     valid = (slot_prim >= 0)[:, None].astype(np.float32)
     cp0, ce1, ce2 = p0[sidx] * valid, e1[sidx] * valid, e2[sidx] * valid
@@ -259,19 +430,24 @@ def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
     fv[:, 3, :, 6:9] = cn.reshape(C, CK, 3)
     fv[:, 3, :, 9] = -np.sum(cp0 * cn, -1).reshape(C, CK)
     feat = np.ascontiguousarray(fv.reshape(4 * Sn, 16).T)
-    is_cl_node = cl_id_c >= 0
-    mxu_node_f[is_cl_node, 8:11] = cl_c[cl_id_c[is_cl_node]]
+    is_cl_node = row_cluster >= 0
+    mxu_node_f[is_cl_node, 8:11] = cl_c[row_cluster[is_cl_node]]
 
     # --- emitter tables ----------------------------------------------------
     E = max(len(emitter_descs), 1)
     emitter_rows = np.zeros((E, emitters_mod.EMIT_W), np.float32)
     emitter_types = np.zeros(E, np.int32)
     emitter_shapes = np.full(E, -1, np.int32)
+    env_emitter = -1
     for e_idx, (desc, s_idx) in enumerate(emitter_descs):
         etype, row = emitters_mod.pack_emitter(desc)
         emitter_types[e_idx] = etype
         emitter_rows[e_idx] = row
         emitter_shapes[e_idx] = s_idx
+        if etype == emitters_mod.CONSTANT:
+            if env_emitter >= 0:
+                raise ValueError("only one environment emitter is supported")
+            env_emitter = e_idx
     prim_lists = []
     for e_idx in range(E):
         s_idx = emitter_descs[e_idx][1] if e_idx < len(emitter_descs) else -1
@@ -299,11 +475,12 @@ def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
     cam_data[11] = float(sensor.get("shutter_close", np.inf))
     cam_data[0] = float(sensor.get("aperture_radius", 0.0))
     cam_data[1] = float(sensor.get("focus_distance", 1.0))
-    n_min, n_max = tree.bounds_min, tree.bounds_max
+    # the accel root is the world box in both layouts
+    n_min, n_max = acc["bvh_min"], acc["bvh_max"]
     cam_data[4:7] = 0.5 * (n_min[0] + n_max[0])
     cam_data[7] = max(float(np.linalg.norm(n_max[0] - n_min[0])) * 0.5, 1e-3)
 
-    return dict(
+    out = dict(
         prim_p0=p0, prim_e1=e1, prim_e2=e2, prim_n0=n0, prim_n1=n1,
         prim_n2=n2, prim_uv0=uv0, prim_uv1=uv1, prim_uv2=uv2,
         prim_type=ptype, prim_shape=pshape, prim_area=parea,
@@ -320,25 +497,55 @@ def build_fields(shapes: List[MeshData], sensor: dict, emitters=()) -> dict:
         cam_fov_x=np.float32(sensor.get("fov", 45.0)),
         cam_data=cam_data,
         mxu_node_f=mxu_node_f.astype(np.float32),
-        mxu_link=mxu_link.astype(np.int32),
+        mxu_link=acc["mxu_link"].astype(np.int32),
         cluster_slot_prim=slot_prim, mxu_feat=feat)
+    if inst_records:
+        out.update({k: acc[k] for k in INST_FIELDS})
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Shading record (Shape::compute_surface_interaction, triangles)
 # ---------------------------------------------------------------------------
 
-def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v
-                                ) -> SurfaceInteraction:
-    """Preliminary hit (t, prim, u, v) -> full shading record, with the
-    exact f32 Möller–Trumbore re-solve of (u, v, t) for the winning
-    triangle (the cluster walk emits u = v = 0)."""
+def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
+                                inst=None) -> SurfaceInteraction:
+    """Preliminary hit (t, prim, u, v[, inst]) -> full shading record, with
+    the exact f32 Möller–Trumbore re-solve of (u, v, t) for the winning
+    triangle (the cluster walks emit u = v = 0). On an instanced scene the
+    hit's local-space prim is first lifted to world space by its instance's
+    transform: points and edges by inst_fwd, shading normals by the
+    inverse transpose (the columns of inst_inv's 3x3)."""
     idx = torch.clamp_min(prim, 0).long()
     valid = torch.isfinite(t) & (prim >= 0)
     ptype = scene.prim_type[idx]
     p0x, p0y, p0z = scene.prim_p0[idx].unbind(1)
     e1x, e1y, e1z = scene.prim_e1[idx].unbind(1)
     e2x, e2y, e2z = scene.prim_e2[idx].unbind(1)
+    lift = scene.has_instances and inst is not None
+    if lift:
+        iid = torch.clamp_min(inst, 0).long()
+        fw = scene.inst_fwd[iid].unbind(1)
+        iv = scene.inst_inv[iid].unbind(1)
+
+        def w_point(x, y, z):
+            return (fw[0] * x + fw[1] * y + fw[2] * z + fw[3],
+                    fw[4] * x + fw[5] * y + fw[6] * z + fw[7],
+                    fw[8] * x + fw[9] * y + fw[10] * z + fw[11])
+
+        def w_vec(x, y, z):
+            return (fw[0] * x + fw[1] * y + fw[2] * z,
+                    fw[4] * x + fw[5] * y + fw[6] * z,
+                    fw[8] * x + fw[9] * y + fw[10] * z)
+
+        def w_normal(x, y, z):
+            return (iv[0] * x + iv[4] * y + iv[8] * z,
+                    iv[1] * x + iv[5] * y + iv[9] * z,
+                    iv[2] * x + iv[6] * y + iv[10] * z)
+
+        p0x, p0y, p0z = w_point(p0x, p0y, p0z)
+        e1x, e1y, e1z = w_vec(e1x, e1y, e1z)
+        e2x, e2y, e2z = w_vec(e2x, e2y, e2z)
 
     def norm3(x, y, z):
         inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
@@ -371,6 +578,10 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v
     n0x, n0y, n0z = scene.prim_n0[idx].unbind(1)
     n1x, n1y, n1z = scene.prim_n1[idx].unbind(1)
     n2x, n2y, n2z = scene.prim_n2[idx].unbind(1)
+    if lift:
+        n0x, n0y, n0z = w_normal(n0x, n0y, n0z)
+        n1x, n1y, n1z = w_normal(n1x, n1y, n1z)
+        n2x, n2y, n2z = w_normal(n2x, n2y, n2z)
     ns = Vec3(*norm3(n0x * w + n1x * u + n2x * v,
                      n0y * w + n1y * u + n2y * v,
                      n0z * w + n1z * u + n2z * v))
@@ -397,7 +608,12 @@ SORT_DIRBITS = 9    # direction bucket: 3 bits per axis, as the JAX default
 
 
 def _pick_backend(scene) -> str:
+    """Instanced scenes need the instance-aware walk whatever their size:
+    their prim tables are local-space, which brute force would test as
+    they stand."""
     from ..kernels import brute
+    if scene.has_instances:
+        return "instanced"
     return "brute" if scene.n_prims <= brute.MAX_BRUTE_PRIMS else "cluster"
 
 
@@ -437,32 +653,43 @@ def _unsort(values, lane):
 
 
 def _preliminary_dispatch(scene, ray: Ray, sort=None):
-    """Closest-hit query: (t, prim, u, v). `sort=None` presorts wavefronts
-    of SORT_MIN_LANES lanes or more; False skips it (primary rays)."""
+    """Closest-hit query: (t, prim, u, v, inst), inst None except on an
+    instanced scene. `sort=None` presorts wavefronts of SORT_MIN_LANES
+    lanes or more; False skips it (primary rays)."""
     from ..kernels import brute, traverse
-    if _pick_backend(scene) == "brute":
-        return brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt)
+    backend = _pick_backend(scene)
+    if backend == "brute":
+        return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
+                None)
+    fn = (traverse.ray_intersect_instanced if backend == "instanced"
+          else traverse.ray_intersect_preliminary)
     n = ray.o.x.shape[0]
     if (n >= SORT_MIN_LANES) if sort is None else sort:
-        (t, prim, u, v), lane = _presorted(
-            scene, ray.o, ray.d, ray.maxt, traverse.ray_intersect_preliminary)
-        return _unsort(t, lane), _unsort(prim, lane), u, v
-    return traverse.ray_intersect_preliminary(scene, ray.o, ray.d, ray.maxt)
+        outs, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
+        # the cluster walks emit u = v = 0: only the others need unsorting
+        t, prim, u, v = (_unsort(outs[0], lane), _unsort(outs[1], lane),
+                         outs[2], outs[3])
+        inst = _unsort(outs[4], lane) if backend == "instanced" else None
+        return t, prim, u, v, inst
+    outs = fn(scene, ray.o, ray.d, ray.maxt)
+    return (*outs, None) if backend == "cluster" else outs
 
 
 def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
     """Scene::ray_intersect — closest hit + shading record."""
-    t, prim, u, v = _preliminary_dispatch(scene, ray, sort=sort)
-    return compute_surface_interaction(scene, ray, t, prim, u, v)
+    t, prim, u, v, inst = _preliminary_dispatch(scene, ray, sort=sort)
+    return compute_surface_interaction(scene, ray, t, prim, u, v, inst)
 
 
 def ray_test(scene, ray: Ray) -> torch.Tensor:
     """Scene::ray_test — occlusion within ray.maxt."""
     from ..kernels import brute, traverse
-    if _pick_backend(scene) == "brute":
+    backend = _pick_backend(scene)
+    if backend == "brute":
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
+    fn = (traverse.ray_test_instanced if backend == "instanced"
+          else traverse.ray_test)
     if ray.o.x.shape[0] >= SORT_MIN_LANES:
-        occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt,
-                               traverse.ray_test)
+        occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
         return _unsort(occ, lane)
-    return traverse.ray_test(scene, ray.o, ray.d, ray.maxt)
+    return fn(scene, ray.o, ray.d, ray.maxt)

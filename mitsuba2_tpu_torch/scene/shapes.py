@@ -1,5 +1,5 @@
 """Procedural shape constructors (host, numpy; counterpart of
-scene/shapes.py, triangle meshes only)."""
+scene/shapes.py, triangle meshes only) and shared-BLAS instances."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +22,9 @@ class MeshData:
     emitter: Optional[object] = None       # emitter descriptor (dict) or None
     interior: Optional[object] = None      # interior medium descriptor
     id: str = ""
+
+    def copy(self) -> "MeshData":
+        return dataclasses.replace(self)
 
     def transformed(self, to_world) -> "MeshData":
         """Apply a host 4x4 matrix."""
@@ -81,3 +84,38 @@ def mesh(vertices, faces, normals=None, uvs=None, bsdf=None, emitter=None,
                     normals=None if normals is None else np.asarray(normals, np.float32),
                     uvs=None if uvs is None else np.asarray(uvs, np.float32),
                     bsdf=bsdf, emitter=emitter, id=id)
+
+
+@dataclasses.dataclass
+class Instance:
+    """A shared-BLAS instance of a shapegroup (instance.cpp). The group's
+    meshes are stored once, in instance-local space; `build_scene` builds
+    one BLAS per distinct group (by identity) and a TLAS over the
+    instances' world boxes, and the traversal enters instance space at
+    each instance leaf."""
+    group: tuple       # MeshData tuple, shared by identity
+    to_world: Optional[np.ndarray] = None   # (4, 4) f32, None = identity
+    id: str = ""
+
+
+def shapegroup(shapes, id: str = "") -> tuple:
+    """Named collection of shapes for instancing (shapegroup.cpp): the
+    handle `instance()` takes; instances of one handle share one BLAS."""
+    return tuple(shapes)
+
+
+def instance(group, to_world=None, id: str = "", flatten: bool = False):
+    """Instance a shapegroup under a transform (instance.cpp): a shared
+    `Instance` record, or with `flatten=True` the group's meshes
+    transformed to world space (a list of MeshData)."""
+    if not flatten:
+        return Instance(group=tuple(group),
+                        to_world=None if to_world is None
+                        else np.asarray(to_world, np.float32).reshape(4, 4),
+                        id=id)
+    out = []
+    for i, m in enumerate(group):
+        mi_ = m.transformed(to_world) if to_world is not None else m.copy()
+        mi_.id = f"{id}_inst{i}" if id else f"{m.id}_inst{i}"
+        out.append(mi_)
+    return out

@@ -110,7 +110,10 @@ def test_unsupported_features_raise_by_name(feature):
     elif feature == "medium":
         mesh.interior = {"type": "homogeneous"}
     elif feature == "instance":
-        mesh = object()
+        ball = shapes.rectangle()
+        ball.sphere_center, ball.sphere_radius = np.zeros(3), 1.0
+        mesh = shapes.instance(shapes.shapegroup([shapes.cube(), ball]),
+                               np.eye(4))
     elif feature == "envmap":
         emitters = ({"type": "envmap"},)
     elif feature == "texture":
@@ -123,8 +126,8 @@ def test_unsupported_features_raise_by_name(feature):
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
     names = {"sphere": "spheres", "medium": "media", "instance":
-             "instancing", "envmap": "shapeless emitters", "texture":
-             "bitmap", "plastic": "plastic", "twosided": "twosided",
+             "spheres", "envmap": "envmap", "texture": "bitmap",
+             "plastic": "plastic", "twosided": "twosided",
              "orthographic": "orthographic"}
     with pytest.raises(NotImplementedError, match=names[feature]):
         build_scene([mesh], sensor, emitters, device="cpu")

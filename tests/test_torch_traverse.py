@@ -56,7 +56,7 @@ class Case:
     def _closest_np(self, o, d, t_max):
         t, prim, _, _ = traverse.ray_intersect_preliminary(
             self.st, planar(o), planar(d), torch.from_numpy(t_max))
-        return t.numpy(), prim.numpy()
+        return t.numpy(), prim.numpy(), None
 
     def memo(self, key, fn):
         if key not in self._memo:
@@ -139,8 +139,11 @@ def test_presort_dispatch_matches_unsorted(case):
     tm = tm.copy()
     tm[::7] = 0.0                           # dead lanes sort to the back
     ray = Ray(planar(o), planar(d), torch.from_numpy(tm))
-    t_s, p_s, _, _ = scene_mod._preliminary_dispatch(case.st, ray, sort=True)
-    t_u, p_u, _, _ = scene_mod._preliminary_dispatch(case.st, ray, sort=False)
+    t_s, p_s, _, _, i_s = scene_mod._preliminary_dispatch(case.st, ray,
+                                                          sort=True)
+    t_u, p_u, _, _, i_u = scene_mod._preliminary_dispatch(case.st, ray,
+                                                          sort=False)
+    assert i_s is None and i_u is None
     assert torch.equal(t_s, t_u) and torch.equal(p_s, p_u)
     assert not torch.isfinite(t_s[::7]).any()
     key = scene_mod.coherence_key(case.st, ray.o, ray.d, ray.maxt)
@@ -198,14 +201,14 @@ _SHIM = r"""
 struct float4 { float x, y, z, w; };
 struct dim3_ { unsigned x; };
 static dim3_ blockIdx, threadIdx, blockDim;
-// loads that fall in each of two tables, counted as the kernels make them
+// loads that fall in each of three tables, counted as the kernels make them
 extern "C" {
-const char* emu_lo[2];
-const char* emu_hi[2];
-long long emu_loads[2];
+const char* emu_lo[3];
+const char* emu_hi[3];
+long long emu_loads[3];
 }
 template <class T> inline T __ldg(const T* p) {
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 3; ++i)
     if ((const char*)p >= emu_lo[i] && (const char*)p < emu_hi[i]) ++emu_loads[i];
   return *p;
 }
@@ -224,13 +227,13 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 """
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    tmp_path = tmp_path_factory.mktemp("cluster_walk_emu")
+def build_emulation(tmp_path):
+    """csrc/cluster_walk.cu compiled with g++ through _SHIM, loaded with
+    the wrappers' C signatures."""
     src = open(traverse._SRC).read()
     src, n = re.subn(r"(\w+_kernel)<<<grid, BLOCK, 0, \(cudaStream_t\)stream>>>\(",
                      r"EMU_LAUNCH(grid, BLOCK, \1, ", src)
-    assert n == 2
+    assert n == 4
     (tmp_path / "cuda_runtime.h").write_text(_SHIM)
     (tmp_path / "cw.cpp").write_text(src)
     so = tmp_path / "libcw.so"
@@ -240,6 +243,26 @@ def emulated(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     traverse._declare(lib)
     return lib
+
+
+def load_counters(lib, tables):
+    """Point the emulation's load counters at up to three tables; returns
+    the (3,) counter array, zeroed."""
+    lo = (ctypes.c_void_p * 3).in_dll(lib, "emu_lo")
+    hi = (ctypes.c_void_p * 3).in_dll(lib, "emu_hi")
+    loads = (ctypes.c_longlong * 3).in_dll(lib, "emu_loads")
+    for i in range(3):
+        a = tables[i] if i < len(tables) else None
+        lo[i] = a.data_ptr() if a is not None else 0
+        hi[i] = (a.data_ptr() + a.numel() * a.element_size()
+                 if a is not None else 0)
+        loads[i] = 0
+    return loads
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return build_emulation(tmp_path_factory.mktemp("cluster_walk_emu"))
 
 
 def test_cuda_source_emulated_matches_twins(case, emulated):
@@ -279,12 +302,7 @@ def test_twin_counts_kernel_work(case, emulated, kind):
     rays = (*planar(o).__dict__.values(), *planar(d).__dict__.values(),
             torch.from_numpy(tm))
     n = tm.shape[0]
-    lo = (ctypes.c_void_p * 2).in_dll(lib, "emu_lo")
-    hi = (ctypes.c_void_p * 2).in_dll(lib, "emu_hi")
-    loads = (ctypes.c_longlong * 2).in_dll(lib, "emu_loads")
-    for i, a in enumerate((st.mxu_node_f, st.cluster_feat)):
-        lo[i] = a.data_ptr()
-        hi[i] = a.data_ptr() + a.numel() * a.element_size()
+    loads = load_counters(lib, (st.mxu_node_f, st.cluster_feat))
     ptrs = [a.data_ptr() for a in tabs + rays]
     dims = (n, st.mxu_node_f.shape[0], st.cluster_k, None)
     out = (torch.empty(n), torch.empty(n, dtype=torch.int32))
