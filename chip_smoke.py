@@ -3,34 +3,44 @@
 
     python3 chip_smoke.py
 
-Two main paths, each a forward render at 256x256, 16 spp in one pass,
+Four main paths, each a forward render at 256x256, 16 spp in one pass,
 max_depth 3 through `mitsuba2_tpu_torch.render`:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
   instanced  instanced_field(n=1024, subdiv=4), 1 024 shared-BLAS instances
              of one 5 120-triangle blob, 5 242 882 effective triangles: the
-             instanced cluster walk (K5 closest hit and any hit).
+             instanced cluster walk (K5 closest hit and any hit);
+  spheres    the sphere field (instanced_field's construction with a sphere
+             added to the group, built here from the shape API) at n=64,
+             subdiv=4: 327 746 prims, 64 of them spheres, which the JAX
+             package's policy flattens: the BVH2 walk (K3);
+  spheres_instanced  the sphere field at n=1024, subdiv=4: 5 243 906
+             effective prims from 5 123 stored, kept shared: the instanced
+             BVH2 walk (K4).
 
 Phase 0  the card, torch, CUDA and nvcc.
 Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu, nvcc -> ctypes) and
          the C++ BVH builder from the checkout's sources.
 Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
-         traces (camera, first bounce, shadow, random).
+         traces (camera, first bounce, shadow, random; on the sphere
+         fields a quarter of the random rays aim into the spheres).
 Phase 3  renders each path: launch counts (set to 0 just before the path's
          renders, read just after), time, Mrays/s, peak memory. Each kernel
          is then timed and held against its twin on the very inputs the
          main path gave it, beside its bound.
 Phase 4  small renders on the card against the same renders on the CPU
-         (twins and brute force there): the cluster, instanced and
-         brute-force paths.
+         (twins and brute force there): the cluster, instanced, BVH2 and
+         instanced BVH2 paths and brute force, with and without a sphere.
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind, and the device's busy share.
 
-Prints the card's `nvidia-smi` name and power limit, a JSON line
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}. Exits non-zero
-without printing a result when there is no CUDA device or a phase fails.
+Prints each phase's wall time, the card's `nvidia-smi` name and power
+limit, a JSON line {"kernels": [...]} and, last, {"ok": true, "device":
+{...}}. Exits non-zero without printing a result when there is no CUDA
+device or a phase fails.
 """
+import functools
 import json
 import os
 import shutil
@@ -49,13 +59,22 @@ PEAK_FP32_PER_S = 67e12
 # and v numerators (11 each), the t numerator (6), one divide, three
 # scalings and u + v (4); comparisons are not counted
 FLOPS_PER_SLOT = 38
-# one slab test of a cut-tree node: 6 subtractions and 6 multiplications
+# one slab test of a node: 6 subtractions and 6 multiplications
 FLOPS_PER_NODE = 12
 # one instance entry: the 3x4 transform of o (18) and d (15), 3 reciprocals
 FLOPS_PER_ENTRY = 36
-# the two paths' scenes, rendered at bench.py's forward-render config
+# one prim test of the BVH2 walks (csrc/cluster_walk.cu::prim_test): a
+# triangle by Möller–Trumbore, a sphere by the stable quadratic
+FLOPS_PER_TRI = 46
+FLOPS_PER_SPHERE = 31
+# the walk work the twins count, as printed per lane
+WORK_COUNTS = ("node_steps", "cluster_visits", "slot_tests", "tri_tests",
+               "sphere_tests", "instance_entries")
+# the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
 FIELD = dict(n=1024, subdiv=4)
+SPHERE_FIELDS = {"spheres": dict(n=64, subdiv=4),
+                 "spheres_instanced": dict(n=1024, subdiv=4)}
 RENDER = dict(width=256, height=256, spp=16, spp_per_pass=16, max_depth=3,
               rr_depth=8)
 RAYS_PER_PASS = (RENDER["width"] * RENDER["height"] * RENDER["spp_per_pass"]
@@ -63,6 +82,9 @@ RAYS_PER_PASS = (RENDER["width"] * RENDER["height"] * RENDER["spp_per_pass"]
 N_PROBE = 65536
 DEVICE = "cuda:0"
 KERNEL_REPS = 20
+# ~0.1 s of the device's clock: ample for the host to queue KERNEL_REPS
+# launches ahead of it
+SLEEP_CYCLES = 200_000_000
 SRC = "mitsuba2_tpu_torch/csrc/cluster_walk.cu"
 PALLAS = "mitsuba2_tpu/kernels/traverse_pallas.py"
 REPLACES = {
@@ -70,14 +92,22 @@ REPLACES = {
     "cluster_any_hit": (f"{PALLAS}:755", f"{PALLAS}:944"),
     "inst_cluster_closest_hit": (f"{PALLAS}:1746", None),
     "inst_cluster_any_hit": (f"{PALLAS}:1856", None),
+    "bvh_closest_hit": (f"{PALLAS}:250", None),
+    "bvh_any_hit": (f"{PALLAS}:309", None),
+    "inst_bvh_closest_hit": (f"{PALLAS}:1382", None),
+    "inst_bvh_any_hit": (f"{PALLAS}:1486", None),
 }
-# launches per render of each path
+# each path's closest-hit and any-hit kernels: 3 and 2 launches a render
+# (the camera and two bounce wavefronts, two shadow rounds), 0 of the rest
+PATH_KERNELS = {
+    "gallery": ("cluster_closest_hit", "cluster_any_hit"),
+    "instanced": ("inst_cluster_closest_hit", "inst_cluster_any_hit"),
+    "spheres": ("bvh_closest_hit", "bvh_any_hit"),
+    "spheres_instanced": ("inst_bvh_closest_hit", "inst_bvh_any_hit"),
+}
 EXPECTED_LAUNCHES = {
-    "gallery": {"cluster_closest_hit": 3, "cluster_any_hit": 2,
-                "inst_cluster_closest_hit": 0, "inst_cluster_any_hit": 0},
-    "instanced": {"cluster_closest_hit": 0, "cluster_any_hit": 0,
-                  "inst_cluster_closest_hit": 3, "inst_cluster_any_hit": 2},
-}
+    path: {k: 3 if k == c else 2 if k == a else 0 for k in REPLACES}
+    for path, (c, a) in PATH_KERNELS.items()}
 
 
 class SmokeFailure(Exception):
@@ -146,9 +176,30 @@ def planar(torch, a, dev):
 
 
 def kernels_of(scene):
-    """The path's two kernel wrappers, their twins, tables and trailing
-    arguments: the instanced walk on an instanced scene, else the flat."""
+    """The path's two kernel wrappers, their twins, tables, trailing
+    arguments, the positions of the id outputs (slot or prim, instance),
+    whether the closest hit emits u/v (outputs 2 and 3) and the twins'
+    chunk: the BVH2 walks on a scene holding a sphere, the
+    cluster walks on the others, each instanced on an instanced scene."""
     from mitsuba2_tpu_torch.kernels import traverse
+    if scene.has_spheres:
+        # the BVH2 twins walk a whole wavefront as one chunk: their loop
+        # runs as long as the longest walk in a chunk
+        tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_prim)
+        if scene.has_instances:
+            return dict(
+                closest="inst_bvh_closest_hit", any="inst_bvh_any_hit",
+                closest_plain=traverse.inst_bvh_closest_hit_plain,
+                any_plain=traverse.inst_bvh_any_hit_plain,
+                tabs=tabs + (scene.inst_inv, scene.inst_bvh_root),
+                extra=(scene.inst_fuel + 64,), ids=(1, 4), uv=True,
+                chunk=1 << 20)
+        return dict(
+            closest="bvh_closest_hit", any="bvh_any_hit",
+            closest_plain=traverse.bvh_closest_hit_plain,
+            any_plain=traverse.bvh_any_hit_plain, tabs=tabs,
+            extra=(scene.bvh_node.shape[0] + 64,), ids=(1,), uv=True,
+            chunk=1 << 20)
     if scene.has_instances:
         return dict(
             closest="inst_cluster_closest_hit", any="inst_cluster_any_hit",
@@ -156,13 +207,14 @@ def kernels_of(scene):
             any_plain=traverse.inst_any_hit_plain,
             tabs=(scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
                   scene.inst_inv),
-            extra=(scene.cluster_k, scene.inst_mxu_fuel + 64))
+            extra=(scene.cluster_k, scene.inst_mxu_fuel + 64), ids=(1, 2),
+            uv=False, chunk=65536)
     return dict(
         closest="cluster_closest_hit", any="cluster_any_hit",
         closest_plain=traverse.closest_hit_plain,
         any_plain=traverse.any_hit_plain,
         tabs=(scene.mxu_node_f, scene.mxu_link, scene.cluster_feat),
-        extra=(scene.cluster_k,))
+        extra=(scene.cluster_k,), ids=(1,), uv=False, chunk=65536)
 
 
 def wrapper(name):
@@ -181,22 +233,27 @@ def compare(torch, ks, rays):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     st_c, st_a = {}, {}
     ev[0].record()
-    out_p = ks["closest_plain"](*tabs, *rays, *extra, chunk=65536,
+    out_p = ks["closest_plain"](*tabs, *rays, *extra, chunk=ks["chunk"],
                                 stats=st_c)
     ev[1].record()
-    occ_p = ks["any_plain"](*tabs, *rays, *extra, chunk=65536, stats=st_a)
+    occ_p = ks["any_plain"](*tabs, *rays, *extra, chunk=ks["chunk"],
+                            stats=st_a)
     ev[2].record()
     torch.cuda.synchronize()
     t_k, t_p = out_k[0], out_p[0]
     hit_k, hit_p = torch.isfinite(t_k), torch.isfinite(t_p)
     both = hit_k & hit_p
-    # slot, and on the instanced walk the instance, of the same hit
+    # slot or prim, and on the instanced walks the instance, of the same hit
     same = both
-    for a, b in zip(out_k[1:], out_p[1:]):
-        same = same & (a == b)
+    for i in ks["ids"]:
+        same = same & (out_k[i] == out_p[i])
     n_hit = int(hit_p.sum())
     dt = (t_k - t_p).abs()
     tol = 1e-5 * t_p.abs()
+    uv_err = 0.0
+    if ks["uv"] and bool(same.any()):
+        uv_err = max(float((out_k[i] - out_p[i])[same].abs().max())
+                     for i in (2, 3))
     return {
         "hit_equal": bool(torch.equal(hit_k, hit_p)),
         "hit_frac": n_hit / t_p.numel(),
@@ -204,6 +261,7 @@ def compare(torch, ks, rays):
         "t_ok_same": bool((dt[same] <= tol[same]).all()),
         "t_ok_tie": bool((dt[both & ~same] <= tol[both & ~same]).all()),
         "t_max_abs_err": float(dt[both].max()) if bool(both.any()) else 0.0,
+        "uv_max_abs_err": uv_err,
         "occ_agree": float((occ_k == occ_p).float().mean()),
         "occ_max_abs_err": float((occ_k.int() - occ_p.int()).abs().max()),
         "closest_plain_ms": ev[0].elapsed_time(ev[1]),
@@ -214,12 +272,50 @@ def compare(torch, ks, rays):
 
 def passes(c):
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
-            and c["t_ok_tie"] and c["occ_agree"] >= 0.999)
+            and c["t_ok_tie"] and c["occ_agree"] >= 0.999
+            and c["uv_max_abs_err"] <= 1e-5)
+
+
+def sphere_field(mt, n, subdiv, device):
+    """presets.instanced_field(n, subdiv) with a sphere in the group (the
+    displaced icosphere blob and a 0.3-radius cap above it), built from the
+    shape API; the build keeps the JAX package's flatten policy."""
+    from mitsuba2_tpu_torch.core.geometry import Transform4 as T4
+    from mitsuba2_tpu_torch.scene import presets as P, shapes as sh
+    rng = np.random.default_rng(7)
+    base_v, faces = P._icosphere(subdiv)
+    blob = sh.mesh(P._displace(base_v.copy(), seed=3), faces,
+                   bsdf={"type": "diffuse", "reflectance": [0.55, 0.5, 0.4]},
+                   id="blob")
+    cap = sh.sphere(center=(0, 1.4, 0), radius=0.3,
+                    bsdf={"type": "diffuse", "reflectance": [0.8, 0.8, 0.8]},
+                    id="cap")
+    grp = sh.shapegroup([blob, cap], id="blob_grp")
+    side = int(np.ceil(np.sqrt(n)))
+    s = [P._quad([-side, 0, -side], [-side, 0, side], [side, 0, side],
+                 [side, 0, -side],
+                 bsdf={"type": "diffuse", "reflectance": P.WHITE},
+                 id="ground")]
+    for k in range(n):
+        i, j = divmod(k, side)
+        t = (T4.translate([2.0 * i - side + 1.0,
+                           0.45 + 0.15 * float(rng.uniform()),
+                           2.0 * j - side + 1.0])
+             @ T4.rotate([0, 1, 0], float(rng.uniform(0, 360)))
+             @ T4.scale([0.35 + 0.15 * float(rng.uniform())] * 3))
+        s.append(sh.instance(grp, np.asarray(t.matrix), id=f"b{k}"))
+    cam = T4.look_at(origin=[0.0, side * 0.8, -side * 1.6],
+                     target=[0.0, 0.3, 0.0], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 55.0}
+    return mt.build_scene(
+        s, sensor, [{"type": "constant", "radiance": [0.9, 0.95, 1.0]}],
+        device=device)
 
 
 def phase_kernels_vs_twins(torch, mt, dev):
-    """Each path's scene (gallery, instanced) and its kernels against
-    their twins on probe rays; returns the scenes."""
+    """Each path's scene and its kernels against their twins on probe
+    rays; returns the scenes."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -233,6 +329,20 @@ def phase_kernels_vs_twins(torch, mt, dev):
         f"{time.perf_counter() - t0:.1f} s; instanced: {field.n_prims} "
         f"stored prims, {field.inst_inv.shape[0]} instances, walk fuel "
         f"{field.inst_mxu_fuel + 64}")
+    for path, kw in SPHERE_FIELDS.items():
+        t0 = time.perf_counter()
+        scene = scenes[path] = sphere_field(mt, device=dev, **kw)
+        check(scene.has_spheres and scene.has_instances == (
+            path == "spheres_instanced"), f"{path}: policy took the other "
+              "route (flattened or shared)")
+        fuel = (scene.inst_fuel if scene.has_instances
+                else scene.bvh_node.shape[0]) + 64
+        log(f"phase 2: built sphere_field(n={kw['n']}, subdiv="
+            f"{kw['subdiv']}) in {time.perf_counter() - t0:.1f} s: "
+            f"{'shared BLAS' if scene.has_instances else 'flattened'}, "
+            f"{scene.n_prims} stored prims "
+            f"({int((scene.prim_type == 1).sum())} spheres), "
+            f"{scene.bvh_node.shape[0]} BVH2 rows, walk fuel {fuel}")
     ok = True
     for path, scene in scenes.items():
         def closest_np(o, d, t_max):
@@ -256,10 +366,11 @@ def phase_kernels_vs_twins(torch, mt, dev):
             c = compare(torch, ks, args)
             good = passes(c)
             ok &= good
-            log(f"phase 2: {path:9s} {kind:7s} {'ok  ' if good else 'FAIL'} "
+            log(f"phase 2: {path:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
                 f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
                 f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
-                f"{c['t_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f}")
+                f"{c['t_max_abs_err']:.3e} uv-max-abs-err "
+                f"{c['uv_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f}")
     check(ok, "a kernel disagrees with its twin on the probe rays")
     return scenes
 
@@ -268,20 +379,22 @@ def phase_kernels_vs_twins(torch, mt, dev):
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-ENTRY_KERNELS = {"ray_intersect_preliminary": "cluster_closest_hit",
-                 "ray_test": "cluster_any_hit",
-                 "ray_intersect_instanced": "inst_cluster_closest_hit",
-                 "ray_test_instanced": "inst_cluster_any_hit"}
+# the traversal entry points, by the kind of kernel they reach
+ENTRY_KIND = {"ray_intersect_preliminary": "closest", "ray_test": "any",
+              "ray_intersect_instanced": "closest",
+              "ray_test_instanced": "any"}
 
 
-def _recorders(traverse, record):
+def _recorders(traverse, record, ks):
     """Stand-ins for the traversal entry points that keep a copy of each
-    call's rays (the kernel wrappers' inputs) and then make the call."""
-    orig = {k: getattr(traverse, k) for k in ENTRY_KERNELS}
+    call's rays (the kernel wrappers' inputs) under the name of the
+    kernel the scene's entry reaches (`ks`, kernels_of's), then make the
+    call."""
+    orig = {k: getattr(traverse, k) for k in ENTRY_KIND}
 
     def wrap(name):
         def rec(scene, ray_o, ray_d, t_max):
-            record.append((ENTRY_KERNELS[name], [a.clone() for a in (
+            record.append((ks[ENTRY_KIND[name]], [a.clone() for a in (
                 ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z,
                 t_max)]))
             return orig[name](scene, ray_o, ray_d, t_max)
@@ -290,10 +403,16 @@ def _recorders(traverse, record):
 
 
 def kernel_ms(torch, fn, reps):
+    """Device time of one call of `fn`, the mean over `reps` back-to-back
+    launches. The device sleeps first while the host queues them all, so
+    the events time the kernels and not the wrappers' host cost, which
+    would otherwise show between launches of the sub-millisecond BVH2
+    walks."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     e0.record()
     for _ in range(reps):
         fn()
@@ -309,9 +428,10 @@ def phase_main_path(torch, mt, path, scene, card):
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
     names = list(EXPECTED_LAUNCHES[path])
+    ks = kernels_of(scene)
 
     record = []
-    orig, rec = _recorders(traverse, record)
+    orig, rec = _recorders(traverse, record, ks)
     for k, f in rec.items():
         setattr(traverse, k, f)
     try:
@@ -322,6 +442,12 @@ def phase_main_path(torch, mt, path, scene, card):
     torch.cuda.synchronize()
 
     times, counts = [], None
+    # every path's scene stays resident: the render's own memory is its
+    # peak above what was allocated before it, beside its scene's tables
+    scene_bytes = sum(v.numel() * v.element_size()
+                      for v in vars(scene).values() if torch.is_tensor(v))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for r in range(3):
         for k in names:
@@ -347,7 +473,10 @@ def phase_main_path(torch, mt, path, scene, card):
         f"depth {cfg.max_depth} on {card}: median {med * 1e3:.1f} ms of "
         f"{[round(t * 1e3, 1) for t in times]}, "
         f"{RAYS_PER_PASS / med / 1e6:.3f} Mrays/s, peak memory "
-        f"{peak / 2**20:.0f} MiB, image mean {mean:.6f}")
+        f"{peak / 2**20:.0f} MiB of which {resident / 2**20:.0f} MiB "
+        f"resident before the render (all paths' scenes): the render's "
+        f"working set {(peak - resident) / 2**20:.0f} MiB over its scene's "
+        f"{scene_bytes / 2**20:.0f} MiB of tables; image mean {mean:.6f}")
     log(f"kernels launched per render: {json.dumps(counts)}")
     for k, n in EXPECTED_LAUNCHES[path].items():
         check(counts[k] == n, f"{path}: {k}: {counts[k]} launches, "
@@ -355,7 +484,6 @@ def phase_main_path(torch, mt, path, scene, card):
         check(n == 0 or counts[k] > 0, f"{k} was not launched on {path}")
 
     # each kernel at the main path's shapes: time, twin, bound
-    ks = kernels_of(scene)
     per = {k: {"ms": [], "plain_ms": [], "bound_ms": [], "err": 0.0,
                "bound_by": []} for k in (ks["closest"], ks["any"])}
     tabs, extra = ks["tabs"], ks["extra"]
@@ -370,12 +498,16 @@ def phase_main_path(torch, mt, path, scene, card):
         closest = name == ks["closest"]
         st = c["closest_stats" if closest else "any_stats"]
         # the work this run's rays need: an any-hit lane stops at its first
-        # hit, so it tests only part of its last cluster
+        # hit, so it tests only part of its last cluster or leaf
         ops = (st.get("slot_tests", 0) * FLOPS_PER_SLOT
                + st.get("node_steps", 0) * FLOPS_PER_NODE
-               + st.get("instance_entries", 0) * FLOPS_PER_ENTRY)
-        # t and slot (and the instance) a lane, or the occlusion byte
-        out_bytes = (12 if scene.has_instances else 8) if closest else 1
+               + st.get("instance_entries", 0) * FLOPS_PER_ENTRY
+               + st.get("tri_tests", 0) * FLOPS_PER_TRI
+               + st.get("sphere_tests", 0) * FLOPS_PER_SPHERE)
+        # t and slot or prim (and u, v on the BVH2 walks, the instance on
+        # the instanced ones) a lane, or the occlusion byte
+        out_bytes = (4 * (2 + 2 * scene.has_spheres + scene.has_instances)
+                     if closest else 1)
         nbytes = n * 7 * 4 + tabs_bytes + n * out_bytes
         t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
         p = per[name]
@@ -386,13 +518,12 @@ def phase_main_path(torch, mt, path, scene, card):
         p["bound_by"].append("operations" if t_ops >= t_bytes else "bytes")
         p["err"] = max(p["err"], c["t_max_abs_err"] if closest
                        else c["occ_max_abs_err"])
+        work = ", ".join(f"{st[k] / n:.4f} {k.replace('_', ' ')}"
+                         for k in WORK_COUNTS if k in st)
         log(f"  {name} launch {i}: {n} lanes, {ms:.3f} ms (kernel), "
             f"{p['plain_ms'][-1]:.1f} ms (twin, all lanes), "
             f"bound {p['bound_ms'][-1]:.4f} ms by {p['bound_by'][-1]}; "
-            f"per lane {st.get('cluster_visits', 0) / n:.3f} cluster visits, "
-            f"{st.get('slot_tests', 0) / n:.2f} slot tests, "
-            f"{st.get('node_steps', 0) / n:.2f} node steps, "
-            f"{st.get('instance_entries', 0) / n:.3f} instance entries; "
+            f"per lane {work}; "
             f"hit {c['hit_frac']:.4f}, prim-agree {c['slot_agree']:.6f}, "
             f"occ-agree {c['occ_agree']:.6f}")
     rows = []
@@ -418,30 +549,38 @@ def phase_main_path(torch, mt, path, scene, card):
 # Phase 4: small renders on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def _shared_field(mt, device):
-    """instanced_field(n=6, subdiv=2) with shared BLAS forced: the port
-    keeps the JAX package's policy, which flattens a scene this small."""
+def _shared(make, device):
+    """`make(device)` with shared BLAS forced: the port keeps the JAX
+    package's policy, which flattens a scene this small."""
     old = os.environ.get("MI_FLATTEN_INSTANCES")
     os.environ["MI_FLATTEN_INSTANCES"] = "0"
     try:
-        scene = mt.instanced_field(n=6, subdiv=2, device=device)
+        scene = make(device)
     finally:
         if old is None:
             del os.environ["MI_FLATTEN_INSTANCES"]
         else:
             os.environ["MI_FLATTEN_INSTANCES"] = old
-    check(scene.has_instances, "instanced_field(n=6) was flattened")
+    check(scene.has_instances, "a small instanced scene was flattened")
     return scene
 
 
 def phase_small_renders(torch, mt, dev):
     cfg = mt.RenderConfig(width=32, height=32, spp=2, spp_per_pass=1,
                           max_depth=3, rr_depth=2)
+    small_field = functools.partial(sphere_field, mt, 6, 2)
     for name, mk in (("mesh_gallery(subdiv=1)",
                       lambda d: mt.mesh_gallery(subdiv=1, device=d)),
                      ("instanced_field(n=6, subdiv=2), shared BLAS",
-                      lambda d: _shared_field(mt, d)),
-                     ("cornell_box", lambda d: mt.cornell_box(device=d))):
+                      lambda d: _shared(lambda d_: mt.instanced_field(
+                          n=6, subdiv=2, device=d_), d)),
+                     ("cornell_box", lambda d: mt.cornell_box(device=d)),
+                     ("furnace (brute force, a sphere)",
+                      lambda d: mt.furnace(device=d)),
+                     ("sphere_field(n=6, subdiv=2), flattened (BVH2)",
+                      small_field),
+                     ("sphere_field(n=6, subdiv=2), shared BLAS (BVH2)",
+                      lambda d: _shared(small_field, d))):
         img_c = mt.render(mk("cpu"), cfg, seed=5, device="cpu").numpy()
         img_g = mt.render(mk(dev), cfg, seed=5).cpu().numpy()
         close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
@@ -459,7 +598,7 @@ def phase_small_renders(torch, mt, dev):
 
 def _category(name):
     low = name.lower()
-    if "cluster_" in low:
+    if "cluster_" in low or "bvh_" in low:
         return "traversal kernels"
     if "sort" in low or "radix" in low:
         return "presort (torch.sort)"
@@ -516,20 +655,28 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        card = phase_device(torch)
+        card = timed(0, phase_device, torch)
         import mitsuba2_tpu_torch as mt
         dev = torch.device(DEVICE)
-        phase_build()
-        scenes = phase_kernels_vs_twins(torch, mt, dev)
+        timed(1, phase_build)
+        scenes = timed(2, phase_kernels_vs_twins, torch, mt, dev)
         rows, render_ms = [], {}
         for path, scene in scenes.items():
-            r, render_ms[path] = phase_main_path(torch, mt, path, scene,
-                                                 card)
+            r, render_ms[path] = timed(f"3 ({path})", phase_main_path,
+                                       torch, mt, path, scene, card)
             rows += r
-        phase_small_renders(torch, mt, dev)
+        timed(4, phase_small_renders, torch, mt, dev)
         for path, scene in scenes.items():
-            phase_profile(torch, mt, path, scene, render_ms[path])
+            timed(f"5 ({path})", phase_profile, torch, mt, path, scene,
+                  render_ms[path])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

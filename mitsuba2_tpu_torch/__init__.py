@@ -18,10 +18,10 @@ standard library only, never jax or mitsuba2_tpu.
 """
 from .config import RenderConfig
 from .convert import scene_from_numpy
-from .scene.presets import cornell_box, instanced_field, mesh_gallery
+from .scene.presets import cornell_box, furnace, instanced_field, mesh_gallery
 from .scene.scene import SceneData, build_scene, to_device
 from .render.integrators import render, render_pass
 
 __all__ = ["RenderConfig", "SceneData", "build_scene", "cornell_box",
-           "instanced_field", "mesh_gallery", "render", "render_pass", "scene_from_numpy",
-           "to_device"]
+           "furnace", "instanced_field", "mesh_gallery", "render",
+           "render_pass", "scene_from_numpy", "to_device"]

@@ -5,9 +5,10 @@
 scene.INST_FIELDS: two tables and two walk bounds), and returns the
 port's scene on `device`. The port's own build goes through it too, so a
 converted JAX scene and a scene the port built itself are the same object
-for the same inputs. The rest of the static metadata is derived from the
-tables; a table that names a feature this slice does not render (spheres,
-emitters other than area and constant ones, BSDF families other than
+for the same inputs. The rest of the static metadata (`has_spheres`
+among it) is derived from the tables, and so are the walks' packed
+tables; a table that names a feature this slice does not render
+(emitters other than area and constant ones, BSDF families other than
 diffuse, twosided BSDFs, textured colors) raises.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .kernels.traverse import FEAT_W
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
 from .render.spectra import SLOT_TEX_BASE
+from .scene.bvh import BLAS_EXIT
 from .scene.scene import FIELDS, INST_FIELDS, PRIM_SPHERE, SceneData
 
 
@@ -39,6 +41,51 @@ def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
     return out.reshape(S, FEAT_W)
 
 
+def bvh_walk_tables(f: Dict[str, np.ndarray]):
+    """The BVH2 walk's tables from the SceneData arrays: node rows (B, 8)
+    f32 [min.xyz, max.xyz, leaf_start, leaf_count] (the two integers held
+    exactly as floats, as mxu_node_f holds its slot ids), links (B, 16)
+    i32 [hit8 | miss8] and prim rows (P, 12) f32 [p0, e1, e2, type, 0,
+    0]."""
+    B, P = f["bvh_min"].shape[0], f["prim_p0"].shape[0]
+    if max(P, int(f["bvh_leaf_start"].max())) >= (1 << 24):
+        raise ValueError("prim ids exceed the f32 exact-integer range")
+    counts = np.stack([f["bvh_leaf_start"], f["bvh_leaf_count"]], -1)
+    node = np.concatenate([f["bvh_min"], f["bvh_max"],
+                           counts.astype(np.float32)], -1)
+    link = np.concatenate([f["bvh_hit8"].reshape(B, 8),
+                           f["bvh_miss8"].reshape(B, 8)], -1)
+    prim = np.concatenate([f["prim_p0"], f["prim_e1"], f["prim_e2"],
+                           f["prim_type"].astype(np.float32)[:, None],
+                           np.zeros((P, 2), np.float32)], -1)
+    return (node.astype(np.float32), link.astype(np.int32),
+            prim.astype(np.float32))
+
+
+def instance_bvh_roots(f: Dict[str, np.ndarray], inst_inv: np.ndarray):
+    """Each instance's BLAS root row in the stitched BVH2 table, (K,) i32.
+
+    The table is [TLAS | world group's BLAS | each group's BLAS], and the
+    cluster walk's table has the same TLAS and the groups in the same
+    order, so inst_inv col 13 (the group's cut-tree root, right for every
+    instance) ranks the instance's group. A BLAS block ends at its last
+    DFS row, the one leaf whose miss link is BLAS_EXIT. inst_inv col 12,
+    the JAX build's BVH2 root, is not read: it indexes a per-instance
+    array by group id, which is wrong once instances do not bring their
+    groups in order (instances of A, A, B give B the root of A)."""
+    cut_root = inst_inv[:, 13].astype(np.int64)
+    first = int(cut_root.min())                  # = TLAS rows, the first BLAS
+    rows = np.arange(f["bvh_miss"].shape[0])
+    ends = rows[(rows >= first) & (f["bvh_leaf_count"] > 0)
+                & (f["bvh_miss"] == BLAS_EXIT)]
+    starts = np.concatenate([[first], ends[:-1] + 1])
+    groups = np.unique(cut_root)
+    if len(groups) != len(starts):
+        raise ValueError("instanced tables: the BVH2 and cluster tables "
+                         "hold different numbers of groups")
+    return starts[np.searchsorted(groups, cut_root)].astype(np.int32)
+
+
 def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     """numpy tables (scene.FIELDS) -> SceneData on `device` (None = the
     CUDA device; raises without one)."""
@@ -46,9 +93,6 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     if missing:
         raise KeyError(f"scene_from_numpy: missing fields {missing}")
     f = {k: np.asarray(fields[k]) for k in FIELDS}
-    if (f["prim_type"] == PRIM_SPHERE).any():
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support analytic spheres yet")
     # area emitters sit on a shape, the constant one on none; a shapeless
     # area row is the all-zero padding of an emitter-less scene
     etype, shaped = f["emitter_type"], f["emitter_shape"] >= 0
@@ -84,15 +128,20 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     def up(a):
         return torch.from_numpy(np.array(a, order="C")).to(dev)
 
+    node, link, prim = bvh_walk_tables(f)
     return SceneData(
         **{k: up(f[k]) for k in FIELDS},
         cluster_feat=up(slot_major_feat(f["mxu_feat"], cluster_k)),
+        bvh_node=up(node), bvh_link=up(link), bvh_prim=up(prim),
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,
+        inst_bvh_root=(up(instance_bvh_roots(f, np.asarray(
+            fields["inst_inv"]))) if inst else None),
         mat_families=families, n_emitters=n_emitters,
         env_emitter=int(env[0]) if env.size else -1,
         emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),
         n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
         has_instances=inst,
+        has_spheres=bool((f["prim_type"] == PRIM_SPHERE).any()),
         inst_fuel=int(fields["inst_fuel"]) if inst else 0,
         inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0)

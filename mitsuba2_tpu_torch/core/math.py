@@ -17,6 +17,11 @@ def safe_rsqrt(x):
     return torch.rsqrt(torch.clamp_min(x, _TINY))
 
 
+def safe_acos(x):
+    """arccos with its argument clamped to [-1, 1]."""
+    return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
 def mulsign(x, y):
     """x * sign(y), +1 for y = +0 (enoki::mulsign)."""
     return torch.where(y >= 0, x, -x)

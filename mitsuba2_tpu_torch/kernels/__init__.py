@@ -1,1 +1,1 @@
-"""Traversal: brute force, the presort key and the CUDA cluster walk."""
+"""Traversal: brute force, the presort key and the CUDA walks."""

@@ -2,18 +2,22 @@
 kernels/brute.py, which is plain XLA: this is plain torch).
 
 Every prim is tested against every lane, one prim per loop step; scenes
-of MAX_BRUTE_PRIMS prims or fewer (the Cornell box) take this path.
-Triangle scenes only. The lowest prim index wins on equal t (`t < t_best`).
+of MAX_BRUTE_PRIMS prims or fewer (the Cornell box, the furnace) take
+this path. Triangles by Möller–Trumbore, spheres by the stable
+quadratic. The lowest prim index wins on equal t (`t < t_best`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..scene.shapes import PRIM_TRI
+
 MAX_BRUTE_PRIMS = 192
 
 
-def _intersect_one(scene, i, ox, oy, oz, dx, dy, dz):
-    """All lanes against triangle i: Möller–Trumbore -> (t, u, v)."""
+def _intersect_one(scene, i, sphere, ox, oy, oz, dx, dy, dz):
+    """All lanes against prim i (a sphere if `sphere`) -> (t, u, v);
+    t = +inf where missed, and u = v = 0 for a sphere."""
     p0x, p0y, p0z = scene.prim_p0[i].unbind(0)
     e1x, e1y, e1z = scene.prim_e1[i].unbind(0)
     e2x, e2y, e2z = scene.prim_e2[i].unbind(0)
@@ -30,7 +34,23 @@ def _intersect_one(scene, i, ox, oy, oz, dx, dy, dz):
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-    return torch.where(hit, t, float("inf")), u, v
+    if not sphere:
+        return torch.where(hit, t, float("inf")), u, v
+    # sphere (center p0, radius e1.x)
+    r = e1x
+    A = dx * dx + dy * dy + dz * dz
+    B = 2.0 * (tvx * dx + tvy * dy + tvz * dz)
+    C = tvx * tvx + tvy * tvy + tvz * tvz - r * r
+    disc = B * B - 4.0 * A * C
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    qq = -0.5 * (B + torch.sign(B) * sq)
+    t0 = torch.where(A.abs() > 1e-20, qq / A, float("inf"))
+    t1 = torch.where(qq.abs() > 1e-20, C / qq, float("inf"))
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    t_sph = torch.where(lo > 0.0, lo, hi)
+    t_sph = torch.where((disc >= 0.0) & (t_sph > 0.0), t_sph, float("inf"))
+    z = torch.zeros_like(t_sph)
+    return t_sph, z, z
 
 
 def ray_intersect_brute(scene, ray_o, ray_d, t_max):
@@ -42,8 +62,9 @@ def ray_intersect_brute(scene, ray_o, ray_d, t_max):
     prim = torch.full((n,), -1, dtype=torch.int32, device=oz.device)
     bu = torch.zeros_like(t_best)
     bv = torch.zeros_like(t_best)
-    for i in range(scene.n_prims):
-        t, u, v = _intersect_one(scene, i, ox, oy, oz, dx, dy, dz)
+    for i, ptype in enumerate(scene.prim_type.tolist()):
+        t, u, v = _intersect_one(scene, i, ptype != PRIM_TRI, ox, oy, oz,
+                                 dx, dy, dz)
         closer = t < t_best
         t_best = torch.where(closer, t, t_best)
         prim = torch.where(closer, i, prim)
@@ -57,7 +78,8 @@ def ray_test_brute(scene, ray_o, ray_d, t_max):
     ox, oy, oz = ray_o.x, ray_o.y, ray_o.z
     dx, dy, dz = ray_d.x, ray_d.y, ray_d.z
     occluded = torch.zeros(oz.shape[0], dtype=torch.bool, device=oz.device)
-    for i in range(scene.n_prims):
-        t, _, _ = _intersect_one(scene, i, ox, oy, oz, dx, dy, dz)
+    for i, ptype in enumerate(scene.prim_type.tolist()):
+        t, _, _ = _intersect_one(scene, i, ptype != PRIM_TRI, ox, oy, oz,
+                                 dx, dy, dz)
         occluded = occluded | (torch.isfinite(t) & (t <= t_max))
     return occluded

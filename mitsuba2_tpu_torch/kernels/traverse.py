@@ -1,29 +1,42 @@
-"""Cluster-walk traversal: the hand-written CUDA kernels, their wrappers
-and their plain PyTorch twins (counterpart of the MXU paths of
-kernels/traverse_pallas.py, flat and instanced).
+"""Traversal: the hand-written CUDA kernels, their wrappers and their
+plain PyTorch twins (counterpart of kernels/traverse_pallas.py: the MXU
+cluster walks and the scalar BVH2 walks, flat and instanced).
 
-Tables (scene/scene.py builds them exactly as the JAX package does):
+Tables (scene/scene.py builds them exactly as the JAX package does;
+convert.py packs the walk-only copies once at upload):
     mxu_node_f   (R, 16) f32  pruned cut tree: [min.xyz, max.xyz, slot
                  base (-1 at inner nodes), instance id (-1 except at a
                  TLAS instance leaf), centroid.xyz, pad]
     mxu_link     (R, 16) i32  [hit8 | miss8] per-octant threaded links;
                  BLAS_EXIT (-2) leaves an instance's cut tree
     cluster_feat (S, 20) f32  slot-major copy of the Möller–Trumbore
-                 plane rows of `mxu_feat`, made once at scene upload:
-                 [det(3) | u(6) | v(6) | t(4) | pad] against the ray
-                 features [d, (o-c) x d, o-c, 1] (c = cluster centroid)
+                 plane rows of `mxu_feat`: [det(3) | u(6) | v(6) | t(4) |
+                 pad] against the ray features [d, (o-c) x d, o-c, 1]
+                 (c = cluster centroid)
+    bvh_node     (B, 8) f32   the full BVH2: [min.xyz, max.xyz, leaf_start,
+                 leaf_count] (-1 / 0 at inner nodes; instanced scenes: a
+                 TLAS leaf has count 0 and its instance id as start)
+    bvh_link     (B, 16) i32  [hit8 | miss8], BLAS_EXIT leaves a BLAS
+    bvh_prim     (P, 12) f32  [p0, e1, e2, type, 0, 0]: a triangle's vertex
+                 and edges, or a sphere's center and [radius, ±1, 0]
     inst_inv     (K, 16) f32  instanced scenes: [world->local 3x4 | BVH2
-                 root | cut-tree root | pad]
+                 root (not read) | cut-tree root | pad]
+    inst_bvh_root (K,) i32    instanced scenes: each instance's BVH2 BLAS
+                 root row
 
-`cluster_closest_hit` and `cluster_any_hit` (K1/K2: one cut tree) and
-`inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS over
-instances, each entered into its group's local-space cut tree) are the
-wrappers. A CPU tensor goes to the plain twin, a CUDA tensor to the
-kernel; nothing falls back from one to the other. Each wrapper counts its
-kernel launches in its `launches` attribute. `ray_intersect_preliminary`,
-`ray_test`, `ray_intersect_instanced` and `ray_test_instanced` are the
-entry points, the counterparts of traverse_pallas's functions of the same
-names: they map cluster slots to prim ids.
+The wrappers: `cluster_closest_hit` and `cluster_any_hit` (K1/K2: one cut
+tree), `inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS
+over instances, each entered into its group's local-space cut tree),
+`bvh_closest_hit` and `bvh_any_hit` (K3: the full BVH2 with leaves of up
+to LEAF_K triangles or spheres) and `inst_bvh_closest_hit` and
+`inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table). A CPU
+tensor goes to the plain twin, a CUDA tensor to the kernel; nothing falls
+back from one to the other. Each wrapper counts its kernel launches in
+its `launches` attribute. `ray_intersect_preliminary`, `ray_test`,
+`ray_intersect_instanced` and `ray_test_instanced` are the entry points,
+the counterparts of traverse_pallas's functions of the same names: a
+scene holding a sphere takes the BVH2 walks (spheres have no plane
+form), any other the cluster walks.
 """
 from __future__ import annotations
 
@@ -32,8 +45,10 @@ import os
 
 import torch
 
+from ..scene.bvh import BLAS_EXIT, LEAF_K
+from ..scene.shapes import PRIM_TRI
+
 FEAT_W = 20  # floats per slot in cluster_feat
-BLAS_EXIT = -2   # scene/bvh.py: a link that leaves an instance's cut tree
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "cluster_walk.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round every
@@ -62,6 +77,12 @@ def _declare(lib):
                       (lib.mts_inst_cluster_any_hit, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
+    for fn, n_tab, n_out in ((lib.mts_bvh_closest_hit, 3, 4),
+                             (lib.mts_bvh_any_hit, 3, 1),
+                             (lib.mts_inst_bvh_closest_hit, 5, 5),
+                             (lib.mts_inst_bvh_any_hit, 5, 1)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * n_tab + [p] * 7 + [p] * n_out + [i, i, p]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p
     lib.mts_cuda_error_string.argtypes = [ctypes.c_int]
 
@@ -78,32 +99,21 @@ def load_cuda_library():
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check(node_f, link, feat, rays, cluster_k, inst_inv=None):
+def _check_tables(tabs, rays):
+    """Each (name, table, dtype, rank): contiguous, of its dtype and rank,
+    16-byte aligned where the kernels read it as float4 or int4, on the
+    rays' device; the rays (N,) f32 and contiguous. Returns (N, device)."""
     n = rays[0].shape[0]
     dev = rays[0].device
-    tabs = [("mxu_node_f", node_f, torch.float32),
-            ("mxu_link", link, torch.int32),
-            ("cluster_feat", feat, torch.float32)]
-    if inst_inv is not None:
-        tabs.append(("inst_inv", inst_inv, torch.float32))
-        if inst_inv.dim() != 2 or inst_inv.shape[1] != 16:
-            raise ValueError("inst_inv must be (K, 16)")
-        if inst_inv.data_ptr() % 16:
-            raise ValueError("inst_inv must be 16-byte aligned (the "
-                             "kernels read it as float4)")
-    for name, a, dt in tabs:
-        if a.dtype != dt or a.dim() != 2 or not a.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous 2-D {dt} tensor, "
-                             f"got {a.dtype} {tuple(a.shape)}")
+    for name, a, dt, rank in tabs:
+        if a.dtype != dt or a.dim() != rank or not a.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {rank}-D {dt} "
+                             f"tensor, got {a.dtype} {tuple(a.shape)}")
         if a.device != dev:
             raise ValueError(f"{name} is on {a.device}, rays on {dev}")
-    if node_f.shape[1] != 16 or link.shape != node_f.shape:
-        raise ValueError("mxu_node_f and mxu_link must both be (R, 16)")
-    if feat.shape[1] != FEAT_W or feat.shape[0] % cluster_k != 0:
-        raise ValueError(f"cluster_feat must be (C*{cluster_k}, {FEAT_W})")
-    if node_f.data_ptr() % 16 or feat.data_ptr() % 16:
-        raise ValueError("mxu_node_f and cluster_feat must be 16-byte "
-                         "aligned (the kernels read them as float4)")
+        if rank == 2 and a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "read its rows as float4)")
     for a in rays:
         if (a.dtype != torch.float32 or a.shape != (n,)
                 or not a.is_contiguous() or a.device != dev):
@@ -114,23 +124,61 @@ def _check(node_f, link, feat, rays, cluster_k, inst_inv=None):
     return n, dev
 
 
+def _check(node_f, link, feat, rays, cluster_k, inst_inv=None):
+    tabs = [("mxu_node_f", node_f, torch.float32, 2),
+            ("mxu_link", link, torch.int32, 2),
+            ("cluster_feat", feat, torch.float32, 2)]
+    if inst_inv is not None:
+        tabs.append(("inst_inv", inst_inv, torch.float32, 2))
+        if inst_inv.dim() != 2 or inst_inv.shape[1] != 16:
+            raise ValueError("inst_inv must be (K, 16)")
+    n, dev = _check_tables(tabs, rays)
+    if node_f.shape[1] != 16 or link.shape != node_f.shape:
+        raise ValueError("mxu_node_f and mxu_link must both be (R, 16)")
+    if feat.shape[1] != FEAT_W or feat.shape[0] % cluster_k != 0:
+        raise ValueError(f"cluster_feat must be (C*{cluster_k}, {FEAT_W})")
+    return n, dev
+
+
+def _check_bvh(node, link, prim, rays, fuel, inst_inv=None, inst_root=None):
+    tabs = [("bvh_node", node, torch.float32, 2),
+            ("bvh_link", link, torch.int32, 2),
+            ("bvh_prim", prim, torch.float32, 2)]
+    if inst_inv is not None:
+        tabs += [("inst_inv", inst_inv, torch.float32, 2),
+                 ("inst_bvh_root", inst_root, torch.int32, 1)]
+        if (inst_inv.dim() != 2 or inst_inv.shape[1] != 16
+                or inst_root.shape != inst_inv.shape[:1]):
+            raise ValueError("inst_inv must be (K, 16) and inst_bvh_root "
+                             "(K,)")
+    n, dev = _check_tables(tabs, rays)
+    if node.shape[1] != 8 or link.shape != (node.shape[0], 16):
+        raise ValueError("bvh_node must be (B, 8) and bvh_link (B, 16)")
+    if prim.shape[1] != 12:
+        raise ValueError("bvh_prim must be (P, 12)")
+    if not 0 < fuel < (1 << 31):
+        raise ValueError(f"walk fuel {fuel} does not fit an int32")
+    return n, dev
+
+
 def _raise_on_error(lib, rc, what):
     if rc != 0:
         msg = lib.mts_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _launch(what, tabs, rays, outs, size, cluster_k):
+def _launch(what, tabs, rays, outs, *sizes):
     """Launch the kernel behind wrapper `what` (C entry mts_<what>) on the
-    tensors' own card and stream; `size` is the walk's table rows (flat)
-    or step cap (instanced). Raises on a launch error."""
+    tensors' own card and stream; `sizes` follow the lane count: the
+    cluster walks' table rows (flat) or step cap (instanced) and cluster
+    size, the BVH2 walks' step cap. Raises on a launch error."""
     lib = load_cuda_library()
     dev = rays[0].device
     with torch.cuda.device(dev):
         rc = getattr(lib, f"mts_{what}")(
             *(a.data_ptr() for a in tabs), *(a.data_ptr() for a in rays),
-            *(a.data_ptr() for a in outs), rays[0].shape[0], size,
-            cluster_k, torch.cuda.current_stream(dev).cuda_stream)
+            *(a.data_ptr() for a in outs), rays[0].shape[0], *sizes,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_error(lib, rc, what)
 
 
@@ -218,6 +266,95 @@ def inst_cluster_any_hit(node_f, link, feat, inst_inv, ox, oy, oz, dx, dy,
 
 
 inst_cluster_any_hit.launches = 0
+
+
+def _empty_hits(n, dev, inst):
+    """Closest-hit outputs: t, prim, u, v (and inst)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (torch.empty(n, **f32), torch.empty(n, **i32),
+            torch.empty(n, **f32), torch.empty(n, **f32))
+    return outs + (torch.empty(n, **i32),) if inst else outs
+
+
+def bvh_closest_hit(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
+                    fuel: int):
+    """Closest hit over the BVH2: (t, prim, u, v) (N,) each; t = +inf,
+    prim = -1 and u = v = 0 on a miss, u = v = 0 on a sphere. `fuel` caps
+    a walk's steps (the node count + 64)."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh(node, link, prim, rays, fuel)
+    if dev.type == "cpu":
+        return bvh_closest_hit_plain(node, link, prim, *rays, fuel)
+    outs = _empty_hits(n, dev, False)
+    if n == 0:
+        return outs
+    _launch("bvh_closest_hit", (node, link, prim), rays, outs, fuel)
+    bvh_closest_hit.launches += 1
+    return outs
+
+
+bvh_closest_hit.launches = 0
+
+
+def bvh_any_hit(node, link, prim, ox, oy, oz, dx, dy, dz, t_max, fuel: int):
+    """Occlusion over the BVH2: (N,) bool, True iff a prim is hit at a
+    finite 0 < t <= t_max."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh(node, link, prim, rays, fuel)
+    if dev.type == "cpu":
+        return bvh_any_hit_plain(node, link, prim, *rays, fuel)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    _launch("bvh_any_hit", (node, link, prim), rays, (occ,), fuel)
+    bvh_any_hit.launches += 1
+    return occ
+
+
+bvh_any_hit.launches = 0
+
+
+def inst_bvh_closest_hit(node, link, prim, inst_inv, inst_root, ox, oy, oz,
+                         dx, dy, dz, t_max, fuel: int):
+    """Closest hit over the stitched TLAS + BLAS BVH2 table: (t, prim, u,
+    v, inst); t = +inf, prim = inst = -1 and u = v = 0 on a miss. `fuel`
+    caps a walk's steps (the scene's inst_fuel + 64)."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh(node, link, prim, rays, fuel, inst_inv, inst_root)
+    if dev.type == "cpu":
+        return inst_bvh_closest_hit_plain(node, link, prim, inst_inv,
+                                          inst_root, *rays, fuel)
+    outs = _empty_hits(n, dev, True)
+    if n == 0:
+        return outs
+    _launch("inst_bvh_closest_hit", (node, link, prim, inst_inv, inst_root),
+            rays, outs, fuel)
+    inst_bvh_closest_hit.launches += 1
+    return outs
+
+
+inst_bvh_closest_hit.launches = 0
+
+
+def inst_bvh_any_hit(node, link, prim, inst_inv, inst_root, ox, oy, oz, dx,
+                     dy, dz, t_max, fuel: int):
+    """Occlusion over the stitched TLAS + BLAS BVH2 table: (N,) bool."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh(node, link, prim, rays, fuel, inst_inv, inst_root)
+    if dev.type == "cpu":
+        return inst_bvh_any_hit_plain(node, link, prim, inst_inv, inst_root,
+                                      *rays, fuel)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    _launch("inst_bvh_any_hit", (node, link, prim, inst_inv, inst_root),
+            rays, (occ,), fuel)
+    inst_bvh_any_hit.launches += 1
+    return occ
+
+
+inst_bvh_any_hit.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -445,27 +582,240 @@ def inst_any_hit_plain(node_f, link, feat, inst_inv, ox, oy, oz, dx, dy, dz,
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
+def _prim_test(pr, ox, oy, oz, dx, dy, dz):
+    """(m,) lanes against their (m, 12) prim rows, in the kernels' order of
+    operations: (t, u, v, is_tri), t = +inf where missed. Triangles by
+    Möller–Trumbore, spheres (center p0, radius e1.x) by the stable
+    quadratic, u = v = 0 for a sphere."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, typ = pr[:, :10].unbind(1)
+    inf = float("inf")
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = torch.where(det.abs() < 1e-12, 0.0, 1.0 / det)
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+          & (inv != 0.0))
+    A = dx * dx + dy * dy + dz * dz
+    B = 2.0 * (tvx * dx + tvy * dy + tvz * dz)
+    C = tvx * tvx + tvy * tvy + tvz * tvz - e1x * e1x
+    disc = B * B - 4.0 * A * C
+    # the square root correctly rounded, as the kernels' sqrtf is: a float's
+    # root taken in f64 rounds to the right f32, while torch's f32 root on
+    # the CPU can miss it by an ulp
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0).double()).float()
+    qq = -0.5 * (B + torch.sign(B) * sq)
+    t0 = torch.where(A.abs() > 1e-20, qq / A, inf)
+    t1 = torch.where(qq.abs() > 1e-20, C / qq, inf)
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    t_s = torch.where(lo > 0.0, lo, hi)
+    is_tri = typ == PRIM_TRI
+    t = torch.where(is_tri, torch.where(ok, t, inf),
+                    torch.where((disc >= 0.0) & (t_s > 0.0), t_s, inf))
+    return (t, torch.where(is_tri, u, 0.0), torch.where(is_tri, v, 0.0),
+            is_tri)
+
+
+def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
+                    inst_inv=None, inst_root=None):
+    """The BVH2 kernels' walk for every lane at once, each lane with its
+    own cursor and octant: a leaf whose box the lane hits tests its prims
+    in order (closest hit: strictly closer replaces, so the lowest prim of
+    a leaf keeps a tie; any hit: the first finite t <= t_max ends the
+    walk) and continues at its miss link. With `inst_inv` it is the
+    instanced walk: a TLAS leaf (count 0) moves the lane's ray to
+    instance space, saves the leaf's miss link and continues at the
+    instance's BLAS root (`inst_root`); a BLAS_EXIT link pops back."""
+    ox, oy, oz, dx, dy, dz, t_max = rays
+    n, dev = ox.shape[0], ox.device
+    world = [ox, oy, oz, dx, dy, dz, _safe_inv(dx), _safe_inv(dy),
+             _safe_inv(dz), _octant(dx, dy, dz)]
+    inst = inst_inv is not None
+    cur = [a.clone() for a in world] if inst else world
+    # lanes with t_max <= 0 cannot hit (0 < t < t_max): they never walk
+    node_i = torch.where(t_max > 0, 0, -1).long()
+    t_best = t_max.clone()
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros(n, dtype=torch.float32, device=dev)
+    bv = torch.zeros(n, dtype=torch.float32, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    if inst:
+        ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for _ in range(fuel):
+        act = torch.nonzero(node_i >= 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        lox, loy, loz, ldx, ldy, ldz, lix, liy, liz, loc = \
+            (a[act] for a in cur)
+        nf = node[node_i[act]]
+        lk = link[node_i[act]]
+        hit_l = lk.gather(1, loc[:, None]).squeeze(1).long()
+        miss_l = lk.gather(1, loc[:, None] + 8).squeeze(1).long()
+        hit = _slab(nf, lox, loy, loz, lix, liy, liz,
+                    t_max[act] if any_hit else t_best[act])
+        start, count = nf[:, 6].long(), nf[:, 7].long()
+        is_leaf = start >= 0
+        nxt = torch.where(is_leaf | ~hit, miss_l, hit_l)
+        _count(stats, "node_steps", act.numel())
+        vi = torch.nonzero(is_leaf & (count > 0) & hit).squeeze(1)
+        lanes = act[vi]
+        ray_v = [a[vi] for a in (lox, loy, loz, ldx, ldy, ldz)]
+        live = torch.ones(vi.numel(), dtype=torch.bool, device=dev)
+        for k in range(LEAF_K if vi.numel() else 0):
+            sel = torch.nonzero((k < count[vi]) & live).squeeze(1)
+            if sel.numel() == 0:
+                break
+            pid = start[vi[sel]] + k
+            t, u, v, is_tri = _prim_test(prim[pid], *(a[sel] for a in ray_v))
+            n_tri = int(is_tri.sum())
+            _count(stats, "tri_tests", n_tri)
+            _count(stats, "sphere_tests", sel.numel() - n_tri)
+            ln = lanes[sel]
+            if any_hit:
+                h = torch.isfinite(t) & (t <= t_max[ln])
+                occ[ln[h]] = True
+                live[sel[h]] = False
+                nxt[vi[sel[h]]] = -1        # stop at the first hit
+            else:
+                closer = t < t_best[ln]
+                lc = ln[closer]
+                t_best[lc] = t[closer]
+                best[lc] = pid[closer]
+                bu[lc] = u[closer]
+                bv[lc] = v[closer]
+                if inst:
+                    binst[lc] = cinst[lc]
+        if inst:
+            enter = is_leaf & (count == 0) & hit
+            if bool(enter.any()):
+                e = act[enter]
+                iid = start[enter]
+                _count(stats, "instance_entries", e.numel())
+                loc_ray = _to_local(inst_inv[iid], *(a[e] for a in world[:6]))
+                for k_, a in enumerate(loc_ray):
+                    cur[k_][e] = a
+                for k_ in range(3):
+                    cur[6 + k_][e] = _safe_inv(loc_ray[3 + k_])
+                cur[9][e] = _octant(*loc_ray[3:])
+                ret[e] = miss_l[enter]
+                cinst[e] = iid
+                nxt[enter] = inst_root[iid].long()
+            pop = nxt == BLAS_EXIT
+            if bool(pop.any()):
+                p_ = act[pop]
+                nxt[pop] = ret[p_]
+                ret[p_] = -1
+                cinst[p_] = -1
+                for c_, w_ in zip(cur, world):
+                    c_[p_] = w_[p_]
+        node_i[act] = nxt
+    if any_hit:
+        return occ
+    found = best >= 0
+    outs = (torch.where(found, t_best, float("inf")), best.to(torch.int32),
+            bu, bv)
+    if inst:
+        return outs + (torch.where(found, binst, -1).to(torch.int32),)
+    return outs
+
+
+def bvh_closest_hit_plain(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
+                          fuel: int, chunk: int = 8192, stats=None):
+    """The twin of the BVH2 closest-hit kernel: (t, prim, u, v). With a
+    `stats` dict it also counts the kernel's work: node steps, triangle
+    tests and sphere tests."""
+    return _chunked(
+        lambda r: _bvh_walk_plain(node, link, prim, r, False, stats, fuel),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def bvh_any_hit_plain(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
+                      fuel: int, chunk: int = 8192, stats=None):
+    """The twin of the BVH2 any-hit kernel. Its `stats` count a lane's
+    prim tests up to its first hit, where the kernel's thread stops."""
+    return _chunked(
+        lambda r: _bvh_walk_plain(node, link, prim, r, True, stats, fuel),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def inst_bvh_closest_hit_plain(node, link, prim, inst_inv, inst_root, ox, oy,
+                               oz, dx, dy, dz, t_max, fuel: int,
+                               chunk: int = 8192, stats=None):
+    """The twin of the instanced BVH2 closest-hit kernel: (t, prim, u, v,
+    inst). Its `stats` also count instance entries."""
+    return _chunked(
+        lambda r: _bvh_walk_plain(node, link, prim, r, False, stats, fuel,
+                                  inst_inv, inst_root),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def inst_bvh_any_hit_plain(node, link, prim, inst_inv, inst_root, ox, oy, oz,
+                           dx, dy, dz, t_max, fuel: int, chunk: int = 8192,
+                           stats=None):
+    """The twin of the instanced BVH2 any-hit kernel."""
+    return _chunked(
+        lambda r: _bvh_walk_plain(node, link, prim, r, True, stats, fuel,
+                                  inst_inv, inst_root),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
 # ---------------------------------------------------------------------------
-# Entry points (traverse_pallas.ray_intersect_preliminary / ray_test)
+# Entry points (traverse_pallas.ray_intersect_preliminary / ray_test and
+# their instanced forms)
 # ---------------------------------------------------------------------------
 
+def emits_uv(scene) -> bool:
+    """Do the entry points return real barycentrics? The BVH2 walks, which
+    every scene holding a sphere takes, do (0 on a sphere); the cluster
+    walks emit u = v = 0 and the shading record re-solves them."""
+    return scene.has_spheres
+
+
+def _bvh_args(scene, ray_o, ray_d, t_max):
+    tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_prim)
+    if scene.has_instances:
+        tabs += (scene.inst_inv, scene.inst_bvh_root)
+        fuel = scene.inst_fuel + 64
+    else:
+        fuel = scene.bvh_node.shape[0] + 64
+    return (*tabs, ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z,
+            t_max, fuel)
+
+
+def _slot_prims(scene, slot):
+    return torch.where(
+        slot >= 0, scene.cluster_slot_prim[torch.clamp_min(slot, 0).long()],
+        -1)
+
+
 def ray_intersect_preliminary(scene, ray_o, ray_d, t_max):
-    """Closest hit: (t, prim, u, v). The cluster walk emits slot ids,
-    mapped here to prim ids through `cluster_slot_prim`; u = v = 0 (the
-    shading record re-solves them exactly)."""
+    """Closest hit: (t, prim, u, v). A scene holding a sphere takes the
+    BVH2 walk, which returns real u/v; the others the cluster walk, whose
+    slot ids are mapped here to prim ids through `cluster_slot_prim`, with
+    u = v = 0 (the shading record re-solves them exactly)."""
+    if scene.has_spheres:
+        return bvh_closest_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     t, slot = cluster_closest_hit(
         scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
         ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
         scene.cluster_k)
-    prim = torch.where(
-        slot >= 0, scene.cluster_slot_prim[torch.clamp_min(slot, 0).long()],
-        -1)
     z = torch.zeros_like(t)
-    return t, prim, z, z
+    return t, _slot_prims(scene, slot), z, z
 
 
 def ray_test(scene, ray_o, ray_d, t_max):
     """Any-hit occlusion within t_max: (N,) bool."""
+    if scene.has_spheres:
+        return bvh_any_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     return cluster_any_hit(
         scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
         ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
@@ -480,19 +830,19 @@ def _inst_args(scene, ray_o, ray_d, t_max):
 
 def ray_intersect_instanced(scene, ray_o, ray_d, t_max):
     """Closest hit on a shared-BLAS instanced scene: (t, prim, u, v, inst),
-    prim and inst -1 on a miss, u = v = 0. Every instanced scene the port
-    holds takes this walk (traverse_pallas._use_instmxu's route): groups
-    with spheres, which the JAX package walks with its scalar instanced
-    kernels, are refused at scene build."""
+    prim and inst -1 on a miss. A scene holding a sphere anywhere takes
+    the instanced BVH2 walk (real u/v), the others the instanced cluster
+    walk (u = v = 0), as traverse_pallas._use_instmxu routes them."""
+    if scene.has_spheres:
+        return inst_bvh_closest_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     t, slot, inst = inst_cluster_closest_hit(
         *_inst_args(scene, ray_o, ray_d, t_max))
-    prim = torch.where(
-        slot >= 0, scene.cluster_slot_prim[torch.clamp_min(slot, 0).long()],
-        -1)
     z = torch.zeros_like(t)
-    return t, prim, z, z, inst
+    return t, _slot_prims(scene, slot), z, z, inst
 
 
 def ray_test_instanced(scene, ray_o, ray_d, t_max):
     """Any-hit occlusion within t_max on a shared-BLAS instanced scene."""
+    if scene.has_spheres:
+        return inst_bvh_any_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     return inst_cluster_any_hit(*_inst_args(scene, ray_o, ray_d, t_max))

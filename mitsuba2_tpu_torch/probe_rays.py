@@ -5,7 +5,8 @@ through traversal: camera rays, first-bounce rays cosine-sampled from the
 camera hits, shadow rays from those hits toward points on the area
 emitters, or toward the constant emitter in a scene lit by one alone
 (t_max = dist * (1 - 1e-3)), and uniform random rays from inside the
-scene bounds. The tests hand the same arrays to both packages, and
+scene bounds, a quarter of them aimed into the scene's spheres when it
+holds any. The tests hand the same arrays to both packages, and
 chip_smoke.py uses them to hold each CUDA kernel against its twin.
 """
 from __future__ import annotations
@@ -41,7 +42,9 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     rng = np.random.default_rng(seed)
     tab = {k: getattr(scene, k).cpu().numpy() for k in (
         "cam_to_world", "cam_fov_x", "prim_p0", "prim_e1", "prim_e2",
-        "emitter_prims", "bvh_min", "bvh_max")}
+        "prim_type", "emitter_prims", "bvh_min", "bvh_max")}
+    fwd = (scene.inst_fwd.cpu().numpy()[:, :12].reshape(-1, 3, 4)
+           .astype(np.float64) if scene.has_instances else None)
     mat = tab["cam_to_world"]
     tan_x = np.tan(np.deg2rad(float(tab["cam_fov_x"])) * 0.5)
     uv = rng.uniform(0.0, 1.0, (n, 2))
@@ -62,11 +65,17 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     p = cam_o[pick] + cam_d[pick] * t[pick, None].astype(np.float64)
     e1, e2 = tab["prim_e1"][prim[pick]], tab["prim_e2"][prim[pick]]
     ng = np.cross(e1, e2).astype(np.float64)
+    center = tab["prim_p0"][prim[pick]].astype(np.float64)
     if inst is not None:
         # local-space normal -> world: the inverse transpose, i.e. the
         # transpose of the instance's world->local 3x3
         inv = scene.inst_inv.cpu().numpy()[inst[pick], :12].reshape(n, 3, 4)
         ng = np.einsum("nji,nj->ni", inv[:, :, :3].astype(np.float64), ng)
+        m = fwd[inst[pick]]
+        center = np.einsum("nij,nj->ni", m[:, :, :3], center) + m[:, :, 3]
+    # a sphere's normal points away from its (world) center
+    ng = np.where((tab["prim_type"][prim[pick]] != 0)[:, None], p - center,
+                  ng)
     ng = _normalize(ng)
     ng = np.where((np.sum(ng * cam_d[pick], -1) > 0)[:, None], -ng, ng)
     org = p + ng * (RAY_EPSILON * (1.0 + np.abs(p).max(-1)))[:, None]
@@ -90,7 +99,7 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
         sd = _normalize(rng.normal(size=(n, 3)))
         sd = np.where((np.sum(ng * sd, -1) < 0)[:, None], -sd, sd)
         out["shadow"] = (org, sd, np.full(n, ENV_DIST * (1.0 - 1e-3)))
-        return _finish(out, tab, rng, n)
+        return _finish(out, tab, fwd, rng, n)
     m = 8 * n
     src = rng.integers(0, n, m)
     lp = lights[rng.integers(0, lights.size, m)]
@@ -109,14 +118,32 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
         raise ValueError("too few camera hits see the emitting side of a light")
     keep = ok[:n]
     out["shadow"] = (org[src[keep]], sd[keep], dist[keep] * (1.0 - 1e-3))
-    return _finish(out, tab, rng, n)
+    return _finish(out, tab, fwd, rng, n)
 
 
-def _finish(out, tab, rng, n):
+def _finish(out, tab, fwd, rng, n):
     lo, hi = tab["bvh_min"][0], tab["bvh_max"][0]
     mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo) * 0.95
     ro = mid + rng.uniform(-1.0, 1.0, (n, 3)) * half
-    out["random"] = (ro, _normalize(rng.normal(size=(n, 3))),
-                     np.full(n, np.inf))
+    rd = _normalize(rng.normal(size=(n, 3)))
+    sph = np.nonzero(tab["prim_type"] != 0)[0]
+    if sph.size:
+        # a quarter of the rays aimed at points inside the spheres: under
+        # instances, each stored sphere as every instance would place it
+        # (for an instance whose group lacks that sphere, a point in
+        # whatever lies there)
+        c = tab["prim_p0"][sph].astype(np.float64)
+        r = tab["prim_e1"][sph, 0].astype(np.float64)
+        if fwd is not None:
+            c = (np.einsum("kij,sj->ksi", fwd[:, :, :3], c)
+                 + fwd[:, None, :, 3]).reshape(-1, 3)
+            r = np.tile(r, fwd.shape[0]) * np.cbrt(np.abs(np.linalg.det(
+                fwd[:, :, :3]))).repeat(sph.size)
+        m = n // 4
+        k = rng.integers(0, c.shape[0], m)
+        aim = c[k] + (_normalize(rng.normal(size=(m, 3)))
+                      * (0.9 * r[k] * rng.uniform(0.0, 1.0, m))[:, None])
+        rd[:m] = _normalize(aim - ro[:m])
+    out["random"] = (ro, rd, np.full(n, np.inf))
     return {k: tuple(np.ascontiguousarray(a, dtype=np.float32) for a in v)
             for k, v in out.items()}

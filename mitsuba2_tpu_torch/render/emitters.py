@@ -15,6 +15,7 @@ from ..core import warp
 from ..core.geometry import Frame
 from ..core.spec import Spec, swhere
 from ..core.vec import Vec3, vdot, vwhere
+from ..scene.shapes import PRIM_TRI
 from .interaction import DirectionSample
 from .spectra import LaneRows, SLOT_W, eval_spectrum_slot, pack_color
 
@@ -128,6 +129,18 @@ def _sample_area(scene, ref_p, e_idx, etype, row, scaled, u2, pick_pdf,
     cz = e1x * e2y - e1y * e2x
     inv = 1.0 / torch.sqrt(torch.clamp_min(cx * cx + cy * cy + cz * cz, 1e-30))
     nx, ny, nz = cx * inv, cy * inv, cz * inv
+    if scene.has_spheres:
+        # a point uniform on the sphere (center p0, radius e1.x); e1.y < 0
+        # marks flip_normals spheres, which emit inward
+        is_sph = scene.prim_type[pc] != PRIM_TRI
+        s = warp.square_to_uniform_sphere(*u2)
+        px = torch.where(is_sph, p0x + s.x * e1x, px)
+        py = torch.where(is_sph, p0y + s.y * e1x, py)
+        pz = torch.where(is_sph, p0z + s.z * e1x, pz)
+        sgn = torch.where(e1y < 0, -1.0, 1.0)
+        nx = torch.where(is_sph, s.x * sgn, nx)
+        ny = torch.where(is_sph, s.y * sgn, ny)
+        nz = torch.where(is_sph, s.z * sgn, nz)
     dvx, dvy, dvz = px - ref_p.x, py - ref_p.y, pz - ref_p.z
     dist2 = dvx * dvx + dvy * dvy + dvz * dvz
     dist = torch.sqrt(torch.clamp_min(dist2, 1e-30))

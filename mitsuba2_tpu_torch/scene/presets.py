@@ -1,6 +1,7 @@
 """Built-in scenes (counterpart of scene/presets.py): the Cornell box, the
-mesh gallery and the instanced field, built from the same host geometry
-as the JAX package's presets so their tables are byte-equal."""
+furnace, the mesh gallery and the instanced field, built from the same
+host geometry as the JAX package's presets so their tables are
+byte-equal."""
 from __future__ import annotations
 
 import numpy as np
@@ -53,6 +54,19 @@ def cornell_box(light_radiance=LIGHT, boxes: bool = True,
                              up=[0, 1, 0])
     sensor = {"type": "perspective", "to_world": cam.matrix, "fov": 39.5}
     return build_scene(s, sensor, device=device)
+
+
+def furnace(albedo=0.8, radiance=1.0, device=None) -> SceneData:
+    """A diffuse unit sphere under a constant environment: the analytic
+    furnace test (one prim, so brute force traverses it)."""
+    s = [shapes.sphere(center=(0, 0, 0), radius=1.0,
+                       bsdf={"type": "diffuse", "reflectance": [albedo] * 3})]
+    cam = Transform4.look_at(origin=[0, 0, -4], target=[0, 0, 0], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 39.0}
+    return build_scene(s, sensor,
+                       [{"type": "constant", "radiance": [radiance] * 3}],
+                       device=device)
 
 
 def _icosphere(subdiv: int):

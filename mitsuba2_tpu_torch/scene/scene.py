@@ -1,22 +1,25 @@
 """Scene: the host build pipeline, the shading record and the traversal
 dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
 
-The build half packs meshes, shared-BLAS instances of triangle-mesh
-groups, diffuse materials, area and constant emitters and a perspective
-camera into numpy tables byte-equal to the JAX package's `SceneData`
-fields of the same names (tests/test_torch_scene.py,
-tests/test_torch_instancing.py), then uploads them with
-`convert.scene_from_numpy`. Anything else a scene can hold raises
-`NotImplementedError` naming the feature.
+The build half packs meshes, analytic spheres, shared-BLAS instances of
+shape groups, diffuse materials, area and constant emitters and a
+perspective camera into numpy tables byte-equal to the JAX package's
+`SceneData` fields of the same names (tests/test_torch_scene.py,
+tests/test_torch_instancing.py, tests/test_torch_spheres.py), then
+uploads them with `convert.scene_from_numpy`. Anything else a scene can
+hold raises `NotImplementedError` naming the feature.
 
-The dispatch half picks the instanced cluster walk for instanced scenes,
-brute force for other scenes of 192 prims or fewer and the cluster walk
-(kernels/traverse.py) above, behind the same coherence presort as the JAX
-package.
+The dispatch half picks, as the JAX package does: brute force for flat
+scenes of 192 prims or fewer; above that the cluster walk, or the BVH2
+walk when the scene holds a sphere; for an instanced scene (whatever its
+size) the instanced cluster walk, or the instanced BVH2 walk when it
+holds a sphere (kernels/traverse.py). Wavefronts go through the same
+coherence presort as the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import List, Optional, Tuple
 
@@ -24,22 +27,21 @@ import numpy as np
 import torch
 
 from ..core.geometry import Frame, Ray
-from ..core.vec import Vec2, Vec3
+from ..core.math import safe_acos
+from ..core.vec import Vec2, Vec3, vwhere
 from ..render import bsdf as bsdf_mod
 from ..render import emitters as emitters_mod
 from ..render.interaction import SurfaceInteraction
 from . import bvh as bvh_mod
-from .shapes import Instance, MeshData
-
-PRIM_TRI = 0
-PRIM_SPHERE = 1
+from .shapes import PRIM_SPHERE, PRIM_TRI, Instance, MeshData
 
 # The JAX SceneData fields this slice reads, all byte-equal between the
 # two packages' builds; `convert.scene_from_numpy` takes exactly these.
 FIELDS = (
     "prim_p0", "prim_e1", "prim_e2", "prim_n0", "prim_n1", "prim_n2",
     "prim_uv0", "prim_uv1", "prim_uv2", "prim_type", "prim_shape",
-    "prim_area", "bvh_min", "bvh_max", "shape_mat", "shape_emitter",
+    "prim_area", "bvh_min", "bvh_max", "bvh_leaf_start", "bvh_leaf_count",
+    "bvh_miss", "bvh_hit8", "bvh_miss8", "shape_mat", "shape_emitter",
     "mat_type", "mat_flags", "mat_data", "emitter_type", "emitter_data",
     "emitter_shape", "emitter_prims", "emitter_prim_cdf", "emitter_area",
     "cam_to_world", "cam_fov_x", "cam_data", "mxu_node_f", "mxu_link",
@@ -52,21 +54,27 @@ INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
 @dataclasses.dataclass
 class SceneData:
     """The scene as tensors on one device, plus static metadata."""
-    prim_p0: torch.Tensor    # (P, 3) tri vertex 0, BVH order
-    prim_e1: torch.Tensor    # (P, 3) edge 1
-    prim_e2: torch.Tensor    # (P, 3) edge 2
+    prim_p0: torch.Tensor    # (P, 3) tri vertex 0 / sphere center, BVH order
+    prim_e1: torch.Tensor    # (P, 3) edge 1 / sphere [radius, ±1 flip, 0]
+    prim_e2: torch.Tensor    # (P, 3) edge 2 / sphere 0
     prim_n0: torch.Tensor    # (P, 3) per-corner shading normals
     prim_n1: torch.Tensor
     prim_n2: torch.Tensor
     prim_uv0: torch.Tensor   # (P, 2)
     prim_uv1: torch.Tensor
     prim_uv2: torch.Tensor
-    prim_type: torch.Tensor  # (P,) i32
+    prim_type: torch.Tensor  # (P,) i32 PRIM_TRI / PRIM_SPHERE
     prim_shape: torch.Tensor  # (P,) i32
     prim_area: torch.Tensor  # (P,)
     bvh_min: torch.Tensor    # (B, 3) BVH2 node bounds (root = world bounds;
                              # instanced: the stitched TLAS + BLAS table)
     bvh_max: torch.Tensor
+    bvh_leaf_start: torch.Tensor  # (B,) i32 first prim of a leaf, -1 inner;
+                                  # a TLAS leaf: its instance id
+    bvh_leaf_count: torch.Tensor  # (B,) i32 prims of a leaf (0 at a TLAS leaf)
+    bvh_miss: torch.Tensor        # (B,) i32 canonical miss link
+    bvh_hit8: torch.Tensor        # (B*8,) i32 per-octant links, node*8 + oct;
+    bvh_miss8: torch.Tensor       # BLAS_EXIT (-2) leaves a BLAS
     shape_mat: torch.Tensor      # (S,) i32
     shape_emitter: torch.Tensor  # (S,) i32, -1 = none
     mat_type: torch.Tensor   # (M,) i32
@@ -86,13 +94,21 @@ class SceneData:
     cluster_slot_prim: torch.Tensor  # (C*CK,) i32 prim id per slot, -1 pad
     mxu_feat: torch.Tensor      # (16, 4*C*CK) f32 plane rows, as built
     cluster_feat: torch.Tensor  # (C*CK, 20) f32 slot-major copy for the walk
+    # the BVH2 walk's tables, packed once at upload (convert.py)
+    bvh_node: torch.Tensor      # (B, 8) f32 [min.xyz, max.xyz, leaf_start,
+                                # leaf_count], the last two exact integers
+    bvh_link: torch.Tensor      # (B, 16) i32 [hit8 | miss8]
+    bvh_prim: torch.Tensor      # (P, 12) f32 [p0, e1, e2, type, 0, 0]
     # instanced scenes: mxu_node_f/mxu_link are then [TLAS | per-group cut
     # trees] (col 7 of a TLAS leaf row = its instance id) and the prim
     # tables hold each group's prims once, in local space.
-    # inst_inv (K, 16) f32 [world->local 3x4 | BVH2 BLAS root | cut-tree
-    # root | pad]; inst_fwd (K, 16) f32 [local->world 3x4 | cbrt|det| | pad]
+    # inst_inv (K, 16) f32 [world->local 3x4 | BVH2 BLAS root (the JAX
+    # build's, read by no walk here) | cut-tree root | pad]; inst_fwd
+    # (K, 16) f32 [local->world 3x4 | cbrt|det| | pad]; inst_bvh_root (K,)
+    # i32 each instance's BVH2 BLAS root row (convert.py derives it)
     inst_inv: Optional[torch.Tensor] = None
     inst_fwd: Optional[torch.Tensor] = None
+    inst_bvh_root: Optional[torch.Tensor] = None
     mat_families: Tuple[int, ...] = ()
     n_emitters: int = 0
     env_emitter: int = -1       # index of the constant emitter, -1 = none
@@ -101,6 +117,7 @@ class SceneData:
     cluster_k: int = 128
     cam_type: str = "perspective"
     has_instances: bool = False
+    has_spheres: bool = False   # routes the whole scene to the BVH2 walks
     inst_fuel: int = 0          # BVH2 two-level walk bound (K4's)
     inst_mxu_fuel: int = 0      # instanced cluster walk bound (K5's)
 
@@ -221,9 +238,6 @@ def _refuse_unsupported(shapes, sensor):
     for sh in shapes:
         if not isinstance(sh, MeshData):
             raise TypeError(f"not a shape: {type(sh).__name__}")
-        if sh.sphere_center is not None:
-            raise NotImplementedError(
-                "mitsuba2_tpu_torch does not support analytic spheres yet")
         if sh.interior is not None:
             raise NotImplementedError(
                 "mitsuba2_tpu_torch does not support participating media yet")
@@ -237,8 +251,9 @@ def _refuse_unsupported(shapes, sensor):
 
 
 def _flat_accel(bb_min, bb_max, CK):
-    """One BVH over every prim, cut into clusters: the cluster walk's cut
-    tree (rows [min, max, slot, pad, centroid (filled later), pad])."""
+    """One BVH over every prim (the BVH2 walk's tree), cut into clusters:
+    the cluster walk's cut tree (rows [min, max, slot, pad, centroid
+    (filled later), pad])."""
     tree = bvh_mod.build_bvh(bb_min, bb_max)
     oct_hit8, oct_miss8 = bvh_mod.build_octant_links(tree)
     cl_id, cl_starts, cl_counts = bvh_mod.cluster_cut(tree, max_prims=CK)
@@ -253,6 +268,8 @@ def _flat_accel(bb_min, bb_max, CK):
         slot_prim[c * CK: c * CK + cnt] = np.arange(s0, s0 + cnt)
     return dict(
         bvh_min=tree.bounds_min, bvh_max=tree.bounds_max,
+        bvh_leaf_start=tree.leaf_start, bvh_leaf_count=tree.leaf_count,
+        bvh_miss=tree.miss, bvh_hit8=oct_hit8, bvh_miss8=oct_miss8,
         mxu_node_f=np.concatenate(
             [cut_min, cut_max, mxu_slot[:, None].astype(np.float32),
              np.zeros((R, 9), np.float32)], -1),
@@ -262,11 +279,11 @@ def _flat_accel(bb_min, bb_max, CK):
 
 
 def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
-                     bb_min, bb_max, CK):
+                     ptype, bb_min, bb_max, CK):
     """One BLAS per group (the plain shapes form the world group, entered
     as instance 0 with the identity) and a TLAS over the instances' world
-    boxes, stitched twice: the BVH2 table (bvh_min/max, the K4 walk's)
-    and the cluster walk's [TLAS | per-group cut trees]."""
+    boxes, stitched twice: the BVH2 table (bvh_*, the instanced BVH2
+    walk's) and the cluster walk's [TLAS | per-group cut trees]."""
     shape_bounds = np.concatenate([[0], np.cumsum(
         np.bincount(pshape, minlength=n_shapes))]).astype(np.int64)
     n_groups = len(group_shape0) - 1
@@ -274,8 +291,9 @@ def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
                  shape_bounds[group_shape0[g + 1]]) for g in range(n_groups)]
     world_range = (0, shape_bounds[group_shape0[0]])
     world = world_range[1] > 0
+    all_ranges = ([world_range] if world else []) + g_ranges
     blas_list, perm_parts = [], []
-    for (pb, pe) in ([world_range] if world else []) + g_ranges:
+    for (pb, pe) in all_ranges:
         if pe == pb:
             raise ValueError("instanced shapegroup has no primitives")
         tree_g = bvh_mod.build_bvh(bb_min[pb:pe], bb_max[pb:pe])
@@ -305,10 +323,21 @@ def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
                             for i in range(8)], np.float32)
         wc = corners @ M[:3, :3].T + M[:3, 3]
         ib_min[k], ib_max[k] = wc.min(0), wc.max(0)
-        det = float(np.linalg.det(M[:3, :3]))
+        R3 = M[:3, :3]
+        det = float(np.linalg.det(R3))
         if abs(det) < 1e-20:
             raise ValueError("singular instance to_world transform")
         inv = np.linalg.inv(M.astype(np.float64))[:3].astype(np.float32)
+        pb, pe = all_ranges[g]
+        if (ptype[pb:pe] == PRIM_SPHERE).any():
+            # analytic spheres stay spheres only under uniform scale
+            # (sphere.cpp has the same restriction)
+            s = np.cbrt(abs(det))
+            if not np.allclose(R3.T @ R3, (s * s) * np.eye(3),
+                               rtol=1e-3, atol=1e-5 * s * s):
+                raise ValueError(
+                    "instanced shapegroups with analytic spheres "
+                    "require a uniform-scale rigid transform")
         inst_inv[k, 0:12] = inv.reshape(-1)
         inst_fwd[k, 0:12] = M[:3].reshape(-1)
         inst_fwd[k, 12] = np.cbrt(abs(det))
@@ -317,11 +346,15 @@ def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
     two = bvh_mod.build_two_level_mxu(blas_list, inst_group, tlas, CK)
     for k in range(K):
         # col 12 indexes the per-instance root array by group id, exactly
-        # as the JAX package's build does (byte-equal tables)
+        # as the JAX package's build does (byte-equal tables); no walk of
+        # the port reads it (convert.py derives each instance's root)
         inst_inv[k, 12] = float(stitched["blas_root"][inst_group[k]])
         inst_inv[k, 13] = float(two["blas_root"][inst_group[k]])
     return dict(
         bvh_min=stitched["node_min"], bvh_max=stitched["node_max"],
+        bvh_leaf_start=stitched["leaf_start"],
+        bvh_leaf_count=stitched["leaf_count"], bvh_miss=stitched["miss"],
+        bvh_hit8=stitched["hit8"], bvh_miss8=stitched["miss8"],
         mxu_node_f=two["node_f"], mxu_link=two["link"],
         slot_prim=two["slot_prim"], row_cluster=two["row_cluster"],
         perm=np.concatenate(perm_parts).astype(np.int32),
@@ -357,6 +390,25 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
             emitter_descs.append((sh.emitter, s_idx))
         else:
             shape_emitter.append(-1)
+        if sh.sphere_center is not None:
+            c = np.asarray(sh.sphere_center, np.float32)
+            r = float(sh.sphere_radius)
+            p0s.append(c[None])
+            # e1 = [radius, normal sign (-1 = flip_normals, +1 = out), 0]
+            e1s.append(np.array([[r, -1.0 if sh.sphere_flip else 1.0, 0]],
+                                np.float32))
+            e2s.append(np.zeros((1, 3), np.float32))
+            z3, z2 = np.zeros((1, 3), np.float32), np.zeros((1, 2), np.float32)
+            n0s.append(z3)
+            n1s.append(z3)
+            n2s.append(z3)
+            uv0s.append(z2)
+            uv1s.append(z2)
+            uv2s.append(z2)
+            ptypes.append(np.array([PRIM_SPHERE], np.int32))
+            pshapes.append(np.array([s_idx], np.int32))
+            pareas.append(np.array([4.0 * np.pi * r * r], np.float32))
+            continue
         v, f = sh.vertices, sh.faces
         if f.shape[0] == 0:
             continue
@@ -394,12 +446,17 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     parea = np.concatenate(pareas)
 
     # --- prim AABBs, BVH, cluster cut ------------------------------------
-    bb_min = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
-    bb_max = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
+    is_sph = (ptype == PRIM_SPHERE)[:, None]
+    r = e1[:, 0:1]
+    bb_min = np.where(is_sph, p0 - r,
+                      np.minimum(np.minimum(p0, p0 + e1), p0 + e2))
+    bb_max = np.where(is_sph, p0 + r,
+                      np.maximum(np.maximum(p0, p0 + e1), p0 + e2))
     CK = _pick_cluster_k(p0.shape[0])
     if inst_records:
         acc = _instanced_accel(inst_records, group_of, group_shape0,
-                               len(shapes), pshape, bb_min, bb_max, CK)
+                               len(shapes), pshape, ptype, bb_min, bb_max,
+                               CK)
     else:
         acc = _flat_accel(bb_min, bb_max, CK)
     mxu_node_f, slot_prim = acc["mxu_node_f"], acc["slot_prim"]
@@ -485,6 +542,8 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         prim_n2=n2, prim_uv0=uv0, prim_uv1=uv1, prim_uv2=uv2,
         prim_type=ptype, prim_shape=pshape, prim_area=parea,
         bvh_min=n_min, bvh_max=n_max,
+        **{k: acc[k] for k in ("bvh_leaf_start", "bvh_leaf_count",
+                               "bvh_miss", "bvh_hit8", "bvh_miss8")},
         shape_mat=np.asarray(shape_mat, np.int32),
         shape_emitter=np.asarray(shape_emitter, np.int32),
         mat_type=np.asarray([mt[0] for mt in mats], np.int32),
@@ -515,7 +574,10 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
     triangle (the cluster walks emit u = v = 0). On an instanced scene the
     hit's local-space prim is first lifted to world space by its instance's
     transform: points and edges by inst_fwd, shading normals by the
-    inverse transpose (the columns of inst_inv's 3x3)."""
+    inverse transpose (the columns of inst_inv's 3x3), a sphere's center
+    as a point and its radius by the uniform scale (inst_fwd col 12). A
+    sphere hit is re-projected onto the sphere, its normals flipped where
+    e1.y < 0, its uv from the spherical angles."""
     idx = torch.clamp_min(prim, 0).long()
     valid = torch.isfinite(t) & (prim >= 0)
     ptype = scene.prim_type[idx]
@@ -543,9 +605,16 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
                     iv[1] * x + iv[5] * y + iv[9] * z,
                     iv[2] * x + iv[6] * y + iv[10] * z)
 
-        p0x, p0y, p0z = w_point(p0x, p0y, p0z)
-        e1x, e1y, e1z = w_vec(e1x, e1y, e1z)
-        e2x, e2y, e2z = w_vec(e2x, e2y, e2z)
+        p0x, p0y, p0z = w_point(p0x, p0y, p0z)   # tri vertex / sphere center
+        v1, v2 = w_vec(e1x, e1y, e1z), w_vec(e2x, e2y, e2z)
+        if scene.has_spheres:
+            # a sphere's e1 = [radius, flip sign, 0]: scale the radius, keep
+            # the sign (uniform scale is enforced at build for spheres)
+            tri = ptype == PRIM_TRI
+            v1 = (torch.where(tri, v1[0], e1x * fw[12]),
+                  torch.where(tri, v1[1], e1y), torch.where(tri, v1[2], 0.0))
+            v2 = tuple(torch.where(tri, c, 0.0) for c in v2)
+        (e1x, e1y, e1z), (e2x, e2y, e2z) = v1, v2
 
     def norm3(x, y, z):
         inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
@@ -589,6 +658,26 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
     u1x, u1y = scene.prim_uv1[idx].unbind(1)
     u2x, u2y = scene.prim_uv2[idx].unbind(1)
     uv = Vec2(u0x * w + u1x * u + u2x * v, u0y * w + u1y * u + u2y * v)
+    if scene.has_spheres:
+        # sphere (center p0, radius e1.x); t clamped on miss lanes, where
+        # o + inf * d would give NaN
+        t_safe = torch.where(valid, t, 1.0)
+        r_sph = torch.clamp_min(e1x, 1e-20)
+        sx, sy, sz = norm3(o.x + d.x * t_safe - p0x, o.y + d.y * t_safe - p0y,
+                           o.z + d.z * t_safe - p0z)
+        theta = safe_acos(sz)
+        phi = torch.atan2(sy, sx)
+        phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+        tri = ptype == PRIM_TRI
+        # the position is re-projected onto the sphere (sphere.cpp) with
+        # the unflipped s; e1.y < 0 marks flip_normals spheres
+        sgn = torch.where(e1y < 0, -1.0, 1.0)
+        p = vwhere(tri, p, Vec3(p0x + sx * r_sph, p0y + sy * r_sph,
+                                p0z + sz * r_sph))
+        n_s = Vec3(sx * sgn, sy * sgn, sz * sgn)
+        ng, ns = vwhere(tri, ng, n_s), vwhere(tri, ns, n_s)
+        uv = Vec2(torch.where(tri, uv.x, phi * (0.5 / math.pi)),
+                  torch.where(tri, uv.y, theta / math.pi))
     sh_frame = Frame.from_n(ns)
     return SurfaceInteraction(
         valid=valid,
@@ -608,13 +697,18 @@ SORT_DIRBITS = 9    # direction bucket: 3 bits per axis, as the JAX default
 
 
 def _pick_backend(scene) -> str:
-    """Instanced scenes need the instance-aware walk whatever their size:
-    their prim tables are local-space, which brute force would test as
-    they stand."""
+    """Brute force, or the walk the traversal entry points take: the
+    cluster walk ("cluster"), or the BVH2 walk ("bvh") when the scene
+    holds a sphere anywhere, as in the JAX package. Instanced scenes need
+    the instance-aware walks ("instanced", "inst_bvh") whatever their
+    size: their prim tables are local-space, which brute force would test
+    as they stand."""
     from ..kernels import brute
     if scene.has_instances:
-        return "instanced"
-    return "brute" if scene.n_prims <= brute.MAX_BRUTE_PRIMS else "cluster"
+        return "inst_bvh" if scene.has_spheres else "instanced"
+    if scene.n_prims <= brute.MAX_BRUTE_PRIMS:
+        return "brute"
+    return "bvh" if scene.has_spheres else "cluster"
 
 
 def coherence_key(scene, ray_o: Vec3, ray_d: Vec3, t_max):
@@ -661,18 +755,18 @@ def _preliminary_dispatch(scene, ray: Ray, sort=None):
     if backend == "brute":
         return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
                 None)
-    fn = (traverse.ray_intersect_instanced if backend == "instanced"
+    fn = (traverse.ray_intersect_instanced if scene.has_instances
           else traverse.ray_intersect_preliminary)
     n = ray.o.x.shape[0]
     if (n >= SORT_MIN_LANES) if sort is None else sort:
         outs, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
-        # the cluster walks emit u = v = 0: only the others need unsorting
-        t, prim, u, v = (_unsort(outs[0], lane), _unsort(outs[1], lane),
-                         outs[2], outs[3])
-        inst = _unsort(outs[4], lane) if backend == "instanced" else None
-        return t, prim, u, v, inst
-    outs = fn(scene, ray.o, ray.d, ray.maxt)
-    return (*outs, None) if backend == "cluster" else outs
+        # the cluster walks emit u = v = 0, which need no unsorting
+        zero_uv = not traverse.emits_uv(scene)
+        outs = [a if zero_uv and i in (2, 3) else _unsort(a, lane)
+                for i, a in enumerate(outs)]
+    else:
+        outs = fn(scene, ray.o, ray.d, ray.maxt)
+    return tuple(outs) if scene.has_instances else (*outs, None)
 
 
 def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
@@ -687,7 +781,7 @@ def ray_test(scene, ray: Ray) -> torch.Tensor:
     backend = _pick_backend(scene)
     if backend == "brute":
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
-    fn = (traverse.ray_test_instanced if backend == "instanced"
+    fn = (traverse.ray_test_instanced if scene.has_instances
           else traverse.ray_test)
     if ray.o.x.shape[0] >= SORT_MIN_LANES:
         occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)

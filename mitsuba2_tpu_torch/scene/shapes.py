@@ -1,5 +1,6 @@
 """Procedural shape constructors (host, numpy; counterpart of
-scene/shapes.py, triangle meshes only) and shared-BLAS instances."""
+scene/shapes.py: triangle meshes and analytic spheres) and shared-BLAS
+instances."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,16 +9,24 @@ from typing import Optional
 import numpy as np
 
 
+# the prim types of the scene tables (scene.py's prim_type)
+PRIM_TRI = 0
+PRIM_SPHERE = 1
+
+
 @dataclasses.dataclass
 class MeshData:
-    """One triangle mesh with its scene wiring. `sphere_center` and
-    `interior` exist so a scene naming them can be refused by name."""
+    """One shape: a triangle mesh or an analytic sphere, with its scene
+    wiring. `interior` exists so a scene naming it can be refused by
+    name."""
     vertices: np.ndarray                   # (V, 3) f32
     faces: np.ndarray                      # (F, 3) i32
     normals: Optional[np.ndarray] = None   # (V, 3) f32 vertex normals
     uvs: Optional[np.ndarray] = None       # (V, 2) f32
+    # analytic sphere (if not None, vertices/faces are ignored)
     sphere_center: Optional[np.ndarray] = None
     sphere_radius: Optional[float] = None
+    sphere_flip: bool = False              # inward-facing normals
     bsdf: Optional[object] = None          # bsdf descriptor (dict)
     emitter: Optional[object] = None       # emitter descriptor (dict) or None
     interior: Optional[object] = None      # interior medium descriptor
@@ -27,9 +36,16 @@ class MeshData:
         return dataclasses.replace(self)
 
     def transformed(self, to_world) -> "MeshData":
-        """Apply a host 4x4 matrix."""
+        """Apply a host 4x4 matrix. A sphere's center moves and its radius
+        scales by cbrt|det| of the 3x3 part."""
         mat = np.asarray(to_world, np.float32).reshape(4, 4)
         out = dataclasses.replace(self)
+        if self.sphere_center is not None:
+            c = mat[:3, :3] @ self.sphere_center + mat[:3, 3]
+            scale = np.cbrt(abs(np.linalg.det(mat[:3, :3])))
+            out.sphere_center = c.astype(np.float32)
+            out.sphere_radius = float(self.sphere_radius * scale)
+            return out
         v = self.vertices @ mat[:3, :3].T + mat[:3, 3]
         out.vertices = v.astype(np.float32)
         if self.normals is not None:
@@ -74,6 +90,16 @@ def cube(bsdf=None, emitter=None, id="") -> MeshData:
                     faces=np.asarray(faces, np.int32),
                     normals=np.asarray(normals, np.float32),
                     uvs=np.asarray(uvs, np.float32),
+                    bsdf=bsdf, emitter=emitter, id=id)
+
+
+def sphere(center=(0, 0, 0), radius=1.0, bsdf=None, emitter=None,
+           id="") -> MeshData:
+    """Analytic sphere (shapes/sphere.cpp): closed-form intersection."""
+    return MeshData(vertices=np.zeros((0, 3), np.float32),
+                    faces=np.zeros((0, 3), np.int32),
+                    sphere_center=np.asarray(center, np.float32),
+                    sphere_radius=float(radius),
                     bsdf=bsdf, emitter=emitter, id=id)
 
 

@@ -106,13 +106,14 @@ def test_unsupported_features_raise_by_name(feature):
     sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
     emitters = ()
     if feature == "sphere":
-        mesh.sphere_center, mesh.sphere_radius = np.zeros(3), 1.0
+        # spheres render now: a sphere under a BSDF the port lacks
+        mesh = shapes.sphere(bsdf={"type": "dielectric"})
     elif feature == "medium":
         mesh.interior = {"type": "homogeneous"}
     elif feature == "instance":
-        ball = shapes.rectangle()
-        ball.sphere_center, ball.sphere_radius = np.zeros(3), 1.0
-        mesh = shapes.instance(shapes.shapegroup([shapes.cube(), ball]),
+        # an instanced group holding a BSDF the port lacks
+        metal = shapes.cube(bsdf={"type": "roughconductor"})
+        mesh = shapes.instance(shapes.shapegroup([metal, shapes.sphere()]),
                                np.eye(4))
     elif feature == "envmap":
         emitters = ({"type": "envmap"},)
@@ -125,8 +126,8 @@ def test_unsupported_features_raise_by_name(feature):
         mesh.bsdf = {"type": "twosided", "bsdf": {"type": "diffuse"}}
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
-    names = {"sphere": "spheres", "medium": "media", "instance":
-             "spheres", "envmap": "envmap", "texture": "bitmap",
+    names = {"sphere": "dielectric", "medium": "media", "instance":
+             "roughconductor", "envmap": "envmap", "texture": "bitmap",
              "plastic": "plastic", "twosided": "twosided",
              "orthographic": "orthographic"}
     with pytest.raises(NotImplementedError, match=names[feature]):
@@ -136,7 +137,9 @@ def test_unsupported_features_raise_by_name(feature):
 @pytest.mark.parametrize("what", ["spheres", "twosided", "textured"])
 def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
     if what == "spheres":
-        fields = jax_fields(jpresets.furnace())
+        # spheres carry across now: veach_mis's spheres under its rough
+        # conductors, a BSDF family the port lacks
+        fields = jax_fields(jpresets.veach_mis())
     else:
         from mitsuba2_tpu.scene import shapes as jshapes
         from mitsuba2_tpu.scene.scene import build_scene as jbuild
@@ -147,7 +150,8 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
                     "color1": [0.8] * 3}})
         sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
         fields = jax_fields(jbuild([jshapes.rectangle(bsdf=bsdf)], sensor))
-    with pytest.raises(NotImplementedError, match=what):
+    match = {"spheres": "BSDF family"}.get(what, what)
+    with pytest.raises(NotImplementedError, match=match):
         mt.scene_from_numpy(fields, device="cpu")
 
 

@@ -201,14 +201,14 @@ _SHIM = r"""
 struct float4 { float x, y, z, w; };
 struct dim3_ { unsigned x; };
 static dim3_ blockIdx, threadIdx, blockDim;
-// loads that fall in each of three tables, counted as the kernels make them
+// loads that fall in each of four tables, counted as the kernels make them
 extern "C" {
-const char* emu_lo[3];
-const char* emu_hi[3];
-long long emu_loads[3];
+const char* emu_lo[4];
+const char* emu_hi[4];
+long long emu_loads[4];
 }
 template <class T> inline T __ldg(const T* p) {
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < 4; ++i)
     if ((const char*)p >= emu_lo[i] && (const char*)p < emu_hi[i]) ++emu_loads[i];
   return *p;
 }
@@ -233,7 +233,7 @@ def build_emulation(tmp_path):
     src = open(traverse._SRC).read()
     src, n = re.subn(r"(\w+_kernel)<<<grid, BLOCK, 0, \(cudaStream_t\)stream>>>\(",
                      r"EMU_LAUNCH(grid, BLOCK, \1, ", src)
-    assert n == 4
+    assert n == 8
     (tmp_path / "cuda_runtime.h").write_text(_SHIM)
     (tmp_path / "cw.cpp").write_text(src)
     so = tmp_path / "libcw.so"
@@ -246,12 +246,12 @@ def build_emulation(tmp_path):
 
 
 def load_counters(lib, tables):
-    """Point the emulation's load counters at up to three tables; returns
-    the (3,) counter array, zeroed."""
-    lo = (ctypes.c_void_p * 3).in_dll(lib, "emu_lo")
-    hi = (ctypes.c_void_p * 3).in_dll(lib, "emu_hi")
-    loads = (ctypes.c_longlong * 3).in_dll(lib, "emu_loads")
-    for i in range(3):
+    """Point the emulation's load counters at up to four tables; returns
+    the (4,) counter array, zeroed."""
+    lo = (ctypes.c_void_p * 4).in_dll(lib, "emu_lo")
+    hi = (ctypes.c_void_p * 4).in_dll(lib, "emu_hi")
+    loads = (ctypes.c_longlong * 4).in_dll(lib, "emu_loads")
+    for i in range(4):
         a = tables[i] if i < len(tables) else None
         lo[i] = a.data_ptr() if a is not None else 0
         hi[i] = (a.data_ptr() + a.numel() * a.element_size()
