@@ -508,7 +508,10 @@ def phase_main_path(torch, mt, path, scene, card):
         # the instanced ones) a lane, or the occlusion byte
         out_bytes = (4 * (2 + 2 * scene.has_spheres + scene.has_instances)
                      if closest else 1)
-        nbytes = n * 7 * 4 + tabs_bytes + n * out_bytes
+        # every lane's t_max; o and d (24 bytes) only of a live lane: a
+        # kernel thread whose t_max <= 0 reads nothing more
+        live = int((rays[6] > 0).sum())
+        nbytes = 4 * n + 24 * live + tabs_bytes + n * out_bytes
         t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
         p = per[name]
         p["ms"].append(ms)
@@ -520,7 +523,8 @@ def phase_main_path(torch, mt, path, scene, card):
                        else c["occ_max_abs_err"])
         work = ", ".join(f"{st[k] / n:.4f} {k.replace('_', ' ')}"
                          for k in WORK_COUNTS if k in st)
-        log(f"  {name} launch {i}: {n} lanes, {ms:.3f} ms (kernel), "
+        log(f"  {name} launch {i}: {n} lanes ({live / n:.4f} live), "
+            f"{ms:.3f} ms (kernel), "
             f"{p['plain_ms'][-1]:.1f} ms (twin, all lanes), "
             f"bound {p['bound_ms'][-1]:.4f} ms by {p['bound_by'][-1]}; "
             f"per lane {work}; "

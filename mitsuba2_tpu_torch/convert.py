@@ -6,8 +6,10 @@ scene.INST_FIELDS: two tables and two walk bounds), and returns the
 port's scene on `device`. The port's own build goes through it too, so a
 converted JAX scene and a scene the port built itself are the same object
 for the same inputs. The rest of the static metadata (`has_spheres`
-among it) is derived from the tables, and so are the walks' packed
-tables; a table that names a feature this slice does not render
+among it) is derived from the tables. Only the tables of the walk the
+scene takes go to the device: the BVH2 walks' packed tables for a scene
+holding a sphere, the cluster walks' for the others, neither for a
+brute-force scene. A table that names a feature this slice does not render
 (emitters other than area and constant ones, BSDF families other than
 diffuse, twosided BSDFs, textured colors) raises.
 """
@@ -19,12 +21,14 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .kernels.brute import takes_brute_force
 from .kernels.traverse import FEAT_W
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
 from .render.spectra import SLOT_TEX_BASE
 from .scene.bvh import BLAS_EXIT
-from .scene.scene import FIELDS, INST_FIELDS, PRIM_SPHERE, SceneData
+from .scene.scene import (CLUSTER_FIELDS, FIELDS, INST_FIELDS, PRIM_SPHERE,
+                          UPLOAD_FIELDS, SceneData)
 
 
 def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
@@ -123,25 +127,32 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
             "mitsuba2_tpu_torch does not support textured colors yet")
     n_clusters = int((f["mxu_node_f"][:, 6] >= 0).sum())
     cluster_k = f["cluster_slot_prim"].shape[0] // max(n_clusters, 1)
+    has_spheres = bool((f["prim_type"] == PRIM_SPHERE).any())
+    walk = not takes_brute_force(f["prim_type"].shape[0], inst)
     dev = resolve_device(device)
 
     def up(a):
         return torch.from_numpy(np.array(a, order="C")).to(dev)
 
-    node, link, prim = bvh_walk_tables(f)
+    tabs = {k: up(f[k]) for k in FIELDS
+            if k not in CLUSTER_FIELDS + UPLOAD_FIELDS}
+    if walk and has_spheres:
+        tabs.update(zip(("bvh_node", "bvh_link", "bvh_prim"),
+                        map(up, bvh_walk_tables(f))))
+        if inst:
+            tabs["inst_bvh_root"] = up(instance_bvh_roots(
+                f, np.asarray(fields["inst_inv"])))
+    elif walk:
+        tabs.update({k: up(f[k]) for k in CLUSTER_FIELDS})
+        tabs["cluster_feat"] = up(slot_major_feat(f["mxu_feat"], cluster_k))
     return SceneData(
-        **{k: up(f[k]) for k in FIELDS},
-        cluster_feat=up(slot_major_feat(f["mxu_feat"], cluster_k)),
-        bvh_node=up(node), bvh_link=up(link), bvh_prim=up(prim),
+        **tabs,
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,
-        inst_bvh_root=(up(instance_bvh_roots(f, np.asarray(
-            fields["inst_inv"]))) if inst else None),
         mat_families=families, n_emitters=n_emitters,
         env_emitter=int(env[0]) if env.size else -1,
         emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),
         n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
-        has_instances=inst,
-        has_spheres=bool((f["prim_type"] == PRIM_SPHERE).any()),
+        has_instances=inst, has_spheres=has_spheres,
         inst_fuel=int(fields["inst_fuel"]) if inst else 0,
         inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0)

@@ -3,7 +3,8 @@ plain PyTorch twins (counterpart of kernels/traverse_pallas.py: the MXU
 cluster walks and the scalar BVH2 walks, flat and instanced).
 
 Tables (scene/scene.py builds them exactly as the JAX package does;
-convert.py packs the walk-only copies once at upload):
+convert.py packs the walk-only copies once at upload, and uploads the
+tables of the one walk a scene takes):
     mxu_node_f   (R, 16) f32  pruned cut tree: [min.xyz, max.xyz, slot
                  base (-1 at inner nodes), instance id (-1 except at a
                  TLAS instance leaf), centroid.xyz, pad]
@@ -47,6 +48,7 @@ import torch
 
 from ..scene.bvh import BLAS_EXIT, LEAF_K
 from ..scene.shapes import PRIM_TRI
+from .brute import sphere_test, tri_test
 
 FEAT_W = 20  # floats per slot in cluster_feat
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -588,39 +590,12 @@ def _prim_test(pr, ox, oy, oz, dx, dy, dz):
     Möller–Trumbore, spheres (center p0, radius e1.x) by the stable
     quadratic, u = v = 0 for a sphere."""
     p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, typ = pr[:, :10].unbind(1)
-    inf = float("inf")
-    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    inv = torch.where(det.abs() < 1e-12, 0.0, 1.0 / det)
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    v = (dx * qvx + dy * qvy + dz * qvz) * inv
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
-    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-          & (inv != 0.0))
-    A = dx * dx + dy * dy + dz * dz
-    B = 2.0 * (tvx * dx + tvy * dy + tvz * dz)
-    C = tvx * tvx + tvy * tvy + tvz * tvz - e1x * e1x
-    disc = B * B - 4.0 * A * C
-    # the square root correctly rounded, as the kernels' sqrtf is: a float's
-    # root taken in f64 rounds to the right f32, while torch's f32 root on
-    # the CPU can miss it by an ulp
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0).double()).float()
-    qq = -0.5 * (B + torch.sign(B) * sq)
-    t0 = torch.where(A.abs() > 1e-20, qq / A, inf)
-    t1 = torch.where(qq.abs() > 1e-20, C / qq, inf)
-    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-    t_s = torch.where(lo > 0.0, lo, hi)
+    ray = (ox, oy, oz, dx, dy, dz)
+    t, u, v = tri_test(p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, *ray)
+    t_s = sphere_test(p0x, p0y, p0z, e1x, *ray)
     is_tri = typ == PRIM_TRI
-    t = torch.where(is_tri, torch.where(ok, t, inf),
-                    torch.where((disc >= 0.0) & (t_s > 0.0), t_s, inf))
-    return (t, torch.where(is_tri, u, 0.0), torch.where(is_tri, v, 0.0),
-            is_tri)
+    return (torch.where(is_tri, t, t_s), torch.where(is_tri, u, 0.0),
+            torch.where(is_tri, v, 0.0), is_tri)
 
 
 def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,

@@ -46,6 +46,12 @@ FIELDS = (
     "emitter_shape", "emitter_prims", "emitter_prim_cdf", "emitter_area",
     "cam_to_world", "cam_fov_x", "cam_data", "mxu_node_f", "mxu_link",
     "cluster_slot_prim", "mxu_feat")
+# ...of which the cluster walks' own, on the device only for a scene that
+# takes them, and those read at upload alone: packed into the BVH2 walks'
+# tables, or (mxu_feat) into cluster_feat
+CLUSTER_FIELDS = ("mxu_node_f", "mxu_link", "cluster_slot_prim")
+UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
+                 "bvh_miss8", "mxu_feat")
 # ...and those of an instanced scene (absent, or None, on the others): the
 # per-instance transforms and the two walk bounds
 INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
@@ -53,7 +59,10 @@ INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
 
 @dataclasses.dataclass
 class SceneData:
-    """The scene as tensors on one device, plus static metadata."""
+    """The scene as tensors on one device, plus static metadata. The walk
+    tables are those of the walk the scene takes (kernels/traverse.py: the
+    BVH2 walks on a scene holding a sphere, the cluster walks on the
+    others), None for the other walk and on a brute-force scene."""
     prim_p0: torch.Tensor    # (P, 3) tri vertex 0 / sphere center, BVH order
     prim_e1: torch.Tensor    # (P, 3) edge 1 / sphere [radius, ±1 flip, 0]
     prim_e2: torch.Tensor    # (P, 3) edge 2 / sphere 0
@@ -66,15 +75,10 @@ class SceneData:
     prim_type: torch.Tensor  # (P,) i32 PRIM_TRI / PRIM_SPHERE
     prim_shape: torch.Tensor  # (P,) i32
     prim_area: torch.Tensor  # (P,)
-    bvh_min: torch.Tensor    # (B, 3) BVH2 node bounds (root = world bounds;
-                             # instanced: the stitched TLAS + BLAS table)
+    bvh_min: torch.Tensor    # (B, 3) BVH2 node bounds (root = world bounds,
+                             # the presort's box; instanced: the stitched
+                             # TLAS + BLAS table)
     bvh_max: torch.Tensor
-    bvh_leaf_start: torch.Tensor  # (B,) i32 first prim of a leaf, -1 inner;
-                                  # a TLAS leaf: its instance id
-    bvh_leaf_count: torch.Tensor  # (B,) i32 prims of a leaf (0 at a TLAS leaf)
-    bvh_miss: torch.Tensor        # (B,) i32 canonical miss link
-    bvh_hit8: torch.Tensor        # (B*8,) i32 per-octant links, node*8 + oct;
-    bvh_miss8: torch.Tensor       # BLAS_EXIT (-2) leaves a BLAS
     shape_mat: torch.Tensor      # (S,) i32
     shape_emitter: torch.Tensor  # (S,) i32, -1 = none
     mat_type: torch.Tensor   # (M,) i32
@@ -89,16 +93,20 @@ class SceneData:
     cam_to_world: torch.Tensor  # (4, 4)
     cam_fov_x: torch.Tensor     # () degrees
     cam_data: torch.Tensor      # (12,) see build_fields
-    mxu_node_f: torch.Tensor    # (R, 16) f32 pruned cut tree
-    mxu_link: torch.Tensor      # (R, 16) i32 [hit8 | miss8]
-    cluster_slot_prim: torch.Tensor  # (C*CK,) i32 prim id per slot, -1 pad
-    mxu_feat: torch.Tensor      # (16, 4*C*CK) f32 plane rows, as built
-    cluster_feat: torch.Tensor  # (C*CK, 20) f32 slot-major copy for the walk
-    # the BVH2 walk's tables, packed once at upload (convert.py)
-    bvh_node: torch.Tensor      # (B, 8) f32 [min.xyz, max.xyz, leaf_start,
-                                # leaf_count], the last two exact integers
-    bvh_link: torch.Tensor      # (B, 16) i32 [hit8 | miss8]
-    bvh_prim: torch.Tensor      # (P, 12) f32 [p0, e1, e2, type, 0, 0]
+    # the cluster walks' tables
+    mxu_node_f: Optional[torch.Tensor] = None   # (R, 16) f32 pruned cut tree
+    mxu_link: Optional[torch.Tensor] = None     # (R, 16) i32 [hit8 | miss8]
+    cluster_slot_prim: Optional[torch.Tensor] = None  # (C*CK,) i32 prim id
+                                                      # per slot, -1 pad
+    cluster_feat: Optional[torch.Tensor] = None  # (C*CK, 20) f32 slot-major
+                                                 # copy of mxu_feat's plane rows
+    # the BVH2 walks' tables, packed once at upload (convert.py)
+    bvh_node: Optional[torch.Tensor] = None  # (B, 8) f32 [min.xyz, max.xyz,
+                                             # leaf_start, leaf_count], the
+                                             # last two exact integers
+    bvh_link: Optional[torch.Tensor] = None  # (B, 16) i32 [hit8 | miss8]
+    bvh_prim: Optional[torch.Tensor] = None  # (P, 12) f32 [p0, e1, e2, type,
+                                             # 0, 0]
     # instanced scenes: mxu_node_f/mxu_link are then [TLAS | per-group cut
     # trees] (col 7 of a TLAS leaf row = its instance id) and the prim
     # tables hold each group's prims once, in local space.
@@ -696,21 +704,6 @@ SORT_MIN_LANES = 16384
 SORT_DIRBITS = 9    # direction bucket: 3 bits per axis, as the JAX default
 
 
-def _pick_backend(scene) -> str:
-    """Brute force, or the walk the traversal entry points take: the
-    cluster walk ("cluster"), or the BVH2 walk ("bvh") when the scene
-    holds a sphere anywhere, as in the JAX package. Instanced scenes need
-    the instance-aware walks ("instanced", "inst_bvh") whatever their
-    size: their prim tables are local-space, which brute force would test
-    as they stand."""
-    from ..kernels import brute
-    if scene.has_instances:
-        return "inst_bvh" if scene.has_spheres else "instanced"
-    if scene.n_prims <= brute.MAX_BRUTE_PRIMS:
-        return "brute"
-    return "bvh" if scene.has_spheres else "cluster"
-
-
 def coherence_key(scene, ray_o: Vec3, ray_d: Vec3, t_max):
     """Presort key (int64 holding uint32): origin Morton cell (major) and a
     direction bucket of SORT_DIRBITS bits; dead lanes (t_max <= 0) get
@@ -751,8 +744,7 @@ def _preliminary_dispatch(scene, ray: Ray, sort=None):
     instanced scene. `sort=None` presorts wavefronts of SORT_MIN_LANES
     lanes or more; False skips it (primary rays)."""
     from ..kernels import brute, traverse
-    backend = _pick_backend(scene)
-    if backend == "brute":
+    if brute.takes_brute_force(scene.n_prims, scene.has_instances):
         return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
                 None)
     fn = (traverse.ray_intersect_instanced if scene.has_instances
@@ -778,8 +770,7 @@ def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
 def ray_test(scene, ray: Ray) -> torch.Tensor:
     """Scene::ray_test — occlusion within ray.maxt."""
     from ..kernels import brute, traverse
-    backend = _pick_backend(scene)
-    if backend == "brute":
+    if brute.takes_brute_force(scene.n_prims, scene.has_instances):
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
     fn = (traverse.ray_test_instanced if scene.has_instances
           else traverse.ray_test)

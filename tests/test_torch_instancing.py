@@ -29,7 +29,7 @@ import torch
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.core.geometry import Ray
 from mitsuba2_tpu_torch.core.vec import Vec3
-from mitsuba2_tpu_torch.kernels import traverse
+from mitsuba2_tpu_torch.kernels import brute, traverse
 from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import FIELDS, INST_FIELDS
@@ -52,6 +52,50 @@ def flatten_mode(mode):
             mp.setenv("MI_FLATTEN_INSTANCES", mode)
         mp.delenv("MI_FLATTEN_MAX", raising=False)
         yield
+
+
+@contextlib.contextmanager
+def recorded_fields():
+    """The numpy tables (scene.build_fields' output, what the port uploads
+    from) of each scene the port builds inside the block, in build order.
+    The device holds only the tables of the walk a scene takes, so the
+    tables are held byte-equal to the JAX package's on the host."""
+    got = []
+    build_fields = scene_mod.build_fields
+
+    def record(*a, **kw):
+        got.append(build_fields(*a, **kw))
+        return got[-1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(scene_mod, "build_fields", record)
+        yield got
+
+
+def assert_port_tables(jax_f, port_f, st):
+    """The port's host tables `port_f` byte-equal to the JAX package's
+    `jax_f`; each of them that scene `st` holds on its device equal to its
+    host table; the walk tables of the walk `st` takes, and only those,
+    on the device (the BVH2 walks' on a scene holding a sphere, the
+    cluster walks' on the others, none for brute force)."""
+    for k, a in jax_f.items():
+        b = port_f[k]
+        if isinstance(a, int):
+            assert a == b, k
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert np.array_equal(a, b), k
+        held = getattr(st, k, None)
+        if held is not None:
+            assert np.array_equal(held.cpu().numpy(), b), k
+    walk = not brute.takes_brute_force(st.n_prims, st.has_instances)
+    bvh2, cluster = walk and st.has_spheres, walk and not st.has_spheres
+    for k in ("bvh_node", "bvh_link", "bvh_prim"):
+        assert (getattr(st, k) is not None) == bvh2, k
+    assert (st.inst_bvh_root is not None) == (bvh2 and st.has_instances)
+    for k in scene_mod.CLUSTER_FIELDS + ("cluster_feat",):
+        assert (getattr(st, k) is not None) == cluster, k
+    for k in scene_mod.UPLOAD_FIELDS:
+        assert not hasattr(st, k), k
 
 
 def package(which):
@@ -113,7 +157,10 @@ def build(name, which):
 
 
 def build_pair(name):
-    return build(name, "jax"), build(name, "port")
+    """The JAX scene, the port's and the port's host tables."""
+    with recorded_fields() as got:
+        st = build(name, "port")
+    return build(name, "jax"), st, got[0]
 
 
 def jax_fields(sj):
@@ -122,15 +169,8 @@ def jax_fields(sj):
                 else np.asarray(getattr(sj, k))) for k in keys}
 
 
-def assert_same_scene(sj, st):
-    for k, a in jax_fields(sj).items():
-        b = getattr(st, k)
-        if isinstance(a, int):
-            assert a == b, k
-            continue
-        b = b.numpy()
-        assert a.dtype == b.dtype and a.shape == b.shape, k
-        assert np.array_equal(a, b), k
+def assert_same_scene(sj, st, fields):
+    assert_port_tables(jax_fields(sj), fields, st)
     if not sj.has_instances:
         assert st.inst_inv is None and st.inst_fwd is None
     for k in META:
@@ -143,13 +183,13 @@ def pair(request):
 
 
 def test_tables_byte_equal(pair):
-    name, sj, st = pair
+    name, sj, st, fields = pair
     assert st.has_instances == name.endswith("shared")
-    assert_same_scene(sj, st)
+    assert_same_scene(sj, st, fields)
 
 
 def test_scene_from_numpy_equals_own_build(pair):
-    _, sj, st = pair
+    _, sj, st, _ = pair
     conv = mt.scene_from_numpy(jax_fields(sj), device="cpu")
     for f in scene_mod.SceneData.__dataclass_fields__:
         a, b = getattr(conv, f), getattr(st, f)
@@ -162,20 +202,21 @@ def test_scene_from_numpy_equals_own_build(pair):
 def test_full_size_field_keeps_shared_blas():
     """instanced_field(n=1024, subdiv=4): 5 242 882 effective triangles,
     above the 4M flatten cap, so the default policy keeps shared BLAS."""
-    with flatten_mode(None):
+    with flatten_mode(None), recorded_fields() as got:
         sj = package("jax").field(n=1024, subdiv=4)
         st = package("port").field(n=1024, subdiv=4)
-    assert_same_scene(sj, st)
+    assert_same_scene(sj, st, got[0])
     assert st.n_prims == 5122 and st.inst_inv.shape == (1025, 16)
     assert st.mxu_node_f.shape == (2163, 16)
-    assert st.mxu_feat.shape == (16, 29696) and st.cluster_k == 128
+    assert got[0]["mxu_feat"].shape == (16, 29696) and st.cluster_k == 128
     assert st.inst_mxu_fuel == 117826 and st.emitter_kinds == (2,)
 
 
 def test_instanced_scene_never_takes_brute_force():
     st = build("groups_shared", "port")
-    assert st.n_prims <= 192
-    assert scene_mod._pick_backend(st) == "instanced"
+    assert st.n_prims <= brute.MAX_BRUTE_PRIMS
+    assert not brute.takes_brute_force(st.n_prims, st.has_instances)
+    assert st.cluster_feat is not None and st.bvh_node is None
 
 
 # ---------------------------------------------------------------------------

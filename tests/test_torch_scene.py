@@ -13,7 +13,10 @@ import torch
 
 from mitsuba2_tpu.scene import presets as jpresets
 import mitsuba2_tpu_torch as mt
+from mitsuba2_tpu_torch import convert
 from mitsuba2_tpu_torch.scene.scene import FIELDS, SceneData
+
+from test_torch_instancing import assert_port_tables, recorded_fields
 
 SCENES = {
     "cornell_box": (jpresets.cornell_box, mt.cornell_box, {}),
@@ -26,7 +29,9 @@ SCENES = {
 def pair(request):
     mk_j, mk_t, kw = SCENES[request.param]
     sj = mk_j(**kw)
-    return request.param, sj, mk_t(device="cpu", **kw)
+    with recorded_fields() as got:
+        st = mk_t(device="cpu", **kw)
+    return request.param, sj, st, got[0]
 
 
 def jax_fields(sj):
@@ -34,15 +39,12 @@ def jax_fields(sj):
 
 
 def test_tables_byte_equal(pair):
-    name, sj, st = pair
-    for k, a in jax_fields(sj).items():
-        b = getattr(st, k).numpy()
-        assert a.dtype == b.dtype and a.shape == b.shape, (name, k)
-        assert np.array_equal(a, b), (name, k)
+    _, sj, st, fields = pair
+    assert_port_tables(jax_fields(sj), fields, st)
 
 
 def test_static_metadata_equal(pair):
-    _, sj, st = pair
+    _, sj, st, _ = pair
     assert st.n_prims == sj.n_prims
     assert st.cluster_k == sj.cluster_k == 128
     assert st.n_emitters == sj.n_emitters
@@ -55,7 +57,7 @@ def test_static_metadata_equal(pair):
 def test_scene_from_numpy_equals_own_build(pair):
     """The JAX scene's arrays carried across equal the port's own build,
     the slot-major walk table included."""
-    _, sj, st = pair
+    _, sj, st, _ = pair
     conv = mt.scene_from_numpy(jax_fields(sj), device="cpu")
     for f in dataclasses.fields(SceneData):
         a, b = getattr(conv, f.name), getattr(st, f.name)
@@ -66,11 +68,14 @@ def test_scene_from_numpy_equals_own_build(pair):
 
 
 def test_cluster_feat_is_a_slot_major_copy(pair):
-    """cluster_feat row s holds slot s's four plane rows of mxu_feat."""
-    _, _, st = pair
+    """cluster_feat row s holds slot s's four plane rows of mxu_feat (the
+    brute-force Cornell box uploads neither: its copy is made here)."""
+    _, _, st, fields = pair
     ck = st.cluster_k
-    feat = st.mxu_feat.numpy()                     # (16, 4*C*CK)
-    cf = st.cluster_feat.numpy()                   # (C*CK, 20)
+    feat = fields["mxu_feat"]                      # (16, 4*C*CK)
+    cf = convert.slot_major_feat(feat, ck)         # (C*CK, 20)
+    if st.cluster_feat is not None:
+        assert np.array_equal(st.cluster_feat.numpy(), cf)
     rng = np.random.default_rng(0)
     for s in rng.integers(0, cf.shape[0], 64):
         c, k = divmod(int(s), ck)

@@ -38,13 +38,15 @@ import pytest
 import torch
 
 import mitsuba2_tpu_torch as mt
+from mitsuba2_tpu_torch import convert
 from mitsuba2_tpu_torch.core.geometry import Ray
-from mitsuba2_tpu_torch.kernels import traverse
+from mitsuba2_tpu_torch.kernels import brute, traverse
 from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import FIELDS, INST_FIELDS
 
-from test_torch_instancing import flatten_mode
+from test_torch_instancing import (assert_port_tables, flatten_mode,
+                                   recorded_fields)
 from test_torch_traverse import build_emulation, load_counters, planar
 
 N_RAYS = 2048
@@ -151,27 +153,22 @@ def jax_fields(sj):
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def pair(request):
-    return request.param, build(request.param, "jax"), build(request.param,
-                                                             "port")
+    """(name, the JAX scene, the port's, the port's host tables)."""
+    with recorded_fields() as got:
+        st = build(request.param, "port")
+    return request.param, build(request.param, "jax"), st, got[0]
 
 
 def test_tables_byte_equal(pair):
-    name, sj, st = pair
+    name, sj, st, fields = pair
     assert st.has_spheres and st.has_instances == (name == "field_shared")
-    for k, a in jax_fields(sj).items():
-        b = getattr(st, k)
-        if isinstance(a, int):
-            assert a == b, k
-            continue
-        b = b.numpy()
-        assert a.dtype == b.dtype and a.shape == b.shape, k
-        assert np.array_equal(a, b), k
+    assert_port_tables(jax_fields(sj), fields, st)
     for k in META:
         assert getattr(st, k) == getattr(sj, k), k
 
 
 def test_scene_from_numpy_equals_own_build(pair):
-    _, sj, st = pair
+    _, sj, st, _ = pair
     conv = mt.scene_from_numpy(jax_fields(sj), device="cpu")
     for f in scene_mod.SceneData.__dataclass_fields__:
         a, b = getattr(conv, f), getattr(st, f)
@@ -182,23 +179,29 @@ def test_scene_from_numpy_equals_own_build(pair):
 
 
 def test_walk_tables_pack_the_scene_arrays(pair):
-    """bvh_node / bvh_link / bvh_prim hold the BVH2 and prim arrays as the
-    kernels read them."""
-    _, _, st = pair
-    B = st.bvh_min.shape[0]
-    node = st.bvh_node
-    assert node.shape == (B, 8) and st.bvh_link.shape == (B, 16)
-    assert torch.equal(node[:, 0:3], st.bvh_min)
-    assert torch.equal(node[:, 3:6], st.bvh_max)
-    assert torch.equal(node[:, 6].int(), st.bvh_leaf_start)
-    assert torch.equal(node[:, 7].int(), st.bvh_leaf_count)
-    assert torch.equal(st.bvh_link[:, :8].reshape(-1), st.bvh_hit8)
-    assert torch.equal(st.bvh_link[:, 8:].reshape(-1), st.bvh_miss8)
-    prim = st.bvh_prim
-    assert torch.equal(prim[:, 0:3], st.prim_p0)
-    assert torch.equal(prim[:, 3:6], st.prim_e1)
-    assert torch.equal(prim[:, 6:9], st.prim_e2)
-    assert torch.equal(prim[:, 9].int(), st.prim_type)
+    """bvh_node / bvh_link / bvh_prim (convert.bvh_walk_tables) hold the
+    BVH2 and prim arrays as the kernels read them; a walking scene holds
+    them on its device (the brute-force furnace does not)."""
+    name, _, st, f = pair
+    node, link, prim = convert.bvh_walk_tables(f)
+    B = f["bvh_min"].shape[0]
+    assert node.shape == (B, 8) and link.shape == (B, 16)
+    assert np.array_equal(node[:, 0:3], f["bvh_min"])
+    assert np.array_equal(node[:, 3:6], f["bvh_max"])
+    assert np.array_equal(node[:, 6].astype(np.int32), f["bvh_leaf_start"])
+    assert np.array_equal(node[:, 7].astype(np.int32), f["bvh_leaf_count"])
+    assert np.array_equal(link[:, :8].reshape(-1), f["bvh_hit8"])
+    assert np.array_equal(link[:, 8:].reshape(-1), f["bvh_miss8"])
+    assert np.array_equal(prim[:, 0:3], f["prim_p0"])
+    assert np.array_equal(prim[:, 3:6], f["prim_e1"])
+    assert np.array_equal(prim[:, 6:9], f["prim_e2"])
+    assert np.array_equal(prim[:, 9].astype(np.int32), f["prim_type"])
+    if name == "furnace":
+        assert st.bvh_node is None and st.cluster_feat is None
+        return
+    for a, b in zip((st.bvh_node, st.bvh_link, st.bvh_prim),
+                    (node, link, prim)):
+        assert np.array_equal(a.numpy(), b)
 
 
 def test_instance_roots_where_groups_come_in_order():
@@ -209,17 +212,18 @@ def test_instance_roots_where_groups_come_in_order():
     from test_torch_instancing import groups_scene
     from mitsuba2_tpu_torch.scene import bvh
     pkg = package("port")
-    with flatten_mode("0"):
+    with flatten_mode("0"), recorded_fields() as got:
         scenes = [build("field_shared", "port"), groups_scene(pkg),
                   out_of_order_scene(pkg)]
-    for st in scenes[:2]:
-        roots = st.inst_bvh_root.numpy()
-        assert np.array_equal(roots, st.inst_inv[:, 12].numpy().astype(
-            np.int32))
+    for st, f in zip(scenes[:2], got):
+        # groups_scene holds no sphere: its roots are derived here
+        roots = (st.inst_bvh_root.numpy() if st.has_spheres else
+                 convert.instance_bvh_roots(f, f["inst_inv"]))
+        assert np.array_equal(roots, f["inst_inv"][:, 12].astype(np.int32))
         # every root is the first row of a BLAS block: right after the
         # TLAS, or after a row that ends a block
-        miss, count = st.bvh_miss.numpy(), st.bvh_leaf_count.numpy()
-        tlas = int(st.inst_inv[:, 13].min())
+        miss, count = f["bvh_miss"], f["bvh_leaf_count"]
+        tlas = int(f["inst_inv"][:, 13].min())
         assert all(r == tlas or (miss[r - 1] == bvh.BLAS_EXIT
                                  and count[r - 1] > 0) for r in roots)
     st = scenes[2]
@@ -251,12 +255,13 @@ def test_full_size_sphere_fields():
     assert not flat.has_instances and flat.has_spheres
     assert flat.n_prims == 327746 and flat.bvh_node.shape[0] == 208001
     assert int((flat.prim_type == 1).sum()) == 64 and flat.cluster_k == 256
-    assert scene_mod._pick_backend(flat) == "bvh"
+    assert flat.cluster_feat is None and flat.inst_bvh_root is None
     assert shared.has_instances and shared.has_spheres
     assert shared.n_prims == 5123 and shared.bvh_node.shape[0] == 5345
     assert shared.inst_inv.shape == (1025, 16)
     assert shared.inst_fuel == 3376194 and shared.cluster_k == 128
-    assert scene_mod._pick_backend(shared) == "inst_bvh"
+    assert shared.cluster_feat is None
+    assert shared.inst_bvh_root.shape == (1025,)
 
 
 # ---------------------------------------------------------------------------
@@ -267,9 +272,8 @@ def test_brute_force_furnace_matches_jax():
     import jax.numpy as jnp
     from mitsuba2_tpu.core.vec import Vec3 as JVec3
     from mitsuba2_tpu.kernels import brute as jbrute
-    from mitsuba2_tpu_torch.kernels import brute
     sj, st = build("furnace", "jax"), build("furnace", "port")
-    assert scene_mod._pick_backend(st) == "brute"
+    assert brute.takes_brute_force(st.n_prims, st.has_instances)
     rng = np.random.default_rng(3)
     o = rng.uniform(-3, 3, (N_RAYS, 3)).astype(np.float32)
     o[: N_RAYS // 2] *= 0.2                # half start inside the sphere
@@ -514,18 +518,21 @@ def out_of_order_rays(n=N_RAYS):
 
 def test_out_of_order_groups_match_the_flattened_scene():
     """Instances A, A, B: the instanced walk enters each instance at its
-    own BLAS root and hits what the flattened scene's walk hits, in the
-    instance whose flattened copy was hit."""
+    own BLAS root and hits what the flattened scene's BVH2 walk hits, in
+    the instance whose flattened copy was hit. The flattened scene is
+    small enough for brute force, so its walk tables are packed here."""
     pkg = package("port")
     with flatten_mode("0"):
         shared = out_of_order_scene(pkg)
-    with flatten_mode("1"):
+    with flatten_mode("1"), recorded_fields() as got:
         flat = out_of_order_scene(pkg)
     assert shared.has_instances and not flat.has_instances
+    tabs = [torch.from_numpy(a) for a in convert.bvh_walk_tables(got[0])]
     o, d, tm = out_of_order_rays()
     o, d, tm = planar(o), planar(d), torch.from_numpy(tm)
     t, _, _, _, inst = traverse.ray_intersect_instanced(shared, o, d, tm)
-    t_f, p_f, _, _ = traverse.ray_intersect_preliminary(flat, o, d, tm)
+    t_f, p_f, _, _ = traverse.bvh_closest_hit(
+        *tabs, o.x, o.y, o.z, d.x, d.y, d.z, tm, tabs[0].shape[0] + 64)
     hit = torch.isfinite(t)
     assert torch.equal(hit, torch.isfinite(t_f))
     torch.testing.assert_close(t[hit], t_f[hit], rtol=1e-4, atol=0.0)
