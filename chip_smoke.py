@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four main paths, each a forward render at 256x256, 16 spp in one pass,
+Six main paths, each a forward render at 256x256, 16 spp in one pass,
 max_depth 3 through `mitsuba2_tpu_torch.render`:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
@@ -16,7 +16,13 @@ max_depth 3 through `mitsuba2_tpu_torch.render`:
              package's policy flattens: the BVH2 walk (K3);
   spheres_instanced  the sphere field at n=1024, subdiv=4: 5 243 906
              effective prims from 5 123 stored, kept shared: the instanced
-             BVH2 walk (K4).
+             BVH2 walk (K4);
+  gallery_bvh8     the gallery under set_backend("bvh8"): the BVH8 walk over
+             prim leaves (K6);
+  gallery_bvh8mxu  the gallery under set_backend("bvh8mxu"): the BVH8 walk
+             over cluster leaves (K7).
+Each path sets its backend before it builds its scene (a scene uploads
+the tables of the walk it takes) and resets it to "auto" after each use.
 
 Phase 0  the card, torch, CUDA and nvcc.
 Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu, nvcc -> ctypes) and
@@ -24,14 +30,19 @@ Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu, nvcc -> ctypes) and
 Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
-         fields a quarter of the random rays aim into the spheres).
+         fields a quarter of the random rays aim into the spheres); K6
+         also on the n=64 sphere field (its sphere branch). The paths on
+         one scene share its probe rays. Prints the walk work the twins
+         count per lane and the bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
          renders, read just after), time, Mrays/s, peak memory. Each kernel
          is then timed and held against its twin on the very inputs the
-         main path gave it, beside its bound.
+         main path gave it, beside its bound; K6 also on the inputs the
+         spheres path gave K3, for a same-ray comparison.
 Phase 4  small renders on the card against the same renders on the CPU
          (twins and brute force there): the cluster, instanced, BVH2 and
-         instanced BVH2 paths and brute force, with and without a sphere.
+         instanced BVH2 paths and brute force, with and without a sphere,
+         and the BVH8 walks (K6 with and without a sphere, K7).
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind, and the device's busy share.
 
@@ -40,6 +51,7 @@ limit, a JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when there is no CUDA
 device or a phase fails.
 """
+import contextlib
 import functools
 import json
 import os
@@ -59,7 +71,9 @@ PEAK_FP32_PER_S = 67e12
 # and v numerators (11 each), the t numerator (6), one divide, three
 # scalings and u + v (4); comparisons are not counted
 FLOPS_PER_SLOT = 38
-# one slab test of a node: 6 subtractions and 6 multiplications
+# one slab test of a node: 6 subtractions and 6 multiplications (a BVH8
+# walk's fresh visit makes one a non-empty child, and a closest-hit
+# advance one more)
 FLOPS_PER_NODE = 12
 # one instance entry: the 3x4 transform of o (18) and d (15), 3 reciprocals
 FLOPS_PER_ENTRY = 36
@@ -68,8 +82,10 @@ FLOPS_PER_ENTRY = 36
 FLOPS_PER_TRI = 46
 FLOPS_PER_SPHERE = 31
 # the walk work the twins count, as printed per lane
-WORK_COUNTS = ("node_steps", "cluster_visits", "slot_tests", "tri_tests",
-               "sphere_tests", "instance_entries")
+WORK_COUNTS = ("node_steps", "fresh_visits", "child_tests", "advances",
+               "pushes", "pops", "cluster_visits", "slot_tests",
+               "real_slot_tests", "tri_tests", "sphere_tests",
+               "instance_entries")
 # the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
 FIELD = dict(n=1024, subdiv=4)
@@ -96,6 +112,10 @@ REPLACES = {
     "bvh_any_hit": (f"{PALLAS}:309", None),
     "inst_bvh_closest_hit": (f"{PALLAS}:1382", None),
     "inst_bvh_any_hit": (f"{PALLAS}:1486", None),
+    "bvh8_closest_hit": (f"{PALLAS}:2001", None),
+    "bvh8_any_hit": (f"{PALLAS}:2117", None),
+    "bvh8mxu_closest_hit": (f"{PALLAS}:2316", None),
+    "bvh8mxu_any_hit": (f"{PALLAS}:2433", None),
 }
 # each path's closest-hit and any-hit kernels: 3 and 2 launches a render
 # (the camera and two bounce wavefronts, two shadow rounds), 0 of the rest
@@ -104,7 +124,15 @@ PATH_KERNELS = {
     "instanced": ("inst_cluster_closest_hit", "inst_cluster_any_hit"),
     "spheres": ("bvh_closest_hit", "bvh_any_hit"),
     "spheres_instanced": ("inst_bvh_closest_hit", "inst_bvh_any_hit"),
+    "gallery_bvh8": ("bvh8_closest_hit", "bvh8_any_hit"),
+    "gallery_bvh8mxu": ("bvh8mxu_closest_hit", "bvh8mxu_any_hit"),
 }
+# the backend each path (and phase 2's extra scene) runs under, and the
+# path whose scene geometry and probe rays it shares
+BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
+           "spheres_bvh8": "bvh8"}
+SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
+              "spheres_bvh8": "spheres"}
 EXPECTED_LAUNCHES = {
     path: {k: 3 if k == c else 2 if k == a else 0 for k in REPLACES}
     for path, (c, a) in PATH_KERNELS.items()}
@@ -175,13 +203,39 @@ def planar(torch, a, dev):
             for i in range(3)]
 
 
-def kernels_of(scene):
+@contextlib.contextmanager
+def forced_backend(name):
+    """scene.set_backend(name) inside the block, "auto" after it."""
+    from mitsuba2_tpu_torch.scene import scene as scene_mod
+    scene_mod.set_backend(name)
+    try:
+        yield name
+    finally:
+        scene_mod.set_backend("auto")
+
+
+def kernels_of(scene, backend="auto"):
     """The path's two kernel wrappers, their twins, tables, trailing
     arguments, the positions of the id outputs (slot or prim, instance),
     whether the closest hit emits u/v (outputs 2 and 3) and the twins'
-    chunk: the BVH2 walks on a scene holding a sphere, the
-    cluster walks on the others, each instanced on an instanced scene."""
+    chunk: the BVH8 walks under set_backend("bvh8" | "bvh8mxu"); else the
+    BVH2 walks on a scene holding a sphere, the cluster walks on the
+    others, each instanced on an instanced scene."""
+    import torch
+    from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
+    if backend in ("bvh8", "bvh8mxu"):
+        # the entry points' own tables and walk bounds (stack, fuel)
+        z = torch.zeros(1, device=scene.device)
+        k6 = backend == "bvh8"
+        args = (traverse._bvh8_args if k6 else traverse._bvh8mxu_args)(
+            scene, Vec3(z, z, z), Vec3(z, z, z), z)
+        return dict(
+            closest=f"{backend}_closest_hit", any=f"{backend}_any_hit",
+            closest_plain=getattr(traverse, f"{backend}_closest_hit_plain"),
+            any_plain=getattr(traverse, f"{backend}_any_hit_plain"),
+            tabs=args[:3], extra=args[10:], ids=(1,), uv=k6,
+            chunk=1 << 20 if k6 else 65536)
     if scene.has_spheres:
         # the BVH2 twins walk a whole wavefront as one chunk: their loop
         # runs as long as the longest walk in a chunk
@@ -314,8 +368,9 @@ def sphere_field(mt, n, subdiv, device):
 
 
 def phase_kernels_vs_twins(torch, mt, dev):
-    """Each path's scene and its kernels against their twins on probe
-    rays; returns the scenes."""
+    """Each path's scene (and the sphere field under "bvh8") and its
+    kernels against their twins on probe rays; returns the paths' scenes
+    and the extra one."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -343,8 +398,27 @@ def phase_kernels_vs_twins(torch, mt, dev):
             f"{scene.n_prims} stored prims "
             f"({int((scene.prim_type == 1).sum())} spheres), "
             f"{scene.bvh_node.shape[0]} BVH2 rows, walk fuel {fuel}")
+    extra = {}
+    for name in ("gallery_bvh8", "gallery_bvh8mxu", "spheres_bvh8"):
+        t0 = time.perf_counter()
+        with forced_backend(BACKEND[name]) as b:
+            scene = (mt.mesh_gallery(subdiv=SUBDIV, device=dev)
+                     if name.startswith("gallery") else
+                     sphere_field(mt, device=dev, **SPHERE_FIELDS["spheres"]))
+            ks = kernels_of(scene, b)
+        child = ks["tabs"][0]
+        check(not scene.has_instances and scene.has_spheres
+              == (name == "spheres_bvh8"), f"{name}: wrong scene")
+        (extra if name == "spheres_bvh8" else scenes)[name] = scene
+        log(f"phase 2: built {name} under set_backend({b!r}) in "
+            f"{time.perf_counter() - t0:.1f} s: {child.shape[0] // 8} BVH8 "
+            f"nodes, depth {ks['extra'][-2] - traverse.BVH8_STACK_MARGIN}, "
+            f"walk fuel {ks['extra'][-1]}, tables "
+            f"{sum(a.numel() * a.element_size() for a in ks['tabs']) / 2**20:.2f}"
+            " MiB")
     ok = True
-    for path, scene in scenes.items():
+    probes = {}
+    for name, scene in {**scenes, **extra}.items():
         def closest_np(o, d, t_max):
             o, d = Vec3(*planar(torch, o, dev)), Vec3(*planar(torch, d, dev))
             t_max = torch.from_numpy(t_max).to(dev)
@@ -357,8 +431,12 @@ def phase_kernels_vs_twins(torch, mt, dev):
                 scene, o, d, t_max)
             return t.cpu().numpy(), prim.cpu().numpy(), None
 
-        rays = probe_rays(scene, N_PROBE, 0, closest_np)
-        ks = kernels_of(scene)
+        # the paths on one scene share the first one's probe rays
+        base = SAME_SCENE.get(name, name)
+        if base not in probes:
+            probes[base] = probe_rays(scene, N_PROBE, 0, closest_np)
+        rays = probes[base]
+        ks = kernels_of(scene, BACKEND.get(name, "auto"))
         for kind in KINDS:
             o, d, tm = rays[kind]
             args = (planar(torch, o, dev) + planar(torch, d, dev)
@@ -366,13 +444,17 @@ def phase_kernels_vs_twins(torch, mt, dev):
             c = compare(torch, ks, args)
             good = passes(c)
             ok &= good
-            log(f"phase 2: {path:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
+            log(f"phase 2: {name:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
                 f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
                 f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
                 f"{c['t_max_abs_err']:.3e} uv-max-abs-err "
                 f"{c['uv_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f}")
+            for closest in (True, False):
+                log(f"  {ks['closest' if closest else 'any']} work: "
+                    + work_line(c["closest_stats" if closest else
+                                  "any_stats"], closest, ks, scene, len(tm)))
     check(ok, "a kernel disagrees with its twin on the probe rays")
-    return scenes
+    return scenes, extra
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +464,9 @@ def phase_kernels_vs_twins(torch, mt, dev):
 # the traversal entry points, by the kind of kernel they reach
 ENTRY_KIND = {"ray_intersect_preliminary": "closest", "ray_test": "any",
               "ray_intersect_instanced": "closest",
-              "ray_test_instanced": "any"}
+              "ray_test_instanced": "any",
+              "ray_intersect_bvh8": "closest", "ray_test_bvh8": "any",
+              "ray_intersect_bvh8mxu": "closest", "ray_test_bvh8mxu": "any"}
 
 
 def _recorders(traverse, record, ks):
@@ -421,14 +505,86 @@ def kernel_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def phase_main_path(torch, mt, path, scene, card):
+def time_launch(torch, ks, scene, name, rays):
+    """One launch of kernel `name` (of `ks`, kernels_of's) on `rays`: its
+    device time, its agreement with its twin, the twin's time, the work
+    the twin counted and the bound of that work."""
+    tabs, extra = ks["tabs"], ks["extra"]
+    n = rays[0].numel()
+    ms = kernel_ms(torch, lambda: wrapper(name)(*tabs, *rays, *extra),
+                   KERNEL_REPS)
+    c = compare(torch, ks, list(rays))
+    closest = name == ks["closest"]
+    st = c["closest_stats" if closest else "any_stats"]
+    live = int((rays[6] > 0).sum())
+    bound_ms, bound_by = work_bound(st, closest, ks, scene, n, live)
+    return dict(ms=ms, c=c, st=st, n=n, live=live,
+                plain_ms=c["closest_plain_ms" if closest else "any_plain_ms"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                err=c["t_max_abs_err"] if closest else c["occ_max_abs_err"])
+
+
+def work_bound(st, closest, ks, scene, n, live):
+    """The least time (ms, and "operations" or "bytes") of a launch over
+    `n` lanes, `live` of them with t_max > 0, that does the work `st` (a
+    twin's counts) with the tables of `ks` (kernels_of's)."""
+    # the work these rays need: an any-hit lane stops at its first hit, so
+    # it tests only part of its last cluster or leaf; a cluster's padding
+    # slots and a BVH8 node's empty child slots, which the kernels test
+    # too, are not counted; a BVH8 walk slab-tests a node's children at a
+    # fresh visit, and one more a closest-hit advance
+    slabs = (st.get("node_steps", 0) + st.get("child_tests", 0)
+             + (st.get("advances", 0) if closest else 0))
+    ops = (st.get("real_slot_tests", 0) * FLOPS_PER_SLOT
+           + slabs * FLOPS_PER_NODE
+           + st.get("instance_entries", 0) * FLOPS_PER_ENTRY
+           + st.get("tri_tests", 0) * FLOPS_PER_TRI
+           + st.get("sphere_tests", 0) * FLOPS_PER_SPHERE)
+    # t and slot or prim (and u, v where the walk emits them, the instance
+    # on the instanced ones) a lane, or the occlusion byte
+    out_bytes = (4 * (2 + 2 * ks["uv"] + scene.has_instances)
+                 if closest else 1)
+    # the tables once; every lane's t_max; o and d (24 bytes) only of a
+    # live lane: a kernel thread whose t_max <= 0 reads nothing more
+    tabs_bytes = sum(a.numel() * a.element_size() for a in ks["tabs"])
+    nbytes = 4 * n + 24 * live + tabs_bytes + n * out_bytes
+    t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def work_line(st, closest, ks, scene, n):
+    """A twin's work counts `st` over `n` rays per lane, and the bound of
+    a 1 048 576-lane launch of such rays, all live: what a prediction of
+    a kernel's time starts from."""
+    lanes = 1 << 20
+    ms, by = work_bound({k: v * lanes / n for k, v in st.items()}, closest,
+                        ks, scene, lanes, lanes)
+    return (", ".join(f"{st[k] / n:.4f} {k.replace('_', ' ')}"
+                      for k in WORK_COUNTS if k in st)
+            + f"; 1M such lanes: bound {ms:.4f} ms by {by}")
+
+
+def log_launch(name, i, r):
+    c, st, n = r["c"], r["st"], r["n"]
+    work = ", ".join(f"{st[k] / n:.4f} {k.replace('_', ' ')}"
+                     for k in WORK_COUNTS if k in st)
+    log(f"  {name} launch {i}: {n} lanes ({r['live'] / n:.4f} live), "
+        f"{r['ms']:.3f} ms (kernel), {r['plain_ms']:.1f} ms (twin, all "
+        f"lanes), bound {r['bound_ms']:.4f} ms by {r['bound_by']}; per lane "
+        f"{work}; hit {c['hit_frac']:.4f}, prim-agree "
+        f"{c['slot_agree']:.6f}, occ-agree {c['occ_agree']:.6f}")
+
+
+def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
-    each launch of the path's kernels timed and held against its twin."""
+    each launch of the path's kernels timed and held against its twin,
+    and, with `also` (a scene under "bvh8"), K6's on the same inputs."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
     names = list(EXPECTED_LAUNCHES[path])
-    ks = kernels_of(scene)
+    ks = kernels_of(scene, BACKEND.get(path, "auto"))
 
     record = []
     orig, rec = _recorders(traverse, record, ks)
@@ -484,63 +640,35 @@ def phase_main_path(torch, mt, path, scene, card):
         check(n == 0 or counts[k] > 0, f"{k} was not launched on {path}")
 
     # each kernel at the main path's shapes: time, twin, bound
-    per = {k: {"ms": [], "plain_ms": [], "bound_ms": [], "err": 0.0,
-               "bound_by": []} for k in (ks["closest"], ks["any"])}
-    tabs, extra = ks["tabs"], ks["extra"]
-    tabs_bytes = sum(a.numel() * a.element_size() for a in tabs)
+    per = {k: [] for k in (ks["closest"], ks["any"])}
     for i, (name, rays) in enumerate(record):
         check(name in per, f"{path}: {name} was called on the main path")
-        n = rays[0].numel()
-        ms = kernel_ms(torch, lambda: wrapper(name)(*tabs, *rays, *extra),
-                       KERNEL_REPS)
-        c = compare(torch, ks, list(rays))
-        check(passes(c), f"{name} launch {i} disagrees with its twin: {c}")
-        closest = name == ks["closest"]
-        st = c["closest_stats" if closest else "any_stats"]
-        # the work this run's rays need: an any-hit lane stops at its first
-        # hit, so it tests only part of its last cluster or leaf
-        ops = (st.get("slot_tests", 0) * FLOPS_PER_SLOT
-               + st.get("node_steps", 0) * FLOPS_PER_NODE
-               + st.get("instance_entries", 0) * FLOPS_PER_ENTRY
-               + st.get("tri_tests", 0) * FLOPS_PER_TRI
-               + st.get("sphere_tests", 0) * FLOPS_PER_SPHERE)
-        # t and slot or prim (and u, v on the BVH2 walks, the instance on
-        # the instanced ones) a lane, or the occlusion byte
-        out_bytes = (4 * (2 + 2 * scene.has_spheres + scene.has_instances)
-                     if closest else 1)
-        # every lane's t_max; o and d (24 bytes) only of a live lane: a
-        # kernel thread whose t_max <= 0 reads nothing more
-        live = int((rays[6] > 0).sum())
-        nbytes = 4 * n + 24 * live + tabs_bytes + n * out_bytes
-        t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
-        p = per[name]
-        p["ms"].append(ms)
-        p["plain_ms"].append(c["closest_plain_ms" if closest
-                              else "any_plain_ms"])
-        p["bound_ms"].append(max(t_ops, t_bytes) * 1e3)
-        p["bound_by"].append("operations" if t_ops >= t_bytes else "bytes")
-        p["err"] = max(p["err"], c["t_max_abs_err"] if closest
-                       else c["occ_max_abs_err"])
-        work = ", ".join(f"{st[k] / n:.4f} {k.replace('_', ' ')}"
-                         for k in WORK_COUNTS if k in st)
-        log(f"  {name} launch {i}: {n} lanes ({live / n:.4f} live), "
-            f"{ms:.3f} ms (kernel), "
-            f"{p['plain_ms'][-1]:.1f} ms (twin, all lanes), "
-            f"bound {p['bound_ms'][-1]:.4f} ms by {p['bound_by'][-1]}; "
-            f"per lane {work}; "
-            f"hit {c['hit_frac']:.4f}, prim-agree {c['slot_agree']:.6f}, "
-            f"occ-agree {c['occ_agree']:.6f}")
+        r = time_launch(torch, ks, scene, name, rays)
+        check(passes(r["c"]), f"{name} launch {i} disagrees with its twin: "
+                              f"{r['c']}")
+        per[name].append(r)
+        log_launch(name, i, r)
+    if also is not None:
+        # K6 on the very rays the path gave its own kernels
+        k8 = kernels_of(also, "bvh8")
+        for i, (name, rays) in enumerate(record):
+            name8 = k8["closest" if name == ks["closest"] else "any"]
+            r = time_launch(torch, k8, also, name8, rays)
+            check(passes(r["c"]), f"{name8} on {path}'s launch {i} "
+                                  f"disagrees with its twin: {r['c']}")
+            log_launch(f"{name8} (on {path}'s {name} inputs)", i, r)
     rows = []
-    for name, p in per.items():
+    for name, rs in per.items():
+        bound_by = [r["bound_by"] for r in rs]
         row = {
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[name][0],
             "launches": counts[name],
-            "max_abs_err": p["err"],
-            "ms": statistics.fmean(p["ms"]),
-            "plain_ms": statistics.fmean(p["plain_ms"]),
-            "bound_ms": statistics.fmean(p["bound_ms"]),
-            "bound_by": max(set(p["bound_by"]), key=p["bound_by"].count),
+            "max_abs_err": max(r["err"] for r in rs),
+            "ms": statistics.fmean(r["ms"] for r in rs),
+            "plain_ms": statistics.fmean(r["plain_ms"] for r in rs),
+            "bound_ms": statistics.fmean(r["bound_ms"] for r in rs),
+            "bound_by": max(set(bound_by), key=bound_by.count),
             "library_ms": None,
         }
         if REPLACES[name][1]:
@@ -573,20 +701,28 @@ def phase_small_renders(torch, mt, dev):
     cfg = mt.RenderConfig(width=32, height=32, spp=2, spp_per_pass=1,
                           max_depth=3, rr_depth=2)
     small_field = functools.partial(sphere_field, mt, 6, 2)
-    for name, mk in (("mesh_gallery(subdiv=1)",
-                      lambda d: mt.mesh_gallery(subdiv=1, device=d)),
-                     ("instanced_field(n=6, subdiv=2), shared BLAS",
-                      lambda d: _shared(lambda d_: mt.instanced_field(
-                          n=6, subdiv=2, device=d_), d)),
-                     ("cornell_box", lambda d: mt.cornell_box(device=d)),
-                     ("furnace (brute force, a sphere)",
-                      lambda d: mt.furnace(device=d)),
-                     ("sphere_field(n=6, subdiv=2), flattened (BVH2)",
-                      small_field),
-                     ("sphere_field(n=6, subdiv=2), shared BLAS (BVH2)",
-                      lambda d: _shared(small_field, d))):
-        img_c = mt.render(mk("cpu"), cfg, seed=5, device="cpu").numpy()
-        img_g = mt.render(mk(dev), cfg, seed=5).cpu().numpy()
+    gallery = functools.partial(mt.mesh_gallery, subdiv=1)
+    for name, mk, backend in (
+            ("mesh_gallery(subdiv=1)", lambda d: gallery(device=d), "auto"),
+            ("instanced_field(n=6, subdiv=2), shared BLAS",
+             lambda d: _shared(lambda d_: mt.instanced_field(
+                 n=6, subdiv=2, device=d_), d), "auto"),
+            ("cornell_box", lambda d: mt.cornell_box(device=d), "auto"),
+            ("furnace (brute force, a sphere)",
+             lambda d: mt.furnace(device=d), "auto"),
+            ("sphere_field(n=6, subdiv=2), flattened (BVH2)", small_field,
+             "auto"),
+            ("sphere_field(n=6, subdiv=2), shared BLAS (BVH2)",
+             lambda d: _shared(small_field, d), "auto"),
+            ("mesh_gallery(subdiv=1) under bvh8 (K6)",
+             lambda d: gallery(device=d), "bvh8"),
+            ("sphere_field(n=6, subdiv=2), flattened, under bvh8 (K6)",
+             small_field, "bvh8"),
+            ("mesh_gallery(subdiv=1) under bvh8mxu (K7)",
+             lambda d: gallery(device=d), "bvh8mxu")):
+        with forced_backend(backend):
+            img_c = mt.render(mk("cpu"), cfg, seed=5, device="cpu").numpy()
+            img_g = mt.render(mk(dev), cfg, seed=5).cpu().numpy()
         close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
         rel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
         good = (np.isfinite(img_g).all() and close >= 0.99 and rel <= 1e-3)
@@ -602,7 +738,7 @@ def phase_small_renders(torch, mt, dev):
 
 def _category(name):
     low = name.lower()
-    if "cluster_" in low or "bvh_" in low:
+    if "cluster_" in low or "bvh" in low:
         return "traversal kernels"
     if "sort" in low or "radix" in low:
         return "presort (torch.sort)"
@@ -671,16 +807,19 @@ def main():
         import mitsuba2_tpu_torch as mt
         dev = torch.device(DEVICE)
         timed(1, phase_build)
-        scenes = timed(2, phase_kernels_vs_twins, torch, mt, dev)
+        scenes, extra = timed(2, phase_kernels_vs_twins, torch, mt, dev)
         rows, render_ms = [], {}
         for path, scene in scenes.items():
-            r, render_ms[path] = timed(f"3 ({path})", phase_main_path,
-                                       torch, mt, path, scene, card)
+            with forced_backend(BACKEND.get(path, "auto")):
+                r, render_ms[path] = timed(
+                    f"3 ({path})", phase_main_path, torch, mt, path, scene,
+                    card, extra["spheres_bvh8"] if path == "spheres" else None)
             rows += r
         timed(4, phase_small_renders, torch, mt, dev)
         for path, scene in scenes.items():
-            timed(f"5 ({path})", phase_profile, torch, mt, path, scene,
-                  render_ms[path])
+            with forced_backend(BACKEND.get(path, "auto")):
+                timed(f"5 ({path})", phase_profile, torch, mt, path, scene,
+                      render_ms[path])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,9 +7,12 @@ port's scene on `device`. The port's own build goes through it too, so a
 converted JAX scene and a scene the port built itself are the same object
 for the same inputs. The rest of the static metadata (`has_spheres`
 among it) is derived from the tables. Only the tables of the walk the
-scene takes go to the device: the BVH2 walks' packed tables for a scene
-holding a sphere, the cluster walks' for the others, neither for a
-brute-force scene. A table that names a feature this slice does not render
+scene takes under the backend in force (scene.set_backend) go to the
+device: by default the BVH2 walks' packed tables for a scene holding a
+sphere, the cluster walks' for the others, neither for a brute-force
+scene; under "bvh8" the BVH8 tables and the packed prim rows (K6), under
+"bvh8mxu" the cut tree's BVH8 tables and the cluster plane rows (K7). The
+BVH8 tables (scene.BVH8_FIELDS) may be absent from `fields`. A table that names a feature this slice does not render
 (emitters other than area and constant ones, BSDF families other than
 diffuse, twosided BSDFs, textured colors) raises.
 """
@@ -21,14 +24,13 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels.brute import takes_brute_force
 from .kernels.traverse import FEAT_W
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
 from .render.spectra import SLOT_TEX_BASE
 from .scene.bvh import BLAS_EXIT
-from .scene.scene import (CLUSTER_FIELDS, FIELDS, INST_FIELDS, PRIM_SPHERE,
-                          UPLOAD_FIELDS, SceneData)
+from .scene.scene import (BVH8_FIELDS, CLUSTER_FIELDS, FIELDS, INST_FIELDS,
+                          PRIM_SPHERE, UPLOAD_FIELDS, SceneData, upload_walk)
 
 
 def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
@@ -45,12 +47,21 @@ def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
     return out.reshape(S, FEAT_W)
 
 
+def prim_rows(f: Dict[str, np.ndarray]) -> np.ndarray:
+    """The prim rows the BVH2 and BVH8 walks test, (P, 12) f32 [p0, e1,
+    e2, type, 0, 0]."""
+    P = f["prim_p0"].shape[0]
+    prim = np.concatenate([f["prim_p0"], f["prim_e1"], f["prim_e2"],
+                           f["prim_type"].astype(np.float32)[:, None],
+                           np.zeros((P, 2), np.float32)], -1)
+    return prim.astype(np.float32)
+
+
 def bvh_walk_tables(f: Dict[str, np.ndarray]):
     """The BVH2 walk's tables from the SceneData arrays: node rows (B, 8)
     f32 [min.xyz, max.xyz, leaf_start, leaf_count] (the two integers held
     exactly as floats, as mxu_node_f holds its slot ids), links (B, 16)
-    i32 [hit8 | miss8] and prim rows (P, 12) f32 [p0, e1, e2, type, 0,
-    0]."""
+    i32 [hit8 | miss8] and prim rows (P, 12) f32 (prim_rows)."""
     B, P = f["bvh_min"].shape[0], f["prim_p0"].shape[0]
     if max(P, int(f["bvh_leaf_start"].max())) >= (1 << 24):
         raise ValueError("prim ids exceed the f32 exact-integer range")
@@ -59,11 +70,7 @@ def bvh_walk_tables(f: Dict[str, np.ndarray]):
                            counts.astype(np.float32)], -1)
     link = np.concatenate([f["bvh_hit8"].reshape(B, 8),
                            f["bvh_miss8"].reshape(B, 8)], -1)
-    prim = np.concatenate([f["prim_p0"], f["prim_e1"], f["prim_e2"],
-                           f["prim_type"].astype(np.float32)[:, None],
-                           np.zeros((P, 2), np.float32)], -1)
-    return (node.astype(np.float32), link.astype(np.int32),
-            prim.astype(np.float32))
+    return node.astype(np.float32), link.astype(np.int32), prim_rows(f)
 
 
 def instance_bvh_roots(f: Dict[str, np.ndarray], inst_inv: np.ndarray):
@@ -128,7 +135,10 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     n_clusters = int((f["mxu_node_f"][:, 6] >= 0).sum())
     cluster_k = f["cluster_slot_prim"].shape[0] // max(n_clusters, 1)
     has_spheres = bool((f["prim_type"] == PRIM_SPHERE).any())
-    walk = not takes_brute_force(f["prim_type"].shape[0], inst)
+    b8 = {k: fields.get(k) for k in BVH8_FIELDS}
+    walk = upload_walk(f["prim_type"].shape[0], inst, has_spheres,
+                       b8["bvh8_child"] is not None,
+                       b8["bvh8c_child"] is not None)
     dev = resolve_device(device)
 
     def up(a):
@@ -136,15 +146,27 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
 
     tabs = {k: up(f[k]) for k in FIELDS
             if k not in CLUSTER_FIELDS + UPLOAD_FIELDS}
-    if walk and has_spheres:
+    if walk == "walk" and has_spheres:
         tabs.update(zip(("bvh_node", "bvh_link", "bvh_prim"),
                         map(up, bvh_walk_tables(f))))
         if inst:
             tabs["inst_bvh_root"] = up(instance_bvh_roots(
                 f, np.asarray(fields["inst_inv"])))
-    elif walk:
+    elif walk == "walk":
         tabs.update({k: up(f[k]) for k in CLUSTER_FIELDS})
         tabs["cluster_feat"] = up(slot_major_feat(f["mxu_feat"], cluster_k))
+    elif walk == "bvh8":
+        tabs.update(bvh8_child=up(b8["bvh8_child"]),
+                    bvh8_order=up(b8["bvh8_order"]),
+                    bvh_prim=up(prim_rows(f)),
+                    bvh8_depth=int(b8["bvh8_depth"]))
+    elif walk == "bvh8mxu":
+        tabs.update(bvh8c_child=up(b8["bvh8c_child"]),
+                    bvh8c_order=up(b8["bvh8c_order"]),
+                    cluster_slot_prim=up(f["cluster_slot_prim"]),
+                    cluster_feat=up(slot_major_feat(f["mxu_feat"],
+                                                    cluster_k)),
+                    bvh8c_depth=int(b8["bvh8c_depth"]))
     return SceneData(
         **tabs,
         inst_inv=up(fields["inst_inv"]) if inst else None,

@@ -1,7 +1,8 @@
 // Ray traversal for Hopper (sm_90a): closest hit and any hit, over a
-// cluster cut tree or a full BVH2, each flat or under a TLAS of instances.
+// cluster cut tree or a full BVH2, each flat or under a TLAS of instances,
+// and over the BVH8 collapse of either tree (flat).
 //
-// REPLACES ten kernels of the JAX package,
+// REPLACES fourteen kernels of the JAX package,
 // mitsuba2_tpu/kernels/traverse_pallas.py:
 //   cluster_closest_hit_kernel <- _closest_hit_mxu_kernel (:671) and
 //                                 _closest_hit_mxu2_kernel (:877)
@@ -13,9 +14,14 @@
 //   bvh_any_hit_kernel          <- _any_hit_kernel (:309)
 //   inst_bvh_closest_hit_kernel <- _closest_hit_inst_kernel (:1382)
 //   inst_bvh_any_hit_kernel     <- _any_hit_inst_kernel (:1486)
+//   bvh8_closest_hit_kernel     <- _closest_hit_bvh8_kernel (:2001)
+//   bvh8_any_hit_kernel         <- _any_hit_bvh8_kernel (:2117)
+//   bvh8mxu_closest_hit_kernel  <- _closest_hit_bvh8mxu_kernel (:2316)
+//   bvh8mxu_any_hit_kernel      <- _any_hit_bvh8mxu_kernel (:2433)
 // mxu and mxu2 compute one function; they differ only in how the TPU
 // interleaves two 4096-ray lockstep walks, which has no meaning here. The
-// BVH2 walks are described after the cluster walks, below.
+// BVH2 walks are described after the cluster walks, and the BVH8 walks
+// after them, below.
 //
 // WHAT BOUNDS IT on an H100. Per ray the work is the cluster visits its
 // walk needs: each visit tests CK = 128 triangle slots, 38 FP32
@@ -153,6 +159,37 @@ __device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
            (u + v <= 1.0f) && (t > 0.0f);
 }
 
+// One cluster visit: the CK slots from fs, the ray recentred at the
+// cluster centroid c. Any hit: true at the first slot hit at t <= t_lim.
+// Closest hit: a slot strictly nearer than *t_best replaces *t_best and
+// *best (slot base + k, so the lowest slot keeps a tie); returns whether
+// one did.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool cluster_visit(const float4* __restrict__ fs,
+                                              const float4& c,
+                                              const RayState& r, int base,
+                                              int ck, float t_lim,
+                                              float* t_best, int* best) {
+    const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
+    const float mx = py * r.dz - pz * r.dy;
+    const float my = pz * r.dx - px * r.dz;
+    const float mz = px * r.dy - py * r.dx;
+    bool closer = false;
+    for (int k = 0; k < ck; ++k) {
+        float t;
+        const bool ok = slot_test(fs + k * FEAT_W4, r, px, py, pz, mx, my,
+                                  mz, &t);
+        if (ANY_HIT) {
+            if (ok && t <= t_lim) return true;   // stop at the first hit
+        } else if (ok && t < *t_best) {
+            *t_best = t;
+            *best = base + k;
+            closer = true;
+        }
+    }
+    return closer;
+}
+
 // The walk of one ray. INST = false: one cut tree, `world` is the ray
 // throughout. INST = true: the instanced walk described above.
 template <bool ANY_HIT, bool INST>
@@ -176,26 +213,14 @@ __device__ __forceinline__ void walk(
         if (slot_base >= 0) {
             if (hit) {
                 const float4 c = __ldg(node_f + 4 * node + 2);
-                const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
-                const float mx = py * r.dz - pz * r.dy;
-                const float my = pz * r.dx - px * r.dz;
-                const float mz = px * r.dy - py * r.dx;
                 const float4* fs = feat + (size_t)slot_base * FEAT_W4;
-                const float tl = ANY_HIT ? t_max : t_best;
-                for (int k = 0; k < ck; ++k) {
-                    float t;
-                    const bool ok = slot_test(fs + k * FEAT_W4, r, px, py, pz,
-                                              mx, my, mz, &t);
+                if (cluster_visit<ANY_HIT>(fs, c, r, slot_base, ck, t_max,
+                                           &t_best, &best)) {
                     if (ANY_HIT) {
-                        if (ok && t <= tl) {
-                            *occ_io = true;
-                            return;           // stop at the first hit
-                        }
-                    } else if (ok && t < t_best) {
-                        t_best = t;           // t_best <= tl: strict < keeps
-                        best = slot_base + k; // the lowest slot on a tie
-                        if (INST) binst = cinst;
+                        *occ_io = true;
+                        return;
                     }
+                    if (INST) binst = cinst;
                 }
             }
             node = miss_link;
@@ -428,6 +453,33 @@ __device__ __forceinline__ float prim_test(const float4* __restrict__ pr,
     return t > 0.0f ? t : inf_f();
 }
 
+// One leaf visit: `count` prims from `first`, tested in order. Any hit:
+// true at the first finite t <= t_lim. Closest hit: a prim strictly
+// nearer than *t_best replaces *t_best, *best and its u/v (the lowest prim
+// of the leaf keeps a tie); returns whether one did.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool leaf_visit(const float4* __restrict__ prim,
+                                           int first, int count,
+                                           const RayState& r, float t_lim,
+                                           float* t_best, int* best,
+                                           float* bu, float* bv) {
+    bool closer = false;
+    for (int k = 0; k < count; ++k) {
+        float u, v;
+        const float t = prim_test(prim + 3 * (size_t)(first + k), r, &u, &v);
+        if (ANY_HIT) {
+            if (t < inf_f() && t <= t_lim) return true;   // the first hit
+        } else if (t < *t_best) {     // t = +inf where it misses
+            *t_best = t;
+            *best = first + k;
+            *bu = u;
+            *bv = v;
+            closer = true;
+        }
+    }
+    return closer;
+}
+
 // The BVH2 walk of one ray. INST = false: one tree, `world` is the ray
 // throughout. INST = true: the instanced walk described above.
 template <bool ANY_HIT, bool INST>
@@ -450,24 +502,14 @@ __device__ __forceinline__ void bvh_walk(
         const int hit_link = __ldg(link + 16 * nd + r.oct);
         const int miss_link = __ldg(link + 16 * nd + 8 + r.oct);
         if (leaf_start >= 0 && leaf_count > 0) {
-            if (hit) {
-                for (int k = 0; k < leaf_count; ++k) {
-                    float u, v;
-                    const float t = prim_test(prim + 3 * (leaf_start + k), r,
-                                              &u, &v);
-                    if (ANY_HIT) {
-                        if (t < inf_f() && t <= t_max) {
-                            *occ_io = true;
-                            return;           // stop at the first hit
-                        }
-                    } else if (t < t_best) {  // t = +inf where it misses
-                        t_best = t;
-                        best = leaf_start + k;
-                        bu = u;
-                        bv = v;
-                        if (INST) binst = cinst;
-                    }
+            if (hit && leaf_visit<ANY_HIT>(prim, leaf_start, leaf_count, r,
+                                           t_max, &t_best, &best, &bu,
+                                           &bv)) {
+                if (ANY_HIT) {
+                    *occ_io = true;
+                    return;
                 }
+                if (INST) binst = cinst;
             }
             nd = miss_link;
         } else if (INST && leaf_start >= 0) {
@@ -618,6 +660,239 @@ inst_bvh_any_hit_kernel(const float4* __restrict__ node,
     occ_out[i] = occ;
 }
 
+// ---------------------------------------------------------------------------
+// BVH8 walks (K6 over prim leaves, K7 over cluster leaves), the kernels of
+// set_backend("bvh8") and ("bvh8mxu") on flat scenes.
+//
+// WHAT BOUNDS THEM on an H100. Per ray the work is its fresh node visits
+// (8 slab tests of 12 FP32 operations over 8 child rows), its advances (a
+// closest-hit advance re-culls the child: one more slab test), and its
+// leaf tests: K6 up to LEAF_K = 4 prims a leaf (46 FP32 operations a
+// triangle, 31 a sphere, prim_test above), K7 the CK = 128 slots of a
+// cluster (38 each, slot_test above). The bytes the function must move are
+// the rays, the results and the tables once, so the roofline bound is a
+// few hundredths of a millisecond for a 1M-lane wavefront, by bytes or by
+// operations. The real limiter of this first version is, as for K1-K5,
+// latency: each step waits on a dependent child-row load, and the
+// threads of a warp diverge onto different subtrees.
+//
+// DESIGN. One ray per thread, a stack walk (the JAX kernels' state
+// machine, one step a loop iteration). A fresh visit of node `cur` reads
+// the order row order8[cur*8 + octant] (the ray's own octant: bit0 dx<0,
+// bit1 dy<0, bit2 dz<0; the JAX kernels' block vote is a TPU workaround)
+// and slab-tests every non-empty child in that order, against t_best
+// (closest hit) or t_max (any hit): bit j of the mask is the child at
+// position j of the order. A step then advances the lowest set bit: it
+// clears it and reads that child; closest hit re-culls it against the
+// current t_best, any hit does not. A leaf child is tested (K6: its prims
+// in order, strict < so the lowest prim keeps a tie; K7: its cluster's CK
+// slots recentred at the child's centroid, K1's slot test and tie rule);
+// an inner child (kind <= -2) is descended into, pushing the parent with
+// its remaining mask only if that mask is non-zero. An empty mask pops,
+// and an empty stack ends the walk; any hit ends at its first hit. The
+// stack is a per-thread array of BVH8_STACK (node << 8 | mask) words in
+// local memory; the wrapper refuses a tree whose depth + 2 exceeds it, so
+// the guard on the push never drops one. The order row is kept in one
+// register as eight 4-bit slots. The step cap is the JAX kernels' fuel
+// (the wrapper's). Child rows: K6 [min.xyz, max.x | max.yz, kind, count]
+// (bvh8_child, two float4s: slab() reads them as it reads a BVH2 node),
+// K7 [min.xyz, max.x | max.yz, slot base, 0 | centroid.xyz, 0 | pad]
+// (bvh8c_child, four float4s). K6 reads bvh_prim as K3 does; K7 reads
+// cluster_feat as K1 does and returns slot ids.
+// ---------------------------------------------------------------------------
+
+constexpr int BVH8_STACK = 32;   // kernels/traverse.py::BVH8_STACK
+
+// The order row `row` as eight 4-bit child slots, position j at bits 4j
+__device__ __forceinline__ unsigned load_perm(const int4* __restrict__ order,
+                                              int row) {
+    const int4 a = __ldg(order + 2 * row), b = __ldg(order + 2 * row + 1);
+    return (unsigned)a.x | ((unsigned)a.y << 4) | ((unsigned)a.z << 8) |
+           ((unsigned)a.w << 12) | ((unsigned)b.x << 16) |
+           ((unsigned)b.y << 20) | ((unsigned)b.z << 24) |
+           ((unsigned)b.w << 28);
+}
+
+// The BVH8 walk of one ray. CLUSTER_LEAVES = false: K6, leaves of prims in
+// `leaf` (bvh_prim), outputs t, prim, u, v. true: K7, cluster leaves whose
+// plane rows are in `leaf` (cluster_feat), outputs t and slot.
+template <bool ANY_HIT, bool CLUSTER_LEAVES>
+__device__ __forceinline__ void bvh8_walk(
+        const float4* __restrict__ child, const int4* __restrict__ order,
+        const float4* __restrict__ leaf, const RayState& r, float t_max,
+        int fuel_cap, int ck, float* t_io, int* id_io, float* u_io,
+        float* v_io, bool* occ_io) {
+    constexpr int ROW = CLUSTER_LEAVES ? 4 : 2;   // float4s a child row
+    float t_best = t_max, bu = 0.0f, bv = 0.0f;
+    int best = -1;
+    int stack[BVH8_STACK];   // (node << 8) | the node's remaining mask
+    int sp = 0, cur = 0, mask = 0;
+    bool fresh = true;
+    unsigned perm = 0;
+    for (int fuel = 0; cur >= 0 && fuel < fuel_cap; ++fuel) {
+        if (fresh) {          // slab-test the 8 children in octant order
+            perm = load_perm(order, cur * 8 + r.oct);
+            const float tl = ANY_HIT ? t_max : t_best;
+            mask = 0;
+            for (int j = 0; j < 8; ++j) {
+                const float4* c =
+                    child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
+                const float4 a = __ldg(c), b = __ldg(c + 1);
+                if (slab(a, b, r, tl) && b.z != -1.0f) mask |= 1 << j;
+            }
+            fresh = false;
+        }
+        if (mask == 0) {      // the node is done: pop, or end the walk
+            if (sp == 0) break;
+            const int e = stack[--sp];
+            cur = e >> 8;
+            mask = e & 255;
+            perm = load_perm(order, cur * 8 + r.oct);
+            continue;
+        }
+        const int j = __ffs(mask) - 1;      // advance the lowest set bit
+        mask &= mask - 1;
+        const float4* c =
+            child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
+        const float4 a = __ldg(c), b = __ldg(c + 1);
+        // closest hit re-culls against the t_best improved since the visit
+        if (!ANY_HIT && !slab(a, b, r, t_best)) continue;
+        const int kind = (int)b.z;
+        if (kind <= -2) {     // descend; keep the parent if children remain
+            if (mask != 0 && sp < BVH8_STACK) stack[sp++] = (cur << 8) | mask;
+            cur = -2 - kind;
+            fresh = true;
+        } else {              // a leaf at `kind`: its cluster's slots (K7)
+                              // or its prims, up to LEAF_K (K6)
+            const bool h =
+                CLUSTER_LEAVES
+                    ? cluster_visit<ANY_HIT>(leaf + (size_t)kind * FEAT_W4,
+                                             __ldg(c + 2), r, kind, ck,
+                                             t_max, &t_best, &best)
+                    : leaf_visit<ANY_HIT>(leaf, kind, (int)b.w, r, t_max,
+                                          &t_best, &best, &bu, &bv);
+            if (ANY_HIT && h) {
+                *occ_io = true;
+                return;               // stop at the first hit
+            }
+        }
+    }
+    if (!ANY_HIT) {
+        *t_io = best >= 0 ? t_best : inf_f();
+        *id_io = best;
+        if (!CLUSTER_LEAVES) {
+            *u_io = bu;
+            *v_io = bv;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK)
+bvh8_closest_hit_kernel(const float4* __restrict__ child,
+                        const int4* __restrict__ order,
+                        const float4* __restrict__ prim,
+                        const float* __restrict__ ox,
+                        const float* __restrict__ oy,
+                        const float* __restrict__ oz,
+                        const float* __restrict__ dx,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ dz,
+                        const float* __restrict__ tmax,
+                        float* __restrict__ t_out, int* __restrict__ prim_out,
+                        float* __restrict__ u_out, float* __restrict__ v_out,
+                        int n, int fuel) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    float t = inf_f(), u = 0.0f, v = 0.0f;
+    int p = -1;
+    if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        bvh8_walk<false, false>(child, order, prim, r, tm, fuel, 0, &t, &p,
+                                &u, &v, nullptr);
+    }
+    t_out[i] = t;
+    prim_out[i] = p;
+    u_out[i] = u;
+    v_out[i] = v;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+bvh8_any_hit_kernel(const float4* __restrict__ child,
+                    const int4* __restrict__ order,
+                    const float4* __restrict__ prim,
+                    const float* __restrict__ ox,
+                    const float* __restrict__ oy,
+                    const float* __restrict__ oz,
+                    const float* __restrict__ dx,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ dz,
+                    const float* __restrict__ tmax,
+                    bool* __restrict__ occ_out, int n, int fuel) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    bool occ = false;
+    if (tm > 0.0f) {
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        bvh8_walk<true, false>(child, order, prim, r, tm, fuel, 0, nullptr,
+                               nullptr, nullptr, nullptr, &occ);
+    }
+    occ_out[i] = occ;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+bvh8mxu_closest_hit_kernel(const float4* __restrict__ child,
+                           const int4* __restrict__ order,
+                           const float4* __restrict__ feat,
+                           const float* __restrict__ ox,
+                           const float* __restrict__ oy,
+                           const float* __restrict__ oz,
+                           const float* __restrict__ dx,
+                           const float* __restrict__ dy,
+                           const float* __restrict__ dz,
+                           const float* __restrict__ tmax,
+                           float* __restrict__ t_out,
+                           int* __restrict__ slot_out, int n, int fuel,
+                           int ck) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    float t = inf_f();
+    int slot = -1;
+    if (tm > 0.0f) {
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        bvh8_walk<false, true>(child, order, feat, r, tm, fuel, ck, &t,
+                               &slot, nullptr, nullptr, nullptr);
+    }
+    t_out[i] = t;
+    slot_out[i] = slot;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+bvh8mxu_any_hit_kernel(const float4* __restrict__ child,
+                       const int4* __restrict__ order,
+                       const float4* __restrict__ feat,
+                       const float* __restrict__ ox,
+                       const float* __restrict__ oy,
+                       const float* __restrict__ oz,
+                       const float* __restrict__ dx,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ dz,
+                       const float* __restrict__ tmax,
+                       bool* __restrict__ occ_out, int n, int fuel, int ck) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    bool occ = false;
+    if (tm > 0.0f) {
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        bvh8_walk<true, true>(child, order, feat, r, tm, fuel, ck, nullptr,
+                              nullptr, nullptr, nullptr, &occ);
+    }
+    occ_out[i] = occ;
+}
+
 }  // namespace
 
 extern "C" {
@@ -749,6 +1024,67 @@ int mts_inst_bvh_any_hit(const void* node, const void* link, const void* prim,
         (const float*)oy, (const float*)oz, (const float*)dx,
         (const float*)dy, (const float*)dz, (const float*)tmax,
         (bool*)occ_out, n, fuel);
+    return (int)cudaGetLastError();
+}
+
+// fuel: the walk's step cap, 10 * (BVH8 nodes) + prims + 64
+int mts_bvh8_closest_hit(const void* child, const void* order,
+                         const void* prim, const void* ox, const void* oy,
+                         const void* oz, const void* dx, const void* dy,
+                         const void* dz, const void* tmax, void* t_out,
+                         void* prim_out, void* u_out, void* v_out, int n,
+                         int fuel, void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    bvh8_closest_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)child, (const int4*)order, (const float4*)prim,
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmax, (float*)t_out, (int*)prim_out, (float*)u_out,
+        (float*)v_out, n, fuel);
+    return (int)cudaGetLastError();
+}
+
+int mts_bvh8_any_hit(const void* child, const void* order, const void* prim,
+                     const void* ox, const void* oy, const void* oz,
+                     const void* dx, const void* dy, const void* dz,
+                     const void* tmax, void* occ_out, int n, int fuel,
+                     void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    bvh8_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)child, (const int4*)order, (const float4*)prim,
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmax, (bool*)occ_out, n, fuel);
+    return (int)cudaGetLastError();
+}
+
+// fuel: the walk's step cap, 10 * (BVH8 nodes) + 2 * clusters + 64
+int mts_bvh8mxu_closest_hit(const void* child, const void* order,
+                            const void* feat, const void* ox, const void* oy,
+                            const void* oz, const void* dx, const void* dy,
+                            const void* dz, const void* tmax, void* t_out,
+                            void* slot_out, int n, int fuel, int ck,
+                            void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    bvh8mxu_closest_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)child, (const int4*)order, (const float4*)feat,
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmax, (float*)t_out, (int*)slot_out, n, fuel, ck);
+    return (int)cudaGetLastError();
+}
+
+int mts_bvh8mxu_any_hit(const void* child, const void* order,
+                        const void* feat, const void* ox, const void* oy,
+                        const void* oz, const void* dx, const void* dy,
+                        const void* dz, const void* tmax, void* occ_out,
+                        int n, int fuel, int ck, void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    bvh8mxu_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)child, (const int4*)order, (const float4*)feat,
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmax, (bool*)occ_out, n, fuel, ck);
     return (int)cudaGetLastError();
 }
 

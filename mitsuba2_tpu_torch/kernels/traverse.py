@@ -24,20 +24,33 @@ tables of the one walk a scene takes):
                  root (not read) | cut-tree root | pad]
     inst_bvh_root (K,) i32    instanced scenes: each instance's BVH2 BLAS
                  root row
+    bvh8_child   (M*8, 8) f32 the BVH8 collapse of the BVH2 (K6): [min.xyz,
+                 max.xyz, kind, count], kind >= 0 a leaf's first prim, -1
+                 an empty slot, <= -2 the inner child node -2 - kind
+    bvh8c_child  (Mc*8, 16) f32 the BVH8 collapse of the cut tree (K7):
+                 [min.xyz, max.xyz, kind, 0, centroid.xyz, pad], kind >= 0
+                 a cluster's slot base
+    bvh8_order / bvh8c_order (M*8, 8) i32 row node*8 + octant: the node's
+                 child slots in near-first order for that octant
 
 The wrappers: `cluster_closest_hit` and `cluster_any_hit` (K1/K2: one cut
 tree), `inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS
 over instances, each entered into its group's local-space cut tree),
 `bvh_closest_hit` and `bvh_any_hit` (K3: the full BVH2 with leaves of up
 to LEAF_K triangles or spheres) and `inst_bvh_closest_hit` and
-`inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table). A CPU
-tensor goes to the plain twin, a CUDA tensor to the kernel; nothing falls
-back from one to the other. Each wrapper counts its kernel launches in
-its `launches` attribute. `ray_intersect_preliminary`, `ray_test`,
-`ray_intersect_instanced` and `ray_test_instanced` are the entry points,
-the counterparts of traverse_pallas's functions of the same names: a
-scene holding a sphere takes the BVH2 walks (spheres have no plane
-form), any other the cluster walks.
+`inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table),
+`bvh8_closest_hit` and `bvh8_any_hit` (K6: the BVH8 walk over prim
+leaves) and `bvh8mxu_closest_hit` and `bvh8mxu_any_hit` (K7: the BVH8
+walk over cluster leaves). A CPU tensor goes to the plain twin, a CUDA
+tensor to the kernel; nothing falls back from one to the other. Each
+wrapper counts its kernel launches in its `launches` attribute.
+`ray_intersect_preliminary`, `ray_test`, `ray_intersect_instanced`,
+`ray_test_instanced`, `ray_intersect_bvh8`, `ray_test_bvh8`,
+`ray_intersect_bvh8mxu` and `ray_test_bvh8mxu` are the entry points, the
+counterparts of traverse_pallas's functions of the same names: by default
+a scene holding a sphere takes the BVH2 walks (spheres have no plane
+form), any other the cluster walks; set_backend("bvh8" | "bvh8mxu")
+routes a flat scene through the BVH8 walks (scene/scene.py).
 """
 from __future__ import annotations
 
@@ -51,6 +64,10 @@ from ..scene.shapes import PRIM_TRI
 from .brute import sphere_test, tri_test
 
 FEAT_W = 20  # floats per slot in cluster_feat
+# (node, mask) entries of a BVH8 walk's stack (csrc/cluster_walk.cu), and
+# the margin over the tree's depth that the JAX kernels size it with
+BVH8_STACK = 32
+BVH8_STACK_MARGIN = 2
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "cluster_walk.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round every
@@ -72,7 +89,9 @@ def _declare(lib):
     """Set the C signatures: pointers and the stream as void*, sizes as int."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn, n_out in ((lib.mts_cluster_closest_hit, 2),
-                      (lib.mts_cluster_any_hit, 1)):
+                      (lib.mts_cluster_any_hit, 1),
+                      (lib.mts_bvh8mxu_closest_hit, 2),
+                      (lib.mts_bvh8mxu_any_hit, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
     for fn, n_out in ((lib.mts_inst_cluster_closest_hit, 3),
@@ -82,7 +101,9 @@ def _declare(lib):
     for fn, n_tab, n_out in ((lib.mts_bvh_closest_hit, 3, 4),
                              (lib.mts_bvh_any_hit, 3, 1),
                              (lib.mts_inst_bvh_closest_hit, 5, 5),
-                             (lib.mts_inst_bvh_any_hit, 5, 1)):
+                             (lib.mts_inst_bvh_any_hit, 5, 1),
+                             (lib.mts_bvh8_closest_hit, 3, 4),
+                             (lib.mts_bvh8_any_hit, 3, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * n_tab + [p] * 7 + [p] * n_out + [i, i, p]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p
@@ -163,6 +184,32 @@ def _check_bvh(node, link, prim, rays, fuel, inst_inv=None, inst_root=None):
     return n, dev
 
 
+def _check_bvh8(child, order, leaf, rays, stack, fuel, cluster_k=None):
+    """The BVH8 walks' tables: K6's (cluster_k None: bvh8_child, bvh8_order,
+    bvh_prim) or K7's (bvh8c_child, bvh8c_order, cluster_feat)."""
+    k7 = cluster_k is not None
+    cn, on, ln = (("bvh8c_child", "bvh8c_order", "cluster_feat") if k7
+                  else ("bvh8_child", "bvh8_order", "bvh_prim"))
+    n, dev = _check_tables([(cn, child, torch.float32, 2),
+                            (on, order, torch.int32, 2),
+                            (ln, leaf, torch.float32, 2)], rays)
+    width = 16 if k7 else 8
+    if (child.shape[1] != width or child.shape[0] % 8 != 0
+            or order.shape != (child.shape[0], 8)):
+        raise ValueError(f"{cn} must be (M*8, {width}) and {on} (M*8, 8)")
+    if k7 and (leaf.shape[1] != FEAT_W or leaf.shape[0] % cluster_k != 0):
+        raise ValueError(f"cluster_feat must be (C*{cluster_k}, {FEAT_W})")
+    if not k7 and leaf.shape[1] != 12:
+        raise ValueError("bvh_prim must be (P, 12)")
+    if not 0 < stack <= BVH8_STACK:
+        raise ValueError(f"a BVH8 walk needs a stack of {stack} entries "
+                         f"(depth + {BVH8_STACK_MARGIN}); the kernels hold "
+                         f"{BVH8_STACK}")
+    if not 0 < fuel < (1 << 31):
+        raise ValueError(f"walk fuel {fuel} does not fit an int32")
+    return n, dev
+
+
 def _raise_on_error(lib, rc, what):
     if rc != 0:
         msg = lib.mts_cuda_error_string(rc).decode()
@@ -173,7 +220,8 @@ def _launch(what, tabs, rays, outs, *sizes):
     """Launch the kernel behind wrapper `what` (C entry mts_<what>) on the
     tensors' own card and stream; `sizes` follow the lane count: the
     cluster walks' table rows (flat) or step cap (instanced) and cluster
-    size, the BVH2 walks' step cap. Raises on a launch error."""
+    size, the BVH2 walks' step cap, the BVH8 walks' step cap (and cluster
+    size). Raises on a launch error."""
     lib = load_cuda_library()
     dev = rays[0].device
     with torch.cuda.device(dev):
@@ -359,6 +407,89 @@ def inst_bvh_any_hit(node, link, prim, inst_inv, inst_root, ox, oy, oz, dx,
 inst_bvh_any_hit.launches = 0
 
 
+def bvh8_closest_hit(child, order, prim, ox, oy, oz, dx, dy, dz, t_max,
+                     stack: int, fuel: int):
+    """Closest hit over the BVH8 tree, prim leaves (K6): (t, prim, u, v)
+    (N,) each; t = +inf, prim = -1 and u = v = 0 on a miss, u = v = 0 on a
+    sphere. `stack` is the tree's depth + 2, `fuel` caps a walk's steps."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh8(child, order, prim, rays, stack, fuel)
+    if dev.type == "cpu":
+        return bvh8_closest_hit_plain(child, order, prim, *rays, stack, fuel)
+    outs = _empty_hits(n, dev, False)
+    if n == 0:
+        return outs
+    _launch("bvh8_closest_hit", (child, order, prim), rays, outs, fuel)
+    bvh8_closest_hit.launches += 1
+    return outs
+
+
+bvh8_closest_hit.launches = 0
+
+
+def bvh8_any_hit(child, order, prim, ox, oy, oz, dx, dy, dz, t_max,
+                 stack: int, fuel: int):
+    """Occlusion over the BVH8 tree, prim leaves (K6): (N,) bool, True iff
+    a prim is hit at a finite 0 < t <= t_max."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh8(child, order, prim, rays, stack, fuel)
+    if dev.type == "cpu":
+        return bvh8_any_hit_plain(child, order, prim, *rays, stack, fuel)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    _launch("bvh8_any_hit", (child, order, prim), rays, (occ,), fuel)
+    bvh8_any_hit.launches += 1
+    return occ
+
+
+bvh8_any_hit.launches = 0
+
+
+def bvh8mxu_closest_hit(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
+                        cluster_k: int, stack: int, fuel: int):
+    """Closest hit over the BVH8 collapse of the cut tree, cluster leaves
+    (K7): (t (N,) f32, slot (N,) i32), t = +inf and slot = -1 on a
+    miss."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh8(child, order, feat, rays, stack, fuel, cluster_k)
+    if dev.type == "cpu":
+        return bvh8mxu_closest_hit_plain(child, order, feat, *rays,
+                                         cluster_k, stack, fuel)
+    outs = (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    if n == 0:
+        return outs
+    _launch("bvh8mxu_closest_hit", (child, order, feat), rays, outs, fuel,
+            cluster_k)
+    bvh8mxu_closest_hit.launches += 1
+    return outs
+
+
+bvh8mxu_closest_hit.launches = 0
+
+
+def bvh8mxu_any_hit(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
+                    cluster_k: int, stack: int, fuel: int):
+    """Occlusion over the BVH8 collapse of the cut tree (K7): (N,) bool,
+    True iff a triangle is hit at 0 < t <= t_max."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_bvh8(child, order, feat, rays, stack, fuel, cluster_k)
+    if dev.type == "cpu":
+        return bvh8mxu_any_hit_plain(child, order, feat, *rays, cluster_k,
+                                     stack, fuel)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    _launch("bvh8mxu_any_hit", (child, order, feat), rays, (occ,), fuel,
+            cluster_k)
+    bvh8mxu_any_hit.launches += 1
+    return occ
+
+
+bvh8mxu_any_hit.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Plain twins: a vectorised lane walk, each lane with its own cursor. The
 # plane dots are elementwise products and sums (no matmul, so no TF32).
@@ -370,12 +501,13 @@ def _safe_inv(d):
 
 
 def _slab(nf, ox, oy, oz, ix, iy, iz, t_best):
-    t0x = (nf[:, 0] - ox) * ix
-    t1x = (nf[:, 3] - ox) * ix
-    t0y = (nf[:, 1] - oy) * iy
-    t1y = (nf[:, 4] - oy) * iy
-    t0z = (nf[:, 2] - oz) * iz
-    t1z = (nf[:, 5] - oz) * iz
+    """Box rows nf[..., 0:6] against rays that broadcast with nf[..., 0]."""
+    t0x = (nf[..., 0] - ox) * ix
+    t1x = (nf[..., 3] - ox) * ix
+    t0y = (nf[..., 1] - oy) * iy
+    t1y = (nf[..., 4] - oy) * iy
+    t0z = (nf[..., 2] - oz) * iz
+    t1z = (nf[..., 5] - oz) * iz
     tmin = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
                                        torch.minimum(t0y, t1y)),
                          torch.minimum(t0z, t1z))
@@ -405,6 +537,42 @@ def _cluster_planes(feat, base, nf, ox, oy, oz, dx, dy, dz, cluster_k):
     tnum = f[..., 15] * px + f[..., 16] * py + f[..., 17] * pz + f[..., 18]
     inv = torch.where(det.abs() < 1e-12, 0.0, 1.0 / det)
     return unum * inv, vnum * inv, tnum * inv, inv
+
+
+def _cluster_visit(feat, base, nf, ray, tl, cluster_k, any_hit, stats):
+    """One cluster visit of each of m lanes: the CK slots from slot `base`,
+    recentred at the centroid nf[:, 8:11], against the lanes' rays (ox, oy,
+    oz, dx, dy, dz) and limits `tl`. Any hit: (m,) bool, a slot hit at
+    t <= tl (the kernels' thread stops there, so the slot tests counted
+    end at it). Closest hit: (closer, t, slot) (m,) each, the nearest slot
+    strictly under tl, the lowest on a tie. Counts the slot tests the
+    kernels make (`slot_tests`, padding included) and those of real slots
+    (`real_slot_tests`: a padding slot's plane row is all zero)."""
+    _count(stats, "cluster_visits", base.numel())
+    u, v, t, inv = _cluster_planes(feat, base, nf, *ray, cluster_k)
+    ok = ((inv != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t > 0.0))
+    tl = tl[:, None]
+    k = torch.arange(cluster_k, device=base.device)
+    tested = torch.full_like(base, cluster_k)
+    if any_hit:
+        hm = ok & (t <= tl)
+        h = hm.any(1)
+        # slots 0..k tested, k the first hit
+        tested = torch.where(h, hm.int().argmax(1) + 1, tested)
+    if stats is not None:
+        real = (feat[base[:, None] + k] != 0.0).any(-1)
+        _count(stats, "slot_tests", int(tested.sum()))
+        _count(stats, "real_slot_tests",
+               int((real & (k < tested[:, None])).sum()))
+    if any_hit:
+        return h
+    ok = ok & (t < tl)
+    t_m = torch.where(ok, t, float("inf"))
+    t_c = t_m.amin(1)
+    win = ok & (t_m <= t_c[:, None])
+    k_c = torch.where(win, k, 1 << 30).amin(1)  # lowest slot wins
+    return t_c < tl[:, 0], t_c, base + k_c
 
 
 def _octant(dx, dy, dz):
@@ -451,7 +619,6 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
         cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
         binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    BIG = 1 << 30
     for _ in range(node_f.shape[0] + 64 if fuel is None else fuel):
         act = torch.nonzero(node >= 0).squeeze(1)
         if act.numel() == 0:
@@ -472,33 +639,18 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         visit = is_cl & hit
         if bool(visit.any()):
             lanes = act[visit]
-            _count(stats, "cluster_visits", lanes.numel())
-            u, v, t, inv = _cluster_planes(
-                feat, base[visit], nf[visit], lox[visit], loy[visit],
-                loz[visit], ldx[visit], ldy[visit], ldz[visit], cluster_k)
-            ok = ((inv != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                  & (t > 0.0))
-            tl = tb[visit][:, None]
+            res = _cluster_visit(
+                feat, base[visit], nf[visit],
+                [a[visit] for a in (lox, loy, loz, ldx, ldy, ldz)],
+                tb[visit], cluster_k, any_hit, stats)
             if any_hit:
-                hm = ok & (t <= tl)
-                h = hm.any(1)
-                occ[lanes[h]] = True
-                nxt[visit.nonzero().squeeze(1)[h]] = -1  # stop at a hit
-                # slots 0..k tested, k the first hit
-                tested = torch.where(h, hm.int().argmax(1) + 1, cluster_k)
-                _count(stats, "slot_tests", int(tested.sum()))
+                occ[lanes[res]] = True
+                nxt[visit.nonzero().squeeze(1)[res]] = -1  # stop at a hit
             else:
-                _count(stats, "slot_tests", lanes.numel() * cluster_k)
-                ok = ok & (t < tl)
-                t_m = torch.where(ok, t, float("inf"))
-                t_c = t_m.amin(1)
-                win = ok & (t_m <= t_c[:, None])
-                k = torch.arange(cluster_k, device=dev)
-                k_c = torch.where(win, k, BIG).amin(1)  # lowest slot wins
-                closer = t_c < tl[:, 0]
+                closer, t_c, slot = res
                 sel = lanes[closer]
                 t_best[sel] = t_c[closer]
-                best[sel] = base[visit][closer] + k_c[closer]
+                best[sel] = slot[closer]
                 if inst:
                     binst[sel] = cinst[sel]
         if inst:
@@ -598,6 +750,42 @@ def _prim_test(pr, ox, oy, oz, dx, dy, dz):
             torch.where(is_tri, v, 0.0), is_tri)
 
 
+def _leaf_prims(prim, start, count, ray, tl, any_hit, stats):
+    """One leaf visit of each of m lanes: up to LEAF_K prims from `start`
+    (`count` of them) tested in order against the lanes' rays (ox, oy, oz,
+    dx, dy, dz). Any hit: (m,) bool, a finite t <= tl (the thread stops at
+    its first, so the tests counted end there). Closest hit: (closer, t,
+    prim, u, v) (m,) each, the prim nearest strictly under tl, the first in
+    leaf order on a tie."""
+    m, dev = start.numel(), start.device
+    live = torch.ones(m, dtype=torch.bool, device=dev)
+    t_b = tl.clone()
+    best = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros(m, dtype=torch.float32, device=dev)
+    bv = torch.zeros(m, dtype=torch.float32, device=dev)
+    for k in range(LEAF_K if m else 0):
+        sel = torch.nonzero((k < count) & live).squeeze(1)
+        if sel.numel() == 0:
+            break
+        pid = start[sel] + k
+        t, u, v, is_tri = _prim_test(prim[pid], *(a[sel] for a in ray))
+        n_tri = int(is_tri.sum())
+        _count(stats, "tri_tests", n_tri)
+        _count(stats, "sphere_tests", sel.numel() - n_tri)
+        if any_hit:
+            live[sel[torch.isfinite(t) & (t <= tl[sel])]] = False
+        else:
+            closer = t < t_b[sel]
+            c = sel[closer]
+            t_b[c] = t[closer]
+            best[c] = pid[closer]
+            bu[c] = u[closer]
+            bv[c] = v[closer]
+    if any_hit:
+        return ~live
+    return best >= 0, t_b, best, bu, bv
+
+
 def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
                     inst_inv=None, inst_root=None):
     """The BVH2 kernels' walk for every lane at once, each lane with its
@@ -642,27 +830,18 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
         nxt = torch.where(is_leaf | ~hit, miss_l, hit_l)
         _count(stats, "node_steps", act.numel())
         vi = torch.nonzero(is_leaf & (count > 0) & hit).squeeze(1)
-        lanes = act[vi]
-        ray_v = [a[vi] for a in (lox, loy, loz, ldx, ldy, ldz)]
-        live = torch.ones(vi.numel(), dtype=torch.bool, device=dev)
-        for k in range(LEAF_K if vi.numel() else 0):
-            sel = torch.nonzero((k < count[vi]) & live).squeeze(1)
-            if sel.numel() == 0:
-                break
-            pid = start[vi[sel]] + k
-            t, u, v, is_tri = _prim_test(prim[pid], *(a[sel] for a in ray_v))
-            n_tri = int(is_tri.sum())
-            _count(stats, "tri_tests", n_tri)
-            _count(stats, "sphere_tests", sel.numel() - n_tri)
-            ln = lanes[sel]
+        if vi.numel():
+            lanes = act[vi]
+            res = _leaf_prims(
+                prim, start[vi], count[vi],
+                [a[vi] for a in (lox, loy, loz, ldx, ldy, ldz)],
+                t_max[lanes] if any_hit else t_best[lanes], any_hit, stats)
             if any_hit:
-                h = torch.isfinite(t) & (t <= t_max[ln])
-                occ[ln[h]] = True
-                live[sel[h]] = False
-                nxt[vi[sel[h]]] = -1        # stop at the first hit
+                occ[lanes[res]] = True
+                nxt[vi[res]] = -1           # stop at the first hit
             else:
-                closer = t < t_best[ln]
-                lc = ln[closer]
+                closer, t, pid, u, v = res
+                lc = lanes[closer]
                 t_best[lc] = t[closer]
                 best[lc] = pid[closer]
                 bu[lc] = u[closer]
@@ -743,16 +922,180 @@ def inst_bvh_any_hit_plain(node, link, prim, inst_inv, inst_root, ox, oy, oz,
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
+# lowest set bit of an 8-bit mask (0 for an empty one)
+_LOW_BIT = torch.tensor([(m & -m).bit_length() - 1 if m else 0
+                         for m in range(256)])
+
+
+def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
+                     cluster_k=None):
+    """The BVH8 kernels' walk for every lane at once, each lane with its
+    own node, mask, stack and octant, one step of the kernels' loop an
+    iteration: a fresh visit slab-tests the node's 8 children in the
+    octant's order (bit j of the mask: position j of that order); a step
+    pops on an empty mask (an empty stack ends the lane's walk), else
+    advances the lowest set bit: closest hit re-culls that child, a leaf
+    child is tested (cluster_k None: its prims, K6; else its cluster's
+    slots, K7), an inner child is descended into, the parent pushed only
+    if its mask is not yet empty. Counts fresh visits and the non-empty
+    children they test (`child_tests`), advances, pushes, pops (resumes
+    from the stack), prim tests or cluster visits and slot tests."""
+    ox, oy, oz, dx, dy, dz, t_max = rays
+    n, dev = ox.shape[0], ox.device
+    ray = (ox, oy, oz, dx, dy, dz)
+    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    oc = _octant(dx, dy, dz)
+    # lanes with t_max <= 0 cannot hit (0 < t < t_max): they never walk
+    cur = torch.where(t_max > 0, 0, -1).long()
+    mask = torch.zeros(n, dtype=torch.int64, device=dev)
+    fresh = torch.ones(n, dtype=torch.bool, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    stk = torch.zeros((n, stack), dtype=torch.int64, device=dev)
+    perm = torch.zeros((n, 8), dtype=torch.int64, device=dev)
+    t_best = t_max.clone()
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros(n, dtype=torch.float32, device=dev)
+    bv = torch.zeros(n, dtype=torch.float32, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    bit = torch.arange(8, device=dev)
+    low_bit = _LOW_BIT.to(dev)
+    for _ in range(fuel):
+        act = torch.nonzero(cur >= 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        fa = act[fresh[act]]
+        if fa.numel():
+            _count(stats, "fresh_visits", fa.numel())
+            perm[fa] = order[cur[fa] * 8 + oc[fa]].long()
+            cr = child[(cur[fa] * 8)[:, None] + perm[fa]]      # (m, 8, W)
+            tl = (t_max if any_hit else t_best)[fa][:, None]
+            hit = _slab(cr, *(a[fa][:, None] for a in (ox, oy, oz, ix, iy,
+                                                       iz)), tl)
+            filled = cr[..., 6] != -1.0         # kind -1: an empty slot
+            _count(stats, "child_tests", int(filled.sum()))
+            mask[fa] = ((hit & filled).long() << bit).sum(1)
+            fresh[fa] = False
+        done = mask[act] == 0
+        pop = act[done]
+        if pop.numel():
+            cur[pop[sp[pop] == 0]] = -1         # an empty stack: the end
+            r = pop[sp[pop] > 0]
+            _count(stats, "pops", r.numel())
+            sp[r] -= 1
+            e = stk[r, sp[r]]
+            cur[r] = e >> 8
+            mask[r] = e & 255
+            perm[r] = order[cur[r] * 8 + oc[r]].long()
+        adv = act[~done]
+        if adv.numel() == 0:
+            continue
+        _count(stats, "advances", adv.numel())
+        mk = mask[adv]
+        j = low_bit[mk]
+        mask[adv] = mk & (mk - 1)
+        cr = child[cur[adv] * 8 + perm[adv].gather(1, j[:, None]).squeeze(1)]
+        kind = cr[:, 6].long()
+        if not any_hit:        # re-cull against the improved t_best
+            keep = _slab(cr, *(a[adv] for a in (ox, oy, oz, ix, iy, iz)),
+                         t_best[adv])
+            adv, cr, kind = adv[keep], cr[keep], kind[keep]
+        desc = kind <= -2
+        di = adv[desc]
+        if di.numel():
+            pu = di[(mask[di] != 0) & (sp[di] < stack)]
+            _count(stats, "pushes", pu.numel())
+            stk[pu, sp[pu]] = (cur[pu] << 8) | mask[pu]
+            sp[pu] += 1
+            cur[di] = -2 - kind[desc]
+            fresh[di] = True
+        li = torch.nonzero(kind >= 0).squeeze(1)
+        if li.numel() == 0:
+            continue
+        lanes = adv[li]
+        tl = t_max[lanes] if any_hit else t_best[lanes]
+        lray = [a[lanes] for a in ray]
+        if cluster_k is None:
+            res = _leaf_prims(leaf, kind[li], cr[li, 7].long(), lray, tl,
+                              any_hit, stats)
+        else:
+            res = _cluster_visit(leaf, kind[li], cr[li], lray, tl, cluster_k,
+                                 any_hit, stats)
+        if any_hit:
+            occ[lanes[res]] = True
+            cur[lanes[res]] = -1                # stop at the first hit
+            continue
+        closer, t, pid = res[:3]
+        lc = lanes[closer]
+        t_best[lc] = t[closer]
+        best[lc] = pid[closer]
+        if cluster_k is None:
+            bu[lc] = res[3][closer]
+            bv[lc] = res[4][closer]
+    if any_hit:
+        return occ
+    t_out = torch.where(best >= 0, t_best, float("inf"))
+    if cluster_k is None:
+        return t_out, best.to(torch.int32), bu, bv
+    return t_out, best.to(torch.int32)
+
+
+def bvh8_closest_hit_plain(child, order, prim, ox, oy, oz, dx, dy, dz, t_max,
+                           stack: int, fuel: int, chunk: int = 8192,
+                           stats=None):
+    """The twin of the BVH8 closest-hit kernel, prim leaves (K6): (t,
+    prim, u, v). With a `stats` dict it also counts the kernel's work:
+    fresh visits, advances, pushes, pops, triangle and sphere tests."""
+    return _chunked(
+        lambda r: _bvh8_walk_plain(child, order, prim, r, False, stats,
+                                   stack, fuel),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def bvh8_any_hit_plain(child, order, prim, ox, oy, oz, dx, dy, dz, t_max,
+                       stack: int, fuel: int, chunk: int = 8192, stats=None):
+    """The twin of the BVH8 any-hit kernel, prim leaves (K6)."""
+    return _chunked(
+        lambda r: _bvh8_walk_plain(child, order, prim, r, True, stats,
+                                   stack, fuel),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def bvh8mxu_closest_hit_plain(child, order, feat, ox, oy, oz, dx, dy, dz,
+                              t_max, cluster_k: int, stack: int, fuel: int,
+                              chunk: int = 8192, stats=None):
+    """The twin of the BVH8 closest-hit kernel over cluster leaves (K7):
+    (t, slot). Its `stats` count cluster visits and slot tests besides the
+    walk's steps."""
+    return _chunked(
+        lambda r: _bvh8_walk_plain(child, order, feat, r, False, stats,
+                                   stack, fuel, cluster_k),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def bvh8mxu_any_hit_plain(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
+                          cluster_k: int, stack: int, fuel: int,
+                          chunk: int = 8192, stats=None):
+    """The twin of the BVH8 any-hit kernel over cluster leaves (K7)."""
+    return _chunked(
+        lambda r: _bvh8_walk_plain(child, order, feat, r, True, stats,
+                                   stack, fuel, cluster_k),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
 # ---------------------------------------------------------------------------
 # Entry points (traverse_pallas.ray_intersect_preliminary / ray_test and
 # their instanced forms)
 # ---------------------------------------------------------------------------
 
-def emits_uv(scene) -> bool:
-    """Do the entry points return real barycentrics? The BVH2 walks, which
-    every scene holding a sphere takes, do (0 on a sphere); the cluster
-    walks emit u = v = 0 and the shading record re-solves them."""
-    return scene.has_spheres
+def emits_uv(scene, backend: str) -> bool:
+    """Do the walk entry points of `backend` (scene._pick_backend's)
+    return real barycentrics, which the presort must unsort? The BVH2
+    walks, which every scene holding a sphere takes by default, and K6 do
+    (0 on a sphere); the cluster walks and K7 emit u = v = 0 and the
+    shading record re-solves them."""
+    if backend == "bvh8mxu":
+        return False
+    return backend == "bvh8" or scene.has_spheres
 
 
 def _bvh_args(scene, ray_o, ray_d, t_max):
@@ -821,3 +1164,57 @@ def ray_test_instanced(scene, ray_o, ray_d, t_max):
     if scene.has_spheres:
         return inst_bvh_any_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     return inst_cluster_any_hit(*_inst_args(scene, ray_o, ray_d, t_max))
+
+
+# ---------------------------------------------------------------------------
+# Entry points of the BVH8 walks (traverse_pallas.ray_intersect_bvh8,
+# ray_test_bvh8, ray_intersect_bvh8mxu, ray_test_bvh8mxu)
+# ---------------------------------------------------------------------------
+
+def _bvh8_args(scene, ray_o, ray_d, t_max):
+    """K6's arguments; the walk bounds of traverse_pallas._bvh8_meta."""
+    if scene.bvh8_child is None:
+        raise ValueError("scene has no BVH8 tables (tiny or instanced)")
+    M = scene.bvh8_child.shape[0] // 8
+    return (scene.bvh8_child, scene.bvh8_order, scene.bvh_prim, ray_o.x,
+            ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
+            scene.bvh8_depth + BVH8_STACK_MARGIN, 10 * M + scene.n_prims + 64)
+
+
+def _bvh8mxu_args(scene, ray_o, ray_d, t_max):
+    """K7's arguments; the walk bounds of traverse_pallas._bvh8mxu_meta."""
+    if scene.bvh8c_child is None:
+        raise ValueError("scene has no composed BVH8-cut tables (tiny, "
+                         "instanced, or sphere-bearing scene)")
+    Mc = scene.bvh8c_child.shape[0] // 8
+    n_clusters = scene.cluster_slot_prim.shape[0] // scene.cluster_k
+    return (scene.bvh8c_child, scene.bvh8c_order, scene.cluster_feat,
+            ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
+            scene.cluster_k, scene.bvh8c_depth + BVH8_STACK_MARGIN,
+            10 * Mc + 2 * n_clusters + 64)
+
+
+def ray_intersect_bvh8(scene, ray_o, ray_d, t_max):
+    """Closest hit via the BVH8 walk over prim leaves (K6): (t, prim, u,
+    v) with real u/v (0 on a sphere)."""
+    return bvh8_closest_hit(*_bvh8_args(scene, ray_o, ray_d, t_max))
+
+
+def ray_test_bvh8(scene, ray_o, ray_d, t_max):
+    """Any-hit occlusion within t_max via the BVH8 walk (K6)."""
+    return bvh8_any_hit(*_bvh8_args(scene, ray_o, ray_d, t_max))
+
+
+def ray_intersect_bvh8mxu(scene, ray_o, ray_d, t_max):
+    """Closest hit via the BVH8 walk over cluster leaves (K7): (t, prim,
+    u, v), slot ids mapped to prim ids through `cluster_slot_prim`, u = v
+    = 0 (the shading record re-solves them)."""
+    t, slot = bvh8mxu_closest_hit(*_bvh8mxu_args(scene, ray_o, ray_d, t_max))
+    z = torch.zeros_like(t)
+    return t, _slot_prims(scene, slot), z, z
+
+
+def ray_test_bvh8mxu(scene, ray_o, ray_d, t_max):
+    """Any-hit occlusion within t_max via the BVH8 walk over cluster
+    leaves (K7)."""
+    return bvh8mxu_any_hit(*_bvh8mxu_args(scene, ray_o, ray_d, t_max))

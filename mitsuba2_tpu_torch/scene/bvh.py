@@ -3,7 +3,8 @@
 The port's copy of mitsuba2_tpu/scene/bvh.py, cut to what the cluster walk
 needs: the binned-SAH BVH2 build flattened in DFS order with miss links,
 the per-octant threaded links, the cluster cut and the pruned cut tree,
-and the two-level (TLAS over instances + per-group BLAS) stitching.
+the two-level (TLAS over instances + per-group BLAS) stitching and the
+BVH8 collapse of a tree or of its cut tree.
 It must stay decision-for-decision equal to the JAX package's builder, so
 that the scene tables of both packages are byte-equal. The C++ builder
 (native/bvh_builder.cpp) is taken for scenes above 512 prims, the same
@@ -533,3 +534,113 @@ def build_two_level_mxu(blas_list, inst_group, tlas_parts, max_prims: int):
                 slot_prim=np.concatenate(slot_parts),
                 row_cluster=np.concatenate(row_cl),
                 blas_root=np.asarray(blas_root, np.int32), fuel=fuel)
+
+
+# ---------------------------------------------------------------------------
+# BVH8 collapse: the tables of the BVH8 walks (K6, and K7 over the cut tree)
+# ---------------------------------------------------------------------------
+
+def collapse_bvh8(bvh: BVH, cluster_id=None, cluster_c=None,
+                  cluster_k: int = 0):
+    """Collapse the DFS BVH2 into 8-wide nodes, level by level.
+
+    Each BVH8 node takes the 3-level frontier under its BVH2 root: a
+    child is a BVH2 prim leaf reached within 3 expansions, or the inner
+    BVH2 node left at the frontier (which roots another BVH8 node).
+
+    Returns (child (M*8, 8) f32 rows [min.xyz, max.xyz, kind, count],
+    order8 (M*8, 8) i32, depth): kind >= 0 is a prim-leaf start, -1 an
+    empty slot, and kind <= -2 an inner child, BVH8 node (-2 - kind).
+    order8 row (node*8 + octant) permutes the node's child slots into
+    near-first visit order for rays of that direction octant (ties and
+    empties last). `depth` (levels below the root) bounds the walk's
+    stack.
+
+    Cut mode (cluster_id, cluster_c, cluster_k given): collapse the
+    pruned cluster-cut tree instead. Descent stops at cut nodes
+    (cluster_id >= 0), which become cluster leaves with kind = their slot
+    base (cluster_id * cluster_k), count 0 and the cluster centroid in
+    cols 8:11 of (M*8, 16) rows: the tables of the BVH8 walk over cluster
+    leaves (K7)."""
+    left, right = children(bvh)
+    inner = bvh.leaf_start < 0
+    cut_mode = cluster_id is not None
+    if cut_mode:
+        # every node at the cut ends descent (leaves lie at or below it,
+        # so every node reached above the cut is inner)
+        inner = inner & (cluster_id < 0)
+    if not inner[0]:
+        raise ValueError("collapse_bvh8 needs an inner root (tiny scenes "
+                         "take the brute-force path)")
+
+    def expand(slots):
+        """(R, k) child slots -> (R, 2k): inner slots split, leaves copy,
+        -1 pads stay."""
+        R, k = slots.shape
+        safe = np.maximum(slots, 0)
+        is_in = (slots >= 0) & inner[safe]
+        out = np.full((R, 2 * k), -1, np.int64)
+        out[:, 0::2] = np.where(is_in, left[safe], slots)
+        out[:, 1::2] = np.where(is_in, right[safe], -1)
+        return out
+
+    levels = []          # per level: (roots (R,), slots (R, 8))
+    roots = np.array([0], np.int64)
+    total = 0
+    bases = []
+    while roots.size:
+        slots = expand(expand(expand(roots[:, None])))
+        levels.append((roots, slots))
+        bases.append(total)
+        total += roots.size
+        safe = np.maximum(slots, 0)
+        roots = slots[(slots >= 0) & inner[safe]].astype(np.int64)
+    depth = len(levels) - 1
+
+    # BVH8 ids level by level: the inner children of level L, in row-major
+    # order, are level L+1's roots in order
+    M = total
+    W = 16 if cut_mode else 8
+    child = np.zeros((M * 8, W), np.float32)
+    child[:, 6] = -1.0
+    order8 = np.zeros((M * 8, 8), np.int32)
+    for li, (roots, slots) in enumerate(levels):
+        R = roots.size
+        base = bases[li]
+        rows = (base + np.arange(R))[:, None] * 8 + np.arange(8)  # (R, 8)
+        safe = np.maximum(slots, 0)
+        valid = slots >= 0
+        is_in = valid & inner[safe]
+        is_leaf = valid & ~inner[safe]
+        bmin = np.where(valid[..., None], bvh.bounds_min[safe], 0.0)
+        bmax = np.where(valid[..., None], bvh.bounds_max[safe], 0.0)
+        child[rows, 0:3] = bmin
+        child[rows, 3:6] = bmax
+        kind = np.full((R, 8), -1.0, np.float32)
+        if li + 1 < len(levels):
+            ids = np.full((R, 8), -1, np.int64)
+            ids[is_in] = bases[li + 1] + np.arange(int(is_in.sum()))
+            kind[is_in] = (-2 - ids[is_in]).astype(np.float32)
+        cnt = np.zeros((R, 8), np.float32)
+        if cut_mode:
+            cl = cluster_id[safe[is_leaf]]
+            kind[is_leaf] = (cl * cluster_k).astype(np.float32)
+            child[rows[is_leaf], 8:11] = cluster_c[cl]
+        else:
+            kind[is_leaf] = bvh.leaf_start[safe[is_leaf]].astype(np.float32)
+            cnt[is_leaf] = bvh.leaf_count[safe[is_leaf]].astype(np.float32)
+        child[rows, 6] = kind
+        child[rows, 7] = cnt
+
+        cent = 0.5 * (bmin + bmax)                       # (R, 8, 3)
+        for o in range(8):
+            sign = np.array([(-1.0 if (o >> a) & 1 else 1.0)
+                             for a in range(3)], np.float32)
+            key = cent @ sign
+            key[~valid] = np.inf                         # empties last
+            order8[(base + np.arange(R)) * 8 + o] = \
+                np.argsort(key, axis=1, kind="stable").astype(np.int32)
+
+    # the kind column holds node and prim ids, exact in f32 below 2^24
+    assert M * 8 < (1 << 24) and len(bvh.prim_order) < (1 << 24)
+    return child, order8, depth

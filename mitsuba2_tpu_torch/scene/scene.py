@@ -13,8 +13,10 @@ The dispatch half picks, as the JAX package does: brute force for flat
 scenes of 192 prims or fewer; above that the cluster walk, or the BVH2
 walk when the scene holds a sphere; for an instanced scene (whatever its
 size) the instanced cluster walk, or the instanced BVH2 walk when it
-holds a sphere (kernels/traverse.py). Wavefronts go through the same
-coherence presort as the JAX package's.
+holds a sphere (kernels/traverse.py). `set_backend` forces another
+choice with the JAX package's names and errors, the BVH8 walks among
+them. Wavefronts go through the same coherence presort as the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -55,14 +57,22 @@ UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
 # ...and those of an instanced scene (absent, or None, on the others): the
 # per-instance transforms and the two walk bounds
 INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
+# ...and the BVH8 walks' tables (bvh.collapse_bvh8; None, depth 0, where
+# the JAX build skips them: tiny or instanced scenes, a one-cluster cut):
+# on the device only for a scene uploaded under set_backend("bvh8") or
+# ("bvh8mxu")
+BVH8_FIELDS = ("bvh8_child", "bvh8_order", "bvh8_depth", "bvh8c_child",
+               "bvh8c_order", "bvh8c_depth")
 
 
 @dataclasses.dataclass
 class SceneData:
     """The scene as tensors on one device, plus static metadata. The walk
-    tables are those of the walk the scene takes (kernels/traverse.py: the
-    BVH2 walks on a scene holding a sphere, the cluster walks on the
-    others), None for the other walk and on a brute-force scene."""
+    tables are those of the walk the scene takes under the backend in
+    force at its upload (kernels/traverse.py: by default the BVH2 walks on
+    a scene holding a sphere, the cluster walks on the others; the BVH8
+    walks under set_backend("bvh8" | "bvh8mxu")), None for the other walks
+    and on a brute-force scene."""
     prim_p0: torch.Tensor    # (P, 3) tri vertex 0 / sphere center, BVH order
     prim_e1: torch.Tensor    # (P, 3) edge 1 / sphere [radius, ±1 flip, 0]
     prim_e2: torch.Tensor    # (P, 3) edge 2 / sphere 0
@@ -106,7 +116,16 @@ class SceneData:
                                              # last two exact integers
     bvh_link: Optional[torch.Tensor] = None  # (B, 16) i32 [hit8 | miss8]
     bvh_prim: Optional[torch.Tensor] = None  # (P, 12) f32 [p0, e1, e2, type,
-                                             # 0, 0]
+                                             # 0, 0]; K6 reads it too
+    # the BVH8 walks' tables (scene/bvh.py::collapse_bvh8), on a scene
+    # uploaded under set_backend("bvh8") (K6) or ("bvh8mxu") (K7)
+    bvh8_child: Optional[torch.Tensor] = None   # (M*8, 8) f32 [min.xyz,
+                                                # max.xyz, kind, count]
+    bvh8_order: Optional[torch.Tensor] = None   # (M*8, 8) i32 per octant
+    bvh8c_child: Optional[torch.Tensor] = None  # (Mc*8, 16) f32, cluster
+                                                # leaves [.., slot base, 0,
+                                                # centroid.xyz, pad]
+    bvh8c_order: Optional[torch.Tensor] = None  # (Mc*8, 8) i32 per octant
     # instanced scenes: mxu_node_f/mxu_link are then [TLAS | per-group cut
     # trees] (col 7 of a TLAS leaf row = its instance id) and the prim
     # tables hold each group's prims once, in local space.
@@ -128,6 +147,8 @@ class SceneData:
     has_spheres: bool = False   # routes the whole scene to the BVH2 walks
     inst_fuel: int = 0          # BVH2 two-level walk bound (K4's)
     inst_mxu_fuel: int = 0      # instanced cluster walk bound (K5's)
+    bvh8_depth: int = 0         # levels below the BVH8 root (K6's stack)
+    bvh8c_depth: int = 0        # the same of the cut tree's (K7's)
 
     @property
     def n_prims(self) -> int:
@@ -274,7 +295,13 @@ def _flat_accel(bb_min, bb_max, CK):
     slot_prim = np.full(max(len(cl_starts), 1) * CK, -1, np.int32)
     for c, (s0, cnt) in enumerate(zip(cl_starts, cl_counts)):
         slot_prim[c * CK: c * CK + cnt] = np.arange(s0, s0 + cnt)
+    # the BVH8 walk's tables, skipped (as in the JAX build) where the
+    # BVH2 has 96 rows or fewer
+    bvh8 = (bvh_mod.collapse_bvh8(tree) if tree.miss.shape[0] > 96
+            else (None, None, 0))
     return dict(
+        tree=tree, cl_id=cl_id,
+        **dict(zip(("bvh8_child", "bvh8_order", "bvh8_depth"), bvh8)),
         bvh_min=tree.bounds_min, bvh_max=tree.bounds_max,
         bvh_leaf_start=tree.leaf_start, bvh_leaf_count=tree.leaf_count,
         bvh_miss=tree.miss, bvh_hit8=oct_hit8, bvh_miss8=oct_miss8,
@@ -372,8 +399,8 @@ def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
 
 def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     """Host build: shapes (meshes and Instance records) + sensor + shapeless
-    emitters -> dict of numpy tables (FIELDS, and INST_FIELDS for a
-    shared-BLAS scene), the same arithmetic as the JAX package's
+    emitters -> dict of numpy tables (FIELDS, BVH8_FIELDS, and INST_FIELDS
+    for a shared-BLAS scene), the same arithmetic as the JAX package's
     _build_scene_impl for the features this slice supports."""
     shapes, inst_records, group_of, group_shape0 = _split_instances(shapes)
     _refuse_unsupported(shapes, sensor)
@@ -497,6 +524,14 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     feat = np.ascontiguousarray(fv.reshape(4 * Sn, 16).T)
     is_cl_node = row_cluster >= 0
     mxu_node_f[is_cl_node, 8:11] = cl_c[row_cluster[is_cl_node]]
+    # the BVH8 collapse of the cut tree, with cluster leaves (the JAX
+    # build's gate: flat, more than 96 BVH2 rows, a root above the cut;
+    # built for sphere scenes too, where only the dispatch refuses it)
+    bvh8c = (None, None, 0)
+    if (not inst_records and acc["tree"].miss.shape[0] > 96
+            and acc["cl_id"][0] < 0):
+        bvh8c = bvh_mod.collapse_bvh8(acc["tree"], cluster_id=acc["cl_id"],
+                                      cluster_c=cl_c, cluster_k=CK)
 
     # --- emitter tables ----------------------------------------------------
     E = max(len(emitter_descs), 1)
@@ -565,7 +600,10 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         cam_data=cam_data,
         mxu_node_f=mxu_node_f.astype(np.float32),
         mxu_link=acc["mxu_link"].astype(np.int32),
-        cluster_slot_prim=slot_prim, mxu_feat=feat)
+        cluster_slot_prim=slot_prim, mxu_feat=feat,
+        bvh8_child=acc.get("bvh8_child"), bvh8_order=acc.get("bvh8_order"),
+        bvh8_depth=acc.get("bvh8_depth", 0),
+        **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)))
     if inst_records:
         out.update({k: acc[k] for k in INST_FIELDS})
     return out
@@ -700,6 +738,100 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
 # Traversal dispatch (Scene::ray_intersect / ray_test)
 # ---------------------------------------------------------------------------
 
+# The JAX package's backend switch (mitsuba2_tpu/scene/scene.py:1153-1202),
+# module state read at every dispatch and at upload. "auto" is brute force
+# for small flat scenes and the default walks above; "pallas" and "jnp"
+# force the default walks (the JAX names of its TPU and CPU walkers: here
+# the CUDA kernels, and their twins on the CPU) whatever the scene's size;
+# "brute" forces brute force; "bvh8" and "bvh8mxu" force the BVH8 walks,
+# K6 over prim leaves and K7 over cluster leaves (kernels/traverse.py).
+BACKENDS = ("auto", "brute", "jnp", "pallas", "bvh8", "bvh8mxu")
+_BACKEND = "auto"
+
+
+def set_backend(name: str) -> None:
+    """Force the intersection backend: auto | brute | jnp | pallas | bvh8
+    (the BVH8 walk, K6) | bvh8mxu (the BVH8 walk over cluster leaves,
+    K7). A scene uploads the tables of the walk the backend in force at
+    its upload takes (convert.scene_from_numpy)."""
+    global _BACKEND
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}: one of {BACKENDS}")
+    _BACKEND = name
+
+
+def _walk_for(backend: str, n_prims: int, has_instances: bool,
+              has_spheres: bool, has_bvh8: bool, has_bvh8c: bool) -> str:
+    """The walk `backend` takes on a scene of this kind: "brute", "walk"
+    (the default walks: cluster or BVH2, flat or instanced), "bvh8" or
+    "bvh8mxu"; `has_bvh8`/`has_bvh8c`: the scene has K6's/K7's tables.
+    Raises the JAX package's ValueErrors where it cannot take a forced
+    backend."""
+    from ..kernels.brute import takes_brute_force
+    if backend in ("brute", "bvh8", "bvh8mxu"):
+        if has_instances:
+            raise ValueError(f"{backend} backend cannot intersect "
+                             "shared-BLAS instanced scenes (prim tables "
+                             "are instance-local); use jnp or pallas")
+        if backend == "bvh8" and not has_bvh8:
+            raise ValueError("bvh8 backend needs BVH8 tables (scene too "
+                             "small; brute force covers it; or uploaded "
+                             "under another backend)")
+        if backend == "bvh8mxu" and has_spheres:
+            raise ValueError("bvh8mxu backend is triangle-only "
+                             "(spheres have no bilinear plane form); "
+                             "use pallas or bvh8")
+        if backend == "bvh8mxu" and not has_bvh8c:
+            raise ValueError("bvh8mxu backend needs the composed "
+                             "cut-tree tables (scene too small, or "
+                             "uploaded under another backend)")
+        return backend
+    if backend == "auto" and takes_brute_force(n_prims, has_instances):
+        return "brute"
+    return "walk"
+
+
+def upload_walk(n_prims: int, has_instances: bool, has_spheres: bool,
+                has_bvh8: bool, has_bvh8c: bool) -> str:
+    """The walk whose tables a scene uploads under the backend in force
+    ("brute": none). A backend the scene cannot take uploads the "auto"
+    policy's tables, and the dispatch raises on it."""
+    kind = (n_prims, has_instances, has_spheres, has_bvh8, has_bvh8c)
+    try:
+        return _walk_for(_BACKEND, *kind)
+    except ValueError:
+        return _walk_for("auto", *kind)
+
+
+def _pick_backend(scene) -> str:
+    """The walk of one dispatch (`_walk_for`'s), raising its ValueErrors
+    and one where the scene lacks the default walks' tables (it was
+    uploaded under another backend)."""
+    walk = _walk_for(_BACKEND, scene.n_prims, scene.has_instances,
+                     scene.has_spheres, scene.bvh8_child is not None,
+                     scene.bvh8c_child is not None)
+    if walk != "walk":
+        return walk
+    held = scene.bvh_node if scene.has_spheres else scene.mxu_node_f
+    if held is None:
+        raise ValueError("the scene holds no tables of the default walks: "
+                         "it was uploaded under another backend; upload it "
+                         "again under this one")
+    return "walk"
+
+
+def _walk_fns(scene, backend):
+    """(closest hit, any hit) entry points of a walking backend."""
+    from ..kernels import traverse
+    if backend == "bvh8":
+        return traverse.ray_intersect_bvh8, traverse.ray_test_bvh8
+    if backend == "bvh8mxu":
+        return traverse.ray_intersect_bvh8mxu, traverse.ray_test_bvh8mxu
+    if scene.has_instances:
+        return traverse.ray_intersect_instanced, traverse.ray_test_instanced
+    return traverse.ray_intersect_preliminary, traverse.ray_test
+
+
 SORT_MIN_LANES = 16384
 SORT_DIRBITS = 9    # direction bucket: 3 bits per axis, as the JAX default
 
@@ -744,16 +876,16 @@ def _preliminary_dispatch(scene, ray: Ray, sort=None):
     instanced scene. `sort=None` presorts wavefronts of SORT_MIN_LANES
     lanes or more; False skips it (primary rays)."""
     from ..kernels import brute, traverse
-    if brute.takes_brute_force(scene.n_prims, scene.has_instances):
+    backend = _pick_backend(scene)
+    if backend == "brute":
         return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
                 None)
-    fn = (traverse.ray_intersect_instanced if scene.has_instances
-          else traverse.ray_intersect_preliminary)
+    fn = _walk_fns(scene, backend)[0]
     n = ray.o.x.shape[0]
     if (n >= SORT_MIN_LANES) if sort is None else sort:
         outs, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
-        # the cluster walks emit u = v = 0, which need no unsorting
-        zero_uv = not traverse.emits_uv(scene)
+        # walks that emit u = v = 0 need no unsorting of them
+        zero_uv = not traverse.emits_uv(scene, backend)
         outs = [a if zero_uv and i in (2, 3) else _unsort(a, lane)
                 for i, a in enumerate(outs)]
     else:
@@ -769,11 +901,11 @@ def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
 
 def ray_test(scene, ray: Ray) -> torch.Tensor:
     """Scene::ray_test — occlusion within ray.maxt."""
-    from ..kernels import brute, traverse
-    if brute.takes_brute_force(scene.n_prims, scene.has_instances):
+    from ..kernels import brute
+    backend = _pick_backend(scene)
+    if backend == "brute":
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
-    fn = (traverse.ray_test_instanced if scene.has_instances
-          else traverse.ray_test)
+    fn = _walk_fns(scene, backend)[1]
     if ray.o.x.shape[0] >= SORT_MIN_LANES:
         occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
         return _unsort(occ, lane)

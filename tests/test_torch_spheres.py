@@ -427,7 +427,7 @@ def test_presorted_dispatch_unsorts_uv(case):
     ray = Ray(planar(o), planar(d), torch.from_numpy(tm))
     outs_s = scene_mod._preliminary_dispatch(case.st, ray, sort=True)
     outs_u = scene_mod._preliminary_dispatch(case.st, ray, sort=False)
-    assert traverse.emits_uv(case.st)
+    assert traverse.emits_uv(case.st, scene_mod._pick_backend(case.st))
     for a, b in zip(outs_s, outs_u):
         assert (a is None and b is None) or torch.equal(a, b)
     assert bool(outs_s[2].any()) and bool(outs_s[3].any())

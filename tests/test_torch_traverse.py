@@ -199,6 +199,7 @@ _SHIM = r"""
 #define __launch_bounds__(x)
 #define __restrict__
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
 struct dim3_ { unsigned x; };
 static dim3_ blockIdx, threadIdx, blockDim;
 // loads that fall in each of four tables, counted as the kernels make them
@@ -216,6 +217,7 @@ inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; 
 inline float fabsf(float x) { return std::fabs(x); }
 inline float fminf(float a, float b) { return std::fmin(a, b); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -233,7 +235,7 @@ def build_emulation(tmp_path):
     src = open(traverse._SRC).read()
     src, n = re.subn(r"(\w+_kernel)<<<grid, BLOCK, 0, \(cudaStream_t\)stream>>>\(",
                      r"EMU_LAUNCH(grid, BLOCK, \1, ", src)
-    assert n == 8
+    assert n == 12
     (tmp_path / "cuda_runtime.h").write_text(_SHIM)
     (tmp_path / "cw.cpp").write_text(src)
     so = tmp_path / "libcw.so"
