@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six main paths, each a forward render at 256x256, 16 spp in one pass,
+Seven main paths, each a forward render at 256x256, 16 spp in one pass,
 max_depth 3 through `mitsuba2_tpu_torch.render`:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
@@ -20,18 +20,24 @@ max_depth 3 through `mitsuba2_tpu_torch.render`:
   gallery_bvh8     the gallery under set_backend("bvh8"): the BVH8 walk over
              prim leaves (K6);
   gallery_bvh8mxu  the gallery under set_backend("bvh8mxu"): the BVH8 walk
-             over cluster leaves (K7).
-Each path sets its backend before it builds its scene (a scene uploads
-the tables of the walk it takes) and resets it to "auto" after each use.
+             over cluster leaves (K7);
+  gallery_dense    the gallery's scene with the dense switch on
+             (traverse._MXU_DENSE = "1", the JAX package's MI_MXU_DENSE=1):
+             every cluster against every ray (K8).
+Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
+before it builds its scene (a scene uploads the tables of the walk it
+takes) and resets them after each use.
 
 Phase 0  the card, torch, CUDA and nvcc.
-Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu, nvcc -> ctypes) and
-         the C++ BVH builder from the checkout's sources.
+Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu and csrc/probes.cu,
+         one nvcc each, started together -> ctypes) and the C++ BVH
+         builder from the checkout's sources.
 Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
          fields a quarter of the random rays aim into the spheres); K6
-         also on the n=64 sphere field (its sphere branch). The paths on
+         also on the n=64 sphere field (its sphere branch); K8 bit-equal
+         to its twin on every lane. The paths on
          one scene share its probe rays. Prints the walk work the twins
          count per lane and the bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
@@ -42,9 +48,16 @@ Phase 3  renders each path: launch counts (set to 0 just before the path's
 Phase 4  small renders on the card against the same renders on the CPU
          (twins and brute force there): the cluster, instanced, BVH2 and
          instanced BVH2 paths and brute force, with and without a sphere,
-         and the BVH8 walks (K6 with and without a sphere, K7).
+         the BVH8 walks (K6 with and without a sphere, K7), the dense
+         sweep (K8), and MXU_LEAVES off (K3 and K4 on triangle scenes).
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind, and the device's busy share.
+Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
+         launched once with the counts at 0, each held bit for bit
+         against its twin and timed; their costs per walk step, per row
+         and per cluster visit, and from these a model of each K1, K2 and
+         K7 launch of phase 3 (steps x step cost + visits x visit cost)
+         beside its measured time.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} and, last, {"ok": true, "device":
@@ -98,10 +111,13 @@ RAYS_PER_PASS = (RENDER["width"] * RENDER["height"] * RENDER["spp_per_pass"]
 N_PROBE = 65536
 DEVICE = "cuda:0"
 KERNEL_REPS = 20
+# a K8 launch takes a tenth of a second or more: fewer repetitions
+PATH_REPS = {"gallery_dense": 3}
 # ~0.1 s of the device's clock: ample for the host to queue KERNEL_REPS
 # launches ahead of it
 SLEEP_CYCLES = 200_000_000
 SRC = "mitsuba2_tpu_torch/csrc/cluster_walk.cu"
+PROBE_SRC = "mitsuba2_tpu_torch/csrc/probes.cu"
 PALLAS = "mitsuba2_tpu/kernels/traverse_pallas.py"
 REPLACES = {
     "cluster_closest_hit": (f"{PALLAS}:671", f"{PALLAS}:877"),
@@ -116,6 +132,14 @@ REPLACES = {
     "bvh8_any_hit": (f"{PALLAS}:2117", None),
     "bvh8mxu_closest_hit": (f"{PALLAS}:2316", None),
     "bvh8mxu_any_hit": (f"{PALLAS}:2433", None),
+    "dense_closest_hit": (f"{PALLAS}:1040", None),
+    "dense_any_hit": (f"{PALLAS}:1071", None),
+}
+# the probes (kernels/probes.py) and the TPU probes they replace
+PROBE_REPLACES = {
+    "walk_step": "benchmarks/probe_walk_latency.py:499",
+    "row_load": "benchmarks/probe_mxu_dma.py:98",
+    "cluster_visit": "benchmarks/probe_mxu_cost.py:159",
 }
 # each path's closest-hit and any-hit kernels: 3 and 2 launches a render
 # (the camera and two bounce wavefronts, two shadow rounds), 0 of the rest
@@ -126,13 +150,23 @@ PATH_KERNELS = {
     "spheres_instanced": ("inst_bvh_closest_hit", "inst_bvh_any_hit"),
     "gallery_bvh8": ("bvh8_closest_hit", "bvh8_any_hit"),
     "gallery_bvh8mxu": ("bvh8mxu_closest_hit", "bvh8mxu_any_hit"),
+    "gallery_dense": ("dense_closest_hit", "dense_any_hit"),
 }
-# the backend each path (and phase 2's extra scene) runs under, and the
-# path whose scene geometry and probe rays it shares
+# the backend each path (and phase 2's extra scene) runs under, the paths
+# with the dense switch on, and the path whose scene geometry and probe
+# rays each shares
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8"}
+DENSE = {"gallery_dense"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
-              "spheres_bvh8": "spheres"}
+              "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
+# the probes' configurations at 1M lanes: P1 over the gallery-sized table
+# (L1-resident) and one of the sphere field's BVH2 size (8 MiB, in L2)
+PROBE_LANES = 1 << 20
+P1_STEPS, P2_STEPS, P3_STEPS = 256, 16, 64
+P1_ROWS = (768, 262144)
+P3_MODES = {0: "step", 4: "visit4", 1: "visit1"}
+PROBE_REPS = 5
 EXPECTED_LAUNCHES = {
     path: {k: 3 if k == c else 2 if k == a else 0 for k in REPLACES}
     for path, (c, a) in PATH_KERNELS.items()}
@@ -177,21 +211,33 @@ def phase_device(torch):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from mitsuba2_tpu_torch import native
-    from mitsuba2_tpu_torch.kernels import traverse
+    from mitsuba2_tpu_torch.kernels import probes, traverse
     t0 = time.perf_counter()
+    # one nvcc for each source, all started together
+    cmd = [traverse.nvcc_path()] + traverse.NVCC_FLAGS
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(native.build_library, name, src, cmd,
+                            traverse.HEADERS)
+                for name, src in (("cluster_walk", traverse._SRC),
+                                  ("probes", probes._SRC))]
+        native.build_bvh_native(np.zeros((1, 3), np.float32),
+                                np.ones((1, 3), np.float32))
+        for j in jobs:
+            j.result()
     traverse.load_cuda_library()
-    native.build_bvh_native(np.zeros((1, 3), np.float32),
-                            np.ones((1, 3), np.float32))
-    log(f"phase 1: built {SRC} (route cuda: nvcc {' '.join(traverse.NVCC_FLAGS)}"
-        f" -> ctypes) and the C++ BVH builder in "
-        f"{time.perf_counter() - t0:.1f} s")
-    report = native.BUILD_LOG.get("cluster_walk")
-    if report is None:
-        log("  ptxas: library found built, no report")
-    for ln in (report or "").splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            log(f"  ptxas: {ln.strip()}")
+    probes.load_cuda_library()
+    log(f"phase 1: built {SRC} and {PROBE_SRC} (route cuda: nvcc "
+        f"{' '.join(traverse.NVCC_FLAGS)} -> ctypes) and the C++ BVH "
+        f"builder in {time.perf_counter() - t0:.1f} s")
+    for name in ("cluster_walk", "probes"):
+        report = native.BUILD_LOG.get(name)
+        if report is None:
+            log(f"  ptxas ({name}): library found built, no report")
+        for ln in (report or "").splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log(f"  ptxas: {ln.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -204,14 +250,25 @@ def planar(torch, a, dev):
 
 
 @contextlib.contextmanager
-def forced_backend(name):
-    """scene.set_backend(name) inside the block, "auto" after it."""
+def switches(backend="auto", dense="0", leaves=True):
+    """scene.set_backend(backend), the dense switch (traverse._MXU_DENSE)
+    and traverse.MXU_LEAVES inside the block; "auto", "0" and on after
+    it."""
+    from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.scene import scene as scene_mod
-    scene_mod.set_backend(name)
+    scene_mod.set_backend(backend)
+    traverse._MXU_DENSE, traverse.MXU_LEAVES = dense, leaves
     try:
-        yield name
+        yield backend
     finally:
         scene_mod.set_backend("auto")
+        traverse._MXU_DENSE, traverse.MXU_LEAVES = "0", True
+
+
+def path_switches(path):
+    """The switches of a main path (or of phase 2's extra scene)."""
+    return switches(BACKEND.get(path, "auto"),
+                    "1" if path in DENSE else "0")
 
 
 def kernels_of(scene, backend="auto"):
@@ -219,8 +276,9 @@ def kernels_of(scene, backend="auto"):
     arguments, the positions of the id outputs (slot or prim, instance),
     whether the closest hit emits u/v (outputs 2 and 3) and the twins'
     chunk: the BVH8 walks under set_backend("bvh8" | "bvh8mxu"); else the
-    BVH2 walks on a scene holding a sphere, the cluster walks on the
-    others, each instanced on an instanced scene."""
+    BVH2 walks on a scene holding a sphere (or with MXU_LEAVES off), the
+    cluster walks on the others, each instanced on an instanced scene, or
+    the dense sweep on a flat one with the dense switch on."""
     import torch
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
@@ -236,7 +294,7 @@ def kernels_of(scene, backend="auto"):
             any_plain=getattr(traverse, f"{backend}_any_hit_plain"),
             tabs=args[:3], extra=args[10:], ids=(1,), uv=k6,
             chunk=1 << 20 if k6 else 65536)
-    if scene.has_spheres:
+    if traverse.takes_bvh2(scene.has_spheres):
         # the BVH2 twins walk a whole wavefront as one chunk: their loop
         # runs as long as the longest walk in a chunk
         tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_prim)
@@ -263,6 +321,13 @@ def kernels_of(scene, backend="auto"):
                   scene.inst_inv),
             extra=(scene.cluster_k, scene.inst_mxu_fuel + 64), ids=(1, 2),
             uv=False, chunk=65536)
+    if traverse._use_dense(scene):
+        return dict(
+            closest="dense_closest_hit", any="dense_any_hit",
+            closest_plain=traverse.dense_closest_hit_plain,
+            any_plain=traverse.dense_any_hit_plain,
+            tabs=(scene.mxu_ccs, scene.cluster_feat),
+            extra=(scene.cluster_k,), ids=(1,), uv=False, chunk=1 << 20)
     return dict(
         closest="cluster_closest_hit", any="cluster_any_hit",
         closest_plain=traverse.closest_hit_plain,
@@ -308,7 +373,10 @@ def compare(torch, ks, rays):
     if ks["uv"] and bool(same.any()):
         uv_err = max(float((out_k[i] - out_p[i])[same].abs().max())
                      for i in (2, 3))
+    outs_k = (out_k if isinstance(out_k, tuple) else (out_k,)) + (occ_k,)
+    outs_p = (out_p if isinstance(out_p, tuple) else (out_p,)) + (occ_p,)
     return {
+        "bit_equal": all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)),
         "hit_equal": bool(torch.equal(hit_k, hit_p)),
         "hit_frac": n_hit / t_p.numel(),
         "slot_agree": int(same.sum()) / max(n_hit, 1),
@@ -324,10 +392,13 @@ def compare(torch, ks, rays):
     }
 
 
-def passes(c):
+def passes(c, exact=False):
+    """A kernel's agreement with its twin (compare's): within the port's
+    limits, and every output bit-equal where `exact` (K8)."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
-            and c["uv_max_abs_err"] <= 1e-5)
+            and c["uv_max_abs_err"] <= 1e-5
+            and (c["bit_equal"] or not exact))
 
 
 def sphere_field(mt, n, subdiv, device):
@@ -371,9 +442,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     """Each path's scene (and the sphere field under "bvh8") and its
     kernels against their twins on probe rays; returns the paths' scenes
     and the extra one."""
-    from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
-    from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
     t0 = time.perf_counter()
     scenes = {"gallery": mt.mesh_gallery(subdiv=SUBDIV, device=dev),
               "instanced": mt.instanced_field(**FIELD, device=dev)}
@@ -401,7 +470,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     extra = {}
     for name in ("gallery_bvh8", "gallery_bvh8mxu", "spheres_bvh8"):
         t0 = time.perf_counter()
-        with forced_backend(BACKEND[name]) as b:
+        with path_switches(name) as b:
             scene = (mt.mesh_gallery(subdiv=SUBDIV, device=dev)
                      if name.startswith("gallery") else
                      sphere_field(mt, device=dev, **SPHERE_FIELDS["spheres"]))
@@ -416,45 +485,70 @@ def phase_kernels_vs_twins(torch, mt, dev):
             f"walk fuel {ks['extra'][-1]}, tables "
             f"{sum(a.numel() * a.element_size() for a in ks['tabs']) / 2**20:.2f}"
             " MiB")
+    # the dense switch is read at dispatch: the gallery's own scene
+    gallery = scenes["gallery_dense"] = scenes["gallery"]
+    with path_switches("gallery_dense"):
+        ks = kernels_of(gallery)
+    check(ks["closest"] == "dense_closest_hit", "the dense switch did not "
+          "route the gallery to K8")
+    tabs_mib = sum(a.numel() * a.element_size() for a in ks["tabs"]) / 2**20
+    log(f"phase 2: gallery_dense: the gallery's scene with the dense switch "
+        f"on: {gallery.mxu_ccs.shape[0]} clusters of {gallery.cluster_k} "
+        f"slots, tables {tabs_mib:.2f} MiB")
     ok = True
     probes = {}
     for name, scene in {**scenes, **extra}.items():
-        def closest_np(o, d, t_max):
-            o, d = Vec3(*planar(torch, o, dev)), Vec3(*planar(torch, d, dev))
-            t_max = torch.from_numpy(t_max).to(dev)
-            if scene.has_instances:
-                t, prim, _, _, inst = traverse.ray_intersect_instanced(
-                    scene, o, d, t_max)
-                return (t.cpu().numpy(), prim.cpu().numpy(),
-                        inst.cpu().numpy())
-            t, prim, _, _ = traverse.ray_intersect_preliminary(
-                scene, o, d, t_max)
-            return t.cpu().numpy(), prim.cpu().numpy(), None
-
-        # the paths on one scene share the first one's probe rays
-        base = SAME_SCENE.get(name, name)
-        if base not in probes:
-            probes[base] = probe_rays(scene, N_PROBE, 0, closest_np)
-        rays = probes[base]
-        ks = kernels_of(scene, BACKEND.get(name, "auto"))
-        for kind in KINDS:
-            o, d, tm = rays[kind]
-            args = (planar(torch, o, dev) + planar(torch, d, dev)
-                    + [torch.from_numpy(tm).to(dev)])
-            c = compare(torch, ks, args)
-            good = passes(c)
-            ok &= good
-            log(f"phase 2: {name:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
-                f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
-                f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
-                f"{c['t_max_abs_err']:.3e} uv-max-abs-err "
-                f"{c['uv_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f}")
-            for closest in (True, False):
-                log(f"  {ks['closest' if closest else 'any']} work: "
-                    + work_line(c["closest_stats" if closest else
-                                  "any_stats"], closest, ks, scene, len(tm)))
+        with path_switches(name):
+            ok &= _kernels_vs_twins(torch, name, scene, probes, dev)
     check(ok, "a kernel disagrees with its twin on the probe rays")
     return scenes, extra
+
+
+def _kernels_vs_twins(torch, name, scene, probes, dev):
+    """Phase 2 for one path (or the extra scene), under its switches;
+    `probes` holds each scene's probe rays, made on its first path.
+    Returns whether every kernel agreed with its twin (K8 bit for bit)."""
+    from mitsuba2_tpu_torch.core.vec import Vec3
+    from mitsuba2_tpu_torch.kernels import traverse
+    from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
+
+    def closest_np(o, d, t_max):
+        o, d = Vec3(*planar(torch, o, dev)), Vec3(*planar(torch, d, dev))
+        t_max = torch.from_numpy(t_max).to(dev)
+        if scene.has_instances:
+            t, prim, _, _, inst = traverse.ray_intersect_instanced(
+                scene, o, d, t_max)
+            return (t.cpu().numpy(), prim.cpu().numpy(),
+                    inst.cpu().numpy())
+        t, prim, _, _ = traverse.ray_intersect_preliminary(
+            scene, o, d, t_max)
+        return t.cpu().numpy(), prim.cpu().numpy(), None
+
+    # the paths on one scene share the first one's probe rays
+    base = SAME_SCENE.get(name, name)
+    if base not in probes:
+        probes[base] = probe_rays(scene, N_PROBE, 0, closest_np)
+    rays = probes[base]
+    ks = kernels_of(scene, BACKEND.get(name, "auto"))
+    ok = True
+    for kind in KINDS:
+        o, d, tm = rays[kind]
+        args = (planar(torch, o, dev) + planar(torch, d, dev)
+                + [torch.from_numpy(tm).to(dev)])
+        c = compare(torch, ks, args)
+        good = passes(c, exact=name in DENSE)
+        ok &= good
+        log(f"phase 2: {name:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
+            f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
+            f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
+            f"{c['t_max_abs_err']:.3e} uv-max-abs-err "
+            f"{c['uv_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f} "
+            f"bit-equal {c['bit_equal']}")
+        for closest in (True, False):
+            log(f"  {ks['closest' if closest else 'any']} work: "
+                + work_line(c["closest_stats" if closest else
+                              "any_stats"], closest, ks, scene, len(tm)))
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -505,14 +599,13 @@ def kernel_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def time_launch(torch, ks, scene, name, rays):
+def time_launch(torch, ks, scene, name, rays, reps=KERNEL_REPS):
     """One launch of kernel `name` (of `ks`, kernels_of's) on `rays`: its
-    device time, its agreement with its twin, the twin's time, the work
-    the twin counted and the bound of that work."""
+    device time over `reps` launches, its agreement with its twin, the
+    twin's time, the work the twin counted and the bound of that work."""
     tabs, extra = ks["tabs"], ks["extra"]
     n = rays[0].numel()
-    ms = kernel_ms(torch, lambda: wrapper(name)(*tabs, *rays, *extra),
-                   KERNEL_REPS)
+    ms = kernel_ms(torch, lambda: wrapper(name)(*tabs, *rays, *extra), reps)
     c = compare(torch, ks, list(rays))
     closest = name == ks["closest"]
     st = c["closest_stats" if closest else "any_stats"]
@@ -579,8 +672,10 @@ def log_launch(name, i, r):
 def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
-    each launch of the path's kernels timed and held against its twin,
-    and, with `also` (a scene under "bvh8"), K6's on the same inputs."""
+    each launch of the path's kernels timed and held against its twin (K8
+    bit for bit), and, with `also` (a scene under "bvh8"), K6's on the
+    same inputs. Returns the kernels' rows, the median render ms and each
+    kernel's launches (time_launch's records)."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
     names = list(EXPECTED_LAUNCHES[path])
@@ -643,9 +738,10 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     per = {k: [] for k in (ks["closest"], ks["any"])}
     for i, (name, rays) in enumerate(record):
         check(name in per, f"{path}: {name} was called on the main path")
-        r = time_launch(torch, ks, scene, name, rays)
-        check(passes(r["c"]), f"{name} launch {i} disagrees with its twin: "
-                              f"{r['c']}")
+        r = time_launch(torch, ks, scene, name, rays,
+                        PATH_REPS.get(path, KERNEL_REPS))
+        check(passes(r["c"], exact=path in DENSE),
+              f"{name} launch {i} disagrees with its twin: {r['c']}")
         per[name].append(r)
         log_launch(name, i, r)
     if also is not None:
@@ -674,7 +770,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
         if REPLACES[name][1]:
             row["also_replaces"] = REPLACES[name][1]
         rows.append(row)
-    return rows, med * 1e3
+    return rows, med * 1e3, per
 
 
 # ---------------------------------------------------------------------------
@@ -702,25 +798,31 @@ def phase_small_renders(torch, mt, dev):
                           max_depth=3, rr_depth=2)
     small_field = functools.partial(sphere_field, mt, 6, 2)
     gallery = functools.partial(mt.mesh_gallery, subdiv=1)
-    for name, mk, backend in (
-            ("mesh_gallery(subdiv=1)", lambda d: gallery(device=d), "auto"),
-            ("instanced_field(n=6, subdiv=2), shared BLAS",
-             lambda d: _shared(lambda d_: mt.instanced_field(
-                 n=6, subdiv=2, device=d_), d), "auto"),
-            ("cornell_box", lambda d: mt.cornell_box(device=d), "auto"),
+    small_inst = functools.partial(_shared, lambda d_: mt.instanced_field(
+        n=6, subdiv=2, device=d_))
+    for name, mk, sw in (
+            ("mesh_gallery(subdiv=1)", lambda d: gallery(device=d), {}),
+            ("instanced_field(n=6, subdiv=2), shared BLAS", small_inst, {}),
+            ("cornell_box", lambda d: mt.cornell_box(device=d), {}),
             ("furnace (brute force, a sphere)",
-             lambda d: mt.furnace(device=d), "auto"),
+             lambda d: mt.furnace(device=d), {}),
             ("sphere_field(n=6, subdiv=2), flattened (BVH2)", small_field,
-             "auto"),
+             {}),
             ("sphere_field(n=6, subdiv=2), shared BLAS (BVH2)",
-             lambda d: _shared(small_field, d), "auto"),
+             lambda d: _shared(small_field, d), {}),
             ("mesh_gallery(subdiv=1) under bvh8 (K6)",
-             lambda d: gallery(device=d), "bvh8"),
+             lambda d: gallery(device=d), dict(backend="bvh8")),
             ("sphere_field(n=6, subdiv=2), flattened, under bvh8 (K6)",
-             small_field, "bvh8"),
+             small_field, dict(backend="bvh8")),
             ("mesh_gallery(subdiv=1) under bvh8mxu (K7)",
-             lambda d: gallery(device=d), "bvh8mxu")):
-        with forced_backend(backend):
+             lambda d: gallery(device=d), dict(backend="bvh8mxu")),
+            ("mesh_gallery(subdiv=1), dense sweep (K8)",
+             lambda d: gallery(device=d), dict(dense="1")),
+            ("mesh_gallery(subdiv=1), MXU_LEAVES off (K3)",
+             lambda d: gallery(device=d), dict(leaves=False)),
+            ("instanced_field(n=6, subdiv=2), shared BLAS, MXU_LEAVES off "
+             "(K4)", small_inst, dict(leaves=False))):
+        with switches(**sw):
             img_c = mt.render(mk("cpu"), cfg, seed=5, device="cpu").numpy()
             img_g = mt.render(mk(dev), cfg, seed=5).cpu().numpy()
         close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
@@ -738,7 +840,7 @@ def phase_small_renders(torch, mt, dev):
 
 def _category(name):
     low = name.lower()
-    if "cluster_" in low or "bvh" in low:
+    if "cluster_" in low or "bvh" in low or "dense_" in low:
         return "traversal kernels"
     if "sort" in low or "radix" in low:
         return "presort (torch.sort)"
@@ -787,6 +889,184 @@ def phase_profile(torch, mt, path, scene, render_ms):
         log(f"  {ms:8.3f} ms {n:5d}x {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the probes, and a model of the cluster walks' times
+# ---------------------------------------------------------------------------
+
+# FP32 operations of a P2 row: 16 products, 15 sums and the min
+FLOPS_PER_ROW = 32
+
+
+def _probe_configs(torch, dev):
+    """Each probe configuration at PROBE_LANES lanes: its probe, label,
+    kernel call, twin call (with a stats dict), steps a lane, and the
+    bytes of its tables and of each lane's inputs and outputs."""
+    from mitsuba2_tpu_torch.kernels import probes
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n = PROBE_LANES
+    cfgs = []
+    for rows in P1_ROWS:
+        node, link = (up(a) for a in probes.walk_tables(rows))
+        for div in (False, True):
+            s, start = (up(a) for a in probes.lanes(n, rows, div))
+            for dep in (True, False):
+                args = (node, link, s, start, P1_STEPS, dep)
+                cfgs.append(dict(
+                    probe="walk_step", steps=P1_STEPS,
+                    label=f"{'dep' if dep else 'indep'} R={rows} "
+                          f"{'divergent' if div else 'coherent'}",
+                    run=functools.partial(probes.walk_step, *args),
+                    twin=functools.partial(probes.walk_step_plain, *args),
+                    tab_bytes=rows * (32 + 64), lane_bytes=16))
+    feat, rt = (up(a) for a in probes.row_tables(n))
+    for smem in (False, True):
+        cfgs.append(dict(
+            probe="row_load", steps=P2_STEPS,
+            label="smem" if smem else "ldg",
+            run=functools.partial(probes.row_load, feat, rt, P2_STEPS, smem),
+            twin=functools.partial(probes.row_load_plain, feat, rt,
+                                   P2_STEPS),
+            tab_bytes=feat.numel() * 4, lane_bytes=4 * probes.ROW_W + 4))
+    vis = [up(a) for a in probes.visit_tables()]
+    for div in (False, True):
+        s, start = (up(a) for a in probes.lanes(n, vis[0].shape[0], div))
+        for every in probes.EVERY:
+            args = (*vis, s, start, P3_STEPS, every, 128)
+            cfgs.append(dict(
+                probe="cluster_visit", steps=P3_STEPS,
+                label=f"{P3_MODES[every]} "
+                      f"{'divergent' if div else 'coherent'}",
+                run=functools.partial(probes.cluster_visit, *args),
+                twin=functools.partial(probes.cluster_visit_plain, *args),
+                tab_bytes=sum(a.numel() * 4 for a in vis), lane_bytes=16))
+    return cfgs
+
+
+def phase_probes(torch, dev, card, launches):
+    """Phase 6: every probe configuration launched once with the counts
+    at 0 (the probes' main path), then each held against its twin and
+    timed; the costs per unit and the model of phase 3's K1, K2 and K7
+    launches (`launches`: phase_main_path's records by path). Returns the
+    probes' rows of the kernels line."""
+    from mitsuba2_tpu_torch.kernels import probes
+    cfgs = _probe_configs(torch, dev)
+    wrappers = {k: getattr(probes, k) for k in PROBE_REPLACES}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    for c in cfgs:
+        c["run"]()
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    log(f"probes launched: {json.dumps(counts)}")
+    for k in wrappers:
+        check(counts[k] == sum(c["probe"] == k for c in cfgs),
+              f"probe {k}: {counts[k]} launches")
+    n = PROBE_LANES
+    for c in cfgs:
+        out = c["run"]()
+        st = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = c["twin"](stats=st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out = out if isinstance(out, tuple) else (out,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(torch.equal(a, b) for a, b in zip(out, want)),
+              f"probe {c['probe']} {c['label']} disagrees with its twin")
+        c["err"] = max(float((a.double() - b.double()).abs().max())
+                       for a, b in zip(out, want))
+        c["plain_ms"] = ev[0].elapsed_time(ev[1])
+        c["ms"] = kernel_ms(torch, c["run"], PROBE_REPS)
+        c["st"] = st
+        ops = (st.get("slab_tests", 0) * FLOPS_PER_NODE
+               + st.get("rows", 0) * FLOPS_PER_ROW
+               + st.get("slot_tests", 0) * FLOPS_PER_SLOT)
+        t_ops = ops / PEAK_FP32_PER_S
+        t_bytes = (c["tab_bytes"] + n * c["lane_bytes"]) / PEAK_BYTES_PER_S
+        c["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        c["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        per = c["ms"] * 1e9 / (n * c["steps"])
+        unit = {"walk_step": "ps a ray-step",
+                "row_load": "ps a ray-step of 128 rows",
+                "cluster_visit": "ps a ray-step"}[c["probe"]]
+        extra = ""
+        if c["probe"] == "row_load":
+            rows = n * c["steps"] * probes.ROWS
+            extra = (f", {c['ms'] * 1e9 / rows:.4f} ps a row a lane, "
+                     f"{rows * 64 / (c['ms'] * 1e-3) / 1e12:.2f} TB/s of "
+                     "rows into registers")
+        if "cluster_visits" in st:
+            extra = (f", {st['cluster_visits'] / n:.3f} visits a lane")
+        log(f"phase 6: {c['probe']} {c['label']}: {c['ms']:.4f} ms on "
+            f"{card} ({per:.3f} {unit}{extra}); twin {c['plain_ms']:.1f} ms, "
+            f"equal; bound {c['bound_ms']:.4f} ms by {c['bound_by']}")
+    by = {(c["probe"], c["label"]): c for c in cfgs}
+
+    def step_ps(label):
+        return by["walk_step", label]["ms"] * 1e9 / (n * P1_STEPS)
+
+    def visit_ps(kind, div):
+        """A ray-visit's cost net of the walk step (P3)."""
+        d = "divergent" if div else "coherent"
+        v, s0 = by["cluster_visit", f"{kind} {d}"], by["cluster_visit",
+                                                        f"step {d}"]
+        return (v["ms"] - s0["ms"]) * 1e9 / v["st"]["cluster_visits"]
+
+    cost = {"coherent": (step_ps("dep R=768 coherent"),
+                         visit_ps("visit1", False)),
+            "divergent": (step_ps("dep R=768 divergent"),
+                          visit_ps("visit4", True))}
+    log(f"phase 6: costs on {card}: a dependent step {cost['coherent'][0]:.3f}"
+        f" ps (coherent) to {cost['divergent'][0]:.3f} ps (divergent) a "
+        f"ray, {step_ps(f'dep R={P1_ROWS[-1]} divergent'):.3f} ps from "
+        f"L2 (R={P1_ROWS[-1]}, divergent), an independent one "
+        f"{step_ps('indep R=768 coherent'):.3f} ps; a cluster visit net of "
+        f"its step {cost['coherent'][1]:.3f} ps a ray (all threads of a "
+        f"warp together, visit1) to {cost['divergent'][1]:.3f} ps "
+        f"(threads apart, visit4 divergent); visit1 divergent "
+        f"{visit_ps('visit1', True):.3f} ps")
+    for path, names in (("gallery", ("cluster_closest_hit",
+                                     "cluster_any_hit")),
+                        ("gallery_bvh8mxu", ("bvh8mxu_closest_hit",
+                                             "bvh8mxu_any_hit"))):
+        for name in names:
+            for i, r in enumerate(launches.get(path, {}).get(name, [])):
+                st, m = r["st"], r["n"]
+                steps = st.get("node_steps", 0) + sum(
+                    st.get(k, 0) for k in ("fresh_visits", "advances",
+                                           "pops"))
+                visits = st.get("cluster_visits", 0)
+                model = {k: (steps * a + visits * b) * 1e-9
+                         for k, (a, b) in cost.items()}
+                log(f"phase 6: model {name} launch {i} ({path}): "
+                    f"{steps / m:.3f} steps and {visits / m:.4f} visits a "
+                    f"lane: {model['coherent']:.3f} ms at coherent costs, "
+                    f"{model['divergent']:.3f} ms at divergent costs; "
+                    f"measured {r['ms']:.3f} ms")
+    rows = []
+    for k in PROBE_REPLACES:
+        cs = [c for c in cfgs if c["probe"] == k]
+        bound_by = [c["bound_by"] for c in cs]
+        rows.append({
+            "name": f"probe_{k}", "route": "cuda", "source": PROBE_SRC,
+            "replaces": PROBE_REPLACES[k], "launches": counts[k],
+            "max_abs_err": max(c["err"] for c in cs),
+            "ms": statistics.fmean(c["ms"] for c in cs),
+            "plain_ms": statistics.fmean(c["plain_ms"] for c in cs),
+            "bound_ms": statistics.fmean(c["bound_ms"] for c in cs),
+            "bound_by": max(set(bound_by), key=bound_by.count),
+            "library_ms": None,
+            "modes": [{"mode": c["label"], "ms": c["ms"],
+                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"]}
+                      for c in cs]})
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -808,18 +1088,19 @@ def main():
         dev = torch.device(DEVICE)
         timed(1, phase_build)
         scenes, extra = timed(2, phase_kernels_vs_twins, torch, mt, dev)
-        rows, render_ms = [], {}
+        rows, render_ms, launches = [], {}, {}
         for path, scene in scenes.items():
-            with forced_backend(BACKEND.get(path, "auto")):
-                r, render_ms[path] = timed(
+            with path_switches(path):
+                r, render_ms[path], launches[path] = timed(
                     f"3 ({path})", phase_main_path, torch, mt, path, scene,
                     card, extra["spheres_bvh8"] if path == "spheres" else None)
             rows += r
         timed(4, phase_small_renders, torch, mt, dev)
         for path, scene in scenes.items():
-            with forced_backend(BACKEND.get(path, "auto")):
+            with path_switches(path):
                 timed(f"5 ({path})", phase_profile, torch, mt, path, scene,
                       render_ms[path])
+        rows += timed(6, phase_probes, torch, dev, card, launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,12 +9,14 @@ for the same inputs. The rest of the static metadata (`has_spheres`
 among it) is derived from the tables. Only the tables of the walk the
 scene takes under the backend in force (scene.set_backend) go to the
 device: by default the BVH2 walks' packed tables for a scene holding a
-sphere, the cluster walks' for the others, neither for a brute-force
-scene; under "bvh8" the BVH8 tables and the packed prim rows (K6), under
-"bvh8mxu" the cut tree's BVH8 tables and the cluster plane rows (K7). The
-BVH8 tables (scene.BVH8_FIELDS) may be absent from `fields`. A table that names a feature this slice does not render
-(emitters other than area and constant ones, BSDF families other than
-diffuse, twosided BSDFs, textured colors) raises.
+sphere (or any scene with traverse.MXU_LEAVES off), the cluster walks'
+(mxu_ccs, the dense sweep's centroids, among them) for the others,
+neither for a brute-force scene; under "bvh8" the BVH8 tables and the
+packed prim rows (K6), under "bvh8mxu" the cut tree's BVH8 tables and
+the cluster plane rows (K7). The BVH8 tables (scene.BVH8_FIELDS) may be
+absent from `fields`. A table that names a feature this slice does not
+render (emitters other than area and constant ones, BSDF families other
+than diffuse, twosided BSDFs, textured colors) raises.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels.traverse import FEAT_W
+from .kernels import traverse
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
 from .render.spectra import SLOT_TEX_BASE
@@ -39,12 +41,12 @@ def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
     S = mxu_feat.shape[1] // 4
     C = S // cluster_k
     fv = np.ascontiguousarray(mxu_feat.T).reshape(C, 4, cluster_k, 16)
-    out = np.zeros((C, cluster_k, FEAT_W), np.float32)
+    out = np.zeros((C, cluster_k, traverse.FEAT_W), np.float32)
     out[..., 0:3] = fv[:, 0, :, 0:3]
     out[..., 3:9] = fv[:, 1, :, 0:6]
     out[..., 9:15] = fv[:, 2, :, 0:6]
     out[..., 15:19] = fv[:, 3, :, 6:10]
-    return out.reshape(S, FEAT_W)
+    return out.reshape(S, traverse.FEAT_W)
 
 
 def prim_rows(f: Dict[str, np.ndarray]) -> np.ndarray:
@@ -146,7 +148,7 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
 
     tabs = {k: up(f[k]) for k in FIELDS
             if k not in CLUSTER_FIELDS + UPLOAD_FIELDS}
-    if walk == "walk" and has_spheres:
+    if walk == "walk" and traverse.takes_bvh2(has_spheres):
         tabs.update(zip(("bvh_node", "bvh_link", "bvh_prim"),
                         map(up, bvh_walk_tables(f))))
         if inst:

@@ -1,8 +1,10 @@
 // Ray traversal for Hopper (sm_90a): closest hit and any hit, over a
 // cluster cut tree or a full BVH2, each flat or under a TLAS of instances,
-// and over the BVH8 collapse of either tree (flat).
+// over the BVH8 collapse of either tree (flat), and by a dense sweep of
+// every cluster (flat). The helpers they share with the probes
+// (probes.cu) are in walk.cuh.
 //
-// REPLACES fourteen kernels of the JAX package,
+// REPLACES sixteen kernels of the JAX package,
 // mitsuba2_tpu/kernels/traverse_pallas.py:
 //   cluster_closest_hit_kernel <- _closest_hit_mxu_kernel (:671) and
 //                                 _closest_hit_mxu2_kernel (:877)
@@ -18,10 +20,12 @@
 //   bvh8_any_hit_kernel         <- _any_hit_bvh8_kernel (:2117)
 //   bvh8mxu_closest_hit_kernel  <- _closest_hit_bvh8mxu_kernel (:2316)
 //   bvh8mxu_any_hit_kernel      <- _any_hit_bvh8mxu_kernel (:2433)
+//   dense_closest_hit_kernel    <- _closest_hit_mxu_dense_kernel (:1040)
+//   dense_any_hit_kernel        <- _any_hit_mxu_dense_kernel (:1071)
 // mxu and mxu2 compute one function; they differ only in how the TPU
 // interleaves two 4096-ray lockstep walks, which has no meaning here. The
-// BVH2 walks are described after the cluster walks, and the BVH8 walks
-// after them, below.
+// BVH2 walks are described after the cluster walks, the BVH8 walks after
+// them and the dense sweep last, below.
 //
 // WHAT BOUNDS IT on an H100. Per ray the work is the cluster visits its
 // walk needs: each visit tests CK = 128 triangle slots, 38 FP32
@@ -76,40 +80,12 @@
 // launches on the given stream, allocates nothing, and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "walk.cuh"
 
 namespace {
 
-constexpr int FEAT_W4 = 5;       // float4s per slot in cluster_feat (20 floats)
 constexpr int BLOCK = 128;
 constexpr int BLAS_EXIT = -2;    // scene/bvh.py: leave an instance's cut tree
-
-struct RayState {
-    float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-    int oct;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-    float dd = fabsf(d) < 1e-20f ? (d >= 0.0f ? 1e-20f : -1e-20f) : d;
-    return 1.0f / dd;
-}
-
-__device__ __forceinline__ RayState make_ray(float ox, float oy, float oz,
-                                             float dx, float dy, float dz) {
-    RayState r;
-    r.ox = ox; r.oy = oy; r.oz = oz;
-    r.dx = dx; r.dy = dy; r.dz = dz;
-    r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
-    r.oct = (dx < 0.0f ? 1 : 0) | (dy < 0.0f ? 2 : 0) | (dz < 0.0f ? 4 : 0);
-    return r;
-}
-
-__device__ __forceinline__ RayState load_ray(
-        const float* ox, const float* oy, const float* oz,
-        const float* dx, const float* dy, const float* dz, int i) {
-    return make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
-}
 
 // World ray -> instance space through one inst_inv row (m0..m2: the 3x4
 // world->local matrix), in traverse_pallas._inst_rays's order of operations
@@ -123,71 +99,6 @@ __device__ __forceinline__ RayState to_local(const float4& m0,
                     m0.x * w.dx + m0.y * w.dy + m0.z * w.dz,
                     m1.x * w.dx + m1.y * w.dy + m1.z * w.dz,
                     m2.x * w.dx + m2.y * w.dy + m2.z * w.dz);
-}
-
-// Node row: a = (min.x, min.y, min.z, max.x), b = (max.y, max.z, slot, inst)
-__device__ __forceinline__ bool slab(const float4& a, const float4& b,
-                                     const RayState& r, float t_best) {
-    float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
-    float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
-    float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
-    float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                       fminf(t0z, t1z));
-    float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                       fmaxf(t0z, t1z));
-    return (tmin <= tmax) && (tmax > 0.0f) && (tmin < t_best);
-}
-
-// One slot's plane test; returns false where the slot cannot hit.
-// Slot layout: [det0..2 u0 | u1..u4 | u5 v0..v2 | v3..v5 t0 | t1..t3 pad]
-__device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
-                                          const RayState& r, float px,
-                                          float py, float pz, float mx,
-                                          float my, float mz, float* t_out) {
-    const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2),
-                 f3 = __ldg(f + 3), f4 = __ldg(f + 4);
-    float det = f0.x * r.dx + f0.y * r.dy + f0.z * r.dz;
-    float unum = f0.w * r.dx + f1.x * r.dy + f1.y * r.dz +
-                 f1.z * mx + f1.w * my + f2.x * mz;
-    float vnum = f2.y * r.dx + f2.z * r.dy + f2.w * r.dz +
-                 f3.x * mx + f3.y * my + f3.z * mz;
-    float tnum = f3.w * px + f4.x * py + f4.y * pz + f4.z;
-    float inv = fabsf(det) < 1e-12f ? 0.0f : 1.0f / det;
-    float u = unum * inv, v = vnum * inv, t = tnum * inv;
-    *t_out = t;
-    return (inv != 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
-           (u + v <= 1.0f) && (t > 0.0f);
-}
-
-// One cluster visit: the CK slots from fs, the ray recentred at the
-// cluster centroid c. Any hit: true at the first slot hit at t <= t_lim.
-// Closest hit: a slot strictly nearer than *t_best replaces *t_best and
-// *best (slot base + k, so the lowest slot keeps a tie); returns whether
-// one did.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool cluster_visit(const float4* __restrict__ fs,
-                                              const float4& c,
-                                              const RayState& r, int base,
-                                              int ck, float t_lim,
-                                              float* t_best, int* best) {
-    const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
-    const float mx = py * r.dz - pz * r.dy;
-    const float my = pz * r.dx - px * r.dz;
-    const float mz = px * r.dy - py * r.dx;
-    bool closer = false;
-    for (int k = 0; k < ck; ++k) {
-        float t;
-        const bool ok = slot_test(fs + k * FEAT_W4, r, px, py, pz, mx, my,
-                                  mz, &t);
-        if (ANY_HIT) {
-            if (ok && t <= t_lim) return true;   // stop at the first hit
-        } else if (ok && t < *t_best) {
-            *t_best = t;
-            *best = base + k;
-            closer = true;
-        }
-    }
-    return closer;
 }
 
 // The walk of one ray. INST = false: one cut tree, `world` is the ray
@@ -400,10 +311,6 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // order; this walk never reads col 12. BLAS_EXIT pops to the saved row and
 // the world ray. The walk is capped at the scene's inst_fuel + 64 steps.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float inf_f() {
-    return __int_as_float(0x7f800000);
-}
 
 // One prim row against the ray: t (+inf where it misses), and the
 // triangle's barycentrics in *u, *v (0 for a sphere). Triangle: Möller–
@@ -893,6 +800,107 @@ bvh8mxu_any_hit_kernel(const float4* __restrict__ child,
     occ_out[i] = occ;
 }
 
+// ---------------------------------------------------------------------------
+// Dense cluster sweep (K8): the kernels of MI_MXU_DENSE on a flat triangle
+// scene. No tree and no slab cull: every ray is tested against every
+// cluster c = 0..C-1, its ray recentred at the cluster's centroid
+// (mxu_ccs row c, [centroid.xyz, pad | pad]) and all CK slots tested with
+// K1's slot test. Closest hit: t_best starts at t_max and a slot must be
+// strictly nearer to replace it, so the lowest slot of a cluster and the
+// first cluster in index order keep a tie; t = +inf and slot = -1 on a
+// miss. Any hit: true iff some slot hits at 0 < t <= t_max; a thread stops
+// at its first hit (the JAX kernel exits once its whole block is
+// occluded: the same result).
+//
+// WHAT BOUNDS IT on an H100. The work is every real slot of the scene for
+// every live ray: 38 FP32 operations a slot (slot_test), about 18.3 ms for
+// 1M rays on the mesh gallery's 30 732 triangles at 67 TFLOP/s. The bytes
+// are the rays, the results and the tables once (3.7 MB of plane rows on
+// the gallery), negligible beside that.
+//
+// DESIGN. One ray per thread looping over the clusters through
+// cluster_visit, K1's own visit, so t is bit-equal to K1's wherever the
+// same slot wins (the twin's too). Every thread sweeps the clusters in the
+// same order, so the threads of a warp read the same plane rows at the
+// same time: each load is one broadcast from L1. This first version tests
+// the padding slots too (their all-zero rows never hit) and does not stage
+// a cluster's rows in shared memory, the counterpart of the Pallas DMA
+// into VMEM.
+// ---------------------------------------------------------------------------
+
+template <bool ANY_HIT>
+__device__ __forceinline__ void dense_sweep(
+        const float4* __restrict__ ccs, const float4* __restrict__ feat,
+        const RayState& r, float t_max, int n_clusters, int ck, float* t_io,
+        int* slot_io, bool* occ_io) {
+    float t_best = t_max;
+    int best = -1;
+    for (int c = 0; c < n_clusters; ++c) {
+        const int base = c * ck;
+        if (cluster_visit<ANY_HIT>(feat + (size_t)base * FEAT_W4,
+                                   __ldg(ccs + 2 * c), r, base, ck, t_max,
+                                   &t_best, &best) && ANY_HIT) {
+            *occ_io = true;
+            return;                           // stop at the first hit
+        }
+    }
+    if (!ANY_HIT) {
+        *t_io = best >= 0 ? t_best : inf_f();
+        *slot_io = best;
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK)
+dense_closest_hit_kernel(const float4* __restrict__ ccs,
+                         const float4* __restrict__ feat,
+                         const float* __restrict__ ox,
+                         const float* __restrict__ oy,
+                         const float* __restrict__ oz,
+                         const float* __restrict__ dx,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dz,
+                         const float* __restrict__ tmax,
+                         float* __restrict__ t_out,
+                         int* __restrict__ slot_out, int n, int n_clusters,
+                         int ck) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    float t = inf_f();
+    int slot = -1;
+    if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        dense_sweep<false>(ccs, feat, r, tm, n_clusters, ck, &t, &slot,
+                           nullptr);
+    }
+    t_out[i] = t;
+    slot_out[i] = slot;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+dense_any_hit_kernel(const float4* __restrict__ ccs,
+                     const float4* __restrict__ feat,
+                     const float* __restrict__ ox,
+                     const float* __restrict__ oy,
+                     const float* __restrict__ oz,
+                     const float* __restrict__ dx,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dz,
+                     const float* __restrict__ tmax,
+                     bool* __restrict__ occ_out, int n, int n_clusters,
+                     int ck) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float tm = tmax[i];
+    bool occ = false;
+    if (tm > 0.0f) {
+        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
+        dense_sweep<true>(ccs, feat, r, tm, n_clusters, ck, nullptr, nullptr,
+                          &occ);
+    }
+    occ_out[i] = occ;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1085,6 +1093,34 @@ int mts_bvh8mxu_any_hit(const void* child, const void* order,
         (const float*)ox, (const float*)oy, (const float*)oz,
         (const float*)dx, (const float*)dy, (const float*)dz,
         (const float*)tmax, (bool*)occ_out, n, fuel, ck);
+    return (int)cudaGetLastError();
+}
+
+int mts_dense_closest_hit(const void* ccs, const void* feat, const void* ox,
+                          const void* oy, const void* oz, const void* dx,
+                          const void* dy, const void* dz, const void* tmax,
+                          void* t_out, void* slot_out, int n, int n_clusters,
+                          int ck, void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    dense_closest_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)ccs, (const float4*)feat, (const float*)ox,
+        (const float*)oy, (const float*)oz, (const float*)dx,
+        (const float*)dy, (const float*)dz, (const float*)tmax,
+        (float*)t_out, (int*)slot_out, n, n_clusters, ck);
+    return (int)cudaGetLastError();
+}
+
+int mts_dense_any_hit(const void* ccs, const void* feat, const void* ox,
+                      const void* oy, const void* oz, const void* dx,
+                      const void* dy, const void* dz, const void* tmax,
+                      void* occ_out, int n, int n_clusters, int ck,
+                      void* stream) {
+    const int grid = (n + BLOCK - 1) / BLOCK;
+    dense_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)ccs, (const float4*)feat, (const float*)ox,
+        (const float*)oy, (const float*)oz, (const float*)dx,
+        (const float*)dy, (const float*)dz, (const float*)tmax,
+        (bool*)occ_out, n, n_clusters, ck);
     return (int)cudaGetLastError();
 }
 

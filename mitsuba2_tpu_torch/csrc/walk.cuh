@@ -1,0 +1,109 @@
+// Device helpers shared by the traversal kernels (cluster_walk.cu) and
+// the probes (probes.cu): the ray record, the slab test of a box row, the
+// plane test of one cluster slot and the visit of one cluster's slots.
+// Each including file gets its own internal copy.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int FEAT_W4 = 5;       // float4s per slot in cluster_feat (20 floats)
+
+__device__ __forceinline__ float inf_f() {
+    return __int_as_float(0x7f800000);
+}
+
+struct RayState {
+    float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+    int oct;
+};
+
+__device__ __forceinline__ float safe_inv(float d) {
+    float dd = fabsf(d) < 1e-20f ? (d >= 0.0f ? 1e-20f : -1e-20f) : d;
+    return 1.0f / dd;
+}
+
+__device__ __forceinline__ RayState make_ray(float ox, float oy, float oz,
+                                             float dx, float dy, float dz) {
+    RayState r;
+    r.ox = ox; r.oy = oy; r.oz = oz;
+    r.dx = dx; r.dy = dy; r.dz = dz;
+    r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
+    r.oct = (dx < 0.0f ? 1 : 0) | (dy < 0.0f ? 2 : 0) | (dz < 0.0f ? 4 : 0);
+    return r;
+}
+
+__device__ __forceinline__ RayState load_ray(
+        const float* ox, const float* oy, const float* oz,
+        const float* dx, const float* dy, const float* dz, int i) {
+    return make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
+}
+
+// Node row: a = (min.x, min.y, min.z, max.x), b = (max.y, max.z, slot, inst)
+__device__ __forceinline__ bool slab(const float4& a, const float4& b,
+                                     const RayState& r, float t_best) {
+    float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
+    float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
+    float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
+    float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                       fminf(t0z, t1z));
+    float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                       fmaxf(t0z, t1z));
+    return (tmin <= tmax) && (tmax > 0.0f) && (tmin < t_best);
+}
+
+// One slot's plane test; returns false where the slot cannot hit.
+// Slot layout: [det0..2 u0 | u1..u4 | u5 v0..v2 | v3..v5 t0 | t1..t3 pad]
+__device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
+                                          const RayState& r, float px,
+                                          float py, float pz, float mx,
+                                          float my, float mz, float* t_out) {
+    const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2),
+                 f3 = __ldg(f + 3), f4 = __ldg(f + 4);
+    float det = f0.x * r.dx + f0.y * r.dy + f0.z * r.dz;
+    float unum = f0.w * r.dx + f1.x * r.dy + f1.y * r.dz +
+                 f1.z * mx + f1.w * my + f2.x * mz;
+    float vnum = f2.y * r.dx + f2.z * r.dy + f2.w * r.dz +
+                 f3.x * mx + f3.y * my + f3.z * mz;
+    float tnum = f3.w * px + f4.x * py + f4.y * pz + f4.z;
+    float inv = fabsf(det) < 1e-12f ? 0.0f : 1.0f / det;
+    float u = unum * inv, v = vnum * inv, t = tnum * inv;
+    *t_out = t;
+    return (inv != 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
+           (u + v <= 1.0f) && (t > 0.0f);
+}
+
+// One cluster visit: the CK slots from fs, the ray recentred at the
+// cluster centroid c. Any hit: true at the first slot hit at t <= t_lim.
+// Closest hit: a slot strictly nearer than *t_best replaces *t_best and
+// *best (slot base + k, so the lowest slot keeps a tie); returns whether
+// one did.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool cluster_visit(const float4* __restrict__ fs,
+                                              const float4& c,
+                                              const RayState& r, int base,
+                                              int ck, float t_lim,
+                                              float* t_best, int* best) {
+    const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
+    const float mx = py * r.dz - pz * r.dy;
+    const float my = pz * r.dx - px * r.dz;
+    const float mz = px * r.dy - py * r.dx;
+    bool closer = false;
+    for (int k = 0; k < ck; ++k) {
+        float t;
+        const bool ok = slot_test(fs + k * FEAT_W4, r, px, py, pz, mx, my,
+                                  mz, &t);
+        if (ANY_HIT) {
+            if (ok && t <= t_lim) return true;   // stop at the first hit
+        } else if (ok && t < *t_best) {
+            *t_best = t;
+            *best = base + k;
+            closer = true;
+        }
+    }
+    return closer;
+}
+
+}  // namespace

@@ -32,6 +32,7 @@ tables of the one walk a scene takes):
                  a cluster's slot base
     bvh8_order / bvh8c_order (M*8, 8) i32 row node*8 + octant: the node's
                  child slots in near-first order for that octant
+    mxu_ccs      (C, 8) f32   each cluster's centroid [c.xyz, pad] (K8)
 
 The wrappers: `cluster_closest_hit` and `cluster_any_hit` (K1/K2: one cut
 tree), `inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS
@@ -40,17 +41,23 @@ over instances, each entered into its group's local-space cut tree),
 to LEAF_K triangles or spheres) and `inst_bvh_closest_hit` and
 `inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table),
 `bvh8_closest_hit` and `bvh8_any_hit` (K6: the BVH8 walk over prim
-leaves) and `bvh8mxu_closest_hit` and `bvh8mxu_any_hit` (K7: the BVH8
-walk over cluster leaves). A CPU tensor goes to the plain twin, a CUDA
-tensor to the kernel; nothing falls back from one to the other. Each
-wrapper counts its kernel launches in its `launches` attribute.
+leaves), `bvh8mxu_closest_hit` and `bvh8mxu_any_hit` (K7: the BVH8
+walk over cluster leaves) and `dense_closest_hit` and `dense_any_hit`
+(K8: every cluster against every ray). A CPU tensor goes to the plain
+twin, a CUDA tensor to the kernel; nothing falls back from one to the
+other. Each wrapper counts its kernel launches in its `launches`
+attribute.
 `ray_intersect_preliminary`, `ray_test`, `ray_intersect_instanced`,
 `ray_test_instanced`, `ray_intersect_bvh8`, `ray_test_bvh8`,
 `ray_intersect_bvh8mxu` and `ray_test_bvh8mxu` are the entry points, the
 counterparts of traverse_pallas's functions of the same names: by default
 a scene holding a sphere takes the BVH2 walks (spheres have no plane
 form), any other the cluster walks; set_backend("bvh8" | "bvh8mxu")
-routes a flat scene through the BVH8 walks (scene/scene.py).
+routes a flat scene through the BVH8 walks (scene/scene.py). The JAX
+package's two module switches on the same dispatch line are read here
+too: MXU_LEAVES (MI_MXU_LEAVES) off sends triangle scenes to the BVH2
+walks, and _MXU_DENSE (MI_MXU_DENSE) sends a flat triangle scene on the
+cluster path to the dense sweep.
 """
 from __future__ import annotations
 
@@ -64,12 +71,28 @@ from ..scene.shapes import PRIM_TRI
 from .brute import sphere_test, tri_test
 
 FEAT_W = 20  # floats per slot in cluster_feat
+CCS_W = 8    # floats per cluster in mxu_ccs
+# The JAX package's module switches (traverse_pallas.py:379, :1025-1027),
+# read once at import with the same accepted values; tests set the module
+# attributes. MXU_LEAVES (MI_MXU_LEAVES, default on): off, triangle scenes
+# take the BVH2 walks (K3 flat, K4 instanced) instead of the cluster walks.
+MXU_LEAVES = os.environ.get("MI_MXU_LEAVES", "1").lower() in ("1", "true")
+# _MXU_DENSE (MI_MXU_DENSE): a flat triangle scene on the cluster path
+# sweeps every cluster (K8) instead of walking the cut tree (K1/K2): "1"
+# always, "auto" up to MXU_DENSE_MAX clusters, "0" never
+MXU_DENSE_MAX = int(os.environ.get("MI_MXU_DENSE_MAX", "768"))
+_MXU_DENSE = os.environ.get("MI_MXU_DENSE", "0")
+if _MXU_DENSE not in ("auto", "0", "1"):
+    raise ValueError(f"MI_MXU_DENSE={_MXU_DENSE!r}: one of auto, 0, 1")
 # (node, mask) entries of a BVH8 walk's stack (csrc/cluster_walk.cu), and
 # the margin over the tree's depth that the JAX kernels size it with
 BVH8_STACK = 32
 BVH8_STACK_MARGIN = 2
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "cluster_walk.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "csrc")
+_SRC = os.path.join(_CSRC, "cluster_walk.cu")
+# the device helpers cluster_walk.cu shares with csrc/probes.cu
+HEADERS = (os.path.join(_CSRC, "walk.cuh"),)
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum as the twins' separate torch ops do and the two agree
 # bit for bit on the card. -Xptxas -v: registers and spills per kernel in
@@ -88,12 +111,14 @@ def nvcc_path() -> str:
 def _declare(lib):
     """Set the C signatures: pointers and the stream as void*, sizes as int."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, n_out in ((lib.mts_cluster_closest_hit, 2),
-                      (lib.mts_cluster_any_hit, 1),
-                      (lib.mts_bvh8mxu_closest_hit, 2),
-                      (lib.mts_bvh8mxu_any_hit, 1)):
+    for fn, n_tab, n_out in ((lib.mts_cluster_closest_hit, 3, 2),
+                             (lib.mts_cluster_any_hit, 3, 1),
+                             (lib.mts_bvh8mxu_closest_hit, 3, 2),
+                             (lib.mts_bvh8mxu_any_hit, 3, 1),
+                             (lib.mts_dense_closest_hit, 2, 2),
+                             (lib.mts_dense_any_hit, 2, 1)):
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
+        fn.argtypes = [p] * n_tab + [p] * 7 + [p] * n_out + [i, i, i, p]
     for fn, n_out in ((lib.mts_inst_cluster_closest_hit, 3),
                       (lib.mts_inst_cluster_any_hit, 1)):
         fn.restype = ctypes.c_int
@@ -115,7 +140,7 @@ def load_cuda_library():
     mitsuba2_tpu_torch/_build/) and load it with ctypes."""
     from ..native import load_library
     return load_library("cluster_walk", _SRC, [nvcc_path()] + NVCC_FLAGS,
-                        declare=_declare)
+                        declare=_declare, deps=HEADERS)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +235,17 @@ def _check_bvh8(child, order, leaf, rays, stack, fuel, cluster_k=None):
     return n, dev
 
 
+def _check_dense(ccs, feat, rays, cluster_k):
+    n, dev = _check_tables([("mxu_ccs", ccs, torch.float32, 2),
+                            ("cluster_feat", feat, torch.float32, 2)], rays)
+    if ccs.shape[1] != CCS_W:
+        raise ValueError(f"mxu_ccs must be (C, {CCS_W})")
+    if feat.shape != (ccs.shape[0] * cluster_k, FEAT_W):
+        raise ValueError(f"cluster_feat must be (C*{cluster_k}, {FEAT_W}) "
+                         f"for the {ccs.shape[0]} clusters of mxu_ccs")
+    return n, dev
+
+
 def _raise_on_error(lib, rc, what):
     if rc != 0:
         msg = lib.mts_cuda_error_string(rc).decode()
@@ -221,7 +257,8 @@ def _launch(what, tabs, rays, outs, *sizes):
     tensors' own card and stream; `sizes` follow the lane count: the
     cluster walks' table rows (flat) or step cap (instanced) and cluster
     size, the BVH2 walks' step cap, the BVH8 walks' step cap (and cluster
-    size). Raises on a launch error."""
+    size), the dense sweep's cluster count and cluster size. Raises on a
+    launch error."""
     lib = load_cuda_library()
     dev = rays[0].device
     with torch.cuda.device(dev):
@@ -490,6 +527,46 @@ def bvh8mxu_any_hit(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
 bvh8mxu_any_hit.launches = 0
 
 
+def dense_closest_hit(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
+                      cluster_k: int):
+    """Closest hit by the dense sweep (K8), every cluster against every
+    ray: (t (N,) f32, slot (N,) i32), t = +inf and slot = -1 on a miss."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_dense(ccs, feat, rays, cluster_k)
+    if dev.type == "cpu":
+        return dense_closest_hit_plain(ccs, feat, *rays, cluster_k)
+    outs = (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    if n == 0:
+        return outs
+    _launch("dense_closest_hit", (ccs, feat), rays, outs, ccs.shape[0],
+            cluster_k)
+    dense_closest_hit.launches += 1
+    return outs
+
+
+dense_closest_hit.launches = 0
+
+
+def dense_any_hit(ccs, feat, ox, oy, oz, dx, dy, dz, t_max, cluster_k: int):
+    """Occlusion by the dense sweep (K8): (N,) bool, True iff a triangle
+    is hit at 0 < t <= t_max."""
+    rays = (ox, oy, oz, dx, dy, dz, t_max)
+    n, dev = _check_dense(ccs, feat, rays, cluster_k)
+    if dev.type == "cpu":
+        return dense_any_hit_plain(ccs, feat, *rays, cluster_k)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    _launch("dense_any_hit", (ccs, feat), rays, (occ,), ccs.shape[0],
+            cluster_k)
+    dense_any_hit.launches += 1
+    return occ
+
+
+dense_any_hit.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Plain twins: a vectorised lane walk, each lane with its own cursor. The
 # plane dots are elementwise products and sums (no matmul, so no TF32).
@@ -517,18 +594,17 @@ def _slab(nf, ox, oy, oz, ix, iy, iz, t_best):
     return (tmin <= tmax) & (tmax > 0.0) & (tmin < t_best)
 
 
-def _cluster_planes(feat, base, nf, ox, oy, oz, dx, dy, dz, cluster_k):
-    """The visited cluster's CK slots against each lane: (u, v, t, inv)
-    as (m, CK) tensors, from the plane rows and the ray features
-    recentred at the cluster centroid."""
-    cx, cy, cz = nf[:, 8], nf[:, 9], nf[:, 10]
+def _cluster_planes(f, c, ox, oy, oz, dx, dy, dz):
+    """Plane rows `f` of CK slots, (m, CK, 20) or (CK, 20) shared by every
+    lane, against each lane's ray recentred at its cluster's centroid
+    c = (cx, cy, cz) ((m,) each, or 0-d): (u, v, t, inv) as (m, CK)
+    tensors."""
+    cx, cy, cz = c
     px, py, pz = (ox - cx)[:, None], (oy - cy)[:, None], (oz - cz)[:, None]
     dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
     mx = py * dz - pz * dy
     my = pz * dx - px * dz
     mz = px * dy - py * dx
-    k = torch.arange(cluster_k, device=base.device)
-    f = feat[base[:, None] + k]                                # (m, CK, 20)
     det = f[..., 0] * dx + f[..., 1] * dy + f[..., 2] * dz
     unum = (f[..., 3] * dx + f[..., 4] * dy + f[..., 5] * dz
             + f[..., 6] * mx + f[..., 7] * my + f[..., 8] * mz)
@@ -539,29 +615,38 @@ def _cluster_planes(feat, base, nf, ox, oy, oz, dx, dy, dz, cluster_k):
     return unum * inv, vnum * inv, tnum * inv, inv
 
 
-def _cluster_visit(feat, base, nf, ray, tl, cluster_k, any_hit, stats):
-    """One cluster visit of each of m lanes: the CK slots from slot `base`,
-    recentred at the centroid nf[:, 8:11], against the lanes' rays (ox, oy,
-    oz, dx, dy, dz) and limits `tl`. Any hit: (m,) bool, a slot hit at
-    t <= tl (the kernels' thread stops there, so the slot tests counted
-    end at it). Closest hit: (closer, t, slot) (m,) each, the nearest slot
-    strictly under tl, the lowest on a tie. Counts the slot tests the
-    kernels make (`slot_tests`, padding included) and those of real slots
-    (`real_slot_tests`: a padding slot's plane row is all zero)."""
-    _count(stats, "cluster_visits", base.numel())
-    u, v, t, inv = _cluster_planes(feat, base, nf, *ray, cluster_k)
+def _slot_rows(feat, base, cluster_k):
+    """The plane rows of the clusters at slot bases `base` ((m,)):
+    (m, CK, 20)."""
+    return feat[base[:, None] + torch.arange(cluster_k, device=base.device)]
+
+
+def _cluster_visit(f, base, c, ray, tl, cluster_k, any_hit, stats):
+    """One cluster visit of each of m lanes: the CK slots of plane rows `f`
+    (_cluster_planes': each lane's cluster, or one shared by all) from slot
+    `base` ((m,), or an int), the lanes' rays (ox, oy, oz, dx, dy, dz)
+    recentred at the centroid `c`, against their limits `tl`. Any hit:
+    (m,) bool, a slot hit at t <= tl (the kernels' thread stops there, so
+    the slot tests counted end at it). Closest hit: (closer, t, slot) (m,)
+    each, the nearest slot strictly under tl, the lowest on a tie. Counts
+    the slot tests the kernels make (`slot_tests`, padding included) and
+    those of real slots (`real_slot_tests`: a padding slot's plane row is
+    all zero)."""
+    m = ray[0].numel()
+    _count(stats, "cluster_visits", m)
+    u, v, t, inv = _cluster_planes(f, c, *ray)
     ok = ((inv != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t > 0.0))
     tl = tl[:, None]
-    k = torch.arange(cluster_k, device=base.device)
-    tested = torch.full_like(base, cluster_k)
+    k = torch.arange(cluster_k, device=f.device)
+    tested = torch.full((m,), cluster_k, dtype=torch.int64, device=f.device)
     if any_hit:
         hm = ok & (t <= tl)
         h = hm.any(1)
         # slots 0..k tested, k the first hit
         tested = torch.where(h, hm.int().argmax(1) + 1, tested)
     if stats is not None:
-        real = (feat[base[:, None] + k] != 0.0).any(-1)
+        real = (f != 0.0).any(-1)
         _count(stats, "slot_tests", int(tested.sum()))
         _count(stats, "real_slot_tests",
                int((real & (k < tested[:, None])).sum()))
@@ -639,8 +724,9 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         visit = is_cl & hit
         if bool(visit.any()):
             lanes = act[visit]
+            vb, vc = base[visit], nf[visit]
             res = _cluster_visit(
-                feat, base[visit], nf[visit],
+                _slot_rows(feat, vb, cluster_k), vb, vc[:, 8:11].unbind(1),
                 [a[visit] for a in (lox, loy, loz, ldx, ldy, ldz)],
                 tb[visit], cluster_k, any_hit, stats)
             if any_hit:
@@ -1018,8 +1104,9 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
             res = _leaf_prims(leaf, kind[li], cr[li, 7].long(), lray, tl,
                               any_hit, stats)
         else:
-            res = _cluster_visit(leaf, kind[li], cr[li], lray, tl, cluster_k,
-                                 any_hit, stats)
+            res = _cluster_visit(_slot_rows(leaf, kind[li], cluster_k),
+                                 kind[li], cr[li, 8:11].unbind(1), lray, tl,
+                                 cluster_k, any_hit, stats)
         if any_hit:
             occ[lanes[res]] = True
             cur[lanes[res]] = -1                # stop at the first hit
@@ -1082,20 +1169,91 @@ def bvh8mxu_any_hit_plain(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
+def _dense_plain(ccs, feat, rays, cluster_k, any_hit, stats):
+    """The dense sweep for every lane at once: cluster c = 0..C-1 in
+    order, its plane rows shared by all lanes, through K1's visit. Closest
+    hit: a strictly nearer slot replaces (the first cluster keeps a tie).
+    Any hit: a lane leaves the sweep at its first hit, where the kernel's
+    thread stops."""
+    ox, oy, oz, dx, dy, dz, t_max = rays
+    n, dev = ox.shape[0], ox.device
+    ray = (ox, oy, oz, dx, dy, dz)
+    # lanes with t_max <= 0 cannot hit (0 < t < t_max): they never sweep
+    act = torch.nonzero(t_max > 0).squeeze(1)
+    t_best = t_max.clone()
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    for c in range(ccs.shape[0]):
+        if act.numel() == 0:
+            break
+        base = c * cluster_k
+        res = _cluster_visit(
+            feat[base:base + cluster_k], base, ccs[c, 0:3].unbind(0),
+            [a[act] for a in ray], (t_max if any_hit else t_best)[act],
+            cluster_k, any_hit, stats)
+        if any_hit:
+            occ[act[res]] = True
+            act = act[~res]
+            continue
+        closer, t_c, slot = res
+        sel = act[closer]
+        t_best[sel] = t_c[closer]
+        best[sel] = slot[closer]
+    if any_hit:
+        return occ
+    return (torch.where(best >= 0, t_best, float("inf")),
+            best.to(torch.int32))
+
+
+def dense_closest_hit_plain(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
+                            cluster_k: int, chunk: int = 8192, stats=None):
+    """The twin of the dense closest-hit kernel (K8): (t, slot). Its
+    `stats` count cluster visits and slot tests, as K1's twin does."""
+    return _chunked(
+        lambda r: _dense_plain(ccs, feat, r, cluster_k, False, stats),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
+def dense_any_hit_plain(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
+                        cluster_k: int, chunk: int = 8192, stats=None):
+    """The twin of the dense any-hit kernel (K8)."""
+    return _chunked(
+        lambda r: _dense_plain(ccs, feat, r, cluster_k, True, stats),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+
+
 # ---------------------------------------------------------------------------
 # Entry points (traverse_pallas.ray_intersect_preliminary / ray_test and
 # their instanced forms)
 # ---------------------------------------------------------------------------
 
+def takes_bvh2(has_spheres: bool) -> bool:
+    """Do the default walks run over the BVH2 (K3, K4) rather than the
+    clusters? On a scene holding a sphere (no plane form), and on every
+    scene with MXU_LEAVES off (traverse_pallas's `use_mxu` and
+    `_use_instmxu`)."""
+    return has_spheres or not MXU_LEAVES
+
+
+def _use_dense(scene) -> bool:
+    """traverse_pallas._use_dense: does a flat triangle scene on the
+    cluster path take the dense sweep (K8)? "1" always, "auto" when it has
+    at most MXU_DENSE_MAX clusters, never without mxu_ccs."""
+    if _MXU_DENSE == "0" or scene.mxu_ccs is None:
+        return False
+    return _MXU_DENSE == "1" or scene.mxu_ccs.shape[0] <= MXU_DENSE_MAX
+
+
 def emits_uv(scene, backend: str) -> bool:
     """Do the walk entry points of `backend` (scene._pick_backend's)
     return real barycentrics, which the presort must unsort? The BVH2
-    walks, which every scene holding a sphere takes by default, and K6 do
-    (0 on a sphere); the cluster walks and K7 emit u = v = 0 and the
-    shading record re-solves them."""
+    walks, which a scene takes by default when it holds a sphere or
+    MXU_LEAVES is off, and K6 do (0 on a sphere); the cluster walks, the
+    dense sweep and K7 emit u = v = 0 and the shading record re-solves
+    them."""
     if backend == "bvh8mxu":
         return False
-    return backend == "bvh8" or scene.has_spheres
+    return backend == "bvh8" or takes_bvh2(scene.has_spheres)
 
 
 def _bvh_args(scene, ray_o, ray_d, t_max):
@@ -1115,29 +1273,41 @@ def _slot_prims(scene, slot):
         -1)
 
 
+def _rays(ray_o, ray_d, t_max):
+    return ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max
+
+
 def ray_intersect_preliminary(scene, ray_o, ray_d, t_max):
-    """Closest hit: (t, prim, u, v). A scene holding a sphere takes the
-    BVH2 walk, which returns real u/v; the others the cluster walk, whose
-    slot ids are mapped here to prim ids through `cluster_slot_prim`, with
-    u = v = 0 (the shading record re-solves them exactly)."""
-    if scene.has_spheres:
+    """Closest hit: (t, prim, u, v). A scene holding a sphere, or any
+    scene with MXU_LEAVES off, takes the BVH2 walk, which returns real
+    u/v; the others the cluster walk, or the dense sweep where _use_dense
+    holds, whose slot ids are mapped here to prim ids through
+    `cluster_slot_prim`, with u = v = 0 (the shading record re-solves them
+    exactly)."""
+    if takes_bvh2(scene.has_spheres):
         return bvh_closest_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
-    t, slot = cluster_closest_hit(
-        scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
-        ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
-        scene.cluster_k)
+    rays = _rays(ray_o, ray_d, t_max)
+    if _use_dense(scene):
+        t, slot = dense_closest_hit(scene.mxu_ccs, scene.cluster_feat,
+                                    *rays, scene.cluster_k)
+    else:
+        t, slot = cluster_closest_hit(scene.mxu_node_f, scene.mxu_link,
+                                      scene.cluster_feat, *rays,
+                                      scene.cluster_k)
     z = torch.zeros_like(t)
     return t, _slot_prims(scene, slot), z, z
 
 
 def ray_test(scene, ray_o, ray_d, t_max):
     """Any-hit occlusion within t_max: (N,) bool."""
-    if scene.has_spheres:
+    if takes_bvh2(scene.has_spheres):
         return bvh_any_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
-    return cluster_any_hit(
-        scene.mxu_node_f, scene.mxu_link, scene.cluster_feat,
-        ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z, t_max,
-        scene.cluster_k)
+    rays = _rays(ray_o, ray_d, t_max)
+    if _use_dense(scene):
+        return dense_any_hit(scene.mxu_ccs, scene.cluster_feat, *rays,
+                             scene.cluster_k)
+    return cluster_any_hit(scene.mxu_node_f, scene.mxu_link,
+                           scene.cluster_feat, *rays, scene.cluster_k)
 
 
 def _inst_args(scene, ray_o, ray_d, t_max):
@@ -1148,10 +1318,11 @@ def _inst_args(scene, ray_o, ray_d, t_max):
 
 def ray_intersect_instanced(scene, ray_o, ray_d, t_max):
     """Closest hit on a shared-BLAS instanced scene: (t, prim, u, v, inst),
-    prim and inst -1 on a miss. A scene holding a sphere anywhere takes
-    the instanced BVH2 walk (real u/v), the others the instanced cluster
-    walk (u = v = 0), as traverse_pallas._use_instmxu routes them."""
-    if scene.has_spheres:
+    prim and inst -1 on a miss. A scene holding a sphere anywhere, or any
+    scene with MXU_LEAVES off, takes the instanced BVH2 walk (real u/v),
+    the others the instanced cluster walk (u = v = 0), as
+    traverse_pallas._use_instmxu routes them."""
+    if takes_bvh2(scene.has_spheres):
         return inst_bvh_closest_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     t, slot, inst = inst_cluster_closest_hit(
         *_inst_args(scene, ray_o, ray_d, t_max))
@@ -1161,7 +1332,7 @@ def ray_intersect_instanced(scene, ray_o, ray_d, t_max):
 
 def ray_test_instanced(scene, ray_o, ray_d, t_max):
     """Any-hit occlusion within t_max on a shared-BLAS instanced scene."""
-    if scene.has_spheres:
+    if takes_bvh2(scene.has_spheres):
         return inst_bvh_any_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     return inst_cluster_any_hit(*_inst_args(scene, ray_o, ray_d, t_max))
 

@@ -1,10 +1,12 @@
 """Native libraries of the port, built at first use and loaded with ctypes.
 
-Two are built here: the C++ BVH builder (g++, the port's copy of
-mitsuba2_tpu/native/bvh_builder.cpp) and the CUDA cluster-walk kernels
-(nvcc, csrc/cluster_walk.cu; see kernels/traverse.py). Both go into
-`mitsuba2_tpu_torch/_build/`, named by a hash of their source and flags,
-so an edited source is rebuilt and concurrent builders do not collide.
+Three are built here: the C++ BVH builder (g++, the port's copy of
+mitsuba2_tpu/native/bvh_builder.cpp), the CUDA traversal kernels (nvcc,
+csrc/cluster_walk.cu; see kernels/traverse.py) and the CUDA probes (nvcc,
+csrc/probes.cu; see kernels/probes.py). All go into
+`mitsuba2_tpu_torch/_build/`, named by a hash of their sources (the
+headers they include among them) and flags, so an edited source is
+rebuilt and concurrent builders do not collide.
 """
 from __future__ import annotations
 
@@ -35,14 +37,17 @@ def _host_fingerprint() -> bytes:
                     if ln.startswith((b"model name", b"flags")))[:4096]
 
 
-def build_library(name: str, src: str, cmd_prefix: list) -> str:
+def build_library(name: str, src: str, cmd_prefix: list, deps=()) -> str:
     """Compile `src` with `cmd_prefix + [src, "-o", out]` into BUILD_DIR
-    unless a library of the same source, flags and host CPU is already
-    there. Returns the library's path; raises CalledProcessError with the
-    compiler's output on failure."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(cmd_prefix).encode()
-                                + _host_fingerprint()).hexdigest()
+    unless a library of the same source, headers `deps`, flags and host
+    CPU is already there. Returns the library's path; raises
+    CalledProcessError with the compiler's output on failure."""
+    h = hashlib.sha256()
+    for path in (src, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(repr(cmd_prefix).encode() + _host_fingerprint())
+    digest = h.hexdigest()
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
     if os.path.exists(so):
@@ -70,12 +75,13 @@ def build_library(name: str, src: str, cmd_prefix: list) -> str:
     return so
 
 
-def load_library(name: str, src: str, cmd_prefix: list, declare=None):
+def load_library(name: str, src: str, cmd_prefix: list, declare=None,
+                 deps=()):
     """Build (if needed) and dlopen a library once per process;
     `declare(lib)` sets its function signatures once, at load."""
     with _LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(build_library(name, src, cmd_prefix))
+            lib = ctypes.CDLL(build_library(name, src, cmd_prefix, deps))
             if declare is not None:
                 declare(lib)
             _LIBS[name] = lib

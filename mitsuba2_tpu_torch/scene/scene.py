@@ -10,12 +10,13 @@ uploads them with `convert.scene_from_numpy`. Anything else a scene can
 hold raises `NotImplementedError` naming the feature.
 
 The dispatch half picks, as the JAX package does: brute force for flat
-scenes of 192 prims or fewer; above that the cluster walk, or the BVH2
-walk when the scene holds a sphere; for an instanced scene (whatever its
-size) the instanced cluster walk, or the instanced BVH2 walk when it
-holds a sphere (kernels/traverse.py). `set_backend` forces another
-choice with the JAX package's names and errors, the BVH8 walks among
-them. Wavefronts go through the same coherence presort as the JAX
+scenes of 192 prims or fewer; above that the cluster walk (or the dense
+cluster sweep under MI_MXU_DENSE), or the BVH2 walk when the scene holds
+a sphere; for an instanced scene (whatever its size) the instanced
+cluster walk, or the instanced BVH2 walk when it holds a sphere; with
+MI_MXU_LEAVES=0 the BVH2 walks on every scene (kernels/traverse.py).
+`set_backend` forces another choice with the JAX package's names and
+errors, the BVH8 walks among them. Wavefronts go through the same coherence presort as the JAX
 package's.
 """
 from __future__ import annotations
@@ -47,11 +48,13 @@ FIELDS = (
     "mat_type", "mat_flags", "mat_data", "emitter_type", "emitter_data",
     "emitter_shape", "emitter_prims", "emitter_prim_cdf", "emitter_area",
     "cam_to_world", "cam_fov_x", "cam_data", "mxu_node_f", "mxu_link",
-    "cluster_slot_prim", "mxu_feat")
+    "cluster_slot_prim", "mxu_feat", "mxu_ccs")
 # ...of which the cluster walks' own, on the device only for a scene that
-# takes them, and those read at upload alone: packed into the BVH2 walks'
-# tables, or (mxu_feat) into cluster_feat
-CLUSTER_FIELDS = ("mxu_node_f", "mxu_link", "cluster_slot_prim")
+# takes them (mxu_ccs: the dense sweep's centroids, 32 bytes a cluster,
+# held so that the dense switch is read at dispatch), and those read at
+# upload alone: packed into the BVH2 walks' tables, or (mxu_feat) into
+# cluster_feat
+CLUSTER_FIELDS = ("mxu_node_f", "mxu_link", "cluster_slot_prim", "mxu_ccs")
 UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
                  "bvh_miss8", "mxu_feat")
 # ...and those of an instanced scene (absent, or None, on the others): the
@@ -110,6 +113,8 @@ class SceneData:
                                                       # per slot, -1 pad
     cluster_feat: Optional[torch.Tensor] = None  # (C*CK, 20) f32 slot-major
                                                  # copy of mxu_feat's plane rows
+    mxu_ccs: Optional[torch.Tensor] = None   # (C, 8) f32 [centroid.xyz, pad]
+                                             # per cluster (the dense sweep)
     # the BVH2 walks' tables, packed once at upload (convert.py)
     bvh_node: Optional[torch.Tensor] = None  # (B, 8) f32 [min.xyz, max.xyz,
                                              # leaf_start, leaf_count], the
@@ -524,6 +529,8 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     feat = np.ascontiguousarray(fv.reshape(4 * Sn, 16).T)
     is_cl_node = row_cluster >= 0
     mxu_node_f[is_cl_node, 8:11] = cl_c[row_cluster[is_cl_node]]
+    mxu_ccs = np.zeros((C, 8), np.float32)
+    mxu_ccs[:, 0:3] = cl_c
     # the BVH8 collapse of the cut tree, with cluster leaves (the JAX
     # build's gate: flat, more than 96 BVH2 rows, a root above the cut;
     # built for sphere scenes too, where only the dispatch refuses it)
@@ -600,7 +607,7 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         cam_data=cam_data,
         mxu_node_f=mxu_node_f.astype(np.float32),
         mxu_link=acc["mxu_link"].astype(np.int32),
-        cluster_slot_prim=slot_prim, mxu_feat=feat,
+        cluster_slot_prim=slot_prim, mxu_feat=feat, mxu_ccs=mxu_ccs,
         bvh8_child=acc.get("bvh8_child"), bvh8_order=acc.get("bvh8_order"),
         bvh8_depth=acc.get("bvh8_depth", 0),
         **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)))
@@ -806,17 +813,19 @@ def upload_walk(n_prims: int, has_instances: bool, has_spheres: bool,
 def _pick_backend(scene) -> str:
     """The walk of one dispatch (`_walk_for`'s), raising its ValueErrors
     and one where the scene lacks the default walks' tables (it was
-    uploaded under another backend)."""
+    uploaded under another backend, or MXU_LEAVES switch)."""
     walk = _walk_for(_BACKEND, scene.n_prims, scene.has_instances,
                      scene.has_spheres, scene.bvh8_child is not None,
                      scene.bvh8c_child is not None)
     if walk != "walk":
         return walk
-    held = scene.bvh_node if scene.has_spheres else scene.mxu_node_f
-    if held is None:
-        raise ValueError("the scene holds no tables of the default walks: "
-                         "it was uploaded under another backend; upload it "
-                         "again under this one")
+    from ..kernels.traverse import takes_bvh2
+    bvh2 = takes_bvh2(scene.has_spheres)
+    if (scene.bvh_node if bvh2 else scene.mxu_node_f) is None:
+        raise ValueError("the scene holds no tables of the default walks "
+                         f"({'BVH2' if bvh2 else 'cluster'}): it was uploaded "
+                         "under another backend or MXU_LEAVES switch; "
+                         "upload it again under this one")
     return "walk"
 
 

@@ -75,8 +75,9 @@ def assert_port_tables(jax_f, port_f, st):
     """The port's host tables `port_f` byte-equal to the JAX package's
     `jax_f`; each of them that scene `st` holds on its device equal to its
     host table; the walk tables of the walk `st` takes, and only those,
-    on the device (the BVH2 walks' on a scene holding a sphere, the
-    cluster walks' on the others, none for brute force)."""
+    on the device (the BVH2 walks' on a scene holding a sphere or under
+    MXU_LEAVES off, the cluster walks' on the others, none for brute
+    force)."""
     for k, a in jax_f.items():
         b = port_f[k]
         if isinstance(a, int):
@@ -88,7 +89,8 @@ def assert_port_tables(jax_f, port_f, st):
         if held is not None:
             assert np.array_equal(held.cpu().numpy(), b), k
     walk = not brute.takes_brute_force(st.n_prims, st.has_instances)
-    bvh2, cluster = walk and st.has_spheres, walk and not st.has_spheres
+    bvh2 = walk and traverse.takes_bvh2(st.has_spheres)
+    cluster = walk and not bvh2
     for k in ("bvh_node", "bvh_link", "bvh_prim"):
         assert (getattr(st, k) is not None) == bvh2, k
     assert (st.inst_bvh_root is not None) == (bvh2 and st.has_instances)

@@ -108,10 +108,15 @@ def test_cornell_pass_matches_jax():
 
 _HYGIENE = """
 import sys
+import torch
 import mitsuba2_tpu_torch as mt
+from mitsuba2_tpu_torch.kernels import probes
 cfg = mt.RenderConfig(width=8, height=8, spp=2, spp_per_pass=1, max_depth=3)
 img = mt.render(mt.mesh_gallery(subdiv=1, device="cpu"), cfg, device="cpu")
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+node, link = (torch.from_numpy(a) for a in probes.walk_tables(64))
+s, start = (torch.from_numpy(a) for a in probes.lanes(8, 64, True))
+assert probes.walk_step(node, link, s, start, 4, True)[0].shape == (8,)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)

@@ -19,6 +19,7 @@ Tolerances:
   only if the port is the closer of the two to the f32 oracle.
 """
 import ctypes
+import os
 import re
 import subprocess
 
@@ -229,20 +230,32 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 """
 
 
+def emulate_source(tmp_path, src_path, shim, n_launches, std="c++17"):
+    """A CUDA source compiled with g++ through `shim` (written as
+    cuda_runtime.h), its launches rewritten as EMU_LAUNCH; csrc/ is on the
+    include path for the headers the sources share. Returns the loaded
+    library."""
+    src = open(src_path).read()
+    src, n = re.subn(
+        r"(\w+_kernel(?:<\w+>)?)<<<grid, BLOCK, 0, \(cudaStream_t\)stream>>>\(",
+        r"EMU_LAUNCH(grid, BLOCK, \1, ", src)
+    assert n == n_launches
+    (tmp_path / "cuda_runtime.h").write_text(shim)
+    stem = os.path.splitext(os.path.basename(src_path))[0]
+    (tmp_path / f"{stem}.cpp").write_text(src)
+    so = tmp_path / f"lib{stem}.so"
+    subprocess.run(["g++", "-O1", f"-std={std}", "-shared", "-fPIC",
+                    "-pthread", f"-I{tmp_path}",
+                    f"-I{os.path.dirname(src_path)}",
+                    str(tmp_path / f"{stem}.cpp"), "-o", str(so)],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
 def build_emulation(tmp_path):
     """csrc/cluster_walk.cu compiled with g++ through _SHIM, loaded with
     the wrappers' C signatures."""
-    src = open(traverse._SRC).read()
-    src, n = re.subn(r"(\w+_kernel)<<<grid, BLOCK, 0, \(cudaStream_t\)stream>>>\(",
-                     r"EMU_LAUNCH(grid, BLOCK, \1, ", src)
-    assert n == 12
-    (tmp_path / "cuda_runtime.h").write_text(_SHIM)
-    (tmp_path / "cw.cpp").write_text(src)
-    so = tmp_path / "libcw.so"
-    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
-                    f"-I{tmp_path}", str(tmp_path / "cw.cpp"), "-o", str(so)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = emulate_source(tmp_path, traverse._SRC, _SHIM, 14)
     traverse._declare(lib)
     return lib
 
