@@ -36,8 +36,9 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
          fields a quarter of the random rays aim into the spheres); K6
-         also on the n=64 sphere field (its sphere branch); K8 bit-equal
-         to its twin on every lane. The paths on
+         also on the n=64 sphere field (its sphere branch); K8, and the
+         closest hits of K1 and K5 (warp-cooperative visits), bit-equal
+         to their twins on every lane. The paths on
          one scene share its probe rays. Prints the walk work the twins
          count per lane and the bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
@@ -55,9 +56,9 @@ Phase 5  one render of each path under torch.profiler: device time by
 Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
          launched once with the counts at 0, each held bit for bit
          against its twin and timed; their costs per walk step, per row
-         and per cluster visit, and from these a model of each K1, K2 and
-         K7 launch of phase 3 (steps x step cost + visits x visit cost)
-         beside its measured time.
+         and per cluster visit, and from these a model of each K1, K2,
+         K5 closest-hit and K7 launch of phase 3 (steps x step cost +
+         visits x visit cost) beside its measured time.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} and, last, {"ok": true, "device":
@@ -96,8 +97,8 @@ FLOPS_PER_TRI = 46
 FLOPS_PER_SPHERE = 31
 # the walk work the twins count, as printed per lane
 WORK_COUNTS = ("node_steps", "fresh_visits", "child_tests", "advances",
-               "pushes", "pops", "cluster_visits", "slot_tests",
-               "real_slot_tests", "tri_tests", "sphere_tests",
+               "pushes", "pops", "cluster_visits", "cluster_groups",
+               "slot_tests", "real_slot_tests", "tri_tests", "sphere_tests",
                "instance_entries")
 # the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
@@ -158,6 +159,9 @@ PATH_KERNELS = {
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8"}
 DENSE = {"gallery_dense"}
+# the closest-hit kernels with warp-cooperative cluster visits: bit-equal
+# to their twins on every lane of phases 2 and 3
+COOPERATIVE = {"cluster_closest_hit", "inst_cluster_closest_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
@@ -377,6 +381,8 @@ def compare(torch, ks, rays):
     outs_p = (out_p if isinstance(out_p, tuple) else (out_p,)) + (occ_p,)
     return {
         "bit_equal": all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)),
+        "closest_bit_equal": all(torch.equal(a, b) for a, b in
+                                 zip(outs_k[:-1], outs_p[:-1])),
         "hit_equal": bool(torch.equal(hit_k, hit_p)),
         "hit_frac": n_hit / t_p.numel(),
         "slot_agree": int(same.sum()) / max(n_hit, 1),
@@ -392,13 +398,22 @@ def compare(torch, ks, rays):
     }
 
 
-def passes(c, exact=False):
+def passes(c, exact=False, exact_closest=False):
     """A kernel's agreement with its twin (compare's): within the port's
-    limits, and every output bit-equal where `exact` (K8)."""
+    limits, every output bit-equal where `exact` (K8), and the closest
+    hit's (t, slot, instance) where `exact_closest` (K1 and K5, whose
+    warp-cooperative visits keep the twin's rule)."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
             and c["uv_max_abs_err"] <= 1e-5
-            and (c["bit_equal"] or not exact))
+            and (c["bit_equal"] or not exact)
+            and (c["closest_bit_equal"] or not exact_closest))
+
+
+def exactness(path):
+    """passes()'s keywords for a path's kernels."""
+    return dict(exact=path in DENSE,
+                exact_closest=PATH_KERNELS.get(path, ("",))[0] in COOPERATIVE)
 
 
 def sphere_field(mt, n, subdiv, device):
@@ -507,7 +522,8 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _kernels_vs_twins(torch, name, scene, probes, dev):
     """Phase 2 for one path (or the extra scene), under its switches;
     `probes` holds each scene's probe rays, made on its first path.
-    Returns whether every kernel agreed with its twin (K8 bit for bit)."""
+    Returns whether every kernel agreed with its twin (K8, and K1's and
+    K5's closest hits, bit for bit)."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -536,14 +552,15 @@ def _kernels_vs_twins(torch, name, scene, probes, dev):
         args = (planar(torch, o, dev) + planar(torch, d, dev)
                 + [torch.from_numpy(tm).to(dev)])
         c = compare(torch, ks, args)
-        good = passes(c, exact=name in DENSE)
+        good = passes(c, **exactness(name))
         ok &= good
         log(f"phase 2: {name:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
             f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
             f"prim-agree {c['slot_agree']:.6f} t-max-abs-err "
             f"{c['t_max_abs_err']:.3e} uv-max-abs-err "
             f"{c['uv_max_abs_err']:.3e} occ-agree {c['occ_agree']:.6f} "
-            f"bit-equal {c['bit_equal']}")
+            f"closest bit-equal {c['closest_bit_equal']} all bit-equal "
+            f"{c['bit_equal']}")
         for closest in (True, False):
             log(f"  {ks['closest' if closest else 'any']} work: "
                 + work_line(c["closest_stats" if closest else
@@ -672,10 +689,11 @@ def log_launch(name, i, r):
 def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
-    each launch of the path's kernels timed and held against its twin (K8
-    bit for bit), and, with `also` (a scene under "bvh8"), K6's on the
-    same inputs. Returns the kernels' rows, the median render ms and each
-    kernel's launches (time_launch's records)."""
+    each launch of the path's kernels timed and held against its twin (K8,
+    and K1's and K5's closest hits, bit for bit), and, with `also` (a
+    scene under "bvh8"), K6's on the same inputs. Returns the kernels'
+    rows, the median render ms and each kernel's launches (time_launch's
+    records)."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
     names = list(EXPECTED_LAUNCHES[path])
@@ -740,7 +758,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
         check(name in per, f"{path}: {name} was called on the main path")
         r = time_launch(torch, ks, scene, name, rays,
                         PATH_REPS.get(path, KERNEL_REPS))
-        check(passes(r["c"], exact=path in DENSE),
+        check(passes(r["c"], **exactness(path)),
               f"{name} launch {i} disagrees with its twin: {r['c']}")
         per[name].append(r)
         log_launch(name, i, r)
@@ -948,9 +966,9 @@ def _probe_configs(torch, dev):
 def phase_probes(torch, dev, card, launches):
     """Phase 6: every probe configuration launched once with the counts
     at 0 (the probes' main path), then each held against its twin and
-    timed; the costs per unit and the model of phase 3's K1, K2 and K7
-    launches (`launches`: phase_main_path's records by path). Returns the
-    probes' rows of the kernels line."""
+    timed; the costs per unit and the model of phase 3's K1, K2, K5
+    closest-hit and K7 launches (`launches`: phase_main_path's records by
+    path). Returns the probes' rows of the kernels line."""
     from mitsuba2_tpu_torch.kernels import probes
     cfgs = _probe_configs(torch, dev)
     wrappers = {k: getattr(probes, k) for k in PROBE_REPLACES}
@@ -1032,6 +1050,7 @@ def phase_probes(torch, dev, card, launches):
         f"{visit_ps('visit1', True):.3f} ps")
     for path, names in (("gallery", ("cluster_closest_hit",
                                      "cluster_any_hit")),
+                        ("instanced", ("inst_cluster_closest_hit",)),
                         ("gallery_bvh8mxu", ("bvh8mxu_closest_hit",
                                              "bvh8mxu_any_hit"))):
         for name in names:

@@ -8,9 +8,11 @@
 // mitsuba2_tpu/kernels/traverse_pallas.py:
 //   cluster_closest_hit_kernel <- _closest_hit_mxu_kernel (:671) and
 //                                 _closest_hit_mxu2_kernel (:877)
+//                                 (warp-cooperative visits, below)
 //   cluster_any_hit_kernel     <- _any_hit_mxu_kernel (:755) and
 //                                 _any_hit_mxu2_kernel (:944)
 //   inst_cluster_closest_hit_kernel <- _closest_hit_instmxu_kernel (:1746)
+//                                 (warp-cooperative visits, below)
 //   inst_cluster_any_hit_kernel     <- _any_hit_instmxu_kernel (:1856)
 //   bvh_closest_hit_kernel      <- _closest_hit_kernel (:250)
 //   bvh_any_hit_kernel          <- _any_hit_kernel (:309)
@@ -28,43 +30,69 @@
 // them and the dense sweep last, below.
 //
 // WHAT BOUNDS IT on an H100. Per ray the work is the cluster visits its
-// walk needs: each visit tests CK = 128 triangle slots, 38 FP32
-// operations a slot (four plane dots over the ray features, one divide,
-// the scalings), and streams the cluster's 10 KB of plane rows (CK x 20
-// floats). The bytes the function must move are only the rays and the
-// results (29-36 B a ray) plus the tables once, so the roofline bound is
-// the FP32 operations (67 TFLOP/s): on the mesh gallery's wavefronts, 1-1.4
-// cluster visits a ray, about 0.1 ms per million rays. The real limiter of
-// this first version is latency: data-dependent walks diverge within a
-// warp, and each visit's plane rows are read through L1/L2 per thread
-// (PERF.md has the measured times beside the bound).
+// walk needs: each visit tests CK = 128 triangle slots, 38 FP32 operations
+// a real slot (four plane dots over the ray features, one divide, the
+// scalings), and reads the cluster's 10 KB of plane rows (CK x 20 floats).
+// The bytes the function must move are only the rays and the results
+// (29-36 B a ray) plus the tables once, so the roofline bound is the FP32
+// operations (67 TFLOP/s): on the mesh gallery's wavefronts, 1-1.4 cluster
+// visits a ray, about 0.03 ms per million rays for the real slots.
 //
 // Built with --fmad=false (kernels/traverse.py): every product and sum is
 // rounded as the plain PyTorch twin's separate operations round it, so
 // kernel and twin agree bit for bit.
 //
-// DESIGN. One ray per thread, a threaded stackless walk over the pruned
-// cut tree: a node row is [min.xyz, max.xyz, slot base, pad, centroid.xyz,
-// pad] (mxu_node_f) and its links are [hit8 | miss8] (mxu_link), picked
-// by the thread's own direction octant (correctness does not depend on
-// the octant; it only orders the walk near-first). At an inner node the
-// slab test (tmin < t_best) chooses the hit or the miss link; at a
-// cluster node the thread, if its slab hits, tests the cluster's CK slots
-// and follows the miss link. The slot test is the Möller–Trumbore
-// bilinear form: det, u, v and t numerators are dots of the slot's plane
-// rows with the ray features [d, (o-c) x d, o-c, 1], recentred at the
-// cluster centroid c. Everything is computed in f32: none of the TPU's
-// bf16-split dot modes, lane-group culling, dual walks, block-vote octant
-// or DMA scratch is carried over. The coherence presort upstream keeps
-// the rays of a warp near each other, so threads of a warp mostly walk
-// the same nodes and read the same plane rows (broadcast loads).
+// THE WALK. A threaded stackless walk over the pruned cut tree: a node
+// row is [min.xyz, max.xyz, slot base, pad, centroid.xyz, pad]
+// (mxu_node_f) and its links are [hit8 | miss8] (mxu_link), picked by the
+// ray's own direction octant (correctness does not depend on the octant;
+// it only orders the walk near-first). At an inner node the slab test
+// (tmin < t_best) chooses the hit or the miss link; at a cluster node the
+// ray, if its slab hits, tests the cluster's CK slots and follows the miss
+// link. The slot test is the Möller–Trumbore bilinear form: det, u, v and
+// t numerators are dots of the slot's plane rows with the ray features
+// [d, (o-c) x d, o-c, 1], recentred at the cluster centroid c. Everything
+// is computed in f32: none of the TPU's bf16-split dot modes, lane-group
+// culling, dual walks, block-vote octant or DMA scratch is carried over.
 // Ties: within a cluster the lowest slot wins an equal t, across clusters
 // the first one visited keeps it (strictly closer replaces).
 //
-// INSTANCED WALK (walk<.., true>): the table is [TLAS | per-group cut
+// CLOSEST HIT (K1, K5): WARP-COOPERATIVE VISITS. The first version ran
+// one ray per thread, the thread alone looping over a cluster's 128 slots
+// when its slab hit: the threads of a warp that missed idled through that
+// loop, and threads that wanted different clusters ran their loops one
+// after another. The cluster-visit probe (probes.cu, P3) put such a visit
+// at 8.8x the cost per ray of one that all 32 threads make together, and
+// K1's bounce launches at that divergent cost. Now each lane still walks
+// its own ray, but only up to its next due visit (a cluster node whose
+// slab it hits) or the end of its walk; then the whole warp serves every
+// due visit together (warp_visit) and the lanes walk on, while any lane of
+// the warp is still walking. warp_visit groups the lanes that want the
+// same cluster (__match_any_sync on the slot base; on K5 a shared BLAS
+// cluster, whatever instance each lane is in, since each lane brings its
+// own instance-space ray). For each group the 32 lanes load the cluster's
+// plane rows once, coalesced, in 64-slot tiles of two slots a lane held in
+// registers; then for each ray of the group the owner broadcasts its
+// recentred features and t_best (__shfl_sync), every lane runs the slot
+// test on its two slots, and two __reduce_min_sync give the smallest t
+// (positive floats order as their bits) and the lowest slot holding it.
+// The owner keeps it if it is strictly under its t_best: the serial loop's
+// rule, tile after tile, so t, slot and instance are bit-equal to the
+// twin's. A ray's visit then costs CK/32 slot tests on each lane (4 at
+// CK = 128) whatever the rest of its warp does. Two slots a lane, not
+// four: 94 and 96 registers for K1 and K5 against 128 and 148, the same
+// K1 time and K5 19% faster (H100 80GB HBM3, 700.00 W; PERF.md §6). No
+// lane returns early: lanes past n and dead lanes (t_max <= 0) take part
+// with their walk done, and every warp intrinsic names the full warp.
+//
+// ANY HIT (K2, K5): one ray per thread. A thread's slab hit on a cluster
+// node makes it test the slots in order (cluster_visit, walk.cuh) and stop
+// at the first hit within t_max.
+//
+// INSTANCED WALK (INST = true): the table is [TLAS | per-group cut
 // trees], the groups' clusters in local space. Instancing is one level
 // deep, so one saved continuation replaces a stack: at a TLAS instance leaf
-// (col 7 = instance id >= 0) whose slab the ray hits, the thread moves its
+// (col 7 = instance id >= 0) whose slab the ray hits, the lane moves its
 // ray to instance space (o and the unnormalised d through inst_inv's 3x4,
 // so t is kept and t_best stays comparable), recomputes 1/d and the
 // octant, saves the leaf's miss link and jumps to the group's cut-tree root
@@ -101,37 +129,107 @@ __device__ __forceinline__ RayState to_local(const float4& m0,
                     m2.x * w.dx + m2.y * w.dy + m2.z * w.dz);
 }
 
-// The walk of one ray. INST = false: one cut tree, `world` is the ray
-// throughout. INST = true: the instanced walk described above.
-template <bool ANY_HIT, bool INST>
-__device__ __forceinline__ void walk(
+constexpr unsigned FULL_WARP = 0xffffffffu;
+constexpr int TILE_J = 2;                 // slots a lane holds in a tile
+constexpr int TILE = 32 * TILE_J;         // slots a warp tests in one pass
+constexpr unsigned NO_HIT = 0xffffffffu;  // above the bits of any finite t
+
+// Work that no table load shows: the slot tests on plane rows held in
+// registers. Nothing on the card; the g++ emulation of the tests
+// (tests/test_torch_traverse.py) counts it.
+#ifndef WORK_COUNT
+#define WORK_COUNT(n) ((void)(n))
+#endif
+
+// Where a lane's walk stands: its ray in the current space (the world ray,
+// or in an instanced walk the ray of the instance `cinst` it is in, with
+// the TLAS row `ret` saved to return to), and the next node.
+struct Cursor {
+    RayState r;
+    int node, cinst, ret;
+};
+
+// At a BLAS_EXIT link, back to the saved TLAS row and the world ray
+template <bool INST>
+__device__ __forceinline__ void pop_exit(Cursor& c, const RayState& world) {
+    if (INST && c.node == BLAS_EXIT) {
+        c.node = c.ret;
+        c.ret = -1;
+        c.cinst = -1;
+        c.r = world;
+    }
+}
+
+// One node step of a lane's walk at c.node, its slab tested against
+// t_lim. At a cluster node whose slab the ray hits a visit is due: returns
+// the cluster's slot base and its centroid in *cen, with c.node already on
+// the miss link but not yet popped (pop_exit after the visit, which needs
+// the instance-space ray). Otherwise moves c on (entering an instance at a
+// TLAS instance leaf it hits) and returns -1.
+template <bool INST>
+__device__ __forceinline__ int node_step(const float4* __restrict__ node_f,
+                                         const int* __restrict__ link,
+                                         const float4* __restrict__ inst_inv,
+                                         const RayState& world, Cursor& c,
+                                         float t_lim, float4* cen) {
+    const int node = c.node;
+    const float4 a = __ldg(node_f + 4 * node);
+    const float4 b = __ldg(node_f + 4 * node + 1);
+    const int slot_base = (int)b.z;
+    const bool hit = slab(a, b, c.r, t_lim);
+    const int hit_link = __ldg(link + 16 * node + c.r.oct);
+    const int miss_link = __ldg(link + 16 * node + 8 + c.r.oct);
+    if (slot_base >= 0) {
+        c.node = miss_link;
+        if (hit) {
+            *cen = __ldg(node_f + 4 * node + 2);
+            return slot_base;
+        }
+    } else if (INST && hit && (int)b.w >= 0) {
+        const int iid = (int)b.w;         // enter instance iid
+        const float4* m = inst_inv + 4 * (size_t)iid;
+        const float4 m0 = __ldg(m), m1 = __ldg(m + 1), m2 = __ldg(m + 2),
+                     m3 = __ldg(m + 3);
+        c.r = to_local(m0, m1, m2, world);
+        c.ret = miss_link;
+        c.cinst = iid;
+        c.node = (int)m3.y;               // col 13: the cut-tree root
+    } else {
+        c.node = hit ? hit_link : miss_link;
+    }
+    pop_exit<INST>(c, world);
+    return -1;
+}
+
+// The any-hit walk of one ray, one thread alone: sets *occ at its first
+// slot hit within t_max. It keeps the first version's loop (node_step's
+// logic inline), so that the any-hit kernels compile as they did.
+template <bool INST>
+__device__ __forceinline__ void any_hit_walk(
         const float4* __restrict__ node_f, const int* __restrict__ link,
         const float4* __restrict__ feat, const float4* __restrict__ inst_inv,
         const RayState& world, float t_max, int fuel_cap, int ck,
-        float* t_best_io, int* best_io, int* inst_io, bool* occ_io) {
+        bool* occ_io) {
     RayState r = world;   // the ray in the current space
     float t_best = t_max;
     int best = -1;
-    int binst = -1, cinst = -1, ret = -1;
+    int ret = -1;
     int node = 0;
     for (int fuel = 0; node >= 0 && fuel < fuel_cap; ++fuel) {
         const float4 a = __ldg(node_f + 4 * node);
         const float4 b = __ldg(node_f + 4 * node + 1);
         const int slot_base = (int)b.z;
-        const bool hit = slab(a, b, r, ANY_HIT ? t_max : t_best);
+        const bool hit = slab(a, b, r, t_max);
         const int hit_link = __ldg(link + 16 * node + r.oct);
         const int miss_link = __ldg(link + 16 * node + 8 + r.oct);
         if (slot_base >= 0) {
             if (hit) {
                 const float4 c = __ldg(node_f + 4 * node + 2);
                 const float4* fs = feat + (size_t)slot_base * FEAT_W4;
-                if (cluster_visit<ANY_HIT>(fs, c, r, slot_base, ck, t_max,
-                                           &t_best, &best)) {
-                    if (ANY_HIT) {
-                        *occ_io = true;
-                        return;
-                    }
-                    if (INST) binst = cinst;
+                if (cluster_visit<true>(fs, c, r, slot_base, ck, t_max,
+                                        &t_best, &best)) {
+                    *occ_io = true;
+                    return;
                 }
             }
             node = miss_link;
@@ -142,7 +240,6 @@ __device__ __forceinline__ void walk(
                          m3 = __ldg(m + 3);
             r = to_local(m0, m1, m2, world);
             ret = miss_link;
-            cinst = iid;
             node = (int)m3.y;                 // col 13: the cut-tree root
         } else {
             node = hit ? hit_link : miss_link;
@@ -150,15 +247,131 @@ __device__ __forceinline__ void walk(
         if (INST && node == BLAS_EXIT) {      // pop to the TLAS
             node = ret;
             ret = -1;
-            cinst = -1;
             r = world;
         }
     }
-    if (!ANY_HIT) {
-        *t_best_io = best >= 0 ? t_best : __int_as_float(0x7f800000);
-        *best_io = best;
-        if (INST) *inst_io = best >= 0 ? binst : -1;
+}
+
+// The warp serves its due visits: every lane calls it, a lane with a
+// visit due with the cluster's slot base `base` (else -1), the centroid c
+// and its ray r in the current space. Each group of lanes due at one
+// cluster is served in turn: the cluster's rows are loaded once per
+// 64-slot tile, two slots a lane, and each ray of the group is tested
+// against them by all 32 lanes. A slot strictly nearer than the lane's
+// *t_best replaces *t_best and *best (the lowest slot keeps a tie); returns
+// whether one did.
+__device__ __forceinline__ bool warp_visit(const float4* __restrict__ feat,
+                                           const float4& c,
+                                           const RayState& r, int base,
+                                           int ck, float* t_best,
+                                           int* best) {
+    const int lane = threadIdx.x & 31;
+    // the lane's ray features, recentred at its cluster's centroid
+    const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
+    const float mx = py * r.dz - pz * r.dy;
+    const float my = pz * r.dx - px * r.dz;
+    const float mz = px * r.dy - py * r.dx;
+    const unsigned group = __match_any_sync(FULL_WARP, base);
+    unsigned due = __ballot_sync(FULL_WARP, base >= 0);
+    bool closer = false;
+    while (due) {
+        const int lead = __ffs(due) - 1;
+        const unsigned members = __shfl_sync(FULL_WARP, group, lead);
+        const int gbase = __shfl_sync(FULL_WARP, base, lead);
+        due &= ~members;
+        const float4* fs = feat + (size_t)gbase * FEAT_W4;
+        for (int k0 = 0; k0 < ck; k0 += TILE) {
+            // this lane's slots of the tile: k0 + 32 j + lane
+            float4 f[TILE_J][FEAT_W4];
+#pragma unroll
+            for (int j = 0; j < TILE_J; ++j) {
+                const int k = k0 + 32 * j + lane;
+                if (k < ck) {
+#pragma unroll
+                    for (int q = 0; q < FEAT_W4; ++q)
+                        f[j][q] = __ldg(fs + (size_t)k * FEAT_W4 + q);
+                }
+            }
+            for (unsigned todo = members; todo; todo &= todo - 1) {
+                const int own = __ffs(todo) - 1;
+                const float odx = __shfl_sync(FULL_WARP, r.dx, own);
+                const float ody = __shfl_sync(FULL_WARP, r.dy, own);
+                const float odz = __shfl_sync(FULL_WARP, r.dz, own);
+                const float opx = __shfl_sync(FULL_WARP, px, own);
+                const float opy = __shfl_sync(FULL_WARP, py, own);
+                const float opz = __shfl_sync(FULL_WARP, pz, own);
+                const float omx = __shfl_sync(FULL_WARP, mx, own);
+                const float omy = __shfl_sync(FULL_WARP, my, own);
+                const float omz = __shfl_sync(FULL_WARP, mz, own);
+                const float tb = __shfl_sync(FULL_WARP, *t_best, own);
+                // this lane's nearest slot under tb, the lowest on a tie
+                unsigned key = NO_HIT;
+                int slot = 0;
+                int tested = 0;
+#pragma unroll
+                for (int j = 0; j < TILE_J; ++j) {
+                    const int k = k0 + 32 * j + lane;
+                    float t;
+                    if (k < ck) {
+                        ++tested;
+                        if (slot_planes(f[j][0], f[j][1], f[j][2], f[j][3],
+                                        f[j][4], odx, ody, odz, opx, opy,
+                                        opz, omx, omy, omz, &t) &&
+                            t < tb && __float_as_uint(t) < key) {
+                            key = __float_as_uint(t);
+                            slot = k;
+                        }
+                    }
+                }
+                WORK_COUNT(tested);
+                // t > 0 here, and positive floats order as their bits
+                const unsigned kmin = __reduce_min_sync(FULL_WARP, key);
+                const unsigned smin = __reduce_min_sync(
+                    FULL_WARP, key == kmin ? (unsigned)slot : NO_HIT);
+                if (lane == own && kmin != NO_HIT) {
+                    *t_best = __uint_as_float(kmin);
+                    *best = gbase + (int)smin;
+                    closer = true;
+                }
+            }
+        }
     }
+    return closer;
+}
+
+// The closest-hit walk of a lane's ray `world`, warp-synchronous: the lane
+// walks to its next due visit or the end of its walk, the warp serves the
+// due visits together, and so on while any lane is walking. A lane that
+// is not `live` (past n, or t_max <= 0) takes part, its walk done.
+template <bool INST>
+__device__ __forceinline__ void closest_hit_walk(
+        const float4* __restrict__ node_f, const int* __restrict__ link,
+        const float4* __restrict__ feat, const float4* __restrict__ inst_inv,
+        const RayState& world, bool live, float t_max, int fuel_cap, int ck,
+        float* t_io, int* best_io, int* inst_io) {
+    Cursor c{world, 0, -1, -1};
+    float t_best = t_max;
+    int best = -1, binst = -1, fuel = 0;
+    bool done = !live || fuel_cap <= 0;
+    while (__any_sync(FULL_WARP, !done)) {
+        int base = -1;
+        float4 cen = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        while (!done && base < 0) {       // to the next due visit
+            base = node_step<INST>(node_f, link, inst_inv, world, c, t_best,
+                                   &cen);
+            ++fuel;
+            if (base < 0) done = c.node < 0 || fuel >= fuel_cap;
+        }
+        if (warp_visit(feat, cen, c.r, base, ck, &t_best, &best) && INST)
+            binst = c.cinst;
+        if (base >= 0) {                  // the visit's step ends
+            pop_exit<INST>(c, world);
+            done = c.node < 0 || fuel >= fuel_cap;
+        }
+    }
+    *t_io = best >= 0 ? t_best : inf_f();
+    *best_io = best;
+    if (INST) *inst_io = best >= 0 ? binst : -1;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -175,18 +388,20 @@ cluster_closest_hit_kernel(const float4* __restrict__ node_f,
                            float* __restrict__ t_out,
                            int* __restrict__ slot_out,
                            int n, int n_nodes, int ck) {
+    // no early return: every lane of the warp takes part in its visits
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    float t = __int_as_float(0x7f800000);
-    int slot = -1;
-    if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<false, false>(node_f, link, feat, nullptr, r, tm, n_nodes + 64,
-                           ck, &t, &slot, nullptr, nullptr);
+    const float tm = i < n ? tmax[i] : 0.0f;
+    const bool live = tm > 0.0f;  // t_max <= 0 cannot hit: 0 < t < t_max
+    const RayState r = live ? load_ray(ox, oy, oz, dx, dy, dz, i)
+                            : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+    float t;
+    int slot;
+    closest_hit_walk<false>(node_f, link, feat, nullptr, r, live, tm,
+                            n_nodes + 64, ck, &t, &slot, nullptr);
+    if (i < n) {
+        t_out[i] = t;
+        slot_out[i] = slot;
     }
-    t_out[i] = t;
-    slot_out[i] = slot;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -208,8 +423,8 @@ cluster_any_hit_kernel(const float4* __restrict__ node_f,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<true, false>(node_f, link, feat, nullptr, r, tm, n_nodes + 64,
-                          ck, nullptr, nullptr, nullptr, &occ);
+        any_hit_walk<false>(node_f, link, feat, nullptr, r, tm,
+                            n_nodes + 64, ck, &occ);
     }
     occ_out[i] = occ;
 }
@@ -230,19 +445,21 @@ inst_cluster_closest_hit_kernel(const float4* __restrict__ node_f,
                                 int* __restrict__ slot_out,
                                 int* __restrict__ inst_out,
                                 int n, int fuel, int ck) {
+    // no early return: every lane of the warp takes part in its visits
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    float t = __int_as_float(0x7f800000);
-    int slot = -1, inst = -1;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<false, true>(node_f, link, feat, inst_inv, r, tm, fuel, ck, &t,
-                          &slot, &inst, nullptr);
+    const float tm = i < n ? tmax[i] : 0.0f;
+    const bool live = tm > 0.0f;
+    const RayState r = live ? load_ray(ox, oy, oz, dx, dy, dz, i)
+                            : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+    float t;
+    int slot, inst;
+    closest_hit_walk<true>(node_f, link, feat, inst_inv, r, live, tm, fuel,
+                           ck, &t, &slot, &inst);
+    if (i < n) {
+        t_out[i] = t;
+        slot_out[i] = slot;
+        inst_out[i] = inst;
     }
-    t_out[i] = t;
-    slot_out[i] = slot;
-    inst_out[i] = inst;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -265,8 +482,8 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        walk<true, true>(node_f, link, feat, inst_inv, r, tm, fuel, ck,
-                         nullptr, nullptr, nullptr, &occ);
+        any_hit_walk<true>(node_f, link, feat, inst_inv, r, tm, fuel, ck,
+                           &occ);
     }
     occ_out[i] = occ;
 }

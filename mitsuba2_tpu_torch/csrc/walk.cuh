@@ -1,6 +1,7 @@
 // Device helpers shared by the traversal kernels (cluster_walk.cu) and
 // the probes (probes.cu): the ray record, the slab test of a box row, the
-// plane test of one cluster slot and the visit of one cluster's slots.
+// plane test of one cluster slot and one thread's visit of one cluster's
+// slots.
 // Each including file gets its own internal copy.
 #pragma once
 
@@ -54,18 +55,23 @@ __device__ __forceinline__ bool slab(const float4& a, const float4& b,
     return (tmin <= tmax) && (tmax > 0.0f) && (tmin < t_best);
 }
 
-// One slot's plane test; returns false where the slot cannot hit.
+// One slot's plane test on its rows f0..f4 (loaded by the caller), the
+// ray recentred at the cluster centroid: direction d, p = o - c and
+// m = p x d; returns false where the slot cannot hit.
 // Slot layout: [det0..2 u0 | u1..u4 | u5 v0..v2 | v3..v5 t0 | t1..t3 pad]
-__device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
-                                          const RayState& r, float px,
-                                          float py, float pz, float mx,
-                                          float my, float mz, float* t_out) {
-    const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2),
-                 f3 = __ldg(f + 3), f4 = __ldg(f + 4);
-    float det = f0.x * r.dx + f0.y * r.dy + f0.z * r.dz;
-    float unum = f0.w * r.dx + f1.x * r.dy + f1.y * r.dz +
+__device__ __forceinline__ bool slot_planes(const float4& f0,
+                                            const float4& f1,
+                                            const float4& f2,
+                                            const float4& f3,
+                                            const float4& f4, float dx,
+                                            float dy, float dz, float px,
+                                            float py, float pz, float mx,
+                                            float my, float mz,
+                                            float* t_out) {
+    float det = f0.x * dx + f0.y * dy + f0.z * dz;
+    float unum = f0.w * dx + f1.x * dy + f1.y * dz +
                  f1.z * mx + f1.w * my + f2.x * mz;
-    float vnum = f2.y * r.dx + f2.z * r.dy + f2.w * r.dz +
+    float vnum = f2.y * dx + f2.z * dy + f2.w * dz +
                  f3.x * mx + f3.y * my + f3.z * mz;
     float tnum = f3.w * px + f4.x * py + f4.y * pz + f4.z;
     float inv = fabsf(det) < 1e-12f ? 0.0f : 1.0f / det;
@@ -73,6 +79,16 @@ __device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
     *t_out = t;
     return (inv != 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
            (u + v <= 1.0f) && (t > 0.0f);
+}
+
+// One slot's plane test, its five float4 of plane rows read from f
+__device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
+                                          const RayState& r, float px,
+                                          float py, float pz, float mx,
+                                          float my, float mz, float* t_out) {
+    return slot_planes(__ldg(f), __ldg(f + 1), __ldg(f + 2), __ldg(f + 3),
+                       __ldg(f + 4), r.dx, r.dy, r.dz, px, py, pz, mx, my,
+                       mz, t_out);
 }
 
 // One cluster visit: the CK slots from fs, the ray recentred at the

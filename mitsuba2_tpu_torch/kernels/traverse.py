@@ -71,6 +71,7 @@ from ..scene.shapes import PRIM_TRI
 from .brute import sphere_test, tri_test
 
 FEAT_W = 20  # floats per slot in cluster_feat
+WARP = 32    # threads of a CUDA warp
 CCS_W = 8    # floats per cluster in mxu_ccs
 # The JAX package's module switches (traverse_pallas.py:379, :1025-1027),
 # read once at import with the same accepted values; tests set the module
@@ -704,6 +705,13 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
         cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
         binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    # the closest-hit kernels' warps serve the visits due in a round
+    # together, and a lane's j-th visit falls in round j: a warp loads a
+    # cluster's plane rows once for each (warp, j, cluster) (csrc/
+    # cluster_walk.cu::warp_visit), counted as `cluster_groups`
+    groups = [] if stats is not None and not any_hit else None
+    if groups is not None:
+        n_vis = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(node_f.shape[0] + 64 if fuel is None else fuel):
         act = torch.nonzero(node >= 0).squeeze(1)
         if act.numel() == 0:
@@ -725,6 +733,10 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         if bool(visit.any()):
             lanes = act[visit]
             vb, vc = base[visit], nf[visit]
+            if groups is not None:
+                groups.append(torch.stack([lanes // WARP, n_vis[lanes], vb],
+                                          1))
+                n_vis[lanes] += 1
             res = _cluster_visit(
                 _slot_rows(feat, vb, cluster_k), vb, vc[:, 8:11].unbind(1),
                 [a[visit] for a in (lox, loy, loz, ldx, ldy, ldz)],
@@ -764,6 +776,9 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
                 for c_, w_ in zip(cur, world):
                     c_[p_] = w_[p_]
         node[act] = nxt
+    if groups:
+        _count(stats, "cluster_groups",
+               torch.unique(torch.cat(groups), dim=0).shape[0])
     if any_hit:
         return occ
     t_out = torch.where(best >= 0, t_best, float("inf"))
@@ -774,6 +789,8 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
 
 
 def _chunked(fn, rays, chunk):
+    # whole warps to a chunk, so that what a twin counts per warp holds
+    chunk = -(-chunk // WARP) * WARP
     n = rays[0].shape[0]
     outs = [fn(tuple(a[s:s + chunk] for a in rays))
             for s in range(0, n, chunk)] or [fn(rays)]
@@ -786,7 +803,8 @@ def closest_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
                       cluster_k: int, chunk: int = 8192, stats=None):
     """The twin of the closest-hit kernel: same function, torch ops. With
     a `stats` dict it also counts the kernel's work: node steps, cluster
-    visits and slot tests."""
+    visits, slot tests and the warps' groups of visits to one cluster
+    (`cluster_groups`: the kernel's loads of a cluster's plane rows)."""
     return _chunked(
         lambda r: _walk_plain(node_f, link, feat, r, cluster_k, False, stats),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)

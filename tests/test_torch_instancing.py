@@ -34,7 +34,8 @@ from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import FIELDS, INST_FIELDS
 
-from test_torch_traverse import build_emulation, load_counters, planar
+from test_torch_traverse import (assert_kernel_work, build_emulation,
+                                 load_counters, planar, work_counter)
 
 N_RAYS = 2048
 META = ("has_instances", "inst_fuel", "inst_mxu_fuel", "n_emitters",
@@ -110,13 +111,15 @@ def package(which):
         from mitsuba2_tpu.scene import shapes as jshapes
         from mitsuba2_tpu.scene.scene import build_scene as jbuild
         return types.SimpleNamespace(shapes=jshapes, T4=JT4, build=jbuild,
-                                     field=jpresets.instanced_field)
+                                     field=jpresets.instanced_field,
+                                     presets=jpresets)
     from mitsuba2_tpu_torch.core.geometry import Transform4
-    from mitsuba2_tpu_torch.scene import shapes
+    from mitsuba2_tpu_torch.scene import presets, shapes
     return types.SimpleNamespace(
         shapes=shapes, T4=Transform4,
         build=functools.partial(mt.build_scene, device="cpu"),
-        field=functools.partial(mt.instanced_field, device="cpu"))
+        field=functools.partial(mt.instanced_field, device="cpu"),
+        presets=presets)
 
 
 def groups_scene(pkg):
@@ -466,6 +469,67 @@ def test_render_matches_jax(case, seed):
     np.testing.assert_allclose(img_t.mean(), img_j.mean(), rtol=1e-3)
 
 
+def mirrored_scene(pkg):
+    """One displaced icosphere without vertex normals (_icosphere(2),
+    _displace(seed=3)) in a group, instanced mirrored at
+    translate(1.5, 0.6, 0) @ scale(-1, 1, 1), over a ground quad under a
+    quad area light."""
+    P, sh, T4 = pkg.presets, pkg.shapes, pkg.T4
+    v, f = P._icosphere(2)
+    blob = sh.mesh(P._displace(v.copy(), seed=3), f,
+                   bsdf={"type": "diffuse", "reflectance": [0.6, 0.5, 0.4]})
+    inst = sh.instance(sh.shapegroup([blob]), np.asarray(
+        (T4.translate([1.5, 0.6, 0.0]) @ T4.scale([-1.0, 1.0, 1.0])).matrix))
+    ground = P._quad([-4, 0, -4], [-4, 0, 4], [4, 0, 4], [4, 0, -4],
+                     bsdf={"type": "diffuse", "reflectance": [0.7] * 3})
+    light = P._quad([0, 4, -1], [3, 4, -1], [3, 4, 2], [0, 4, 2],
+                    emitter={"type": "area", "radiance": [8.0] * 3})
+    sensor = {"type": "perspective", "fov": 45.0,
+              "to_world": np.asarray(T4.look_at(
+                  origin=[1.5, 2.0, -4.5], target=[1.5, 0.5, 0.0],
+                  up=[0, 1, 0]).matrix)}
+    return pkg.build([ground, light, inst], sensor, [])
+
+
+@pytest.fixture(scope="module")
+def mirrored_renders():
+    """The mirrored instance rendered by both packages in both
+    MI_FLATTEN_INSTANCES modes, 16x16 at 4 spp: {mode: (jax, port)}."""
+    import mitsuba2_tpu as mi
+    kw = dict(width=16, height=16, spp=4, spp_per_pass=4, max_depth=3,
+              rr_depth=8)
+    out = {}
+    for mode in ("0", "1"):
+        with flatten_mode(mode):
+            sj = mirrored_scene(package("jax"))
+            st = mirrored_scene(package("port"))
+        assert sj.has_instances == st.has_instances == (mode == "0")
+        out[mode] = (
+            np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=2)),
+            mt.render(st, mt.RenderConfig(**kw), seed=2,
+                      device="cpu").numpy())
+    return out
+
+
+@pytest.mark.parametrize("mode", ["0", "1"])
+def test_mirrored_instance_matches_jax(mirrored_renders, mode):
+    """The reference's behaviour on a mirrored instance of a mesh without
+    vertex normals, pinned in both modes (ROADMAP.md Queue 3): shared
+    ("0"), the local face normal lifted by the inverse transpose points
+    outward; flattened ("1"), the normal of the mirrored vertices points
+    inward, so the one-sided diffuse blob shades darker. The port follows
+    the JAX package in each mode (tolerances as test_render_matches_jax),
+    and the two modes differ, in both packages alike."""
+    img_j, img_t = mirrored_renders[mode]
+    assert img_t.shape == img_j.shape == (16, 16, 3)
+    assert np.isfinite(img_t).all() and img_t.mean() > 0
+    close = np.isclose(img_t, img_j, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99
+    np.testing.assert_allclose(img_t.mean(), img_j.mean(), rtol=1e-3)
+    (j0, t0), (j1, t1) = mirrored_renders["0"], mirrored_renders["1"]
+    assert j1.mean() < 0.98 * j0.mean() and t1.mean() < 0.98 * t0.mean()
+
+
 def test_instanced_wrappers_check_and_count(case):
     st = case.st
     o, d, tm = (torch.zeros(8), torch.ones(8), torch.full((8,), np.inf))
@@ -551,25 +615,94 @@ def test_cuda_source_emulated_matches_twins(case, emulated, kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_twin_counts_kernel_work(case, emulated, kind):
     """The walk work the twins count (the bound in chip_smoke.py rests on
-    it) equals the loads the CUDA source makes in the emulation: two
-    float4 of a node row a step and a third (the centroid) a cluster
-    visit, five float4 a slot test, four (an inst_inv row) an entry."""
+    it) equals the work the CUDA source does in the emulation: two float4
+    of a node row a step and a third (the centroid) a cluster visit, four
+    (an inst_inv row) an entry; five float4 a slot test on the any-hit
+    walk, and on the closest-hit walk five a slot once for each group of a
+    warp's lanes due at one cluster, whatever instances they are in, and
+    every slot tested for each ray of the group (assert_kernel_work)."""
     st, rays = case.st, kind_rays(case, kind)
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat, st.inst_inv)
     for any_hit in (False, True):
         loads = load_counters(emulated, (st.mxu_node_f, st.cluster_feat,
                                          st.inst_inv))
-        emulate(emulated, st, rays, any_hit)
+        out = emulate(emulated, st, rays, any_hit)
         stats = {}
         twin = (traverse.inst_any_hit_plain if any_hit
                 else traverse.inst_closest_hit_plain)
         twin(*tabs, *rays, st.cluster_k, st.inst_mxu_fuel + 64, chunk=500,
              stats=stats)
-        visits = stats.get("cluster_visits", 0)
-        assert loads[0] == 2 * stats["node_steps"] + visits
-        assert loads[1] == 5 * stats.get("slot_tests", 0)
+        assert_kernel_work(stats, loads, work_counter(emulated).value,
+                           bool(out.any()) if any_hit else None,
+                           st.cluster_k)
         assert loads[2] == 4 * stats.get("instance_entries", 0)
         assert stats.get("instance_entries", 0) > 0
+
+
+def test_emulated_warps_match_twins(case, emulated):
+    """The warp-cooperative instanced closest-hit kernel, emulated warp by
+    warp: warp 0 holds 16 copies of a camera ray's last stretch to its
+    hit on instance a and 16 of the same stretch moved, in a's local
+    frame, onto instance b of the same group (both walk the shared BLAS
+    alike, so the warp serves lanes of both instances as one group at each
+    cluster: fewer groups than each instance's lanes would need alone);
+    warp 1 bounce rays with every third lane dead (t_max 0 or -1); and a
+    last warp of 7 lanes. t, slot and instance bit-equal to the twin on
+    every lane, dead lanes missing, and the work counted exactly."""
+    st = case.st
+    tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat, st.inst_inv)
+    fuel = st.inst_mxu_fuel + 64
+
+    def twin(*rays, **kw):
+        return traverse.inst_closest_hit_plain(*tabs, *rays, st.cluster_k,
+                                               fuel, **kw)
+    o, d, tm = case.rays["camera"]
+    t, _, inst = (a.numpy() for a in twin(*kind_rays(case, "camera")))
+    inv = st.inst_inv.double().numpy()
+    root = inv[:, 13]
+    a = int(np.flatnonzero(inst > 0)[0])
+    ia = int(inst[a])
+    ib = int(next(k for k in range(1, len(root))
+                  if k != ia and root[k] == root[ia]))
+    # the stretch from 0.1 t before the hit to 0.1 t past it, in a's frame
+    o_a = o[a] + 0.9 * t[a] * d[a]
+    m_a, m_b = inv[ia, :12].reshape(3, 4), inv[ib, :12].reshape(3, 4)
+    o_l = m_a[:, :3] @ o_a + m_a[:, 3]
+    d_l = m_a[:, :3] @ d[a]
+    o_b = np.linalg.solve(m_b[:, :3], o_l - m_b[:, 3])
+    d_b = np.linalg.solve(m_b[:, :3], d_l)
+    pair = (np.array([o_a, o_b], np.float32).repeat(16, 0),
+            np.array([d[a], d_b], np.float32).repeat(16, 0),
+            np.full(32, 0.2 * t[a], np.float32))
+    bo, bd, btm = (x[:32].copy() for x in case.rays["bounce"])
+    btm[0::3] = np.where(np.arange(32)[0::3] % 2 == 0, 0.0, -1.0)
+    parts = [pair, (bo, bd, btm),
+             tuple(x[:7] for x in case.rays["camera"])]
+    ro, rd, rtm = (np.concatenate(x) for x in zip(*parts))
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in
+                 (*ro.T, *rd.T, rtm))
+    n = rtm.shape[0]
+    assert n % 32 == 7 and (rtm <= 0).sum() == 11
+
+    loads = load_counters(emulated, (st.mxu_node_f, st.cluster_feat,
+                                     st.inst_inv))
+    out = emulate(emulated, st, rays, False)
+    stats = {}
+    want = twin(*rays, stats=stats)
+    assert all(torch.equal(x, y) for x, y in zip(out, want))
+    dead = torch.from_numpy(rtm <= 0)
+    assert torch.isinf(out[0][dead]).all() and (out[1][dead] == -1).all()
+    assert (out[2][:32].reshape(2, 16) == torch.tensor([[ia], [ib]])).all()
+    assert_kernel_work(stats, loads, work_counter(emulated).value, None,
+                       st.cluster_k)
+    assert loads[2] == 4 * stats["instance_entries"]
+    # the pair warp: lanes of instances a and b share each cluster's group
+    sw = [{}, {}, {}]
+    for s_, lanes in zip(sw, (slice(0, 32), slice(0, 16), slice(16, 32))):
+        twin(*(x[lanes] for x in rays), stats=s_)
+    assert sw[0]["cluster_groups"] == sw[1]["cluster_groups"] > 0
+    assert sw[0]["cluster_groups"] < (sw[1]["cluster_groups"]
+                                      + sw[2]["cluster_groups"])
 
 
 @pytest.fixture

@@ -133,17 +133,28 @@ def test_port_imports_no_jax():
     assert "BAD []" in proc.stdout
 
 
-def test_chip_smoke_imports_no_jax():
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+def _import_roots(script):
+    """The top-level packages a script of the repo's root imports."""
+    tree = ast.parse(open(os.path.join(REPO, script)).read())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    roots = {n.split(".")[0] for n in names}
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_no_jax():
+    roots = _import_roots("chip_smoke.py")
     assert not roots & {"jax", "jaxlib", "flax", "mitsuba2_tpu"}
     assert "mitsuba2_tpu_torch" in roots
+
+
+def test_chip_tiles_imports_no_jax():
+    roots = _import_roots("chip_tiles.py")
+    assert not roots & {"jax", "jaxlib", "flax", "mitsuba2_tpu"}
+    assert {"mitsuba2_tpu_torch", "chip_smoke"} <= roots
 
 
 def test_render_without_device_needs_cuda(gallery):

@@ -18,6 +18,7 @@ Tolerances:
   kernel's plane dots run in split bf16. A lane outside that band passes
   only if the port is the closer of the two to the f32 oracle.
 """
+import contextlib
 import ctypes
 import os
 import re
@@ -187,13 +188,25 @@ def test_twin_counts_walk_work(case):
 # The CUDA source: emulated on the CPU, and on the card where there is one
 # ---------------------------------------------------------------------------
 
-# Just enough of CUDA to run csrc/cluster_walk.cu's kernels one thread at a
-# time with g++: the kernels' indexing, table layouts and walk logic are
-# then checked here, against the twins, through the wrapper's C ABI.
+# Just enough of CUDA to run csrc/cluster_walk.cu's kernels with g++: the
+# kernels' indexing, table layouts and walk logic are then checked here,
+# against the twins, through the wrapper's C ABI. A launch runs its blocks
+# one after another and a block's warps one after another; the 32 threads
+# of a warp run as fibers on one host thread (ucontext). A warp intrinsic
+# stores the lane's value and yields; once all 32 lanes have stored theirs,
+# each lane reads them (two buffers, alternating, so that a lane already at
+# its next intrinsic does not overwrite values another still reads). A
+# warp whose lanes do not all reach the same intrinsic, or whose mask is
+# not the full warp, aborts the run. Threads that use no intrinsic simply
+# run to their end one after another.
 _SHIM = r"""
 #pragma once
 #include <cmath>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
+#include <ucontext.h>
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -201,20 +214,35 @@ _SHIM = r"""
 #define __restrict__
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct dim3_ { unsigned x; };
 static dim3_ blockIdx, threadIdx, blockDim;
-// loads that fall in each of four tables, counted as the kernels make them
+// loads that fall in each of four tables, counted as the kernels make them,
+// and the work that no load shows (WORK_COUNT: the slot tests on plane
+// rows a lane holds in registers)
 extern "C" {
 const char* emu_lo[4];
 const char* emu_hi[4];
 long long emu_loads[4];
+long long emu_work;
 }
+#define WORK_COUNT(n) \
+  __atomic_fetch_add(&emu_work, (long long)(n), __ATOMIC_RELAXED)
 template <class T> inline T __ldg(const T* p) {
   for (int i = 0; i < 4; ++i)
-    if ((const char*)p >= emu_lo[i] && (const char*)p < emu_hi[i]) ++emu_loads[i];
+    if ((const char*)p >= emu_lo[i] && (const char*)p < emu_hi[i])
+      __atomic_fetch_add(&emu_loads[i], 1, __ATOMIC_RELAXED);
   return *p;
 }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float __uint_as_float(unsigned i) {
+  float f; std::memcpy(&f, &i, 4); return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned i; std::memcpy(&i, &f, 4); return i;
+}
 inline float fabsf(float x) { return std::fabs(x); }
 inline float fminf(float a, float b) { return std::fmin(a, b); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
@@ -223,10 +251,107 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
+
+struct EmuWarp {
+  ucontext_t sched, ctx[32];
+  char stack[32][1 << 16];
+  bool finished[32];
+  int buf[32], tag[32];            // per lane: its next buffer, its intrinsic
+  unsigned long long val[2][32];
+  int cur;                          // the lane running
+  std::function<void()> body;
+};
+static EmuWarp emu_warp;
+inline void emu_fail(const char* what) {
+  std::fprintf(stderr, "warp emulation: %s\n", what);
+  std::abort();
+}
+inline void emu_lane_main() {
+  emu_warp.body();
+  emu_warp.finished[emu_warp.cur] = true;
+}
+// every lane's value of the intrinsic `tag` the calling lane is at
+inline const unsigned long long* emu_exchange(unsigned mask, int tag,
+                                              unsigned long long v) {
+  if (mask != 0xffffffffu) emu_fail("a mask other than the full warp");
+  EmuWarp& w = emu_warp;
+  const int lane = w.cur, b = w.buf[lane];
+  w.val[b][lane] = v;
+  w.tag[lane] = tag;
+  w.buf[lane] ^= 1;
+  swapcontext(&w.ctx[lane], &w.sched);
+  return w.val[b];
+}
+inline unsigned __ballot_sync(unsigned m, bool p) {
+  const unsigned long long* v = emu_exchange(m, 1, p);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= v[l] ? 1u << l : 0u;
+  return r;
+}
+inline bool __any_sync(unsigned m, bool p) {
+  const unsigned long long* v = emu_exchange(m, 2, p);
+  for (int l = 0; l < 32; ++l)
+    if (v[l]) return true;
+  return false;
+}
+inline unsigned __match_any_sync(unsigned m, int x) {
+  const unsigned long long* v = emu_exchange(m, 3, (unsigned)x);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= v[l] == (unsigned)x ? 1u << l : 0u;
+  return r;
+}
+template <class T> inline T __shfl_sync(unsigned m, T x, int src) {
+  static_assert(sizeof(T) <= 8, "");
+  unsigned long long u = 0;
+  std::memcpy(&u, &x, sizeof(T));
+  const unsigned long long* v = emu_exchange(m, 4, u);
+  T r;
+  std::memcpy(&r, &v[src & 31], sizeof(T));
+  return r;
+}
+inline unsigned __reduce_min_sync(unsigned m, unsigned x) {
+  const unsigned long long* v = emu_exchange(m, 5, x);
+  unsigned r = 0xffffffffu;
+  for (int l = 0; l < 32; ++l) r = (unsigned)v[l] < r ? (unsigned)v[l] : r;
+  return r;
+}
+inline void emu_launch(unsigned grid, unsigned block,
+                       std::function<void()> body) {
+  EmuWarp& w = emu_warp;
+  w.body = body;
+  blockDim.x = block;
+  for (unsigned b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    for (unsigned w0 = 0; w0 < block; w0 += 32) {
+      for (int l = 0; l < 32; ++l) {
+        getcontext(&w.ctx[l]);
+        w.ctx[l].uc_stack.ss_sp = w.stack[l];
+        w.ctx[l].uc_stack.ss_size = sizeof w.stack[l];
+        w.ctx[l].uc_link = &w.sched;
+        makecontext(&w.ctx[l], emu_lane_main, 0);
+        w.finished[l] = false;
+        w.buf[l] = 0;
+      }
+      for (;;) {     // each lane on to its next intrinsic, or its end
+        int n_done = 0;
+        for (int l = 0; l < 32; ++l) {
+          if (w.finished[l]) { ++n_done; continue; }
+          w.cur = l;
+          threadIdx.x = w0 + l;
+          swapcontext(&w.sched, &w.ctx[l]);
+          n_done += w.finished[l];
+        }
+        if (n_done == 32) break;
+        if (n_done > 0)
+          emu_fail("a lane ended while others wait at an intrinsic");
+        for (int l = 1; l < 32; ++l)
+          if (w.tag[l] != w.tag[0]) emu_fail("lanes at different intrinsics");
+      }
+    }
+  }
+}
 #define EMU_LAUNCH(grid, block, kern, ...) \
-  for (unsigned b = 0; b < (unsigned)(grid); ++b) \
-    for (unsigned t = 0; t < (unsigned)(block); ++t) { \
-      blockIdx.x = b; threadIdx.x = t; blockDim.x = block; kern(__VA_ARGS__); }
+  emu_launch(grid, block, [&] { kern(__VA_ARGS__); })
 """
 
 
@@ -262,7 +387,7 @@ def build_emulation(tmp_path):
 
 def load_counters(lib, tables):
     """Point the emulation's load counters at up to four tables; returns
-    the (4,) counter array, zeroed."""
+    the (4,) counter array, zeroed. Zeroes the work counter too."""
     lo = (ctypes.c_void_p * 4).in_dll(lib, "emu_lo")
     hi = (ctypes.c_void_p * 4).in_dll(lib, "emu_hi")
     loads = (ctypes.c_longlong * 4).in_dll(lib, "emu_loads")
@@ -272,7 +397,14 @@ def load_counters(lib, tables):
         hi[i] = (a.data_ptr() + a.numel() * a.element_size()
                  if a is not None else 0)
         loads[i] = 0
+    work_counter(lib).value = 0
     return loads
+
+
+def work_counter(lib):
+    """The emulation's count of the work no load shows (WORK_COUNT in
+    csrc/cluster_walk.cu: slot tests on plane rows held in registers)."""
+    return ctypes.c_longlong.in_dll(lib, "emu_work")
 
 
 @pytest.fixture(scope="module")
@@ -307,23 +439,25 @@ def test_cuda_source_emulated_matches_twins(case, emulated):
 @pytest.mark.parametrize("kind", KINDS)
 def test_twin_counts_kernel_work(case, emulated, kind):
     """The walk work the twins count (the kernels' bound in chip_smoke.py
-    rests on it) equals the loads the kernels' source makes, counted in
-    the emulation: a node step reads two float4 of its row and a cluster
-    visit a third (the centroid); a slot test reads its five float4 of
-    plane rows, and an any-hit thread stops at its first hit."""
+    rests on it) equals the work the kernels' source does, counted in the
+    emulation: a node step reads two float4 of its row and a cluster visit
+    a third (the centroid). An any-hit thread reads a slot's five float4
+    of plane rows for each slot test and stops at its first hit. The
+    closest-hit warp loads a cluster's rows (five float4 a slot) once for
+    each group of its lanes due at that cluster in one round, and tests
+    every slot for each ray of the group on rows held in registers."""
     lib, st = emulated, case.st
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
     o, d, tm = case.rays[kind]
     rays = (*planar(o).__dict__.values(), *planar(d).__dict__.values(),
             torch.from_numpy(tm))
     n = tm.shape[0]
-    loads = load_counters(lib, (st.mxu_node_f, st.cluster_feat))
     ptrs = [a.data_ptr() for a in tabs + rays]
     dims = (n, st.mxu_node_f.shape[0], st.cluster_k, None)
     out = (torch.empty(n), torch.empty(n, dtype=torch.int32))
     occ = torch.empty(n, dtype=torch.bool)
     for any_hit in (False, True):
-        loads[0] = loads[1] = 0
+        loads = load_counters(lib, (st.mxu_node_f, st.cluster_feat))
         if any_hit:
             assert lib.mts_cluster_any_hit(*ptrs, occ.data_ptr(), *dims) == 0
         else:
@@ -332,14 +466,123 @@ def test_twin_counts_kernel_work(case, emulated, kind):
         stats = {}
         twin = traverse.any_hit_plain if any_hit else traverse.closest_hit_plain
         twin(*tabs, *rays, st.cluster_k, chunk=500, stats=stats)
-        visits = stats.get("cluster_visits", 0)
-        assert loads[0] == 2 * stats["node_steps"] + visits
-        assert loads[1] == 5 * stats.get("slot_tests", 0)
-        if not any_hit:
-            assert stats.get("slot_tests", 0) == visits * st.cluster_k
-        elif bool(occ.any()):
+        assert_kernel_work(stats, loads, work_counter(lib).value,
+                           bool(occ.any()) if any_hit else None,
+                           st.cluster_k)
+
+
+def assert_kernel_work(stats, loads, work, occluded, cluster_k):
+    """A cluster walk's counted work (loads of mxu_node_f in loads[0] and
+    of cluster_feat in loads[1], slot tests on rows in registers in
+    `work`) against its twin's `stats`. `occluded`: None for closest hit;
+    for any hit, whether some lane hit."""
+    visits = stats.get("cluster_visits", 0)
+    assert loads[0] == 2 * stats["node_steps"] + visits
+    if occluded is not None:
+        assert loads[1] == 5 * stats.get("slot_tests", 0) and work == 0
+        assert "cluster_groups" not in stats
+        if occluded:
             # lanes that hit stop early: fewer tests than whole clusters
-            assert stats["slot_tests"] < visits * st.cluster_k
+            assert stats["slot_tests"] < visits * cluster_k
+        return
+    groups = stats.get("cluster_groups", 0)
+    assert loads[1] == 5 * cluster_k * groups
+    assert work == stats.get("slot_tests", 0) == visits * cluster_k
+    # a group is one lane's visit at the least, a warp's lanes at the most
+    assert visits / 32 <= groups <= visits
+
+
+@contextlib.contextmanager
+def recorded_visits():
+    """The slot bases of the clusters the twins visit inside the block,
+    one (m,) tensor for each batch of visiting lanes, in walk order."""
+    got = []
+    visit = traverse._cluster_visit
+
+    def record(f, base, *a, **kw):
+        got.append(base.clone())
+        return visit(f, base, *a, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(traverse, "_cluster_visit", record)
+        yield got
+
+
+def lanes_of(rays, idx):
+    """The numpy (o, d, t_max) of probe rays `rays` at lanes `idx`."""
+    return tuple(a[np.asarray(idx)] for a in rays)
+
+
+def torch_rays(o, d, tm):
+    return (*planar(o).__dict__.values(), *planar(d).__dict__.values(),
+            torch.from_numpy(np.ascontiguousarray(tm)))
+
+
+def first_visits(twin, rays, pool):
+    """Each lane of `pool` walked alone by `twin` (a closest-hit twin
+    taking the torch rays): {slot base of its first cluster visit: lane},
+    the first lane found for each cluster."""
+    first = {}
+    for i in pool:
+        with recorded_visits() as got:
+            twin(*torch_rays(*lanes_of(rays, [i])))
+        if got:
+            first.setdefault(int(got[0][0]), i)
+    return first
+
+
+def test_emulated_warps_match_twins(case, emulated):
+    """The warp-cooperative closest-hit kernel, emulated warp by warp, on
+    lanes laid out to exercise it: warp 0 one camera ray 32 times (its
+    lanes due at the same cluster in every round), warp 1 random rays
+    first due at as many different clusters as 256 of them reach (each
+    ray alone, the twin's first visit), warps 2-3 bounce and shadow rays with
+    every third lane dead (t_max 0 or -1), and a last warp of 13 lanes.
+    t and slot bit-equal to the twin on every lane, dead lanes missing,
+    and the work counted exactly."""
+    lib, st = emulated, case.st
+    tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
+
+    def twin(*rays, **kw):
+        return traverse.closest_hit_plain(*tabs, *rays, st.cluster_k, **kw)
+    rnd = case.rays["random"]
+    first = first_visits(twin, rnd, range(256))
+    assert len(first) >= 6
+    spread = list(first.values())
+    parts = [lanes_of(rnd, [spread[0]] * 32),
+             lanes_of(rnd, [spread[k % len(spread)] for k in range(32)])]
+    for kind in ("bounce", "shadow"):
+        o, d, tm = lanes_of(case.rays[kind], range(32))
+        tm = tm.copy()
+        tm[0::3] = np.where(np.arange(32)[0::3] % 2 == 0, 0.0, -1.0)
+        parts.append((o, d, tm))
+    parts.append(lanes_of(case.rays["camera"], range(13)))
+    o, d, tm = (np.concatenate(a) for a in zip(*parts))
+    rays = torch_rays(o, d, tm)
+    n = tm.shape[0]
+    assert n % 32 == 13 and (tm <= 0).sum() == 22
+
+    loads = load_counters(lib, (st.mxu_node_f, st.cluster_feat))
+    t = torch.empty(n)
+    slot = torch.empty(n, dtype=torch.int32)
+    assert lib.mts_cluster_closest_hit(
+        *(a.data_ptr() for a in tabs + rays), t.data_ptr(), slot.data_ptr(),
+        n, st.mxu_node_f.shape[0], st.cluster_k, None) == 0
+    stats = {}
+    t_p, slot_p = twin(*rays, stats=stats)
+    assert torch.equal(t, t_p) and torch.equal(slot, slot_p)
+    dead = torch.from_numpy(tm <= 0)
+    assert torch.isinf(t[dead]).all() and (slot[dead] == -1).all()
+    assert_kernel_work(stats, loads, work_counter(lib).value, None,
+                       st.cluster_k)
+    # warp 0 serves its 32 lanes as one group a round; warp 1's first
+    # round alone has a group for each of its lanes' first clusters
+    for w, groups_at_least in ((0, None), (1, len(first))):
+        sw = {}
+        twin(*(a[32 * w:32 * (w + 1)] for a in rays), stats=sw)
+        if groups_at_least is None:
+            assert sw["cluster_groups"] * 32 == sw["cluster_visits"] > 0
+        else:
+            assert sw["cluster_groups"] >= groups_at_least
 
 
 @pytest.fixture
