@@ -36,9 +36,9 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
          fields a quarter of the random rays aim into the spheres); K6
-         also on the n=64 sphere field (its sphere branch); K8, and the
-         closest hits of K1 and K5 (warp-cooperative visits), bit-equal
-         to their twins on every lane. The paths on
+         also on the n=64 sphere field (its sphere branch); K8, and K1,
+         K2 and K5's closest and any hit (warp-cooperative visits),
+         bit-equal to their twins on every lane. The paths on
          one scene share its probe rays. Prints the walk work the twins
          count per lane and the bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
@@ -57,8 +57,8 @@ Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
          launched once with the counts at 0, each held bit for bit
          against its twin and timed; their costs per walk step, per row
          and per cluster visit, and from these a model of each K1, K2,
-         K5 closest-hit and K7 launch of phase 3 (steps x step cost +
-         visits x visit cost) beside its measured time.
+         K5 and K7 launch of phase 3 (steps x step cost + visits x visit
+         cost, each term shown) beside its measured time.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} and, last, {"ok": true, "device":
@@ -98,8 +98,8 @@ FLOPS_PER_SPHERE = 31
 # the walk work the twins count, as printed per lane
 WORK_COUNTS = ("node_steps", "fresh_visits", "child_tests", "advances",
                "pushes", "pops", "cluster_visits", "cluster_groups",
-               "slot_tests", "real_slot_tests", "tri_tests", "sphere_tests",
-               "instance_entries")
+               "loaded_slots", "slot_tests", "real_slot_tests", "tri_tests",
+               "sphere_tests", "instance_entries")
 # the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
 FIELD = dict(n=1024, subdiv=4)
@@ -159,9 +159,10 @@ PATH_KERNELS = {
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8"}
 DENSE = {"gallery_dense"}
-# the closest-hit kernels with warp-cooperative cluster visits: bit-equal
-# to their twins on every lane of phases 2 and 3
-COOPERATIVE = {"cluster_closest_hit", "inst_cluster_closest_hit"}
+# the kernels with warp-cooperative cluster visits: bit-equal to their
+# twins on every lane of phases 2 and 3
+COOPERATIVE = {"cluster_closest_hit", "inst_cluster_closest_hit",
+               "cluster_any_hit", "inst_cluster_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
@@ -398,22 +399,25 @@ def compare(torch, ks, rays):
     }
 
 
-def passes(c, exact=False, exact_closest=False):
+def passes(c, exact=False, exact_closest=False, exact_any=False):
     """A kernel's agreement with its twin (compare's): within the port's
-    limits, every output bit-equal where `exact` (K8), and the closest
-    hit's (t, slot, instance) where `exact_closest` (K1 and K5, whose
-    warp-cooperative visits keep the twin's rule)."""
+    limits, every output bit-equal where `exact` (K8), the closest hit's
+    (t, slot, instance) where `exact_closest` and the occlusion on every
+    lane where `exact_any` (K1, K2 and K5, whose warp-cooperative visits
+    keep the twin's rule)."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
             and c["uv_max_abs_err"] <= 1e-5
             and (c["bit_equal"] or not exact)
-            and (c["closest_bit_equal"] or not exact_closest))
+            and (c["closest_bit_equal"] or not exact_closest)
+            and (c["occ_agree"] == 1.0 or not exact_any))
 
 
 def exactness(path):
     """passes()'s keywords for a path's kernels."""
-    return dict(exact=path in DENSE,
-                exact_closest=PATH_KERNELS.get(path, ("",))[0] in COOPERATIVE)
+    closest, any_ = PATH_KERNELS.get(path, ("", ""))
+    return dict(exact=path in DENSE, exact_closest=closest in COOPERATIVE,
+                exact_any=any_ in COOPERATIVE)
 
 
 def sphere_field(mt, n, subdiv, device):
@@ -522,8 +526,8 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _kernels_vs_twins(torch, name, scene, probes, dev):
     """Phase 2 for one path (or the extra scene), under its switches;
     `probes` holds each scene's probe rays, made on its first path.
-    Returns whether every kernel agreed with its twin (K8, and K1's and
-    K5's closest hits, bit for bit)."""
+    Returns whether every kernel agreed with its twin (K8, K1, K2 and
+    K5, bit for bit)."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -690,7 +694,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
     each launch of the path's kernels timed and held against its twin (K8,
-    and K1's and K5's closest hits, bit for bit), and, with `also` (a
+    K1, K2 and K5, bit for bit), and, with `also` (a
     scene under "bvh8"), K6's on the same inputs. Returns the kernels'
     rows, the median render ms and each kernel's launches (time_launch's
     records)."""
@@ -966,9 +970,9 @@ def _probe_configs(torch, dev):
 def phase_probes(torch, dev, card, launches):
     """Phase 6: every probe configuration launched once with the counts
     at 0 (the probes' main path), then each held against its twin and
-    timed; the costs per unit and the model of phase 3's K1, K2, K5
-    closest-hit and K7 launches (`launches`: phase_main_path's records by
-    path). Returns the probes' rows of the kernels line."""
+    timed; the costs per unit and the model of phase 3's K1, K2, K5 and
+    K7 launches (`launches`: phase_main_path's records by path). Returns
+    the probes' rows of the kernels line."""
     from mitsuba2_tpu_torch.kernels import probes
     cfgs = _probe_configs(torch, dev)
     wrappers = {k: getattr(probes, k) for k in PROBE_REPLACES}
@@ -1050,7 +1054,8 @@ def phase_probes(torch, dev, card, launches):
         f"{visit_ps('visit1', True):.3f} ps")
     for path, names in (("gallery", ("cluster_closest_hit",
                                      "cluster_any_hit")),
-                        ("instanced", ("inst_cluster_closest_hit",)),
+                        ("instanced", ("inst_cluster_closest_hit",
+                                       "inst_cluster_any_hit")),
                         ("gallery_bvh8mxu", ("bvh8mxu_closest_hit",
                                              "bvh8mxu_any_hit"))):
         for name in names:
@@ -1060,13 +1065,15 @@ def phase_probes(torch, dev, card, launches):
                     st.get(k, 0) for k in ("fresh_visits", "advances",
                                            "pops"))
                 visits = st.get("cluster_visits", 0)
-                model = {k: (steps * a + visits * b) * 1e-9
+                # each term of the model, in ms: (steps, visits)
+                terms = {k: (steps * a * 1e-9, visits * b * 1e-9)
                          for k, (a, b) in cost.items()}
                 log(f"phase 6: model {name} launch {i} ({path}): "
                     f"{steps / m:.3f} steps and {visits / m:.4f} visits a "
-                    f"lane: {model['coherent']:.3f} ms at coherent costs, "
-                    f"{model['divergent']:.3f} ms at divergent costs; "
-                    f"measured {r['ms']:.3f} ms")
+                    f"lane: " + ", ".join(
+                        f"{sum(v):.3f} ms at {k} costs (steps {v[0]:.3f} + "
+                        f"visits {v[1]:.3f})" for k, v in terms.items())
+                    + f"; measured {r['ms']:.3f} ms")
     rows = []
     for k in PROBE_REPLACES:
         cs = [c for c in cfgs if c["probe"] == k]

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Tile width of the warp-cooperative closest-hit walks (K1, K5) on one
-NVIDIA card.
+"""Tile width of the four warp-cooperative cluster walks (K1 and K2, K5's
+closest and any hit) on one NVIDIA card.
 
     python3 chip_tiles.py
 
 csrc/cluster_walk.cu's warp_visit holds TILE_J plane-row slots a lane in
-registers (a tile of 32 * TILE_J slots a pass). This builds the source
-with TILE_J = 1, 2 and 4 (copies under mitsuba2_tpu_torch/_build/tiles/,
+registers (a tile of 32 * TILE_J slots a pass; INST_ANY_TILE_J on K5's
+any hit). This builds the source with both widths set to 1, 2 and 4
+(copies under mitsuba2_tpu_torch/_build/tiles/,
 one nvcc each, started together) and prints each build's ptxas registers
-and spills for the two kernels. It then renders mesh_gallery(subdiv=4)
+and spills for the four kernels. It then renders mesh_gallery(subdiv=4)
 and instanced_field(n=1024, subdiv=4) once at chip_smoke.py's config,
-recording each closest-hit wavefront, and on each wavefront holds every
-build against the plain twin (bit-equal on every lane) and times it with
-chip_smoke.kernel_ms, the builds in turns (4, 2, 1, 1, 2, 4). Exits
-non-zero when there is no CUDA device or a build disagrees.
+recording each wavefront of the path's closest-hit and any-hit kernels,
+and on each wavefront holds every build against the plain twin
+(bit-equal on every lane) and times it with chip_smoke.kernel_ms, the
+builds in turns (4, 2, 1, 1, 2, 4). Exits non-zero when there is no CUDA
+device or a build disagrees.
 """
 import ctypes
 import os
@@ -25,6 +27,13 @@ from concurrent.futures import ThreadPoolExecutor
 import chip_smoke as cs
 
 TILE_JS = (1, 2, 4)
+# the source's tile widths, each set to the build's TILE_J
+WIDTHS = ("TILE_J", "INST_ANY_TILE_J")
+# the four kernels with warp-cooperative visits, as ptxas names them
+# (inst_ first: "cluster_any_hit_kernel" ends both any-hit names)
+KERNELS = (("inst_cluster_closest_hit", "K5 closest"),
+           ("inst_cluster_any_hit", "K5 any"),
+           ("cluster_closest_hit", "K1"), ("cluster_any_hit", "K2"))
 ORDER = (4, 2, 1, 1, 2, 4)
 REPS = 10
 
@@ -33,16 +42,19 @@ def build(native, traverse):
     """Each TILE_J's library, loaded with the wrappers' C signatures."""
     csrc = os.path.dirname(traverse._SRC)
     src = open(traverse._SRC).read()
-    line = [ln for ln in src.splitlines()
-            if ln.startswith("constexpr int TILE_J = ")]
-    if len(line) != 1:
-        raise SystemExit("chip_tiles: no TILE_J line in cluster_walk.cu")
+    lines = [ln for ln in src.splitlines() if any(
+        ln.startswith(f"constexpr int {c} = ") for c in WIDTHS)]
+    if len(lines) != len(WIDTHS):
+        raise SystemExit("chip_tiles: no TILE_J lines in cluster_walk.cu")
     srcs = {}
     for tj in TILE_JS:
         d = os.path.join(native.BUILD_DIR, "tiles", f"tile{tj}")
         os.makedirs(d, exist_ok=True)
+        out = src
+        for ln in lines:
+            out = out.replace(ln, f"{ln.split(' = ')[0]} = {tj};")
         with open(os.path.join(d, "cluster_walk.cu"), "w") as f:
-            f.write(src.replace(line[0], f"constexpr int TILE_J = {tj};"))
+            f.write(out)
         with open(os.path.join(d, "walk.cuh"), "w") as f:
             f.write(open(os.path.join(csrc, "walk.cuh")).read())
         srcs[tj] = (os.path.join(d, "cluster_walk.cu"),
@@ -57,8 +69,9 @@ def build(native, traverse):
         traverse._declare(lib)
         rep = (native.BUILD_LOG.get(f"cluster_walk_t{tj}") or "").splitlines()
         for i, ln in enumerate(rep):
-            if "Compiling entry" in ln and "cluster_closest_hit" in ln:
-                kern = "K5" if "inst_cluster" in ln else "K1"
+            kern = next((k for name, k in KERNELS if "Compiling entry" in ln
+                         and f"{name}_kernel" in ln), None)
+            if kern is not None:
                 info = [x.split("info    :")[-1].strip()
                         for x in rep[i + 1:i + 4]
                         if "registers" in x or "spill" in x]
@@ -107,19 +120,20 @@ def main():
         # the C entries' sizes: (fuel, ck) instanced, (rows, ck) flat
         sizes = ((extra[1], extra[0]) if inst
                  else (scene.mxu_node_f.shape[0], extra[0]))
-        name = ks["closest"]
-        means = {tj: [] for tj in TILE_JS}
-        for i, (nm, rays) in enumerate(record):
-            if nm != name:
-                continue
+        means = {(nm, tj): [] for nm in (ks["closest"], ks["any"])
+                 for tj in TILE_JS}
+        for i, (name, rays) in enumerate(record):
+            closest = name == ks["closest"]
             n = rays[0].numel()
-            want = ks["closest_plain"](*tabs, *rays, *extra,
-                                       chunk=ks["chunk"])
+            want = ks["closest_plain" if closest else "any_plain"](
+                *tabs, *rays, *extra, chunk=ks["chunk"])
+            want = want if closest else (want,)
 
             def run(lib):
-                outs = [torch.empty(n, device=dev)] + [
+                outs = ([torch.empty(n, device=dev)] + [
                     torch.empty(n, dtype=torch.int32, device=dev)
-                    for _ in range(2 if inst else 1)]
+                    for _ in range(2 if inst else 1)] if closest else
+                    [torch.empty(n, dtype=torch.bool, device=dev)])
                 rc = getattr(lib, f"mts_{name}")(
                     *(a.data_ptr() for a in tabs),
                     *(a.data_ptr() for a in rays),
@@ -137,15 +151,16 @@ def main():
                 res[tj].append(
                     (cs.kernel_ms(torch, lambda: run(libs[tj]), REPS), eq))
             for tj, v in res.items():
-                means[tj] += [m for m, _ in v]
+                means[name, tj] += [m for m, _ in v]
             print(f"{path} {name} launch {i}: {n} lanes, live "
                   f"{float((rays[6] > 0).float().mean()):.4f}: " + ", ".join(
                       f"TILE_J={tj} {[round(m, 4) for m, _ in v]} ms "
                       f"bit-equal {all(e for _, e in v)}"
                       for tj, v in res.items()), flush=True)
-        print(f"{path} {name} on {card}: mean ms a launch " + ", ".join(
-            f"TILE_J={tj} {sum(v) / len(v):.4f}" for tj, v in means.items()),
-            flush=True)
+        for name in (ks["closest"], ks["any"]):
+            print(f"{path} {name} on {card}: mean ms a launch " + ", ".join(
+                f"TILE_J={tj} {sum(v) / len(v):.4f}"
+                for (nm, tj), v in means.items() if nm == name), flush=True)
     if not ok:
         print("chip_tiles: a build disagrees with the twin", file=sys.stderr)
         return 1

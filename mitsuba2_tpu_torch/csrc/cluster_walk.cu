@@ -11,9 +11,11 @@
 //                                 (warp-cooperative visits, below)
 //   cluster_any_hit_kernel     <- _any_hit_mxu_kernel (:755) and
 //                                 _any_hit_mxu2_kernel (:944)
+//                                 (warp-cooperative visits, below)
 //   inst_cluster_closest_hit_kernel <- _closest_hit_instmxu_kernel (:1746)
 //                                 (warp-cooperative visits, below)
 //   inst_cluster_any_hit_kernel     <- _any_hit_instmxu_kernel (:1856)
+//                                 (warp-cooperative visits, below)
 //   bvh_closest_hit_kernel      <- _closest_hit_kernel (:250)
 //   bvh_any_hit_kernel          <- _any_hit_kernel (:309)
 //   inst_bvh_closest_hit_kernel <- _closest_hit_inst_kernel (:1382)
@@ -57,37 +59,50 @@
 // Ties: within a cluster the lowest slot wins an equal t, across clusters
 // the first one visited keeps it (strictly closer replaces).
 //
-// CLOSEST HIT (K1, K5): WARP-COOPERATIVE VISITS. The first version ran
-// one ray per thread, the thread alone looping over a cluster's 128 slots
-// when its slab hit: the threads of a warp that missed idled through that
-// loop, and threads that wanted different clusters ran their loops one
-// after another. The cluster-visit probe (probes.cu, P3) put such a visit
-// at 8.8x the cost per ray of one that all 32 threads make together, and
-// K1's bounce launches at that divergent cost. Now each lane still walks
-// its own ray, but only up to its next due visit (a cluster node whose
-// slab it hits) or the end of its walk; then the whole warp serves every
-// due visit together (warp_visit) and the lanes walk on, while any lane of
-// the warp is still walking. warp_visit groups the lanes that want the
-// same cluster (__match_any_sync on the slot base; on K5 a shared BLAS
-// cluster, whatever instance each lane is in, since each lane brings its
-// own instance-space ray). For each group the 32 lanes load the cluster's
-// plane rows once, coalesced, in 64-slot tiles of two slots a lane held in
-// registers; then for each ray of the group the owner broadcasts its
-// recentred features and t_best (__shfl_sync), every lane runs the slot
-// test on its two slots, and two __reduce_min_sync give the smallest t
-// (positive floats order as their bits) and the lowest slot holding it.
-// The owner keeps it if it is strictly under its t_best: the serial loop's
-// rule, tile after tile, so t, slot and instance are bit-equal to the
-// twin's. A ray's visit then costs CK/32 slot tests on each lane (4 at
-// CK = 128) whatever the rest of its warp does. Two slots a lane, not
-// four: 94 and 96 registers for K1 and K5 against 128 and 148, the same
-// K1 time and K5 19% faster (H100 80GB HBM3, 700.00 W; PERF.md §6). No
-// lane returns early: lanes past n and dead lanes (t_max <= 0) take part
-// with their walk done, and every warp intrinsic names the full warp.
+// WARP-COOPERATIVE VISITS (K1 and K2, K5's closest and any hit). The
+// first version ran one ray per thread, the thread alone looping over a
+// cluster's 128 slots when its slab hit: the threads of a warp that missed
+// idled through that loop, and threads that wanted different clusters ran
+// their loops one after another. The cluster-visit probe (probes.cu, P3)
+// put such a visit at 8.8x the cost per ray of one that all 32 threads
+// make together, and K1's bounce launches at that divergent cost. Now each
+// lane still walks its own ray (cluster_walk), but only up to its next due
+// visit (a cluster node whose slab it hits) or the end of its walk; then
+// the whole warp serves every due visit together (warp_visit) and the
+// lanes walk on, while any lane of the warp is still walking. warp_visit
+// groups the lanes that want the same cluster (__match_any_sync on the
+// slot base; on K5 a shared BLAS cluster, whatever instance each lane is
+// in, since each lane brings its own instance-space ray). For each group
+// the 32 lanes load the cluster's plane rows once, coalesced, in 64-slot
+// tiles of two slots a lane held in registers (32-slot tiles of one on
+// K5's any hit: TILE_J, below); then for each ray of the group the owner
+// broadcasts its recentred features and its limit (__shfl_sync), and
+// every lane runs the slot test on its slots of the tile. A ray's visit
+// then costs CK/32 slot tests on each lane (4 at CK = 128) whatever the
+// rest of its warp does. Two slots a lane, not four: 88 and 96 registers
+// for K1 and K5 closest hit against 128 and 148, K1 within 2.4% of four's
+// time and K5 18% faster (chip_tiles.py, H100 80GB HBM3, 700.00 W;
+// PERF.md §6). No lane returns early: lanes past n and dead lanes
+// (t_max <= 0) take part with their walk done, and every warp intrinsic
+// names the full warp.
 //
-// ANY HIT (K2, K5): one ray per thread. A thread's slab hit on a cluster
-// node makes it test the slots in order (cluster_visit, walk.cuh) and stop
-// at the first hit within t_max.
+// CLOSEST HIT (K1, K5). The limit is the owner's t_best; two
+// __reduce_min_sync give the smallest t (positive floats order as their
+// bits) and the lowest slot holding it, and the owner keeps it if it is
+// strictly under its t_best: the serial loop's rule, tile after tile, so
+// t, slot and instance are bit-equal to the twin's.
+//
+// ANY HIT (K2, K5). Shadow rays are mostly unoccluded, so they walk to
+// their end and visit as many clusters as bounce rays do: the per-thread
+// visit bounded these kernels as it bounded K1. The walk is the closest
+// hit's, its slab test against t_max throughout, and a lane's walk ends at
+// its first hit. The limit broadcast is the owner's t_max, a slot hits at
+// t <= t_max, and one __ballot_sync is the owner's vote: a hit in some
+// lane's slots. An owner with a hit leaves the group's later tiles, and a
+// group whose owners all hit loads no further tile. The result is an OR
+// over the slots of every cluster whose slab the ray hits within t_max,
+// up to the same step cap, which no order of the visits changes: occ is
+// bit-equal to the twin's on every lane.
 //
 // INSTANCED WALK (INST = true): the table is [TLAS | per-group cut
 // trees], the groups' clusters in local space. Instancing is one level
@@ -130,8 +145,13 @@ __device__ __forceinline__ RayState to_local(const float4& m0,
 }
 
 constexpr unsigned FULL_WARP = 0xffffffffu;
-constexpr int TILE_J = 2;                 // slots a lane holds in a tile
-constexpr int TILE = 32 * TILE_J;         // slots a warp tests in one pass
+// Plane-row slots a lane holds in a tile (a tile: the 32 * TILE_J slots a
+// warp tests in one pass). K5's any hit holds one: 0.541 ms a launch
+// against 0.582 at two on the instanced field's shadow wavefronts, where
+// K2 is the faster at two (0.451 ms against 0.476 at one; chip_tiles.py,
+// H100 80GB HBM3, 700.00 W; PERF.md §6).
+constexpr int TILE_J = 2;
+constexpr int INST_ANY_TILE_J = 1;
 constexpr unsigned NO_HIT = 0xffffffffu;  // above the bits of any finite t
 
 // Work that no table load shows: the slot tests on plane rows held in
@@ -201,65 +221,18 @@ __device__ __forceinline__ int node_step(const float4* __restrict__ node_f,
     return -1;
 }
 
-// The any-hit walk of one ray, one thread alone: sets *occ at its first
-// slot hit within t_max. It keeps the first version's loop (node_step's
-// logic inline), so that the any-hit kernels compile as they did.
-template <bool INST>
-__device__ __forceinline__ void any_hit_walk(
-        const float4* __restrict__ node_f, const int* __restrict__ link,
-        const float4* __restrict__ feat, const float4* __restrict__ inst_inv,
-        const RayState& world, float t_max, int fuel_cap, int ck,
-        bool* occ_io) {
-    RayState r = world;   // the ray in the current space
-    float t_best = t_max;
-    int best = -1;
-    int ret = -1;
-    int node = 0;
-    for (int fuel = 0; node >= 0 && fuel < fuel_cap; ++fuel) {
-        const float4 a = __ldg(node_f + 4 * node);
-        const float4 b = __ldg(node_f + 4 * node + 1);
-        const int slot_base = (int)b.z;
-        const bool hit = slab(a, b, r, t_max);
-        const int hit_link = __ldg(link + 16 * node + r.oct);
-        const int miss_link = __ldg(link + 16 * node + 8 + r.oct);
-        if (slot_base >= 0) {
-            if (hit) {
-                const float4 c = __ldg(node_f + 4 * node + 2);
-                const float4* fs = feat + (size_t)slot_base * FEAT_W4;
-                if (cluster_visit<true>(fs, c, r, slot_base, ck, t_max,
-                                        &t_best, &best)) {
-                    *occ_io = true;
-                    return;
-                }
-            }
-            node = miss_link;
-        } else if (INST && hit && (int)b.w >= 0) {
-            const int iid = (int)b.w;         // enter instance iid
-            const float4* m = inst_inv + 4 * (size_t)iid;
-            const float4 m0 = __ldg(m), m1 = __ldg(m + 1), m2 = __ldg(m + 2),
-                         m3 = __ldg(m + 3);
-            r = to_local(m0, m1, m2, world);
-            ret = miss_link;
-            node = (int)m3.y;                 // col 13: the cut-tree root
-        } else {
-            node = hit ? hit_link : miss_link;
-        }
-        if (INST && node == BLAS_EXIT) {      // pop to the TLAS
-            node = ret;
-            ret = -1;
-            r = world;
-        }
-    }
-}
-
 // The warp serves its due visits: every lane calls it, a lane with a
 // visit due with the cluster's slot base `base` (else -1), the centroid c
 // and its ray r in the current space. Each group of lanes due at one
 // cluster is served in turn: the cluster's rows are loaded once per
-// 64-slot tile, two slots a lane, and each ray of the group is tested
-// against them by all 32 lanes. A slot strictly nearer than the lane's
-// *t_best replaces *t_best and *best (the lowest slot keeps a tie); returns
-// whether one did.
+// tile of 32 * TJ slots, TJ a lane, and each ray of the group is tested
+// against them by all 32 lanes. Closest hit: a slot strictly nearer than
+// the lane's *t_best replaces *t_best and *best (the lowest slot keeps a
+// tie); returns whether one did. Any hit: *t_best is the lane's t_max and
+// stays; returns whether a slot hits at t <= t_max. An owner with a hit
+// leaves the group's later tiles, and a group whose owners all hit loads
+// no further tile.
+template <bool ANY_HIT, int TJ>
 __device__ __forceinline__ bool warp_visit(const float4* __restrict__ feat,
                                            const float4& c,
                                            const RayState& r, int base,
@@ -273,18 +246,21 @@ __device__ __forceinline__ bool warp_visit(const float4* __restrict__ feat,
     const float mz = px * r.dy - py * r.dx;
     const unsigned group = __match_any_sync(FULL_WARP, base);
     unsigned due = __ballot_sync(FULL_WARP, base >= 0);
-    bool closer = false;
+    bool found = false;
     while (due) {
         const int lead = __ffs(due) - 1;
         const unsigned members = __shfl_sync(FULL_WARP, group, lead);
         const int gbase = __shfl_sync(FULL_WARP, base, lead);
         due &= ~members;
         const float4* fs = feat + (size_t)gbase * FEAT_W4;
-        for (int k0 = 0; k0 < ck; k0 += TILE) {
+        // the group's owners still to test: all of them on a closest hit,
+        // those without a hit yet on an any hit (warp-uniform)
+        unsigned open = members;
+        for (int k0 = 0; k0 < ck && open; k0 += 32 * TJ) {
             // this lane's slots of the tile: k0 + 32 j + lane
-            float4 f[TILE_J][FEAT_W4];
+            float4 f[TJ][FEAT_W4];
 #pragma unroll
-            for (int j = 0; j < TILE_J; ++j) {
+            for (int j = 0; j < TJ; ++j) {
                 const int k = k0 + 32 * j + lane;
                 if (k < ck) {
 #pragma unroll
@@ -292,7 +268,7 @@ __device__ __forceinline__ bool warp_visit(const float4* __restrict__ feat,
                         f[j][q] = __ldg(fs + (size_t)k * FEAT_W4 + q);
                 }
             }
-            for (unsigned todo = members; todo; todo &= todo - 1) {
+            for (unsigned todo = open; todo; todo &= todo - 1) {
                 const int own = __ffs(todo) - 1;
                 const float odx = __shfl_sync(FULL_WARP, r.dx, own);
                 const float ody = __shfl_sync(FULL_WARP, r.dy, own);
@@ -304,26 +280,39 @@ __device__ __forceinline__ bool warp_visit(const float4* __restrict__ feat,
                 const float omy = __shfl_sync(FULL_WARP, my, own);
                 const float omz = __shfl_sync(FULL_WARP, mz, own);
                 const float tb = __shfl_sync(FULL_WARP, *t_best, own);
-                // this lane's nearest slot under tb, the lowest on a tie
+                // closest hit: this lane's nearest slot under tb, the
+                // lowest on a tie; any hit: whether one of its slots hits
                 unsigned key = NO_HIT;
                 int slot = 0;
+                bool hit = false;
                 int tested = 0;
 #pragma unroll
-                for (int j = 0; j < TILE_J; ++j) {
+                for (int j = 0; j < TJ; ++j) {
                     const int k = k0 + 32 * j + lane;
                     float t;
                     if (k < ck) {
                         ++tested;
-                        if (slot_planes(f[j][0], f[j][1], f[j][2], f[j][3],
-                                        f[j][4], odx, ody, odz, opx, opy,
-                                        opz, omx, omy, omz, &t) &&
-                            t < tb && __float_as_uint(t) < key) {
+                        const bool ok = slot_planes(
+                            f[j][0], f[j][1], f[j][2], f[j][3], f[j][4], odx,
+                            ody, odz, opx, opy, opz, omx, omy, omz, &t);
+                        if (ANY_HIT) {
+                            hit = hit || (ok && t <= tb);
+                        } else if (ok && t < tb &&
+                                   __float_as_uint(t) < key) {
                             key = __float_as_uint(t);
                             slot = k;
                         }
                     }
                 }
                 WORK_COUNT(tested);
+                if (ANY_HIT) {
+                    // the owner's vote: some lane holds a slot it hits
+                    if (__ballot_sync(FULL_WARP, hit) != 0u) {
+                        open &= ~(1u << own);
+                        found = found || lane == own;
+                    }
+                    continue;
+                }
                 // t > 0 here, and positive floats order as their bits
                 const unsigned kmin = __reduce_min_sync(FULL_WARP, key);
                 const unsigned smin = __reduce_min_sync(
@@ -331,27 +320,31 @@ __device__ __forceinline__ bool warp_visit(const float4* __restrict__ feat,
                 if (lane == own && kmin != NO_HIT) {
                     *t_best = __uint_as_float(kmin);
                     *best = gbase + (int)smin;
-                    closer = true;
+                    found = true;
                 }
             }
         }
     }
-    return closer;
+    return found;
 }
 
-// The closest-hit walk of a lane's ray `world`, warp-synchronous: the lane
-// walks to its next due visit or the end of its walk, the warp serves the
-// due visits together, and so on while any lane is walking. A lane that
-// is not `live` (past n, or t_max <= 0) takes part, its walk done.
-template <bool INST>
-__device__ __forceinline__ void closest_hit_walk(
+// The walk of a lane's ray `world`, warp-synchronous: the lane walks to
+// its next due visit or the end of its walk, the warp serves the due
+// visits together, and so on while any lane is walking. A lane that is
+// not `live` (past n, or t_max <= 0) takes part, its walk done. Closest
+// hit: *t_io, *best_io and, instanced, *inst_io. Any hit: the slab test
+// stays against t_max (t_best never moves), and a lane's walk ends at its
+// first hit, which sets *occ_io.
+template <bool ANY_HIT, bool INST>
+__device__ __forceinline__ void cluster_walk(
         const float4* __restrict__ node_f, const int* __restrict__ link,
         const float4* __restrict__ feat, const float4* __restrict__ inst_inv,
         const RayState& world, bool live, float t_max, int fuel_cap, int ck,
-        float* t_io, int* best_io, int* inst_io) {
+        float* t_io, int* best_io, int* inst_io, bool* occ_io) {
     Cursor c{world, 0, -1, -1};
     float t_best = t_max;
     int best = -1, binst = -1, fuel = 0;
+    bool occ = false;
     bool done = !live || fuel_cap <= 0;
     while (__any_sync(FULL_WARP, !done)) {
         int base = -1;
@@ -362,16 +355,37 @@ __device__ __forceinline__ void closest_hit_walk(
             ++fuel;
             if (base < 0) done = c.node < 0 || fuel >= fuel_cap;
         }
-        if (warp_visit(feat, cen, c.r, base, ck, &t_best, &best) && INST)
-            binst = c.cinst;
+        if (warp_visit<ANY_HIT, ANY_HIT && INST ? INST_ANY_TILE_J : TILE_J>(
+                feat, cen, c.r, base, ck, &t_best, &best)) {
+            if (ANY_HIT) occ = true;
+            else if (INST) binst = c.cinst;
+        }
         if (base >= 0) {                  // the visit's step ends
             pop_exit<INST>(c, world);
-            done = c.node < 0 || fuel >= fuel_cap;
+            done = occ || c.node < 0 || fuel >= fuel_cap;
         }
+    }
+    if (ANY_HIT) {
+        *occ_io = occ;
+        return;
     }
     *t_io = best >= 0 ? t_best : inf_f();
     *best_io = best;
     if (INST) *inst_io = best >= 0 ? binst : -1;
+}
+
+// A thread's lane of a cluster-walk kernel: its ray, and whether it is
+// live. No lane returns early: lanes past n and dead lanes (t_max <= 0,
+// which cannot hit: 0 < t <= t_max) take part in the warp's visits with
+// their walk done; only lanes i < n write their results.
+__device__ __forceinline__ RayState lane_ray(
+        const float* ox, const float* oy, const float* oz, const float* dx,
+        const float* dy, const float* dz, const float* tmax, int i, int n,
+        float* tm, bool* live) {
+    *tm = i < n ? tmax[i] : 0.0f;
+    *live = *tm > 0.0f;
+    return *live ? load_ray(ox, oy, oz, dx, dy, dz, i)
+                 : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -388,16 +402,16 @@ cluster_closest_hit_kernel(const float4* __restrict__ node_f,
                            float* __restrict__ t_out,
                            int* __restrict__ slot_out,
                            int n, int n_nodes, int ck) {
-    // no early return: every lane of the warp takes part in its visits
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const float tm = i < n ? tmax[i] : 0.0f;
-    const bool live = tm > 0.0f;  // t_max <= 0 cannot hit: 0 < t < t_max
-    const RayState r = live ? load_ray(ox, oy, oz, dx, dy, dz, i)
-                            : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
     float t;
     int slot;
-    closest_hit_walk<false>(node_f, link, feat, nullptr, r, live, tm,
-                            n_nodes + 64, ck, &t, &slot, nullptr);
+    cluster_walk<false, false>(node_f, link, feat, nullptr, r, live, tm,
+                               n_nodes + 64, ck, &t, &slot, nullptr,
+                               nullptr);
     if (i < n) {
         t_out[i] = t;
         slot_out[i] = slot;
@@ -418,15 +432,15 @@ cluster_any_hit_kernel(const float4* __restrict__ node_f,
                        bool* __restrict__ occ_out,
                        int n, int n_nodes, int ck) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    bool occ = false;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        any_hit_walk<false>(node_f, link, feat, nullptr, r, tm,
-                            n_nodes + 64, ck, &occ);
-    }
-    occ_out[i] = occ;
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
+    bool occ;
+    cluster_walk<true, false>(node_f, link, feat, nullptr, r, live, tm,
+                              n_nodes + 64, ck, nullptr, nullptr, nullptr,
+                              &occ);
+    if (i < n) occ_out[i] = occ;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -445,16 +459,15 @@ inst_cluster_closest_hit_kernel(const float4* __restrict__ node_f,
                                 int* __restrict__ slot_out,
                                 int* __restrict__ inst_out,
                                 int n, int fuel, int ck) {
-    // no early return: every lane of the warp takes part in its visits
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const float tm = i < n ? tmax[i] : 0.0f;
-    const bool live = tm > 0.0f;
-    const RayState r = live ? load_ray(ox, oy, oz, dx, dy, dz, i)
-                            : make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f);
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
     float t;
     int slot, inst;
-    closest_hit_walk<true>(node_f, link, feat, inst_inv, r, live, tm, fuel,
-                           ck, &t, &slot, &inst);
+    cluster_walk<false, true>(node_f, link, feat, inst_inv, r, live, tm,
+                              fuel, ck, &t, &slot, &inst, nullptr);
     if (i < n) {
         t_out[i] = t;
         slot_out[i] = slot;
@@ -477,15 +490,14 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
                             bool* __restrict__ occ_out,
                             int n, int fuel, int ck) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    bool occ = false;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        any_hit_walk<true>(node_f, link, feat, inst_inv, r, tm, fuel, ck,
-                           &occ);
-    }
-    occ_out[i] = occ;
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
+    bool occ;
+    cluster_walk<true, true>(node_f, link, feat, inst_inv, r, live, tm,
+                             fuel, ck, nullptr, nullptr, nullptr, &occ);
+    if (i < n) occ_out[i] = occ;
 }
 
 // ---------------------------------------------------------------------------

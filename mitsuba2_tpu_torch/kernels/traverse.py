@@ -73,6 +73,11 @@ from .brute import sphere_test, tri_test
 FEAT_W = 20  # floats per slot in cluster_feat
 WARP = 32    # threads of a CUDA warp
 CCS_W = 8    # floats per cluster in mxu_ccs
+# slots a warp tests in one pass of a cooperative cluster visit
+# (csrc/cluster_walk.cu::warp_visit): TILE_J = 2 slots a lane, and
+# INST_ANY_TILE_J = 1 on the instanced any hit
+TILE = 2 * WARP
+INST_ANY_TILE = WARP
 # The JAX package's module switches (traverse_pallas.py:379, :1025-1027),
 # read once at import with the same accepted values; tests set the module
 # attributes. MXU_LEAVES (MI_MXU_LEAVES, default on): off, triangle scenes
@@ -622,17 +627,20 @@ def _slot_rows(feat, base, cluster_k):
     return feat[base[:, None] + torch.arange(cluster_k, device=base.device)]
 
 
-def _cluster_visit(f, base, c, ray, tl, cluster_k, any_hit, stats):
+def _cluster_visit(f, base, c, ray, tl, cluster_k, any_hit, stats,
+                   tile=None):
     """One cluster visit of each of m lanes: the CK slots of plane rows `f`
     (_cluster_planes': each lane's cluster, or one shared by all) from slot
     `base` ((m,), or an int), the lanes' rays (ox, oy, oz, dx, dy, dz)
     recentred at the centroid `c`, against their limits `tl`. Any hit:
-    (m,) bool, a slot hit at t <= tl (the kernels' thread stops there, so
-    the slot tests counted end at it). Closest hit: (closer, t, slot) (m,)
-    each, the nearest slot strictly under tl, the lowest on a tie. Counts
-    the slot tests the kernels make (`slot_tests`, padding included) and
-    those of real slots (`real_slot_tests`: a padding slot's plane row is
-    all zero)."""
+    (m,) bool, a slot hit at t <= tl; a kernel's thread stops there, so
+    the slot tests counted end at it, or with `tile` (a warp-cooperative
+    visit, which tests `tile` slots a pass) at the end of its tile, and
+    then it returns (hit, the slots tested) (m,) each. Closest hit:
+    (closer, t, slot) (m,) each, the nearest slot strictly under tl, the
+    lowest on a tie. Counts the slot tests the kernels make (`slot_tests`,
+    padding included) and those of real slots up to a first hit
+    (`real_slot_tests`: a padding slot's plane row is all zero)."""
     m = ray[0].numel()
     _count(stats, "cluster_visits", m)
     u, v, t, inv = _cluster_planes(f, c, *ray)
@@ -640,19 +648,21 @@ def _cluster_visit(f, base, c, ray, tl, cluster_k, any_hit, stats):
           & (t > 0.0))
     tl = tl[:, None]
     k = torch.arange(cluster_k, device=f.device)
-    tested = torch.full((m,), cluster_k, dtype=torch.int64, device=f.device)
+    # slots 0..k needed, k the first hit; tested, the same or whole tiles
+    needed = torch.full((m,), cluster_k, dtype=torch.int64, device=f.device)
     if any_hit:
         hm = ok & (t <= tl)
         h = hm.any(1)
-        # slots 0..k tested, k the first hit
-        tested = torch.where(h, hm.int().argmax(1) + 1, tested)
+        needed = torch.where(h, hm.int().argmax(1) + 1, needed)
+    tested = (needed if tile is None else
+              (-(-needed // tile) * tile).clamp(max=cluster_k))
     if stats is not None:
         real = (f != 0.0).any(-1)
         _count(stats, "slot_tests", int(tested.sum()))
         _count(stats, "real_slot_tests",
-               int((real & (k < tested[:, None])).sum()))
+               int((real & (k < needed[:, None])).sum()))
     if any_hit:
-        return h
+        return h if tile is None else (h, tested)
     ok = ok & (t < tl)
     t_m = torch.where(ok, t, float("inf"))
     t_c = t_m.amin(1)
@@ -705,11 +715,12 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
         cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
         binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    # the closest-hit kernels' warps serve the visits due in a round
-    # together, and a lane's j-th visit falls in round j: a warp loads a
-    # cluster's plane rows once for each (warp, j, cluster) (csrc/
-    # cluster_walk.cu::warp_visit), counted as `cluster_groups`
-    groups = [] if stats is not None and not any_hit else None
+    # the kernels' warps serve the visits due in a round together, and a
+    # lane's j-th visit falls in round j: a warp loads a cluster's plane
+    # rows once for each (warp, j, cluster) (csrc/cluster_walk.cu::
+    # warp_visit), counted as `cluster_groups`, tile by tile up to the
+    # last tile one of the group's rays is tested on: `loaded_slots`
+    groups = [] if stats is not None else None
     if groups is not None:
         n_vis = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(node_f.shape[0] + 64 if fuel is None else fuel):
@@ -733,14 +744,19 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         if bool(visit.any()):
             lanes = act[visit]
             vb, vc = base[visit], nf[visit]
-            if groups is not None:
-                groups.append(torch.stack([lanes // WARP, n_vis[lanes], vb],
-                                          1))
-                n_vis[lanes] += 1
             res = _cluster_visit(
                 _slot_rows(feat, vb, cluster_k), vb, vc[:, 8:11].unbind(1),
                 [a[visit] for a in (lox, loy, loz, ldx, ldy, ldz)],
-                tb[visit], cluster_k, any_hit, stats)
+                tb[visit], cluster_k, any_hit, stats,
+                INST_ANY_TILE if inst and any_hit else TILE)
+            if any_hit:
+                res, tested = res
+            if groups is not None:
+                groups.append(torch.stack([
+                    lanes // WARP, n_vis[lanes], vb,
+                    tested if any_hit else torch.full_like(vb, cluster_k)],
+                    1))
+                n_vis[lanes] += 1
             if any_hit:
                 occ[lanes[res]] = True
                 nxt[visit.nonzero().squeeze(1)[res]] = -1  # stop at a hit
@@ -777,8 +793,12 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
                     c_[p_] = w_[p_]
         node[act] = nxt
     if groups:
-        _count(stats, "cluster_groups",
-               torch.unique(torch.cat(groups), dim=0).shape[0])
+        g = torch.cat(groups)
+        key, inv = torch.unique(g[:, :3], dim=0, return_inverse=True)
+        rows = torch.zeros(key.shape[0], dtype=torch.int64, device=dev)
+        rows.scatter_reduce_(0, inv, g[:, 3], "amax")
+        _count(stats, "cluster_groups", key.shape[0])
+        _count(stats, "loaded_slots", int(rows.sum()))
     if any_hit:
         return occ
     t_out = torch.where(best >= 0, t_best, float("inf"))
@@ -803,8 +823,9 @@ def closest_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
                       cluster_k: int, chunk: int = 8192, stats=None):
     """The twin of the closest-hit kernel: same function, torch ops. With
     a `stats` dict it also counts the kernel's work: node steps, cluster
-    visits, slot tests and the warps' groups of visits to one cluster
-    (`cluster_groups`: the kernel's loads of a cluster's plane rows)."""
+    visits, slot tests, the warps' groups of visits to one cluster
+    (`cluster_groups`) and the slots whose plane rows they load
+    (`loaded_slots`: every slot of the cluster, once a group)."""
     return _chunked(
         lambda r: _walk_plain(node_f, link, feat, r, cluster_k, False, stats),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
@@ -812,8 +833,10 @@ def closest_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
 
 def any_hit_plain(node_f, link, feat, ox, oy, oz, dx, dy, dz, t_max,
                   cluster_k: int, chunk: int = 8192, stats=None):
-    """The twin of the any-hit kernel. Its `stats` count a lane's slot
-    tests up to its first hit, where the kernel's thread stops."""
+    """The twin of the any-hit kernel. Its `stats` count a ray's slot
+    tests in whole tiles up to its first hit, where the kernel's warp
+    stops testing it, and a group's loaded slots up to the tile where its
+    last ray hits, or all of them."""
     return _chunked(
         lambda r: _walk_plain(node_f, link, feat, r, cluster_k, True, stats),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)

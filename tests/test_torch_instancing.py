@@ -634,30 +634,39 @@ def test_twin_counts_kernel_work(case, emulated, kind):
              stats=stats)
         assert_kernel_work(stats, loads, work_counter(emulated).value,
                            bool(out.any()) if any_hit else None,
-                           st.cluster_k)
+                           st.cluster_k, traverse.INST_ANY_TILE)
         assert loads[2] == 4 * stats.get("instance_entries", 0)
         assert stats.get("instance_entries", 0) > 0
 
 
-def test_emulated_warps_match_twins(case, emulated):
-    """The warp-cooperative instanced closest-hit kernel, emulated warp by
-    warp: warp 0 holds 16 copies of a camera ray's last stretch to its
-    hit on instance a and 16 of the same stretch moved, in a's local
-    frame, onto instance b of the same group (both walk the shared BLAS
-    alike, so the warp serves lanes of both instances as one group at each
-    cluster: fewer groups than each instance's lanes would need alone);
-    warp 1 bounce rays with every third lane dead (t_max 0 or -1); and a
-    last warp of 7 lanes. t, slot and instance bit-equal to the twin on
-    every lane, dead lanes missing, and the work counted exactly."""
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_emulated_warps_match_twins(case, emulated, any_hit):
+    """The warp-cooperative instanced kernels, emulated warp by warp:
+    warp 0 holds 16 copies of a camera ray's last stretch to its hit on
+    instance a and 16 of the same stretch moved, in a's local frame, onto
+    instance b of the same group (both walk the shared BLAS alike, so the
+    warp serves lanes of both instances as one group at each cluster:
+    fewer groups than each instance's lanes would need alone); warp 1
+    bounce rays (closest hit) or shadow rays (any hit) with every third
+    lane dead (t_max 0 or -1); for the any hit, a warp of the pair again
+    with every other lane's t_max short of its hit (occluded and
+    unoccluded lanes of both instances in one group); and a last warp of
+    7 lanes. t, slot and instance, or occ, bit-equal to the twin on every
+    lane, dead lanes missing, and the work counted exactly."""
     st = case.st
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat, st.inst_inv)
     fuel = st.inst_mxu_fuel + 64
 
-    def twin(*rays, **kw):
+    def closest(*rays, **kw):
         return traverse.inst_closest_hit_plain(*tabs, *rays, st.cluster_k,
                                                fuel, **kw)
+
+    def twin(*rays, **kw):
+        return (traverse.inst_any_hit_plain if any_hit else
+                traverse.inst_closest_hit_plain)(*tabs, *rays, st.cluster_k,
+                                                 fuel, **kw)
     o, d, tm = case.rays["camera"]
-    t, _, inst = (a.numpy() for a in twin(*kind_rays(case, "camera")))
+    t, _, inst = (a.numpy() for a in closest(*kind_rays(case, "camera")))
     inv = st.inst_inv.double().numpy()
     root = inv[:, 13]
     a = int(np.flatnonzero(inst > 0)[0])
@@ -674,10 +683,15 @@ def test_emulated_warps_match_twins(case, emulated):
     pair = (np.array([o_a, o_b], np.float32).repeat(16, 0),
             np.array([d[a], d_b], np.float32).repeat(16, 0),
             np.full(32, 0.2 * t[a], np.float32))
-    bo, bd, btm = (x[:32].copy() for x in case.rays["bounce"])
+    kind = "shadow" if any_hit else "bounce"
+    bo, bd, btm = (x[:32].copy() for x in case.rays[kind])
     btm[0::3] = np.where(np.arange(32)[0::3] % 2 == 0, 0.0, -1.0)
-    parts = [pair, (bo, bd, btm),
-             tuple(x[:7] for x in case.rays["camera"])]
+    parts = [pair, (bo, bd, btm)]
+    if any_hit:
+        # the hit lies 0.1 t along the stretch: 0.05 t falls short of it
+        parts.append(pair[:2] + (np.tile(np.array(
+            [0.2 * t[a], 0.05 * t[a]], np.float32), 16),))
+    parts.append(tuple(x[:7] for x in case.rays[kind]))
     ro, rd, rtm = (np.concatenate(x) for x in zip(*parts))
     rays = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in
                  (*ro.T, *rd.T, rtm))
@@ -686,15 +700,24 @@ def test_emulated_warps_match_twins(case, emulated):
 
     loads = load_counters(emulated, (st.mxu_node_f, st.cluster_feat,
                                      st.inst_inv))
-    out = emulate(emulated, st, rays, False)
+    out = emulate(emulated, st, rays, any_hit)
     stats = {}
     want = twin(*rays, stats=stats)
-    assert all(torch.equal(x, y) for x, y in zip(out, want))
     dead = torch.from_numpy(rtm <= 0)
-    assert torch.isinf(out[0][dead]).all() and (out[1][dead] == -1).all()
-    assert (out[2][:32].reshape(2, 16) == torch.tensor([[ia], [ib]])).all()
-    assert_kernel_work(stats, loads, work_counter(emulated).value, None,
-                       st.cluster_k)
+    if any_hit:
+        assert torch.equal(out, want)
+        assert not out[dead].any() and out[:32].all()
+        assert (out[64:96] == torch.arange(32).remainder(2).eq(0)).all()
+        live = ~dead[32:64]
+        assert out[32:64][live].any() and not out[32:64][live].all()
+    else:
+        assert all(torch.equal(x, y) for x, y in zip(out, want))
+        assert torch.isinf(out[0][dead]).all() and (out[1][dead] == -1).all()
+        assert (out[2][:32].reshape(2, 16)
+                == torch.tensor([[ia], [ib]])).all()
+    assert_kernel_work(stats, loads, work_counter(emulated).value,
+                       bool(out.any()) if any_hit else None, st.cluster_k,
+                       traverse.INST_ANY_TILE)
     assert loads[2] == 4 * stats["instance_entries"]
     # the pair warp: lanes of instances a and b share each cluster's group
     sw = [{}, {}, {}]
@@ -732,4 +755,5 @@ def test_cuda_instanced_kernels_match_twins(case, cuda, kind):
     same = (slot == slot_p) & (inst == inst_p)
     assert same[hit].float().mean() >= 0.999
     torch.testing.assert_close(t[hit], t_p[hit], rtol=1e-5, atol=1e-5)
-    assert (occ == occ_p).float().mean() >= 0.999
+    # the any hit's warp-cooperative visits keep the twin's result
+    assert torch.equal(occ, occ_p)

@@ -441,11 +441,12 @@ def test_twin_counts_kernel_work(case, emulated, kind):
     """The walk work the twins count (the kernels' bound in chip_smoke.py
     rests on it) equals the work the kernels' source does, counted in the
     emulation: a node step reads two float4 of its row and a cluster visit
-    a third (the centroid). An any-hit thread reads a slot's five float4
-    of plane rows for each slot test and stops at its first hit. The
-    closest-hit warp loads a cluster's rows (five float4 a slot) once for
-    each group of its lanes due at that cluster in one round, and tests
-    every slot for each ray of the group on rows held in registers."""
+    a third (the centroid). A warp loads a cluster's rows (five float4 a
+    slot) once for each group of its lanes due at that cluster in one
+    round, and tests each ray of the group on rows held in registers:
+    every slot for a closest hit; for an any hit, tile by tile up to the
+    tile of the ray's first hit, the group's loads ending with the tile of
+    its last ray's first hit."""
     lib, st = emulated, case.st
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
     o, d, tm = case.rays[kind]
@@ -471,37 +472,50 @@ def test_twin_counts_kernel_work(case, emulated, kind):
                            st.cluster_k)
 
 
-def assert_kernel_work(stats, loads, work, occluded, cluster_k):
+def assert_kernel_work(stats, loads, work, occluded, cluster_k,
+                       tile=traverse.TILE):
     """A cluster walk's counted work (loads of mxu_node_f in loads[0] and
     of cluster_feat in loads[1], slot tests on rows in registers in
     `work`) against its twin's `stats`. `occluded`: None for closest hit;
-    for any hit, whether some lane hit."""
+    for any hit, whether some lane hit, and `tile` the slots a warp tests
+    in one pass."""
     visits = stats.get("cluster_visits", 0)
     assert loads[0] == 2 * stats["node_steps"] + visits
-    if occluded is not None:
-        assert loads[1] == 5 * stats.get("slot_tests", 0) and work == 0
-        assert "cluster_groups" not in stats
-        if occluded:
-            # lanes that hit stop early: fewer tests than whole clusters
-            assert stats["slot_tests"] < visits * cluster_k
-        return
     groups = stats.get("cluster_groups", 0)
-    assert loads[1] == 5 * cluster_k * groups
-    assert work == stats.get("slot_tests", 0) == visits * cluster_k
+    assert loads[1] == 5 * stats.get("loaded_slots", 0)
+    assert work == stats.get("slot_tests", 0)
     # a group is one lane's visit at the least, a warp's lanes at the most
     assert visits / 32 <= groups <= visits
+    assert (groups > 0) == (visits > 0)
+    if occluded is None:
+        assert stats.get("loaded_slots", 0) == cluster_k * groups
+        assert work == visits * cluster_k
+        return
+    assert stats.get("loaded_slots", 0) <= cluster_k * groups
+    assert work <= visits * cluster_k
+    # whole tiles: a ray is tested on the slots of each tile up to its hit
+    assert work % min(tile, cluster_k) == 0
+    assert stats.get("real_slot_tests", 0) <= work
+    if occluded:
+        # a group whose rays all hit in its first tile loads no other
+        assert stats["loaded_slots"] < cluster_k * groups
+        assert work < visits * cluster_k
 
 
 @contextlib.contextmanager
-def recorded_visits():
+def recorded_visits(results=None):
     """The slot bases of the clusters the twins visit inside the block,
-    one (m,) tensor for each batch of visiting lanes, in walk order."""
+    one (m,) tensor for each batch of visiting lanes, in walk order; each
+    batch's visit results are appended to `results` where given."""
     got = []
     visit = traverse._cluster_visit
 
     def record(f, base, *a, **kw):
         got.append(base.clone())
-        return visit(f, base, *a, **kw)
+        res = visit(f, base, *a, **kw)
+        if results is not None:
+            results.append(res)
+        return res
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(traverse, "_cluster_visit", record)
         yield got
@@ -530,15 +544,50 @@ def first_visits(twin, rays, pool):
     return first
 
 
-def test_emulated_warps_match_twins(case, emulated):
-    """The warp-cooperative closest-hit kernel, emulated warp by warp, on
-    lanes laid out to exercise it: warp 0 one camera ray 32 times (its
-    lanes due at the same cluster in every round), warp 1 random rays
-    first due at as many different clusters as 256 of them reach (each
-    ray alone, the twin's first visit), warps 2-3 bounce and shadow rays with
-    every third lane dead (t_max 0 or -1), and a last warp of 13 lanes.
-    t and slot bit-equal to the twin on every lane, dead lanes missing,
-    and the work counted exactly."""
+def first_any_visits(case, rays, pool):
+    """Each lane of `pool` walked alone by the any-hit twin: {lane: (slot
+    base, hit, slots tested) of its first cluster visit}, for the lanes
+    that visit one."""
+    st = case.st
+    tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
+    first = {}
+    for i in pool:
+        res = []
+        with recorded_visits(res) as got:
+            traverse.any_hit_plain(*tabs, *torch_rays(*lanes_of(rays, [i])),
+                                   st.cluster_k)
+        if got:
+            first[i] = (int(got[0][0]), bool(res[0][0][0]),
+                        int(res[0][1][0]))
+    return first
+
+
+def nearest_in_cluster(case, o, d, base):
+    """The nearest t at which ray (o, d) hits a slot of the cluster at
+    slot base `base` (the plane test on the cluster's rows)."""
+    st = case.st
+    row = st.mxu_node_f[st.mxu_node_f[:, 6] == base][0]
+    f = traverse._slot_rows(st.cluster_feat, torch.tensor([base]),
+                            st.cluster_k)
+    ray = [torch.tensor([float(x)]) for x in (*o, *d)]
+    u, v, t, inv = traverse._cluster_planes(f, row[8:11].unbind(0), *ray)
+    ok = (inv != 0) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+    return float(t[ok].min())
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_emulated_warps_match_twins(case, emulated, any_hit):
+    """The warp-cooperative kernels, emulated warp by warp, on lanes laid
+    out to exercise them, the results bit-equal to the twin on every lane,
+    dead lanes missing, and the work counted exactly. Closest hit: warp 0
+    one camera ray 32 times (its lanes due at the same cluster in every
+    round), warp 1 random rays first due at as many different clusters as
+    256 of them reach (each ray alone, the twin's first visit), warps 2-3
+    bounce and shadow rays with every third lane dead (t_max 0 or -1),
+    and a last warp of 13 lanes. Any hit: emulated_any_hit_warps."""
+    if any_hit:
+        emulated_any_hit_warps(case, emulated)
+        return
     lib, st = emulated, case.st
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
 
@@ -585,6 +634,87 @@ def test_emulated_warps_match_twins(case, emulated):
             assert sw["cluster_groups"] >= groups_at_least
 
 
+def emulated_any_hit_warps(case, emulated):
+    """The warp-cooperative any-hit kernel on shadow rays: warp 0 one
+    occluded shadow ray 32 times, whose first visit hits in its first
+    tile (the group's owners all hit there, so it loads no second tile);
+    warp 1 shadow rays first due at as many different clusters as 128 of
+    them reach; warp 2 shadow rays, occluded and not, every third lane
+    dead; warp 3 that occluded ray 16 times and 16 times with t_max just
+    under its nearest hit in that cluster (one group at the cluster: half
+    its owners hit in the first tile, half test every tile and walk on);
+    and a last warp of 13 lanes."""
+    lib, st = emulated, case.st
+    tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
+    ck, tile = st.cluster_k, min(traverse.TILE, st.cluster_k)
+
+    def twin(*rays, **kw):
+        return traverse.any_hit_plain(*tabs, *rays, ck, **kw)
+    sh = case.rays["shadow"]
+    first = first_any_visits(case, sh, range(128))
+    early = [i for i, (_, h, n) in first.items() if h and n == tile]
+    assert early and ck > tile
+    a = early[0]
+    base_a = first[a][0]
+    by_cluster = {}
+    for i, (b, _, _) in first.items():
+        by_cluster.setdefault(b, i)
+    spread = list(by_cluster.values())
+    assert len(spread) >= 6
+    o_a, d_a, tm_a = lanes_of(sh, [a])
+    short = np.float32(0.999 * nearest_in_cluster(case, o_a[0], d_a[0],
+                                                  base_a))
+    assert 0 < short < tm_a[0]
+    o, d, tm = lanes_of(sh, range(200, 232))
+    tm = tm.copy()
+    tm[0::3] = np.where(np.arange(32)[0::3] % 2 == 0, 0.0, -1.0)
+    parts = [lanes_of(sh, [a] * 32),
+             lanes_of(sh, [spread[k % len(spread)] for k in range(32)]),
+             (o, d, tm),
+             (o_a.repeat(32, 0), d_a.repeat(32, 0),
+              np.repeat(np.array([tm_a[0], short], np.float32), 16)),
+             lanes_of(sh, range(300, 313))]
+    o, d, tm = (np.concatenate(x) for x in zip(*parts))
+    rays = torch_rays(o, d, tm)
+    n = tm.shape[0]
+    assert n % 32 == 13 and (tm <= 0).sum() == 11
+
+    loads = load_counters(lib, (st.mxu_node_f, st.cluster_feat))
+    occ = torch.empty(n, dtype=torch.bool)
+    assert lib.mts_cluster_any_hit(
+        *(a_.data_ptr() for a_ in tabs + rays), occ.data_ptr(), n,
+        st.mxu_node_f.shape[0], ck, None) == 0
+    stats = {}
+    occ_p = twin(*rays, stats=stats)
+    assert torch.equal(occ, occ_p)
+    assert not occ[torch.from_numpy(tm <= 0)].any()
+    live2 = torch.from_numpy(tm[64:96] > 0)
+    assert occ[64:96][live2].any() and not occ[64:96][live2].all()
+    assert occ[:32].all() and occ[96:112].all()
+    assert_kernel_work(stats, loads, work_counter(lib).value, True, ck)
+    sw = []
+    for w in range(4):
+        sw.append({})
+        twin(*(x[32 * w:32 * (w + 1)] for x in rays), stats=sw[w])
+    # warp 0: one group, its owners all hit in the first tile
+    assert sw[0]["cluster_groups"] == 1 and sw[0]["cluster_visits"] == 32
+    assert sw[0]["loaded_slots"] == tile
+    assert sw[0]["slot_tests"] == 32 * tile
+    # warp 1's first round alone has a group for each lane's first cluster
+    assert sw[1]["cluster_groups"] >= len(spread)
+    # warp 3: one group at the occluded ray's cluster, which loads every
+    # tile: the first 16 owners hit in the first tile and stop, the other
+    # 16 test every tile, miss and walk on
+    res = []
+    with recorded_visits(res) as got:
+        twin(*(x[96:128] for x in rays))
+    assert (got[0] == base_a).all() and got[0].numel() == 32
+    hit, tested = res[0]
+    assert hit[:16].all() and not hit[16:].any()
+    assert (tested[:16] == tile).all() and (tested[16:] == ck).all()
+    assert sw[3]["cluster_visits"] > 32
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -612,4 +742,5 @@ def test_cuda_kernels_match_twins(case, cuda, kind):
     same = slot == slot_p
     assert same[hit].float().mean() >= 0.999
     torch.testing.assert_close(t[hit], t_p[hit], rtol=1e-5, atol=1e-5)
-    assert (occ == occ_p).float().mean() >= 0.999
+    # the any hit's warp-cooperative visits keep the twin's result
+    assert torch.equal(occ, occ_p)
