@@ -98,8 +98,9 @@ FLOPS_PER_SPHERE = 31
 # the walk work the twins count, as printed per lane
 WORK_COUNTS = ("node_steps", "fresh_visits", "child_tests", "advances",
                "pushes", "pops", "cluster_visits", "cluster_groups",
-               "loaded_slots", "slot_tests", "real_slot_tests", "tri_tests",
-               "sphere_tests", "instance_entries")
+               "thread_visits", "loaded_slots", "slot_tests",
+               "real_slot_tests", "tri_tests", "sphere_tests",
+               "instance_entries")
 # the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
 FIELD = dict(n=1024, subdiv=4)
@@ -331,7 +332,7 @@ def kernels_of(scene, backend="auto"):
             closest="dense_closest_hit", any="dense_any_hit",
             closest_plain=traverse.dense_closest_hit_plain,
             any_plain=traverse.dense_any_hit_plain,
-            tabs=(scene.mxu_ccs, scene.cluster_feat),
+            tabs=(scene.mxu_ccs, scene.mxu_ccount, scene.cluster_feat),
             extra=(scene.cluster_k,), ids=(1,), uv=False, chunk=1 << 20)
     return dict(
         closest="cluster_closest_hit", any="cluster_any_hit",
@@ -513,7 +514,8 @@ def phase_kernels_vs_twins(torch, mt, dev):
     tabs_mib = sum(a.numel() * a.element_size() for a in ks["tabs"]) / 2**20
     log(f"phase 2: gallery_dense: the gallery's scene with the dense switch "
         f"on: {gallery.mxu_ccs.shape[0]} clusters of {gallery.cluster_k} "
-        f"slots, tables {tabs_mib:.2f} MiB")
+        f"slots, {int(gallery.mxu_ccount.sum())} of them up to each "
+        f"cluster's last real slot (mxu_ccount), tables {tabs_mib:.2f} MiB")
     ok = True
     probes = {}
     for name, scene in {**scenes, **extra}.items():

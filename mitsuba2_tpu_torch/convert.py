@@ -10,7 +10,8 @@ among it) is derived from the tables. Only the tables of the walk the
 scene takes under the backend in force (scene.set_backend) go to the
 device: by default the BVH2 walks' packed tables for a scene holding a
 sphere (or any scene with traverse.MXU_LEAVES off), the cluster walks'
-(mxu_ccs, the dense sweep's centroids, among them) for the others,
+(mxu_ccs, the dense sweep's centroids, and mxu_ccount, derived here,
+among them) for the others,
 neither for a brute-force scene; under "bvh8" the BVH8 tables and the
 packed prim rows (K6), under "bvh8mxu" the cut tree's BVH8 tables and
 the cluster plane rows (K7). The BVH8 tables (scene.BVH8_FIELDS) may be
@@ -47,6 +48,16 @@ def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
     out[..., 9:15] = fv[:, 2, :, 0:6]
     out[..., 15:19] = fv[:, 3, :, 6:10]
     return out.reshape(S, traverse.FEAT_W)
+
+
+def slot_counts(slot_prim: np.ndarray, cluster_k: int) -> np.ndarray:
+    """mxu_ccount, (C,) i32: the span of each cluster's slots that the
+    dense sweep tests, 1 + its last slot k with slot_prim[c*CK + k] >= 0,
+    or 0 for a cluster with no real slot. The slots after it are padding,
+    whose plane rows are all zero and never hit."""
+    real = slot_prim.reshape(-1, cluster_k) >= 0
+    last = cluster_k - np.argmax(real[:, ::-1], axis=1)
+    return np.where(real.any(1), last, 0).astype(np.int32)
 
 
 def prim_rows(f: Dict[str, np.ndarray]) -> np.ndarray:
@@ -157,6 +168,8 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     elif walk == "walk":
         tabs.update({k: up(f[k]) for k in CLUSTER_FIELDS})
         tabs["cluster_feat"] = up(slot_major_feat(f["mxu_feat"], cluster_k))
+        tabs["mxu_ccount"] = up(slot_counts(f["cluster_slot_prim"],
+                                            cluster_k))
     elif walk == "bvh8":
         tabs.update(bvh8_child=up(b8["bvh8_child"]),
                     bvh8_order=up(b8["bvh8_order"]),

@@ -152,6 +152,12 @@ constexpr unsigned FULL_WARP = 0xffffffffu;
 // H100 80GB HBM3, 700.00 W; PERF.md §6).
 constexpr int TILE_J = 2;
 constexpr int INST_ANY_TILE_J = 1;
+// Rays a thread of the dense sweep (K8) tests on each slot's plane rows
+// it loads (dense_sweep, below). Two: 70.8 / 47.6 ms a closest / any-hit
+// launch on the gallery's wavefronts against 87.4 / 49.5 at one and
+// 82.6 / 57.7 at four (40 / 64 / 80-90 registers, four spilling on the
+// any hit; chip_tiles.py, H100 80GB HBM3, 700.00 W; PERF.md §6).
+constexpr int DENSE_RAYS = 2;
 constexpr unsigned NO_HIT = 0xffffffffu;  // above the bits of any finite t
 
 // Work that no table load shows: the slot tests on plane rows held in
@@ -1033,54 +1039,134 @@ bvh8mxu_any_hit_kernel(const float4* __restrict__ child,
 // Dense cluster sweep (K8): the kernels of MI_MXU_DENSE on a flat triangle
 // scene. No tree and no slab cull: every ray is tested against every
 // cluster c = 0..C-1, its ray recentred at the cluster's centroid
-// (mxu_ccs row c, [centroid.xyz, pad | pad]) and all CK slots tested with
-// K1's slot test. Closest hit: t_best starts at t_max and a slot must be
+// (mxu_ccs row c, [centroid.xyz, pad | pad]) and the cluster's slots
+// below its count (mxu_ccount: 1 + its last real slot) tested with K1's
+// slot test. Closest hit: t_best starts at t_max and a slot must be
 // strictly nearer to replace it, so the lowest slot of a cluster and the
 // first cluster in index order keep a tie; t = +inf and slot = -1 on a
-// miss. Any hit: true iff some slot hits at 0 < t <= t_max; a thread stops
-// at its first hit (the JAX kernel exits once its whole block is
-// occluded: the same result).
+// miss. Any hit: true iff some slot hits at 0 < t <= t_max (the JAX
+// kernel exits once its whole block is occluded: the same result).
 //
 // WHAT BOUNDS IT on an H100. The work is every real slot of the scene for
-// every live ray: 38 FP32 operations a slot (slot_test), about 18.3 ms for
-// 1M rays on the mesh gallery's 30 732 triangles at 67 TFLOP/s. The bytes
-// are the rays, the results and the tables once (3.7 MB of plane rows on
-// the gallery), negligible beside that.
+// every live ray: 38 FP32 operations a slot (slot_planes), about 18.3 ms
+// for 1M rays on the mesh gallery's 30 732 triangles at 67 TFLOP/s. The
+// bytes are the rays, the results and the tables once (3.7 MB of plane
+// rows on the gallery), negligible beside that. The first version, one
+// ray a thread through cluster_visit, took 133.5 / 72.2 ms a closest /
+// any-hit launch against bounds of 15.0 / 8.3 (PERF.md §6): each
+// thread tested all CK slots of every cluster (a third of the gallery's
+// slots are padding), and each slot test, ~55 instructions with
+// --fmad=false, paid about as many again for its five row loads, their
+// addresses and the loop, for one ray.
 //
-// DESIGN. One ray per thread looping over the clusters through
-// cluster_visit, K1's own visit, so t is bit-equal to K1's wherever the
-// same slot wins (the twin's too). Every thread sweeps the clusters in the
-// same order, so the threads of a warp read the same plane rows at the
-// same time: each load is one broadcast from L1. This first version tests
-// the padding slots too (their all-zero rows never hit) and does not stage
-// a cluster's rows in shared memory, the counterpart of the Pallas DMA
-// into VMEM.
+// DESIGN. Each thread sweeps DENSE_RAYS rays (thread t of block b owns
+// rays b * BLOCK * DENSE_RAYS + j * BLOCK + t, so loads and stores stay
+// coalesced), each with its own features, recentred per cluster as
+// cluster_visit recentres them, and its own t_best and slot. For each
+// slot below the cluster's count it loads the five float4 of plane rows
+// once (every thread sweeps in the same order: one L1 broadcast a warp)
+// and runs slot_planes, unchanged, for each of its rays not yet done, in
+// ray order, so t and slot are bit-equal to the twin's. Rays past n and
+// dead rays (t_max <= 0) start done; nothing relies on where they are.
+// An any-hit ray is done at its first hit, and the thread leaves the
+// sweep when all its rays are. No shared memory, warp intrinsics or
+// tensor cores: the arithmetic is K1's.
+//
+// MEASURED (chip_tiles.py on the gallery's five wavefronts, H100 80GB
+// HBM3, 700.00 W; PERF.md §6): at one ray a thread, skipping the padding
+// alone gives 87.4 ms a closest-hit launch, ~3.3 ps a real slot test, as
+// the first version spent on each slot; two rays a thread share each row
+// load, 70.8 / 47.6 ms against bounds of 15.0 / 8.3; four are slower
+// (fewer warps in flight, each ray's divide and test one after another).
+// What is left, ~2.7 ps a real slot test at two rays a thread, is mostly
+// the slot test's own arithmetic.
 // ---------------------------------------------------------------------------
 
 template <bool ANY_HIT>
 __device__ __forceinline__ void dense_sweep(
-        const float4* __restrict__ ccs, const float4* __restrict__ feat,
-        const RayState& r, float t_max, int n_clusters, int ck, float* t_io,
-        int* slot_io, bool* occ_io) {
-    float t_best = t_max;
-    int best = -1;
-    for (int c = 0; c < n_clusters; ++c) {
+        const float4* __restrict__ ccs, const int* __restrict__ count,
+        const float4* __restrict__ feat, const float* __restrict__ ox,
+        const float* __restrict__ oy, const float* __restrict__ oz,
+        const float* __restrict__ dx, const float* __restrict__ dy,
+        const float* __restrict__ dz, const float* __restrict__ tmax,
+        float* __restrict__ t_out, int* __restrict__ slot_out,
+        bool* __restrict__ occ_out, int n, int n_clusters, int ck) {
+    const int first = blockIdx.x * (BLOCK * DENSE_RAYS) + threadIdx.x;
+    float rox[DENSE_RAYS], roy[DENSE_RAYS], roz[DENSE_RAYS];
+    float rdx[DENSE_RAYS], rdy[DENSE_RAYS], rdz[DENSE_RAYS];
+    float t_best[DENSE_RAYS];   // the limit: t_max, and a closest hit's best
+    int best[DENSE_RAYS];
+    unsigned live = 0;          // bit j: ray j has t_max > 0
+#pragma unroll
+    for (int j = 0; j < DENSE_RAYS; ++j) {
+        const int i = first + j * BLOCK;
+        const float tm = i < n ? tmax[i] : 0.0f;
+        // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
+        const bool on = tm > 0.0f;
+        live |= on ? 1u << j : 0u;
+        rox[j] = on ? ox[i] : 0.0f;
+        roy[j] = on ? oy[i] : 0.0f;
+        roz[j] = on ? oz[i] : 0.0f;
+        rdx[j] = on ? dx[i] : 0.0f;
+        rdy[j] = on ? dy[i] : 0.0f;
+        rdz[j] = on ? dz[i] : 0.0f;
+        t_best[j] = tm;
+        best[j] = -1;
+    }
+    unsigned todo = live;       // bit j: ray j still sweeps
+    for (int c = 0; c < n_clusters && todo != 0; ++c) {
+        const float4 cen = __ldg(ccs + 2 * c);
+        const int cnt = __ldg(count + c);
         const int base = c * ck;
-        if (cluster_visit<ANY_HIT>(feat + (size_t)base * FEAT_W4,
-                                   __ldg(ccs + 2 * c), r, base, ck, t_max,
-                                   &t_best, &best) && ANY_HIT) {
-            *occ_io = true;
-            return;                           // stop at the first hit
+        float px[DENSE_RAYS], py[DENSE_RAYS], pz[DENSE_RAYS];
+        float mx[DENSE_RAYS], my[DENSE_RAYS], mz[DENSE_RAYS];
+#pragma unroll
+        for (int j = 0; j < DENSE_RAYS; ++j) {
+            px[j] = rox[j] - cen.x;
+            py[j] = roy[j] - cen.y;
+            pz[j] = roz[j] - cen.z;
+            mx[j] = py[j] * rdz[j] - pz[j] * rdy[j];
+            my[j] = pz[j] * rdx[j] - px[j] * rdz[j];
+            mz[j] = px[j] * rdy[j] - py[j] * rdx[j];
+        }
+        const float4* fs = feat + (size_t)base * FEAT_W4;
+        for (int k = 0; k < cnt; ++k) {
+            const float4* f = fs + k * FEAT_W4;
+            const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2),
+                         f3 = __ldg(f + 3), f4 = __ldg(f + 4);
+#pragma unroll
+            for (int j = 0; j < DENSE_RAYS; ++j) {
+                if (!(todo >> j & 1u)) continue;
+                float t;
+                const bool ok = slot_planes(f0, f1, f2, f3, f4, rdx[j],
+                                            rdy[j], rdz[j], px[j], py[j],
+                                            pz[j], mx[j], my[j], mz[j], &t);
+                if (ANY_HIT) {
+                    if (ok && t <= t_best[j]) todo &= ~(1u << j);
+                } else if (ok && t < t_best[j]) {
+                    t_best[j] = t;
+                    best[j] = base + k;
+                }
+            }
+            if (ANY_HIT && todo == 0) break;   // every ray occluded
         }
     }
-    if (!ANY_HIT) {
-        *t_io = best >= 0 ? t_best : inf_f();
-        *slot_io = best;
+#pragma unroll
+    for (int j = 0; j < DENSE_RAYS; ++j) {
+        const int i = first + j * BLOCK;
+        if (i >= n) break;
+        if (ANY_HIT) {
+            occ_out[i] = (live & ~todo) >> j & 1u;
+        } else {
+            t_out[i] = best[j] >= 0 ? t_best[j] : inf_f();
+            slot_out[i] = best[j];
+        }
     }
 }
 
 __global__ void __launch_bounds__(BLOCK)
 dense_closest_hit_kernel(const float4* __restrict__ ccs,
+                         const int* __restrict__ count,
                          const float4* __restrict__ feat,
                          const float* __restrict__ ox,
                          const float* __restrict__ oy,
@@ -1092,22 +1178,13 @@ dense_closest_hit_kernel(const float4* __restrict__ ccs,
                          float* __restrict__ t_out,
                          int* __restrict__ slot_out, int n, int n_clusters,
                          int ck) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    float t = inf_f();
-    int slot = -1;
-    if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        dense_sweep<false>(ccs, feat, r, tm, n_clusters, ck, &t, &slot,
-                           nullptr);
-    }
-    t_out[i] = t;
-    slot_out[i] = slot;
+    dense_sweep<false>(ccs, count, feat, ox, oy, oz, dx, dy, dz, tmax, t_out,
+                       slot_out, nullptr, n, n_clusters, ck);
 }
 
 __global__ void __launch_bounds__(BLOCK)
 dense_any_hit_kernel(const float4* __restrict__ ccs,
+                     const int* __restrict__ count,
                      const float4* __restrict__ feat,
                      const float* __restrict__ ox,
                      const float* __restrict__ oy,
@@ -1118,16 +1195,8 @@ dense_any_hit_kernel(const float4* __restrict__ ccs,
                      const float* __restrict__ tmax,
                      bool* __restrict__ occ_out, int n, int n_clusters,
                      int ck) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    bool occ = false;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        dense_sweep<true>(ccs, feat, r, tm, n_clusters, ck, nullptr, nullptr,
-                          &occ);
-    }
-    occ_out[i] = occ;
+    dense_sweep<true>(ccs, count, feat, ox, oy, oz, dx, dy, dz, tmax, nullptr,
+                      nullptr, occ_out, n, n_clusters, ck);
 }
 
 }  // namespace
@@ -1325,31 +1394,33 @@ int mts_bvh8mxu_any_hit(const void* child, const void* order,
     return (int)cudaGetLastError();
 }
 
-int mts_dense_closest_hit(const void* ccs, const void* feat, const void* ox,
-                          const void* oy, const void* oz, const void* dx,
-                          const void* dy, const void* dz, const void* tmax,
-                          void* t_out, void* slot_out, int n, int n_clusters,
-                          int ck, void* stream) {
-    const int grid = (n + BLOCK - 1) / BLOCK;
+int mts_dense_closest_hit(const void* ccs, const void* count,
+                          const void* feat, const void* ox, const void* oy,
+                          const void* oz, const void* dx, const void* dy,
+                          const void* dz, const void* tmax, void* t_out,
+                          void* slot_out, int n, int n_clusters, int ck,
+                          void* stream) {
+    const int grid = (n + BLOCK * DENSE_RAYS - 1) / (BLOCK * DENSE_RAYS);
     dense_closest_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float4*)ccs, (const float4*)feat, (const float*)ox,
-        (const float*)oy, (const float*)oz, (const float*)dx,
-        (const float*)dy, (const float*)dz, (const float*)tmax,
-        (float*)t_out, (int*)slot_out, n, n_clusters, ck);
+        (const float4*)ccs, (const int*)count, (const float4*)feat,
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmax, (float*)t_out, (int*)slot_out, n, n_clusters,
+        ck);
     return (int)cudaGetLastError();
 }
 
-int mts_dense_any_hit(const void* ccs, const void* feat, const void* ox,
-                      const void* oy, const void* oz, const void* dx,
-                      const void* dy, const void* dz, const void* tmax,
-                      void* occ_out, int n, int n_clusters, int ck,
-                      void* stream) {
-    const int grid = (n + BLOCK - 1) / BLOCK;
+int mts_dense_any_hit(const void* ccs, const void* count, const void* feat,
+                      const void* ox, const void* oy, const void* oz,
+                      const void* dx, const void* dy, const void* dz,
+                      const void* tmax, void* occ_out, int n, int n_clusters,
+                      int ck, void* stream) {
+    const int grid = (n + BLOCK * DENSE_RAYS - 1) / (BLOCK * DENSE_RAYS);
     dense_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float4*)ccs, (const float4*)feat, (const float*)ox,
-        (const float*)oy, (const float*)oz, (const float*)dx,
-        (const float*)dy, (const float*)dz, (const float*)tmax,
-        (bool*)occ_out, n, n_clusters, ck);
+        (const float4*)ccs, (const int*)count, (const float4*)feat,
+        (const float*)ox, (const float*)oy, (const float*)oz,
+        (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmax, (bool*)occ_out, n, n_clusters, ck);
     return (int)cudaGetLastError();
 }
 

@@ -33,6 +33,8 @@ tables of the one walk a scene takes):
     bvh8_order / bvh8c_order (M*8, 8) i32 row node*8 + octant: the node's
                  child slots in near-first order for that octant
     mxu_ccs      (C, 8) f32   each cluster's centroid [c.xyz, pad] (K8)
+    mxu_ccount   (C,) i32     each cluster's slots up to its last real
+                 one: the span K8 tests (convert.slot_counts)
 
 The wrappers: `cluster_closest_hit` and `cluster_any_hit` (K1/K2: one cut
 tree), `inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS
@@ -63,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 
 import torch
 
@@ -72,6 +75,7 @@ from .brute import sphere_test, tri_test
 
 FEAT_W = 20  # floats per slot in cluster_feat
 WARP = 32    # threads of a CUDA warp
+BLOCK = 128  # threads of a kernel block (csrc/cluster_walk.cu)
 CCS_W = 8    # floats per cluster in mxu_ccs
 # slots a warp tests in one pass of a cooperative cluster visit
 # (csrc/cluster_walk.cu::warp_visit): TILE_J = 2 slots a lane, and
@@ -90,6 +94,9 @@ MXU_DENSE_MAX = int(os.environ.get("MI_MXU_DENSE_MAX", "768"))
 _MXU_DENSE = os.environ.get("MI_MXU_DENSE", "0")
 if _MXU_DENSE not in ("auto", "0", "1"):
     raise ValueError(f"MI_MXU_DENSE={_MXU_DENSE!r}: one of auto, 0, 1")
+# rays a thread of the dense sweep sweeps (csrc/cluster_walk.cu's
+# DENSE_RAYS): the twins' default for counting the threads' loads
+DENSE_RAYS = 2
 # (node, mask) entries of a BVH8 walk's stack (csrc/cluster_walk.cu), and
 # the margin over the tree's depth that the JAX kernels size it with
 BVH8_STACK = 32
@@ -108,6 +115,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC"]
 
 
+def with_constants(src: str, **values) -> str:
+    """A CUDA source's text with each `constexpr int NAME = v;` line of
+    `values` set to its value (builds of cluster_walk.cu at other tile
+    widths or rays a thread); raises where the source has no such line."""
+    for name, v in values.items():
+        src, n = re.subn(rf"^constexpr int {name} = \d+;$",
+                         f"constexpr int {name} = {int(v)};", src,
+                         flags=re.M)
+        if n != 1:
+            raise ValueError(f"no line 'constexpr int {name} = ...;'")
+    return src
+
+
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(cuda_home, "bin", "nvcc")
@@ -121,8 +141,8 @@ def _declare(lib):
                              (lib.mts_cluster_any_hit, 3, 1),
                              (lib.mts_bvh8mxu_closest_hit, 3, 2),
                              (lib.mts_bvh8mxu_any_hit, 3, 1),
-                             (lib.mts_dense_closest_hit, 2, 2),
-                             (lib.mts_dense_any_hit, 2, 1)):
+                             (lib.mts_dense_closest_hit, 3, 2),
+                             (lib.mts_dense_any_hit, 3, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * n_tab + [p] * 7 + [p] * n_out + [i, i, i, p]
     for fn, n_out in ((lib.mts_inst_cluster_closest_hit, 3),
@@ -241,11 +261,18 @@ def _check_bvh8(child, order, leaf, rays, stack, fuel, cluster_k=None):
     return n, dev
 
 
-def _check_dense(ccs, feat, rays, cluster_k):
+def _check_dense(ccs, count, feat, rays, cluster_k):
     n, dev = _check_tables([("mxu_ccs", ccs, torch.float32, 2),
+                            ("mxu_ccount", count, torch.int32, 1),
                             ("cluster_feat", feat, torch.float32, 2)], rays)
     if ccs.shape[1] != CCS_W:
         raise ValueError(f"mxu_ccs must be (C, {CCS_W})")
+    if count.shape != ccs.shape[:1]:
+        raise ValueError(f"mxu_ccount must be ({ccs.shape[0]},), one count "
+                         f"a cluster of mxu_ccs")
+    if bool(((count < 0) | (count > cluster_k)).any()):
+        raise ValueError(f"mxu_ccount: each count must lie in [0, "
+                         f"{cluster_k}]")
     if feat.shape != (ccs.shape[0] * cluster_k, FEAT_W):
         raise ValueError(f"cluster_feat must be (C*{cluster_k}, {FEAT_W}) "
                          f"for the {ccs.shape[0]} clusters of mxu_ccs")
@@ -533,20 +560,21 @@ def bvh8mxu_any_hit(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
 bvh8mxu_any_hit.launches = 0
 
 
-def dense_closest_hit(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
+def dense_closest_hit(ccs, count, feat, ox, oy, oz, dx, dy, dz, t_max,
                       cluster_k: int):
-    """Closest hit by the dense sweep (K8), every cluster against every
-    ray: (t (N,) f32, slot (N,) i32), t = +inf and slot = -1 on a miss."""
+    """Closest hit by the dense sweep (K8), every cluster (its slots below
+    its `count`, mxu_ccount) against every ray: (t (N,) f32, slot (N,)
+    i32), t = +inf and slot = -1 on a miss."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
-    n, dev = _check_dense(ccs, feat, rays, cluster_k)
+    n, dev = _check_dense(ccs, count, feat, rays, cluster_k)
     if dev.type == "cpu":
-        return dense_closest_hit_plain(ccs, feat, *rays, cluster_k)
+        return dense_closest_hit_plain(ccs, count, feat, *rays, cluster_k)
     outs = (torch.empty(n, dtype=torch.float32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev))
     if n == 0:
         return outs
-    _launch("dense_closest_hit", (ccs, feat), rays, outs, ccs.shape[0],
-            cluster_k)
+    _launch("dense_closest_hit", (ccs, count, feat), rays, outs,
+            ccs.shape[0], cluster_k)
     dense_closest_hit.launches += 1
     return outs
 
@@ -554,18 +582,19 @@ def dense_closest_hit(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
 dense_closest_hit.launches = 0
 
 
-def dense_any_hit(ccs, feat, ox, oy, oz, dx, dy, dz, t_max, cluster_k: int):
+def dense_any_hit(ccs, count, feat, ox, oy, oz, dx, dy, dz, t_max,
+                  cluster_k: int):
     """Occlusion by the dense sweep (K8): (N,) bool, True iff a triangle
     is hit at 0 < t <= t_max."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
-    n, dev = _check_dense(ccs, feat, rays, cluster_k)
+    n, dev = _check_dense(ccs, count, feat, rays, cluster_k)
     if dev.type == "cpu":
-        return dense_any_hit_plain(ccs, feat, *rays, cluster_k)
+        return dense_any_hit_plain(ccs, count, feat, *rays, cluster_k)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    _launch("dense_any_hit", (ccs, feat), rays, (occ,), ccs.shape[0],
-            cluster_k)
+    _launch("dense_any_hit", (ccs, count, feat), rays, (occ,),
+            ccs.shape[0], cluster_k)
     dense_any_hit.launches += 1
     return occ
 
@@ -808,9 +837,10 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
     return t_out, best.to(torch.int32)
 
 
-def _chunked(fn, rays, chunk):
-    # whole warps to a chunk, so that what a twin counts per warp holds
-    chunk = -(-chunk // WARP) * WARP
+def _chunked(fn, rays, chunk, unit=WARP):
+    # whole warps (or `unit`s of lanes) to a chunk, so that what a twin
+    # counts per warp (or per thread of the dense sweep) holds
+    chunk = -(-chunk // unit) * unit
     n = rays[0].shape[0]
     outs = [fn(tuple(a[s:s + chunk] for a in rays))
             for s in range(0, n, chunk)] or [fn(rays)]
@@ -1210,12 +1240,27 @@ def bvh8mxu_any_hit_plain(child, order, feat, ox, oy, oz, dx, dy, dz, t_max,
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
-def _dense_plain(ccs, feat, rays, cluster_k, any_hit, stats):
+def _dense_plain(ccs, count, feat, rays, cluster_k, any_hit, stats,
+                 rays_per_thread):
     """The dense sweep for every lane at once: cluster c = 0..C-1 in
-    order, its plane rows shared by all lanes, through K1's visit. Closest
-    hit: a strictly nearer slot replaces (the first cluster keeps a tie).
-    Any hit: a lane leaves the sweep at its first hit, where the kernel's
-    thread stops."""
+    order, its plane rows shared by all lanes, its slots below count[c]
+    through K1's visit (the slots past it are padding, whose zero rows
+    never hit). Closest hit: a strictly nearer slot replaces (the first
+    cluster keeps a tie). Any hit: a lane is done at its first hit.
+
+    `stats` count per ray K1's cluster visits, slot tests (over the
+    tested span; an any-hit ray's up to its first hit) and real slot
+    tests, and the loads of the kernel's threads, each of which sweeps
+    `rays_per_thread` = R rays (lanes b*BLOCK*R + j*BLOCK + t of a chunk,
+    j < R; chunks start at multiples of BLOCK*R): `thread_visits`, the
+    centroid rows, one a cluster a thread sweeps, and `loaded_slots`, the
+    slots whose five float4 of plane rows it loads in them. A thread
+    whose rays are all dead (t_max <= 0) sweeps nothing. Closest hit: a
+    thread with a live ray sweeps every cluster and loads its count[c]
+    slots. Any hit: a thread leaves the sweep once all its rays are done,
+    so it sweeps cluster c iff one of its live rays has no hit before c,
+    and loads slots 0..k of c, k the last first hit in c among those rays
+    (all count[c] where one of them has no hit in c)."""
     ox, oy, oz, dx, dy, dz, t_max = rays
     n, dev = ox.shape[0], ox.device
     ray = (ox, oy, oz, dx, dy, dz)
@@ -1224,17 +1269,34 @@ def _dense_plain(ccs, feat, rays, cluster_k, any_hit, stats):
     t_best = t_max.clone()
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
-    for c in range(ccs.shape[0]):
+    span = BLOCK * rays_per_thread
+    for c, k in enumerate(count.tolist()):
         if act.numel() == 0:
             break
+        if stats is not None:
+            # each active lane's thread, and a thread's index among them
+            thread, lane_thread = torch.unique(
+                act // span * BLOCK + act % BLOCK, return_inverse=True)
+            _count(stats, "thread_visits", thread.numel())
+        if k == 0:                  # a cluster without a real slot
+            _count(stats, "cluster_visits", act.numel())
+            continue
         base = c * cluster_k
         res = _cluster_visit(
-            feat[base:base + cluster_k], base, ccs[c, 0:3].unbind(0),
+            feat[base:base + k], base, ccs[c, 0:3].unbind(0),
             [a[act] for a in ray], (t_max if any_hit else t_best)[act],
-            cluster_k, any_hit, stats)
+            k, any_hit, stats, tile=1 if any_hit else None)
+        if stats is not None:
+            # a thread loads the slots up to the last its rays test
+            loaded = (torch.zeros(thread.numel(), dtype=torch.int64,
+                                  device=dev).scatter_reduce_(
+                0, lane_thread, res[1], "amax").sum() if any_hit
+                else k * thread.numel())
+            _count(stats, "loaded_slots", int(loaded))
         if any_hit:
-            occ[act[res]] = True
-            act = act[~res]
+            hit = res[0]
+            occ[act[hit]] = True
+            act = act[~hit]
             continue
         closer, t_c, slot = res
         sel = act[closer]
@@ -1246,21 +1308,27 @@ def _dense_plain(ccs, feat, rays, cluster_k, any_hit, stats):
             best.to(torch.int32))
 
 
-def dense_closest_hit_plain(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
-                            cluster_k: int, chunk: int = 8192, stats=None):
+def dense_closest_hit_plain(ccs, count, feat, ox, oy, oz, dx, dy, dz, t_max,
+                            cluster_k: int, chunk: int = 8192, stats=None,
+                            rays_per_thread: int = DENSE_RAYS):
     """The twin of the dense closest-hit kernel (K8): (t, slot). Its
-    `stats` count cluster visits and slot tests, as K1's twin does."""
+    `stats` count cluster visits and slot tests, as K1's twin does, and
+    the loads of the kernel's threads at `rays_per_thread` rays a thread
+    (_dense_plain)."""
     return _chunked(
-        lambda r: _dense_plain(ccs, feat, r, cluster_k, False, stats),
-        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+        lambda r: _dense_plain(ccs, count, feat, r, cluster_k, False, stats,
+                               rays_per_thread),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk, BLOCK * rays_per_thread)
 
 
-def dense_any_hit_plain(ccs, feat, ox, oy, oz, dx, dy, dz, t_max,
-                        cluster_k: int, chunk: int = 8192, stats=None):
+def dense_any_hit_plain(ccs, count, feat, ox, oy, oz, dx, dy, dz, t_max,
+                        cluster_k: int, chunk: int = 8192, stats=None,
+                        rays_per_thread: int = DENSE_RAYS):
     """The twin of the dense any-hit kernel (K8)."""
     return _chunked(
-        lambda r: _dense_plain(ccs, feat, r, cluster_k, True, stats),
-        (ox, oy, oz, dx, dy, dz, t_max), chunk)
+        lambda r: _dense_plain(ccs, count, feat, r, cluster_k, True, stats,
+                               rays_per_thread),
+        (ox, oy, oz, dx, dy, dz, t_max), chunk, BLOCK * rays_per_thread)
 
 
 # ---------------------------------------------------------------------------
@@ -1329,8 +1397,9 @@ def ray_intersect_preliminary(scene, ray_o, ray_d, t_max):
         return bvh_closest_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     rays = _rays(ray_o, ray_d, t_max)
     if _use_dense(scene):
-        t, slot = dense_closest_hit(scene.mxu_ccs, scene.cluster_feat,
-                                    *rays, scene.cluster_k)
+        t, slot = dense_closest_hit(scene.mxu_ccs, scene.mxu_ccount,
+                                    scene.cluster_feat, *rays,
+                                    scene.cluster_k)
     else:
         t, slot = cluster_closest_hit(scene.mxu_node_f, scene.mxu_link,
                                       scene.cluster_feat, *rays,
@@ -1345,8 +1414,8 @@ def ray_test(scene, ray_o, ray_d, t_max):
         return bvh_any_hit(*_bvh_args(scene, ray_o, ray_d, t_max))
     rays = _rays(ray_o, ray_d, t_max)
     if _use_dense(scene):
-        return dense_any_hit(scene.mxu_ccs, scene.cluster_feat, *rays,
-                             scene.cluster_k)
+        return dense_any_hit(scene.mxu_ccs, scene.mxu_ccount,
+                             scene.cluster_feat, *rays, scene.cluster_k)
     return cluster_any_hit(scene.mxu_node_f, scene.mxu_link,
                            scene.cluster_feat, *rays, scene.cluster_k)
 

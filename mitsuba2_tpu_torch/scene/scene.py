@@ -51,8 +51,9 @@ FIELDS = (
     "cluster_slot_prim", "mxu_feat", "mxu_ccs")
 # ...of which the cluster walks' own, on the device only for a scene that
 # takes them (mxu_ccs: the dense sweep's centroids, 32 bytes a cluster,
-# held so that the dense switch is read at dispatch), and those read at
-# upload alone: packed into the BVH2 walks' tables, or (mxu_feat) into
+# held so that the dense switch is read at dispatch; uploaded with
+# cluster_feat and mxu_ccount, which convert.py derives), and those read
+# at upload alone: packed into the BVH2 walks' tables, or (mxu_feat) into
 # cluster_feat
 CLUSTER_FIELDS = ("mxu_node_f", "mxu_link", "cluster_slot_prim", "mxu_ccs")
 UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
@@ -115,6 +116,9 @@ class SceneData:
                                                  # copy of mxu_feat's plane rows
     mxu_ccs: Optional[torch.Tensor] = None   # (C, 8) f32 [centroid.xyz, pad]
                                              # per cluster (the dense sweep)
+    mxu_ccount: Optional[torch.Tensor] = None  # (C,) i32 slots up to the
+                                               # last real one (the dense
+                                               # sweep; convert.slot_counts)
     # the BVH2 walks' tables, packed once at upload (convert.py)
     bvh_node: Optional[torch.Tensor] = None  # (B, 8) f32 [min.xyz, max.xyz,
                                              # leaf_start, leaf_count], the

@@ -18,6 +18,7 @@ Tolerances:
 - MI_MXU_LEAVES off: the BVH2 walks are f32 in both packages: t at rtol
   1e-5 / atol 1e-5, u/v at atol 1e-4, prims equal on 99% of hit lanes.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -33,7 +34,8 @@ from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from test_torch_instancing import (assert_port_tables, flatten_mode,
                                    jax_fields, recorded_fields)
-from test_torch_traverse import build_emulation, load_counters, planar
+from test_torch_traverse import (_SHIM, build_emulation, emulate_source,
+                                 load_counters, planar)
 
 N_RAYS = 2048
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,6 +149,32 @@ def test_mxu_ccs_byte_equal(name):
     assert np.array_equal(want[order, 0:3], node[is_cl, 8:11])
 
 
+@pytest.mark.parametrize("name", ["gallery1", "gallery2", "field_shared"])
+def test_mxu_ccount(name):
+    """mxu_ccount (C,) i32: 1 + each cluster's last slot holding a prim
+    (0 for none), uploaded with the cluster tables; every plane row past
+    it is zero, so the dense sweep may skip those slots. The scenes
+    include one whose last cluster is part-filled."""
+    make = {"gallery1": lambda: mt.mesh_gallery(subdiv=1, device="cpu"),
+            "gallery2": lambda: mt.mesh_gallery(subdiv=2, device="cpu"),
+            "field_shared": lambda: mt.instanced_field(n=6, subdiv=2,
+                                                       device="cpu")}[name]
+    with flatten_mode("0" if name == "field_shared" else None):
+        st = make()
+    count = st.mxu_ccount
+    assert count is not None and count.dtype == torch.int32
+    assert count.is_contiguous() and count.shape == st.mxu_ccs.shape[:1]
+    ck = st.cluster_k
+    prim = st.cluster_slot_prim.numpy().reshape(-1, ck)
+    want = [1 + max(np.nonzero(row >= 0)[0], default=-1) for row in prim]
+    assert count.tolist() == want
+    rows = st.cluster_feat.reshape(-1, ck, traverse.FEAT_W)
+    past = torch.arange(ck)[None, :] >= count[:, None]
+    assert past.any() and not rows[past].any()
+    if name.startswith("gallery"):
+        assert 0 < want[-1] < ck         # the last cluster is part-filled
+
+
 # ---------------------------------------------------------------------------
 # The dense twin (K8)
 # ---------------------------------------------------------------------------
@@ -251,40 +279,74 @@ def test_dense_routing(case, monkeypatch):
 def test_dense_twin_counts_and_checks(case):
     st = case.st
     rays = rays_of(case.rays, "shadow")
+    tabs = (st.mxu_ccs, st.mxu_ccount, st.cluster_feat)
     stats_c, stats_a = {}, {}
-    traverse.dense_closest_hit_plain(st.mxu_ccs, st.cluster_feat, *rays,
-                                     st.cluster_k, chunk=700, stats=stats_c)
-    occ = traverse.dense_any_hit_plain(st.mxu_ccs, st.cluster_feat, *rays,
-                                       st.cluster_k, chunk=700,
-                                       stats=stats_a)
-    live = int((rays[6] > 0).sum())
+    traverse.dense_closest_hit_plain(*tabs, *rays, st.cluster_k, chunk=700,
+                                     stats=stats_c)
+    occ = traverse.dense_any_hit_plain(*tabs, *rays, st.cluster_k,
+                                       chunk=700, stats=stats_a)
+    alive = (rays[6] > 0).numpy()
+    live = int(alive.sum())
     n_cl = st.mxu_ccs.shape[0]
     real = int((st.cluster_slot_prim >= 0).sum())
-    # closest hit: every live lane visits every cluster and tests all its
-    # slots, of which the real ones are the scene's prims
+    tested = int(st.mxu_ccount.sum())
+    # the kernel's threads with a live ray: DENSE_RAYS rays a thread,
+    # lanes b*BLOCK*R + j*BLOCK + t
+    span = traverse.BLOCK * traverse.DENSE_RAYS
+    lane = np.arange(alive.size)
+    threads = np.unique((lane // span * traverse.BLOCK
+                         + lane % traverse.BLOCK)[alive]).size
+    assert live <= threads * traverse.DENSE_RAYS
+    # closest hit: every live lane visits every cluster and tests its
+    # slots up to its last real one; a thread with a live ray loads the
+    # centroid of every cluster and those slots' rows once
     assert stats_c == {"cluster_visits": live * n_cl,
-                       "slot_tests": live * n_cl * st.cluster_k,
+                       "thread_visits": threads * n_cl,
+                       "slot_tests": live * tested,
+                       "loaded_slots": threads * tested,
                        "real_slot_tests": live * real}
-    # any hit: a lane leaves at its first hit
+    # any hit: a lane leaves at its first hit, a thread once all its
+    # lanes are done
     assert stats_a["cluster_visits"] < live * n_cl and bool(occ.any())
-    assert stats_a["real_slot_tests"] < stats_a["slot_tests"]
+    # no padding slot is tested: the gallery's clusters hold their prims
+    # in their first slots
+    assert tested == real
+    assert stats_a["real_slot_tests"] == stats_a["slot_tests"]
+    assert (stats_a["slot_tests"] / traverse.DENSE_RAYS
+            <= stats_a["loaded_slots"] < stats_a["slot_tests"])
+    assert stats_a["thread_visits"] <= threads * n_cl
     before = (traverse.dense_closest_hit.launches,
               traverse.dense_any_hit.launches)
-    traverse.dense_closest_hit(st.mxu_ccs, st.cluster_feat, *rays,
-                               st.cluster_k)
-    traverse.dense_any_hit(st.mxu_ccs, st.cluster_feat, *rays, st.cluster_k)
+    traverse.dense_closest_hit(*tabs, *rays, st.cluster_k)
+    traverse.dense_any_hit(*tabs, *rays, st.cluster_k)
     # CPU tensors go to the twins: no kernel launch is counted
     assert before == (traverse.dense_closest_hit.launches,
                       traverse.dense_any_hit.launches)
     with pytest.raises(ValueError, match="mxu_ccs"):
         traverse.dense_closest_hit(st.mxu_ccs[:, :4].contiguous(),
-                                   st.cluster_feat, *rays, st.cluster_k)
+                                   *tabs[1:], *rays, st.cluster_k)
     with pytest.raises(ValueError, match="cluster_feat"):
-        traverse.dense_any_hit(st.mxu_ccs[:-1], st.cluster_feat, *rays,
-                               st.cluster_k)
+        traverse.dense_any_hit(st.mxu_ccs[:-1], st.mxu_ccount[:-1],
+                               st.cluster_feat, *rays, st.cluster_k)
     with pytest.raises(ValueError, match="float32"):
-        traverse.dense_any_hit(st.mxu_ccs, st.cluster_feat, *rays[:6],
-                               rays[6].double(), st.cluster_k)
+        traverse.dense_any_hit(*tabs, *rays[:6], rays[6].double(),
+                               st.cluster_k)
+
+
+@pytest.mark.parametrize("what", ["shape", "dtype", "above", "below"])
+def test_dense_wrappers_refuse_a_wrong_count(case, what):
+    """mxu_ccount must be (C,) int32, each count in [0, CK]."""
+    st = case.st
+    count = {"shape": st.mxu_ccount[:-1],
+             "dtype": st.mxu_ccount.long(),
+             "above": st.mxu_ccount.clone().fill_(st.cluster_k + 1),
+             "below": st.mxu_ccount - st.mxu_ccount}[what]
+    if what == "below":
+        count[3] = -1
+    rays = rays_of(case.rays, "camera")
+    for fn in (traverse.dense_closest_hit, traverse.dense_any_hit):
+        with pytest.raises(ValueError, match="mxu_ccount"):
+            fn(st.mxu_ccs, count, st.cluster_feat, *rays, st.cluster_k)
 
 
 def test_render_matches_jax_under_dense(monkeypatch):
@@ -416,44 +478,123 @@ def test_leaves_off_takes_the_bvh2_walks(case, monkeypatch, name):
 # The CUDA source: emulated on the CPU, and on the card where there is one
 # ---------------------------------------------------------------------------
 
+def source_constant(name):
+    """The value of `constexpr int NAME = v;` in csrc/cluster_walk.cu."""
+    import re
+    src = open(traverse._SRC).read()
+    return int(re.search(rf"^constexpr int {name} = (\d+);$", src,
+                         re.M).group(1))
+
+
+def test_dense_constants_mirror_the_source():
+    """The twins count the kernel's threads with the source's block and
+    rays a thread."""
+    assert traverse.DENSE_RAYS == source_constant("DENSE_RAYS")
+    assert traverse.BLOCK == source_constant("BLOCK")
+    src = open(traverse._SRC).read()
+    assert traverse.with_constants(src, DENSE_RAYS=1) != src
+    with pytest.raises(ValueError, match="NO_SUCH"):
+        traverse.with_constants(src, NO_SUCH=1)
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     return build_emulation(tmp_path_factory.mktemp("dense_emu"))
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_dense_source_emulated_matches_twins(case, emulated, kind):
-    """K8's source, one thread at a time, bit-equal to its twins; its
-    loads as the twins count the work: a cluster visit reads the
-    cluster's centroid row and each slot test five float4 of plane
-    rows."""
-    st = case.st
-    rays = rays_of(case.rays, kind)
+@pytest.fixture(scope="module")
+def emulated_r1(tmp_path_factory):
+    """The source built with one ray a thread (DENSE_RAYS = 1, rewritten
+    as chip_tiles.py rewrites it), emulated."""
+    tmp = tmp_path_factory.mktemp("dense_emu_r1")
+    src = tmp / "src"
+    src.mkdir()
+    csrc = os.path.dirname(traverse._SRC)
+    (src / "cluster_walk.cu").write_text(traverse.with_constants(
+        open(traverse._SRC).read(), DENSE_RAYS=1))
+    for h in traverse.HEADERS:
+        (src / os.path.basename(h)).write_text(
+            open(os.path.join(csrc, os.path.basename(h))).read())
+    lib = emulate_source(tmp, str(src / "cluster_walk.cu"), _SHIM, 14)
+    traverse._declare(lib)
+    return lib
+
+
+def run_emulated(lib, st, rays, any_hit):
+    """K8's source on `rays` through the emulation: its outputs and its
+    loads of mxu_ccs, cluster_feat and mxu_ccount."""
     n = rays[0].shape[0]
-    tabs = (st.mxu_ccs, st.cluster_feat)
-    ptrs = [a.data_ptr() for a in tabs + rays]
+    tabs = (st.mxu_ccs, st.mxu_ccount, st.cluster_feat)
+    ptrs = [a.data_ptr() for a in tabs + tuple(rays)]
     dims = (n, st.mxu_ccs.shape[0], st.cluster_k, None)
+    loads = load_counters(lib, (st.mxu_ccs, st.cluster_feat, st.mxu_ccount))
+    if any_hit:
+        occ = torch.empty(n, dtype=torch.bool)
+        assert lib.mts_dense_any_hit(*ptrs, occ.data_ptr(), *dims) == 0
+        return occ, list(loads)
     t = torch.empty(n)
     slot = torch.empty(n, dtype=torch.int32)
-    occ = torch.empty(n, dtype=torch.bool)
+    assert lib.mts_dense_closest_hit(*ptrs, t.data_ptr(), slot.data_ptr(),
+                                     *dims) == 0
+    return (t, slot), list(loads)
+
+
+def assert_emulated_matches_twins(lib, st, rays, rays_per_thread):
+    """Both hits of the emulated source bit-equal to their twins on every
+    lane, and its loads as the twins count the threads' work: a thread
+    reads a cluster's centroid row and count once a cluster it sweeps,
+    and five float4 of plane rows a slot it loads."""
+    tabs = (st.mxu_ccs, st.mxu_ccount, st.cluster_feat)
     for any_hit in (False, True):
-        loads = load_counters(emulated, tabs)
-        if any_hit:
-            assert emulated.mts_dense_any_hit(*ptrs, occ.data_ptr(),
-                                              *dims) == 0
-        else:
-            assert emulated.mts_dense_closest_hit(
-                *ptrs, t.data_ptr(), slot.data_ptr(), *dims) == 0
+        got, loads = run_emulated(lib, st, rays, any_hit)
         stats = {}
         twin = (traverse.dense_any_hit_plain if any_hit
                 else traverse.dense_closest_hit_plain)
-        out = twin(*tabs, *rays, st.cluster_k, stats=stats)
+        out = twin(*tabs, *rays, st.cluster_k, stats=stats,
+                   rays_per_thread=rays_per_thread)
         if any_hit:
-            assert torch.equal(occ, out)
+            assert torch.equal(got, out)
         else:
-            assert torch.equal(t, out[0]) and torch.equal(slot, out[1])
-        assert loads[0] == stats["cluster_visits"]
-        assert loads[1] == 5 * stats["slot_tests"]
+            assert torch.equal(got[0], out[0])
+            assert torch.equal(got[1], out[1])
+        assert loads[0] == loads[2] == stats["thread_visits"]
+        assert loads[1] == 5 * stats["loaded_slots"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_dense_source_emulated_matches_twins(case, emulated, kind):
+    """K8's source, one thread at a time, bit-equal to its twins; its
+    loads as the twins count the threads' work."""
+    assert_emulated_matches_twins(emulated, case.st,
+                                  rays_of(case.rays, kind),
+                                  traverse.DENSE_RAYS)
+
+
+@pytest.mark.parametrize("rays_per_thread", [traverse.DENSE_RAYS, 1])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dense_source_emulated_tail_and_dead_lanes(case, emulated,
+                                                   emulated_r1, kind,
+                                                   rays_per_thread):
+    """The same at n = 2048 + 37, not a multiple of BLOCK * R (a tail
+    block, part of a thread's rays past n), with dead lanes (t_max <= 0)
+    amid the live ones, at the source's rays a thread and at one."""
+    lib = emulated if rays_per_thread == traverse.DENSE_RAYS else emulated_r1
+    rays = [torch.cat([a, a[:37]]) for a in rays_of(case.rays, kind)]
+    tm = rays[6]
+    tm[[5, 130, 131, 700, 1500, 2050]] = 0.0
+    tm[[6, 260, 900, 2080]] = -1.0
+    assert rays[0].shape[0] == 2085 and bool((tm > 0).any())
+    assert_emulated_matches_twins(lib, case.st, rays, rays_per_thread)
+
+
+def test_dense_source_emulated_cluster_without_slots(case, emulated):
+    """A count of 0 (a cluster without a real slot): the kernel and the
+    twins skip its slots and still read its centroid row and count."""
+    count = case.st.mxu_ccount.clone()
+    count[3] = 0
+    st = dataclasses.replace(case.st, mxu_ccount=count)
+    assert_emulated_matches_twins(emulated, st, rays_of(case.rays, "random"),
+                                  traverse.DENSE_RAYS)
 
 
 @pytest.fixture
@@ -467,7 +608,7 @@ def cuda():
 def test_cuda_dense_matches_twins(case, cuda, kind):
     st = mt.to_device(case.st, cuda)
     rays = rays_of(case.rays, kind, cuda)
-    tabs = (st.mxu_ccs, st.cluster_feat)
+    tabs = (st.mxu_ccs, st.mxu_ccount, st.cluster_feat)
     before = traverse.dense_closest_hit.launches
     t, slot = traverse.dense_closest_hit(*tabs, *rays, st.cluster_k)
     occ = traverse.dense_any_hit(*tabs, *rays, st.cluster_k)

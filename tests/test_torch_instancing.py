@@ -95,7 +95,7 @@ def assert_port_tables(jax_f, port_f, st):
     for k in ("bvh_node", "bvh_link", "bvh_prim"):
         assert (getattr(st, k) is not None) == bvh2, k
     assert (st.inst_bvh_root is not None) == (bvh2 and st.has_instances)
-    for k in scene_mod.CLUSTER_FIELDS + ("cluster_feat",):
+    for k in scene_mod.CLUSTER_FIELDS + ("cluster_feat", "mxu_ccount"):
         assert (getattr(st, k) is not None) == cluster, k
     for k in scene_mod.UPLOAD_FIELDS:
         assert not hasattr(st, k), k
