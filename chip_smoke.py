@@ -37,8 +37,8 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          traces (camera, first bounce, shadow, random; on the sphere
          fields a quarter of the random rays aim into the spheres); K6
          also on the n=64 sphere field (its sphere branch); K8, and K1,
-         K2 and K5's closest and any hit (warp-cooperative visits),
-         bit-equal to their twins on every lane. The paths on
+         K2, K5's and K7's closest and any hit (warp-cooperative
+         visits), bit-equal to their twins on every lane. The paths on
          one scene share its probe rays. Prints the walk work the twins
          count per lane and the bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
@@ -163,7 +163,8 @@ DENSE = {"gallery_dense"}
 # the kernels with warp-cooperative cluster visits: bit-equal to their
 # twins on every lane of phases 2 and 3
 COOPERATIVE = {"cluster_closest_hit", "inst_cluster_closest_hit",
-               "cluster_any_hit", "inst_cluster_any_hit"}
+               "bvh8mxu_closest_hit", "cluster_any_hit",
+               "inst_cluster_any_hit", "bvh8mxu_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
@@ -404,8 +405,8 @@ def passes(c, exact=False, exact_closest=False, exact_any=False):
     """A kernel's agreement with its twin (compare's): within the port's
     limits, every output bit-equal where `exact` (K8), the closest hit's
     (t, slot, instance) where `exact_closest` and the occlusion on every
-    lane where `exact_any` (K1, K2 and K5, whose warp-cooperative visits
-    keep the twin's rule)."""
+    lane where `exact_any` (K1, K2, K5 and K7, whose warp-cooperative
+    visits keep the twin's rule)."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
             and c["uv_max_abs_err"] <= 1e-5
@@ -528,8 +529,8 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _kernels_vs_twins(torch, name, scene, probes, dev):
     """Phase 2 for one path (or the extra scene), under its switches;
     `probes` holds each scene's probe rays, made on its first path.
-    Returns whether every kernel agreed with its twin (K8, K1, K2 and
-    K5, bit for bit)."""
+    Returns whether every kernel agreed with its twin (K8, K1, K2, K5
+    and K7, bit for bit)."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -696,7 +697,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
     each launch of the path's kernels timed and held against its twin (K8,
-    K1, K2 and K5, bit for bit), and, with `also` (a
+    K1, K2, K5 and K7, bit for bit), and, with `also` (a
     scene under "bvh8"), K6's on the same inputs. Returns the kernels'
     rows, the median render ms and each kernel's launches (time_launch's
     records)."""

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""Tile width of the four warp-cooperative cluster walks (K1 and K2, K5's
-closest and any hit) and rays a thread of the dense sweep (K8) on one
-NVIDIA card.
+"""Tile width of the six warp-cooperative cluster walks (K1 and K2, K5's
+and K7's closest and any hit) and rays a thread of the dense sweep (K8)
+on one NVIDIA card.
 
-    python3 chip_tiles.py [gallery] [instanced] [gallery_dense]
+    python3 chip_tiles.py [gallery] [instanced] [gallery_bvh8mxu]
+                          [gallery_dense]
 
 csrc/cluster_walk.cu's warp_visit holds TILE_J plane-row slots a lane in
 registers (a tile of 32 * TILE_J slots a pass; INST_ANY_TILE_J on K5's
-any hit), and each thread of dense_sweep tests DENSE_RAYS rays on each
-slot's rows it loads. This builds the source with all three set to 1, 2
-and 4 (they touch different kernels, so one build serves both sweeps;
-copies under mitsuba2_tpu_torch/_build/tiles/, one nvcc each, started
-together) and prints each build's ptxas registers and spills for the six
-kernels. It then renders the named paths (all three by default) once at
-chip_smoke.py's config: mesh_gallery(subdiv=4) (K1, K2),
-instanced_field(n=1024, subdiv=4) (K5) and the gallery with the dense
-switch on (K8), recording each wavefront of the path's closest-hit and
-any-hit kernels, and on each wavefront holds every build against the
-plain twin (bit-equal on every lane) and times it with
-chip_smoke.kernel_ms, the builds in turns (4, 2, 1, 1, 2, 4). Exits
-non-zero when there is no CUDA device or a build disagrees.
+any hit, BVH8C_TILE_J on K7), and each thread of dense_sweep tests
+DENSE_RAYS rays on each slot's rows it loads. This builds the source with
+all four set to 1, 2 and 4 (they touch different kernels, so one build
+serves every sweep; copies under mitsuba2_tpu_torch/_build/tiles/, one
+nvcc each, started together) and prints each build's ptxas registers and
+spills for the eight kernels. It then renders the named paths (all four
+by default) once at chip_smoke.py's config: mesh_gallery(subdiv=4) (K1,
+K2), instanced_field(n=1024, subdiv=4) (K5), the gallery under
+set_backend("bvh8mxu") (K7) and with the dense switch on (K8), recording
+each wavefront of the path's closest-hit and any-hit kernels, and on
+each wavefront holds every build against the plain twin (bit-equal on
+every lane) and times it with chip_smoke.kernel_ms, the builds in turns
+(4, 2, 1, 1, 2, 4). Exits non-zero when there is no CUDA device or a
+build disagrees.
 """
 import ctypes
 import os
@@ -32,16 +34,18 @@ import chip_smoke as cs
 
 VALUES = (1, 2, 4)
 # the source's constants, each set to the build's value
-CONSTANTS = ("TILE_J", "INST_ANY_TILE_J", "DENSE_RAYS")
+CONSTANTS = ("TILE_J", "INST_ANY_TILE_J", "BVH8C_TILE_J", "DENSE_RAYS")
 # the kernels each sweep varies, as ptxas names them (inst_ first:
 # "cluster_any_hit_kernel" ends both any-hit names)
 KERNELS = (("inst_cluster_closest_hit", "K5 closest"),
            ("inst_cluster_any_hit", "K5 any"),
            ("cluster_closest_hit", "K1"), ("cluster_any_hit", "K2"),
+           ("bvh8mxu_closest_hit", "K7 closest"),
+           ("bvh8mxu_any_hit", "K7 any"),
            ("dense_closest_hit", "K8 closest"), ("dense_any_hit", "K8 any"))
 # each path's constant, as the lines name a build
 KNOB = {"gallery": "TILE_J", "instanced": "TILE_J",
-        "gallery_dense": "DENSE_RAYS"}
+        "gallery_bvh8mxu": "BVH8C_TILE_J", "gallery_dense": "DENSE_RAYS"}
 ORDER = (4, 2, 1, 1, 2, 4)
 REPS = 10
 
@@ -77,7 +81,8 @@ def build(native, traverse):
                 info = [x.split("info    :")[-1].strip()
                         for x in rep[i + 1:i + 4]
                         if "registers" in x or "spill" in x]
-                knob = "DENSE_RAYS" if kern.startswith("K8") else "TILE_J"
+                knob = ("DENSE_RAYS" if kern.startswith("K8") else
+                        "BVH8C_TILE_J" if kern.startswith("K7") else "TILE_J")
                 print(f"{knob}={v} {kern}: {' | '.join(info)}", flush=True)
     return libs
 
@@ -105,10 +110,12 @@ def main(paths):
     print(f"built {len(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     dev = torch.device(cs.DEVICE)
-    make = {"gallery": lambda: mt.mesh_gallery(subdiv=cs.SUBDIV, device=dev),
-            "instanced": lambda: mt.instanced_field(**cs.FIELD, device=dev),
-            "gallery_dense": lambda: mt.mesh_gallery(subdiv=cs.SUBDIV,
-                                                     device=dev)}
+
+    def gallery():
+        return mt.mesh_gallery(subdiv=cs.SUBDIV, device=dev)
+    make = {"gallery": gallery, "gallery_bvh8mxu": gallery,
+            "gallery_dense": gallery,
+            "instanced": lambda: mt.instanced_field(**cs.FIELD, device=dev)}
     ok = True
     for path in paths or KNOB:
         with cs.path_switches(path):
@@ -125,7 +132,7 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
     returns whether every build agreed on every lane."""
     knob = KNOB[path]
     reps = cs.PATH_REPS.get(path, REPS)
-    ks = cs.kernels_of(scene)
+    ks = cs.kernels_of(scene, cs.BACKEND.get(path, "auto"))
     record = []
     orig, rec = cs._recorders(traverse, record, ks)
     for k, f in rec.items():
@@ -138,9 +145,11 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
     torch.cuda.synchronize()
     tabs, extra = ks["tabs"], ks["extra"]
     inst = scene.has_instances
-    # the C entries' sizes: (fuel, ck) instanced, (clusters, ck) dense,
-    # (rows, ck) on the flat walk
+    # the C entries' sizes: (fuel, ck) instanced and on the BVH8 walk
+    # (extra: ck, stack, fuel), (clusters, ck) dense, (rows, ck) on the
+    # flat walk
     sizes = ((extra[1], extra[0]) if inst
+             else (extra[2], extra[0]) if path == "gallery_bvh8mxu"
              else (scene.mxu_ccs.shape[0], extra[0]) if path == "gallery_dense"
              else (scene.mxu_node_f.shape[0], extra[0]))
     means = {(nm, v): [] for nm in (ks["closest"], ks["any"])

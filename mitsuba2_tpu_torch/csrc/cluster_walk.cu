@@ -23,7 +23,9 @@
 //   bvh8_closest_hit_kernel     <- _closest_hit_bvh8_kernel (:2001)
 //   bvh8_any_hit_kernel         <- _any_hit_bvh8_kernel (:2117)
 //   bvh8mxu_closest_hit_kernel  <- _closest_hit_bvh8mxu_kernel (:2316)
+//                                 (warp-cooperative visits, below)
 //   bvh8mxu_any_hit_kernel      <- _any_hit_bvh8mxu_kernel (:2433)
+//                                 (warp-cooperative visits, below)
 //   dense_closest_hit_kernel    <- _closest_hit_mxu_dense_kernel (:1040)
 //   dense_any_hit_kernel        <- _any_hit_mxu_dense_kernel (:1071)
 // mxu and mxu2 compute one function; they differ only in how the TPU
@@ -59,9 +61,10 @@
 // Ties: within a cluster the lowest slot wins an equal t, across clusters
 // the first one visited keeps it (strictly closer replaces).
 //
-// WARP-COOPERATIVE VISITS (K1 and K2, K5's closest and any hit). The
-// first version ran one ray per thread, the thread alone looping over a
-// cluster's 128 slots when its slab hit: the threads of a warp that missed
+// WARP-COOPERATIVE VISITS (K1 and K2, K5's and K7's closest and any hit;
+// K7 walks the BVH8 tree, below, to its visits). The first version ran
+// one ray per thread, the thread alone looping over a cluster's 128 slots
+// when its slab hit: the threads of a warp that missed
 // idled through that loop, and threads that wanted different clusters ran
 // their loops one after another. The cluster-visit probe (probes.cu, P3)
 // put such a visit at 8.8x the cost per ray of one that all 32 threads
@@ -148,10 +151,14 @@ constexpr unsigned FULL_WARP = 0xffffffffu;
 // Plane-row slots a lane holds in a tile (a tile: the 32 * TILE_J slots a
 // warp tests in one pass). K5's any hit holds one: 0.541 ms a launch
 // against 0.582 at two on the instanced field's shadow wavefronts, where
-// K2 is the faster at two (0.451 ms against 0.476 at one; chip_tiles.py,
-// H100 80GB HBM3, 700.00 W; PERF.md §6).
+// K2 is the faster at two (0.451 ms against 0.476 at one). K7 holds one:
+// 76 registers against 102 at two, besides its BVH8 stack, and 3.760 ms
+// a render's five launches on the gallery's wavefronts against 3.799 at
+// two and 4.122 at four (chip_tiles.py, H100 80GB HBM3, 700.00 W;
+// PERF.md §6).
 constexpr int TILE_J = 2;
 constexpr int INST_ANY_TILE_J = 1;
+constexpr int BVH8C_TILE_J = 1;
 // Rays a thread of the dense sweep (K8) tests on each slot's plane rows
 // it loads (dense_sweep, below). Two: 70.8 / 47.6 ms a closest / any-hit
 // launch on the gallery's wavefronts against 87.4 / 49.5 at one and
@@ -811,36 +818,55 @@ inst_bvh_any_hit_kernel(const float4* __restrict__ node,
 // closest-hit advance re-culls the child: one more slab test), and its
 // leaf tests: K6 up to LEAF_K = 4 prims a leaf (46 FP32 operations a
 // triangle, 31 a sphere, prim_test above), K7 the CK = 128 slots of a
-// cluster (38 each, slot_test above). The bytes the function must move are
-// the rays, the results and the tables once, so the roofline bound is a
-// few hundredths of a millisecond for a 1M-lane wavefront, by bytes or by
-// operations. The real limiter of this first version is, as for K1-K5,
-// latency: each step waits on a dependent child-row load, and the
-// threads of a warp diverge onto different subtrees.
+// cluster (38 each, slot_planes; padding slots not charged). The bytes
+// the function must move are the rays, the results and the tables once,
+// so the roofline bound is a few hundredths of a millisecond for a
+// 1M-lane wavefront, by bytes or by operations (K7 on the gallery's
+// wavefronts: 0.031 ms a closest-hit, 0.029 an any-hit launch, by
+// operations). The real limiter is latency: each step waits on a
+// dependent child-row load, and the threads of a warp diverge onto
+// different subtrees.
 //
-// DESIGN. One ray per thread, a stack walk (the JAX kernels' state
-// machine, one step a loop iteration). A fresh visit of node `cur` reads
-// the order row order8[cur*8 + octant] (the ray's own octant: bit0 dx<0,
-// bit1 dy<0, bit2 dz<0; the JAX kernels' block vote is a TPU workaround)
-// and slab-tests every non-empty child in that order, against t_best
-// (closest hit) or t_max (any hit): bit j of the mask is the child at
-// position j of the order. A step then advances the lowest set bit: it
+// DESIGN. One ray per lane and a stack walk, the JAX kernels' state
+// machine one step a loop iteration (K7: bvh8c_step). A fresh visit of node
+// `cur` reads the order row order8[cur*8 + octant] (the ray's own octant:
+// bit0 dx<0, bit1 dy<0, bit2 dz<0; the JAX kernels' block vote is a TPU
+// workaround) and slab-tests every non-empty child in that order, against
+// t_best (closest hit) or t_max (any hit): bit j of the mask is the child
+// at position j of the order. A step then advances the lowest set bit: it
 // clears it and reads that child; closest hit re-culls it against the
-// current t_best, any hit does not. A leaf child is tested (K6: its prims
-// in order, strict < so the lowest prim keeps a tie; K7: its cluster's CK
-// slots recentred at the child's centroid, K1's slot test and tie rule);
-// an inner child (kind <= -2) is descended into, pushing the parent with
-// its remaining mask only if that mask is non-zero. An empty mask pops,
-// and an empty stack ends the walk; any hit ends at its first hit. The
-// stack is a per-thread array of BVH8_STACK (node << 8 | mask) words in
-// local memory; the wrapper refuses a tree whose depth + 2 exceeds it, so
-// the guard on the push never drops one. The order row is kept in one
-// register as eight 4-bit slots. The step cap is the JAX kernels' fuel
-// (the wrapper's). Child rows: K6 [min.xyz, max.x | max.yz, kind, count]
-// (bvh8_child, two float4s: slab() reads them as it reads a BVH2 node),
-// K7 [min.xyz, max.x | max.yz, slot base, 0 | centroid.xyz, 0 | pad]
-// (bvh8c_child, four float4s). K6 reads bvh_prim as K3 does; K7 reads
-// cluster_feat as K1 does and returns slot ids.
+// current t_best, any hit does not. An inner child (kind <= -2) is
+// descended into, pushing the parent with its remaining mask only if that
+// mask is non-zero; a leaf child (kind >= 0) is the step's result. An
+// empty mask pops, and an empty stack ends the walk; any hit ends at its
+// first hit. The stack is a per-lane array of BVH8_STACK (node << 8 |
+// mask) words in local memory; the wrapper refuses a tree whose depth + 2
+// exceeds it, so the guard on the push never drops one. The order row is
+// kept in one register as eight 4-bit slots. The step cap is the JAX
+// kernels' fuel (the wrapper's), one a step. Child rows: K6 [min.xyz,
+// max.x | max.yz, kind, count] (bvh8_child, two float4s: slab() reads them
+// as it reads a BVH2 node), K7 [min.xyz, max.x | max.yz, slot base, 0 |
+// centroid.xyz, 0 | pad] (bvh8c_child, four float4s). K6 reads bvh_prim
+// as K3 does; K7 reads cluster_feat as K1 does and returns slot ids.
+//
+// K6 tests a leaf's prims in the thread that reached it (strict <, so the
+// lowest prim keeps a tie). K7 visits its clusters warp-cooperatively, as
+// K1 does: each lane walks to its next leaf child (a due visit: the
+// cluster at slot base `kind`, recentred at the child's centroid) or the
+// end of its walk, then the whole warp serves the due visits (warp_visit,
+// BVH8C_TILE_J slots a lane), and the lanes walk on while any lane of the
+// warp is walking. A lane's visits keep its walk order and its t_best is
+// updated before its next re-cull, and warp_visit keeps K1's tie rule
+// (the lowest slot in a cluster, the first cluster visited across
+// clusters), so t and slot are bit-equal to the twin's on every lane; the
+// any hit is an OR over the same clusters up to the same cap, and occ is
+// too. K7 took 3.150 ms a closest-hit and 1.306 an any-hit launch on the
+// gallery's wavefronts with a per-thread visit, and takes 0.934 and 0.492
+// so, against bounds of 0.031 and 0.029 (chip_smoke.py; H100 80GB HBM3,
+// 700.00 W; PERF.md §6). Its warps load and test as K1's do on the same
+// rays (as many groups a lane); what it takes over K1, ~0.14 ms a
+// closest-hit launch, is its walk, whose lanes branch apart between fresh
+// visits (8 child rows each), advances and pops.
 // ---------------------------------------------------------------------------
 
 constexpr int BVH8_STACK = 32;   // kernels/traverse.py::BVH8_STACK
@@ -855,16 +881,77 @@ __device__ __forceinline__ unsigned load_perm(const int4* __restrict__ order,
            ((unsigned)b.w << 28);
 }
 
-// The BVH8 walk of one ray. CLUSTER_LEAVES = false: K6, leaves of prims in
-// `leaf` (bvh_prim), outputs t, prim, u, v. true: K7, cluster leaves whose
-// plane rows are in `leaf` (cluster_feat), outputs t and slot.
-template <bool ANY_HIT, bool CLUSTER_LEAVES>
+// Where a lane's BVH8 walk stands: the node `cur` (-1 once the walk is
+// over), whether it is still to be visited fresh, its remaining mask and
+// order row, and the stack
+struct Bvh8Cursor {
+    int stack[BVH8_STACK];   // (node << 8) | the node's remaining mask
+    int sp = 0, cur = 0, mask = 0;
+    bool fresh = true;
+    unsigned perm = 0;
+};
+
+// One step of a lane's BVH8 walk over cluster leaves (one iteration of
+// the loop above), its slab tests against t_lim. Returns the row of the
+// leaf child an advance reached (its second float4 in *leaf_b), else
+// nullptr.
+template <bool ANY_HIT>
+__device__ __forceinline__ const float4* bvh8c_step(
+        const float4* __restrict__ child, const int4* __restrict__ order,
+        const RayState& r, float t_lim, Bvh8Cursor& w, float4* leaf_b) {
+    constexpr int ROW = 4;    // float4s a child row
+    if (w.fresh) {            // slab-test the 8 children in octant order
+        w.perm = load_perm(order, w.cur * 8 + r.oct);
+        w.mask = 0;
+        for (int j = 0; j < 8; ++j) {
+            const float4* c = child + ROW * (size_t)(w.cur * 8 +
+                                                     ((w.perm >> (4 * j)) & 7));
+            const float4 a = __ldg(c), b = __ldg(c + 1);
+            if (slab(a, b, r, t_lim) && b.z != -1.0f) w.mask |= 1 << j;
+        }
+        w.fresh = false;
+    }
+    if (w.mask == 0) {        // the node is done: pop, or end the walk
+        if (w.sp == 0) {
+            w.cur = -1;
+            return nullptr;
+        }
+        const int e = w.stack[--w.sp];
+        w.cur = e >> 8;
+        w.mask = e & 255;
+        w.perm = load_perm(order, w.cur * 8 + r.oct);
+        return nullptr;
+    }
+    const int j = __ffs(w.mask) - 1;        // advance the lowest set bit
+    w.mask &= w.mask - 1;
+    const float4* c =
+        child + ROW * (size_t)(w.cur * 8 + ((w.perm >> (4 * j)) & 7));
+    const float4 a = __ldg(c), b = __ldg(c + 1);
+    // closest hit re-culls against the t_best improved since the visit
+    if (!ANY_HIT && !slab(a, b, r, t_lim)) return nullptr;
+    const int kind = (int)b.z;
+    if (kind <= -2) {         // descend; keep the parent if children remain
+        if (w.mask != 0 && w.sp < BVH8_STACK)
+            w.stack[w.sp++] = (w.cur << 8) | w.mask;
+        w.cur = -2 - kind;
+        w.fresh = true;
+        return nullptr;
+    }
+    *leaf_b = b;
+    return c;
+}
+
+// The BVH8 walk of one ray over prim leaves (K6), in its own thread:
+// outputs t, prim, u and v, or occ. bvh8c_step's state machine, kept
+// inline: through bvh8c_step K6's closest hit ran 6% slower (chip_smoke.py,
+// H100 80GB HBM3, 700.00 W; PERF.md §6).
+template <bool ANY_HIT>
 __device__ __forceinline__ void bvh8_walk(
         const float4* __restrict__ child, const int4* __restrict__ order,
         const float4* __restrict__ leaf, const RayState& r, float t_max,
-        int fuel_cap, int ck, float* t_io, int* id_io, float* u_io,
-        float* v_io, bool* occ_io) {
-    constexpr int ROW = CLUSTER_LEAVES ? 4 : 2;   // float4s a child row
+        int fuel_cap, float* t_io, int* id_io, float* u_io, float* v_io,
+        bool* occ_io) {
+    constexpr int ROW = 2;   // float4s a child row
     float t_best = t_max, bu = 0.0f, bv = 0.0f;
     int best = -1;
     int stack[BVH8_STACK];   // (node << 8) | the node's remaining mask
@@ -904,15 +991,9 @@ __device__ __forceinline__ void bvh8_walk(
             if (mask != 0 && sp < BVH8_STACK) stack[sp++] = (cur << 8) | mask;
             cur = -2 - kind;
             fresh = true;
-        } else {              // a leaf at `kind`: its cluster's slots (K7)
-                              // or its prims, up to LEAF_K (K6)
-            const bool h =
-                CLUSTER_LEAVES
-                    ? cluster_visit<ANY_HIT>(leaf + (size_t)kind * FEAT_W4,
-                                             __ldg(c + 2), r, kind, ck,
-                                             t_max, &t_best, &best)
-                    : leaf_visit<ANY_HIT>(leaf, kind, (int)b.w, r, t_max,
-                                          &t_best, &best, &bu, &bv);
+        } else {              // a leaf at `kind`: its prims, up to LEAF_K
+            const bool h = leaf_visit<ANY_HIT>(leaf, kind, (int)b.w, r, t_max,
+                                               &t_best, &best, &bu, &bv);
             if (ANY_HIT && h) {
                 *occ_io = true;
                 return;               // stop at the first hit
@@ -922,11 +1003,56 @@ __device__ __forceinline__ void bvh8_walk(
     if (!ANY_HIT) {
         *t_io = best >= 0 ? t_best : inf_f();
         *id_io = best;
-        if (!CLUSTER_LEAVES) {
-            *u_io = bu;
-            *v_io = bv;
-        }
+        *u_io = bu;
+        *v_io = bv;
     }
+}
+
+// The BVH8 walk of a lane's ray over cluster leaves (K7), warp-synchronous
+// as cluster_walk is: the lane walks to its next leaf child or the end of
+// its walk, the warp serves the due visits together, and so on while any
+// lane is walking. A lane that is not `live` takes part, its walk done.
+// Closest hit: *t_io and *slot_io. Any hit: t_best stays t_max, and a
+// lane's walk ends at its first hit, which sets *occ_io. The step that
+// reaches a leaf counts once against the fuel, its visit included.
+template <bool ANY_HIT>
+__device__ __forceinline__ void bvh8c_walk(
+        const float4* __restrict__ child, const int4* __restrict__ order,
+        const float4* __restrict__ feat, const RayState& r, bool live,
+        float t_max, int fuel_cap, int ck, float* t_io, int* slot_io,
+        bool* occ_io) {
+    float t_best = t_max;
+    int best = -1, fuel = 0;
+    bool occ = false;
+    Bvh8Cursor w;
+    bool done = !live || fuel_cap <= 0;
+    while (__any_sync(FULL_WARP, !done)) {
+        int base = -1;
+        float4 cen = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        while (!done && base < 0) {       // to the next due visit
+            float4 b;
+            const float4* c =
+                bvh8c_step<ANY_HIT>(child, order, r, t_best, w, &b);
+            ++fuel;
+            if (c != nullptr) {
+                base = (int)b.z;
+                cen = __ldg(c + 2);
+            } else {
+                done = w.cur < 0 || fuel >= fuel_cap;
+            }
+        }
+        if (warp_visit<ANY_HIT, BVH8C_TILE_J>(feat, cen, r, base, ck,
+                                              &t_best, &best) &&
+            ANY_HIT)
+            occ = true;
+        if (base >= 0) done = occ || fuel >= fuel_cap;   // the visit's step
+    }
+    if (ANY_HIT) {
+        *occ_io = occ;
+        return;
+    }
+    *t_io = best >= 0 ? t_best : inf_f();
+    *slot_io = best;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -950,8 +1076,8 @@ bvh8_closest_hit_kernel(const float4* __restrict__ child,
     int p = -1;
     if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh8_walk<false, false>(child, order, prim, r, tm, fuel, 0, &t, &p,
-                                &u, &v, nullptr);
+        bvh8_walk<false>(child, order, prim, r, tm, fuel, &t, &p, &u, &v,
+                         nullptr);
     }
     t_out[i] = t;
     prim_out[i] = p;
@@ -977,8 +1103,8 @@ bvh8_any_hit_kernel(const float4* __restrict__ child,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh8_walk<true, false>(child, order, prim, r, tm, fuel, 0, nullptr,
-                               nullptr, nullptr, nullptr, &occ);
+        bvh8_walk<true>(child, order, prim, r, tm, fuel, nullptr, nullptr,
+                        nullptr, nullptr, &occ);
     }
     occ_out[i] = occ;
 }
@@ -998,17 +1124,18 @@ bvh8mxu_closest_hit_kernel(const float4* __restrict__ child,
                            int* __restrict__ slot_out, int n, int fuel,
                            int ck) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    float t = inf_f();
-    int slot = -1;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh8_walk<false, true>(child, order, feat, r, tm, fuel, ck, &t,
-                               &slot, nullptr, nullptr, nullptr);
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
+    float t;
+    int slot;
+    bvh8c_walk<false>(child, order, feat, r, live, tm, fuel, ck, &t, &slot,
+                      nullptr);
+    if (i < n) {
+        t_out[i] = t;
+        slot_out[i] = slot;
     }
-    t_out[i] = t;
-    slot_out[i] = slot;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -1024,15 +1151,14 @@ bvh8mxu_any_hit_kernel(const float4* __restrict__ child,
                        const float* __restrict__ tmax,
                        bool* __restrict__ occ_out, int n, int fuel, int ck) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    bool occ = false;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh8_walk<true, true>(child, order, feat, r, tm, fuel, ck, nullptr,
-                              nullptr, nullptr, nullptr, &occ);
-    }
-    occ_out[i] = occ;
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
+    bool occ;
+    bvh8c_walk<true>(child, order, feat, r, live, tm, fuel, ck, nullptr,
+                     nullptr, &occ);
+    if (i < n) occ_out[i] = occ;
 }
 
 // ---------------------------------------------------------------------------

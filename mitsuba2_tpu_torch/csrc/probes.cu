@@ -39,10 +39,11 @@
 // BOUND: 32 FP32 operations a row (16 products, 15 sums, the min).
 //
 // cluster_visit_kernel (P3). P1's DEP walk, plus a visit of one cluster of
-// CK slot-major 20-float plane rows through cluster_visit<false> (K1's own
-// visit, walk.cuh) with a fixed centroid: cluster (step mod C). EVERY = 0:
-// no visit (the walk alone); 4: every 4th step where the slab hits (the
-// threads of a warp then visit apart); 1: every step (all threads together).
+// CK slot-major 20-float plane rows through cluster_visit (the cluster
+// walks' first, per-thread visit, below) with a fixed centroid: cluster
+// (step mod C). EVERY = 0: no visit (the walk alone); 4: every 4th step
+// where the slab hits (the threads of a warp then visit apart); 1: every
+// step (all threads together).
 // Outputs per lane: t_best (1e30 where nothing was hit) and the slot.
 // BOUND: 12 FP32 operations a step, 38 a slot test.
 //
@@ -61,6 +62,43 @@ namespace {
 constexpr int BLOCK = 128;
 constexpr int ROWS = 128;        // P2: rows a step (the TPU probe's K4)
 constexpr float FAR = 1e30f;     // the TPU probes' t_best
+
+// One slot's plane test, its five float4 of plane rows read from f
+__device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
+                                          const RayState& r, float px,
+                                          float py, float pz, float mx,
+                                          float my, float mz, float* t_out) {
+    return slot_planes(__ldg(f), __ldg(f + 1), __ldg(f + 2), __ldg(f + 3),
+                       __ldg(f + 4), r.dx, r.dy, r.dz, px, py, pz, mx, my,
+                       mz, t_out);
+}
+
+// One thread's closest-hit visit of one cluster (the probes' P3): the CK
+// slots from fs, the ray recentred at the cluster centroid c. A slot
+// strictly nearer than *t_best replaces *t_best and *best (slot base + k,
+// so the lowest slot keeps a tie); returns whether one did.
+__device__ __forceinline__ bool cluster_visit(const float4* __restrict__ fs,
+                                              const float4& c,
+                                              const RayState& r, int base,
+                                              int ck, float* t_best,
+                                              int* best) {
+    const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
+    const float mx = py * r.dz - pz * r.dy;
+    const float my = pz * r.dx - px * r.dz;
+    const float mz = px * r.dy - py * r.dx;
+    bool closer = false;
+    for (int k = 0; k < ck; ++k) {
+        float t;
+        const bool ok = slot_test(fs + k * FEAT_W4, r, px, py, pz, mx, my,
+                                  mz, &t);
+        if (ok && t < *t_best) {
+            *t_best = t;
+            *best = base + k;
+            closer = true;
+        }
+    }
+    return closer;
+}
 
 __device__ __forceinline__ RayState probe_ray(float s) {
     const float ox = s * 0.001f;
@@ -162,8 +200,8 @@ cluster_visit_kernel(const float4* __restrict__ node,
         const int next = __ldg(link + 16 * nd + (hit ? 0 : 8));
         if (EVERY == 1 || (EVERY == 4 && k % 4 == 0 && hit)) {
             const int base = (k % n_clusters) * ck;
-            cluster_visit<false>(feat + (size_t)base * FEAT_W4, c, r, base,
-                                 ck, 0.0f, &t_best, &best);
+            cluster_visit(feat + (size_t)base * FEAT_W4, c, r, base, ck,
+                          &t_best, &best);
         }
         nd = next;
     }

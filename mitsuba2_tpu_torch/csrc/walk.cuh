@@ -1,7 +1,6 @@
 // Device helpers shared by the traversal kernels (cluster_walk.cu) and
-// the probes (probes.cu): the ray record, the slab test of a box row, the
-// plane test of one cluster slot and one thread's visit of one cluster's
-// slots.
+// the probes (probes.cu): the ray record, the slab test of a box row and
+// the plane test of one cluster slot.
 // Each including file gets its own internal copy.
 #pragma once
 
@@ -79,47 +78,6 @@ __device__ __forceinline__ bool slot_planes(const float4& f0,
     *t_out = t;
     return (inv != 0.0f) && (u >= 0.0f) && (v >= 0.0f) &&
            (u + v <= 1.0f) && (t > 0.0f);
-}
-
-// One slot's plane test, its five float4 of plane rows read from f
-__device__ __forceinline__ bool slot_test(const float4* __restrict__ f,
-                                          const RayState& r, float px,
-                                          float py, float pz, float mx,
-                                          float my, float mz, float* t_out) {
-    return slot_planes(__ldg(f), __ldg(f + 1), __ldg(f + 2), __ldg(f + 3),
-                       __ldg(f + 4), r.dx, r.dy, r.dz, px, py, pz, mx, my,
-                       mz, t_out);
-}
-
-// One cluster visit: the CK slots from fs, the ray recentred at the
-// cluster centroid c. Any hit: true at the first slot hit at t <= t_lim.
-// Closest hit: a slot strictly nearer than *t_best replaces *t_best and
-// *best (slot base + k, so the lowest slot keeps a tie); returns whether
-// one did.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool cluster_visit(const float4* __restrict__ fs,
-                                              const float4& c,
-                                              const RayState& r, int base,
-                                              int ck, float t_lim,
-                                              float* t_best, int* best) {
-    const float px = r.ox - c.x, py = r.oy - c.y, pz = r.oz - c.z;
-    const float mx = py * r.dz - pz * r.dy;
-    const float my = pz * r.dx - px * r.dz;
-    const float mz = px * r.dy - py * r.dx;
-    bool closer = false;
-    for (int k = 0; k < ck; ++k) {
-        float t;
-        const bool ok = slot_test(fs + k * FEAT_W4, r, px, py, pz, mx, my,
-                                  mz, &t);
-        if (ANY_HIT) {
-            if (ok && t <= t_lim) return true;   // stop at the first hit
-        } else if (ok && t < *t_best) {
-            *t_best = t;
-            *best = base + k;
-            closer = true;
-        }
-    }
-    return closer;
 }
 
 }  // namespace

@@ -10,8 +10,9 @@ benchmarks/probe_walk_latency.py, probe_mxu_dma.py and probe_mxu_cost.py).
                    16 floats: rows read by each thread (warp-uniform
                    addresses) or staged in shared memory first
     cluster_visit  (P3) P1's dependent walk plus a visit of one cluster of
-                   CK plane rows through the cluster walks' own visit:
-                   never, every 4th step where the slab hits, or every step
+                   CK plane rows through the cluster walks' first,
+                   per-thread visit: never, every 4th step where the slab
+                   hits, or every step
 
 Each output is a deterministic function of the inputs, equal bit for bit
 between a kernel and its twin (everything in f32, no contraction). The

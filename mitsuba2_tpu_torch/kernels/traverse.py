@@ -79,9 +79,10 @@ BLOCK = 128  # threads of a kernel block (csrc/cluster_walk.cu)
 CCS_W = 8    # floats per cluster in mxu_ccs
 # slots a warp tests in one pass of a cooperative cluster visit
 # (csrc/cluster_walk.cu::warp_visit): TILE_J = 2 slots a lane, and
-# INST_ANY_TILE_J = 1 on the instanced any hit
+# INST_ANY_TILE_J = 1 on the instanced any hit, BVH8C_TILE_J = 1 on K7
 TILE = 2 * WARP
 INST_ANY_TILE = WARP
+BVH8C_TILE = WARP
 # The JAX package's module switches (traverse_pallas.py:379, :1025-1027),
 # read once at import with the same accepted values; tests set the module
 # attributes. MXU_LEAVES (MI_MXU_LEAVES, default on): off, triangle scenes
@@ -662,10 +663,10 @@ def _cluster_visit(f, base, c, ray, tl, cluster_k, any_hit, stats,
     (_cluster_planes': each lane's cluster, or one shared by all) from slot
     `base` ((m,), or an int), the lanes' rays (ox, oy, oz, dx, dy, dz)
     recentred at the centroid `c`, against their limits `tl`. Any hit:
-    (m,) bool, a slot hit at t <= tl; a kernel's thread stops there, so
-    the slot tests counted end at it, or with `tile` (a warp-cooperative
-    visit, which tests `tile` slots a pass) at the end of its tile, and
-    then it returns (hit, the slots tested) (m,) each. Closest hit:
+    (hit, the slots tested) (m,) each, hit: a slot hit at t <= tl; the
+    kernel tests `tile` slots a pass (a warp-cooperative visit's tile, or
+    1 for a thread alone), so a ray's tests end with the pass of its
+    first hit. Closest hit:
     (closer, t, slot) (m,) each, the nearest slot strictly under tl, the
     lowest on a tie. Counts the slot tests the kernels make (`slot_tests`,
     padding included) and those of real slots up to a first hit
@@ -691,7 +692,7 @@ def _cluster_visit(f, base, c, ray, tl, cluster_k, any_hit, stats,
         _count(stats, "real_slot_tests",
                int((real & (k < needed[:, None])).sum()))
     if any_hit:
-        return h if tile is None else (h, tested)
+        return h, tested
     ok = ok & (t < tl)
     t_m = torch.where(ok, t, float("inf"))
     t_c = t_m.amin(1)
@@ -721,6 +722,32 @@ def _count(stats, key, k):
         stats[key] = stats.get(key, 0) + k
 
 
+def _group_rows(lanes, n_vis, base, loaded):
+    """The warp-cooperative walks' visits of `lanes` ((m,) each: the lane's
+    visit number, the cluster's slot base, the slots up to the last tile
+    its ray is tested on) as _count_groups' rows; moves n_vis on."""
+    rows = torch.stack([lanes // WARP, n_vis[lanes], base, loaded], 1)
+    n_vis[lanes] += 1
+    return rows
+
+
+def _count_groups(stats, groups):
+    """The kernels' warps serve the visits due in a round together, and a
+    lane's j-th visit falls in round j: a warp loads a cluster's plane rows
+    once for each (warp, j, cluster) (csrc/cluster_walk.cu::warp_visit),
+    counted as `cluster_groups`, tile by tile up to the last tile one of
+    the group's rays is tested on: `loaded_slots`. `groups`: a list of
+    _group_rows' rows."""
+    if not groups:
+        return
+    g = torch.cat(groups)
+    key, inv = torch.unique(g[:, :3], dim=0, return_inverse=True)
+    rows = torch.zeros(key.shape[0], dtype=torch.int64, device=g.device)
+    rows.scatter_reduce_(0, inv, g[:, 3], "amax")
+    _count(stats, "cluster_groups", key.shape[0])
+    _count(stats, "loaded_slots", int(rows.sum()))
+
+
 def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
                 inst_inv=None, fuel=None):
     """The kernels' walk for every lane at once, each lane with its own
@@ -744,14 +771,9 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
         ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
         cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
         binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    # the kernels' warps serve the visits due in a round together, and a
-    # lane's j-th visit falls in round j: a warp loads a cluster's plane
-    # rows once for each (warp, j, cluster) (csrc/cluster_walk.cu::
-    # warp_visit), counted as `cluster_groups`, tile by tile up to the
-    # last tile one of the group's rays is tested on: `loaded_slots`
+    # each lane's visits so far, and the warps' groups (_count_groups)
     groups = [] if stats is not None else None
-    if groups is not None:
-        n_vis = torch.zeros(n, dtype=torch.int64, device=dev)
+    n_vis = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(node_f.shape[0] + 64 if fuel is None else fuel):
         act = torch.nonzero(node >= 0).squeeze(1)
         if act.numel() == 0:
@@ -781,11 +803,9 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
             if any_hit:
                 res, tested = res
             if groups is not None:
-                groups.append(torch.stack([
-                    lanes // WARP, n_vis[lanes], vb,
-                    tested if any_hit else torch.full_like(vb, cluster_k)],
-                    1))
-                n_vis[lanes] += 1
+                groups.append(_group_rows(
+                    lanes, n_vis, vb,
+                    tested if any_hit else torch.full_like(vb, cluster_k)))
             if any_hit:
                 occ[lanes[res]] = True
                 nxt[visit.nonzero().squeeze(1)[res]] = -1  # stop at a hit
@@ -821,13 +841,7 @@ def _walk_plain(node_f, link, feat, rays, cluster_k, any_hit, stats,
                 for c_, w_ in zip(cur, world):
                     c_[p_] = w_[p_]
         node[act] = nxt
-    if groups:
-        g = torch.cat(groups)
-        key, inv = torch.unique(g[:, :3], dim=0, return_inverse=True)
-        rows = torch.zeros(key.shape[0], dtype=torch.int64, device=dev)
-        rows.scatter_reduce_(0, inv, g[:, 3], "amax")
-        _count(stats, "cluster_groups", key.shape[0])
-        _count(stats, "loaded_slots", int(rows.sum()))
+    _count_groups(stats, groups)
     if any_hit:
         return occ
     t_out = torch.where(best >= 0, t_best, float("inf"))
@@ -1096,7 +1110,10 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
     slots, K7), an inner child is descended into, the parent pushed only
     if its mask is not yet empty. Counts fresh visits and the non-empty
     children they test (`child_tests`), advances, pushes, pops (resumes
-    from the stack), prim tests or cluster visits and slot tests."""
+    from the stack), prim tests or cluster visits and slot tests. K7's
+    kernels visit clusters warp-cooperatively (BVH8C_TILE slots a pass)
+    as K1's do, and the twin counts their groups and loads as _walk_plain
+    does (`cluster_groups`, `loaded_slots`: _count_groups)."""
     ox, oy, oz, dx, dy, dz, t_max = rays
     n, dev = ox.shape[0], ox.device
     ray = (ox, oy, oz, dx, dy, dz)
@@ -1116,6 +1133,8 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
     bit = torch.arange(8, device=dev)
     low_bit = _LOW_BIT.to(dev)
+    groups = [] if stats is not None and cluster_k is not None else None
+    n_vis = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(fuel):
         act = torch.nonzero(cur >= 0).squeeze(1)
         if act.numel() == 0:
@@ -1177,7 +1196,13 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
         else:
             res = _cluster_visit(_slot_rows(leaf, kind[li], cluster_k),
                                  kind[li], cr[li, 8:11].unbind(1), lray, tl,
-                                 cluster_k, any_hit, stats)
+                                 cluster_k, any_hit, stats, BVH8C_TILE)
+            if any_hit:
+                res, tested = res
+            if groups is not None:
+                groups.append(_group_rows(
+                    lanes, n_vis, kind[li],
+                    tested if any_hit else torch.full_like(lanes, cluster_k)))
         if any_hit:
             occ[lanes[res]] = True
             cur[lanes[res]] = -1                # stop at the first hit
@@ -1189,6 +1214,7 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
         if cluster_k is None:
             bu[lc] = res[3][closer]
             bv[lc] = res[4][closer]
+    _count_groups(stats, groups)
     if any_hit:
         return occ
     t_out = torch.where(best >= 0, t_best, float("inf"))
@@ -1222,8 +1248,9 @@ def bvh8mxu_closest_hit_plain(child, order, feat, ox, oy, oz, dx, dy, dz,
                               t_max, cluster_k: int, stack: int, fuel: int,
                               chunk: int = 8192, stats=None):
     """The twin of the BVH8 closest-hit kernel over cluster leaves (K7):
-    (t, slot). Its `stats` count cluster visits and slot tests besides the
-    walk's steps."""
+    (t, slot). Its `stats` count cluster visits, the warps' groups of
+    visits to one cluster (`cluster_groups`), the slots whose plane rows
+    they load (`loaded_slots`) and slot tests besides the walk's steps."""
     return _chunked(
         lambda r: _bvh8_walk_plain(child, order, feat, r, False, stats,
                                    stack, fuel, cluster_k),

@@ -23,6 +23,10 @@ Tolerances:
   prims equal except on exact ties (t equal), which none of these rays
   meets.
 - Renders: tests/test_torch_render.py's 32x32 tolerance.
+- On the card, each kernel against its twin: K6 with hit masks equal,
+  prims on 99.9% of hit lanes, t at rtol 1e-5, occlusion on 99.9%; K7,
+  whose warp-cooperative visits keep the twin's order, tie rule and
+  rounding, bit-equal (t, slot and occlusion on every lane).
 """
 import contextlib
 import functools
@@ -41,8 +45,10 @@ from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import BVH8_FIELDS
 
 from test_torch_instancing import flatten_mode, recorded_fields
+from test_torch_dense import source_constant
 from test_torch_spheres import package, sphere_field
-from test_torch_traverse import build_emulation, load_counters, planar
+from test_torch_traverse import (build_emulation, load_counters, planar,
+                                 work_counter)
 
 N_RAYS = 512
 N_ORACLE = 2048
@@ -410,9 +416,11 @@ def test_k7_twin_equals_k1_twin(gallery, gallery_rays, kind):
 def test_twins_count_walk_work(gallery, gallery_rays):
     """The work counts the bounds rest on: a fresh visit per descent and
     the root's, a pop per push, (closest hit) every cluster visit tests
-    all CK slots; and the work the rays need, which the bounds count:
-    the real slots (a padding slot's plane row, and only its, is all
-    zero) and the non-empty children of a fresh visit."""
+    all CK slots; K7's warp-cooperative loads: a group loads all CK slots
+    (closest hit), or at least one slot and at most its visits' CK (any
+    hit); and the work the rays need, which the bounds count: the real
+    slots (a padding slot's plane row, and only its, is all zero) and the
+    non-empty children of a fresh visit."""
     scenes, _ = gallery
     st = scenes["bvh8mxu"]
     assert torch.equal((st.cluster_feat != 0).any(1),
@@ -430,6 +438,11 @@ def test_twins_count_walk_work(gallery, gallery_rays):
     assert 0 < stats["real_slot_tests"] < stats["slot_tests"]
     assert 0 < any_stats["real_slot_tests"] < any_stats["slot_tests"]
     assert any_stats["real_slot_tests"] < stats["real_slot_tests"]
+    ck = st.cluster_k
+    assert stats["loaded_slots"] == ck * stats["cluster_groups"]
+    assert stats["cluster_groups"] <= stats["cluster_visits"]
+    assert (any_stats["cluster_groups"] <= any_stats["loaded_slots"]
+            <= any_stats["cluster_visits"] * ck)
     k6_stats = {}
     traverse.bvh8_closest_hit_plain(*traverse._bvh8_args(scenes["bvh8"], *ray),
                                     chunk=500, stats=k6_stats)
@@ -462,51 +475,88 @@ def emulate(lib, which, tabs, rays, extra, any_hit):
     return outs
 
 
+def assert_emulated_matches_twins(lib, which, st, o, d, tm):
+    """The CUDA source of K6 or K7 (`which`), emulated, against the twins
+    on the rays (o, d, tm), bit-equal; and the walk work the twins count
+    equals the loads the kernels make: two int4 of an order row a fresh
+    visit or a pop, two float4 of a child row per child slab-tested at a
+    fresh visit (8) and per advance, three float4 a prim test (K6); on
+    K7, whose warps visit clusters together, a centroid per lane-visit,
+    five float4 a loaded slot (`loaded_slots`: a warp's group of lanes
+    due at one cluster loads its rows once) and the slot tests on rows
+    held in registers as the twin counts them."""
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                 for a in (*o.T, *d.T, tm))
+    if which == "bvh8":
+        args = traverse._bvh8_args(st, planar(o), planar(d),
+                                   torch.from_numpy(tm))
+        extra = (args[-1],)
+        twins = (traverse.bvh8_closest_hit_plain,
+                 traverse.bvh8_any_hit_plain)
+    else:
+        args = traverse._bvh8mxu_args(st, planar(o), planar(d),
+                                      torch.from_numpy(tm))
+        extra = (args[-1], st.cluster_k)
+        twins = (traverse.bvh8mxu_closest_hit_plain,
+                 traverse.bvh8mxu_any_hit_plain)
+    tabs = args[:3]
+    for any_hit in (False, True):
+        loads = load_counters(lib, tabs)
+        out = emulate(lib, which, tabs, rays, extra, any_hit)
+        stats = {}
+        twin = twins[any_hit](*args, chunk=700, stats=stats)
+        twin = (twin,) if any_hit else twin
+        assert all(torch.equal(a, b) for a, b in zip(out, twin))
+        g = stats.get
+        visits = g("cluster_visits", 0)
+        assert loads[0] == (16 * g("fresh_visits") + 2 * g("advances")
+                            + visits)
+        assert loads[1] == 2 * (g("fresh_visits") + g("pops", 0))
+        tests = g("tri_tests", 0) + g("sphere_tests", 0)
+        if which == "bvh8":
+            assert loads[2] == 3 * tests and tests > 0
+            continue
+        assert loads[2] == 5 * g("loaded_slots")
+        assert work_counter(lib).value == g("slot_tests")
+        assert 0 < g("cluster_groups") <= visits
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_cuda_source_emulated_matches_twins(gallery, gallery_rays, field,
                                             emulated, kind):
-    """The CUDA source run one thread at a time (g++) against the twins,
-    bit-equal; and the walk work the twins count equals the loads the
-    kernels make: two int4 of an order row a fresh visit or a pop, two
-    float4 of a child row per child slab-tested at a fresh visit (8) and
-    per advance, a centroid per cluster visit (K7), three float4 a prim
-    test (K6) and five a slot test (K7)."""
+    """K6 on the gallery and the sphere field, K7 on the gallery:
+    assert_emulated_matches_twins on each kind of probe ray."""
     scenes, _ = gallery
-    cases = [("bvh8", scenes["bvh8"], gallery_rays[kind]),
-             ("bvh8", field[0], field[2][kind]),
-             ("bvh8mxu", scenes["bvh8mxu"], gallery_rays[kind])]
-    for which, st, (o, d, tm) in cases:
-        rays = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                     for a in (*o.T, *d.T, tm))
-        if which == "bvh8":
-            args = traverse._bvh8_args(st, planar(o), planar(d),
-                                       torch.from_numpy(tm))
-            extra = (args[-1],)
-            twins = (traverse.bvh8_closest_hit_plain,
-                     traverse.bvh8_any_hit_plain)
-        else:
-            args = traverse._bvh8mxu_args(st, planar(o), planar(d),
-                                          torch.from_numpy(tm))
-            extra = (args[-1], st.cluster_k)
-            twins = (traverse.bvh8mxu_closest_hit_plain,
-                     traverse.bvh8mxu_any_hit_plain)
-        tabs = args[:3]
-        for any_hit in (False, True):
-            loads = load_counters(emulated, tabs)
-            out = emulate(emulated, which, tabs, rays, extra, any_hit)
-            stats = {}
-            twin = twins[any_hit](*args, chunk=700, stats=stats)
-            twin = (twin,) if any_hit else twin
-            assert all(torch.equal(a, b) for a, b in zip(out, twin))
-            g = stats.get
-            visits = g("cluster_visits", 0)
-            assert loads[0] == (16 * g("fresh_visits") + 2 * g("advances")
-                                + visits)
-            assert loads[1] == 2 * (g("fresh_visits") + g("pops", 0))
-            tests = g("tri_tests", 0) + g("sphere_tests", 0)
-            assert loads[2] == (3 * tests if which == "bvh8"
-                                else 5 * g("slot_tests", 0))
-            assert (tests if which == "bvh8" else visits) > 0
+    for which, st, (o, d, tm) in (
+            ("bvh8", scenes["bvh8"], gallery_rays[kind]),
+            ("bvh8", field[0], field[2][kind]),
+            ("bvh8mxu", scenes["bvh8mxu"], gallery_rays[kind])):
+        assert_emulated_matches_twins(emulated, which, st, o, d, tm)
+
+
+def test_tiles_mirror_the_source():
+    """The twins count the warps' loads with the source's tile widths:
+    K1/K2 and K5's closest hit, K5's any hit and K7's."""
+    for twin, name in ((traverse.TILE, "TILE_J"),
+                       (traverse.INST_ANY_TILE, "INST_ANY_TILE_J"),
+                       (traverse.BVH8C_TILE, "BVH8C_TILE_J")):
+        assert twin == traverse.WARP * source_constant(name), name
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_k7_source_emulated_tail_and_dead_lanes(gallery, gallery_rays,
+                                                emulated, kind):
+    """K7 at n = 512 + 37, not a multiple of a warp (the last block of
+    128 lanes holds 37: a warp with 5, its other lanes past n), with dead
+    lanes (t_max <= 0) amid the live ones: every lane takes part in its
+    warp's visits (the emulation aborts on a lane that leaves early) and
+    the results stay bit-equal."""
+    o, d, tm = (np.concatenate([a, a[:37]]) for a in gallery_rays[kind])
+    tm[[5, 40, 41, 300, 530]] = 0.0
+    tm[[6, 200, 545]] = -1.0
+    assert tm.shape[0] == 549 and bool((tm > 0).any())
+    assert_emulated_matches_twins(emulated, "bvh8mxu",
+                                  gallery[0]["bvh8mxu"], o, d, tm)
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +752,12 @@ def test_cuda_bvh8_kernels_match_twins(gallery, gallery_rays, field, cuda,
         assert closest.launches == before + 1
         out_p = getattr(traverse, f"{which}_closest_hit_plain")(*args)
         occ_p = getattr(traverse, f"{which}_any_hit_plain")(*args)
+        if which == "bvh8mxu":
+            # K7's warp-cooperative visits keep the twin's order and tie
+            # rule, and --fmad=false its rounding: bit-equal
+            assert torch.equal(out[0], out_p[0])
+            assert torch.equal(out[1], out_p[1]) and torch.equal(occ, occ_p)
+            continue
         hit = torch.isfinite(out_p[0])
         assert torch.equal(torch.isfinite(out[0]), hit)
         assert (out[1] == out_p[1])[hit].float().mean() >= 0.999
