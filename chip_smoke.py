@@ -36,11 +36,13 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
          fields a quarter of the random rays aim into the spheres); K6
-         also on the n=64 sphere field (its sphere branch); K8, and K1,
-         K2, K5's and K7's closest and any hit (warp-cooperative
-         visits), bit-equal to their twins on every lane. The paths on
-         one scene share its probe rays. Prints the walk work the twins
-         count per lane and the bound of 1M such lanes.
+         also on the n=64 sphere field (its sphere branch); K8, K1, K2,
+         K5's and K7's closest and any hit (warp-cooperative visits),
+         and K4's and K6's closest hit (warp-wide leaf tests), bit-equal
+         to their twins on every lane. The paths on one scene share its
+         probe rays. Prints the walk work the twins count per lane (K4's
+         and K6's closest hit: their warps' leaf passes too) and the
+         bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
          renders, read just after), time, Mrays/s, peak memory. Each kernel
          is then timed and held against its twin on the very inputs the
@@ -100,7 +102,7 @@ WORK_COUNTS = ("node_steps", "fresh_visits", "child_tests", "advances",
                "pushes", "pops", "cluster_visits", "cluster_groups",
                "thread_visits", "loaded_slots", "slot_tests",
                "real_slot_tests", "tri_tests", "sphere_tests",
-               "instance_entries")
+               "leaf_passes", "instance_entries")
 # the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
 FIELD = dict(n=1024, subdiv=4)
@@ -160,11 +162,12 @@ PATH_KERNELS = {
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8"}
 DENSE = {"gallery_dense"}
-# the kernels with warp-cooperative cluster visits: bit-equal to their
-# twins on every lane of phases 2 and 3
+# the kernels with warp-cooperative cluster visits or leaf tests: bit-equal
+# to their twins on every lane of phases 2 and 3
 COOPERATIVE = {"cluster_closest_hit", "inst_cluster_closest_hit",
                "bvh8mxu_closest_hit", "cluster_any_hit",
-               "inst_cluster_any_hit", "bvh8mxu_any_hit"}
+               "inst_cluster_any_hit", "bvh8mxu_any_hit",
+               "inst_bvh_closest_hit", "bvh8_closest_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
@@ -404,9 +407,10 @@ def compare(torch, ks, rays):
 def passes(c, exact=False, exact_closest=False, exact_any=False):
     """A kernel's agreement with its twin (compare's): within the port's
     limits, every output bit-equal where `exact` (K8), the closest hit's
-    (t, slot, instance) where `exact_closest` and the occlusion on every
-    lane where `exact_any` (K1, K2, K5 and K7, whose warp-cooperative
-    visits keep the twin's rule)."""
+    (t, slot or prim, u, v, instance) where `exact_closest` and the
+    occlusion on every lane where `exact_any` (K1, K2, K5 and K7, whose
+    warp-cooperative visits keep the twin's rule, and K4's and K6's
+    closest hit, whose warp-wide leaf tests keep it)."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
             and c["uv_max_abs_err"] <= 1e-5
@@ -415,11 +419,12 @@ def passes(c, exact=False, exact_closest=False, exact_any=False):
             and (c["occ_agree"] == 1.0 or not exact_any))
 
 
-def exactness(path):
-    """passes()'s keywords for a path's kernels."""
-    closest, any_ = PATH_KERNELS.get(path, ("", ""))
-    return dict(exact=path in DENSE, exact_closest=closest in COOPERATIVE,
-                exact_any=any_ in COOPERATIVE)
+def exactness(path, ks):
+    """passes()'s keywords for the kernels `ks` (kernels_of's) on a path
+    (or phase 2's extra scene)."""
+    return dict(exact=path in DENSE,
+                exact_closest=ks["closest"] in COOPERATIVE,
+                exact_any=ks["any"] in COOPERATIVE)
 
 
 def sphere_field(mt, n, subdiv, device):
@@ -529,8 +534,8 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _kernels_vs_twins(torch, name, scene, probes, dev):
     """Phase 2 for one path (or the extra scene), under its switches;
     `probes` holds each scene's probe rays, made on its first path.
-    Returns whether every kernel agreed with its twin (K8, K1, K2, K5
-    and K7, bit for bit)."""
+    Returns whether every kernel agreed with its twin (K8, K1, K2, K5,
+    K7 and K4's and K6's closest hit, bit for bit)."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -559,7 +564,7 @@ def _kernels_vs_twins(torch, name, scene, probes, dev):
         args = (planar(torch, o, dev) + planar(torch, d, dev)
                 + [torch.from_numpy(tm).to(dev)])
         c = compare(torch, ks, args)
-        good = passes(c, **exactness(name))
+        good = passes(c, **exactness(name, ks))
         ok &= good
         log(f"phase 2: {name:17s} {kind:7s} {'ok  ' if good else 'FAIL'} "
             f"hit {c['hit_frac']:.4f} hit-mask-equal {c['hit_equal']} "
@@ -697,10 +702,10 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
     each launch of the path's kernels timed and held against its twin (K8,
-    K1, K2, K5 and K7, bit for bit), and, with `also` (a
-    scene under "bvh8"), K6's on the same inputs. Returns the kernels'
-    rows, the median render ms and each kernel's launches (time_launch's
-    records)."""
+    K1, K2, K5, K7 and K4's and K6's closest hit, bit for bit), and, with
+    `also` (a scene under "bvh8"), K6's on the same inputs. Returns the
+    kernels' rows, the median render ms and each kernel's launches
+    (time_launch's records)."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
     names = list(EXPECTED_LAUNCHES[path])
@@ -765,7 +770,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
         check(name in per, f"{path}: {name} was called on the main path")
         r = time_launch(torch, ks, scene, name, rays,
                         PATH_REPS.get(path, KERNEL_REPS))
-        check(passes(r["c"], **exactness(path)),
+        check(passes(r["c"], **exactness(path, ks)),
               f"{name} launch {i} disagrees with its twin: {r['c']}")
         per[name].append(r)
         log_launch(name, i, r)
@@ -775,8 +780,9 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
         for i, (name, rays) in enumerate(record):
             name8 = k8["closest" if name == ks["closest"] else "any"]
             r = time_launch(torch, k8, also, name8, rays)
-            check(passes(r["c"]), f"{name8} on {path}'s launch {i} "
-                                  f"disagrees with its twin: {r['c']}")
+            check(passes(r["c"], **exactness("spheres_bvh8", k8)),
+                  f"{name8} on {path}'s launch {i} disagrees with its "
+                  f"twin: {r['c']}")
             log_launch(f"{name8} (on {path}'s {name} inputs)", i, r)
     rows = []
     for name, rs in per.items():

@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
 """Tile width of the six warp-cooperative cluster walks (K1 and K2, K5's
-and K7's closest and any hit) and rays a thread of the dense sweep (K8)
-on one NVIDIA card.
+and K7's closest and any hit), rays a thread of the dense sweep (K8) and
+the round length of K4's and K6's closest hit, on one NVIDIA card.
 
     python3 chip_tiles.py [gallery] [instanced] [gallery_bvh8mxu]
-                          [gallery_dense]
+                          [gallery_dense] [spheres_instanced]
+                          [gallery_bvh8]
 
 csrc/cluster_walk.cu's warp_visit holds TILE_J plane-row slots a lane in
 registers (a tile of 32 * TILE_J slots a pass; INST_ANY_TILE_J on K5's
-any hit, BVH8C_TILE_J on K7), and each thread of dense_sweep tests
-DENSE_RAYS rays on each slot's rows it loads. This builds the source with
-all four set to 1, 2 and 4 (they touch different kernels, so one build
-serves every sweep; copies under mitsuba2_tpu_torch/_build/tiles/, one
-nvcc each, started together) and prints each build's ptxas registers and
-spills for the eight kernels. It then renders the named paths (all four
-by default) once at chip_smoke.py's config: mesh_gallery(subdiv=4) (K1,
-K2), instanced_field(n=1024, subdiv=4) (K5), the gallery under
-set_backend("bvh8mxu") (K7) and with the dense switch on (K8), recording
-each wavefront of the path's closest-hit and any-hit kernels, and on
-each wavefront holds every build against the plain twin (bit-equal on
-every lane) and times it with chip_smoke.kernel_ms, the builds in turns
-(4, 2, 1, 1, 2, 4). Exits non-zero when there is no CUDA device or a
-build disagrees.
+any hit, BVH8C_TILE_J on K7), each thread of dense_sweep tests
+DENSE_RAYS rays on each slot's rows it loads, and a lane of K4's (K6's)
+closest hit walks up to BVH_ROUND_STEPS (BVH8_ROUND_STEPS) steps a round
+before its warp tests the round's leaves (warp_leaf_visit). This builds
+the source with the four tile constants set to 1, 2 and 4, and with the
+two round lengths set to (1, 4, 8, 16) and (1, 2, 4, 8) (the constants
+of a build touch different kernels, so one build serves every sweep;
+copies under mitsuba2_tpu_torch/_build/tiles/, one nvcc each, started
+together) and prints each build's ptxas registers and spills for the ten
+kernels. It then renders the named paths (all six by default) once at
+chip_smoke.py's config: mesh_gallery(subdiv=4) (K1, K2),
+instanced_field(n=1024, subdiv=4) (K5), the gallery under
+set_backend("bvh8mxu") (K7), with the dense switch on (K8) and under
+set_backend("bvh8") (K6), and chip_smoke's sphere field at n=1024,
+shared (K4), recording each wavefront of the path's closest-hit and
+any-hit kernels, and on each wavefront holds every build of the path's
+constant against the plain twin (bit-equal on every lane) and times it
+with chip_smoke.kernel_ms, the builds in turns (largest value first,
+then back). Exits non-zero when there is no CUDA device or a build
+disagrees.
 """
 import ctypes
 import os
@@ -32,9 +39,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as cs
 
-VALUES = (1, 2, 4)
-# the source's constants, each set to the build's value
-CONSTANTS = ("TILE_J", "INST_ANY_TILE_J", "BVH8C_TILE_J", "DENSE_RAYS")
+# the builds: each sets the source's constants to its values
+TILE_CONSTANTS = ("TILE_J", "INST_ANY_TILE_J", "BVH8C_TILE_J", "DENSE_RAYS")
+ROUNDS = {"BVH_ROUND_STEPS": (1, 4, 8, 16), "BVH8_ROUND_STEPS": (1, 2, 4, 8)}
+BUILDS = {**{f"tile{v}": {c: v for c in TILE_CONSTANTS} for v in (1, 2, 4)},
+          **{f"round{i}": {c: vs[i] for c, vs in ROUNDS.items()}
+             for i in range(4)}}
 # the kernels each sweep varies, as ptxas names them (inst_ first:
 # "cluster_any_hit_kernel" ends both any-hit names)
 KERNELS = (("inst_cluster_closest_hit", "K5 closest"),
@@ -42,11 +52,14 @@ KERNELS = (("inst_cluster_closest_hit", "K5 closest"),
            ("cluster_closest_hit", "K1"), ("cluster_any_hit", "K2"),
            ("bvh8mxu_closest_hit", "K7 closest"),
            ("bvh8mxu_any_hit", "K7 any"),
-           ("dense_closest_hit", "K8 closest"), ("dense_any_hit", "K8 any"))
+           ("dense_closest_hit", "K8 closest"), ("dense_any_hit", "K8 any"),
+           ("inst_bvh_closest_hit", "K4 closest"),
+           ("bvh8_closest_hit", "K6 closest"))
 # each path's constant, as the lines name a build
 KNOB = {"gallery": "TILE_J", "instanced": "TILE_J",
-        "gallery_bvh8mxu": "BVH8C_TILE_J", "gallery_dense": "DENSE_RAYS"}
-ORDER = (4, 2, 1, 1, 2, 4)
+        "gallery_bvh8mxu": "BVH8C_TILE_J", "gallery_dense": "DENSE_RAYS",
+        "spheres_instanced": "BVH_ROUND_STEPS",
+        "gallery_bvh8": "BVH8_ROUND_STEPS"}
 REPS = 10
 
 
@@ -55,25 +68,25 @@ def build(native, traverse):
     csrc = os.path.dirname(traverse._SRC)
     src = open(traverse._SRC).read()
     srcs = {}
-    for v in VALUES:
-        d = os.path.join(native.BUILD_DIR, "tiles", f"tile{v}")
+    for b, values in BUILDS.items():
+        d = os.path.join(native.BUILD_DIR, "tiles", b)
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "cluster_walk.cu"), "w") as f:
-            f.write(traverse.with_constants(
-                src, **{c: v for c in CONSTANTS}))
+            f.write(traverse.with_constants(src, **values))
         with open(os.path.join(d, "walk.cuh"), "w") as f:
             f.write(open(os.path.join(csrc, "walk.cuh")).read())
-        srcs[v] = (os.path.join(d, "cluster_walk.cu"),
+        srcs[b] = (os.path.join(d, "cluster_walk.cu"),
                    (os.path.join(d, "walk.cuh"),))
     cmd = [traverse.nvcc_path()] + traverse.NVCC_FLAGS
     with ThreadPoolExecutor(len(srcs)) as pool:
-        jobs = {v: pool.submit(native.build_library, f"cluster_walk_t{v}",
+        jobs = {b: pool.submit(native.build_library, f"cluster_walk_{b}",
                                s, cmd, deps)
-                for v, (s, deps) in srcs.items()}
-        libs = {v: ctypes.CDLL(j.result()) for v, j in jobs.items()}
-    for v, lib in libs.items():
+                for b, (s, deps) in srcs.items()}
+        libs = {b: ctypes.CDLL(j.result()) for b, j in jobs.items()}
+    for b, lib in libs.items():
         traverse._declare(lib)
-        rep = (native.BUILD_LOG.get(f"cluster_walk_t{v}") or "").splitlines()
+        label = ", ".join(f"{c}={v}" for c, v in BUILDS[b].items())
+        rep = (native.BUILD_LOG.get(f"cluster_walk_{b}") or "").splitlines()
         for i, ln in enumerate(rep):
             kern = next((k for name, k in KERNELS if "Compiling entry" in ln
                          and f"{name}_kernel" in ln), None)
@@ -81,9 +94,8 @@ def build(native, traverse):
                 info = [x.split("info    :")[-1].strip()
                         for x in rep[i + 1:i + 4]
                         if "registers" in x or "spill" in x]
-                knob = ("DENSE_RAYS" if kern.startswith("K8") else
-                        "BVH8C_TILE_J" if kern.startswith("K7") else "TILE_J")
-                print(f"{knob}={v} {kern}: {' | '.join(info)}", flush=True)
+                print(f"{b} ({label}) {kern}: {' | '.join(info)}",
+                      flush=True)
     return libs
 
 
@@ -114,8 +126,10 @@ def main(paths):
     def gallery():
         return mt.mesh_gallery(subdiv=cs.SUBDIV, device=dev)
     make = {"gallery": gallery, "gallery_bvh8mxu": gallery,
-            "gallery_dense": gallery,
-            "instanced": lambda: mt.instanced_field(**cs.FIELD, device=dev)}
+            "gallery_dense": gallery, "gallery_bvh8": gallery,
+            "instanced": lambda: mt.instanced_field(**cs.FIELD, device=dev),
+            "spheres_instanced": lambda: cs.sphere_field(
+                mt, device=dev, **cs.SPHERE_FIELDS["spheres_instanced"])}
     ok = True
     for path in paths or KNOB:
         with cs.path_switches(path):
@@ -131,6 +145,11 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
     """One path's wavefronts, each build against the twin and timed;
     returns whether every build agreed on every lane."""
     knob = KNOB[path]
+    # the path's builds by their value of its constant
+    builds = dict(sorted((BUILDS[b][knob], lib) for b, lib in libs.items()
+                         if knob in BUILDS[b]))
+    values = list(builds)
+    order = values[::-1] + values
     reps = cs.PATH_REPS.get(path, REPS)
     ks = cs.kernels_of(scene, cs.BACKEND.get(path, "auto"))
     record = []
@@ -145,15 +164,17 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
     torch.cuda.synchronize()
     tabs, extra = ks["tabs"], ks["extra"]
     inst = scene.has_instances
-    # the C entries' sizes: (fuel, ck) instanced and on the BVH8 walk
-    # (extra: ck, stack, fuel), (clusters, ck) dense, (rows, ck) on the
-    # flat walk
-    sizes = ((extra[1], extra[0]) if inst
+    # the C entries' sizes: the step cap alone on the BVH2 and BVH8
+    # walks over prims (extra: fuel, or stack and fuel), (fuel, ck)
+    # instanced and on the BVH8 walk (extra: ck, stack, fuel), (clusters,
+    # ck) dense, (rows, ck) on the flat walk
+    sizes = ((extra[-1],) if ks["uv"]
+             else (extra[1], extra[0]) if inst
              else (extra[2], extra[0]) if path == "gallery_bvh8mxu"
              else (scene.mxu_ccs.shape[0], extra[0]) if path == "gallery_dense"
              else (scene.mxu_node_f.shape[0], extra[0]))
     means = {(nm, v): [] for nm in (ks["closest"], ks["any"])
-             for v in VALUES}
+             for v in values}
     ok = True
     for i, (name, rays) in enumerate(record):
         closest = name == ks["closest"]
@@ -163,10 +184,14 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
         want = want if closest else (want,)
 
         def run(lib):
-            outs = ([torch.empty(n, device=dev)] + [
-                torch.empty(n, dtype=torch.int32, device=dev)
-                for _ in range(2 if inst else 1)] if closest else
-                [torch.empty(n, dtype=torch.bool, device=dev)])
+            # t, slot or prim, (u, v,) (instance,) or the occlusion
+            outs = ([torch.empty(n, device=dev),
+                     torch.empty(n, dtype=torch.int32, device=dev)]
+                    + [torch.empty(n, device=dev)
+                       for _ in range(2 * ks["uv"])]
+                    + [torch.empty(n, dtype=torch.int32, device=dev)
+                       for _ in range(inst)] if closest else
+                    [torch.empty(n, dtype=torch.bool, device=dev)])
             rc = getattr(lib, f"mts_{name}")(
                 *(a.data_ptr() for a in tabs),
                 *(a.data_ptr() for a in rays),
@@ -175,14 +200,14 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
             if rc != 0:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
             return outs
-        res = {v: [] for v in VALUES}
-        for v in ORDER:
-            got = run(libs[v])
+        res = {v: [] for v in values}
+        for v in order:
+            got = run(builds[v])
             torch.cuda.synchronize()
             eq = all(torch.equal(a, b) for a, b in zip(got, want))
             ok &= eq
             res[v].append(
-                (cs.kernel_ms(torch, lambda: run(libs[v]), reps), eq))
+                (cs.kernel_ms(torch, lambda: run(builds[v]), reps), eq))
         for v, r in res.items():
             means[name, v] += [m for m, _ in r]
         print(f"{path} {name} launch {i}: {n} lanes, live "

@@ -19,8 +19,10 @@
 //   bvh_closest_hit_kernel      <- _closest_hit_kernel (:250)
 //   bvh_any_hit_kernel          <- _any_hit_kernel (:309)
 //   inst_bvh_closest_hit_kernel <- _closest_hit_inst_kernel (:1382)
+//                                 (warp-wide leaf tests, below)
 //   inst_bvh_any_hit_kernel     <- _any_hit_inst_kernel (:1486)
 //   bvh8_closest_hit_kernel     <- _closest_hit_bvh8_kernel (:2001)
+//                                 (warp-wide leaf tests, below)
 //   bvh8_any_hit_kernel         <- _any_hit_bvh8_kernel (:2117)
 //   bvh8mxu_closest_hit_kernel  <- _closest_hit_bvh8mxu_kernel (:2316)
 //                                 (warp-cooperative visits, below)
@@ -522,25 +524,51 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // up to LEAF_K = 4 a leaf (46 FP32 operations a triangle, 31 a sphere,
 // counted in prim_test below); an instance entry costs 36 as in K5. The
 // bytes the function must move are the rays, the results and the tables
-// once, so the roofline bound is the FP32 operations, some 0.02-0.1 ms
-// for a 1M-lane wavefront. The real limiter of this first version is, as
-// for K1/K2/K5, latency: one dependent node-row load a step, and threads
-// of a warp that diverge onto different subtrees.
+// once, so the roofline bound is the bytes, 0.005-0.022 ms for a 1M-lane
+// wavefront (PERF.md §6). The real limiter is latency: one dependent row
+// load a step, and the lanes of a warp, which diverge onto different
+// subtrees and reach leaves at different steps.
 //
-// DESIGN. One ray per thread, a stackless threaded walk over the node rows
+// DESIGN. A ray a lane, a stackless threaded walk over the node rows
 // [min.xyz, max.x | max.yz, leaf_start, leaf_count] (bvh_node; the two
 // integers held exactly as floats) and the links [hit8 | miss8] (bvh_link),
-// picked by the thread's own direction octant, taken again after each
-// change of space. At a leaf (leaf_count > 0) whose slab the ray hits, the
-// thread tests its prims in order: closest hit replaces on a strictly
-// smaller t (the lowest prim of a leaf keeps a tie, and across leaves the
-// first visited), any hit stops at the first finite t <= t_max; either
-// way it then takes the miss link. An inner node takes the hit or the miss
+// picked by the lane's own direction octant, taken again after each
+// change of space. At a leaf (leaf_count > 0) whose slab the ray hits, its
+// prims are tested in order: closest hit replaces on a strictly smaller t
+// (the lowest prim of a leaf keeps a tie, and across leaves the first
+// visited), any hit stops at the first finite t <= t_max; either way the
+// walk then takes the miss link. An inner node takes the hit or the miss
 // link. Prim rows are [p0.xyz, e1.x | e1.yz, e2.xy | e2.z, type, 0, 0]
 // (bvh_prim): a triangle's vertex and edges, or a sphere's center and
 // [radius, ±1, 0]. Closest hit returns the winner's real u/v (0 for a
 // sphere). None of the TPU kernels' block vote, block-wide slab culling or
-// lax.cond leaf gating is carried over.
+// lax.cond leaf gating is carried over. K3 (closest and any hit) and K4's
+// any hit walk in their own thread (bvh_walk), which tests its leaves
+// alone.
+//
+// WARP-WIDE LEAF TESTS (K4's closest hit, inst_bvh_closest_walk; K6's
+// below).
+// In the thread-alone walk a step's leaf loop runs max(count) times for
+// the few lanes of the warp at a leaf while the others wait: on K4's rays
+// a warp made 56.7-68.0 such prim passes where a lane needs 3.6-5.2 prim
+// tests (the CPU twins, 4 096 lanes in presort order). Now the walk is
+// warp-synchronous in rounds: each lane walks on alone, up to
+// BVH_ROUND_STEPS steps, and at a leaf stops and posts it instead of
+// testing it; the warp then tests the round's due (ray, prim) pairs
+// together, 32 a pass (warp_leaf_visit), and the lanes walk on while any
+// lane is walking. A lane's steps, its t_best at each slab test and its
+// fuel are the thread-alone walk's, and warp_leaf_visit keeps its rule,
+// so t, prim, u, v and the instance are bit-equal to the twin's on every
+// lane. No lane returns early: lanes past n and dead lanes (t_max <= 0)
+// take part with their walk done. The pop at a BLAS_EXIT link branches
+// (pop_branch) where the thread-alone walk selects.
+//
+// MEASURED (chip_smoke.py, chip_tiles.py; H100 80GB HBM3, 700.00 W;
+// PERF.md §6): K4's closest hit took 0.366 ms a launch thread-alone and
+// takes 0.348 so, against a bound of 0.0123 (bytes); at 1 / 4 / 8 / 16
+// steps a round 0.411 / 0.354 / 0.346 / 0.364. Its warps make 2.7-6.3
+// leaf passes on the main path's wavefronts: the steps of the walk, not
+// its leaf tests, set its time.
 //
 // INSTANCED (bvh_walk<.., true>): the table is [TLAS | world group's BLAS |
 // each group's BLAS]. A TLAS leaf (leaf_start = instance id >= 0,
@@ -629,6 +657,88 @@ __device__ __forceinline__ bool leaf_visit(const float4* __restrict__ prim,
     return closer;
 }
 
+// The most prims a leaf holds (scene/bvh.py::LEAF_K, the BVH build's cap):
+// a round's due (ray, prim) pairs in a warp are at most 32 * LEAF_K.
+constexpr int LEAF_K = 4;
+// The most steps a lane of K4's (K6's) closest hit takes in a round of
+// its warp's walk before the warp tests the round's leaves together; it
+// stops earlier at a leaf. One step a round adds a vote and three
+// convergence points to every step, and unbounded rounds hold a lane at
+// its leaf until every lane of the warp has reached one (chip_tiles.py
+// sweeps both; PERF.md §6).
+constexpr int BVH_ROUND_STEPS = 8;
+constexpr int BVH8_ROUND_STEPS = 2;
+
+// The warp's leaf tests of one round, closest hit: every lane calls it, a
+// lane with a leaf due with its prims' `first` and `count` (1..LEAF_K,
+// else 0) and its ray r in the current space. The due (ray, prim) pairs
+// are numbered in lane order, then prim order (a prefix sum from three
+// ballots: count > 0 and the two bits of count - 1), and in pass p lane j
+// tests pair 32 p + j on its owner's ray (__shfl_sync). Each owner then
+// takes its pairs of the pass in prim order: one strictly nearer than
+// *t_best replaces *t_best, *best and, from the lane that tested it, *bu
+// and *bv, as leaf_visit<false> does. Returns whether one did. A round
+// with no due leaf in the warp costs the first ballot.
+__device__ __forceinline__ bool warp_leaf_visit(
+        const float4* __restrict__ prim, int first, int count,
+        const RayState& r, float* t_best, int* best, float* bu, float* bv) {
+    const unsigned due = __ballot_sync(FULL_WARP, count > 0);
+    if (due == 0u) return false;
+    const int lane = threadIdx.x & 31;
+    const unsigned c0 =
+        __ballot_sync(FULL_WARP, count > 0 && ((count - 1) & 1));
+    const unsigned c1 =
+        __ballot_sync(FULL_WARP, count > 0 && ((count - 1) & 2));
+    const unsigned below = (1u << lane) - 1u;
+    const int off = __popc(due & below) + __popc(c0 & below) +
+                    2 * __popc(c1 & below);         // the lane's first pair
+    const int total = __popc(due) + __popc(c0) + 2 * __popc(c1);
+    const int kmax = (c0 & c1) ? 4 : c1 ? 3 : c0 ? 2 : 1;   // largest count
+    // each pair's owner lane and its prim's place in the leaf
+    __shared__ unsigned char pair_of[BLOCK / 32][32 * LEAF_K];
+    unsigned char* pairs = pair_of[threadIdx.x >> 5];
+    __syncwarp();                 // the previous round's readers are done
+    for (int k = 0; k < count; ++k)
+        pairs[off + k] = (unsigned char)(lane | (k << 5));
+    __syncwarp();
+    bool closer = false;
+    for (int p0 = 0; p0 < total; p0 += 32) {
+        const int q = p0 + lane;
+        const int pk = q < total ? pairs[q] : lane;
+        const int own = pk & 31;
+        RayState o;               // the owner's ray; prim_test reads o and d
+        o.ox = __shfl_sync(FULL_WARP, r.ox, own);
+        o.oy = __shfl_sync(FULL_WARP, r.oy, own);
+        o.oz = __shfl_sync(FULL_WARP, r.oz, own);
+        o.dx = __shfl_sync(FULL_WARP, r.dx, own);
+        o.dy = __shfl_sync(FULL_WARP, r.dy, own);
+        o.dz = __shfl_sync(FULL_WARP, r.dz, own);
+        const int pid = __shfl_sync(FULL_WARP, first, own) + (pk >> 5);
+        float t = inf_f(), u = 0.0f, v = 0.0f;
+        if (q < total) t = prim_test(prim + 3 * (size_t)pid, o, &u, &v);
+        WORK_COUNT(lane == 0);    // one pass of the warp
+        // the owner's pairs of this pass, in prim order: the serial rule
+        int win = -1;
+        for (int k = 0; k < kmax; ++k) {
+            const int src = off + k - p0;   // the lane holding pair k
+            const float tk = __shfl_sync(FULL_WARP, t, src & 31);
+            if (k < count && src >= 0 && src < 32 && tk < *t_best) {
+                *t_best = tk;
+                *best = first + k;
+                win = src;
+            }
+        }
+        const float uw = __shfl_sync(FULL_WARP, u, win & 31);
+        const float vw = __shfl_sync(FULL_WARP, v, win & 31);
+        if (win >= 0) {
+            *bu = uw;
+            *bv = vw;
+            closer = true;
+        }
+    }
+    return closer;
+}
+
 // The BVH2 walk of one ray. INST = false: one tree, `world` is the ray
 // throughout. INST = true: the instanced walk described above.
 template <bool ANY_HIT, bool INST>
@@ -690,6 +800,91 @@ __device__ __forceinline__ void bvh_walk(
         *v_io = bv;
         if (INST) *inst_io = best >= 0 ? binst : -1;
     }
+}
+
+// At a BLAS_EXIT link, back to the saved TLAS row and the world ray, as
+// pop_exit does but by a branch: the pop is rare, and as selects it cost
+// each step of K4's closest hit ten moves.
+__device__ __forceinline__ void pop_branch(Cursor& c, const RayState& world) {
+    if (c.node == BLAS_EXIT) {
+        asm volatile("" ::: "memory");    // keeps the branch
+        c.node = c.ret;
+        c.ret = -1;
+        c.cinst = -1;
+        c.r = world;
+    }
+}
+
+// The closest-hit instanced BVH2 walk of a lane's ray `world` (K4),
+// warp-synchronous in rounds: each walking lane takes up to
+// BVH_ROUND_STEPS steps of its own walk (bvh_walk's instanced steps, the
+// slab test against t_best), stopping at the step that reaches a leaf
+// whose slab it hits; then the warp tests the round's due leaves together
+// (warp_leaf_visit), while any lane of the warp is walking. A lane that
+// is not `live` (past n, or t_max <= 0) takes part, its walk done. A
+// BLAS_EXIT link after a leaf pops once the leaf is tested, which needs
+// the instance-space ray. Each lane's steps, its t_best at each slab test
+// and its fuel are the serial walk's.
+__device__ __forceinline__ void inst_bvh_closest_walk(
+        const float4* __restrict__ node, const int* __restrict__ link,
+        const float4* __restrict__ prim, const float4* __restrict__ inst_inv,
+        const int* __restrict__ inst_root, const RayState& world, bool live,
+        float t_max, int fuel_cap, float* t_io, int* prim_io, float* u_io,
+        float* v_io, int* inst_io) {
+    Cursor c{world, 0, -1, -1};
+    float t_best = t_max, bu = 0.0f, bv = 0.0f;
+    int best = -1, binst = -1, fuel = 0;
+    bool done = !live || fuel_cap <= 0;
+    while (__any_sync(FULL_WARP, !done)) {
+        int first = 0, count = 0;     // the lane's due leaf
+        for (int s = 0; s < BVH_ROUND_STEPS && !done && count == 0; ++s) {
+            const int nd = c.node;
+            const float4 a = __ldg(node + 2 * nd);
+            const float4 b = __ldg(node + 2 * nd + 1);
+            const int leaf_start = (int)b.z, leaf_count = (int)b.w;
+            const bool hit = slab(a, b, c.r, t_best);
+            const int hit_link = __ldg(link + 16 * nd + c.r.oct);
+            const int miss_link = __ldg(link + 16 * nd + 8 + c.r.oct);
+            if (leaf_start >= 0 && leaf_count > 0) {
+                if (hit) {
+                    first = leaf_start;
+                    count = leaf_count;
+                }
+                c.node = miss_link;
+            } else if (leaf_start >= 0) {
+                if (hit) {                    // enter instance leaf_start
+                    const float4* m = inst_inv + 4 * (size_t)leaf_start;
+                    const float4 m0 = __ldg(m), m1 = __ldg(m + 1),
+                                 m2 = __ldg(m + 2);
+                    c.r = to_local(m0, m1, m2, world);
+                    c.ret = miss_link;
+                    c.cinst = leaf_start;
+                    c.node = __ldg(inst_root + leaf_start);
+                } else {
+                    c.node = miss_link;
+                }
+            } else {
+                c.node = hit ? hit_link : miss_link;
+            }
+            ++fuel;
+            if (count == 0) {
+                pop_branch(c, world);
+                done = c.node < 0 || fuel >= fuel_cap;
+            }
+        }
+        if (warp_leaf_visit(prim, first, count, c.r, &t_best, &best, &bu,
+                            &bv))
+            binst = c.cinst;
+        if (count > 0) {              // the leaf's step ends
+            pop_branch(c, world);
+            done = c.node < 0 || fuel >= fuel_cap;
+        }
+    }
+    *t_io = best >= 0 ? t_best : inf_f();
+    *prim_io = best;
+    *u_io = bu;
+    *v_io = bv;
+    *inst_io = best >= 0 ? binst : -1;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -766,20 +961,21 @@ inst_bvh_closest_hit_kernel(const float4* __restrict__ node,
                             float* __restrict__ v_out,
                             int* __restrict__ inst_out, int n, int fuel) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    float t = inf_f(), u = 0.0f, v = 0.0f;
-    int p = -1, inst = -1;
-    if (tm > 0.0f) {
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh_walk<false, true>(node, link, prim, inst_inv, inst_root, r, tm,
-                              fuel, &t, &p, &u, &v, &inst, nullptr);
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
+    float t, u, v;
+    int p, inst;
+    inst_bvh_closest_walk(node, link, prim, inst_inv, inst_root, r, live, tm,
+                          fuel, &t, &p, &u, &v, &inst);
+    if (i < n) {
+        t_out[i] = t;
+        prim_out[i] = p;
+        u_out[i] = u;
+        v_out[i] = v;
+        inst_out[i] = inst;
     }
-    t_out[i] = t;
-    prim_out[i] = p;
-    u_out[i] = u;
-    v_out[i] = v;
-    inst_out[i] = inst;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -849,8 +1045,22 @@ inst_bvh_any_hit_kernel(const float4* __restrict__ node,
 // centroid.xyz, 0 | pad] (bvh8c_child, four float4s). K6 reads bvh_prim
 // as K3 does; K7 reads cluster_feat as K1 does and returns slot ids.
 //
-// K6 tests a leaf's prims in the thread that reached it (strict <, so the
-// lowest prim keeps a tie). K7 visits its clusters warp-cooperatively, as
+// K6's any hit tests a leaf's prims in the thread that reached it, up to
+// its first hit (bvh8_any_walk). K6's closest hit tests them with the
+// whole warp, as K4's does (bvh8_closest_walk): each lane walks up to
+// BVH8_ROUND_STEPS steps a round (a step: a fresh visit and a pop or an
+// advance), stopping at a leaf child that survives its re-cull, and
+// warp_leaf_visit tests the round's due (ray, prim) pairs, 32 a pass,
+// each ray's in prim order under the serial rule (strict <, so the lowest
+// prim keeps a tie): t, prim, u and v bit-equal to the twin's. In the
+// thread-alone walk a warp made 24.5-61.1 prim passes where a lane needs
+// 8.4-8.6 prim tests (the CPU twins, 4 096 lanes in presort order). K6's
+// closest hit took 0.388 ms a launch thread-alone on the gallery's
+// wavefronts and takes 0.370 so (bound 0.0134); 0.377 / 0.368 / 0.376 /
+// 0.401 at 1 / 2 / 4 / 8 steps a round (chip_smoke.py, chip_tiles.py;
+// H100 80GB HBM3, 700.00 W; PERF.md §6).
+//
+// K7 visits its clusters warp-cooperatively, as
 // K1 does: each lane walks to its next leaf child (a due visit: the
 // cluster at slot base `kind`, recentred at the child's centroid) or the
 // end of its walk, then the whole warp serves the due visits (warp_visit,
@@ -941,19 +1151,15 @@ __device__ __forceinline__ const float4* bvh8c_step(
     return c;
 }
 
-// The BVH8 walk of one ray over prim leaves (K6), in its own thread:
-// outputs t, prim, u and v, or occ. bvh8c_step's state machine, kept
-// inline: through bvh8c_step K6's closest hit ran 6% slower (chip_smoke.py,
-// H100 80GB HBM3, 700.00 W; PERF.md §6).
-template <bool ANY_HIT>
-__device__ __forceinline__ void bvh8_walk(
+// The any-hit BVH8 walk of one ray over prim leaves (K6), in its own
+// thread: outputs occ. bvh8c_step's state machine, kept inline: through
+// bvh8c_step K6 ran 6% slower (chip_smoke.py, H100 80GB HBM3, 700.00 W;
+// PERF.md §6).
+__device__ __forceinline__ void bvh8_any_walk(
         const float4* __restrict__ child, const int4* __restrict__ order,
         const float4* __restrict__ leaf, const RayState& r, float t_max,
-        int fuel_cap, float* t_io, int* id_io, float* u_io, float* v_io,
-        bool* occ_io) {
+        int fuel_cap, bool* occ_io) {
     constexpr int ROW = 2;   // float4s a child row
-    float t_best = t_max, bu = 0.0f, bv = 0.0f;
-    int best = -1;
     int stack[BVH8_STACK];   // (node << 8) | the node's remaining mask
     int sp = 0, cur = 0, mask = 0;
     bool fresh = true;
@@ -961,13 +1167,12 @@ __device__ __forceinline__ void bvh8_walk(
     for (int fuel = 0; cur >= 0 && fuel < fuel_cap; ++fuel) {
         if (fresh) {          // slab-test the 8 children in octant order
             perm = load_perm(order, cur * 8 + r.oct);
-            const float tl = ANY_HIT ? t_max : t_best;
             mask = 0;
             for (int j = 0; j < 8; ++j) {
                 const float4* c =
                     child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
                 const float4 a = __ldg(c), b = __ldg(c + 1);
-                if (slab(a, b, r, tl) && b.z != -1.0f) mask |= 1 << j;
+                if (slab(a, b, r, t_max) && b.z != -1.0f) mask |= 1 << j;
             }
             fresh = false;
         }
@@ -983,29 +1188,95 @@ __device__ __forceinline__ void bvh8_walk(
         mask &= mask - 1;
         const float4* c =
             child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
-        const float4 a = __ldg(c), b = __ldg(c + 1);
-        // closest hit re-culls against the t_best improved since the visit
-        if (!ANY_HIT && !slab(a, b, r, t_best)) continue;
+        const float4 b = __ldg(c + 1);
         const int kind = (int)b.z;
         if (kind <= -2) {     // descend; keep the parent if children remain
             if (mask != 0 && sp < BVH8_STACK) stack[sp++] = (cur << 8) | mask;
             cur = -2 - kind;
             fresh = true;
-        } else {              // a leaf at `kind`: its prims, up to LEAF_K
-            const bool h = leaf_visit<ANY_HIT>(leaf, kind, (int)b.w, r, t_max,
-                                               &t_best, &best, &bu, &bv);
-            if (ANY_HIT && h) {
-                *occ_io = true;
-                return;               // stop at the first hit
-            }
+        } else if (leaf_visit<true>(leaf, kind, (int)b.w, r, t_max, nullptr,
+                                    nullptr, nullptr, nullptr)) {
+            *occ_io = true;   // a leaf at `kind`: stop at its first hit
+            return;
         }
     }
-    if (!ANY_HIT) {
-        *t_io = best >= 0 ? t_best : inf_f();
-        *id_io = best;
-        *u_io = bu;
-        *v_io = bv;
+}
+
+// The closest-hit BVH8 walk of a lane's ray over prim leaves (K6),
+// warp-synchronous in rounds as inst_bvh_closest_walk is: each walking lane
+// takes up to BVH8_ROUND_STEPS steps of its own walk (bvh8_any_walk's
+// state machine; an advance re-culls its child against t_best), stopping
+// at the step that reaches a leaf child; then the warp tests the round's
+// due leaves together (warp_leaf_visit), while any lane of the warp is
+// walking. A lane that is not `live` takes part, its walk done. Each
+// lane's steps, its t_best at each slab test and its fuel are the serial
+// walk's.
+__device__ __forceinline__ void bvh8_closest_walk(
+        const float4* __restrict__ child, const int4* __restrict__ order,
+        const float4* __restrict__ leaf, const RayState& r, bool live,
+        float t_max, int fuel_cap, float* t_io, int* id_io, float* u_io,
+        float* v_io) {
+    constexpr int ROW = 2;   // float4s a child row
+    float t_best = t_max, bu = 0.0f, bv = 0.0f;
+    int best = -1;
+    int stack[BVH8_STACK];   // (node << 8) | the node's remaining mask
+    int sp = 0, cur = 0, mask = 0, fuel = 0;
+    bool fresh = true;
+    unsigned perm = 0;
+    bool done = !live || fuel_cap <= 0;
+    while (__any_sync(FULL_WARP, !done)) {
+        int first = 0, count = 0;     // the lane's due leaf
+        for (int s = 0; s < BVH8_ROUND_STEPS && !done && count == 0; ++s) {
+            if (fresh) {      // slab-test the 8 children in octant order
+                perm = load_perm(order, cur * 8 + r.oct);
+                mask = 0;
+                for (int j = 0; j < 8; ++j) {
+                    const float4* c = child + ROW * (size_t)(
+                        cur * 8 + ((perm >> (4 * j)) & 7));
+                    const float4 a = __ldg(c), b = __ldg(c + 1);
+                    if (slab(a, b, r, t_best) && b.z != -1.0f)
+                        mask |= 1 << j;
+                }
+                fresh = false;
+            }
+            if (mask == 0) {  // the node is done: pop, or end the walk
+                if (sp == 0) {
+                    cur = -1;
+                } else {
+                    const int e = stack[--sp];
+                    cur = e >> 8;
+                    mask = e & 255;
+                    perm = load_perm(order, cur * 8 + r.oct);
+                }
+            } else {          // advance the lowest set bit
+                const int j = __ffs(mask) - 1;
+                mask &= mask - 1;
+                const float4* c =
+                    child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
+                const float4 a = __ldg(c), b = __ldg(c + 1);
+                // re-cull against the t_best improved since the visit
+                if (slab(a, b, r, t_best)) {
+                    const int kind = (int)b.z;
+                    if (kind <= -2) {   // descend; keep the parent if
+                        if (mask != 0 && sp < BVH8_STACK)   // children remain
+                            stack[sp++] = (cur << 8) | mask;
+                        cur = -2 - kind;
+                        fresh = true;
+                    } else {            // a leaf at `kind`, up to LEAF_K
+                        first = kind;
+                        count = (int)b.w;
+                    }
+                }
+            }
+            ++fuel;
+            done = cur < 0 || fuel >= fuel_cap;
+        }
+        warp_leaf_visit(leaf, first, count, r, &t_best, &best, &bu, &bv);
     }
+    *t_io = best >= 0 ? t_best : inf_f();
+    *id_io = best;
+    *u_io = bu;
+    *v_io = bv;
 }
 
 // The BVH8 walk of a lane's ray over cluster leaves (K7), warp-synchronous
@@ -1070,19 +1341,19 @@ bvh8_closest_hit_kernel(const float4* __restrict__ child,
                         float* __restrict__ u_out, float* __restrict__ v_out,
                         int n, int fuel) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float tm = tmax[i];
-    float t = inf_f(), u = 0.0f, v = 0.0f;
-    int p = -1;
-    if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
-        const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh8_walk<false>(child, order, prim, r, tm, fuel, &t, &p, &u, &v,
-                         nullptr);
+    float tm;
+    bool live;
+    const RayState r = lane_ray(ox, oy, oz, dx, dy, dz, tmax, i, n, &tm,
+                                &live);
+    float t, u, v;
+    int p;
+    bvh8_closest_walk(child, order, prim, r, live, tm, fuel, &t, &p, &u, &v);
+    if (i < n) {
+        t_out[i] = t;
+        prim_out[i] = p;
+        u_out[i] = u;
+        v_out[i] = v;
     }
-    t_out[i] = t;
-    prim_out[i] = p;
-    u_out[i] = u;
-    v_out[i] = v;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -1103,8 +1374,7 @@ bvh8_any_hit_kernel(const float4* __restrict__ child,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh8_walk<true>(child, order, prim, r, tm, fuel, nullptr, nullptr,
-                        nullptr, nullptr, &occ);
+        bvh8_any_walk(child, order, prim, r, tm, fuel, &occ);
     }
     occ_out[i] = occ;
 }

@@ -98,6 +98,11 @@ if _MXU_DENSE not in ("auto", "0", "1"):
 # rays a thread of the dense sweep sweeps (csrc/cluster_walk.cu's
 # DENSE_RAYS): the twins' default for counting the threads' loads
 DENSE_RAYS = 2
+# the most steps a lane of K4's (K6's) closest-hit walk takes in a round
+# before its warp tests the round's leaves together (csrc/cluster_walk.cu's
+# BVH_ROUND_STEPS, BVH8_ROUND_STEPS): the twins' rounds for `leaf_passes`
+BVH_ROUND_STEPS = 8
+BVH8_ROUND_STEPS = 2
 # (node, mask) entries of a BVH8 walk's stack (csrc/cluster_walk.cu), and
 # the margin over the tree's depth that the JAX kernels size it with
 BVH8_STACK = 32
@@ -119,7 +124,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 def with_constants(src: str, **values) -> str:
     """A CUDA source's text with each `constexpr int NAME = v;` line of
     `values` set to its value (builds of cluster_walk.cu at other tile
-    widths or rays a thread); raises where the source has no such line."""
+    widths, rays a thread or round lengths); raises where the source has
+    no such line."""
     for name, v in values.items():
         src, n = re.subn(rf"^constexpr int {name} = \d+;$",
                          f"constexpr int {name} = {int(v)};", src,
@@ -957,6 +963,47 @@ def _leaf_prims(prim, start, count, ray, tl, any_hit, stats):
     return best >= 0, t_b, best, bu, bv
 
 
+class _LeafRounds:
+    """The rounds of K4's and K6's closest-hit warps (csrc/cluster_walk.cu::
+    warp_leaf_visit): a lane walks up to `steps` steps a round and stops
+    at the step that reaches a due leaf, so a lane's j-th such stretch of
+    steps falls in its warp's j-th round, where the warp tests the round's
+    due (ray, prim) pairs together, 32 a pass. Lanes are chunk-local, whole
+    warps to a chunk. Counts ceil(pairs / 32) passes for each round of a
+    warp with a due leaf: `leaf_passes`."""
+
+    def __init__(self, n, dev, steps):
+        self.steps = steps
+        self.round = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.taken = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.rows = []
+
+    def walk(self, lanes):
+        """`lanes` take a step; a lane whose last step was its round's
+        last starts a new round."""
+        full = self.taken >= self.steps
+        self.round += full.long()
+        self.taken[full] = 0
+        self.taken[lanes] += 1
+
+    def leaves(self, lanes, count):
+        """`lanes` reached leaves of `count` prims at their last step,
+        which ends their round."""
+        self.rows.append(torch.stack([lanes // WARP, self.round[lanes],
+                                      count], 1))
+        self.round[lanes] += 1
+        self.taken[lanes] = 0
+
+    def count(self, stats):
+        if not self.rows:
+            return
+        g = torch.cat(self.rows)
+        key, inv = torch.unique(g[:, :2], dim=0, return_inverse=True)
+        pairs = torch.zeros(key.shape[0], dtype=torch.int64,
+                            device=g.device).scatter_add_(0, inv, g[:, 2])
+        _count(stats, "leaf_passes", int((-(-pairs // WARP)).sum()))
+
+
 def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
                     inst_inv=None, inst_root=None):
     """The BVH2 kernels' walk for every lane at once, each lane with its
@@ -966,7 +1013,9 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
     walk) and continues at its miss link. With `inst_inv` it is the
     instanced walk: a TLAS leaf (count 0) moves the lane's ray to
     instance space, saves the leaf's miss link and continues at the
-    instance's BLAS root (`inst_root`); a BLAS_EXIT link pops back."""
+    instance's BLAS root (`inst_root`); a BLAS_EXIT link pops back. The
+    instanced closest hit also counts its warps' passes over their
+    rounds' due prims (`leaf_passes`: _LeafRounds)."""
     ox, oy, oz, dx, dy, dz, t_max = rays
     n, dev = ox.shape[0], ox.device
     world = [ox, oy, oz, dx, dy, dz, _safe_inv(dx), _safe_inv(dy),
@@ -984,10 +1033,14 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
         ret = torch.full((n,), -1, dtype=torch.int64, device=dev)
         cinst = torch.full((n,), -1, dtype=torch.int64, device=dev)
         binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    rounds = (_LeafRounds(n, dev, BVH_ROUND_STEPS)
+              if stats is not None and inst and not any_hit else None)
     for _ in range(fuel):
         act = torch.nonzero(node_i >= 0).squeeze(1)
         if act.numel() == 0:
             break
+        if rounds is not None:
+            rounds.walk(act)
         lox, loy, loz, ldx, ldy, ldz, lix, liy, liz, loc = \
             (a[act] for a in cur)
         nf = node[node_i[act]]
@@ -1011,6 +1064,8 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
                 occ[lanes[res]] = True
                 nxt[vi[res]] = -1           # stop at the first hit
             else:
+                if rounds is not None:
+                    rounds.leaves(lanes, count[vi])
                 closer, t, pid, u, v = res
                 lc = lanes[closer]
                 t_best[lc] = t[closer]
@@ -1043,6 +1098,8 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
                 for c_, w_ in zip(cur, world):
                     c_[p_] = w_[p_]
         node_i[act] = nxt
+    if rounds is not None:
+        rounds.count(stats)
     if any_hit:
         return occ
     found = best >= 0
@@ -1076,7 +1133,8 @@ def inst_bvh_closest_hit_plain(node, link, prim, inst_inv, inst_root, ox, oy,
                                oz, dx, dy, dz, t_max, fuel: int,
                                chunk: int = 8192, stats=None):
     """The twin of the instanced BVH2 closest-hit kernel: (t, prim, u, v,
-    inst). Its `stats` also count instance entries."""
+    inst). Its `stats` also count instance entries and the warps' leaf
+    passes (`leaf_passes`)."""
     return _chunked(
         lambda r: _bvh_walk_plain(node, link, prim, r, False, stats, fuel,
                                   inst_inv, inst_root),
@@ -1113,7 +1171,9 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
     from the stack), prim tests or cluster visits and slot tests. K7's
     kernels visit clusters warp-cooperatively (BVH8C_TILE slots a pass)
     as K1's do, and the twin counts their groups and loads as _walk_plain
-    does (`cluster_groups`, `loaded_slots`: _count_groups)."""
+    does (`cluster_groups`, `loaded_slots`: _count_groups); K6's closest
+    hit tests its rounds' due prims with the whole warp, and the twin
+    counts those passes (`leaf_passes`: _LeafRounds)."""
     ox, oy, oz, dx, dy, dz, t_max = rays
     n, dev = ox.shape[0], ox.device
     ray = (ox, oy, oz, dx, dy, dz)
@@ -1135,10 +1195,14 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
     low_bit = _LOW_BIT.to(dev)
     groups = [] if stats is not None and cluster_k is not None else None
     n_vis = torch.zeros(n, dtype=torch.int64, device=dev)
+    rounds = (_LeafRounds(n, dev, BVH8_ROUND_STEPS) if stats is not None
+              and cluster_k is None and not any_hit else None)
     for _ in range(fuel):
         act = torch.nonzero(cur >= 0).squeeze(1)
         if act.numel() == 0:
             break
+        if rounds is not None:
+            rounds.walk(act)
         fa = act[fresh[act]]
         if fa.numel():
             _count(stats, "fresh_visits", fa.numel())
@@ -1193,6 +1257,8 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
         if cluster_k is None:
             res = _leaf_prims(leaf, kind[li], cr[li, 7].long(), lray, tl,
                               any_hit, stats)
+            if rounds is not None:
+                rounds.leaves(lanes, cr[li, 7].long())
         else:
             res = _cluster_visit(_slot_rows(leaf, kind[li], cluster_k),
                                  kind[li], cr[li, 8:11].unbind(1), lray, tl,
@@ -1215,6 +1281,8 @@ def _bvh8_walk_plain(child, order, leaf, rays, any_hit, stats, stack, fuel,
             bu[lc] = res[3][closer]
             bv[lc] = res[4][closer]
     _count_groups(stats, groups)
+    if rounds is not None:
+        rounds.count(stats)
     if any_hit:
         return occ
     t_out = torch.where(best >= 0, t_best, float("inf"))
@@ -1228,7 +1296,8 @@ def bvh8_closest_hit_plain(child, order, prim, ox, oy, oz, dx, dy, dz, t_max,
                            stats=None):
     """The twin of the BVH8 closest-hit kernel, prim leaves (K6): (t,
     prim, u, v). With a `stats` dict it also counts the kernel's work:
-    fresh visits, advances, pushes, pops, triangle and sphere tests."""
+    fresh visits, advances, pushes, pops, triangle and sphere tests, and
+    the warps' leaf passes."""
     return _chunked(
         lambda r: _bvh8_walk_plain(child, order, prim, r, False, stats,
                                    stack, fuel),

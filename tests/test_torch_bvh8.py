@@ -23,10 +23,11 @@ Tolerances:
   prims equal except on exact ties (t equal), which none of these rays
   meets.
 - Renders: tests/test_torch_render.py's 32x32 tolerance.
-- On the card, each kernel against its twin: K6 with hit masks equal,
-  prims on 99.9% of hit lanes, t at rtol 1e-5, occlusion on 99.9%; K7,
-  whose warp-cooperative visits keep the twin's order, tie rule and
-  rounding, bit-equal (t, slot and occlusion on every lane).
+- On the card, each kernel against its twin: K6's any hit on 99.9% of
+  lanes; K6's closest hit, whose warps test a step's due prims together
+  in the twin's order and tie rule, and K7, whose warp-cooperative visits
+  keep them, bit-equal (t, prim or slot, u and v, and K7's occlusion, on
+  every lane).
 """
 import contextlib
 import functools
@@ -480,11 +481,14 @@ def assert_emulated_matches_twins(lib, which, st, o, d, tm):
     on the rays (o, d, tm), bit-equal; and the walk work the twins count
     equals the loads the kernels make: two int4 of an order row a fresh
     visit or a pop, two float4 of a child row per child slab-tested at a
-    fresh visit (8) and per advance, three float4 a prim test (K6); on
-    K7, whose warps visit clusters together, a centroid per lane-visit,
-    five float4 a loaded slot (`loaded_slots`: a warp's group of lanes
-    due at one cluster loads its rows once) and the slot tests on rows
-    held in registers as the twin counts them."""
+    fresh visit (8) and per advance that re-culls it (one, its kind and
+    count, on K6's any hit, which does not), three float4 a prim test
+    (K6), and on K6's closest hit, whose warps test a step's due prims
+    together, the passes the emulation counts (`leaf_passes`); on K7,
+    whose warps visit clusters together, a centroid per lane-visit, five
+    float4 a loaded slot (`loaded_slots`: a warp's group of lanes due at
+    one cluster loads its rows once) and the slot tests on rows held in
+    registers as the twin counts them."""
     rays = tuple(torch.from_numpy(np.ascontiguousarray(a))
                  for a in (*o.T, *d.T, tm))
     if which == "bvh8":
@@ -509,12 +513,16 @@ def assert_emulated_matches_twins(lib, which, st, o, d, tm):
         assert all(torch.equal(a, b) for a, b in zip(out, twin))
         g = stats.get
         visits = g("cluster_visits", 0)
-        assert loads[0] == (16 * g("fresh_visits") + 2 * g("advances")
-                            + visits)
+        per_advance = 1 if which == "bvh8" and any_hit else 2
+        assert loads[0] == (16 * g("fresh_visits")
+                            + per_advance * g("advances") + visits)
         assert loads[1] == 2 * (g("fresh_visits") + g("pops", 0))
         tests = g("tri_tests", 0) + g("sphere_tests", 0)
         if which == "bvh8":
             assert loads[2] == 3 * tests and tests > 0
+            assert work_counter(lib).value == g("leaf_passes", 0)
+            # a pass tests up to 32 of a warp's due prims
+            assert any_hit or tests / 32 <= g("leaf_passes") <= tests
             continue
         assert loads[2] == 5 * g("loaded_slots")
         assert work_counter(lib).value == g("slot_tests")
@@ -536,11 +544,16 @@ def test_cuda_source_emulated_matches_twins(gallery, gallery_rays, field,
 
 def test_tiles_mirror_the_source():
     """The twins count the warps' loads with the source's tile widths:
-    K1/K2 and K5's closest hit, K5's any hit and K7's."""
+    K1/K2 and K5's closest hit, K5's any hit and K7's; and K4's and K6's
+    closest-hit leaf passes with the source's round lengths. The warps'
+    leaf passes hold the BVH build's largest leaf."""
     for twin, name in ((traverse.TILE, "TILE_J"),
                        (traverse.INST_ANY_TILE, "INST_ANY_TILE_J"),
                        (traverse.BVH8C_TILE, "BVH8C_TILE_J")):
         assert twin == traverse.WARP * source_constant(name), name
+    for name in ("BVH_ROUND_STEPS", "BVH8_ROUND_STEPS"):
+        assert getattr(traverse, name) == source_constant(name), name
+    assert bvh_mod.LEAF_K == source_constant("LEAF_K")
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -557,6 +570,21 @@ def test_k7_source_emulated_tail_and_dead_lanes(gallery, gallery_rays,
     assert tm.shape[0] == 549 and bool((tm > 0).any())
     assert_emulated_matches_twins(emulated, "bvh8mxu",
                                   gallery[0]["bvh8mxu"], o, d, tm)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_k6_source_emulated_tail_and_dead_lanes(gallery, gallery_rays, field,
+                                                emulated, kind):
+    """K6 at n = 549 with dead lanes, as K7 above, on the gallery and on
+    the sphere field: every lane takes part in its warp's leaf passes and
+    the results stay bit-equal."""
+    for st, rays in ((gallery[0]["bvh8"], gallery_rays[kind]),
+                     (field[0], field[2][kind])):
+        o, d, tm = (np.concatenate([a, a[:37]]) for a in rays)
+        tm[[5, 40, 41, 300, 530]] = 0.0
+        tm[[6, 200, 545]] = -1.0
+        assert tm.shape[0] == 549 and bool((tm > 0).any())
+        assert_emulated_matches_twins(emulated, "bvh8", st, o, d, tm)
 
 
 # ---------------------------------------------------------------------------
@@ -758,6 +786,9 @@ def test_cuda_bvh8_kernels_match_twins(gallery, gallery_rays, field, cuda,
             assert torch.equal(out[0], out_p[0])
             assert torch.equal(out[1], out_p[1]) and torch.equal(occ, occ_p)
             continue
+        # K6's warp-wide leaf tests keep the serial walk's order and tie
+        # rule: t, prim, u and v bit-equal
+        assert all(torch.equal(a, b) for a, b in zip(out, out_p))
         hit = torch.isfinite(out_p[0])
         assert torch.equal(torch.isfinite(out[0]), hit)
         assert (out[1] == out_p[1])[hit].float().mean() >= 0.999

@@ -27,7 +27,11 @@ Tolerances:
   rounding moves t further (1.6e-5 relative on one lane of 338 here);
 - u/v within 1e-4 where the prims agree, for the same reason (barycentrics
   lie in [0, 1]);
-- occlusion equal on every lane.
+- occlusion equal on every lane;
+- on the card, each kernel against its twin: hit masks equal, prims (and
+  instances) on 99.9% of hit lanes, t at rtol 1e-5, occlusion on 99.9%;
+  K4's closest hit, whose warps test a step's due prims together in the
+  twin's order and tie rule, bit-equal (t, prim, u, v and instance).
 """
 import functools
 import os
@@ -47,7 +51,8 @@ from mitsuba2_tpu_torch.scene.scene import FIELDS, INST_FIELDS
 
 from test_torch_instancing import (assert_port_tables, flatten_mode,
                                    recorded_fields)
-from test_torch_traverse import build_emulation, load_counters, planar
+from test_torch_traverse import (build_emulation, load_counters, planar,
+                                 work_counter)
 
 N_RAYS = 2048
 META = ("has_instances", "has_spheres", "inst_fuel", "inst_mxu_fuel",
@@ -681,12 +686,35 @@ def emulated(tmp_path_factory):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_cuda_source_emulated_matches_twins(case, emulated, kind):
-    """The CUDA source run one thread at a time (g++) against the twins:
-    the same f32 operations in the same order, so bit-equal; and the
-    walk work the twins count (chip_smoke.py's bound rests on it) equals
-    the loads the kernels make: two float4 of a node row a step, three of
-    a prim row a test, three of an inst_inv row and one root an entry."""
-    st, rays = case.st, kind_rays(case, kind)
+    """The CUDA source run warp by warp (g++) against the twins: the same
+    f32 operations in the same order, so bit-equal; and the walk work the
+    twins count (chip_smoke.py's bound rests on it) equals the loads the
+    kernels make: two float4 of a node row a step, three of a prim row a
+    test, three of an inst_inv row and one root an entry; and on K4's
+    closest hit, whose warps test a step's due prims together, the passes
+    the emulation counts (`leaf_passes`)."""
+    assert_emulated_matches_twins(emulated, case.st, kind_rays(case, kind))
+
+
+@pytest.mark.parametrize("case", ["field_shared"], indirect=True)
+@pytest.mark.parametrize("kind", KINDS)
+def test_k4_source_emulated_tail_and_dead_lanes(case, emulated, kind):
+    """K4 at n = 512 + 37, not a multiple of a warp, with dead lanes
+    (t_max <= 0) amid the live ones: every lane takes part in its warp's
+    leaf passes (the emulation aborts on a lane that leaves early) and
+    the results stay bit-equal."""
+    rays = [torch.cat([a[:512], a[:37]]) for a in kind_rays(case, kind)]
+    tm = rays[6]
+    tm[[5, 40, 41, 300, 530]] = 0.0
+    tm[[6, 200, 545]] = -1.0
+    assert tm.shape[0] == 549 and bool((tm > 0).any())
+    assert_emulated_matches_twins(emulated, case.st, tuple(rays))
+
+
+def assert_emulated_matches_twins(emulated, st, rays):
+    """The CUDA source of the scene `st`'s BVH2 walks (K3 flat, K4
+    instanced), emulated, against their twins on the torch rays `rays`:
+    test_cuda_source_emulated_matches_twins's checks."""
     tabs, fuel, prefix = kernel_args(st)
     n = rays[0].shape[0]
     counted = (st.bvh_node, st.bvh_prim) + tabs[3:]
@@ -718,6 +746,13 @@ def test_cuda_source_emulated_matches_twins(case, emulated, kind):
         assert loads[1] == 3 * tests
         assert loads[2] == 3 * entries and loads[3] == entries
         assert tests > 0 and (entries > 0) == st.has_instances
+        passes = stats.get("leaf_passes", 0)
+        assert work_counter(emulated).value == passes
+        if st.has_instances and not any_hit:
+            # a pass tests up to 32 of a warp's due prims
+            assert tests / 32 <= passes <= tests
+        else:
+            assert passes == 0
 
 
 @pytest.fixture
@@ -742,6 +777,11 @@ def test_cuda_bvh_kernels_match_twins(case, cuda, kind):
     closest_p, any_p = twins(prefix)
     out_p = closest_p(*tabs, *rays, fuel)
     occ_p = any_p(*tabs, *rays, fuel)
+    if st.has_instances:
+        # K4's warp-wide leaf tests keep the serial walk's order and tie
+        # rule, and --fmad=false its rounding: t, prim, u, v and instance
+        # bit-equal
+        assert all(torch.equal(a, b) for a, b in zip(out, out_p))
     hit = torch.isfinite(out_p[0])
     assert torch.equal(torch.isfinite(out[0]), hit)
     same = out[1] == out_p[1]

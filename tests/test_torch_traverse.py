@@ -198,7 +198,8 @@ def test_twin_counts_walk_work(case):
 # its next intrinsic does not overwrite values another still reads). A
 # warp whose lanes do not all reach the same intrinsic, or whose mask is
 # not the full warp, aborts the run. Threads that use no intrinsic simply
-# run to their end one after another.
+# run to their end one after another. __syncwarp is such an exchange, and
+# shared memory a static array: the warps of a launch run one at a time.
 _SHIM = r"""
 #pragma once
 #include <cmath>
@@ -212,6 +213,7 @@ _SHIM = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
+#define __shared__ static
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
@@ -247,6 +249,7 @@ inline float fabsf(float x) { return std::fabs(x); }
 inline float fminf(float a, float b) { return std::fmin(a, b); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -315,6 +318,7 @@ inline unsigned __reduce_min_sync(unsigned m, unsigned x) {
   for (int l = 0; l < 32; ++l) r = (unsigned)v[l] < r ? (unsigned)v[l] : r;
   return r;
 }
+inline void __syncwarp(unsigned m = 0xffffffffu) { emu_exchange(m, 6, 0); }
 inline void emu_launch(unsigned grid, unsigned block,
                        std::function<void()> body) {
   EmuWarp& w = emu_warp;
