@@ -38,8 +38,9 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          fields a quarter of the random rays aim into the spheres); K6
          also on the n=64 sphere field (its sphere branch); K8, K1, K2,
          K5's and K7's closest and any hit (warp-cooperative visits),
-         and K4's and K6's closest hit (warp-wide leaf tests), bit-equal
-         to their twins on every lane. The paths on one scene share its
+         K4's and K6's closest hit (warp-wide leaf tests) and K3's
+         closest and K4's any hit (the pair walk), bit-equal to their
+         twins on every lane. The paths on one scene share its
          probe rays. Prints the walk work the twins count per lane (K4's
          and K6's closest hit: their warps' leaf passes too) and the
          bound of 1M such lanes.
@@ -102,7 +103,8 @@ WORK_COUNTS = ("node_steps", "fresh_visits", "child_tests", "advances",
                "pushes", "pops", "cluster_visits", "cluster_groups",
                "thread_visits", "loaded_slots", "slot_tests",
                "real_slot_tests", "tri_tests", "sphere_tests",
-               "leaf_passes", "instance_entries")
+               "leaf_passes", "instance_entries", "root_tests",
+               "pair_rows", "fallback_steps")
 # the paths' scenes, rendered at bench.py's forward-render config
 SUBDIV = 4
 FIELD = dict(n=1024, subdiv=4)
@@ -162,12 +164,14 @@ PATH_KERNELS = {
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8"}
 DENSE = {"gallery_dense"}
-# the kernels with warp-cooperative cluster visits or leaf tests: bit-equal
-# to their twins on every lane of phases 2 and 3
-COOPERATIVE = {"cluster_closest_hit", "inst_cluster_closest_hit",
-               "bvh8mxu_closest_hit", "cluster_any_hit",
-               "inst_cluster_any_hit", "bvh8mxu_any_hit",
-               "inst_bvh_closest_hit", "bvh8_closest_hit"}
+# the kernels held bit-equal to their twins on every lane of phases 2 and
+# 3: the warp-cooperative cluster visits, the warp-wide leaf tests and the
+# pair walks
+BIT_EQUAL = {"cluster_closest_hit", "inst_cluster_closest_hit",
+             "bvh8mxu_closest_hit", "cluster_any_hit",
+             "inst_cluster_any_hit", "bvh8mxu_any_hit",
+             "inst_bvh_closest_hit", "bvh8_closest_hit",
+             "bvh_closest_hit", "inst_bvh_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
@@ -307,7 +311,8 @@ def kernels_of(scene, backend="auto"):
     if traverse.takes_bvh2(scene.has_spheres):
         # the BVH2 twins walk a whole wavefront as one chunk: their loop
         # runs as long as the longest walk in a chunk
-        tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_prim)
+        tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_pair,
+                scene.bvh_prim)
         if scene.has_instances:
             return dict(
                 closest="inst_bvh_closest_hit", any="inst_bvh_any_hit",
@@ -409,8 +414,9 @@ def passes(c, exact=False, exact_closest=False, exact_any=False):
     limits, every output bit-equal where `exact` (K8), the closest hit's
     (t, slot or prim, u, v, instance) where `exact_closest` and the
     occlusion on every lane where `exact_any` (K1, K2, K5 and K7, whose
-    warp-cooperative visits keep the twin's rule, and K4's and K6's
-    closest hit, whose warp-wide leaf tests keep it)."""
+    warp-cooperative visits keep the twin's rule, K4's and K6's closest
+    hit, whose warp-wide leaf tests keep it, and K3's closest and K4's
+    any hit, whose pair walk visits the twin's leaves in its order))."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
             and c["uv_max_abs_err"] <= 1e-5
@@ -423,8 +429,8 @@ def exactness(path, ks):
     """passes()'s keywords for the kernels `ks` (kernels_of's) on a path
     (or phase 2's extra scene)."""
     return dict(exact=path in DENSE,
-                exact_closest=ks["closest"] in COOPERATIVE,
-                exact_any=ks["any"] in COOPERATIVE)
+                exact_closest=ks["closest"] in BIT_EQUAL,
+                exact_any=ks["any"] in BIT_EQUAL)
 
 
 def sphere_field(mt, n, subdiv, device):
@@ -535,7 +541,8 @@ def _kernels_vs_twins(torch, name, scene, probes, dev):
     """Phase 2 for one path (or the extra scene), under its switches;
     `probes` holds each scene's probe rays, made on its first path.
     Returns whether every kernel agreed with its twin (K8, K1, K2, K5,
-    K7 and K4's and K6's closest hit, bit for bit)."""
+    K7, K4's and K6's closest hit, K3's closest and K4's any hit, bit for
+    bit)."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -667,8 +674,11 @@ def work_bound(st, closest, ks, scene, n, live):
     out_bytes = (4 * (2 + 2 * ks["uv"] + scene.has_instances)
                  if closest else 1)
     # the tables once; every lane's t_max; o and d (24 bytes) only of a
-    # live lane: a kernel thread whose t_max <= 0 reads nothing more
-    tabs_bytes = sum(a.numel() * a.element_size() for a in ks["tabs"])
+    # live lane: a kernel thread whose t_max <= 0 reads nothing more. The
+    # pair walk's child-pair rows are a copy of what bvh_node and bvh_link
+    # hold, which the function needs: not charged
+    tabs_bytes = sum(a.numel() * a.element_size() for a in ks["tabs"]
+                     if a is not scene.bvh_pair)
     nbytes = 4 * n + 24 * live + tabs_bytes + n * out_bytes
     t_ops, t_bytes = ops / PEAK_FP32_PER_S, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -702,7 +712,8 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
     each launch of the path's kernels timed and held against its twin (K8,
-    K1, K2, K5, K7 and K4's and K6's closest hit, bit for bit), and, with
+    K1, K2, K5, K7, K4's and K6's closest hit, K3's closest and K4's any
+    hit, bit for bit), and, with
     `also` (a scene under "bvh8"), K6's on the same inputs. Returns the
     kernels' rows, the median render ms and each kernel's launches
     (time_launch's records)."""

@@ -182,6 +182,9 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
         want = ks["closest_plain" if closest else "any_plain"](
             *tabs, *rays, *extra, chunk=ks["chunk"])
         want = want if closest else (want,)
+        # the threaded BVH2 walks' C entries take no bvh_pair
+        ctabs = tuple(a for a in tabs if a is not scene.bvh_pair
+                      or name in traverse.PAIR_WALKS)
 
         def run(lib):
             # t, slot or prim, (u, v,) (instance,) or the occlusion
@@ -193,7 +196,7 @@ def sweep(torch, mt, traverse, path, scene, libs, card, dev):
                        for _ in range(inst)] if closest else
                     [torch.empty(n, dtype=torch.bool, device=dev)])
             rc = getattr(lib, f"mts_{name}")(
-                *(a.data_ptr() for a in tabs),
+                *(a.data_ptr() for a in ctabs),
                 *(a.data_ptr() for a in rays),
                 *(a.data_ptr() for a in outs), n, *sizes,
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -8,10 +8,10 @@ converted JAX scene and a scene the port built itself are the same object
 for the same inputs. The rest of the static metadata (`has_spheres`
 among it) is derived from the tables. Only the tables of the walk the
 scene takes under the backend in force (scene.set_backend) go to the
-device: by default the BVH2 walks' packed tables for a scene holding a
-sphere (or any scene with traverse.MXU_LEAVES off), the cluster walks'
-(mxu_ccs, the dense sweep's centroids, and mxu_ccount, derived here,
-among them) for the others,
+device: by default the BVH2 walks' packed tables (bvh_pair, derived
+here, among them) for a scene holding a sphere (or any scene with
+traverse.MXU_LEAVES off), the cluster walks' (mxu_ccs, the dense sweep's
+centroids, and mxu_ccount, derived here, among them) for the others,
 neither for a brute-force scene; under "bvh8" the BVH8 tables and the
 packed prim rows (K6), under "bvh8mxu" the cut tree's BVH8 tables and
 the cluster plane rows (K7). The BVH8 tables (scene.BVH8_FIELDS) may be
@@ -31,7 +31,7 @@ from .kernels import traverse
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
 from .render.spectra import SLOT_TEX_BASE
-from .scene.bvh import BLAS_EXIT
+from .scene.bvh import BLAS_EXIT, LEAF_K
 from .scene.scene import (BVH8_FIELDS, CLUSTER_FIELDS, FIELDS, INST_FIELDS,
                           PRIM_SPHERE, UPLOAD_FIELDS, SceneData, upload_walk)
 
@@ -71,10 +71,11 @@ def prim_rows(f: Dict[str, np.ndarray]) -> np.ndarray:
 
 
 def bvh_walk_tables(f: Dict[str, np.ndarray]):
-    """The BVH2 walk's tables from the SceneData arrays: node rows (B, 8)
+    """The BVH2 walks' tables from the SceneData arrays: node rows (B, 8)
     f32 [min.xyz, max.xyz, leaf_start, leaf_count] (the two integers held
     exactly as floats, as mxu_node_f holds its slot ids), links (B, 16)
-    i32 [hit8 | miss8] and prim rows (P, 12) f32 (prim_rows)."""
+    i32 [hit8 | miss8], the child-pair rows (B, 16) i32 (bvh_pair_rows)
+    and prim rows (P, 12) f32 (prim_rows)."""
     B, P = f["bvh_min"].shape[0], f["prim_p0"].shape[0]
     if max(P, int(f["bvh_leaf_start"].max())) >= (1 << 24):
         raise ValueError("prim ids exceed the f32 exact-integer range")
@@ -83,7 +84,57 @@ def bvh_walk_tables(f: Dict[str, np.ndarray]):
                            counts.astype(np.float32)], -1)
     link = np.concatenate([f["bvh_hit8"].reshape(B, 8),
                            f["bvh_miss8"].reshape(B, 8)], -1)
-    return node.astype(np.float32), link.astype(np.int32), prim_rows(f)
+    node, link = node.astype(np.float32), link.astype(np.int32)
+    return node, link, bvh_pair_rows(node, link), prim_rows(f)
+
+
+def bvh_pair_rows(node: np.ndarray, link: np.ndarray) -> np.ndarray:
+    """The child-pair rows of the pair walk (K3's closest hit, K4's any
+    hit) from the BVH2 walks' node rows and links (bvh_walk_tables), (B,
+    16) i32, 64 bytes a row: row n of an inner node n holds its two
+    children as two records [min.xyz, max.xyz, ref, row]: the child's box,
+    the very floats of its node row (as their bits); its reference, its
+    row if it is an inner node, else ~(start << 2 | (count - 1)) for a
+    leaf of prims or ~(PAIR_INST | id) for a TLAS leaf of instance id;
+    and its own row. Record 0 is the child the links enter first for
+    octant 0 (hit8), record 1 its sibling (the first child's miss8); bit
+    o of the first record's row word, above PAIR_ROW_BITS, is set where
+    octant o enters record 1 first. A leaf's row is zero and never read:
+    a row id names its pair row, the roots' (row 0, inst_bvh_root)
+    included. Raises where a row id, a prim id or an instance id does not
+    fit its field, or where a child is not its sibling's partner."""
+    PAIR_INST, PAIR_ROW_BITS = traverse.PAIR_INST, traverse.PAIR_ROW_BITS
+    B = node.shape[0]
+    if B >= (1 << PAIR_ROW_BITS):
+        raise ValueError(f"{B} BVH2 rows: the pair rows hold row ids below "
+                         f"2^{PAIR_ROW_BITS}")
+    start, count = node[:, 6].astype(np.int64), node[:, 7].astype(np.int64)
+    if (count > LEAF_K).any() or (start >= PAIR_INST).any():
+        raise ValueError("a leaf holds more than LEAF_K prims, or an "
+                         "instance id does not fit a pair reference")
+    ref = np.where(start < 0, np.arange(B),
+                   ~np.where(count > 0, (start << 2) | (count - 1),
+                             PAIR_INST | start))
+    inner = np.nonzero(start < 0)[0]
+    c0 = link[inner, 0].astype(np.int64)
+    c1 = link[c0, 8].astype(np.int64)
+    first = link[inner, :8].astype(np.int64)
+    second = link[first, 8 + np.arange(8)]
+    swap = first == c1[:, None]
+    if ((c0 < 0) | (c1 < 0)).any() or not (
+            (swap | (first == c0[:, None])).all()
+            and np.where(swap, second == c0[:, None],
+                         second == c1[:, None]).all()):
+        raise ValueError("bvh_link: an inner node's children are not a "
+                         "pair under every octant")
+    mask = (swap.astype(np.int64) << np.arange(8)).sum(1)
+    rows = np.zeros((B, 16), np.int32)
+    for k, (c, word) in enumerate(((c0, c0 | mask << PAIR_ROW_BITS),
+                                   (c1, c1))):
+        rows[inner, 8 * k:8 * k + 6] = node[c, 0:6].view(np.int32)
+        rows[inner, 8 * k + 6] = ref[c]
+        rows[inner, 8 * k + 7] = word.astype(np.uint32).view(np.int32)
+    return rows
 
 
 def instance_bvh_roots(f: Dict[str, np.ndarray], inst_inv: np.ndarray):
@@ -160,7 +211,7 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     tabs = {k: up(f[k]) for k in FIELDS
             if k not in CLUSTER_FIELDS + UPLOAD_FIELDS}
     if walk == "walk" and traverse.takes_bvh2(has_spheres):
-        tabs.update(zip(("bvh_node", "bvh_link", "bvh_prim"),
+        tabs.update(zip(("bvh_node", "bvh_link", "bvh_pair", "bvh_prim"),
                         map(up, bvh_walk_tables(f))))
         if inst:
             tabs["inst_bvh_root"] = up(instance_bvh_roots(

@@ -17,10 +17,12 @@
 //   inst_cluster_any_hit_kernel     <- _any_hit_instmxu_kernel (:1856)
 //                                 (warp-cooperative visits, below)
 //   bvh_closest_hit_kernel      <- _closest_hit_kernel (:250)
+//                                 (the pair walk, below)
 //   bvh_any_hit_kernel          <- _any_hit_kernel (:309)
 //   inst_bvh_closest_hit_kernel <- _closest_hit_inst_kernel (:1382)
 //                                 (warp-wide leaf tests, below)
 //   inst_bvh_any_hit_kernel     <- _any_hit_inst_kernel (:1486)
+//                                 (the pair walk, below)
 //   bvh8_closest_hit_kernel     <- _closest_hit_bvh8_kernel (:2001)
 //                                 (warp-wide leaf tests, below)
 //   bvh8_any_hit_kernel         <- _any_hit_bvh8_kernel (:2117)
@@ -529,22 +531,65 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // load a step, and the lanes of a warp, which diverge onto different
 // subtrees and reach leaves at different steps.
 //
-// DESIGN. A ray a lane, a stackless threaded walk over the node rows
-// [min.xyz, max.x | max.yz, leaf_start, leaf_count] (bvh_node; the two
-// integers held exactly as floats) and the links [hit8 | miss8] (bvh_link),
-// picked by the lane's own direction octant, taken again after each
-// change of space. At a leaf (leaf_count > 0) whose slab the ray hits, its
-// prims are tested in order: closest hit replaces on a strictly smaller t
-// (the lowest prim of a leaf keeps a tie, and across leaves the first
-// visited), any hit stops at the first finite t <= t_max; either way the
-// walk then takes the miss link. An inner node takes the hit or the miss
-// link. Prim rows are [p0.xyz, e1.x | e1.yz, e2.xy | e2.z, type, 0, 0]
-// (bvh_prim): a triangle's vertex and edges, or a sphere's center and
-// [radius, ±1, 0]. Closest hit returns the winner's real u/v (0 for a
-// sphere). None of the TPU kernels' block vote, block-wide slab culling or
-// lax.cond leaf gating is carried over. K3 (closest and any hit) and K4's
-// any hit walk in their own thread (bvh_walk), which tests its leaves
-// alone.
+// DESIGN. A ray a lane, with its own direction octant, taken again after
+// each change of space. The node rows are [min.xyz, max.x | max.yz,
+// leaf_start, leaf_count] (bvh_node; the two integers held exactly as
+// floats) and the links [hit8 | miss8] (bvh_link), picked by the octant.
+// At a leaf (leaf_count > 0) whose slab the ray hits, its prims are tested
+// in order: closest hit replaces on a strictly smaller t (the lowest prim
+// of a leaf keeps a tie, and across leaves the first visited), any hit
+// stops at the first finite t <= t_max. Prim rows are [p0.xyz, e1.x |
+// e1.yz, e2.xy | e2.z, type, 0, 0] (bvh_prim): a triangle's vertex and
+// edges, or a sphere's center and [radius, ±1, 0]. Closest hit returns the
+// winner's real u/v (0 for a sphere). None of the TPU kernels' block vote,
+// block-wide slab culling or lax.cond leaf gating is carried over. Two
+// walks visit the same leaves in the same order:
+//
+// THE THREADED WALK (bvh_walk: K3's any hit; K4's closest hit in rounds,
+// below). Stackless over the links: a step loads a node row and its two
+// links, slab-tests the node against t_best (closest hit) or t_max (any
+// hit) and takes the hit link (an inner node's first child in the octant's
+// order) or the miss link (the next node after its subtree); a leaf tests
+// its prims and takes the miss link. A walk that expands E inner nodes
+// takes 1 + 2E such steps, half of them to a child whose slab test then
+// culls it, and each step's next row waits on that step's loads.
+//
+// THE PAIR WALK (bvh_pair_walk: K3's closest hit and K4's any hit). A stack
+// walk over the child-pair rows (bvh_pair, convert.bvh_pair_rows): row n
+// of an inner node n holds both children as two records [min.xyz, max.xyz,
+// ref, row], each box the very floats of the child's bvh_node row, so the
+// slab gives the same tmin and tmax. ref >= 0 is an inner child's row, ~x
+// a leaf: x = start << 2 | (count - 1) a prim leaf, x = PAIR_INST | id an
+// instance leaf; row is the child's own row, and bits 24-31 of the first
+// record's row word say for each octant whether the second record comes
+// first (by the links: first = hit8[n], second = miss8[first]). The walk
+// tests the root's slab from its node row, then at an inner node loads
+// its pair row once (4 float4) and slab-tests both children: both hit,
+// it pushes the far one (ref and tmin; the any hit, which never re-culls,
+// keeps the row instead) and enters the near one; one hits, it enters
+// that one; none, it pops. A leaf it enters runs leaf_visit unchanged,
+// then pops. A closest-hit pop re-culls its child with tmin < t_best,
+// which is the threaded walk's slab test of that child at that moment
+// (tmin <= tmax and tmax > 0 held at the push and do not depend on t_best;
+// a child culled at the push under a larger t_best stays culled), so the
+// walk reaches the same leaves in the same order with the same t_best at
+// each test: t, prim, u, v and the occlusion equal the threaded walk's,
+// and the twin's, on every lane. A culled child now costs a slab test in
+// its parent's step, not a step of its own. The stack is BVH_PAIR_STACK
+// (ref, tmin or row) pairs in local memory; a push that finds it full
+// hands the lane to the threaded walk at the child it was entering (its
+// row, t_best, ray and, in an instance, the TLAS leaf's miss link as the
+// saved continuation), whose miss links
+// carry the whole remaining order, the stacked children's included: the
+// JAX kernels are stackless and render any depth, so no tree is refused.
+// A pass of the loop expands a node and visits or enters the leaf child it
+// goes to, or visits or enters a popped leaf; it then pops where it must.
+// The loop has one exit and no branch jumps out of it: with `continue`
+// and `break` in its branches the lanes of a warp did not reconverge
+// until the walk's end, and the first build ran K3's closest hit at
+// 0.76 ms a launch against the threaded walk's 0.31. Each pass counts as
+// a step of the walk's fuel and stands for distinct steps of the threaded
+// walk, so the cap binds no sooner.
 //
 // WARP-WIDE LEAF TESTS (K4's closest hit, inst_bvh_closest_walk; K6's
 // below).
@@ -568,18 +613,27 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // takes 0.348 so, against a bound of 0.0123 (bytes); at 1 / 4 / 8 / 16
 // steps a round 0.411 / 0.354 / 0.346 / 0.364. Its warps make 2.7-6.3
 // leaf passes on the main path's wavefronts: the steps of the walk, not
-// its leaf tests, set its time.
+// its leaf tests, set its time. The pair walk (chip_smoke.py, parent and
+// tree in turns, the same card): K3's closest hit 0.309 ms a launch by
+// the threaded walk and 0.274 by the pair walk, K4's any hit 0.345 and
+// 0.273, against bounds of 0.0215 and 0.0049 (bytes); a camera lane of
+// K3 expands 11.0 pair rows and pops 2.2 entries where the threaded walk
+// takes 23.0 steps; no lane's stack fills there (0 fallback steps).
 //
-// INSTANCED (bvh_walk<.., true>): the table is [TLAS | world group's BLAS |
-// each group's BLAS]. A TLAS leaf (leaf_start = instance id >= 0,
-// leaf_count = 0) whose slab the ray hits moves the world ray to instance
-// space as K5 does (d unnormalised, so t stays comparable; a sphere's
-// quadratic divides by A = |d|^2), saves the leaf's miss link and jumps to
+// INSTANCED (bvh_walk<.., true>, bvh_pair_walk<true, true>): the table
+// is [TLAS | world group's BLAS | each group's BLAS]. A TLAS leaf
+// (leaf_start = instance id >= 0, leaf_count = 0) whose slab the ray hits
+// moves the world ray to instance space as K5 does (d unnormalised, so t
+// stays comparable; a sphere's quadratic divides by A = |d|^2) and enters
 // the instance's own BLAS root, inst_root[id]. The JAX kernels read the
 // root from inst_inv col 12, which the JAX build fills by group id from a
 // per-instance array, wrong when instances do not bring their groups in
-// order; this walk never reads col 12. BLAS_EXIT pops to the saved row and
-// the world ray. The walk is capped at the scene's inst_fuel + 64 steps.
+// order; these walks never read col 12. The threaded walk saves the
+// leaf's miss link and pops to it, with the world ray, at a BLAS_EXIT
+// link. The pair walk marks the stack depth at the entry (its exit
+// marker, held in a register, not a slot), tests the BLAS root's slab from
+// its node row, and restores the world ray when a pop reaches the mark.
+// The walks are capped at the scene's inst_fuel + 64 steps.
 // ---------------------------------------------------------------------------
 
 // One prim row against the ray: t (+inf where it misses), and the
@@ -739,8 +793,85 @@ __device__ __forceinline__ bool warp_leaf_visit(
     return closer;
 }
 
-// The BVH2 walk of one ray. INST = false: one tree, `world` is the ray
-// throughout. INST = true: the instanced walk described above.
+// A BVH2 walk of one ray where it stands: its ray in the current space,
+// its best hit, the instance it is in (cinst) and the TLAS row to return
+// to (ret), its next node and the steps it has taken.
+struct Bvh2Walk {
+    RayState r;
+    float t_best, bu, bv;
+    int best, binst, cinst, ret, nd, fuel;
+};
+
+// The threaded BVH2 walk from where `w` stands to its end, its step cap or
+// (any hit) its first hit, which returns true. INST = false: one tree,
+// `world` is the ray throughout. INST = true: the instanced walk
+// described above.
+template <bool ANY_HIT, bool INST>
+__device__ __forceinline__ bool bvh_steps(
+        const float4* __restrict__ node, const int* __restrict__ link,
+        const float4* __restrict__ prim, const float4* __restrict__ inst_inv,
+        const int* __restrict__ inst_root, const RayState& world,
+        float t_max, int fuel_cap, Bvh2Walk& w) {
+    for (; w.nd >= 0 && w.fuel < fuel_cap; ++w.fuel) {
+        const int nd = w.nd;
+        const float4 a = __ldg(node + 2 * nd);
+        const float4 b = __ldg(node + 2 * nd + 1);
+        const int leaf_start = (int)b.z, leaf_count = (int)b.w;
+        const bool hit = slab(a, b, w.r, ANY_HIT ? t_max : w.t_best);
+        const int hit_link = __ldg(link + 16 * nd + w.r.oct);
+        const int miss_link = __ldg(link + 16 * nd + 8 + w.r.oct);
+        if (leaf_start >= 0 && leaf_count > 0) {
+            if (hit && leaf_visit<ANY_HIT>(prim, leaf_start, leaf_count, w.r,
+                                           t_max, &w.t_best, &w.best, &w.bu,
+                                           &w.bv)) {
+                if (ANY_HIT) return true;
+                if (INST) w.binst = w.cinst;
+            }
+            w.nd = miss_link;
+        } else if (INST && leaf_start >= 0) {
+            if (hit) {                        // enter instance leaf_start
+                const float4* m = inst_inv + 4 * (size_t)leaf_start;
+                const float4 m0 = __ldg(m), m1 = __ldg(m + 1),
+                             m2 = __ldg(m + 2);
+                w.r = to_local(m0, m1, m2, world);
+                w.ret = miss_link;
+                w.cinst = leaf_start;
+                w.nd = __ldg(inst_root + leaf_start);
+            } else {
+                w.nd = miss_link;
+            }
+        } else {
+            w.nd = hit ? hit_link : miss_link;
+        }
+        if (INST && w.nd == BLAS_EXIT) {      // pop to the TLAS
+            w.nd = w.ret;
+            w.ret = -1;
+            w.cinst = -1;
+            w.r = world;
+        }
+    }
+    return false;
+}
+
+// A walk's outputs: the occlusion, or t (+inf on a miss), prim, u, v and
+// the instance of the best hit.
+template <bool ANY_HIT, bool INST>
+__device__ __forceinline__ void bvh_results(const Bvh2Walk& w, bool occ,
+                                            float* t_io, int* prim_io,
+                                            float* u_io, float* v_io,
+                                            int* inst_io, bool* occ_io) {
+    if (ANY_HIT) {
+        *occ_io = occ;
+    } else {
+        *t_io = w.best >= 0 ? w.t_best : inf_f();
+        *prim_io = w.best;
+        *u_io = w.bu;
+        *v_io = w.bv;
+        if (INST) *inst_io = w.best >= 0 ? w.binst : -1;
+    }
+}
+
+// The threaded BVH2 walk of one ray from the root.
 template <bool ANY_HIT, bool INST>
 __device__ __forceinline__ void bvh_walk(
         const float4* __restrict__ node, const int* __restrict__ link,
@@ -748,58 +879,149 @@ __device__ __forceinline__ void bvh_walk(
         const int* __restrict__ inst_root, const RayState& world,
         float t_max, int fuel_cap, float* t_io, int* prim_io, float* u_io,
         float* v_io, int* inst_io, bool* occ_io) {
-    RayState r = world;   // the ray in the current space
-    float t_best = t_max, bu = 0.0f, bv = 0.0f;
-    int best = -1;
-    int binst = -1, cinst = -1, ret = -1;
-    int nd = 0;
-    for (int fuel = 0; nd >= 0 && fuel < fuel_cap; ++fuel) {
-        const float4 a = __ldg(node + 2 * nd);
-        const float4 b = __ldg(node + 2 * nd + 1);
-        const int leaf_start = (int)b.z, leaf_count = (int)b.w;
-        const bool hit = slab(a, b, r, ANY_HIT ? t_max : t_best);
-        const int hit_link = __ldg(link + 16 * nd + r.oct);
-        const int miss_link = __ldg(link + 16 * nd + 8 + r.oct);
-        if (leaf_start >= 0 && leaf_count > 0) {
-            if (hit && leaf_visit<ANY_HIT>(prim, leaf_start, leaf_count, r,
-                                           t_max, &t_best, &best, &bu,
-                                           &bv)) {
-                if (ANY_HIT) {
-                    *occ_io = true;
-                    return;
+    Bvh2Walk w{world, t_max, 0.0f, 0.0f, -1, -1, -1, -1, 0, 0};
+    const bool occ = bvh_steps<ANY_HIT, INST>(node, link, prim, inst_inv,
+                                              inst_root, world, t_max,
+                                              fuel_cap, w);
+    bvh_results<ANY_HIT, INST>(w, occ, t_io, prim_io, u_io, v_io, inst_io,
+                               occ_io);
+}
+
+// The child-pair rows' encoding (convert.py::bvh_pair_rows): the tag of an
+// instance leaf's reference, and the bits of a row id below the octant
+// mask.
+constexpr int PAIR_INST = 1 << 30;
+constexpr int PAIR_ROW_BITS = 24;
+// (reference, tmin or row) entries of a pair walk's stack
+// (kernels/traverse.py::BVH_PAIR_STACK); a push that finds it full hands
+// the lane to the threaded walk
+constexpr int BVH_PAIR_STACK = 32;
+
+// slab's test without its limit: whether the ray's line meets the box
+// ahead of the origin; the entry distance in *tmin_out, bit for bit
+// slab's tmin.
+__device__ __forceinline__ bool slab_open(const float4& a, const float4& b,
+                                          const RayState& r,
+                                          float* tmin_out) {
+    float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
+    float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
+    float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
+    float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                       fminf(t0z, t1z));
+    float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                       fmaxf(t0z, t1z));
+    *tmin_out = tmin;
+    return (tmin <= tmax) && (tmax > 0.0f);
+}
+
+// The pair-row reference of node `row` from its bvh_node row's second half
+__device__ __forceinline__ int node_ref(const float4& b, int row) {
+    const int start = (int)b.z, count = (int)b.w;
+    if (start < 0) return row;
+    return ~(count > 0 ? (start << 2) | (count - 1) : PAIR_INST | start);
+}
+
+// The pair walk of one ray (described above). The instanced closest hit
+// keeps the threaded walk in rounds (inst_bvh_closest_walk), so INST
+// comes with ANY_HIT only: its stack keeps rows, which a fallback inside
+// an instance needs for the TLAS leaf's miss link.
+template <bool ANY_HIT, bool INST>
+__device__ __forceinline__ void bvh_pair_walk(
+        const float4* __restrict__ node, const int* __restrict__ link,
+        const float4* __restrict__ pair, const float4* __restrict__ prim,
+        const float4* __restrict__ inst_inv,
+        const int* __restrict__ inst_root, const RayState& world,
+        float t_max, int fuel_cap, float* t_io, int* prim_io, float* u_io,
+        float* v_io, int* inst_io, bool* occ_io) {
+    static_assert(ANY_HIT || !INST, "the instanced closest hit walks "
+                                    "in rounds");
+    Bvh2Walk w{world, t_max, 0.0f, 0.0f, -1, -1, -1, -1, -1, 0};
+    int2 stack[BVH_PAIR_STACK];
+    int sp = 0, exit_sp = -1, inst_row = -1, cur_row = 0;
+    bool occ = false, full = false;
+    float tr;
+    const float4 ra = __ldg(node), rb = __ldg(node + 1);
+    bool go = slab_open(ra, rb, w.r, &tr) && tr < t_max && fuel_cap > 0;
+    int cur = node_ref(rb, 0);
+    // One exit and no jump out of a branch: every pass ends where the
+    // lanes of a warp reconverge, whichever branch each took.
+    for (; go; ++w.fuel) {
+        bool pop = false;
+        if (cur >= 0) {                       // an inner node: its children
+            const float4* p = pair + 4 * (size_t)cur;
+            const float4 a0 = __ldg(p), b0 = __ldg(p + 1);
+            const float4 a1 = __ldg(p + 2), b1 = __ldg(p + 3);
+            const float lim = ANY_HIT ? t_max : w.t_best;
+            float t0, t1;
+            const bool h0 = slab_open(a0, b0, w.r, &t0) && t0 < lim;
+            const bool h1 = slab_open(a1, b1, w.r, &t1) && t1 < lim;
+            const int word0 = __float_as_int(b0.w);
+            const int row0 = word0 & ((1 << PAIR_ROW_BITS) - 1);
+            const int row1 = __float_as_int(b1.w);
+            // the child entered: the one that hits, or the near one
+            const bool in1 =
+                h1 && (!h0 || ((word0 >> (PAIR_ROW_BITS + w.r.oct)) & 1));
+            if (h0 && h1) {                   // the far one waits
+                if (sp == BVH_PAIR_STACK) {
+                    w.nd = in1 ? row1 : row0;
+                    full = true;
+                } else {
+                    stack[sp++] = make_int2(
+                        __float_as_int(in1 ? b0.z : b1.z),
+                        ANY_HIT ? (in1 ? row0 : row1)
+                                : __float_as_int(in1 ? t0 : t1));
                 }
-                if (INST) binst = cinst;
             }
-            nd = miss_link;
-        } else if (INST && leaf_start >= 0) {
-            if (hit) {                        // enter instance leaf_start
-                const float4* m = inst_inv + 4 * (size_t)leaf_start;
-                const float4 m0 = __ldg(m), m1 = __ldg(m + 1),
-                             m2 = __ldg(m + 2);
-                r = to_local(m0, m1, m2, world);
-                ret = miss_link;
-                cinst = leaf_start;
-                nd = __ldg(inst_root + leaf_start);
-            } else {
-                nd = miss_link;
+            cur = __float_as_int(in1 ? b1.z : b0.z);
+            if (INST) cur_row = in1 ? row1 : row0;
+            pop = !(h0 || h1) || full;
+        }
+        // a leaf, entered in this pass or reached by a pop or a root test
+        if (!pop && cur < 0 && (!INST || !(~cur & PAIR_INST))) {
+            const int x = ~cur;
+            occ = leaf_visit<ANY_HIT>(prim, x >> 2, (x & 3) + 1, w.r, t_max,
+                                      &w.t_best, &w.best, &w.bu, &w.bv) &&
+                  ANY_HIT;
+            pop = true;
+        } else if (INST && !pop && cur < 0) { // an instance leaf: enter it
+            const int id = ~cur & (PAIR_INST - 1);
+            const float4* m = inst_inv + 4 * (size_t)id;
+            const float4 m0 = __ldg(m), m1 = __ldg(m + 1), m2 = __ldg(m + 2);
+            w.r = to_local(m0, m1, m2, world);
+            inst_row = cur_row;
+            exit_sp = sp;
+            const int root = __ldg(inst_root + id);
+            const float4 a = __ldg(node + 2 * (size_t)root);
+            const float4 b = __ldg(node + 2 * (size_t)root + 1);
+            pop = !(slab_open(a, b, w.r, &tr) && tr < t_max);
+            cur = node_ref(b, root);
+            cur_row = root;
+        }
+        if (pop && !occ && !full) {           // the next child that waits
+            pop = false;
+            while (!pop && sp > 0) {
+                if (INST && sp == exit_sp) {  // the instance is done
+                    w.r = world;
+                    exit_sp = -1;
+                }
+                const int2 e = stack[--sp];
+                WORK_COUNT(1);
+                pop = ANY_HIT || __int_as_float(e.y) < w.t_best;
+                cur = e.x;
+                if (INST) cur_row = e.y;
             }
-        } else {
-            nd = hit ? hit_link : miss_link;
+            go = pop;
         }
-        if (INST && nd == BLAS_EXIT) {        // pop to the TLAS
-            nd = ret;
-            ret = -1;
-            cinst = -1;
-            r = world;
-        }
+        go = go && !full && !occ && w.fuel + 1 < fuel_cap;
     }
-    if (!ANY_HIT) {
-        *t_io = best >= 0 ? t_best : inf_f();
-        *prim_io = best;
-        *u_io = bu;
-        *v_io = bv;
-        if (INST) *inst_io = best >= 0 ? binst : -1;
+    if (full) {               // on with the threaded walk from the child
+        if (INST && exit_sp >= 0)
+            w.ret = __ldg(link + 16 * (size_t)inst_row + 8 + world.oct);
+        occ = bvh_steps<ANY_HIT, INST>(node, link, prim, inst_inv, inst_root,
+                                       world, t_max, fuel_cap, w);
     }
+    bvh_results<ANY_HIT, INST>(w, occ, t_io, prim_io, u_io, v_io, inst_io,
+                               occ_io);
 }
 
 // At a BLAS_EXIT link, back to the saved TLAS row and the world ray, as
@@ -890,6 +1112,7 @@ __device__ __forceinline__ void inst_bvh_closest_walk(
 __global__ void __launch_bounds__(BLOCK)
 bvh_closest_hit_kernel(const float4* __restrict__ node,
                        const int* __restrict__ link,
+                       const float4* __restrict__ pair,
                        const float4* __restrict__ prim,
                        const float* __restrict__ ox,
                        const float* __restrict__ oy,
@@ -908,8 +1131,9 @@ bvh_closest_hit_kernel(const float4* __restrict__ node,
     int p = -1;
     if (tm > 0.0f) {  // t_max <= 0 (dead lanes) cannot hit: 0 < t < t_max
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh_walk<false, false>(node, link, prim, nullptr, nullptr, r, tm,
-                               fuel, &t, &p, &u, &v, nullptr, nullptr);
+        bvh_pair_walk<false, false>(node, link, pair, prim, nullptr, nullptr,
+                                    r, tm, fuel, &t, &p, &u, &v, nullptr,
+                                    nullptr);
     }
     t_out[i] = t;
     prim_out[i] = p;
@@ -981,6 +1205,7 @@ inst_bvh_closest_hit_kernel(const float4* __restrict__ node,
 __global__ void __launch_bounds__(BLOCK)
 inst_bvh_any_hit_kernel(const float4* __restrict__ node,
                         const int* __restrict__ link,
+                        const float4* __restrict__ pair,
                         const float4* __restrict__ prim,
                         const float4* __restrict__ inst_inv,
                         const int* __restrict__ inst_root,
@@ -998,9 +1223,9 @@ inst_bvh_any_hit_kernel(const float4* __restrict__ node,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh_walk<true, true>(node, link, prim, inst_inv, inst_root, r, tm,
-                             fuel, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, &occ);
+        bvh_pair_walk<true, true>(node, link, pair, prim, inst_inv,
+                                  inst_root, r, tm, fuel, nullptr, nullptr,
+                                  nullptr, nullptr, nullptr, &occ);
     }
     occ_out[i] = occ;
 }
@@ -1663,15 +1888,16 @@ int mts_inst_cluster_any_hit(const void* node_f, const void* link,
 }
 
 // fuel: the walk's step cap, the node count + 64
-int mts_bvh_closest_hit(const void* node, const void* link, const void* prim,
-                        const void* ox, const void* oy, const void* oz,
-                        const void* dx, const void* dy, const void* dz,
-                        const void* tmax, void* t_out, void* prim_out,
-                        void* u_out, void* v_out, int n, int fuel,
-                        void* stream) {
+int mts_bvh_closest_hit(const void* node, const void* link, const void* pair,
+                        const void* prim, const void* ox, const void* oy,
+                        const void* oz, const void* dx, const void* dy,
+                        const void* dz, const void* tmax, void* t_out,
+                        void* prim_out, void* u_out, void* v_out, int n,
+                        int fuel, void* stream) {
     const int grid = (n + BLOCK - 1) / BLOCK;
     bvh_closest_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float4*)node, (const int*)link, (const float4*)prim,
+        (const float4*)node, (const int*)link, (const float4*)pair,
+        (const float4*)prim,
         (const float*)ox, (const float*)oy, (const float*)oz,
         (const float*)dx, (const float*)dy, (const float*)dz,
         (const float*)tmax, (float*)t_out, (int*)prim_out, (float*)u_out,
@@ -1713,15 +1939,16 @@ int mts_inst_bvh_closest_hit(const void* node, const void* link,
     return (int)cudaGetLastError();
 }
 
-int mts_inst_bvh_any_hit(const void* node, const void* link, const void* prim,
-                         const void* inst_inv, const void* inst_root,
-                         const void* ox, const void* oy, const void* oz,
-                         const void* dx, const void* dy, const void* dz,
-                         const void* tmax, void* occ_out, int n, int fuel,
-                         void* stream) {
+int mts_inst_bvh_any_hit(const void* node, const void* link, const void* pair,
+                         const void* prim, const void* inst_inv,
+                         const void* inst_root, const void* ox,
+                         const void* oy, const void* oz, const void* dx,
+                         const void* dy, const void* dz, const void* tmax,
+                         void* occ_out, int n, int fuel, void* stream) {
     const int grid = (n + BLOCK - 1) / BLOCK;
     inst_bvh_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float4*)node, (const int*)link, (const float4*)prim,
+        (const float4*)node, (const int*)link, (const float4*)pair,
+        (const float4*)prim,
         (const float4*)inst_inv, (const int*)inst_root, (const float*)ox,
         (const float*)oy, (const float*)oz, (const float*)dx,
         (const float*)dy, (const float*)dz, (const float*)tmax,

@@ -18,6 +18,10 @@ tables of the one walk a scene takes):
                  leaf_count] (-1 / 0 at inner nodes; instanced scenes: a
                  TLAS leaf has count 0 and its instance id as start)
     bvh_link     (B, 16) i32  [hit8 | miss8], BLAS_EXIT leaves a BLAS
+    bvh_pair     (B, 16) i32  an inner node's two children, each [min.xyz,
+                 max.xyz (f32 bits), reference, row], the octant order in
+                 the top byte of the first row word (convert.bvh_pair_rows;
+                 read by the pair walk of K3's closest hit and K4's any hit)
     bvh_prim     (P, 12) f32  [p0, e1, e2, type, 0, 0]: a triangle's vertex
                  and edges, or a sphere's center and [radius, ±1, 0]
     inst_inv     (K, 16) f32  instanced scenes: [world->local 3x4 | BVH2
@@ -41,7 +45,9 @@ tree), `inst_cluster_closest_hit` and `inst_cluster_any_hit` (K5: a TLAS
 over instances, each entered into its group's local-space cut tree),
 `bvh_closest_hit` and `bvh_any_hit` (K3: the full BVH2 with leaves of up
 to LEAF_K triangles or spheres) and `inst_bvh_closest_hit` and
-`inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table),
+`inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table; K3's
+closest and K4's any hit walk the child-pair rows with a stack, the other
+two the threaded links, and all four take the same tables),
 `bvh8_closest_hit` and `bvh8_any_hit` (K6: the BVH8 walk over prim
 leaves), `bvh8mxu_closest_hit` and `bvh8mxu_any_hit` (K7: the BVH8
 walk over cluster leaves) and `dense_closest_hit` and `dense_any_hit`
@@ -103,6 +109,18 @@ DENSE_RAYS = 2
 # BVH_ROUND_STEPS, BVH8_ROUND_STEPS): the twins' rounds for `leaf_passes`
 BVH_ROUND_STEPS = 8
 BVH8_ROUND_STEPS = 2
+# (reference, tmin or row) entries of the pair walk's stack (K3's closest
+# hit, K4's any hit; csrc/cluster_walk.cu's BVH_PAIR_STACK): a push that
+# finds it full hands the lane to the threaded walk (`fallback_steps`)
+BVH_PAIR_STACK = 32
+# the wrappers whose kernels take the pair walk and read bvh_pair (the
+# other two BVH2 kernels' C entries take no bvh_pair)
+PAIR_WALKS = ("bvh_closest_hit", "inst_bvh_any_hit")
+# the child-pair rows' encoding (convert.bvh_pair_rows, csrc/cluster_walk.cu):
+# an instance leaf's tag in a reference, and the bits of a row id below the
+# octant mask in the first record's row word
+PAIR_INST = 1 << 30
+PAIR_ROW_BITS = 24
 # (node, mask) entries of a BVH8 walk's stack (csrc/cluster_walk.cu), and
 # the margin over the tree's depth that the JAX kernels size it with
 BVH8_STACK = 32
@@ -156,10 +174,10 @@ def _declare(lib):
                       (lib.mts_inst_cluster_any_hit, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
-    for fn, n_tab, n_out in ((lib.mts_bvh_closest_hit, 3, 4),
+    for fn, n_tab, n_out in ((lib.mts_bvh_closest_hit, 4, 4),
                              (lib.mts_bvh_any_hit, 3, 1),
                              (lib.mts_inst_bvh_closest_hit, 5, 5),
-                             (lib.mts_inst_bvh_any_hit, 5, 1),
+                             (lib.mts_inst_bvh_any_hit, 6, 1),
                              (lib.mts_bvh8_closest_hit, 3, 4),
                              (lib.mts_bvh8_any_hit, 3, 1)):
         fn.restype = ctypes.c_int
@@ -221,9 +239,11 @@ def _check(node_f, link, feat, rays, cluster_k, inst_inv=None):
     return n, dev
 
 
-def _check_bvh(node, link, prim, rays, fuel, inst_inv=None, inst_root=None):
+def _check_bvh(node, link, pair, prim, rays, fuel, inst_inv=None,
+               inst_root=None):
     tabs = [("bvh_node", node, torch.float32, 2),
             ("bvh_link", link, torch.int32, 2),
+            ("bvh_pair", pair, torch.int32, 2),
             ("bvh_prim", prim, torch.float32, 2)]
     if inst_inv is not None:
         tabs += [("inst_inv", inst_inv, torch.float32, 2),
@@ -233,8 +253,10 @@ def _check_bvh(node, link, prim, rays, fuel, inst_inv=None, inst_root=None):
             raise ValueError("inst_inv must be (K, 16) and inst_bvh_root "
                              "(K,)")
     n, dev = _check_tables(tabs, rays)
-    if node.shape[1] != 8 or link.shape != (node.shape[0], 16):
-        raise ValueError("bvh_node must be (B, 8) and bvh_link (B, 16)")
+    if (node.shape[1] != 8 or link.shape != (node.shape[0], 16)
+            or pair.shape != link.shape):
+        raise ValueError("bvh_node must be (B, 8), bvh_link and bvh_pair "
+                         "(B, 16)")
     if prim.shape[1] != 12:
         raise ValueError("bvh_prim must be (P, 12)")
     if not 0 < fuel < (1 << 31):
@@ -404,19 +426,21 @@ def _empty_hits(n, dev, inst):
     return outs + (torch.empty(n, **i32),) if inst else outs
 
 
-def bvh_closest_hit(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
+def bvh_closest_hit(node, link, pair, prim, ox, oy, oz, dx, dy, dz, t_max,
                     fuel: int):
-    """Closest hit over the BVH2: (t, prim, u, v) (N,) each; t = +inf,
-    prim = -1 and u = v = 0 on a miss, u = v = 0 on a sphere. `fuel` caps
-    a walk's steps (the node count + 64)."""
+    """Closest hit over the BVH2, by the pair walk: (t, prim, u, v) (N,)
+    each; t = +inf, prim = -1 and u = v = 0 on a miss, u = v = 0 on a
+    sphere. `fuel` caps a walk's steps (the node count + 64: the threaded
+    walk reaches each row at most once, so it cannot bind on a built
+    table); the results equal the twin's wherever it does not bind."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
-    n, dev = _check_bvh(node, link, prim, rays, fuel)
+    n, dev = _check_bvh(node, link, pair, prim, rays, fuel)
     if dev.type == "cpu":
-        return bvh_closest_hit_plain(node, link, prim, *rays, fuel)
+        return bvh_closest_hit_plain(node, link, pair, prim, *rays, fuel)
     outs = _empty_hits(n, dev, False)
     if n == 0:
         return outs
-    _launch("bvh_closest_hit", (node, link, prim), rays, outs, fuel)
+    _launch("bvh_closest_hit", (node, link, pair, prim), rays, outs, fuel)
     bvh_closest_hit.launches += 1
     return outs
 
@@ -424,13 +448,15 @@ def bvh_closest_hit(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
 bvh_closest_hit.launches = 0
 
 
-def bvh_any_hit(node, link, prim, ox, oy, oz, dx, dy, dz, t_max, fuel: int):
-    """Occlusion over the BVH2: (N,) bool, True iff a prim is hit at a
-    finite 0 < t <= t_max."""
+def bvh_any_hit(node, link, pair, prim, ox, oy, oz, dx, dy, dz, t_max,
+                fuel: int):
+    """Occlusion over the BVH2, by the threaded walk (which does not read
+    `pair`): (N,) bool, True iff a prim is hit at a finite 0 < t <=
+    t_max."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
-    n, dev = _check_bvh(node, link, prim, rays, fuel)
+    n, dev = _check_bvh(node, link, pair, prim, rays, fuel)
     if dev.type == "cpu":
-        return bvh_any_hit_plain(node, link, prim, *rays, fuel)
+        return bvh_any_hit_plain(node, link, pair, prim, *rays, fuel)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return occ
@@ -442,15 +468,17 @@ def bvh_any_hit(node, link, prim, ox, oy, oz, dx, dy, dz, t_max, fuel: int):
 bvh_any_hit.launches = 0
 
 
-def inst_bvh_closest_hit(node, link, prim, inst_inv, inst_root, ox, oy, oz,
-                         dx, dy, dz, t_max, fuel: int):
-    """Closest hit over the stitched TLAS + BLAS BVH2 table: (t, prim, u,
-    v, inst); t = +inf, prim = inst = -1 and u = v = 0 on a miss. `fuel`
+def inst_bvh_closest_hit(node, link, pair, prim, inst_inv, inst_root, ox,
+                         oy, oz, dx, dy, dz, t_max, fuel: int):
+    """Closest hit over the stitched TLAS + BLAS BVH2 table, by the
+    threaded walk in rounds (which does not read `pair`): (t, prim, u, v,
+    inst); t = +inf, prim = inst = -1 and u = v = 0 on a miss. `fuel`
     caps a walk's steps (the scene's inst_fuel + 64)."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
-    n, dev = _check_bvh(node, link, prim, rays, fuel, inst_inv, inst_root)
+    n, dev = _check_bvh(node, link, pair, prim, rays, fuel, inst_inv,
+                        inst_root)
     if dev.type == "cpu":
-        return inst_bvh_closest_hit_plain(node, link, prim, inst_inv,
+        return inst_bvh_closest_hit_plain(node, link, pair, prim, inst_inv,
                                           inst_root, *rays, fuel)
     outs = _empty_hits(n, dev, True)
     if n == 0:
@@ -464,19 +492,24 @@ def inst_bvh_closest_hit(node, link, prim, inst_inv, inst_root, ox, oy, oz,
 inst_bvh_closest_hit.launches = 0
 
 
-def inst_bvh_any_hit(node, link, prim, inst_inv, inst_root, ox, oy, oz, dx,
-                     dy, dz, t_max, fuel: int):
-    """Occlusion over the stitched TLAS + BLAS BVH2 table: (N,) bool."""
+def inst_bvh_any_hit(node, link, pair, prim, inst_inv, inst_root, ox, oy,
+                     oz, dx, dy, dz, t_max, fuel: int):
+    """Occlusion over the stitched TLAS + BLAS BVH2 table, by the pair
+    walk: (N,) bool. `fuel` caps a walk's steps (the scene's inst_fuel +
+    64, which the threaded walk cannot reach on a built table); the
+    results equal the twin's wherever it does not bind."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
-    n, dev = _check_bvh(node, link, prim, rays, fuel, inst_inv, inst_root)
+    n, dev = _check_bvh(node, link, pair, prim, rays, fuel, inst_inv,
+                        inst_root)
     if dev.type == "cpu":
-        return inst_bvh_any_hit_plain(node, link, prim, inst_inv, inst_root,
-                                      *rays, fuel)
+        return inst_bvh_any_hit_plain(node, link, pair, prim, inst_inv,
+                                      inst_root, *rays, fuel)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    _launch("inst_bvh_any_hit", (node, link, prim, inst_inv, inst_root),
-            rays, (occ,), fuel)
+    _launch("inst_bvh_any_hit",
+            (node, link, pair, prim, inst_inv, inst_root), rays, (occ,),
+            fuel)
     inst_bvh_any_hit.launches += 1
     return occ
 
@@ -1004,8 +1037,72 @@ class _LeafRounds:
         _count(stats, "leaf_passes", int((-(-pairs // WARP)).sum()))
 
 
-def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
-                    inst_inv=None, inst_root=None):
+class _PairWalk:
+    """The work of the pair walk (csrc/cluster_walk.cu::bvh_pair_walk: K3's
+    closest hit, K4's any hit), read off the threaded walk, which reaches
+    the same nodes in the same order: a lane's root test (and one an
+    instance entry: `root_tests`); each inner node whose slab it hits is a
+    pair-row expansion (`pair_rows`), which pushes the far child (its row
+    here) where both children's slabs, from the pair row, pass at that
+    step; a step at the row on top of the stack is its pop (`pops`, a
+    failed re-cull included). A push that finds `cap` entries hands the
+    lane to the threaded walk: its later steps are `fallback_steps`, and
+    `fallback_rets` counts the hand-overs inside an instance, which load
+    the TLAS leaf's miss link."""
+
+    def __init__(self, pair, n, dev, cap, live):
+        self.pair, self.cap = pair, cap
+        self.stack = torch.zeros((n, cap), dtype=torch.int64, device=dev)
+        self.depth = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.fell = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.n = dict(root_tests=int(live.sum()), pair_rows=0, pops=0,
+                      fallback_steps=0, fallback_rets=0)
+
+    def step(self, act, nd, inner_hit, ray, lim, in_inst):
+        """`act` lanes take a threaded step at rows `nd`; `inner_hit`: at
+        an inner node whose slab they hit; `ray`: their (ox, oy, oz, ix,
+        iy, iz, octant) in the current space; `lim`: their slab limit;
+        `in_inst`: inside an instance (or None)."""
+        fell = self.fell[act]
+        self.n["fallback_steps"] += int(fell.sum())
+        d = self.depth[act]
+        pop = ~fell & (d > 0) & (
+            self.stack[act, (d - 1).clamp_min(0)] == nd)
+        self.n["pops"] += int(pop.sum())
+        self.depth[act[pop]] -= 1
+        e = ~fell & inner_hit
+        self.n["pair_rows"] += int(e.sum())
+        pr = self.pair[nd[e]]
+        box = pr.view(torch.float32)
+        r = [a[e] for a in ray[:6]]
+        both = (_slab(box[:, 0:6], *r, lim[e])
+                & _slab(box[:, 8:14], *r, lim[e]))
+        if not bool(both.any()):
+            return
+        lanes = act[e][both]
+        word0 = pr[both, 7].long() & 0xFFFFFFFF
+        first1 = ((word0 >> (PAIR_ROW_BITS + ray[6][e][both])) & 1) == 1
+        far = torch.where(first1, word0 & ((1 << PAIR_ROW_BITS) - 1),
+                          pr[both, 15].long())
+        full = self.depth[lanes] >= self.cap
+        self.fell[lanes[full]] = True
+        if in_inst is not None:
+            self.n["fallback_rets"] += int((in_inst[e][both] & full).sum())
+        lanes, far = lanes[~full], far[~full]
+        self.stack[lanes, self.depth[lanes]] = far
+        self.depth[lanes] += 1
+
+    def entered(self, lanes):
+        """`lanes` entered an instance: the BLAS root's test."""
+        self.n["root_tests"] += int((~self.fell[lanes]).sum())
+
+    def count(self, stats):
+        for k, v in self.n.items():
+            _count(stats, k, v)
+
+
+def _bvh_walk_plain(node, link, pair, prim, rays, any_hit, stats, fuel,
+                    inst_inv=None, inst_root=None, pair_stack=None):
     """The BVH2 kernels' walk for every lane at once, each lane with its
     own cursor and octant: a leaf whose box the lane hits tests its prims
     in order (closest hit: strictly closer replaces, so the lowest prim of
@@ -1015,7 +1112,8 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
     instance space, saves the leaf's miss link and continues at the
     instance's BLAS root (`inst_root`); a BLAS_EXIT link pops back. The
     instanced closest hit also counts its warps' passes over their
-    rounds' due prims (`leaf_passes`: _LeafRounds)."""
+    rounds' due prims (`leaf_passes`: _LeafRounds); the twins of the pair
+    walk (`pair_stack`: its stack's entries) its work (_PairWalk)."""
     ox, oy, oz, dx, dy, dz, t_max = rays
     n, dev = ox.shape[0], ox.device
     world = [ox, oy, oz, dx, dy, dz, _safe_inv(dx), _safe_inv(dy),
@@ -1035,6 +1133,8 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
         binst = torch.full((n,), -1, dtype=torch.int64, device=dev)
     rounds = (_LeafRounds(n, dev, BVH_ROUND_STEPS)
               if stats is not None and inst and not any_hit else None)
+    pw = (_PairWalk(pair, n, dev, pair_stack, t_max > 0)
+          if stats is not None and pair_stack is not None else None)
     for _ in range(fuel):
         act = torch.nonzero(node_i >= 0).squeeze(1)
         if act.numel() == 0:
@@ -1053,6 +1153,11 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
         is_leaf = start >= 0
         nxt = torch.where(is_leaf | ~hit, miss_l, hit_l)
         _count(stats, "node_steps", act.numel())
+        if pw is not None:
+            pw.step(act, node_i[act], ~is_leaf & hit,
+                    (lox, loy, loz, lix, liy, liz, loc),
+                    t_max[act] if any_hit else t_best[act],
+                    cinst[act] >= 0 if inst else None)
         vi = torch.nonzero(is_leaf & (count > 0) & hit).squeeze(1)
         if vi.numel():
             lanes = act[vi]
@@ -1080,6 +1185,8 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
                 e = act[enter]
                 iid = start[enter]
                 _count(stats, "instance_entries", e.numel())
+                if pw is not None:
+                    pw.entered(e)
                 loc_ray = _to_local(inst_inv[iid], *(a[e] for a in world[:6]))
                 for k_, a in enumerate(loc_ray):
                     cur[k_][e] = a
@@ -1100,6 +1207,8 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
         node_i[act] = nxt
     if rounds is not None:
         rounds.count(stats)
+    if pw is not None:
+        pw.count(stats)
     if any_hit:
         return occ
     found = best >= 0
@@ -1110,44 +1219,53 @@ def _bvh_walk_plain(node, link, prim, rays, any_hit, stats, fuel,
     return outs
 
 
-def bvh_closest_hit_plain(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
-                          fuel: int, chunk: int = 8192, stats=None):
+def bvh_closest_hit_plain(node, link, pair, prim, ox, oy, oz, dx, dy, dz,
+                          t_max, fuel: int, chunk: int = 8192, stats=None,
+                          pair_stack: int = BVH_PAIR_STACK):
     """The twin of the BVH2 closest-hit kernel: (t, prim, u, v). With a
-    `stats` dict it also counts the kernel's work: node steps, triangle
-    tests and sphere tests."""
+    `stats` dict it also counts the walk's work: node steps (the threaded
+    walk's, which the bound charges), triangle tests and sphere tests, and
+    the pair walk's work with a stack of `pair_stack` entries
+    (_PairWalk)."""
     return _chunked(
-        lambda r: _bvh_walk_plain(node, link, prim, r, False, stats, fuel),
+        lambda r: _bvh_walk_plain(node, link, pair, prim, r, False, stats,
+                                  fuel, pair_stack=pair_stack),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
-def bvh_any_hit_plain(node, link, prim, ox, oy, oz, dx, dy, dz, t_max,
+def bvh_any_hit_plain(node, link, pair, prim, ox, oy, oz, dx, dy, dz, t_max,
                       fuel: int, chunk: int = 8192, stats=None):
-    """The twin of the BVH2 any-hit kernel. Its `stats` count a lane's
-    prim tests up to its first hit, where the kernel's thread stops."""
+    """The twin of the BVH2 any-hit kernel (the threaded walk). Its
+    `stats` count a lane's prim tests up to its first hit, where the
+    kernel's thread stops."""
     return _chunked(
-        lambda r: _bvh_walk_plain(node, link, prim, r, True, stats, fuel),
+        lambda r: _bvh_walk_plain(node, link, pair, prim, r, True, stats,
+                                  fuel),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
-def inst_bvh_closest_hit_plain(node, link, prim, inst_inv, inst_root, ox, oy,
-                               oz, dx, dy, dz, t_max, fuel: int,
+def inst_bvh_closest_hit_plain(node, link, pair, prim, inst_inv, inst_root,
+                               ox, oy, oz, dx, dy, dz, t_max, fuel: int,
                                chunk: int = 8192, stats=None):
     """The twin of the instanced BVH2 closest-hit kernel: (t, prim, u, v,
     inst). Its `stats` also count instance entries and the warps' leaf
     passes (`leaf_passes`)."""
     return _chunked(
-        lambda r: _bvh_walk_plain(node, link, prim, r, False, stats, fuel,
-                                  inst_inv, inst_root),
+        lambda r: _bvh_walk_plain(node, link, pair, prim, r, False, stats,
+                                  fuel, inst_inv, inst_root),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
-def inst_bvh_any_hit_plain(node, link, prim, inst_inv, inst_root, ox, oy, oz,
-                           dx, dy, dz, t_max, fuel: int, chunk: int = 8192,
-                           stats=None):
-    """The twin of the instanced BVH2 any-hit kernel."""
+def inst_bvh_any_hit_plain(node, link, pair, prim, inst_inv, inst_root, ox,
+                           oy, oz, dx, dy, dz, t_max, fuel: int,
+                           chunk: int = 8192, stats=None,
+                           pair_stack: int = BVH_PAIR_STACK):
+    """The twin of the instanced BVH2 any-hit kernel. Its `stats` also
+    count instance entries and the pair walk's work with a stack of
+    `pair_stack` entries (_PairWalk)."""
     return _chunked(
-        lambda r: _bvh_walk_plain(node, link, prim, r, True, stats, fuel,
-                                  inst_inv, inst_root),
+        lambda r: _bvh_walk_plain(node, link, pair, prim, r, True, stats,
+                                  fuel, inst_inv, inst_root, pair_stack),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 
@@ -1462,7 +1580,7 @@ def emits_uv(scene, backend: str) -> bool:
 
 
 def _bvh_args(scene, ray_o, ray_d, t_max):
-    tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_prim)
+    tabs = (scene.bvh_node, scene.bvh_link, scene.bvh_pair, scene.bvh_prim)
     if scene.has_instances:
         tabs += (scene.inst_inv, scene.inst_bvh_root)
         fuel = scene.inst_fuel + 64

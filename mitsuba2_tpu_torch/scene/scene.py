@@ -126,6 +126,10 @@ class SceneData:
     bvh_link: Optional[torch.Tensor] = None  # (B, 16) i32 [hit8 | miss8]
     bvh_prim: Optional[torch.Tensor] = None  # (P, 12) f32 [p0, e1, e2, type,
                                              # 0, 0]; K6 reads it too
+    bvh_pair: Optional[torch.Tensor] = None  # (B, 16) i32 an inner node's
+                                             # two children [box, ref, row]
+                                             # (convert.bvh_pair_rows; the
+                                             # pair walk's)
     # the BVH8 walks' tables (scene/bvh.py::collapse_bvh8), on a scene
     # uploaded under set_backend("bvh8") (K6) or ("bvh8mxu") (K7)
     bvh8_child: Optional[torch.Tensor] = None   # (M*8, 8) f32 [min.xyz,

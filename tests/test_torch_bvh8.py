@@ -386,7 +386,7 @@ def test_k6_twin_equals_k3_twin(gallery, gallery_rays, field, name, kind):
         tabs = [torch.from_numpy(a) for a in convert.bvh_walk_tables(f)]
     else:
         st, s2, rays = field
-        tabs = (s2.bvh_node, s2.bvh_link, s2.bvh_prim)
+        tabs = (s2.bvh_node, s2.bvh_link, s2.bvh_pair, s2.bvh_prim)
     o, d, tm = rays[kind]
     args = (planar(o), planar(d), torch.from_numpy(tm))
     out8 = traverse.ray_intersect_bvh8(st, *args)
@@ -544,14 +544,16 @@ def test_cuda_source_emulated_matches_twins(gallery, gallery_rays, field,
 
 def test_tiles_mirror_the_source():
     """The twins count the warps' loads with the source's tile widths:
-    K1/K2 and K5's closest hit, K5's any hit and K7's; and K4's and K6's
-    closest-hit leaf passes with the source's round lengths. The warps'
+    K1/K2 and K5's closest hit, K5's any hit and K7's; K4's and K6's
+    closest-hit leaf passes with the source's round lengths; and the pair
+    walk's fallbacks with its stack, on its rows' layout. The warps'
     leaf passes hold the BVH build's largest leaf."""
     for twin, name in ((traverse.TILE, "TILE_J"),
                        (traverse.INST_ANY_TILE, "INST_ANY_TILE_J"),
                        (traverse.BVH8C_TILE, "BVH8C_TILE_J")):
         assert twin == traverse.WARP * source_constant(name), name
-    for name in ("BVH_ROUND_STEPS", "BVH8_ROUND_STEPS"):
+    for name in ("BVH_ROUND_STEPS", "BVH8_ROUND_STEPS", "BVH_PAIR_STACK",
+                 "PAIR_ROW_BITS"):
         assert getattr(traverse, name) == source_constant(name), name
     assert bvh_mod.LEAF_K == source_constant("LEAF_K")
 

@@ -92,7 +92,7 @@ def assert_port_tables(jax_f, port_f, st):
     walk = not brute.takes_brute_force(st.n_prims, st.has_instances)
     bvh2 = walk and traverse.takes_bvh2(st.has_spheres)
     cluster = walk and not bvh2
-    for k in ("bvh_node", "bvh_link", "bvh_prim"):
+    for k in ("bvh_node", "bvh_link", "bvh_prim", "bvh_pair"):
         assert (getattr(st, k) is not None) == bvh2, k
     assert (st.inst_bvh_root is not None) == (bvh2 and st.has_instances)
     for k in scene_mod.CLUSTER_FIELDS + ("cluster_feat", "mxu_ccount"):

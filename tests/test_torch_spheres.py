@@ -185,10 +185,11 @@ def test_scene_from_numpy_equals_own_build(pair):
 
 def test_walk_tables_pack_the_scene_arrays(pair):
     """bvh_node / bvh_link / bvh_prim (convert.bvh_walk_tables) hold the
-    BVH2 and prim arrays as the kernels read them; a walking scene holds
-    them on its device (the brute-force furnace does not)."""
+    BVH2 and prim arrays as the kernels read them, and bvh_pair the pair
+    rows derived from them; a walking scene holds them on its device (the
+    brute-force furnace does not)."""
     name, _, st, f = pair
-    node, link, prim = convert.bvh_walk_tables(f)
+    node, link, pair_rows, prim = convert.bvh_walk_tables(f)
     B = f["bvh_min"].shape[0]
     assert node.shape == (B, 8) and link.shape == (B, 16)
     assert np.array_equal(node[:, 0:3], f["bvh_min"])
@@ -204,9 +205,64 @@ def test_walk_tables_pack_the_scene_arrays(pair):
     if name == "furnace":
         assert st.bvh_node is None and st.cluster_feat is None
         return
-    for a, b in zip((st.bvh_node, st.bvh_link, st.bvh_prim),
-                    (node, link, prim)):
+    for a, b in zip((st.bvh_node, st.bvh_link, st.bvh_pair, st.bvh_prim),
+                    (node, link, pair_rows, prim)):
         assert np.array_equal(a.numpy(), b)
+
+
+def assert_pair_rows(st):
+    """st.bvh_pair against the node rows and links it was derived from:
+    a leaf's row zero; an inner node's two records each a child's box, bit
+    for bit its node row's, its reference (its row, or ~(start << 2 |
+    count - 1), or ~(PAIR_INST | id) for an instance leaf) and its row;
+    and for every octant the record the octant bits name first is the
+    child the hit link enters, the other the first child's miss link (so
+    neither is BLAS_EXIT). Returns the references' kinds (inner, prim
+    leaf, instance leaf) counted over every record."""
+    node, link = st.bvh_node.numpy(), st.bvh_link.numpy()
+    pr = st.bvh_pair.numpy()
+    start, count = node[:, 6].astype(np.int64), node[:, 7].astype(np.int64)
+    inner = np.nonzero(start < 0)[0]
+    assert pr.shape == (node.shape[0], 16)
+    assert not pr[start >= 0].any()
+    kinds = np.zeros(3, np.int64)
+    word0 = pr[inner, 7].view(np.uint32).astype(np.int64)
+    rows = [word0 & ((1 << traverse.PAIR_ROW_BITS) - 1),
+            pr[inner, 15].astype(np.int64)]
+    for k, row in enumerate(rows):
+        rec = pr[inner, 8 * k:8 * k + 8]
+        assert (row >= 0).all() and (row < node.shape[0]).all()
+        assert np.array_equal(rec[:, 0:6], node[row, 0:6].view(np.int32))
+        s_, c_ = start[row], count[row]
+        want = np.where(s_ < 0, row, ~np.where(
+            c_ > 0, s_ * 4 + c_ - 1, traverse.PAIR_INST + s_))
+        assert np.array_equal(rec[:, 6], want)
+        kinds += [(s_ < 0).sum(), (c_ > 0).sum(),
+                  ((s_ >= 0) & (c_ == 0)).sum()]
+    for o in range(8):
+        second_first = (word0 >> (traverse.PAIR_ROW_BITS + o)) & 1 == 1
+        first = np.where(second_first, rows[1], rows[0])
+        other = np.where(second_first, rows[0], rows[1])
+        assert np.array_equal(first, link[inner, o])
+        assert np.array_equal(other, link[first, 8 + o])
+    return kinds
+
+
+@pytest.mark.parametrize("name", ["field_flat", "field_shared", "gallery1",
+                                  "gallery2"])
+def test_pair_rows_follow_the_links(name, monkeypatch):
+    """The pair walk's child-pair rows (convert.bvh_pair_rows) on the flat
+    and the shared sphere field (TLAS and BLASes: instance leaves among
+    the children, no BLAS_EXIT) and on mesh_gallery(subdiv=1, 2) with
+    MXU_LEAVES off (the BVH2 walks on triangles): assert_pair_rows."""
+    if name.startswith("gallery"):
+        monkeypatch.setattr(traverse, "MXU_LEAVES", False)
+        st = mt.mesh_gallery(subdiv=int(name[-1]), device="cpu")
+    else:
+        st = build(name, "port")
+    kinds = assert_pair_rows(st)
+    assert kinds[0] > 0 and kinds[1] > 0
+    assert (kinds[2] > 0) == (name == "field_shared") == st.has_instances
 
 
 def test_instance_roots_where_groups_come_in_order():
@@ -638,13 +694,19 @@ def test_furnace_golden():
 # ---------------------------------------------------------------------------
 
 def kernel_args(st):
-    """(tables, step cap, C entry prefix, wrapper names) of a scene's BVH2
-    walk."""
+    """(tables, step cap, C entry prefix) of a scene's BVH2 walks."""
+    tabs = (st.bvh_node, st.bvh_link, st.bvh_pair, st.bvh_prim)
     if st.has_instances:
-        return ((st.bvh_node, st.bvh_link, st.bvh_prim, st.inst_inv,
-                 st.inst_bvh_root), st.inst_fuel + 64, "inst_bvh_")
-    return ((st.bvh_node, st.bvh_link, st.bvh_prim),
-            st.bvh_node.shape[0] + 64, "bvh_")
+        return (tabs + (st.inst_inv, st.inst_bvh_root), st.inst_fuel + 64,
+                "inst_bvh_")
+    return tabs, st.bvh_node.shape[0] + 64, "bvh_"
+
+
+def c_tables(tabs, name):
+    """The tables the C entry of BVH2 wrapper `name` takes: the pair
+    walks' (traverse.PAIR_WALKS) all of kernel_args's, the threaded
+    walks' all but bvh_pair."""
+    return tabs if name in traverse.PAIR_WALKS else tabs[:2] + tabs[3:]
 
 
 def twins(prefix):
@@ -675,6 +737,8 @@ def test_bvh_wrappers_check_and_count(case):
         closest(*tabs, *rays[:6], tm.double(), fuel)
     with pytest.raises(ValueError, match="bvh_link"):
         any_hit(tabs[0], tabs[1].long(), *tabs[2:], *rays, fuel)
+    with pytest.raises(ValueError, match="bvh_pair"):
+        closest(*tabs[:2], tabs[2][:-1], *tabs[3:], *rays, fuel)
     with pytest.raises(ValueError, match="int32"):
         any_hit(*tabs, *rays, 1 << 31)
 
@@ -689,11 +753,18 @@ def test_cuda_source_emulated_matches_twins(case, emulated, kind):
     """The CUDA source run warp by warp (g++) against the twins: the same
     f32 operations in the same order, so bit-equal; and the walk work the
     twins count (chip_smoke.py's bound rests on it) equals the loads the
-    kernels make: two float4 of a node row a step, three of a prim row a
-    test, three of an inst_inv row and one root an entry; and on K4's
-    closest hit, whose warps test a step's due prims together, the passes
-    the emulation counts (`leaf_passes`)."""
-    assert_emulated_matches_twins(emulated, case.st, kind_rays(case, kind))
+    kernels make. The threaded walks (K3's any hit, K4's closest hit): two
+    float4 of a node row and two links a step. The pair walks (K3's
+    closest hit, K4's any hit): two float4 of a node row a root test,
+    four of a pair row an expansion, none of the links, and each stack pop
+    counted apart (`pops`). Both: three float4 of a prim row a test, three
+    of an inst_inv row and one root an entry; and on K4's closest hit,
+    whose warps test a step's due prims together, the passes the
+    emulation counts (`leaf_passes`). At the kernels' 32-entry stack no
+    lane falls back to the threaded walk here."""
+    stats = assert_emulated_matches_twins(emulated, case.st,
+                                          kind_rays(case, kind))
+    assert stats["fallback_steps"] == 0
 
 
 @pytest.mark.parametrize("case", ["field_shared"], indirect=True)
@@ -711,48 +782,90 @@ def test_k4_source_emulated_tail_and_dead_lanes(case, emulated, kind):
     assert_emulated_matches_twins(emulated, case.st, tuple(rays))
 
 
-def assert_emulated_matches_twins(emulated, st, rays):
+@pytest.fixture(scope="module")
+def emulated_stack2(tmp_path_factory):
+    """The source built with a pair-walk stack of two entries."""
+    return build_emulation(tmp_path_factory.mktemp("bvh_walk_emu_stack2"),
+                           BVH_PAIR_STACK=2)
+
+
+@pytest.mark.parametrize("kind", ["camera", "bounce"])
+def test_pair_walk_overflow_emulated_matches_twins(case, emulated_stack2,
+                                                   kind):
+    """At a stack of two entries a push finds it full on many lanes, flat
+    and instanced, and the lane walks on by the threaded walk from the
+    child it was entering, inside an instance with the TLAS leaf's miss
+    link: t, prim, u, v and the occlusion stay bit-equal to the twins,
+    and the loads equal the twins' counts at that stack (the fallback's
+    steps, `fallback_steps`, among them)."""
+    stats = assert_emulated_matches_twins(
+        emulated_stack2, case.st, kind_rays(case, kind), pair_stack=2)
+    assert stats["fallback_steps"] > 0
+    if case.st.has_instances:
+        assert stats["fallback_rets"] > 0
+
+
+def assert_emulated_matches_twins(emulated, st, rays,
+                                  pair_stack=traverse.BVH_PAIR_STACK):
     """The CUDA source of the scene `st`'s BVH2 walks (K3 flat, K4
-    instanced), emulated, against their twins on the torch rays `rays`:
-    test_cuda_source_emulated_matches_twins's checks."""
+    instanced), emulated (with a pair-walk stack of `pair_stack`
+    entries), against their twins on the torch rays `rays`:
+    test_cuda_source_emulated_matches_twins's checks. Returns the pair
+    walk's counts (K3's closest hit, K4's any hit)."""
     tabs, fuel, prefix = kernel_args(st)
     n = rays[0].shape[0]
-    counted = (st.bvh_node, st.bvh_prim) + tabs[3:]
-    ptrs = [a.data_ptr() for a in tabs + rays]
+    inst = st.has_instances
+    counted = (st.bvh_node, st.bvh_prim, st.inst_inv, st.inst_bvh_root,
+               st.bvh_pair, st.bvh_link)
     closest_p, any_p = twins(prefix)
     for any_hit in (False, True):
+        name = f"{prefix}{'any' if any_hit else 'closest'}_hit"
+        ptrs = [a.data_ptr() for a in c_tables(tabs, name) + rays]
         loads = load_counters(emulated, counted)
         if any_hit:
             out = torch.empty(n, dtype=torch.bool)
-            assert getattr(emulated, f"mts_{prefix}any_hit")(
+            assert getattr(emulated, f"mts_{name}")(
                 *ptrs, out.data_ptr(), n, fuel, None) == 0
         else:
             out = (torch.empty(n), torch.empty(n, dtype=torch.int32),
                    torch.empty(n), torch.empty(n)) + (
-                (torch.empty(n, dtype=torch.int32),) if len(tabs) > 3
-                else ())
-            assert getattr(emulated, f"mts_{prefix}closest_hit")(
+                (torch.empty(n, dtype=torch.int32),) if inst else ())
+            assert getattr(emulated, f"mts_{name}")(
                 *ptrs, *(a.data_ptr() for a in out), n, fuel, None) == 0
         stats = {}
+        pair_walk = name in traverse.PAIR_WALKS
+        kw = dict(pair_stack=pair_stack) if pair_walk else {}
         twin = (any_p if any_hit else closest_p)(*tabs, *rays, fuel,
-                                                 chunk=500, stats=stats)
+                                                 chunk=500, stats=stats,
+                                                 **kw)
         if any_hit:
             assert torch.equal(out, twin)
         else:
             assert all(torch.equal(a, b) for a, b in zip(out, twin))
         tests = stats.get("tri_tests", 0) + stats.get("sphere_tests", 0)
         entries = stats.get("instance_entries", 0)
-        assert loads[0] == 2 * stats["node_steps"]
         assert loads[1] == 3 * tests
         assert loads[2] == 3 * entries and loads[3] == entries
-        assert tests > 0 and (entries > 0) == st.has_instances
+        assert tests > 0 and (entries > 0) == inst
         passes = stats.get("leaf_passes", 0)
-        assert work_counter(emulated).value == passes
-        if st.has_instances and not any_hit:
+        if pair_walk:
+            fall = stats["fallback_steps"]
+            assert loads[0] == 2 * (stats["root_tests"] + fall)
+            assert loads[4] == 4 * stats["pair_rows"]
+            assert loads[5] == 2 * fall + stats["fallback_rets"]
+            assert work_counter(emulated).value == stats["pops"]
+            assert stats["pair_rows"] > 0 and stats["pops"] > 0
+            pair_stats = stats
+        else:
+            assert loads[0] == 2 * stats["node_steps"]
+            assert loads[4] == 0 and loads[5] == 2 * stats["node_steps"]
+            assert work_counter(emulated).value == passes
+        if inst and not any_hit:
             # a pass tests up to 32 of a warp's due prims
             assert tests / 32 <= passes <= tests
         else:
             assert passes == 0
+    return pair_stats
 
 
 @pytest.fixture
@@ -780,7 +893,13 @@ def test_cuda_bvh_kernels_match_twins(case, cuda, kind):
     if st.has_instances:
         # K4's warp-wide leaf tests keep the serial walk's order and tie
         # rule, and --fmad=false its rounding: t, prim, u, v and instance
-        # bit-equal
+        # bit-equal; its pair walk visits the leaves in the same order:
+        # the occlusion too
+        assert all(torch.equal(a, b) for a, b in zip(out, out_p))
+        assert torch.equal(occ, occ_p)
+    else:
+        # K3's closest-hit pair walk: the threaded walk's leaves in its
+        # order, with the same t_best at each test
         assert all(torch.equal(a, b) for a, b in zip(out, out_p))
     hit = torch.isfinite(out_p[0])
     assert torch.equal(torch.isfinite(out[0]), hit)

@@ -216,29 +216,32 @@ _SHIM = r"""
 #define __shared__ static
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
 struct dim3_ { unsigned x; };
 static dim3_ blockIdx, threadIdx, blockDim;
-// loads that fall in each of four tables, counted as the kernels make them,
+// loads that fall in each of six tables, counted as the kernels make them,
 // and the work that no load shows (WORK_COUNT: the slot tests on plane
 // rows a lane holds in registers)
 extern "C" {
-const char* emu_lo[4];
-const char* emu_hi[4];
-long long emu_loads[4];
+const char* emu_lo[6];
+const char* emu_hi[6];
+long long emu_loads[6];
 long long emu_work;
 }
 #define WORK_COUNT(n) \
   __atomic_fetch_add(&emu_work, (long long)(n), __ATOMIC_RELAXED)
 template <class T> inline T __ldg(const T* p) {
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 6; ++i)
     if ((const char*)p >= emu_lo[i] && (const char*)p < emu_hi[i])
       __atomic_fetch_add(&emu_loads[i], 1, __ATOMIC_RELAXED);
   return *p;
 }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __uint_as_float(unsigned i) {
   float f; std::memcpy(&f, &i, 4); return f;
 }
@@ -381,21 +384,32 @@ def emulate_source(tmp_path, src_path, shim, n_launches, std="c++17"):
     return ctypes.CDLL(str(so))
 
 
-def build_emulation(tmp_path):
+def build_emulation(tmp_path, **constants):
     """csrc/cluster_walk.cu compiled with g++ through _SHIM, loaded with
-    the wrappers' C signatures."""
-    lib = emulate_source(tmp_path, traverse._SRC, _SHIM, 14)
+    the wrappers' C signatures; with `constants`, its `constexpr int`
+    lines set to them first (traverse.with_constants)."""
+    src = traverse._SRC
+    if constants:
+        d = tmp_path / "src"
+        d.mkdir()
+        for h in (src,) + traverse.HEADERS:
+            text = open(h).read()
+            if h == src:
+                text = traverse.with_constants(text, **constants)
+            (d / os.path.basename(h)).write_text(text)
+        src = str(d / os.path.basename(src))
+    lib = emulate_source(tmp_path, src, _SHIM, 14)
     traverse._declare(lib)
     return lib
 
 
 def load_counters(lib, tables):
-    """Point the emulation's load counters at up to four tables; returns
-    the (4,) counter array, zeroed. Zeroes the work counter too."""
-    lo = (ctypes.c_void_p * 4).in_dll(lib, "emu_lo")
-    hi = (ctypes.c_void_p * 4).in_dll(lib, "emu_hi")
-    loads = (ctypes.c_longlong * 4).in_dll(lib, "emu_loads")
-    for i in range(4):
+    """Point the emulation's load counters at up to six tables; returns
+    the (6,) counter array, zeroed. Zeroes the work counter too."""
+    lo = (ctypes.c_void_p * 6).in_dll(lib, "emu_lo")
+    hi = (ctypes.c_void_p * 6).in_dll(lib, "emu_hi")
+    loads = (ctypes.c_longlong * 6).in_dll(lib, "emu_loads")
+    for i in range(6):
         a = tables[i] if i < len(tables) else None
         lo[i] = a.data_ptr() if a is not None else 0
         hi[i] = (a.data_ptr() + a.numel() * a.element_size()
@@ -407,7 +421,8 @@ def load_counters(lib, tables):
 
 def work_counter(lib):
     """The emulation's count of the work no load shows (WORK_COUNT in
-    csrc/cluster_walk.cu: slot tests on plane rows held in registers)."""
+    csrc/cluster_walk.cu: slot tests on plane rows held in registers, the
+    warps' leaf passes, the pair walk's stack pops)."""
     return ctypes.c_longlong.in_dll(lib, "emu_work")
 
 
