@@ -36,11 +36,12 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
          fields a quarter of the random rays aim into the spheres); K6
-         also on the n=64 sphere field (its sphere branch); K8, K1, K2,
-         K5's and K7's closest and any hit (warp-cooperative visits),
-         K4's and K6's closest hit (warp-wide leaf tests) and K3's
-         closest and K4's any hit (the pair walk), bit-equal to their
-         twins on every lane. The paths on one scene share its
+         also on the n=64 sphere field (its sphere branch); every kernel
+         bit-equal to its twin on every lane: K8, K1, K2, K5's and K7's
+         closest and any hit (warp-cooperative visits), K4's and K6's
+         closest hit (warp-wide leaf tests), K3's closest and any hit and
+         K4's any hit (the pair walk) and K6's any hit (one thread a
+         ray). The paths on one scene share its
          probe rays. Prints the walk work the twins count per lane (K4's
          and K6's closest hit: their warps' leaf passes too) and the
          bound of 1M such lanes.
@@ -165,13 +166,14 @@ BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8"}
 DENSE = {"gallery_dense"}
 # the kernels held bit-equal to their twins on every lane of phases 2 and
-# 3: the warp-cooperative cluster visits, the warp-wide leaf tests and the
-# pair walks
+# 3: the warp-cooperative cluster visits, the warp-wide leaf tests, the
+# pair walks and K6's any hit: every walk kernel
 BIT_EQUAL = {"cluster_closest_hit", "inst_cluster_closest_hit",
              "bvh8mxu_closest_hit", "cluster_any_hit",
              "inst_cluster_any_hit", "bvh8mxu_any_hit",
              "inst_bvh_closest_hit", "bvh8_closest_hit",
-             "bvh_closest_hit", "inst_bvh_any_hit"}
+             "bvh_closest_hit", "inst_bvh_any_hit", "bvh_any_hit",
+             "bvh8_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
@@ -415,8 +417,9 @@ def passes(c, exact=False, exact_closest=False, exact_any=False):
     (t, slot or prim, u, v, instance) where `exact_closest` and the
     occlusion on every lane where `exact_any` (K1, K2, K5 and K7, whose
     warp-cooperative visits keep the twin's rule, K4's and K6's closest
-    hit, whose warp-wide leaf tests keep it, and K3's closest and K4's
-    any hit, whose pair walk visits the twin's leaves in its order))."""
+    hit, whose warp-wide leaf tests keep it, K3's closest and any hit and
+    K4's any hit, whose pair walk visits the twin's leaves in its order,
+    and K6's any hit, whose walk keeps the twin's state machine))."""
     return (c["hit_equal"] and c["slot_agree"] >= 0.999 and c["t_ok_same"]
             and c["t_ok_tie"] and c["occ_agree"] >= 0.999
             and c["uv_max_abs_err"] <= 1e-5
@@ -540,9 +543,9 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _kernels_vs_twins(torch, name, scene, probes, dev):
     """Phase 2 for one path (or the extra scene), under its switches;
     `probes` holds each scene's probe rays, made on its first path.
-    Returns whether every kernel agreed with its twin (K8, K1, K2, K5,
-    K7, K4's and K6's closest hit, K3's closest and K4's any hit, bit for
-    bit)."""
+    Returns whether every kernel agreed with its twin (bit for bit:
+    BIT_EQUAL, now every walk kernel, K3's and K6's any hits included,
+    and K8)."""
     from mitsuba2_tpu_torch.core.vec import Vec3
     from mitsuba2_tpu_torch.kernels import traverse
     from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
@@ -711,12 +714,10 @@ def log_launch(name, i, r):
 def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
-    each launch of the path's kernels timed and held against its twin (K8,
-    K1, K2, K5, K7, K4's and K6's closest hit, K3's closest and K4's any
-    hit, bit for bit), and, with
-    `also` (a scene under "bvh8"), K6's on the same inputs. Returns the
-    kernels' rows, the median render ms and each kernel's launches
-    (time_launch's records)."""
+    each launch of the path's kernels timed and held against its twin (bit
+    for bit: BIT_EQUAL and K8), and, with `also` (a scene under "bvh8"),
+    K6's on the same inputs. Returns the kernels' rows, the median render
+    ms and each kernel's launches (time_launch's records)."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**RENDER)
     names = list(EXPECTED_LAUNCHES[path])

@@ -18,9 +18,9 @@ two round lengths set to (1, 4, 8, 16) and (1, 2, 4, 8) (the constants
 of a build touch different kernels, so one build serves every sweep;
 copies under mitsuba2_tpu_torch/_build/tiles/, one nvcc each, started
 together) and prints each build's ptxas registers and spills for the ten
-kernels. It then renders the named paths (all six by default) once at
-chip_smoke.py's config: mesh_gallery(subdiv=4) (K1, K2),
-instanced_field(n=1024, subdiv=4) (K5), the gallery under
+kernels and K3's and K6's any hits. It then renders the named paths (all
+six by default) once at chip_smoke.py's config: mesh_gallery(subdiv=4)
+(K1, K2), instanced_field(n=1024, subdiv=4) (K5), the gallery under
 set_backend("bvh8mxu") (K7), with the dense switch on (K8) and under
 set_backend("bvh8") (K6), and chip_smoke's sphere field at n=1024,
 shared (K4), recording each wavefront of the path's closest-hit and
@@ -45,8 +45,9 @@ ROUNDS = {"BVH_ROUND_STEPS": (1, 4, 8, 16), "BVH8_ROUND_STEPS": (1, 2, 4, 8)}
 BUILDS = {**{f"tile{v}": {c: v for c in TILE_CONSTANTS} for v in (1, 2, 4)},
           **{f"round{i}": {c: vs[i] for c, vs in ROUNDS.items()}
              for i in range(4)}}
-# the kernels each sweep varies, as ptxas names them (inst_ first:
-# "cluster_any_hit_kernel" ends both any-hit names)
+# the kernels each sweep varies, and the two per-thread any hits, which
+# none does (their registers beside the others'), by their names in the
+# ptxas report
 KERNELS = (("inst_cluster_closest_hit", "K5 closest"),
            ("inst_cluster_any_hit", "K5 any"),
            ("cluster_closest_hit", "K1"), ("cluster_any_hit", "K2"),
@@ -54,7 +55,8 @@ KERNELS = (("inst_cluster_closest_hit", "K5 closest"),
            ("bvh8mxu_any_hit", "K7 any"),
            ("dense_closest_hit", "K8 closest"), ("dense_any_hit", "K8 any"),
            ("inst_bvh_closest_hit", "K4 closest"),
-           ("bvh8_closest_hit", "K6 closest"))
+           ("bvh8_closest_hit", "K6 closest"),
+           ("bvh_any_hit", "K3 any"), ("bvh8_any_hit", "K6 any"))
 # each path's constant, as the lines name a build
 KNOB = {"gallery": "TILE_J", "instanced": "TILE_J",
         "gallery_bvh8mxu": "BVH8C_TILE_J", "gallery_dense": "DENSE_RAYS",
@@ -88,8 +90,9 @@ def build(native, traverse):
         label = ", ".join(f"{c}={v}" for c, v in BUILDS[b].items())
         rep = (native.BUILD_LOG.get(f"cluster_walk_{b}") or "").splitlines()
         for i, ln in enumerate(rep):
+            # the mangled name: its length, then the name
             kern = next((k for name, k in KERNELS if "Compiling entry" in ln
-                         and f"{name}_kernel" in ln), None)
+                         and f"{len(name) + 7}{name}_kernel" in ln), None)
             if kern is not None:
                 info = [x.split("info    :")[-1].strip()
                         for x in rep[i + 1:i + 4]

@@ -89,7 +89,7 @@ def bvh_walk_tables(f: Dict[str, np.ndarray]):
 
 
 def bvh_pair_rows(node: np.ndarray, link: np.ndarray) -> np.ndarray:
-    """The child-pair rows of the pair walk (K3's closest hit, K4's any
+    """The child-pair rows of the pair walk (K3's both hits, K4's any
     hit) from the BVH2 walks' node rows and links (bvh_walk_tables), (B,
     16) i32, 64 bytes a row: row n of an inner node n holds its two
     children as two records [min.xyz, max.xyz, ref, row]: the child's box,

@@ -545,7 +545,7 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // block-wide slab culling or lax.cond leaf gating is carried over. Two
 // walks visit the same leaves in the same order:
 //
-// THE THREADED WALK (bvh_walk: K3's any hit; K4's closest hit in rounds,
+// THE THREADED WALK (bvh_steps: the fallback; K4's closest hit in rounds,
 // below). Stackless over the links: a step loads a node row and its two
 // links, slab-tests the node against t_best (closest hit) or t_max (any
 // hit) and takes the hit link (an inner node's first child in the octant's
@@ -554,7 +554,7 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // takes 1 + 2E such steps, half of them to a child whose slab test then
 // culls it, and each step's next row waits on that step's loads.
 //
-// THE PAIR WALK (bvh_pair_walk: K3's closest hit and K4's any hit). A stack
+// THE PAIR WALK (bvh_pair_walk: K3's both hits and K4's any hit). A stack
 // walk over the child-pair rows (bvh_pair, convert.bvh_pair_rows): row n
 // of an inner node n holds both children as two records [min.xyz, max.xyz,
 // ref, row], each box the very floats of the child's bvh_node row, so the
@@ -618,9 +618,11 @@ inst_cluster_any_hit_kernel(const float4* __restrict__ node_f,
 // the threaded walk and 0.274 by the pair walk, K4's any hit 0.345 and
 // 0.273, against bounds of 0.0215 and 0.0049 (bytes); a camera lane of
 // K3 expands 11.0 pair rows and pops 2.2 entries where the threaded walk
-// takes 23.0 steps; no lane's stack fills there (0 fallback steps).
+// takes 23.0 steps; no lane's stack fills there (0 fallback steps). K3's
+// any hit: 0.296 ms a launch by the threaded walk, 0.245 by the pair walk
+// (bound 0.0153).
 //
-// INSTANCED (bvh_walk<.., true>, bvh_pair_walk<true, true>): the table
+// INSTANCED (bvh_steps<.., true>, bvh_pair_walk<true, true>): the table
 // is [TLAS | world group's BLAS | each group's BLAS]. A TLAS leaf
 // (leaf_start = instance id >= 0, leaf_count = 0) whose slab the ray hits
 // moves the world ray to instance space as K5 does (d unnormalised, so t
@@ -869,22 +871,6 @@ __device__ __forceinline__ void bvh_results(const Bvh2Walk& w, bool occ,
         *v_io = w.bv;
         if (INST) *inst_io = w.best >= 0 ? w.binst : -1;
     }
-}
-
-// The threaded BVH2 walk of one ray from the root.
-template <bool ANY_HIT, bool INST>
-__device__ __forceinline__ void bvh_walk(
-        const float4* __restrict__ node, const int* __restrict__ link,
-        const float4* __restrict__ prim, const float4* __restrict__ inst_inv,
-        const int* __restrict__ inst_root, const RayState& world,
-        float t_max, int fuel_cap, float* t_io, int* prim_io, float* u_io,
-        float* v_io, int* inst_io, bool* occ_io) {
-    Bvh2Walk w{world, t_max, 0.0f, 0.0f, -1, -1, -1, -1, 0, 0};
-    const bool occ = bvh_steps<ANY_HIT, INST>(node, link, prim, inst_inv,
-                                              inst_root, world, t_max,
-                                              fuel_cap, w);
-    bvh_results<ANY_HIT, INST>(w, occ, t_io, prim_io, u_io, v_io, inst_io,
-                               occ_io);
 }
 
 // The child-pair rows' encoding (convert.py::bvh_pair_rows): the tag of an
@@ -1144,6 +1130,7 @@ bvh_closest_hit_kernel(const float4* __restrict__ node,
 __global__ void __launch_bounds__(BLOCK)
 bvh_any_hit_kernel(const float4* __restrict__ node,
                    const int* __restrict__ link,
+                   const float4* __restrict__ pair,
                    const float4* __restrict__ prim,
                    const float* __restrict__ ox,
                    const float* __restrict__ oy,
@@ -1159,9 +1146,9 @@ bvh_any_hit_kernel(const float4* __restrict__ node,
     bool occ = false;
     if (tm > 0.0f) {
         const RayState r = load_ray(ox, oy, oz, dx, dy, dz, i);
-        bvh_walk<true, false>(node, link, prim, nullptr, nullptr, r, tm, fuel,
-                              nullptr, nullptr, nullptr, nullptr, nullptr,
-                              &occ);
+        bvh_pair_walk<true, false>(node, link, pair, prim, nullptr, nullptr,
+                                   r, tm, fuel, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, &occ);
     }
     occ_out[i] = occ;
 }
@@ -1263,7 +1250,8 @@ inst_bvh_any_hit_kernel(const float4* __restrict__ node,
 // first hit. The stack is a per-lane array of BVH8_STACK (node << 8 |
 // mask) words in local memory; the wrapper refuses a tree whose depth + 2
 // exceeds it, so the guard on the push never drops one. The order row is
-// kept in one register as eight 4-bit slots. The step cap is the JAX
+// kept in one register as eight 4-bit slots (K6's any hit stacks it too,
+// beside the word, and a pop loads nothing). The step cap is the JAX
 // kernels' fuel (the wrapper's), one a step. Child rows: K6 [min.xyz,
 // max.x | max.yz, kind, count] (bvh8_child, two float4s: slab() reads them
 // as it reads a BVH2 node), K7 [min.xyz, max.x | max.yz, slot base, 0 |
@@ -1306,14 +1294,18 @@ inst_bvh_any_hit_kernel(const float4* __restrict__ node,
 
 constexpr int BVH8_STACK = 32;   // kernels/traverse.py::BVH8_STACK
 
-// The order row `row` as eight 4-bit child slots, position j at bits 4j
-__device__ __forceinline__ unsigned load_perm(const int4* __restrict__ order,
-                                              int row) {
-    const int4 a = __ldg(order + 2 * row), b = __ldg(order + 2 * row + 1);
+// An order row's two int4 as eight 4-bit child slots, position j at bits 4j
+__device__ __forceinline__ unsigned perm_slots(const int4& a, const int4& b) {
     return (unsigned)a.x | ((unsigned)a.y << 4) | ((unsigned)a.z << 8) |
            ((unsigned)a.w << 12) | ((unsigned)b.x << 16) |
            ((unsigned)b.y << 20) | ((unsigned)b.z << 24) |
            ((unsigned)b.w << 28);
+}
+
+// The order row `row` as eight 4-bit child slots
+__device__ __forceinline__ unsigned load_perm(const int4* __restrict__ order,
+                                              int row) {
+    return perm_slots(__ldg(order + 2 * row), __ldg(order + 2 * row + 1));
 }
 
 // Where a lane's BVH8 walk stands: the node `cur` (-1 once the walk is
@@ -1379,52 +1371,75 @@ __device__ __forceinline__ const float4* bvh8c_step(
 // The any-hit BVH8 walk of one ray over prim leaves (K6), in its own
 // thread: outputs occ. bvh8c_step's state machine, kept inline: through
 // bvh8c_step K6 ran 6% slower (chip_smoke.py, H100 80GB HBM3, 700.00 W;
-// PERF.md §6).
+// PERF.md §6). A step waits on at most one table load: a fresh visit
+// loads the order row and the eight child rows in storage order
+// together, slab-tests them and only then moves each child's result to
+// its octant position (bit j of the mask: child perm_j, the very bit the
+// perm-indexed loads gave). A pop loads nothing: the stack keeps the
+// order row beside the node and its remaining mask. An advance loads its
+// child's second float4 (holding the fresh visit's kinds and counts in
+// registers or shared memory instead ran slower; PERF.md §6). The loop
+// has one exit, its condition: the end of the walk, the fuel cap or the
+// first hit. K6's any hit took 0.218 ms a launch on the gallery's shadow
+// wavefronts with perm-indexed loads and an order-row load a pop, and
+// takes 0.211 so (chip_smoke.py, H100 80GB HBM3, 700.00 W).
 __device__ __forceinline__ void bvh8_any_walk(
         const float4* __restrict__ child, const int4* __restrict__ order,
         const float4* __restrict__ leaf, const RayState& r, float t_max,
         int fuel_cap, bool* occ_io) {
     constexpr int ROW = 2;   // float4s a child row
-    int stack[BVH8_STACK];   // (node << 8) | the node's remaining mask
-    int sp = 0, cur = 0, mask = 0;
-    bool fresh = true;
+    int2 stack[BVH8_STACK];  // ((node << 8) | remaining mask, order row)
+    int sp = 0, cur = 0, mask = 0, fuel = 0;
     unsigned perm = 0;
-    for (int fuel = 0; cur >= 0 && fuel < fuel_cap; ++fuel) {
-        if (fresh) {          // slab-test the 8 children in octant order
-            perm = load_perm(order, cur * 8 + r.oct);
-            mask = 0;
-            for (int j = 0; j < 8; ++j) {
-                const float4* c =
-                    child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
-                const float4 a = __ldg(c), b = __ldg(c + 1);
-                if (slab(a, b, r, t_max) && b.z != -1.0f) mask |= 1 << j;
+    bool fresh = true, occ = false, go = fuel_cap > 0;
+    while (go) {
+        if (fresh) {          // slab-test the 8 children in storage order
+            const int4* o = order + 2 * (cur * 8 + r.oct);
+            const int4 oa = __ldg(o), ob = __ldg(o + 1);
+            const float4* c = child + ROW * (size_t)(cur * 8);
+            unsigned hits = 0;                // bit k: child k
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const float4 a = __ldg(c + ROW * k);
+                const float4 b = __ldg(c + ROW * k + 1);
+                if (slab(a, b, r, t_max) && b.z != -1.0f) hits |= 1u << k;
             }
+            perm = perm_slots(oa, ob);
+            mask = 0;         // in octant order: bit j is child perm_j's
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                mask |= (int)((hits >> ((perm >> (4 * j)) & 7)) & 1u) << j;
             fresh = false;
         }
         if (mask == 0) {      // the node is done: pop, or end the walk
-            if (sp == 0) break;
-            const int e = stack[--sp];
-            cur = e >> 8;
-            mask = e & 255;
-            perm = load_perm(order, cur * 8 + r.oct);
-            continue;
+            if (sp == 0) {
+                cur = -1;
+            } else {
+                const int2 e = stack[--sp];
+                cur = e.x >> 8;
+                mask = e.x & 255;
+                perm = (unsigned)e.y;
+            }
+        } else {              // advance the lowest set bit
+            const int j = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const float4 b = __ldg(child + ROW * (size_t)(
+                cur * 8 + ((perm >> (4 * j)) & 7)) + 1);
+            const int kind = (int)b.z;
+            if (kind <= -2) { // descend; keep the parent if children remain
+                if (mask != 0 && sp < BVH8_STACK)
+                    stack[sp++] = make_int2((cur << 8) | mask, (int)perm);
+                cur = -2 - kind;
+                fresh = true;
+            } else {          // a leaf at `kind`: stop at its first hit
+                occ = leaf_visit<true>(leaf, kind, (int)b.w, r, t_max,
+                                       nullptr, nullptr, nullptr, nullptr);
+            }
         }
-        const int j = __ffs(mask) - 1;      // advance the lowest set bit
-        mask &= mask - 1;
-        const float4* c =
-            child + ROW * (size_t)(cur * 8 + ((perm >> (4 * j)) & 7));
-        const float4 b = __ldg(c + 1);
-        const int kind = (int)b.z;
-        if (kind <= -2) {     // descend; keep the parent if children remain
-            if (mask != 0 && sp < BVH8_STACK) stack[sp++] = (cur << 8) | mask;
-            cur = -2 - kind;
-            fresh = true;
-        } else if (leaf_visit<true>(leaf, kind, (int)b.w, r, t_max, nullptr,
-                                    nullptr, nullptr, nullptr)) {
-            *occ_io = true;   // a leaf at `kind`: stop at its first hit
-            return;
-        }
+        ++fuel;
+        go = cur >= 0 && !occ && fuel < fuel_cap;
     }
+    *occ_io = occ;
 }
 
 // The closest-hit BVH8 walk of a lane's ray over prim leaves (K6),
@@ -1905,14 +1920,15 @@ int mts_bvh_closest_hit(const void* node, const void* link, const void* pair,
     return (int)cudaGetLastError();
 }
 
-int mts_bvh_any_hit(const void* node, const void* link, const void* prim,
-                    const void* ox, const void* oy, const void* oz,
-                    const void* dx, const void* dy, const void* dz,
-                    const void* tmax, void* occ_out, int n, int fuel,
-                    void* stream) {
+int mts_bvh_any_hit(const void* node, const void* link, const void* pair,
+                    const void* prim, const void* ox, const void* oy,
+                    const void* oz, const void* dx, const void* dy,
+                    const void* dz, const void* tmax, void* occ_out, int n,
+                    int fuel, void* stream) {
     const int grid = (n + BLOCK - 1) / BLOCK;
     bvh_any_hit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float4*)node, (const int*)link, (const float4*)prim,
+        (const float4*)node, (const int*)link, (const float4*)pair,
+        (const float4*)prim,
         (const float*)ox, (const float*)oy, (const float*)oz,
         (const float*)dx, (const float*)dy, (const float*)dz,
         (const float*)tmax, (bool*)occ_out, n, fuel);

@@ -21,7 +21,7 @@ tables of the one walk a scene takes):
     bvh_pair     (B, 16) i32  an inner node's two children, each [min.xyz,
                  max.xyz (f32 bits), reference, row], the octant order in
                  the top byte of the first row word (convert.bvh_pair_rows;
-                 read by the pair walk of K3's closest hit and K4's any hit)
+                 read by the pair walk of K3's both hits and K4's any hit)
     bvh_prim     (P, 12) f32  [p0, e1, e2, type, 0, 0]: a triangle's vertex
                  and edges, or a sphere's center and [radius, ±1, 0]
     inst_inv     (K, 16) f32  instanced scenes: [world->local 3x4 | BVH2
@@ -46,8 +46,8 @@ over instances, each entered into its group's local-space cut tree),
 `bvh_closest_hit` and `bvh_any_hit` (K3: the full BVH2 with leaves of up
 to LEAF_K triangles or spheres) and `inst_bvh_closest_hit` and
 `inst_bvh_any_hit` (K4: the stitched TLAS + per-group BVH2 table; K3's
-closest and K4's any hit walk the child-pair rows with a stack, the other
-two the threaded links, and all four take the same tables),
+two and K4's any hit walk the child-pair rows with a stack, K4's closest
+hit the threaded links, and all four take the same tables),
 `bvh8_closest_hit` and `bvh8_any_hit` (K6: the BVH8 walk over prim
 leaves), `bvh8mxu_closest_hit` and `bvh8mxu_any_hit` (K7: the BVH8
 walk over cluster leaves) and `dense_closest_hit` and `dense_any_hit`
@@ -110,12 +110,12 @@ DENSE_RAYS = 2
 BVH_ROUND_STEPS = 8
 BVH8_ROUND_STEPS = 2
 # (reference, tmin or row) entries of the pair walk's stack (K3's closest
-# hit, K4's any hit; csrc/cluster_walk.cu's BVH_PAIR_STACK): a push that
-# finds it full hands the lane to the threaded walk (`fallback_steps`)
+# and any hit, K4's any hit; csrc/cluster_walk.cu's BVH_PAIR_STACK): a push
+# that finds it full hands the lane to the threaded walk (`fallback_steps`)
 BVH_PAIR_STACK = 32
-# the wrappers whose kernels take the pair walk and read bvh_pair (the
-# other two BVH2 kernels' C entries take no bvh_pair)
-PAIR_WALKS = ("bvh_closest_hit", "inst_bvh_any_hit")
+# the wrappers whose kernels take the pair walk and read bvh_pair (K4's
+# closest hit, the threaded walk in rounds, takes no bvh_pair)
+PAIR_WALKS = ("bvh_closest_hit", "bvh_any_hit", "inst_bvh_any_hit")
 # the child-pair rows' encoding (convert.bvh_pair_rows, csrc/cluster_walk.cu):
 # an instance leaf's tag in a reference, and the bits of a row id below the
 # octant mask in the first record's row word
@@ -175,7 +175,7 @@ def _declare(lib):
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, p] + [p] * 7 + [p] * n_out + [i, i, i, p]
     for fn, n_tab, n_out in ((lib.mts_bvh_closest_hit, 4, 4),
-                             (lib.mts_bvh_any_hit, 3, 1),
+                             (lib.mts_bvh_any_hit, 4, 1),
                              (lib.mts_inst_bvh_closest_hit, 5, 5),
                              (lib.mts_inst_bvh_any_hit, 6, 1),
                              (lib.mts_bvh8_closest_hit, 3, 4),
@@ -450,9 +450,11 @@ bvh_closest_hit.launches = 0
 
 def bvh_any_hit(node, link, pair, prim, ox, oy, oz, dx, dy, dz, t_max,
                 fuel: int):
-    """Occlusion over the BVH2, by the threaded walk (which does not read
-    `pair`): (N,) bool, True iff a prim is hit at a finite 0 < t <=
-    t_max."""
+    """Occlusion over the BVH2, by the pair walk: (N,) bool, True iff a
+    prim is hit at a finite 0 < t <= t_max. `fuel` caps a walk's steps
+    (the node count + 64: the threaded walk reaches each row at most once,
+    so it cannot bind on a built table); the results equal the twin's
+    wherever it does not bind."""
     rays = (ox, oy, oz, dx, dy, dz, t_max)
     n, dev = _check_bvh(node, link, pair, prim, rays, fuel)
     if dev.type == "cpu":
@@ -460,7 +462,7 @@ def bvh_any_hit(node, link, pair, prim, ox, oy, oz, dx, dy, dz, t_max,
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    _launch("bvh_any_hit", (node, link, prim), rays, (occ,), fuel)
+    _launch("bvh_any_hit", (node, link, pair, prim), rays, (occ,), fuel)
     bvh_any_hit.launches += 1
     return occ
 
@@ -1039,8 +1041,8 @@ class _LeafRounds:
 
 class _PairWalk:
     """The work of the pair walk (csrc/cluster_walk.cu::bvh_pair_walk: K3's
-    closest hit, K4's any hit), read off the threaded walk, which reaches
-    the same nodes in the same order: a lane's root test (and one an
+    closest and any hit, K4's any hit), read off the threaded walk, which
+    reaches the same nodes in the same order: a lane's root test (and one an
     instance entry: `root_tests`); each inner node whose slab it hits is a
     pair-row expansion (`pair_rows`), which pushes the far child (its row
     here) where both children's slabs, from the pair row, pass at that
@@ -1234,13 +1236,15 @@ def bvh_closest_hit_plain(node, link, pair, prim, ox, oy, oz, dx, dy, dz,
 
 
 def bvh_any_hit_plain(node, link, pair, prim, ox, oy, oz, dx, dy, dz, t_max,
-                      fuel: int, chunk: int = 8192, stats=None):
-    """The twin of the BVH2 any-hit kernel (the threaded walk). Its
-    `stats` count a lane's prim tests up to its first hit, where the
-    kernel's thread stops."""
+                      fuel: int, chunk: int = 8192, stats=None,
+                      pair_stack: int = BVH_PAIR_STACK):
+    """The twin of the BVH2 any-hit kernel. Its `stats` count a lane's
+    prim tests up to its first hit, where the kernel's thread stops, and
+    the pair walk's work with a stack of `pair_stack` entries
+    (_PairWalk)."""
     return _chunked(
         lambda r: _bvh_walk_plain(node, link, pair, prim, r, True, stats,
-                                  fuel),
+                                  fuel, pair_stack=pair_stack),
         (ox, oy, oz, dx, dy, dz, t_max), chunk)
 
 

@@ -31,6 +31,7 @@ Tolerances:
 """
 import contextlib
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -480,11 +481,13 @@ def assert_emulated_matches_twins(lib, which, st, o, d, tm):
     """The CUDA source of K6 or K7 (`which`), emulated, against the twins
     on the rays (o, d, tm), bit-equal; and the walk work the twins count
     equals the loads the kernels make: two int4 of an order row a fresh
-    visit or a pop, two float4 of a child row per child slab-tested at a
-    fresh visit (8) and per advance that re-culls it (one, its kind and
-    count, on K6's any hit, which does not), three float4 a prim test
-    (K6), and on K6's closest hit, whose warps test a step's due prims
-    together, the passes the emulation counts (`leaf_passes`); on K7,
+    visit or a pop (a fresh visit alone on K6's any hit, whose stack
+    keeps the order row), two float4 of a child row per child
+    slab-tested at a fresh visit (8) and per advance that re-culls it
+    (one, its kind and count, on K6's any hit, which does not), three
+    float4 a prim test (K6), and on K6's closest hit, whose warps test a
+    step's due prims together, the passes the emulation counts
+    (`leaf_passes`); on K7,
     whose warps visit clusters together, a centroid per lane-visit, five
     float4 a loaded slot (`loaded_slots`: a warp's group of lanes due at
     one cluster loads its rows once) and the slot tests on rows held in
@@ -513,10 +516,13 @@ def assert_emulated_matches_twins(lib, which, st, o, d, tm):
         assert all(torch.equal(a, b) for a, b in zip(out, twin))
         g = stats.get
         visits = g("cluster_visits", 0)
-        per_advance = 1 if which == "bvh8" and any_hit else 2
+        k6_any = which == "bvh8" and any_hit
         assert loads[0] == (16 * g("fresh_visits")
-                            + per_advance * g("advances") + visits)
-        assert loads[1] == 2 * (g("fresh_visits") + g("pops", 0))
+                            + (1 if k6_any else 2) * g("advances") + visits)
+        # K6's any hit: a pop loads nothing
+        assert loads[1] == 2 * (g("fresh_visits")
+                                + (0 if k6_any else g("pops", 0)))
+        assert not k6_any or g("pops") > 0
         tests = g("tri_tests", 0) + g("sphere_tests", 0)
         if which == "bvh8":
             assert loads[2] == 3 * tests and tests > 0
@@ -556,6 +562,45 @@ def test_tiles_mirror_the_source():
                  "PAIR_ROW_BITS"):
         assert getattr(traverse, name) == source_constant(name), name
     assert bvh_mod.LEAF_K == source_constant("LEAF_K")
+
+
+def braced(text):
+    """The brace-delimited block that `text` opens with."""
+    depth = 0
+    for j, ch in enumerate(text):
+        depth += {"{": 1, "}": -1}.get(ch, 0)
+        if depth == 0:
+            return text[:j + 1]
+    raise ValueError("unbalanced braces")
+
+
+def loop_bodies(text):
+    """The body of each `for` and `while` loop in the C source `text`: a
+    block, or a statement up to its `;`."""
+    for m in re.finditer(r"\b(for|while) *\(", text):
+        j, depth = m.end(), 1
+        while depth:
+            depth += {"(": 1, ")": -1}.get(text[j], 0)
+            j += 1
+        rest = text[j:].lstrip()
+        yield (braced(rest) if rest.startswith("{")
+               else rest[:rest.index(";") + 1])
+
+
+@pytest.mark.parametrize("walk", ["bvh_pair_walk", "bvh8_any_walk",
+                                  "bvh8_closest_walk"])
+def test_walk_loops_have_one_exit(walk):
+    """The per-thread walks' loops leave by their condition alone: no
+    `break`, `continue` or `return` in a loop's body. With such jumps in
+    its branches a warp's lanes did not reconverge inside the loop, and
+    the pair walk's first build ran 2.5x slower (PERF.md §6)."""
+    src = re.sub(r"//[^\n]*", "", open(traverse._SRC).read())
+    head = re.search(rf"\bvoid {walk}\(", src).end()
+    body = braced(src[src.index("{", head):])
+    loops = list(loop_bodies(body))
+    assert len(loops) >= 2
+    for loop in loops:
+        assert not re.search(r"\b(break|continue|return)\b", loop), walk
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -789,8 +834,10 @@ def test_cuda_bvh8_kernels_match_twins(gallery, gallery_rays, field, cuda,
             assert torch.equal(out[1], out_p[1]) and torch.equal(occ, occ_p)
             continue
         # K6's warp-wide leaf tests keep the serial walk's order and tie
-        # rule: t, prim, u and v bit-equal
+        # rule: t, prim, u and v bit-equal; its any hit visits the twin's
+        # children in the twin's order: the occlusion too
         assert all(torch.equal(a, b) for a, b in zip(out, out_p))
+        assert torch.equal(occ, occ_p)
         hit = torch.isfinite(out_p[0])
         assert torch.equal(torch.isfinite(out[0]), hit)
         assert (out[1] == out_p[1])[hit].float().mean() >= 0.999

@@ -753,27 +753,30 @@ def test_cuda_source_emulated_matches_twins(case, emulated, kind):
     """The CUDA source run warp by warp (g++) against the twins: the same
     f32 operations in the same order, so bit-equal; and the walk work the
     twins count (chip_smoke.py's bound rests on it) equals the loads the
-    kernels make. The threaded walks (K3's any hit, K4's closest hit): two
-    float4 of a node row and two links a step. The pair walks (K3's
-    closest hit, K4's any hit): two float4 of a node row a root test,
-    four of a pair row an expansion, none of the links, and each stack pop
-    counted apart (`pops`). Both: three float4 of a prim row a test, three
-    of an inst_inv row and one root an entry; and on K4's closest hit,
-    whose warps test a step's due prims together, the passes the
-    emulation counts (`leaf_passes`). At the kernels' 32-entry stack no
-    lane falls back to the threaded walk here."""
-    stats = assert_emulated_matches_twins(emulated, case.st,
-                                          kind_rays(case, kind))
-    assert stats["fallback_steps"] == 0
+    kernels make. The threaded walk (K4's closest hit): two float4 of a
+    node row and two links a step. The pair walks (K3's closest and any
+    hit, K4's any hit; traverse.PAIR_WALKS): two float4 of a node row a
+    root test or a fallback step, four of a pair row an expansion, no
+    links but a fallback's, and each stack pop counted apart (`pops`).
+    All: three float4 of a prim row a test, three of an inst_inv row and
+    one root an entry; and on K4's closest hit, whose warps test a step's
+    due prims together, the passes the emulation counts (`leaf_passes`).
+    At the kernels' 32-entry stack no lane falls back to the threaded
+    walk here."""
+    for stats in assert_emulated_matches_twins(emulated, case.st,
+                                               kind_rays(case, kind)):
+        assert stats["fallback_steps"] == 0
 
 
-@pytest.mark.parametrize("case", ["field_shared"], indirect=True)
+@pytest.mark.parametrize("case", ["field_shared", "field_flat"],
+                         indirect=True)
 @pytest.mark.parametrize("kind", KINDS)
 def test_k4_source_emulated_tail_and_dead_lanes(case, emulated, kind):
-    """K4 at n = 512 + 37, not a multiple of a warp, with dead lanes
-    (t_max <= 0) amid the live ones: every lane takes part in its warp's
-    leaf passes (the emulation aborts on a lane that leaves early) and
-    the results stay bit-equal."""
+    """K4 (field_shared) and K3 (field_flat) at n = 512 + 37, not a
+    multiple of a warp, with dead lanes (t_max <= 0) amid the live ones:
+    every lane of K4's closest hit takes part in its warp's leaf passes
+    (the emulation aborts on a lane that leaves early), and the results
+    stay bit-equal and the loads equal to the twins' counts."""
     rays = [torch.cat([a[:512], a[:37]]) for a in kind_rays(case, kind)]
     tm = rays[6]
     tm[[5, 40, 41, 300, 530]] = 0.0
@@ -797,12 +800,13 @@ def test_pair_walk_overflow_emulated_matches_twins(case, emulated_stack2,
     child it was entering, inside an instance with the TLAS leaf's miss
     link: t, prim, u, v and the occlusion stay bit-equal to the twins,
     and the loads equal the twins' counts at that stack (the fallback's
-    steps, `fallback_steps`, among them)."""
-    stats = assert_emulated_matches_twins(
-        emulated_stack2, case.st, kind_rays(case, kind), pair_stack=2)
-    assert stats["fallback_steps"] > 0
-    if case.st.has_instances:
-        assert stats["fallback_rets"] > 0
+    steps, `fallback_steps`, among them): K3's closest and any hit flat,
+    K4's any hit instanced."""
+    for stats in assert_emulated_matches_twins(
+            emulated_stack2, case.st, kind_rays(case, kind), pair_stack=2):
+        assert stats["fallback_steps"] > 0
+        if case.st.has_instances:
+            assert stats["fallback_rets"] > 0
 
 
 def assert_emulated_matches_twins(emulated, st, rays,
@@ -811,13 +815,15 @@ def assert_emulated_matches_twins(emulated, st, rays,
     instanced), emulated (with a pair-walk stack of `pair_stack`
     entries), against their twins on the torch rays `rays`:
     test_cuda_source_emulated_matches_twins's checks. Returns the pair
-    walk's counts (K3's closest hit, K4's any hit)."""
+    walks' counts, one dict each (K3's closest and any hit, K4's any
+    hit)."""
     tabs, fuel, prefix = kernel_args(st)
     n = rays[0].shape[0]
     inst = st.has_instances
     counted = (st.bvh_node, st.bvh_prim, st.inst_inv, st.inst_bvh_root,
                st.bvh_pair, st.bvh_link)
     closest_p, any_p = twins(prefix)
+    pair_stats = []
     for any_hit in (False, True):
         name = f"{prefix}{'any' if any_hit else 'closest'}_hit"
         ptrs = [a.data_ptr() for a in c_tables(tabs, name) + rays]
@@ -855,7 +861,7 @@ def assert_emulated_matches_twins(emulated, st, rays,
             assert loads[5] == 2 * fall + stats["fallback_rets"]
             assert work_counter(emulated).value == stats["pops"]
             assert stats["pair_rows"] > 0 and stats["pops"] > 0
-            pair_stats = stats
+            pair_stats.append(stats)
         else:
             assert loads[0] == 2 * stats["node_steps"]
             assert loads[4] == 0 and loads[5] == 2 * stats["node_steps"]
@@ -898,9 +904,10 @@ def test_cuda_bvh_kernels_match_twins(case, cuda, kind):
         assert all(torch.equal(a, b) for a, b in zip(out, out_p))
         assert torch.equal(occ, occ_p)
     else:
-        # K3's closest-hit pair walk: the threaded walk's leaves in its
-        # order, with the same t_best at each test
+        # K3's pair walks: the threaded walk's leaves in its order, with
+        # the same t_best at each test: t, prim, u, v and the occlusion
         assert all(torch.equal(a, b) for a, b in zip(out, out_p))
+        assert torch.equal(occ, occ_p)
     hit = torch.isfinite(out_p[0])
     assert torch.equal(torch.isfinite(out[0]), hit)
     same = out[1] == out_p[1]
