@@ -63,6 +63,22 @@ Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
          and per cluster visit, and from these a model of each K1, K2,
          K5 and K7 launch of phase 3 (steps x step cost + visits x visit
          cost, each term shown) beside its measured time.
+Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
+         configs: gallery (the gallery's scene as above, one 16-spp pass,
+         L2 against a zero target: K1 and K2) and cornell (cornell_box(),
+         256x256, 64 spp in passes of 16, max_depth 4, rr_depth 8: brute
+         force). For each: the forward render's and render_l2_grad's
+         medians of 3 after a warm-up, forward + adjoint Mrays/s (bench.py's
+         count: 2 x rays of a pass x passes / time), their ratio, the peak
+         memory of render_l2_grad and of one pass and of every pass
+         differentiated end to end (the latter held to render_l2_grad's
+         image and gradients), each kernel's launches over one
+         render_l2_grad (counts at 0 just before) and around each backward
+         sweep (must not move); on the gallery one render_l2_grad under
+         torch.profiler, the backward sweeps' kernels apart. Then
+         render_l2_grad on small scenes on the card against the CPU, and
+         8 Adam steps of examples/invert_cbox.py's loop on the card, each
+         at one seed (the loss must fall, the albedo's error halve).
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} and, last, {"ok": true, "device":
@@ -118,6 +134,14 @@ RAYS_PER_PASS = (RENDER["width"] * RENDER["height"] * RENDER["spp_per_pass"]
 N_PROBE = 65536
 DEVICE = "cuda:0"
 KERNEL_REPS = 20
+# bench.py's adjoint configs (m_gallery_adj :318, m_cornell_adj :364)
+ADJOINT = {"gallery": RENDER,
+           "cornell": dict(width=256, height=256, spp=64, spp_per_pass=16,
+                           max_depth=4, rr_depth=8)}
+# examples/invert_cbox.py's loop, 8 steps
+INVERT = dict(width=64, height=64, spp=32, spp_per_pass=32, max_depth=3,
+              rr_depth=99)
+INVERT_STEPS, INVERT_LR = 8, 0.05
 # a K8 launch takes a tenth of a second or more: fewer repetitions
 PATH_REPS = {"gallery_dense": 3}
 # ~0.1 s of the device's clock: ample for the host to queue KERNEL_REPS
@@ -1113,6 +1137,275 @@ def phase_probes(torch, dev, card, launches):
                       for c in cs]})
     return rows
 
+# ---------------------------------------------------------------------------
+# Phase 7: the adjoint
+# ---------------------------------------------------------------------------
+
+BACKWARD_RANGE = "adjoint backward"
+
+
+def rays_per_pass(cfg):
+    """bench.py's count of a pass's rays (:204-206)."""
+    return (cfg.width * cfg.height * cfg.spp_per_pass
+            * (1 + 2 * (cfg.max_depth - 1)))
+
+
+@contextlib.contextmanager
+def watch_backward(torch, moved, profile_range=None):
+    """Inside the block, each torch.autograd.backward call (the adjoint's
+    phase 2 makes one a pass) appends to `moved` the traversal wrappers
+    whose launch counts moved during it, the device synchronized before
+    and after; with `profile_range`, the call runs inside a
+    torch.profiler.record_function range of that name."""
+    backward = torch.autograd.backward
+    wrappers = {k: wrapper(k) for k in REPLACES}
+
+    def watched(*a, **kw):
+        torch.cuda.synchronize()
+        before = {k: w.launches for k, w in wrappers.items()}
+        with (torch.profiler.record_function(profile_range)
+              if profile_range else contextlib.nullcontext()):
+            out = backward(*a, **kw)
+            torch.cuda.synchronize()
+        moved.append({k: w.launches - before[k] for k, w in wrappers.items()
+                      if w.launches != before[k]})
+        return out
+
+    torch.autograd.backward = watched
+    try:
+        yield
+    finally:
+        torch.autograd.backward = backward
+
+
+def median_ms(torch, fn, reps=3):
+    """Median wall ms of `fn(seed)` over `reps` calls (seeds 1..reps),
+    each ended by a synchronize, after a warm-up call (seed 0)."""
+    fn(0)
+    torch.cuda.synchronize()
+    times = []
+    for r in range(reps):
+        t0 = time.perf_counter()
+        fn(r + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def _finite(torch, tensors):
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def _adjoint_path(torch, mt, name, scene, card):
+    """Forward and render_l2_grad of one adjoint path: times, rates, peak
+    memory, launches (none in a backward sweep), and one pass
+    differentiated end to end, then every pass (what the pass-by-pass
+    replay saves), held to render_l2_grad's image and gradients."""
+    from mitsuba2_tpu_torch.diff.adjoint import diff_tables, with_tables
+    cfg = mt.RenderConfig(**ADJOINT[name])
+    passes = cfg.spp // cfg.spp_per_pass
+    rays = rays_per_pass(cfg) * passes
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms, fwd_t = median_ms(torch, lambda r: mt.render(scene, cfg, seed=r))
+    fwd_peak = torch.cuda.max_memory_allocated() - resident
+    moved = []
+    with watch_backward(torch, moved):
+        adj_ms, adj_t = median_ms(torch, lambda r: mt.render_l2_grad(
+            scene, cfg, target, seed=r))
+        for k in REPLACES:
+            wrapper(k).launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        img, loss, grads = mt.render_l2_grad(scene, cfg, target, seed=7)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+        counts = {k: wrapper(k).launches for k in REPLACES}
+    check(len(moved) == 5 * passes and not any(moved),
+          f"{name}: a backward sweep launched kernels: {moved}")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3) and _finite(
+        torch, [img, loss, *grads.values()]) and float(loss) > 0,
+          f"{name}: non-finite or empty adjoint outputs")
+    check(all(float(g.abs().max()) > 0 for g in grads.values()),
+          f"{name}: a gradient table is all zero")
+    # phase 1 and phase 2 trace each pass: the camera rays, then a bounce
+    # and a shadow ray a bounce
+    kernels = PATH_KERNELS.get(name, ())
+    want = {k: 0 for k in REPLACES}
+    if kernels:
+        want[kernels[0]] = 2 * passes * cfg.max_depth
+        want[kernels[1]] = 2 * passes * (cfg.max_depth - 1)
+    log(f"phase 7: {name}: launches over one render_l2_grad (counts at 0 "
+        f"just before): {json.dumps({k: n for k, n in counts.items() if n})}"
+        f"; during its {passes} backward sweeps: none")
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+
+    peaks = {}
+    for spp in sorted({cfg.spp_per_pass, cfg.spp}):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in diff_tables(scene).items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        img_e = mt.render(with_tables(scene, leaves), cfg.replace(spp=spp),
+                          seed=7)
+        torch.mean((img_e - target) ** 2).backward()
+        torch.cuda.synchronize()
+        peaks[spp] = torch.cuda.max_memory_allocated() - base
+        check(_finite(torch, [v.grad for v in leaves.values()]),
+              f"{name}: non-finite end-to-end gradients")
+    # the last is the whole render, seed 7: render_l2_grad's above
+    check(torch.equal(img_e.detach(), img),
+          f"{name}: the end-to-end render's image is not render_l2_grad's")
+    rel = max(float((leaves[k].grad - grads[k]).norm() / grads[k].norm())
+              for k in grads)
+    check(rel <= 1e-4, f"{name}: end-to-end gradients {rel:.2e} off "
+          "render_l2_grad's")
+    mib = 2 ** 20
+    log(f"phase 7: {name}: {cfg.width}x{cfg.height}x{cfg.spp}spp in "
+        f"{passes} pass(es) of {cfg.spp_per_pass}, depth {cfg.max_depth}, "
+        f"rr_depth {cfg.rr_depth}, on {card}")
+    log(f"phase 7: {name}: forward render median {fwd_ms:.1f} ms of "
+        f"{[round(t, 1) for t in fwd_t]}, {rays / fwd_ms / 1e3:.3f} Mrays/s")
+    log(f"phase 7: {name}: render_l2_grad median {adj_ms:.1f} ms of "
+        f"{[round(t, 1) for t in adj_t]}")
+    log(f"phase 7: {name}: forward + adjoint {2 * rays / adj_ms / 1e3:.3f} "
+        f"Mrays/s (2 x {rays} rays / render_l2_grad's time)")
+    log(f"phase 7: {name}: adjoint / forward time {adj_ms / fwd_ms:.3f}")
+    log(f"phase 7: {name}: peak memory over the {resident / mib:.0f} MiB "
+        f"resident (scenes): render_l2_grad {peak / mib:.0f} MiB, the "
+        f"forward render {fwd_peak / mib:.0f} MiB")
+    log(f"phase 7: {name}: differentiated end to end: peak "
+        + ", ".join(f"{p / mib:.0f} MiB for {spp // cfg.spp_per_pass} "
+                    f"pass(es)" for spp, p in peaks.items())
+        + f"; the whole render's image equal to render_l2_grad's, its "
+        f"gradients within {rel:.1e} in relative norm")
+    return adj_ms
+
+
+def _adjoint_profile(torch, mt, scene, card, adj_ms):
+    """One render_l2_grad of the gallery under torch.profiler: device time
+    by kind, the kernels that ran inside a backward sweep apart."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = mt.RenderConfig(**ADJOINT["gallery"])
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
+    torch.cuda.synchronize()
+    with watch_backward(torch, [], BACKWARD_RANGE), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mt.render_l2_grad(scene, cfg, target, seed=11)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    windows = [(e.time_range.start, e.time_range.end) for e in events
+               if e.name == BACKWARD_RANGE
+               and not str(e.device_type).endswith("CUDA")]
+    cats = {}
+    for e in events:
+        if not str(e.device_type).endswith("CUDA") or e.name == BACKWARD_RANGE:
+            continue
+        start = e.time_range.start
+        bwd = any(a <= start <= b for a, b in windows)
+        c = cats.setdefault(("backward: " if bwd else "")
+                            + _category(e.name), [0.0, 0])
+        c[0] += e.time_range.elapsed_us() / 1e3
+        c[1] += 1
+    dev_ms = sum(v[0] for v in cats.values())
+    bwd_ms = sum(v[0] for k, v in cats.items() if k.startswith("backward"))
+    check(dev_ms > 0 and bwd_ms > 0 and windows,
+          "the profiler shows no device time in the backward sweeps")
+    log(f"phase 7: gallery: profiled render_l2_grad on {card}: {dev_ms:.2f} "
+        f"ms of device kernels, {bwd_ms:.2f} of them in the backward sweep; "
+        f"device busy {dev_ms / wall_ms:.3f} of the profiled wall time "
+        f"({wall_ms:.1f} ms), {dev_ms / adj_ms:.3f} of the median "
+        f"({adj_ms:.1f} ms)")
+    for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {c}: {ms:.2f} ms ({ms / dev_ms:.3f}) in {n} launches")
+
+
+def _adjoint_card_vs_cpu(torch, mt, dev):
+    """render_l2_grad on small scenes on the card against the CPU (twins
+    and brute force there): each gradient table within 1e-3 in relative
+    norm, the images within phase 4's limits."""
+    cfg = mt.RenderConfig(width=32, height=32, spp=4, spp_per_pass=2,
+                          max_depth=3, rr_depth=8)
+    target = torch.zeros((32, 32, 3))
+    for name, mk in (
+            ("mesh_gallery(subdiv=2)",
+             lambda d: mt.mesh_gallery(subdiv=2, device=d)),
+            ("cornell_box(boxes=False)",
+             lambda d: mt.cornell_box(boxes=False, device=d))):
+        img_c, _, g_c = mt.render_l2_grad(mk("cpu"), cfg, target, seed=5,
+                                          device="cpu")
+        img_g, _, g_g = mt.render_l2_grad(mk(dev), cfg, target.to(dev),
+                                          seed=5)
+        rel = {k: float((g_g[k].cpu() - g_c[k]).norm() / g_c[k].norm())
+               for k in g_c}
+        img_g, img_c = img_g.cpu().numpy(), img_c.numpy()
+        close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
+        mrel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
+        good = (np.isfinite(img_g).all() and close >= 0.99 and mrel <= 1e-3
+                and max(rel.values()) <= 1e-3)
+        log(f"phase 7: {name} 32x32 render_l2_grad card vs CPU: gradients' "
+            f"relative norm difference "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f"; {close:.4f} of pixels within rtol 1e-3/atol 1e-4, mean rel "
+            f"diff {mrel:.2e} {'ok' if good else 'FAIL'}")
+        check(good, f"{name}: the card's gradients disagree with the CPU's")
+
+
+def _adjoint_train(torch, mt, dev, card):
+    """examples/invert_cbox.py's loop on the card: Adam on the Cornell
+    box's tables from left.bsdf.reflectance = [0.6, 0.6, 0.6] toward the
+    render of the true value, every step at one seed, so that the loss
+    moves with the albedo alone; the albedo's error must halve."""
+    from mitsuba2_tpu_torch.diff.adjoint import diff_tables, with_tables
+    from mitsuba2_tpu_torch.diff.optimizers import adam_init, adam_step
+    cfg = mt.RenderConfig(**INVERT)
+    key = "left.bsdf.reflectance"
+    scene_gt = mt.cornell_box(device=dev)
+    true = mt.traverse(scene_gt)[key].clone()
+    target = mt.render(scene_gt, cfg, seed=0)
+    scene = mt.scene_with(scene_gt, {key: torch.full((3,), 0.6, device=dev)})
+    theta = {k: v.detach() for k, v in diff_tables(scene).items()}
+    state = adam_init(theta)
+    losses, t0 = [], time.perf_counter()
+    for it in range(INVERT_STEPS):
+        _, loss, grads = mt.render_and_grad(
+            scene, cfg, lambda im: torch.mean((im - target) ** 2),
+            seed=1)
+        theta, state = adam_step(theta, grads, state, lr=INVERT_LR)
+        scene = with_tables(scene, theta)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / INVERT_STEPS
+    value = mt.traverse(scene)[key]
+    err = [float((torch.full((3,), 0.6, device=dev) - true).abs().max()),
+           float((value - true).abs().max())]
+    log(f"phase 7: invert_cbox on {card}: {INVERT_STEPS} Adam steps (lr "
+        f"{INVERT_LR}) at {cfg.width}x{cfg.height}x{cfg.spp}spp depth "
+        f"{cfg.max_depth}, {step_ms:.1f} ms a step: loss "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + f"; {key} {[round(float(v), 4) for v in value]} (true "
+        f"{[round(float(v), 4) for v in true]}), max abs error {err[0]:.4f} "
+        f"-> {err[1]:.4f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "invert_cbox: the loss did not fall")
+    check(err[1] < 0.5 * err[0], "invert_cbox: the albedo's error did not "
+          f"halve ({err[0]:.4f} -> {err[1]:.4f})")
+
+
+def phase_adjoint(torch, mt, dev, card, gallery):
+    """Phase 7 (see the module docstring); `gallery`: phase 2's scene."""
+    with path_switches("gallery"):
+        adj_ms = _adjoint_path(torch, mt, "gallery", gallery, card)
+        _adjoint_profile(torch, mt, gallery, card, adj_ms)
+    _adjoint_path(torch, mt, "cornell", mt.cornell_box(device=dev), card)
+    _adjoint_card_vs_cpu(torch, mt, dev)
+    _adjoint_train(torch, mt, dev, card)
+
 
 def main():
     import torch
@@ -1148,6 +1441,7 @@ def main():
                 timed(f"5 ({path})", phase_profile, torch, mt, path, scene,
                       render_ms[path])
         rows += timed(6, phase_probes, torch, dev, card, launches)
+        timed(7, phase_adjoint, torch, mt, dev, card, scenes["gallery"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,14 +1,17 @@
 """mitsuba2_tpu_torch — the PyTorch + CUDA port of mitsuba2_tpu.
 
 A second package beside the JAX one, which stays the reference. It
-renders forward on an NVIDIA H100 through hand-written CUDA traversal
-kernels (csrc/cluster_walk.cu: the cluster walk and its instanced
-two-level form) and plain PyTorch around them:
+renders on an NVIDIA H100 through hand-written CUDA traversal kernels
+(csrc/cluster_walk.cu) and plain PyTorch around them, and differentiates
+a render with respect to the scene's material and emitter tables (diff/:
+the pass-by-pass adjoint, the parameter map and the optimizers):
 
     import mitsuba2_tpu_torch as mt
     scene = mt.mesh_gallery(subdiv=4)          # tensors on the CUDA device
-    img = mt.render(scene, mt.RenderConfig(width=256, height=256, spp=16,
-                                           spp_per_pass=16, max_depth=3))
+    cfg = mt.RenderConfig(width=256, height=256, spp=16, spp_per_pass=16,
+                          max_depth=3)
+    img = mt.render(scene, cfg)
+    image, loss, grads = mt.render_l2_grad(scene, cfg, target=img * 0.5)
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
 a CUDA device and without that argument they raise. Importing this
@@ -21,7 +24,10 @@ from .convert import scene_from_numpy
 from .scene.presets import cornell_box, furnace, instanced_field, mesh_gallery
 from .scene.scene import SceneData, build_scene, to_device
 from .render.integrators import render, render_pass
+from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
+                   traverse)
 
-__all__ = ["RenderConfig", "SceneData", "build_scene", "cornell_box",
-           "furnace", "instanced_field", "mesh_gallery", "render",
-           "render_pass", "scene_from_numpy", "to_device"]
+__all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
+           "cornell_box", "furnace", "instanced_field", "mesh_gallery",
+           "render", "render_and_grad", "render_l2_grad", "render_pass",
+           "scene_from_numpy", "scene_with", "to_device", "traverse"]

@@ -36,7 +36,7 @@ class RenderConfig:
     integrator: str = "path"
     aovs: tuple = ()
     aov_child: str = "path"
-    remat: bool = False               # adjoint memory knob; no effect forward
+    remat: bool = False               # JAX adjoint's memory knob; inert here
     compact: bool = False
     reparam: bool = False
     reparam_kaux: int = 16

@@ -243,4 +243,5 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
         has_instances=inst, has_spheres=has_spheres,
         inst_fuel=int(fields["inst_fuel"]) if inst else 0,
-        inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0)
+        inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0,
+        param_paths=tuple(fields.get("param_paths", ())))

@@ -80,6 +80,11 @@ class Diffuse:
         return torch.where((cos_i > 0) & (cos_o > 0), cos_o * warp.INV_PI, 0.0)
 
 
+# Differentiable parameters of each family (name -> location in its row),
+# read by scene.build_fields into SceneData.param_paths: ("slot", k) is the
+# RGB at cols [8k, 8k + 3) of spectrum slot k, ("scalar", c) one column
+Diffuse.param_spec = {"reflectance": ("slot", 0)}
+
 FAMILIES = {Diffuse.id: Diffuse}
 _BY_NAME = {"diffuse": Diffuse}
 

@@ -23,6 +23,8 @@ EMIT_W = 16
 AREA = 0
 CONSTANT = 2
 ENV_DIST = 1e7   # the constant emitter's sample distance, as in the JAX package
+# the differentiable parameter of each emitter type (SceneData.param_paths)
+PARAM_NAME = {AREA: "radiance", CONSTANT: "radiance"}
 
 
 def pack_emitter(desc: dict):

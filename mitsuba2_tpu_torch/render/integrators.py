@@ -9,6 +9,7 @@ rr_depth < max_depth, u_rr.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -17,6 +18,7 @@ from ..config import RenderConfig
 from ..core.geometry import Ray
 from ..core.spec import Spec, swhere
 from ..device import resolve_device
+from ..scene.scene import DIFF_TABLES
 from . import bsdf as bsdf_mod
 from . import emitters, film as film_mod, sensors
 from .sampler import Sampler, make_sampler
@@ -145,7 +147,13 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
            ) -> torch.Tensor:
     """SamplingIntegrator::render: spp in passes of spp_per_pass, then
     develop. Runs on `device` (None = the CUDA device; raises without
-    one), moving the scene there if it is elsewhere. Returns (H, W, C)."""
+    one), moving the scene there if it is elsewhere. Returns (H, W, C).
+
+    Differentiable: where a table of scene.DIFF_TABLES requires grad and
+    grad is enabled, the render runs under autograd; else in inference
+    mode. The traversals run detached either way (scene.ray_test,
+    scene._preliminary_dispatch), so the tape holds the shading alone and
+    a backward sweep traces no ray."""
     from ..scene.scene import to_device
     dev = resolve_device(device)
     scene = to_device(scene, dev)
@@ -155,7 +163,9 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
     config = config.replace(spp_per_pass=sppc)
     n_passes = (config.spp + sppc - 1) // sppc
     image, wsum = None, 0
-    with torch.inference_mode():
+    grad = torch.is_grad_enabled() and any(
+        getattr(scene, k).requires_grad for k in DIFF_TABLES)
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         for s in pass_seeds(seed, n_passes):
             img_p, w_p = render_pass(scene, config, s, dev)
             image = img_p if image is None else image + img_p

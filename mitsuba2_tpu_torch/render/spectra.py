@@ -20,16 +20,50 @@ SLOT_ILLUMINANT = 1.0
 SLOT_TEX_BASE = 2.0   # the JAX package's textured slots: refused here
 
 
+# lanes whose gradients a column gather's backward adds up apart (below)
+GATHER_SPREAD = 1024
+
+
+class _LaneGather(torch.autograd.Function):
+    """col.index_select(0, idx) for a column `col` of a few rows and a
+    wavefront of lanes. Its backward adds lane i's gradient into row
+    i % GATHER_SPREAD of a (GATHER_SPREAD, M) buffer with index_add_, then
+    sums the buffer's rows. Adding a million lanes into M rows directly
+    serializes their atomics on a handful of addresses (0.39 ms a column
+    on an H100); advanced indexing's backward (index_put_ with accumulate)
+    sorts the indices and sums each row's run serially (~15 ms)."""
+
+    @staticmethod
+    def forward(ctx, col, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = col.shape[0]
+        return col.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        m = ctx.rows
+        lane = torch.arange(idx.shape[0], device=idx.device)
+        spread = (lane % GATHER_SPREAD) * m + idx
+        buf = g.new_zeros(GATHER_SPREAD * m).index_add_(0, spread, g)
+        return buf.view(GATHER_SPREAD, m).sum(0), None
+
+
 @dataclasses.dataclass
 class LaneRows:
     """Lazy per-lane rows of a small packed (M, W) table: one (N,) column
-    gather per column read."""
+    gather per column read: through _LaneGather under autograd, else a
+    plain index_select (the forward render skips the Function call's
+    host time)."""
     table: torch.Tensor
     idx: torch.Tensor
     base: int = 0
 
     def col(self, i: int):
-        return self.table[:, self.base + i][self.idx]
+        col = self.table[:, self.base + i]
+        if torch.is_grad_enabled():
+            return _LaneGather.apply(col, self.idx)
+        return col.index_select(0, self.idx)
 
     def slot(self, k: int) -> "LaneRows":
         return LaneRows(self.table, self.idx, self.base + k * SLOT_W)

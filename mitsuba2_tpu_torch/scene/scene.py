@@ -61,6 +61,9 @@ UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
 # ...and those of an instanced scene (absent, or None, on the others): the
 # per-instance transforms and the two walk bounds
 INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
+# ...and the tables gradients flow to (diff/adjoint.py::diff_tables): the
+# JAX package's texture, envmap and medium tables come with their slices
+DIFF_TABLES = ("mat_data", "emitter_data")
 # ...and the BVH8 walks' tables (bvh.collapse_bvh8; None, depth 0, where
 # the JAX build skips them: tiny or instanced scenes, a one-cluster cut):
 # on the device only for a scene uploaded under set_backend("bvh8") or
@@ -162,6 +165,9 @@ class SceneData:
     inst_mxu_fuel: int = 0      # instanced cluster walk bound (K5's)
     bvh8_depth: int = 0         # levels below the BVH8 root (K6's stack)
     bvh8c_depth: int = 0        # the same of the cut tree's (K7's)
+    # the differentiable parameters (diff/params.py::traverse): (name,
+    # table, row, c0, c1, kind), as the JAX build records them
+    param_paths: Tuple = ()
 
     @property
     def n_prims(self) -> int:
@@ -413,8 +419,8 @@ def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
 def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     """Host build: shapes (meshes and Instance records) + sensor + shapeless
     emitters -> dict of numpy tables (FIELDS, BVH8_FIELDS, and INST_FIELDS
-    for a shared-BLAS scene), the same arithmetic as the JAX package's
-    _build_scene_impl for the features this slice supports."""
+    for a shared-BLAS scene) and `param_paths`, the same arithmetic as the
+    JAX package's _build_scene_impl for the features this slice supports."""
     shapes, inst_records, group_of, group_shape0 = _split_instances(shapes)
     _refuse_unsupported(shapes, sensor)
     mats, mat_key2idx = [], {}
@@ -581,6 +587,32 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         emitter_cdf[e_idx, len(prims):] = cs[-1]
         emitter_area[e_idx] = cs[-1]
 
+    # --- differentiable parameters (mitsuba's traverse() paths): one entry
+    # per distinct material row, in shape order, then one per emitter whose
+    # type has a parameter -------------------------------------------------
+    param_paths = []
+    seen_rows = set()
+    for s_idx, sh in enumerate(shapes):
+        m_idx = shape_mat[s_idx]
+        if m_idx in seen_rows:
+            continue
+        seen_rows.add(m_idx)
+        spec = bsdf_mod.FAMILIES[mats[m_idx][0]].param_spec
+        for pname, (where, loc) in spec.items():
+            slot = where == "slot"
+            c0 = loc * bsdf_mod.SLOT_W if slot else loc
+            param_paths.append((f"{sh.id or f'shape{s_idx}'}.bsdf.{pname}",
+                                "mat_data", m_idx, c0, c0 + (3 if slot else 1),
+                                "rgb" if slot else "scalar"))
+    for e_idx, (desc, s_idx) in enumerate(emitter_descs):
+        pname = emitters_mod.PARAM_NAME.get(int(emitter_types[e_idx]))
+        if pname is None:
+            continue
+        ename = (f"{shapes[s_idx].id or f'shape{s_idx}'}.emitter"
+                 if s_idx >= 0 else desc.get("id") or f"emitter{e_idx}")
+        param_paths.append((f"{ename}.{pname}", "emitter_data", e_idx, 0, 3,
+                            "rgb"))
+
     # --- sensor -------------------------------------------------------------
     cam_to_world = np.asarray(sensor["to_world"], np.float32).reshape(4, 4)
     cam_data = np.zeros(12, np.float32)
@@ -618,7 +650,8 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         cluster_slot_prim=slot_prim, mxu_feat=feat, mxu_ccs=mxu_ccs,
         bvh8_child=acc.get("bvh8_child"), bvh8_order=acc.get("bvh8_order"),
         bvh8_depth=acc.get("bvh8_depth", 0),
-        **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)))
+        **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)),
+        param_paths=tuple(param_paths))
     if inst_records:
         out.update({k: acc[k] for k in INST_FIELDS})
     return out
@@ -888,11 +921,24 @@ def _unsort(values, lane):
     return out
 
 
+def _detached(ray: Ray) -> Ray:
+    """The ray cut from the tape, so that a traversal records nothing
+    (outside autograd, the ray itself)."""
+    if not torch.is_grad_enabled():
+        return ray
+    return Ray(o=Vec3(ray.o.x.detach(), ray.o.y.detach(), ray.o.z.detach()),
+               d=Vec3(ray.d.x.detach(), ray.d.y.detach(), ray.d.z.detach()),
+               maxt=ray.maxt.detach())
+
+
 def _preliminary_dispatch(scene, ray: Ray, sort=None):
     """Closest-hit query: (t, prim, u, v, inst), inst None except on an
     instanced scene. `sort=None` presorts wavefronts of SORT_MIN_LANES
-    lanes or more; False skips it (primary rays)."""
+    lanes or more; False skips it (primary rays). Detached, as every
+    traversal: gradients flow through the shading record alone (prim ids
+    are integers, and the record re-solves u, v from the tables)."""
     from ..kernels import brute, traverse
+    ray = _detached(ray)
     backend = _pick_backend(scene)
     if backend == "brute":
         return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
@@ -917,8 +963,9 @@ def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
 
 
 def ray_test(scene, ray: Ray) -> torch.Tensor:
-    """Scene::ray_test — occlusion within ray.maxt."""
+    """Scene::ray_test — occlusion within ray.maxt, detached."""
     from ..kernels import brute
+    ray = _detached(ray)
     backend = _pick_backend(scene)
     if backend == "brute":
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)

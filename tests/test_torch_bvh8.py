@@ -178,7 +178,7 @@ def test_bvh8_tables_byte_equal(name):
         fields = {k: (getattr(sj, k) if isinstance(getattr(sj, k), int)
                       else np.asarray(getattr(sj, k)))
                   for k in scene_mod.FIELDS}
-        fields.update(ref)
+        fields.update(ref, param_paths=sj.param_paths)
         with backend(which):
             conv = mt.scene_from_numpy(fields, device="cpu")
         for fl in scene_mod.SceneData.__dataclass_fields__:

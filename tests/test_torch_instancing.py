@@ -81,7 +81,7 @@ def assert_port_tables(jax_f, port_f, st):
     force)."""
     for k, a in jax_f.items():
         b = port_f[k]
-        if isinstance(a, int):
+        if isinstance(a, (int, tuple)):     # walk bounds, param_paths
             assert a == b, k
             continue
         assert a.dtype == b.dtype and a.shape == b.shape, k
@@ -170,8 +170,9 @@ def build_pair(name):
 
 def jax_fields(sj):
     keys = FIELDS + (INST_FIELDS if sj.has_instances else ())
-    return {k: (getattr(sj, k) if isinstance(getattr(sj, k), int)
-                else np.asarray(getattr(sj, k))) for k in keys}
+    return {**{k: (getattr(sj, k) if isinstance(getattr(sj, k), int)
+                   else np.asarray(getattr(sj, k))) for k in keys},
+            "param_paths": sj.param_paths}
 
 
 def assert_same_scene(sj, st, fields):

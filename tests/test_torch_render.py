@@ -145,6 +145,10 @@ assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
 node, link = (torch.from_numpy(a) for a in probes.walk_tables(64))
 s, start = (torch.from_numpy(a) for a in probes.lanes(8, 64, True))
 assert probes.walk_step(node, link, s, start, 4, True)[0].shape == (8,)
+from mitsuba2_tpu_torch.diff import render_l2_grad
+_, loss, grads = render_l2_grad(mt.mesh_gallery(subdiv=1, device="cpu"), cfg,
+                                torch.zeros(8, 8, 3), device="cpu")
+assert all(bool(g.isfinite().all()) for g in grads.values())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)

@@ -35,7 +35,8 @@ def pair(request):
 
 
 def jax_fields(sj):
-    return {k: np.asarray(getattr(sj, k)) for k in FIELDS}
+    return {**{k: np.asarray(getattr(sj, k)) for k in FIELDS},
+            "param_paths": sj.param_paths}
 
 
 def test_tables_byte_equal(pair):

@@ -148,8 +148,9 @@ def build(name, which):
 
 def jax_fields(sj):
     keys = FIELDS + (INST_FIELDS if sj.has_instances else ())
-    return {k: (getattr(sj, k) if isinstance(getattr(sj, k), int)
-                else np.asarray(getattr(sj, k))) for k in keys}
+    return {**{k: (getattr(sj, k) if isinstance(getattr(sj, k), int)
+                   else np.asarray(getattr(sj, k))) for k in keys},
+            "param_paths": sj.param_paths}
 
 
 # ---------------------------------------------------------------------------
