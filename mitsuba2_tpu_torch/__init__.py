@@ -21,7 +21,8 @@ standard library only, never jax or mitsuba2_tpu.
 """
 from .config import RenderConfig
 from .convert import scene_from_numpy
-from .scene.presets import cornell_box, furnace, instanced_field, mesh_gallery
+from .scene.presets import (cornell_box, furnace, instanced_field,
+                             mesh_gallery, veach_mis)
 from .scene.scene import SceneData, build_scene, to_device
 from .render.integrators import render, render_pass
 from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
@@ -30,4 +31,5 @@ from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
 __all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
            "cornell_box", "furnace", "instanced_field", "mesh_gallery",
            "render", "render_and_grad", "render_l2_grad", "render_pass",
-           "scene_from_numpy", "scene_with", "to_device", "traverse"]
+           "scene_from_numpy", "scene_with", "to_device", "traverse",
+           "veach_mis"]

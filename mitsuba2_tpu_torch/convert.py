@@ -16,8 +16,8 @@ neither for a brute-force scene; under "bvh8" the BVH8 tables and the
 packed prim rows (K6), under "bvh8mxu" the cut tree's BVH8 tables and
 the cluster plane rows (K7). The BVH8 tables (scene.BVH8_FIELDS) may be
 absent from `fields`. A table that names a feature this slice does not
-render (emitters other than area and constant ones, BSDF families other
-than diffuse, twosided BSDFs, textured colors) raises.
+render (emitters other than area and constant ones, the BSDF families
+bsdf.UNPORTED, textured colors or roughness) raises.
 """
 from __future__ import annotations
 
@@ -187,15 +187,18 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     families = tuple(sorted({int(t) for t in f["mat_type"]}))
     for fid in families:
         if fid not in bsdf_mod.FAMILIES:
+            name = bsdf_mod.UNPORTED.get(fid, f"family {fid}")
             raise NotImplementedError(
-                f"mitsuba2_tpu_torch does not support BSDF family {fid} yet")
-    if (f["mat_flags"] & bsdf_mod.F_TWOSIDED_FLAG).any():
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support twosided BSDFs yet")
-    if ((f["mat_data"][:, 7] >= SLOT_TEX_BASE).any()
-            or (f["emitter_data"][:, 7] >= SLOT_TEX_BASE).any()):
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support textured colors yet")
+                f"mitsuba2_tpu_torch does not support the {name!r} BSDF yet")
+    # the kind column of every spectrum slot a row may carry: a material's
+    # three color slots and its roughness slot, an emitter's radiance
+    kinds = {"textured colors": np.concatenate([
+        f["mat_data"][:, [7, 15, 23]].ravel(), f["emitter_data"][:, 7]]),
+        "textured roughness": f["mat_data"][:, bsdf_mod.ALPHA_SLOT + 7]}
+    for what, kind in kinds.items():
+        if (kind >= SLOT_TEX_BASE).any():
+            raise NotImplementedError(
+                f"mitsuba2_tpu_torch does not support {what} yet")
     n_clusters = int((f["mxu_node_f"][:, 6] >= 0).sum())
     cluster_k = f["cluster_slot_prim"].shape[0] // max(n_clusters, 1)
     has_spheres = bool((f["prim_type"] == PRIM_SPHERE).any())
@@ -237,11 +240,16 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         **tabs,
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,
-        mat_families=families, n_emitters=n_emitters,
+        mat_families=families,
+        family_rows=tuple(int(np.argmax(f["mat_type"] == fid))
+                          for fid in families),
+        n_emitters=n_emitters,
         env_emitter=int(env[0]) if env.size else -1,
         emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),
         n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
         has_instances=inst, has_spheres=has_spheres,
+        has_twosided=bool(
+            (f["mat_flags"] & bsdf_mod.F_TWOSIDED_FLAG).any()),
         inst_fuel=int(fields["inst_fuel"]) if inst else 0,
         inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0,
         param_paths=tuple(fields.get("param_paths", ())))

@@ -43,6 +43,9 @@ class Spec:
     def __sub__(self, o):
         return Spec(tuple(a - b for a, b in zip(self.ch, _coerce(o, self.n))))
 
+    def __rsub__(self, o):
+        return Spec(tuple(b - a for a, b in zip(self.ch, _coerce(o, self.n))))
+
     def __mul__(self, o):
         return Spec(tuple(a * b for a, b in zip(self.ch, _coerce(o, self.n))))
 

@@ -3,11 +3,12 @@
 Four kinds of rays over a built scene, the kinds a forward render sends
 through traversal: camera rays, first-bounce rays cosine-sampled from the
 camera hits, shadow rays from those hits toward points on the area
-emitters, or toward the constant emitter in a scene lit by one alone
-(t_max = dist * (1 - 1e-3)), and uniform random rays from inside the
-scene bounds, a quarter of them aimed into the scene's spheres when it
-holds any. The tests hand the same arrays to both packages, and
-chip_smoke.py uses them to hold each CUDA kernel against its twin.
+emitters (triangles or spheres), or toward the constant emitter in a
+scene lit by one alone (t_max = dist * (1 - 1e-3)), and uniform random
+rays from inside the scene bounds, a quarter of them aimed into the
+scene's spheres when it holds any. The tests hand the same arrays to
+both packages, and chip_smoke.py uses them to hold each CUDA kernel
+against its twin.
 """
 from __future__ import annotations
 
@@ -108,10 +109,21 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     b0, b1 = 1.0 - sq, sq * b[:, 1]
     e1, e2 = tab["prim_e1"][lp], tab["prim_e2"][lp]
     target = tab["prim_p0"][lp] + e1 * b0[:, None] + e2 * b1[:, None]
+    n_light = _normalize(np.cross(e1, e2).astype(np.float64))
+    sph = tab["prim_type"][lp] != 0
+    if sph.any():
+        # a sphere light (center p0, e1 = [radius, normal sign, 0]): the
+        # same two numbers give a uniform point on it, its normal outward
+        # (inward for a flipped sphere)
+        z, phi = 1.0 - 2.0 * b[:, 0], 2.0 * np.pi * b[:, 1]
+        rz = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+        u = np.stack([rz * np.cos(phi), rz * np.sin(phi), z], -1)
+        target = np.where(sph[:, None], tab["prim_p0"][lp]
+                          + u * e1[:, :1].astype(np.float64), target)
+        n_light = np.where(sph[:, None], u * np.sign(e1[:, 1:2]), n_light)
     sd = target - org[src]
     dist = np.linalg.norm(sd, axis=-1)
     sd = sd / dist[:, None]
-    n_light = _normalize(np.cross(e1, e2).astype(np.float64))
     ok = np.nonzero((np.sum(n_light * sd, -1) < 0)
                     & (np.sum(ng[src] * sd, -1) > 0))[0]
     if ok.size < n:

@@ -1,7 +1,7 @@
 """Built-in scenes (counterpart of scene/presets.py): the Cornell box, the
-furnace, the mesh gallery and the instanced field, built from the same
-host geometry as the JAX package's presets so their tables are
-byte-equal."""
+furnace, Veach's MIS scene, the mesh gallery and the instanced field,
+built from the same host geometry as the JAX package's presets so their
+tables are byte-equal."""
 from __future__ import annotations
 
 import numpy as np
@@ -67,6 +67,54 @@ def furnace(albedo=0.8, radiance=1.0, device=None) -> SceneData:
     return build_scene(s, sensor,
                        [{"type": "constant", "radiance": [radiance] * 3}],
                        device=device)
+
+
+def veach_mis(envmap: bool = False, device=None) -> SceneData:
+    """Veach's MIS test scene: four increasingly rough metal plates lit by
+    four spherical emitters of decreasing size and increasing radiance.
+    BSDF sampling wins on the smooth plates and small lights, NEE on the
+    rough plates and large lights; only MIS renders all 16 pairs with low
+    variance. The JAX package's envmap=True (a sky dome beside the
+    spheres) comes with the envmap."""
+    if envmap:
+        raise NotImplementedError(
+            "mitsuba2_tpu_torch does not support the envmap emitter yet "
+            "(veach_mis(envmap=True))")
+    plates = []
+    alphas = [0.005, 0.02, 0.05, 0.1]
+    # plates recede in z and rise in y, tilted to reflect the lights
+    for i, a in enumerate(alphas):
+        bsdf = {"type": "roughconductor", "material": "Al", "alpha": a}
+        t = (Transform4.translate([0.0, -1.6 + 0.45 * i, -2.0 - 0.6 * i]) @
+             Transform4.rotate([1, 0, 0], -90 + 25 - 3 * i) @
+             Transform4.scale([2.0, 0.25, 1.0]))
+        plates.append(shapes.rectangle(bsdf=bsdf, id=f"plate{i}")
+                      .transformed(np.asarray(t.matrix)))
+    # floor and back wall (diffuse, dim)
+    grey = {"type": "diffuse", "reflectance": [0.3, 0.3, 0.3]}
+    t_floor = (Transform4.translate([0, -2.0, -3]) @
+               Transform4.rotate([1, 0, 0], -90) @
+               Transform4.scale([6, 6, 1]))
+    plates.append(shapes.rectangle(bsdf=grey, id="floor")
+                  .transformed(np.asarray(t_floor.matrix)))
+    t_back = Transform4.translate([0, 0, -6]) @ Transform4.scale([6, 6, 1])
+    plates.append(shapes.rectangle(bsdf=grey, id="back")
+                  .transformed(np.asarray(t_back.matrix)))
+    # spherical emitters of equal power: radiance ~ 1 / r^2
+    radii = [0.30, 0.12, 0.05, 0.02]
+    xs = [-1.5, -0.5, 0.5, 1.5]
+    for i, (r, x) in enumerate(zip(radii, xs)):
+        L = 2.0 * (radii[0] / r) ** 2
+        plates.append(shapes.sphere(
+            center=(x, 1.2, -3.0), radius=r,
+            bsdf={"type": "diffuse", "reflectance": [0, 0, 0]},
+            emitter={"type": "area", "radiance": [L, L, L]},
+            id=f"light{i}"))
+    cam = Transform4.look_at(origin=[0, 0.3, 3.0], target=[0, -0.6, -2.5],
+                             up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 38.0}
+    return build_scene(plates, sensor, device=device)
 
 
 def _icosphere(subdiv: int):

@@ -2,8 +2,8 @@
 dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
 
 The build half packs meshes, analytic spheres, shared-BLAS instances of
-shape groups, diffuse materials, area and constant emitters and a
-perspective camera into numpy tables byte-equal to the JAX package's
+shape groups, the materials of render/bsdf.py, area and constant emitters
+and a perspective camera into numpy tables byte-equal to the JAX package's
 `SceneData` fields of the same names (tests/test_torch_scene.py,
 tests/test_torch_instancing.py, tests/test_torch_spheres.py), then
 uploads them with `convert.scene_from_numpy`. Anything else a scene can
@@ -153,6 +153,7 @@ class SceneData:
     inst_fwd: Optional[torch.Tensor] = None
     inst_bvh_root: Optional[torch.Tensor] = None
     mat_families: Tuple[int, ...] = ()
+    family_rows: Tuple[int, ...] = ()   # each family's first material row
     n_emitters: int = 0
     env_emitter: int = -1       # index of the constant emitter, -1 = none
     emitter_kinds: Tuple[int, ...] = ()
@@ -161,6 +162,7 @@ class SceneData:
     cam_type: str = "perspective"
     has_instances: bool = False
     has_spheres: bool = False   # routes the whole scene to the BVH2 walks
+    has_twosided: bool = False  # a material row carries the twosided flag
     inst_fuel: int = 0          # BVH2 two-level walk bound (K4's)
     inst_mxu_fuel: int = 0      # instanced cluster walk bound (K5's)
     bvh8_depth: int = 0         # levels below the BVH8 root (K6's stack)
@@ -727,6 +729,12 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
     u_x = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
     v_x = (d.x * qvx + d.y * qvy + d.z * qvz) * inv
     t_x = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    if torch.is_grad_enabled():
+        # detached, as the JAX package detaches them: the re-solve fixes
+        # the primal's precision only. A ray direction that carries a
+        # gradient (a rough lobe's sample) would otherwise send 0 * inf
+        # into it through 1 / det where det = 0 (spheres, parallel rays)
+        u_x, v_x, t_x = u_x.detach(), v_x.detach(), t_x.detach()
     ok_x = (valid & (ptype == PRIM_TRI) & (inv != 0.0) &
             torch.isfinite(t_x) & (t_x > 0.0))
     u = torch.where(ok_x, u_x, u)

@@ -58,9 +58,9 @@ def test_mesh_gallery_render_matches_jax(gallery, seed, color_mode):
     np.testing.assert_allclose(img_t.mean(), img_j.mean(), rtol=1e-3)
 
 
-def _golden_stats(cfg):
-    """render_with_variance's statistics, from the port's per-pass images."""
-    scene = mt.cornell_box(device="cpu")
+def _golden_stats(scene, cfg):
+    """render_with_variance's statistics, from the port's per-pass images
+    of `scene`."""
     cfg = cfg.replace(spp_per_pass=16)
     n_passes = cfg.spp // cfg.spp_per_pass
     imgs = []
@@ -74,6 +74,18 @@ def _golden_stats(cfg):
     return mean, var
 
 
+def golden_z_test(scene, cfg, ref):
+    """The z-test of tests/test_golden.py on the port's render of `scene`
+    against the golden `ref`: same configuration, seed and pass split."""
+    mean, var = _golden_stats(scene, cfg)
+    sigma = np.sqrt(var + 1e-8) + 5e-3 * np.abs(mean)
+    z = np.abs(mean - ref) / sigma
+    assert np.median(z) < 2.0, f"median z {np.median(z):.2f}"
+    assert (z > 6.0).mean() < 0.02
+    np.testing.assert_allclose(np.minimum(mean, 2.0).mean(),
+                               np.minimum(ref, 2.0).mean(), rtol=0.05)
+
+
 @pytest.mark.parametrize("name,depth,rr", [("cornell_d2", 2, 5),
                                            ("cornell_d4", 4, 99)])
 def test_cornell_goldens(name, depth, rr):
@@ -82,13 +94,7 @@ def test_cornell_goldens(name, depth, rr):
     ref = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"]
     cfg = mt.RenderConfig(width=32, height=32, spp=64, spp_per_pass=64,
                           max_depth=depth, rr_depth=rr)
-    mean, var = _golden_stats(cfg)
-    sigma = np.sqrt(var + 1e-8) + 5e-3 * np.abs(mean)
-    z = np.abs(mean - ref) / sigma
-    assert np.median(z) < 2.0, f"median z {np.median(z):.2f}"
-    assert (z > 6.0).mean() < 0.02
-    np.testing.assert_allclose(np.minimum(mean, 2.0).mean(),
-                               np.minimum(ref, 2.0).mean(), rtol=0.05)
+    golden_z_test(mt.cornell_box(device="cpu"), cfg, ref)
 
 
 def test_cornell_pass_matches_jax():

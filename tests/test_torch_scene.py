@@ -113,12 +113,13 @@ def test_unsupported_features_raise_by_name(feature):
     emitters = ()
     if feature == "sphere":
         # spheres render now: a sphere under a BSDF the port lacks
-        mesh = shapes.sphere(bsdf={"type": "dielectric"})
+        mesh = shapes.sphere(bsdf={"type": "null"})
     elif feature == "medium":
         mesh.interior = {"type": "homogeneous"}
     elif feature == "instance":
         # an instanced group holding a BSDF the port lacks
-        metal = shapes.cube(bsdf={"type": "roughconductor"})
+        metal = shapes.cube(bsdf={"type": "mask", "opacity": 0.5,
+                                  "bsdf": {"type": "diffuse"}})
         mesh = shapes.instance(shapes.shapegroup([metal, shapes.sphere()]),
                                np.eye(4))
     elif feature == "envmap":
@@ -127,14 +128,17 @@ def test_unsupported_features_raise_by_name(feature):
         mesh.bsdf = {"type": "diffuse",
                      "reflectance": {"type": "bitmap", "filename": "x.exr"}}
     elif feature == "plastic":
-        mesh.bsdf = {"type": "plastic"}
+        # the plastics render now: a rough plastic's roughness texture
+        mesh.bsdf = {"type": "roughplastic",
+                     "alpha": {"type": "bitmap", "filename": "x.exr"}}
     elif feature == "twosided":
-        mesh.bsdf = {"type": "twosided", "bsdf": {"type": "diffuse"}}
+        # twosided renders now: twosided around a BSDF the port lacks
+        mesh.bsdf = {"type": "twosided", "bsdf": {"type": "blendbsdf"}}
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
-    names = {"sphere": "dielectric", "medium": "media", "instance":
-             "roughconductor", "envmap": "envmap", "texture": "bitmap",
-             "plastic": "plastic", "twosided": "twosided",
+    names = {"sphere": "null", "medium": "media", "instance": "mask",
+             "envmap": "envmap", "texture": "bitmap",
+             "plastic": "textured roughness", "twosided": "blendbsdf",
              "orthographic": "orthographic"}
     with pytest.raises(NotImplementedError, match=names[feature]):
         build_scene([mesh], sensor, emitters, device="cpu")
@@ -142,21 +146,25 @@ def test_unsupported_features_raise_by_name(feature):
 
 @pytest.mark.parametrize("what", ["spheres", "twosided", "textured"])
 def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
+    from mitsuba2_tpu.scene import shapes as jshapes
+    from mitsuba2_tpu.scene.scene import build_scene as jbuild
+    sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
     if what == "spheres":
-        # spheres carry across now: veach_mis's spheres under its rough
-        # conductors, a BSDF family the port lacks
-        fields = jax_fields(jpresets.veach_mis())
+        # spheres, veach_mis's rough conductors and twosided carry across
+        # now: a sphere under a BSDF family the port lacks
+        shape = jshapes.sphere(bsdf={"type": "null"})
     else:
-        from mitsuba2_tpu.scene import shapes as jshapes
-        from mitsuba2_tpu.scene.scene import build_scene as jbuild
-        bsdf = ({"type": "twosided", "bsdf": {"type": "diffuse"}}
+        bsdf = ({"type": "twosided", "bsdf": {
+                    "type": "mask", "opacity": 0.5,
+                    "bsdf": {"type": "diffuse"}}}
                 if what == "twosided" else
                 {"type": "diffuse", "reflectance": {
                     "type": "checkerboard", "color0": [0.2] * 3,
                     "color1": [0.8] * 3}})
-        sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
-        fields = jax_fields(jbuild([jshapes.rectangle(bsdf=bsdf)], sensor))
-    match = {"spheres": "BSDF family"}.get(what, what)
+        shape = jshapes.rectangle(bsdf=bsdf)
+    fields = jax_fields(jbuild([shape], sensor))
+    match = {"spheres": "'null' BSDF", "twosided": "'mask' BSDF"}.get(
+        what, what)
     with pytest.raises(NotImplementedError, match=match):
         mt.scene_from_numpy(fields, device="cpu")
 
