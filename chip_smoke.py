@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Ten main paths, each a forward render at 256x256, 16 spp, max_depth 3
-through `mitsuba2_tpu_torch.render` (in one pass but for veach):
+Fourteen main paths, each a forward render at 256x256, 16 spp, max_depth 3
+through `mitsuba2_tpu_torch.render` (in one pass but for veach and
+veach_spectral), in rgb but for the last four, which render spectrally:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
   instanced  instanced_field(n=1024, subdiv=4), 1 024 shared-BLAS instances
@@ -33,7 +34,19 @@ through `mitsuba2_tpu_torch.render` (in one pass but for veach):
              of config 2 (gallery_materials: conductor, roughconductor,
              dielectric, roughdielectric, plastic, roughplastic), a
              twosided rough aluminium quad seen from behind and a thin
-             glass pane: the cluster walk (K1, K2) on refracted rays.
+             glass pane: the cluster walk (K1, K2) on refracted rays;
+  veach_spectral   veach_mis(envmap=True) (veach's plates and sphere
+             lights under a procedural sky with a sun blob: config 3) in
+             color_mode="spectral" (four hero wavelengths a lane) at
+             bench.py m_veach's sizes, 4 passes of 4: brute force;
+  veach_spectral_bvh2  the same scene under set_backend("pallas"), one
+             pass: the BVH2 walk (K3) on envmap shadow rays of t_max
+             ~1e7;
+  gallery_spectral mesh_gallery(subdiv=4) in spectral mode: K1, K2;
+  gallery_lights   mesh_gallery's room without its ceiling or area light,
+             lit by a point, a spot, a directional light, an untextured
+             projector and the procedural sky (gallery_lights), spectral:
+             K1, K2 on delta and envmap shadow rays.
 Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
 before it builds its scene (a scene uploads the tables of the walk it
 takes) and resets them after each use.
@@ -65,7 +78,9 @@ Phase 4  small renders on the card against the same renders on the CPU
          instanced BVH2 paths and brute force, with and without a sphere,
          the BVH8 walks (K6 with and without a sphere, K7), the dense
          sweep (K8), MXU_LEAVES off (K3 and K4 on triangle scenes), and
-         veach_mis() (brute force and K3) and gallery_materials(subdiv=1).
+         veach_mis() (brute force and K3) and gallery_materials(subdiv=1),
+         and in spectral mode veach_mis(envmap=True) (brute force and
+         K3), mesh_gallery(subdiv=1) and gallery_lights(subdiv=1).
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind, and the device's busy share.
 Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
@@ -78,7 +93,9 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          configs: gallery (the gallery's scene as above, one 16-spp pass,
          L2 against a zero target: K1 and K2) and cornell (cornell_box(),
          256x256, 64 spp in passes of 16, max_depth 4, rr_depth 8: brute
-         force), and at the veach path's (brute force). For each: the
+         force), and at the veach and veach_spectral paths' (brute force;
+         veach_spectral's gradients also flow to the envmap's image and
+         scale). For each: the
          forward render's and render_l2_grad's medians of 3 after a
          warm-up, forward + adjoint Mrays/s (bench.py's count: 2 x rays
          of a pass x passes / time), their ratio, the peak memory of
@@ -89,9 +106,11 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          not move); on the gallery one render_l2_grad under
          torch.profiler, the backward sweeps' kernels apart. Then
          render_l2_grad on small scenes on the card against the CPU
-         (veach_mis() the exception: an L2 loss over the pixels where
-         the two renders agree, the plates' roughness and the floor's
-         albedo also apart, every gradient finite), and 8 Adam steps of
+         (veach_mis() and veach_mis(envmap=True) in spectral mode the
+         exception: an L2 loss over the pixels where the two renders
+         agree, the plates' roughness and the floor's albedo also apart,
+         every gradient finite, the envmap's image and scale among
+         them), and 8 Adam steps of
          examples/invert_cbox.py's loop on the card, each at one seed
          (the loss must fall, the albedo's error halve).
 
@@ -149,8 +168,15 @@ RENDER = dict(width=256, height=256, spp=16, spp_per_pass=16, max_depth=3,
 # 16 spp in 4 passes of 4
 VEACH_RENDER = dict(width=256, height=256, spp=16, spp_per_pass=4,
                     max_depth=3, rr_depth=8)
-# the paths rendered at another config than RENDER
-PATH_RENDER = {"veach": VEACH_RENDER}
+# the paths rendered at another config than RENDER: veach's passes, and
+# the spectral paths (veach_spectral: bench.py's veach_spectral_fwd,
+# :341-355)
+SPECTRAL = dict(color_mode="spectral")
+PATH_RENDER = {"veach": VEACH_RENDER,
+               "veach_spectral": {**VEACH_RENDER, **SPECTRAL},
+               "veach_spectral_bvh2": {**RENDER, **SPECTRAL},
+               "gallery_spectral": {**RENDER, **SPECTRAL},
+               "gallery_lights": {**RENDER, **SPECTRAL}}
 N_PROBE = 65536
 DEVICE = "cuda:0"
 KERNEL_REPS = 20
@@ -160,7 +186,8 @@ KERNEL_REPS = 20
 ADJOINT = {"gallery": RENDER,
            "cornell": dict(width=256, height=256, spp=64, spp_per_pass=16,
                            max_depth=4, rr_depth=8),
-           "veach": VEACH_RENDER}
+           "veach": VEACH_RENDER,
+           "veach_spectral": PATH_RENDER["veach_spectral"]}
 # examples/invert_cbox.py's loop, 8 steps
 INVERT = dict(width=64, height=64, spp=32, spp_per_pass=32, max_depth=3,
               rr_depth=99)
@@ -214,12 +241,17 @@ PATH_KERNELS = {
     "veach": (),
     "veach_bvh2": ("bvh_closest_hit", "bvh_any_hit"),
     "gallery_materials": ("cluster_closest_hit", "cluster_any_hit"),
+    "veach_spectral": (),
+    "veach_spectral_bvh2": ("bvh_closest_hit", "bvh_any_hit"),
+    "gallery_spectral": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_lights": ("cluster_closest_hit", "cluster_any_hit"),
 }
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
 # rays each shares
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
-           "spheres_bvh8": "bvh8", "veach_bvh2": "pallas"}
+           "spheres_bvh8": "bvh8", "veach_bvh2": "pallas",
+           "veach_spectral_bvh2": "pallas"}
 DENSE = {"gallery_dense"}
 # the kernels held bit-equal to their twins on every lane of phases 2 and
 # 3: the warp-cooperative cluster visits, the warp-wide leaf tests, the
@@ -231,7 +263,8 @@ BIT_EQUAL = {"cluster_closest_hit", "inst_cluster_closest_hit",
              "bvh_closest_hit", "inst_bvh_any_hit", "bvh_any_hit",
              "bvh8_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
-              "spheres_bvh8": "spheres", "gallery_dense": "gallery"}
+              "spheres_bvh8": "spheres", "gallery_dense": "gallery",
+              "gallery_spectral": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
 # (L1-resident) and one of the sphere field's BVH2 size (8 MiB, in L2)
 PROBE_LANES = 1 << 20
@@ -603,6 +636,61 @@ def gallery_materials(P, subdiv=SUBDIV, **build_kw):
     return P.build_scene(s, sensor, **build_kw)
 
 
+# gallery_lights' emitters: every shapeless kind of config 3 but the
+# constant one (a scene holds one environment emitter: the sky)
+LIGHTS = (
+    {"type": "point", "position": [1.5, 1.6, 1.0],
+     "intensity": [2.0, 1.8, 1.5], "id": "point"},
+    {"type": "spot", "position": [0.5, 1.9, 0.6], "direction": [0, -1, 0.2],
+     "intensity": [6.0, 6.0, 6.0], "cutoff_angle": 25.0, "id": "spot"},
+    {"type": "directional", "direction": [0.3, -1.0, 0.4],
+     "irradiance": [1.2, 1.1, 1.0], "id": "sun"},
+    {"type": "projector", "position": [2.6, 1.5, 0.1],
+     "direction": [-0.4, -0.5, 1.0], "irradiance": [3.0, 2.4, 1.8],
+     "fov": 40.0, "id": "projector"},
+    {"type": "envmap", "scale": 1.0, "id": "sky"},   # + the sky's data
+)
+
+
+def gallery_lights(P, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv)'s room (without its ceiling and area light)
+    and blobs, built from the presets module `P` of either package, lit by
+    LIGHTS: a point, a spot, a directional light through the open
+    ceiling, an untextured projector and veach_mis(envmap=True)'s sky.
+    Its shadow rays toward the sun and the sky run to t_max ~1e7."""
+    from mitsuba2_tpu_torch.scene.presets import procedural_sky
+    X, Y, Z = 3.0, 2.0, 3.0
+    white = {"type": "diffuse", "reflectance": P.WHITE}
+    s = [
+        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf=white,
+                id="floor"),
+        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf=white,
+                id="back"),
+        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0],
+                bsdf={"type": "diffuse", "reflectance": P.RED}, id="left"),
+        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z],
+                bsdf={"type": "diffuse", "reflectance": P.GREEN},
+                id="right"),
+    ]
+    base_v, faces = P._icosphere(subdiv)
+    for k in range(6):
+        i, j = divmod(k, 2)
+        v = P._displace(base_v.copy(), seed=k)
+        v = v * 0.34 + np.asarray([(i + 0.5) * X / 3,
+                                   0.45 + 0.1 * ((i + j) % 3),
+                                   (j + 0.75) * Z / 2.5], np.float32)
+        s.append(P.shapes.mesh(v, faces, bsdf={
+            "type": "diffuse", "reflectance": GALLERY_ALBEDO[k]},
+            id=f"blob{k}"))
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 50.0}
+    lights = [dict(e, data=procedural_sky()) if e["type"] == "envmap"
+              else dict(e) for e in LIGHTS]
+    return P.build_scene(s, sensor, emitters=lights, **build_kw)
+
+
 def phase_kernels_vs_twins(torch, mt, dev):
     """Each path's scene (and the sphere field under "bvh8") and its
     kernels against their twins on probe rays; returns the paths' scenes
@@ -650,8 +738,10 @@ def phase_kernels_vs_twins(torch, mt, dev):
             f"walk fuel {ks['extra'][-1]}, tables "
             f"{sum(a.numel() * a.element_size() for a in ks['tabs']) / 2**20:.2f}"
             " MiB")
-    # the dense switch is read at dispatch: the gallery's own scene
+    # the dense switch is read at dispatch, the color mode at render: the
+    # gallery's own scene
     gallery = scenes["gallery_dense"] = scenes["gallery"]
+    scenes["gallery_spectral"] = gallery
     scenes.update(_material_scenes(mt, dev))
     with path_switches("gallery_dense"):
         ks = kernels_of(gallery)
@@ -675,24 +765,35 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _material_scenes(mt, dev):
     """The paths of config 2's materials: veach_mis() under "auto" (brute
     force) and under "pallas" (the BVH2 walk, K3), and gallery_materials
-    at SUBDIV (the cluster walk, K1 and K2)."""
+    at SUBDIV (the cluster walk, K1 and K2); and config 3's:
+    veach_mis(envmap=True) under "auto" and "pallas", and gallery_lights
+    at SUBDIV (K1 and K2)."""
     from mitsuba2_tpu_torch.scene import presets
+    veach = functools.partial(mt.veach_mis, device=dev)
+    sky = functools.partial(mt.veach_mis, envmap=True, device=dev)
+    make = {"veach": veach, "veach_bvh2": veach,
+            "gallery_materials": functools.partial(
+                gallery_materials, presets, SUBDIV, device=dev),
+            "veach_spectral": sky, "veach_spectral_bvh2": sky,
+            "gallery_lights": functools.partial(gallery_lights, presets,
+                                                SUBDIV, device=dev)}
     out = {}
-    for name in ("veach", "veach_bvh2", "gallery_materials"):
+    for name in make:
         t0 = time.perf_counter()
         with path_switches(name):
-            scene = out[name] = (
-                gallery_materials(presets, SUBDIV, device=dev)
-                if name == "gallery_materials" else mt.veach_mis(device=dev))
+            scene = out[name] = make[name]()
         walk = ("BVH2" if scene.bvh_node is not None else "cluster"
                 if scene.mxu_node_f is not None else "brute force")
         log(f"phase 2: built {name} in {time.perf_counter() - t0:.1f} s: "
             f"{scene.n_prims} prims, {len(scene.mat_families)} BSDF "
             f"families {scene.mat_families}, twosided "
             f"{scene.has_twosided}, {walk}")
-        check(walk == {"veach": "brute force", "veach_bvh2": "BVH2",
-                       "gallery_materials": "cluster"}[name],
+        check(walk == ("BVH2" if name.endswith("bvh2") else "brute force"
+                       if name.startswith("veach") else "cluster"),
               f"{name} took the {walk} walk")
+        check((scene.envmap is not None) == (name in (
+            "veach_spectral", "veach_spectral_bvh2", "gallery_lights")),
+              f"{name}: envmap")
     return out
 
 
@@ -1033,10 +1134,21 @@ def phase_small_renders(torch, mt, dev):
             ("veach_mis() under pallas (K3)",
              lambda d: mt.veach_mis(device=d), dict(backend="pallas")),
             ("gallery_materials(subdiv=1) (K1, K2)",
-             lambda d: gallery_materials(presets, 1, device=d), {})):
+             lambda d: gallery_materials(presets, 1, device=d), {}),
+            ("spectral: veach_mis(envmap=True) (brute force)",
+             lambda d: mt.veach_mis(envmap=True, device=d), {}),
+            ("spectral: veach_mis(envmap=True) under pallas (K3)",
+             lambda d: mt.veach_mis(envmap=True, device=d),
+             dict(backend="pallas")),
+            ("spectral: mesh_gallery(subdiv=1) (K1, K2)",
+             lambda d: gallery(device=d), {}),
+            ("spectral: gallery_lights(subdiv=1) (K1, K2)",
+             lambda d: gallery_lights(presets, 1, device=d), {})):
+        c = cfg.replace(color_mode="spectral") if name.startswith(
+            "spectral") else cfg
         with switches(**sw):
-            img_c = mt.render(mk("cpu"), cfg, seed=5, device="cpu").numpy()
-            img_g = mt.render(mk(dev), cfg, seed=5).cpu().numpy()
+            img_c = mt.render(mk("cpu"), c, seed=5, device="cpu").numpy()
+            img_g = mt.render(mk(dev), c, seed=5).cpu().numpy()
         close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
         rel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
         good = (np.isfinite(img_g).all() and close >= 0.99 and rel <= 1e-3)
@@ -1500,11 +1612,16 @@ def _adjoint_card_vs_cpu(torch, mt, dev):
             + f"; {close:.4f} of pixels within rtol 1e-3/atol 1e-4, mean rel "
             f"diff {mrel:.2e} {'ok' if good else 'FAIL'}")
         check(good, f"{name}: the card's gradients disagree with the CPU's")
-    _veach_card_vs_cpu(torch, mt, dev, cfg, target)
+    _veach_card_vs_cpu(torch, mt, dev, cfg, target, "veach_mis()",
+                       mt.veach_mis)
+    _veach_card_vs_cpu(torch, mt, dev, cfg.replace(**SPECTRAL), target,
+                       "veach_mis(envmap=True), spectral",
+                       functools.partial(mt.veach_mis, envmap=True))
 
 
-def _veach_card_vs_cpu(torch, mt, dev, cfg, target):
-    """veach_mis(), the exception to _adjoint_card_vs_cpu's comparison: a
+def _veach_card_vs_cpu(torch, mt, dev, cfg, target, label, make):
+    """veach_mis() (`make`, with or without the envmap, rendered under
+    `cfg`), the exception to _adjoint_card_vs_cpu's comparison: a
     sample off a plate that grazes a small bright light may take the other
     side of it on the card, whose sines and logarithms round otherwise,
     and move its pixel by more than the image's mean (2 of these 1 024
@@ -1512,10 +1629,11 @@ def _veach_card_vs_cpu(torch, mt, dev, cfg, target):
     on which the card's and the CPU's forward renders agree (phase 4's
     limits: 99% of them within rtol 1e-3 / atol 1e-4), whose mean is held
     within 1e-3: each gradient table, and the plates' roughness and the
-    floor's albedo apart, within 1e-3 in relative norm, all finite.
-    Phase 4 holds veach_mis()'s whole image. render_l2_grad's gradients
-    (every pixel's loss) are printed beside them, not held."""
-    scene_c, scene_g = mt.veach_mis(device="cpu"), mt.veach_mis(device=dev)
+    floor's albedo apart, within 1e-3 in relative norm, all finite (with
+    the envmap, its image and scale among the tables). Phase 4 holds the
+    whole image. render_l2_grad's gradients (every pixel's loss) are
+    printed beside them, not held."""
+    scene_c, scene_g = make(device="cpu"), make(device=dev)
     img_c, _, f_c = mt.render_l2_grad(scene_c, cfg, target, seed=5,
                                       device="cpu")
     img_g, _, f_g = mt.render_l2_grad(scene_g, cfg, target.to(dev), seed=5)
@@ -1531,22 +1649,26 @@ def _veach_card_vs_cpu(torch, mt, dev, cfg, target):
            for k in g_c}
     full = {k: float((f_g[k].cpu() - f_c[k]).norm() / f_c[k].norm())
             for k in f_c}
-    # the named parameters' entries, each group as one vector
-    at = {p[0]: p[2:5] for p in scene_c.param_paths}
-    for label, names in VEACH_PARAMS.items():
+    from mitsuba2_tpu_torch.render.spectra import SLOT_W
+    # the named parameters' entries, each group as one vector; a color's
+    # whole spectrum slot, whose RGB columns take rgb mode's gradients and
+    # whose coefficient and scale columns spectral mode's
+    at = {p[0]: (p[2], p[3], p[3] + SLOT_W if p[5] == "rgb" else p[4])
+          for p in scene_c.param_paths}
+    for group, names in VEACH_PARAMS.items():
         pick = [(at[n][0], c) for n in names
                 for c in range(at[n][1], at[n][2])]
         rows, cols = (torch.tensor(v) for v in zip(*pick))
         a = g_g["mat_data"].cpu()[rows, cols]
         b = g_c["mat_data"][rows, cols]
-        check(bool(b.abs().max() > 0), f"veach_mis(): {label}: zero gradient")
-        rel[label] = float((a - b).norm() / b.norm())
+        check(bool(b.abs().max() > 0), f"{label}: {group}: zero gradient")
+        rel[group] = float((a - b).norm() / b.norm())
     mrel = (abs(img_g[agree].mean() - img_c[agree].mean())
             / img_c[agree].mean())
     good = (np.isfinite(img_g).all() and agree.mean() >= 0.99
             and mrel <= 1e-3 and max(rel.values()) <= 1e-3
             and _finite(torch, [*g_g.values(), *g_c.values()]))
-    log("phase 7: veach_mis() 32x32 render_and_grad card vs CPU: "
+    log(f"phase 7: {label} 32x32 render_and_grad card vs CPU: "
         f"{agree.mean():.4f} of pixels within rtol 1e-3/atol 1e-4 (the "
         f"loss's pixels), their mean rel diff {mrel:.2e}; gradients' "
         "relative norm difference "
@@ -1555,7 +1677,7 @@ def _veach_card_vs_cpu(torch, mt, dev, cfg, target):
         f"rel diff {abs(img_g.mean() - img_c.mean()) / img_c.mean():.2e}, "
         "render_l2_grad's gradients "
         + ", ".join(f"{k} {v:.2e}" for k, v in full.items()))
-    check(good, "veach_mis(): the card's gradients disagree with the CPU's")
+    check(good, f"{label}: the card's gradients disagree with the CPU's")
 
 
 def _adjoint_train(torch, mt, dev, card):
@@ -1599,14 +1721,15 @@ def _adjoint_train(torch, mt, dev, card):
           f"halve ({err[0]:.4f} -> {err[1]:.4f})")
 
 
-def phase_adjoint(torch, mt, dev, card, gallery, veach):
-    """Phase 7 (see the module docstring); `gallery`, `veach`: phase 2's
-    scenes."""
+def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral):
+    """Phase 7 (see the module docstring); `gallery`, `veach`,
+    `veach_spectral`: phase 2's scenes."""
     with path_switches("gallery"):
         adj_ms = _adjoint_path(torch, mt, "gallery", gallery, card)
         _adjoint_profile(torch, mt, gallery, card, adj_ms)
     _adjoint_path(torch, mt, "cornell", mt.cornell_box(device=dev), card)
     _adjoint_path(torch, mt, "veach", veach, card)
+    _adjoint_path(torch, mt, "veach_spectral", veach_spectral, card)
     _adjoint_card_vs_cpu(torch, mt, dev)
     _adjoint_train(torch, mt, dev, card)
 
@@ -1662,7 +1785,7 @@ def main():
                       render_ms[path])
         rows += timed(6, phase_probes, torch, dev, card, launches)
         timed(7, phase_adjoint, torch, mt, dev, card, scenes["gallery"],
-              scenes["veach"])
+              scenes["veach"], scenes["veach_spectral"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

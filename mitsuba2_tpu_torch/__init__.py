@@ -2,9 +2,10 @@
 
 A second package beside the JAX one, which stays the reference. It
 renders on an NVIDIA H100 through hand-written CUDA traversal kernels
-(csrc/cluster_walk.cu) and plain PyTorch around them, and differentiates
-a render with respect to the scene's material and emitter tables (diff/:
-the pass-by-pass adjoint, the parameter map and the optimizers):
+(csrc/cluster_walk.cu) and plain PyTorch around them, in rgb, mono or
+spectral mode, and differentiates a render with respect to the scene's
+material and emitter tables and an envmap's image and scale (diff/: the
+pass-by-pass adjoint, the parameter map and the optimizers):
 
     import mitsuba2_tpu_torch as mt
     scene = mt.mesh_gallery(subdiv=4)          # tensors on the CUDA device

@@ -17,7 +17,7 @@ COLOR_MODES = ("mono", "rgb", "spectral")
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    color_mode: str = "rgb"           # mono | rgb (spectral: later slice)
+    color_mode: str = "rgb"           # mono | rgb | spectral
     polarized: bool = False
     max_depth: int = 2                # path depth; 2 = direct illumination
     rr_depth: int = 5                 # start Russian roulette at this depth
@@ -52,8 +52,8 @@ class RenderConfig:
             raise ValueError(f"unknown integrator {self.integrator!r}")
         unsupported = [
             (self.dtype == "float64", "dtype='float64'"),
-            (self.color_mode == "spectral", "color_mode='spectral'"),
-            (self.polarized, "polarized=True"),
+            (self.polarized, f"polarized=True (the JAX package's "
+                             f"{self.color_mode}_polarized variant)"),
             (self.rfilter != "box", f"rfilter={self.rfilter!r}"),
             (self.integrator != "path", f"integrator={self.integrator!r}"),
             (self.sampler != "independent", f"sampler={self.sampler!r}"),
@@ -71,11 +71,13 @@ class RenderConfig:
 
     @property
     def n_channels(self) -> int:
-        return {"mono": 1, "rgb": 3}[self.color_mode]
+        """Channels a lane carries: spectral mode's 4 hero wavelengths."""
+        return {"mono": 1, "rgb": 3, "spectral": 4}[self.color_mode]
 
     @property
     def n_image_channels(self) -> int:
-        return self.n_channels
+        """Channels of the image: spectral develops to linear sRGB."""
+        return 3 if self.color_mode == "spectral" else self.n_channels
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -15,9 +15,12 @@ centroids, and mxu_ccount, derived here, among them) for the others,
 neither for a brute-force scene; under "bvh8" the BVH8 tables and the
 packed prim rows (K6), under "bvh8mxu" the cut tree's BVH8 tables and
 the cluster plane rows (K7). The BVH8 tables (scene.BVH8_FIELDS) may be
-absent from `fields`. A table that names a feature this slice does not
-render (emitters other than area and constant ones, the BSDF families
-bsdf.UNPORTED, textured colors or roughness) raises.
+absent from `fields`. `fields["envmap"]` carries an envmap's tables
+(emitters.ENV_FIELDS: the image, its importance and alias tables, the
+rotation, the scale and the per-texel coefficients), None or absent
+without one. A table that names a feature this slice does not render
+(the BSDF families bsdf.UNPORTED, textured colors, roughness or
+projectors) raises.
 """
 from __future__ import annotations
 
@@ -168,17 +171,26 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     if missing:
         raise KeyError(f"scene_from_numpy: missing fields {missing}")
     f = {k: np.asarray(fields[k]) for k in FIELDS}
-    # area emitters sit on a shape, the constant one on none; a shapeless
-    # area row is the all-zero padding of an emitter-less scene
+    # area emitters sit on a shape, the others on none; a shapeless area
+    # row is the all-zero padding of an emitter-less scene
     etype, shaped = f["emitter_type"], f["emitter_shape"] >= 0
     pad = ~shaped & (etype == emitters_mod.AREA)
+    kinds = (emitters_mod.POINT, emitters_mod.CONSTANT, emitters_mod.ENVMAP,
+             emitters_mod.SPOT, emitters_mod.DIRECTIONAL,
+             emitters_mod.PROJECTOR)
     if ((etype[shaped] != emitters_mod.AREA).any()
-            or (etype[~shaped & ~pad] != emitters_mod.CONSTANT).any()
+            or not np.isin(etype[~shaped & ~pad], kinds).all()
             or f["emitter_data"][pad].any()):
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch supports area and constant emitters only")
+        raise ValueError("emitter tables: an area emitter without a shape "
+                         "or another kind on one")
     n_emitters = int((~pad).sum())
-    env = np.nonzero(etype[:n_emitters] == emitters_mod.CONSTANT)[0]
+    env = np.nonzero(np.isin(etype[:n_emitters], (emitters_mod.CONSTANT,
+                                                  emitters_mod.ENVMAP)))[0]
+    envmap = fields.get("envmap")
+    if (envmap is not None) != bool((etype[:n_emitters]
+                                     == emitters_mod.ENVMAP).any()):
+        raise KeyError("scene_from_numpy: an envmap emitter needs its "
+                       "tables under 'envmap', and only it")
     inst = fields.get("inst_inv") is not None
     if inst:
         missing = [k for k in INST_FIELDS if fields.get(k) is None]
@@ -192,10 +204,14 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
                 f"mitsuba2_tpu_torch does not support the {name!r} BSDF yet")
     # the kind column of every spectrum slot a row may carry: a material's
     # three color slots and its roughness slot, an emitter's radiance
-    kinds = {"textured colors": np.concatenate([
-        f["mat_data"][:, [7, 15, 23]].ravel(), f["emitter_data"][:, 7]]),
-        "textured roughness": f["mat_data"][:, bsdf_mod.ALPHA_SLOT + 7]}
-    for what, kind in kinds.items():
+    proj = etype == emitters_mod.PROJECTOR
+    slot_kinds = {
+        "textured colors": np.concatenate([
+            f["mat_data"][:, [7, 15, 23]].ravel(),
+            f["emitter_data"][~proj, 7]]),
+        "textured roughness": f["mat_data"][:, bsdf_mod.ALPHA_SLOT + 7],
+        "textured projectors": f["emitter_data"][proj, 7]}
+    for what, kind in slot_kinds.items():
         if (kind >= SLOT_TEX_BASE).any():
             raise NotImplementedError(
                 f"mitsuba2_tpu_torch does not support {what} yet")
@@ -238,6 +254,8 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
                     bvh8c_depth=int(b8["bvh8c_depth"]))
     return SceneData(
         **tabs,
+        envmap=(None if envmap is None
+                else emitters_mod.envmap_from_numpy(envmap, dev)),
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,
         mat_families=families,

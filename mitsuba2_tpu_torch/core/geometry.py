@@ -46,16 +46,18 @@ class Frame:
 
 @dataclasses.dataclass
 class Ray:
-    """A wavefront of rays: planar o, d and per-lane maxt."""
+    """A wavefront of rays: planar o, d and per-lane maxt; in spectral
+    mode the lanes' hero wavelengths too (a Spec4, None otherwise)."""
     o: Vec3
     d: Vec3
     maxt: torch.Tensor
+    wavelengths: object = None
 
     @staticmethod
-    def make(o: Vec3, d: Vec3, maxt=None) -> "Ray":
+    def make(o: Vec3, d: Vec3, maxt=None, wavelengths=None) -> "Ray":
         if maxt is None:
             maxt = torch.full_like(d.x, float("inf"))
-        return Ray(o=o, d=d, maxt=maxt)
+        return Ray(o=o, d=d, maxt=maxt, wavelengths=wavelengths)
 
 
 class Transform4:

@@ -14,7 +14,9 @@ The same two-phase schedule as the JAX package's:
 Traversal is detached (scene.ray_test, scene._preliminary_dispatch): a
 pass's tape holds its shading alone, so the backward sweep traces no
 ray, and gradients flow through shading and emission only, into
-`mat_data` and `emitter_data`. The JAX package's config.remat has no
+`mat_data` and `emitter_data`, and on a scene with an envmap into its
+image and scale (`env_image`, `env_scale`). The JAX package's
+config.remat has no
 counterpart: checkpointing each bounce's shading kept as much memory as
 the tape it replaced (PERF.md).
 """
@@ -29,24 +31,25 @@ from ..config import RenderConfig
 from ..device import resolve_device
 from ..render import film as film_mod
 from ..render.integrators import pass_seeds, render_pass
-from ..scene.scene import DIFF_TABLES, to_device
+from ..scene.scene import DIFF_TABLES, ENV_DIFF_TABLES, diff_tables, to_device
 
 # diff tables of the JAX package that come with later slices
-_LATER = ("tex_data", "env_image", "env_scale", "med_data", "med_grid")
-
-
-def diff_tables(scene) -> Dict[str, torch.Tensor]:
-    """The gradient targets of a scene: its material and emitter tables."""
-    return {k: getattr(scene, k) for k in DIFF_TABLES}
+_LATER = ("tex_data", "med_data", "med_grid")
 
 
 def with_tables(scene, tables: Dict[str, torch.Tensor]):
-    """The scene with `tables` (diff_tables' keys) in place of its own."""
+    """The scene with `tables` (diff_tables' keys) in place of its own. An
+    envmap's importance table and spectral coefficients stay as built, as
+    in the JAX package: only its image and scale are replaced."""
     later = sorted(set(tables) & set(_LATER))
     if later:
         raise NotImplementedError(
             f"mitsuba2_tpu_torch has no {later} tables yet")
-    return dataclasses.replace(scene, **{k: tables[k] for k in DIFF_TABLES})
+    new = {k: tables[k] for k in DIFF_TABLES}
+    env = {f: tables[k] for k, f in ENV_DIFF_TABLES.items() if k in tables}
+    if env:
+        new["envmap"] = dataclasses.replace(scene.envmap, **env)
+    return dataclasses.replace(scene, **new)
 
 
 def render_and_grad(scene, config: RenderConfig,

@@ -25,7 +25,8 @@ def render_torch(scene, config: RenderConfig,
                  device=None) -> torch.Tensor:
     """Differentiable render on `device` (None = the CUDA device; raises
     without one). `params`: table name -> tensor for any subset of
-    diff_tables(scene)'s keys ("mat_data", "emitter_data"); gradients
+    diff_tables(scene)'s keys ("mat_data", "emitter_data", and on a scene
+    with an envmap "env_image" and "env_scale"); gradients
     flow to those with requires_grad."""
     valid = set(diff_tables(scene))
     unknown = set(params) - valid

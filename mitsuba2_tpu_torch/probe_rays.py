@@ -3,8 +3,9 @@
 Four kinds of rays over a built scene, the kinds a forward render sends
 through traversal: camera rays, first-bounce rays cosine-sampled from the
 camera hits, shadow rays from those hits toward points on the area
-emitters (triangles or spheres), or toward the constant emitter in a
-scene lit by one alone (t_max = dist * (1 - 1e-3)), and uniform random
+emitters (triangles or spheres), or in a scene without one uniform
+directions out to the infinite emitters' distance (t_max = dist * (1 -
+1e-3)), and uniform random
 rays from inside the scene bounds, a quarter of them aimed into the
 scene's spheres when it holds any. The tests hand the same arrays to
 both packages, and chip_smoke.py uses them to hold each CUDA kernel
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .render.emitters import ENV_DIST
+from .render.emitters import _INF_DIST
 
 RAY_EPSILON = float(np.finfo(np.float32).eps) / 2 * 1500.0
 KINDS = ("camera", "bounce", "shadow", "random")
@@ -95,11 +96,12 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     lights = tab["emitter_prims"].reshape(-1)
     lights = lights[lights >= 0]
     if lights.size == 0:
-        # the constant emitter: uniform directions, turned into the
-        # origin's hemisphere, out to its sample distance
+        # no area light (a constant sky, an envmap, delta lights):
+        # uniform directions, turned into the origin's hemisphere, out to
+        # the infinite emitters' sample distance
         sd = _normalize(rng.normal(size=(n, 3)))
         sd = np.where((np.sum(ng * sd, -1) < 0)[:, None], -sd, sd)
-        out["shadow"] = (org, sd, np.full(n, ENV_DIST * (1.0 - 1e-3)))
+        out["shadow"] = (org, sd, np.full(n, _INF_DIST * (1.0 - 1e-3)))
         return _finish(out, tab, fwd, rng, n)
     m = 8 * n
     src = rng.integers(0, n, m)

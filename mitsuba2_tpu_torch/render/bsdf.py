@@ -95,8 +95,8 @@ def _flags2(active, pick, flag_a, flag_b):
                        0).to(torch.int32)
 
 
-def _spec(data, i, config) -> Spec:
-    return eval_spectrum_slot(data.slot(i), config.color_mode)
+def _spec(data, i, si, config) -> Spec:
+    return eval_spectrum_slot(data.slot(i), si.wavelengths, config.color_mode)
 
 
 def _pack_alpha(props, key="alpha", default=0.1) -> float:
@@ -136,7 +136,7 @@ class Diffuse:
         wo = warp.square_to_cosine_hemisphere(*u2)
         pdf = warp.square_to_cosine_hemisphere_pdf(wo)
         active = cos_i > 0
-        value = _spec(data, 0, config)
+        value = _spec(data, 0, si, config)
         bs = BSDFSample(wo=wo, pdf=torch.where(active, pdf, 0.0),
                         eta=torch.ones_like(pdf),
                         sampled_flags=_flags(active, F_DIFFUSE_R))
@@ -147,7 +147,7 @@ class Diffuse:
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         active = (cos_i > 0) & (cos_o > 0)
-        value = _spec(data, 0, config)
+        value = _spec(data, 0, si, config)
         return (value * (warp.INV_PI * cos_o)).masked(active)
 
     @staticmethod
@@ -189,17 +189,17 @@ class Conductor:
         return data
 
     @staticmethod
-    def _fresnel(data, cos_i, config) -> Spec:
-        return fr.fresnel_conductor(cos_i, _spec(data, 0, config),
-                                    _spec(data, 1, config))
+    def _fresnel(data, cos_i, si, config) -> Spec:
+        return fr.fresnel_conductor(cos_i, _spec(data, 0, si, config),
+                                    _spec(data, 1, si, config))
 
     @staticmethod
     def sample(data, si, u1, u2, config):
         cos_i = Frame.cos_theta(si.wi)
         active = cos_i > 0
         wo = fr.reflect(si.wi)
-        F = Conductor._fresnel(data, cos_i, config)
-        value = _spec(data, 2, config) * F
+        F = Conductor._fresnel(data, cos_i, si, config)
+        value = _spec(data, 2, si, config) * F
         bs = BSDFSample(wo=wo, pdf=torch.where(active, 1.0, 0.0),
                         eta=torch.ones_like(cos_i),
                         sampled_flags=_flags(active, F_DELTA_R))
@@ -258,8 +258,8 @@ class RoughConductor:
         h = vnormalize(si.wi + wo)
         D = mf.eval_d(dist, h, au, av)
         G = mf.g_smith(dist, si.wi, wo, h, au, av)
-        F = Conductor._fresnel(data, vdot(si.wi, h), config)
-        spec = _spec(data, 2, config)
+        F = Conductor._fresnel(data, vdot(si.wi, h), si, config)
+        spec = _spec(data, 2, si, config)
         f_cos = spec * F * (D * G / torch.clamp_min(4.0 * cos_i, 1e-20))
         return f_cos.masked((cos_i > 0) & (cos_o > 0))
 
@@ -300,9 +300,9 @@ class Dielectric:
         pick_reflect = u1 < F
         wo = vwhere(pick_reflect, fr.reflect(si.wi),
                     fr.refract(si.wi, cos_t, eta_ti))
-        spec_r = _spec(data, 0, config)
+        spec_r = _spec(data, 0, si, config)
         # radiance transport: eta^-2 compression on refraction
-        spec_t = _spec(data, 1, config) * (eta_ti * eta_ti)
+        spec_t = _spec(data, 1, si, config) * (eta_ti * eta_ti)
         value = swhere(pick_reflect, spec_r, spec_t)
         pdf = torch.where(pick_reflect, F, 1.0 - F)
         active = cos_i != 0
@@ -337,8 +337,8 @@ class ThinDielectric:
                         F + (1.0 - F) * (1.0 - F) * F / (1.0 - F * F), 1.0)
         pick_reflect = u1 < R
         wo = vwhere(pick_reflect, fr.reflect(si.wi), -si.wi)
-        value = swhere(pick_reflect, _spec(data, 0, config),
-                       _spec(data, 1, config))
+        value = swhere(pick_reflect, _spec(data, 0, si, config),
+                       _spec(data, 1, si, config))
         pdf = torch.where(pick_reflect, R, 1.0 - R)
         active = cos_i != 0
         bs = BSDFSample(
@@ -445,8 +445,8 @@ class RoughDielectric:
         # microfacet, wi and wo on opposite sides of ht
         f_t = torch.where(wi_ht * wo_ht < 0, f_t, 0.0)
 
-        f_cos = swhere(is_reflect, _spec(data, 0, config) * f_r,
-                       _spec(data, 1, config) * f_t)
+        f_cos = swhere(is_reflect, _spec(data, 0, si, config) * f_r,
+                       _spec(data, 1, si, config) * f_t)
         return f_cos.masked((cos_i != 0) & (cos_o != 0))
 
     @staticmethod
@@ -480,10 +480,10 @@ class RoughDielectric:
 # plastic (src/bsdfs/plastic.cpp): smooth specular coat over diffuse
 # ===========================================================================
 
-def _substrate(data, cos_i, cos_o, F_i, F_o, config) -> Spec:
+def _substrate(data, si, cos_i, cos_o, F_i, F_o, config) -> Spec:
     """The plastics' diffuse substrate under the coat, with the internal
     scattering's compensation (nonlinear: divided by 1 - albedo * fdr)."""
-    diff = _spec(data, 0, config)
+    diff = _spec(data, 0, si, config)
     fdr = data.col(26)
     nonlinear = data.col(25)
     denom = 1.0 - swhere(nonlinear > 0, diff, 1.0) * fdr
@@ -538,7 +538,7 @@ class Plastic:
 
         wo_d = warp.square_to_cosine_hemisphere(*u2)
         wo = vwhere(pick_spec, fr.reflect(si.wi), wo_d)
-        w_spec = _spec(data, 1, config) * (
+        w_spec = _spec(data, 1, si, config) * (
             F_i / torch.clamp_min(prob_spec, 1e-20))
         pdf_d = (1.0 - prob_spec) * warp.square_to_cosine_hemisphere_pdf(wo_d)
         w_diff = (Plastic.eval(data, si, wo_d, config)
@@ -559,7 +559,7 @@ class Plastic:
         cos_o = Frame.cos_theta(wo)
         F_i = fr.fresnel(cos_i, eta)[0]
         F_o = fr.fresnel(cos_o, eta)[0]
-        value = _substrate(data, cos_i, cos_o, F_i, F_o, config)
+        value = _substrate(data, si, cos_i, cos_o, F_i, F_o, config)
         return value.masked((cos_i > 0) & (cos_o > 0))
 
     @staticmethod
@@ -623,11 +623,11 @@ class RoughPlastic:
         D = mf.eval_d(dist, h, au, au)
         G = mf.g_smith(dist, si.wi, wo, h, au, au)
         F_h = fr.fresnel(vdot(si.wi, h), eta)[0]
-        f_spec = _spec(data, 1, config) * (
+        f_spec = _spec(data, 1, si, config) * (
             F_h * D * G / torch.clamp_min(4.0 * cos_i, 1e-20))
         F_i = fr.fresnel(cos_i, eta)[0]
         F_o = fr.fresnel(cos_o, eta)[0]
-        f_diff = _substrate(data, cos_i, cos_o, F_i, F_o, config)
+        f_diff = _substrate(data, si, cos_i, cos_o, F_i, F_o, config)
         return (f_spec + f_diff).masked((cos_i > 0) & (cos_o > 0))
 
     @staticmethod

@@ -4,8 +4,10 @@ render/integrators.py).
 `lax.scan` over bounces becomes a Python loop over bounces, and the
 passes run as a Python loop with the JAX package's pass seeds, so both
 packages draw the same PCG32 numbers in the same order: the pixel jitter
-first, then per bounce u_nee, u2_nee, u1_b, u2_b and, only when
-rr_depth < max_depth, u_rr.
+first, in spectral mode the hero wavelengths' draw, then per bounce
+u_nee, u2_nee, u1_b, u2_b and, only when rr_depth < max_depth, u_rr.
+Spectral mode carries four hero wavelengths a lane on its rays and
+shading records and develops each lane to linear sRGB before the film.
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ from typing import Tuple
 import torch
 
 from ..config import RenderConfig
+from ..core import spectrum as sp
 from ..core.geometry import Ray
 from ..core.spec import Spec, swhere
 from ..device import resolve_device
-from ..scene.scene import DIFF_TABLES
+from ..scene.scene import diff_tables
 from . import bsdf as bsdf_mod
 from . import emitters, film as film_mod, sensors
 from .sampler import Sampler, make_sampler
@@ -43,7 +46,8 @@ def _path_bounce(scene, config: RenderConfig, depth: int, carry):
     is_smooth = (flags & bsdf_mod.F_SMOOTH) != 0
     u_nee, sampler = sampler.next_1d()
     u2_nee, sampler = sampler.next_2d()
-    ds, e_val = emitters.sample_direction(scene, si.p, u_nee, u2_nee, config)
+    ds, e_val = emitters.sample_direction(scene, si.p, si.wavelengths,
+                                          u_nee, u2_nee, config)
     nee_active = active & is_smooth & (ds.pdf > 0)
     shadow_ray = si.spawn_ray_d(
         ds.d, maxt=torch.where(nee_active, ds.dist * (1.0 - 1e-3), 0.0))
@@ -75,7 +79,7 @@ def _path_bounce(scene, config: RenderConfig, depth: int, carry):
     em_pdf = torch.where(delta_sample, 0.0, em_pdf)
     w_bsdf = mis_weight(bs.pdf, em_pdf)
     L = swhere(si_next.valid, emitters.eval_hit(scene, si_next, config),
-               emitters.eval_env(scene, bounce_d, config))
+               emitters.eval_env(scene, bounce_d, si.wavelengths, config))
     result = result + (throughput * L * w_bsdf).masked(active)
 
     if config.rr_depth < config.max_depth:
@@ -103,8 +107,8 @@ def sample_path(scene, ray: Ray, sampler: Sampler, config: RenderConfig
     result = Spec.zeros(n, C, dev)
     if not config.hide_emitters:
         result = result + emitters.eval_hit(scene, si, config)
-        result = result + emitters.eval_env(scene, ray.d, config).masked(
-            ~si.valid)
+        result = result + emitters.eval_env(
+            scene, ray.d, ray.wavelengths, config).masked(~si.valid)
     carry = (si, active, throughput, result, sampler)
     for depth in range(1, config.max_depth):
         carry = _path_bounce(scene, config, depth, carry)
@@ -131,8 +135,14 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
     uv = sensors.film_uv(x, y, jitter, W, H,
                          crop=(config.crop_x, config.crop_y,
                                config.film_width, config.film_height))
-    ray = sensors.sample_ray(scene, uv)
+    wl = wl_pdf = None
+    if config.color_mode == "spectral":
+        u_wl, sampler = sampler.next_1d()
+        wl, wl_pdf = sp.sample_hero_wavelengths_t(u_wl)
+    ray = sensors.sample_ray(scene, uv, wavelengths=wl)
     spec, _ = sample_path(scene, ray, sampler, config)
+    if wl is not None:
+        spec = sp.spectrum_to_srgb_t(spec, wl, wl_pdf)
     image = torch.zeros((H, W, config.n_image_channels), dtype=torch.float32,
                         device=dev)
     return film_mod.accumulate_pass(image, 0, spec, config)
@@ -149,8 +159,8 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
     develop. Runs on `device` (None = the CUDA device; raises without
     one), moving the scene there if it is elsewhere. Returns (H, W, C).
 
-    Differentiable: where a table of scene.DIFF_TABLES requires grad and
-    grad is enabled, the render runs under autograd; else in inference
+    Differentiable: where a table of scene.diff_tables(scene) requires
+    grad and grad is enabled, the render runs under autograd; else in inference
     mode. The traversals run detached either way (scene.ray_test,
     scene._preliminary_dispatch), so the tape holds the shading alone and
     a backward sweep traces no ray."""
@@ -164,7 +174,7 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
     n_passes = (config.spp + sppc - 1) // sppc
     image, wsum = None, 0
     grad = torch.is_grad_enabled() and any(
-        getattr(scene, k).requires_grad for k in DIFF_TABLES)
+        v.requires_grad for v in diff_tables(scene).values())
     with contextlib.nullcontext() if grad else torch.inference_mode():
         for s in pass_seeds(seed, n_passes):
             img_p, w_p = render_pass(scene, config, s, dev)

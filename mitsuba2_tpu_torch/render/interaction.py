@@ -22,6 +22,7 @@ class SurfaceInteraction:
     wi: Vec3
     shape: torch.Tensor
     prim_index: torch.Tensor
+    wavelengths: object = None   # the ray's Spec4 (spectral mode) or None
 
     def to_world(self, v: Vec3) -> Vec3:
         return self.sh_frame.to_world(v)
@@ -33,7 +34,8 @@ class SurfaceInteraction:
         """Offset the origin along the geometric normal (Interaction::spawn_ray)."""
         eps = m.mulsign(m.RAY_EPSILON * (1.0 + vmax_abs(self.p)),
                         vdot(self.n, d_world))
-        return Ray.make(self.p + self.n * eps, d_world, maxt=maxt)
+        return Ray.make(self.p + self.n * eps, d_world, maxt=maxt,
+                        wavelengths=self.wavelengths)
 
 
 @dataclasses.dataclass

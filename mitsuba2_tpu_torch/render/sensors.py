@@ -11,8 +11,9 @@ from ..core.geometry import Ray
 from ..core.vec import Vec2, Vec3, vnormalize
 
 
-def perspective_ray(scene, uv: Vec2) -> Ray:
-    """Film uv in [0,1]^2 -> world-space camera rays."""
+def perspective_ray(scene, uv: Vec2, wavelengths=None) -> Ray:
+    """Film uv in [0,1]^2 -> world-space camera rays, carrying the lanes'
+    hero wavelengths in spectral mode."""
     tx = torch.tan(torch.deg2rad(scene.cam_fov_x) * 0.5)
     x = (1.0 - 2.0 * uv.x) * tx
     y = (1.0 - 2.0 * uv.y) * tx
@@ -23,7 +24,7 @@ def perspective_ray(scene, uv: Vec2) -> Ray:
                         mat[2, 0] * x + mat[2, 1] * y + mat[2, 2] * z))
     o = Vec3(mat[0, 3].expand_as(x), mat[1, 3].expand_as(x),
              mat[2, 3].expand_as(x))
-    return Ray.make(o, d)
+    return Ray.make(o, d, wavelengths=wavelengths)
 
 
 def _apply_clip(scene, ray: Ray) -> Ray:
@@ -39,16 +40,17 @@ def _apply_clip(scene, ray: Ray) -> Ray:
     o = Vec3(ray.o.x + ray.d.x * near_t, ray.o.y + ray.d.y * near_t,
              ray.o.z + ray.d.z * near_t)
     return Ray(o=o, d=ray.d,
-               maxt=torch.minimum(ray.maxt, (far - near) / cos_z))
+               maxt=torch.minimum(ray.maxt, (far - near) / cos_z),
+               wavelengths=ray.wavelengths)
 
 
-def sample_ray(scene, uv: Vec2) -> Ray:
+def sample_ray(scene, uv: Vec2, wavelengths=None) -> Ray:
     """Sensor::sample_ray for the perspective camera."""
     if scene.cam_type != "perspective":
         raise NotImplementedError(
             f"mitsuba2_tpu_torch does not support {scene.cam_type!r} "
             "sensors yet")
-    return _apply_clip(scene, perspective_ray(scene, uv))
+    return _apply_clip(scene, perspective_ray(scene, uv, wavelengths))
 
 
 def film_uv(x, y, jitter, width: int, height: int,

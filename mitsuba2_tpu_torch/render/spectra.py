@@ -1,8 +1,14 @@
 """Spectrum slots (counterpart of render/spectra.py).
 
 Every color parameter is one 8-float slot [r, g, b, c2, c1, c0, scale,
-kind], packed exactly as the JAX package packs it. The port evaluates
-slots in rgb and mono mode; textured slots (kind >= 2) raise at build.
+kind], packed exactly as the JAX package packs it: the linear-sRGB value,
+the sigmoid-polynomial coefficients of its spectrum (core/spectrum.py)
+and the brightness the fit normalized away, and whether it is a
+reflectance or an illuminant (which multiplies D65 in spectral mode).
+rgb and mono read the RGB columns, spectral mode evaluates the
+coefficients at each lane's hero wavelengths. Tabulated (regular,
+irregular) and blackbody spectra pack into the same slots; textured
+slots (kind >= 2) raise at build.
 """
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core import spectrum as sp
-from ..core.spec import Spec
+from ..core.spec import Spec, swhere
 
 SLOT_W = 8
 SLOT_REFLECTANCE = 0.0
@@ -20,15 +26,18 @@ SLOT_ILLUMINANT = 1.0
 SLOT_TEX_BASE = 2.0   # the JAX package's textured slots: refused here
 
 
-# lanes whose gradients a column gather's backward adds up apart (below)
+# lanes whose gradients a column gather's backward adds up apart (below),
+# and the most entries of that buffer (a large table's rows spread less)
 GATHER_SPREAD = 1024
+GATHER_BUFFER = 1 << 22
 
 
 class _LaneGather(torch.autograd.Function):
     """col.index_select(0, idx) for a column `col` of a few rows and a
     wavefront of lanes. Its backward adds lane i's gradient into row
-    i % GATHER_SPREAD of a (GATHER_SPREAD, M) buffer with index_add_, then
-    sums the buffer's rows. Adding a million lanes into M rows directly
+    i % S of an (S, M) buffer with index_add_, then sums the buffer's
+    rows; S is GATHER_SPREAD, less where S * M would exceed GATHER_BUFFER
+    (an envmap's texels). Adding a million lanes into M rows directly
     serializes their atomics on a handful of addresses (0.39 ms a column
     on an H100); advanced indexing's backward (index_put_ with accumulate)
     sorts the indices and sums each row's run serially (~15 ms)."""
@@ -43,10 +52,19 @@ class _LaneGather(torch.autograd.Function):
     def backward(ctx, g):
         idx, = ctx.saved_tensors
         m = ctx.rows
+        rows = max(1, min(GATHER_SPREAD, GATHER_BUFFER // m))
         lane = torch.arange(idx.shape[0], device=idx.device)
-        spread = (lane % GATHER_SPREAD) * m + idx
-        buf = g.new_zeros(GATHER_SPREAD * m).index_add_(0, spread, g)
-        return buf.view(GATHER_SPREAD, m).sum(0), None
+        spread = (lane % rows) * m + idx
+        buf = g.new_zeros(rows * m).index_add_(0, spread, g)
+        return buf.view(rows, m).sum(0), None
+
+
+def lane_gather(col, idx):
+    """col[idx] for a wavefront of lanes: through _LaneGather where
+    autograd records, else a plain index_select."""
+    if torch.is_grad_enabled() and col.requires_grad:
+        return _LaneGather.apply(col, idx)
+    return col.index_select(0, idx)
 
 
 @dataclasses.dataclass
@@ -60,10 +78,7 @@ class LaneRows:
     base: int = 0
 
     def col(self, i: int):
-        col = self.table[:, self.base + i]
-        if torch.is_grad_enabled():
-            return _LaneGather.apply(col, self.idx)
-        return col.index_select(0, self.idx)
+        return lane_gather(self.table[:, self.base + i], self.idx)
 
     def slot(self, k: int) -> "LaneRows":
         return LaneRows(self.table, self.idx, self.base + k * SLOT_W)
@@ -77,25 +92,93 @@ def pack_spectrum_slot(rgb, illuminant: bool = False) -> np.ndarray:
                     np.float32)
 
 
+def tabulated_wls_vals(value: dict):
+    """Host: a regular or irregular spectrum dict -> (wavelengths, values)
+    f64 arrays."""
+    if value.get("type") == "regular":
+        vals = np.asarray(value["values"], np.float64)
+        lo = float(value.get("lambda_min", sp.WAVELENGTH_MIN))
+        hi = float(value.get("lambda_max", sp.WAVELENGTH_MAX))
+        wls = np.linspace(lo, hi, len(vals))
+    else:
+        wls = np.asarray(value["wavelengths"], np.float64)
+        vals = np.asarray(value["values"], np.float64)
+    return wls, vals
+
+
 def pack_color(value, illuminant: bool = False) -> np.ndarray:
-    """Host: a scalar, an RGB triple or a uniform/srgb/d65 spectrum dict ->
-    one slot. Textures and tabulated spectra come in a later slice."""
+    """Host: a scalar, an RGB triple, or a spectrum dict (uniform, srgb,
+    d65, regular, irregular, blackbody) -> one slot. Textures come in a
+    later slice."""
     if isinstance(value, dict):
         t = value.get("type")
         if t in ("uniform", "d65", "srgb", "rgb"):
             return pack_color(value.get("value", 1.0), illuminant or t == "d65")
-        raise NotImplementedError(
-            f"mitsuba2_tpu_torch does not support {t!r} colors yet "
-            "(textures and tabulated spectra)")
+        if t in ("regular", "irregular"):
+            # src/spectra/{regular,irregular}.cpp: the exact CIE -> sRGB
+            # projection for the rgb columns, a direct fit for spectral
+            # mode; always a reflectance slot (the table is the whole
+            # spectrum: a D65 factor would be wrong even for emission)
+            wls, vals = tabulated_wls_vals(value)
+            rgb = np.clip(sp.spectrum_to_rgb_host(wls, vals), 0.0, None)
+            coeffs, scale = sp.fit_srgb_model_to_spectrum(wls, vals)
+            return np.array([rgb[0], rgb[1], rgb[2],
+                             coeffs[0], coeffs[1], coeffs[2], scale,
+                             SLOT_REFLECTANCE], np.float32)
+        if t == "blackbody":
+            # src/spectra/blackbody.cpp: Planck at `temperature`, tabulated
+            wls = np.linspace(sp.WAVELENGTH_MIN, sp.WAVELENGTH_MAX, 64)
+            temp = float(value.get("temperature", 6500.0))
+            vals = sp.blackbody_radiance(wls, temp)
+            vals = vals * float(value.get("scale", 1.0))
+            return pack_color({"type": "irregular", "wavelengths": wls,
+                               "values": vals}, illuminant=True)
+        if t in ("bitmap", "checkerboard"):
+            raise NotImplementedError(
+                f"mitsuba2_tpu_torch does not support {t!r} textures yet")
+        raise ValueError(f"unknown spectrum/texture type {t!r}")
     v = value
     if isinstance(v, (int, float)):
         v = [v, v, v]
     return pack_spectrum_slot(v, illuminant=illuminant)
 
 
-def eval_spectrum_slot(slot: LaneRows, color_mode: str) -> Spec:
-    """Device: a batch of constant slots -> planar Spec (rgb or mono)."""
-    r, g, b = slot.col(0), slot.col(1), slot.col(2)
+def _const_value(col, wavelengths, color_mode) -> Spec:
+    r, g, b = col(0), col(1), col(2)
     if color_mode == "rgb":
         return Spec((r, g, b))
-    return Spec((sp.luminance_t(r, g, b),))
+    if color_mode == "mono":
+        return Spec((sp.luminance_t(r, g, b),))
+    # spectral: the sigmoid polynomial times its scale
+    c2, c1, c0, scale = col(3), col(4), col(5), col(6)
+    return Spec(tuple(sp.srgb_model_eval_t(c2, c1, c0, w) * scale
+                      for w in wavelengths.ch))
+
+
+def _tex_value(rgb: Spec, wavelengths, color_mode) -> Spec:
+    """Per-lane RGB (a Spec3) -> the value in `color_mode`. Spectral mode
+    upsamples through the coefficient lattice, RGB above 1 folded into a
+    scale as rgb2spec does (envmap NEE's path)."""
+    if color_mode == "rgb":
+        return rgb
+    if color_mode == "mono":
+        return Spec((sp.luminance_t(*rgb.ch),))
+    scale = sp._max(rgb.hmax() / 0.999, 1.0)
+    inv = 1.0 / scale
+    c2, c1, c0 = sp.srgb_model_fetch_interp_t(
+        sp.srgb_model_fetch_lattice(), rgb.ch[0] * inv, rgb.ch[1] * inv,
+        rgb.ch[2] * inv)
+    return Spec(tuple(sp.srgb_model_eval_t(c2, c1, c0, w) * scale
+                      for w in wavelengths.ch))
+
+
+def eval_spectrum_slot(slot: LaneRows, wavelengths, color_mode: str) -> Spec:
+    """Device: a batch of constant slots -> planar Spec: 1 channel (mono),
+    3 (rgb) or 4 (spectral, at the lanes' hero wavelengths `wavelengths`,
+    ignored otherwise; an illuminant slot times D65)."""
+    val = _const_value(slot.col, wavelengths, color_mode)
+    if color_mode != "spectral":
+        return val
+    is_illum = slot.col(7) == SLOT_ILLUMINANT
+    d65 = Spec(tuple(sp.d65_approx(w) for w in wavelengths.ch))
+    return swhere(is_illum, val * d65, val)

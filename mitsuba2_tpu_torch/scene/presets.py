@@ -74,12 +74,12 @@ def veach_mis(envmap: bool = False, device=None) -> SceneData:
     four spherical emitters of decreasing size and increasing radiance.
     BSDF sampling wins on the smooth plates and small lights, NEE on the
     rough plates and large lights; only MIS renders all 16 pairs with low
-    variance. The JAX package's envmap=True (a sky dome beside the
-    spheres) comes with the envmap."""
-    if envmap:
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support the envmap emitter yet "
-            "(veach_mis(envmap=True))")
+    variance.
+
+    envmap=True adds a dim procedural sky with a bright sun blob near the
+    horizon (BASELINE config 3's area + envmap emitters): its peaked
+    distribution makes the envmap's alias-table importance sampling
+    matter."""
     plates = []
     alphas = [0.005, 0.02, 0.05, 0.1]
     # plates recede in z and rise in y, tilted to reflect the lights
@@ -114,7 +114,23 @@ def veach_mis(envmap: bool = False, device=None) -> SceneData:
                              up=[0, 1, 0])
     sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
               "fov": 38.0}
-    return build_scene(plates, sensor, device=device)
+    emitters = ([{"type": "envmap", "data": procedural_sky(), "scale": 1.0}]
+                if envmap else [])
+    return build_scene(plates, sensor, emitters=emitters, device=device)
+
+
+def procedural_sky() -> np.ndarray:
+    """veach_mis(envmap=True)'s sky, (16, 32, 3) f32: a dim gradient and
+    a bright sun blob near the horizon, a low mean radiance (the classic
+    scene's MIS structure) in a strongly peaked importance table."""
+    H, W = 16, 32
+    th = (np.arange(H) + 0.5) / H * np.pi
+    sky = np.zeros((H, W, 3), np.float32)
+    sky[..., 2] = 0.04 + 0.08 * np.cos(th)[:, None]
+    sky[..., 0] = 0.02
+    sky[..., 1] = 0.03
+    sky[4:6, 7:9] = [1.5, 1.3, 0.9]
+    return sky
 
 
 def _icosphere(subdiv: int):

@@ -2,8 +2,10 @@
 dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
 
 The build half packs meshes, analytic spheres, shared-BLAS instances of
-shape groups, the materials of render/bsdf.py, area and constant emitters
-and a perspective camera into numpy tables byte-equal to the JAX package's
+shape groups, the materials of render/bsdf.py, the emitters of
+render/emitters.py (area, point, constant, envmap, spot, directional,
+untextured projector) and a perspective camera into numpy tables
+byte-equal to the JAX package's
 `SceneData` fields of the same names (tests/test_torch_scene.py,
 tests/test_torch_instancing.py, tests/test_torch_spheres.py), then
 uploads them with `convert.scene_from_numpy`. Anything else a scene can
@@ -61,9 +63,12 @@ UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
 # ...and those of an instanced scene (absent, or None, on the others): the
 # per-instance transforms and the two walk bounds
 INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
-# ...and the tables gradients flow to (diff/adjoint.py::diff_tables): the
-# JAX package's texture, envmap and medium tables come with their slices
+# ...and the tables gradients flow to (diff_tables): these two, and on a
+# scene with an envmap its image and scale under the JAX package's names
+# (ENV_DIFF_TABLES, name -> EnvMapData field); the JAX package's texture
+# and medium tables come with their slices
 DIFF_TABLES = ("mat_data", "emitter_data")
+ENV_DIFF_TABLES = {"env_image": "image", "env_scale": "scale"}
 # ...and the BVH8 walks' tables (bvh.collapse_bvh8; None, depth 0, where
 # the JAX build skips them: tiny or instanced scenes, a one-cluster cut):
 # on the device only for a scene uploaded under set_backend("bvh8") or
@@ -152,10 +157,13 @@ class SceneData:
     inst_inv: Optional[torch.Tensor] = None
     inst_fwd: Optional[torch.Tensor] = None
     inst_bvh_root: Optional[torch.Tensor] = None
+    # the environment map (render/emitters.py::EnvMapData), None without
+    envmap: Optional[emitters_mod.EnvMapData] = None
     mat_families: Tuple[int, ...] = ()
     family_rows: Tuple[int, ...] = ()   # each family's first material row
     n_emitters: int = 0
-    env_emitter: int = -1       # index of the constant emitter, -1 = none
+    env_emitter: int = -1       # index of the constant emitter or the
+                                # envmap, -1 = none
     emitter_kinds: Tuple[int, ...] = ()
     n_shapes: int = 0
     cluster_k: int = 128
@@ -187,10 +195,22 @@ def to_device(scene: SceneData, device) -> SceneData:
     dev = resolve_device(device)
     if scene.device == dev:
         return scene
-    return dataclasses.replace(scene, **{
-        f.name: getattr(scene, f.name).to(dev)
-        for f in dataclasses.fields(scene)
-        if torch.is_tensor(getattr(scene, f.name))})
+    moved = {f.name: getattr(scene, f.name).to(dev)
+             for f in dataclasses.fields(scene)
+             if torch.is_tensor(getattr(scene, f.name))}
+    if scene.envmap is not None:
+        moved["envmap"] = scene.envmap.to(dev)
+    return dataclasses.replace(scene, **moved)
+
+
+def diff_tables(scene) -> dict:
+    """The tensors a render's gradients flow to, by the JAX package's
+    names: DIFF_TABLES, and an envmap's image and scale."""
+    out = {k: getattr(scene, k) for k in DIFF_TABLES}
+    if scene.envmap is not None:
+        out.update({k: getattr(scene.envmap, f)
+                    for k, f in ENV_DIFF_TABLES.items()})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +441,8 @@ def _instanced_accel(inst_records, group_of, group_shape0, n_shapes, pshape,
 def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     """Host build: shapes (meshes and Instance records) + sensor + shapeless
     emitters -> dict of numpy tables (FIELDS, BVH8_FIELDS, and INST_FIELDS
-    for a shared-BLAS scene) and `param_paths`, the same arithmetic as the
+    for a shared-BLAS scene), `envmap` (an envmap's tables,
+    emitters.ENV_FIELDS, or None) and `param_paths`, the same arithmetic as the
     JAX package's _build_scene_impl for the features this slice supports."""
     shapes, inst_records, group_of, group_shape0 = _split_instances(shapes)
     _refuse_unsupported(shapes, sensor)
@@ -562,15 +583,18 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     emitter_types = np.zeros(E, np.int32)
     emitter_shapes = np.full(E, -1, np.int32)
     env_emitter = -1
+    envmap = None
     for e_idx, (desc, s_idx) in enumerate(emitter_descs):
-        etype, row = emitters_mod.pack_emitter(desc)
+        etype, row, aux = emitters_mod.pack_emitter(desc)
         emitter_types[e_idx] = etype
         emitter_rows[e_idx] = row
         emitter_shapes[e_idx] = s_idx
-        if etype == emitters_mod.CONSTANT:
+        if etype in (emitters_mod.CONSTANT, emitters_mod.ENVMAP):
             if env_emitter >= 0:
                 raise ValueError("only one environment emitter is supported")
             env_emitter = e_idx
+        if aux is not None:
+            envmap = aux
     prim_lists = []
     for e_idx in range(E):
         s_idx = emitter_descs[e_idx][1] if e_idx < len(emitter_descs) else -1
@@ -653,7 +677,7 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         bvh8_child=acc.get("bvh8_child"), bvh8_order=acc.get("bvh8_order"),
         bvh8_depth=acc.get("bvh8_depth", 0),
         **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)),
-        param_paths=tuple(param_paths))
+        envmap=envmap, param_paths=tuple(param_paths))
     if inst_records:
         out.update({k: acc[k] for k in INST_FIELDS})
     return out
@@ -787,7 +811,8 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
         p=p, n=ng, sh_frame=sh_frame, uv=uv,
         wi=sh_frame.to_local(-ray.d),
         shape=torch.where(valid, scene.prim_shape[idx], -1),
-        prim_index=torch.where(valid, idx, -1).to(torch.int32))
+        prim_index=torch.where(valid, idx, -1).to(torch.int32),
+        wavelengths=ray.wavelengths)
 
 
 # ---------------------------------------------------------------------------

@@ -420,7 +420,7 @@ def test_constant_emitter_matches_jax(case):
         cfg_j, cfg_t = mi.RenderConfig(color_mode=mode), \
             mt.RenderConfig(color_mode=mode)
         env_j = jemitters.eval_env(case.sj, jd, None, cfg_j)
-        env_t = emitters.eval_env(case.st, td, cfg_t)
+        env_t = emitters.eval_env(case.st, td, None, cfg_t)
         assert len(env_t.ch) == n_ch
         for a, b in zip(env_j.ch, env_t.ch):
             np.testing.assert_allclose(b.numpy(), np.broadcast_to(
@@ -436,7 +436,7 @@ def test_constant_emitter_matches_jax(case):
         mi.RenderConfig())
     ds_t, e_t = emitters.sample_direction(
         case.st, Vec3(*(torch.from_numpy(np.ascontiguousarray(a))
-                        for a in ref_p)),
+                        for a in ref_p)), None,
         torch.from_numpy(u[3]), (torch.from_numpy(u[4]),
                                  torch.from_numpy(u[5])), mt.RenderConfig())
     for c in "xyz":

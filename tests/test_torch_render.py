@@ -155,6 +155,9 @@ from mitsuba2_tpu_torch.diff import render_l2_grad
 _, loss, grads = render_l2_grad(mt.mesh_gallery(subdiv=1, device="cpu"), cfg,
                                 torch.zeros(8, 8, 3), device="cpu")
 assert all(bool(g.isfinite().all()) for g in grads.values())
+img = mt.render(mt.veach_mis(envmap=True, device="cpu"),
+                cfg.replace(color_mode="spectral"), device="cpu")
+assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)
@@ -269,8 +272,8 @@ def test_shading_chain_matches_jax(gallery):
 
     ds_j, e_j = jemitters.sample_direction(sj, si_j.p, None, J[5],
                                            (J[6], J[2]), cfg_j)
-    ds_t, e_t = emitters.sample_direction(st, si_t.p, T[5], (T[6], T[2]),
-                                          cfg_t)
+    ds_t, e_t = emitters.sample_direction(st, si_t.p, None, T[5],
+                                          (T[6], T[2]), cfg_t)
     # the solid-angle pdf divides by the cosine at the light, which turns
     # last-bit differences (XLA may take 1/sqrt as rsqrt) into ~1e-4 on
     # samples that graze the light

@@ -642,7 +642,7 @@ def test_sphere_area_emitter_sample_matches_jax():
         (jnp.asarray(u[4]), jnp.asarray(u[5])), mi.RenderConfig())
     ds_t, e_t = emitters.sample_direction(
         st, Vec3(*(torch.from_numpy(np.ascontiguousarray(a))
-                   for a in ref_p)),
+                   for a in ref_p)), None,
         torch.from_numpy(u[3]), (torch.from_numpy(u[4]),
                                  torch.from_numpy(u[5])), mt.RenderConfig())
     ok = ds_t.pdf.numpy() > 0
