@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Fourteen main paths, each a forward render at 256x256, 16 spp, max_depth 3
+Fifteen main paths, each a forward render at 256x256, 16 spp, max_depth 3
 through `mitsuba2_tpu_torch.render` (in one pass but for veach and
-veach_spectral), in rgb but for the last four, which render spectrally:
+veach_spectral), in rgb but for veach_spectral, veach_spectral_bvh2,
+gallery_spectral and gallery_lights, which render spectrally:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
   instanced  instanced_field(n=1024, subdiv=4), 1 024 shared-BLAS instances
@@ -46,7 +47,14 @@ veach_spectral), in rgb but for the last four, which render spectrally:
   gallery_lights   mesh_gallery's room without its ceiling or area light,
              lit by a point, a spot, a directional light, an untextured
              projector and the procedural sky (gallery_lights), spectral:
-             K1, K2 on delta and envmap shadow rays.
+             K1, K2 on delta and envmap shadow rays;
+  gallery_textured mesh_gallery(subdiv=4)'s room and blobs with config
+             4's textures and wrappers (gallery_textured: a 1024 x 1024
+             bilinear floor albedo, a textured roughness, a normal map, a
+             checkerboard bump map, a textured area light and projector;
+             mask, blendbsdf and null blobs), its six textures in one
+             atlas padded to 1024 x 1024 with its mip pyramid, the camera
+             rays carrying differentials: K1, K2.
 Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
 before it builds its scene (a scene uploads the tables of the walk it
 takes) and resets them after each use.
@@ -80,9 +88,12 @@ Phase 4  small renders on the card against the same renders on the CPU
          sweep (K8), MXU_LEAVES off (K3 and K4 on triangle scenes), and
          veach_mis() (brute force and K3) and gallery_materials(subdiv=1),
          and in spectral mode veach_mis(envmap=True) (brute force and
-         K3), mesh_gallery(subdiv=1) and gallery_lights(subdiv=1).
+         K3), mesh_gallery(subdiv=1) and gallery_lights(subdiv=1), and
+         gallery_textured(subdiv=1) with 64 x 64 textures in rgb and in
+         spectral mode.
 Phase 5  one render of each path under torch.profiler: device time by
-         kernel and by kind, and the device's busy share.
+         kernel and by kind (the kernels of the texture lookups apart),
+         and the device's busy share.
 Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
          launched once with the counts at 0, each held bit for bit
          against its twin and timed; their costs per walk step, per row
@@ -93,9 +104,11 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          configs: gallery (the gallery's scene as above, one 16-spp pass,
          L2 against a zero target: K1 and K2) and cornell (cornell_box(),
          256x256, 64 spp in passes of 16, max_depth 4, rr_depth 8: brute
-         force), and at the veach and veach_spectral paths' (brute force;
-         veach_spectral's gradients also flow to the envmap's image and
-         scale). For each: the
+         force), and at the veach, veach_spectral and gallery_textured
+         paths' (brute force, brute force, K1 and K2; veach_spectral's
+         gradients also flow to the envmap's image and scale,
+         gallery_textured's to the atlas' texels through its pyramid).
+         For each: the
          forward render's and render_l2_grad's medians of 3 after a
          warm-up, forward + adjoint Mrays/s (bench.py's count: 2 x rays
          of a pass x passes / time), their ratio, the peak memory of
@@ -104,15 +117,21 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          gradients), each kernel's launches over one render_l2_grad
          (counts at 0 just before) and around each backward sweep (must
          not move); on the gallery one render_l2_grad under
-         torch.profiler, the backward sweeps' kernels apart. Then
+         torch.profiler, the backward sweeps' kernels apart, and so on
+         gallery_textured, the texel gathers' backward apart too. Then
          render_l2_grad on small scenes on the card against the CPU
          (veach_mis() and veach_mis(envmap=True) in spectral mode the
          exception: an L2 loss over the pixels where the two renders
          agree, the plates' roughness and the floor's albedo also apart,
          every gradient finite, the envmap's image and scale among
-         them), and 8 Adam steps of
-         examples/invert_cbox.py's loop on the card, each at one seed
-         (the loss must fall, the albedo's error halve).
+         them; gallery_textured(subdiv=1) with 64 x 64 textures, its
+         texels' gradients within 1e-3 of their largest magnitude), and 8
+         Adam steps of examples/invert_cbox.py's loop on the card, each at
+         one seed (the loss must fall, the albedo's error halve), and 8
+         Adam steps on gallery_textured's texels toward its render under
+         another floor texture (the loss must fall); then veach_mis()'s
+         plate0 roughness gradients (alpha 0.005) on the card, on the CPU
+         and by a central difference on the card, printed.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} (one row a kernel: its first path's
@@ -177,6 +196,13 @@ PATH_RENDER = {"veach": VEACH_RENDER,
                "veach_spectral_bvh2": {**RENDER, **SPECTRAL},
                "gallery_spectral": {**RENDER, **SPECTRAL},
                "gallery_lights": {**RENDER, **SPECTRAL}}
+# gallery_textured's texel optimization, at invert_cbox's size (INVERT)
+TEXTURED_TRAIN_STEPS, TEXTURED_TRAIN_LR = 8, 0.05
+# veach's plate0 roughness, its central difference's step (the test's,
+# tests/test_torch_veach.py), at the test's config
+PLATE = dict(name="plate0.bsdf.alpha_u", value=0.005, eps=1e-4)
+PLATE_RENDER = dict(width=16, height=16, spp=4, spp_per_pass=4, max_depth=3,
+                    rr_depth=99)
 N_PROBE = 65536
 DEVICE = "cuda:0"
 KERNEL_REPS = 20
@@ -187,7 +213,8 @@ ADJOINT = {"gallery": RENDER,
            "cornell": dict(width=256, height=256, spp=64, spp_per_pass=16,
                            max_depth=4, rr_depth=8),
            "veach": VEACH_RENDER,
-           "veach_spectral": PATH_RENDER["veach_spectral"]}
+           "veach_spectral": PATH_RENDER["veach_spectral"],
+           "gallery_textured": RENDER}
 # examples/invert_cbox.py's loop, 8 steps
 INVERT = dict(width=64, height=64, spp=32, spp_per_pass=32, max_depth=3,
               rr_depth=99)
@@ -245,6 +272,7 @@ PATH_KERNELS = {
     "veach_spectral_bvh2": ("bvh_closest_hit", "bvh_any_hit"),
     "gallery_spectral": ("cluster_closest_hit", "cluster_any_hit"),
     "gallery_lights": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_textured": ("cluster_closest_hit", "cluster_any_hit"),
 }
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
@@ -691,6 +719,116 @@ def gallery_lights(P, subdiv=SUBDIV, **build_kw):
     return P.build_scene(s, sensor, emitters=lights, **build_kw)
 
 
+# gallery_textured's texture sizes, as fractions of the floor's
+TEX_FLOOR = 1024
+TEX_SEED = 17
+
+
+def gallery_textures(res=TEX_FLOOR, seed=TEX_SEED):
+    """gallery_textured's images from `seed`, the floor's res x res and
+    the others smaller (res / 4, / 16, / 8): the floor's albedo (8 x 8
+    tiles and noise), the back wall's roughness in [0.05, 0.4], the right
+    wall's tangent-space normals (of a height field of sines), the light's
+    radiance and the projector's slide."""
+    rng = np.random.default_rng(seed)
+    q = max(res // 4, 2)
+    y, x = np.mgrid[0:res, 0:res]
+    tile = ((x * 8 // res + y * 8 // res) % 2)[..., None]
+    floor = np.where(tile, [0.75, 0.7, 0.6], [0.3, 0.26, 0.22]) \
+        + 0.1 * rng.uniform(-1, 1, (res, res, 3))
+    alpha = rng.uniform(0.05, 0.4, (q, q))
+    # h = 0.2 sin(3x + p0) + 0.1 sin(5x + 2y + p1) + 0.1 sin(4y + p2)
+    yq, xq = np.mgrid[0:q, 0:q] / q * 2 * np.pi
+    ph = rng.uniform(0, 2 * np.pi, 3)
+    w = np.cos(5 * xq + 2 * yq + ph[1])
+    dh_dx = 0.6 * np.cos(3 * xq + ph[0]) + 0.5 * w
+    dh_dy = 0.2 * w + 0.4 * np.cos(4 * yq + ph[2])
+    n = np.stack([-dh_dx, -dh_dy, np.ones_like(xq)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    m = max(res // 16, 2)
+    light = np.asarray([18.4, 15.6, 8.0]) * (
+        0.6 + 0.8 * rng.uniform(size=(m, m, 1)))
+    slide = rng.uniform(0.0, 3.0, (max(res // 8, 2),) * 2 + (3,))
+    return {k: np.asarray(v, np.float32) for k, v in dict(
+        floor=np.clip(floor, 0.0, 1.0), alpha=alpha, normals=0.5 * (n + 1),
+        light=light, slide=slide).items()}
+
+
+def _scale_uv(s):
+    return np.diag([s, s, 1.0]).astype(np.float32)
+
+
+def gallery_textured(P, subdiv=SUBDIV, res=TEX_FLOOR, **build_kw):
+    """mesh_gallery(subdiv)'s room, light and blobs (the same seeds and
+    placement), built from the presets module `P` of either package, with
+    config 4's textures (gallery_textures(res)) and the wrappers: a
+    bilinear albedo on the floor (4 x 4 repeats), a textured roughness on
+    the back wall's rough conductor, a normal map over the right wall and
+    a checkerboard bump map (8 x 8 repeats) over the left, a textured
+    area light and a textured projector aimed at the back wall; blob0
+    masked (opacity 0.5) over a rough plastic, blob1 a blend (0.35) of a
+    diffuse and a rough conductor, blob2 null, the others diffuse."""
+    X, Y, Z = 3.0, 2.0, 3.0
+    tx = gallery_textures(res)
+    white = {"type": "diffuse", "reflectance": P.WHITE}
+    s = [
+        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf={
+            "type": "diffuse", "reflectance": {
+                "type": "bitmap", "data": tx["floor"], "to_uv": _scale_uv(4),
+                "id": "floor_albedo"}}, id="floor"),
+        P._quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], bsdf=white,
+                id="ceiling"),
+        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf={
+            "type": "roughconductor", "material": "Al", "alpha": {
+                "type": "bitmap", "data": tx["alpha"],
+                "id": "back_roughness"}}, id="back"),
+        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0], bsdf={
+            "type": "bumpmap", "scale": 0.5, "bumpmap": {
+                "type": "checkerboard", "color0": 0.2, "color1": 0.8,
+                "to_uv": _scale_uv(8), "id": "left_height"},
+            "bsdf": {"type": "diffuse", "reflectance": P.RED}}, id="left"),
+        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z], bsdf={
+            "type": "normalmap", "normalmap": {
+                "type": "bitmap", "data": tx["normals"],
+                "id": "right_normals"},
+            "bsdf": {"type": "diffuse", "reflectance": P.GREEN}},
+            id="right"),
+    ]
+    lx0, lx1, lz0, lz1, ly = 1.1, 1.9, 1.2, 1.8, Y - 5e-4
+    s.append(P._quad([lx0, ly, lz0], [lx1, ly, lz0], [lx1, ly, lz1],
+                     [lx0, ly, lz1], bsdf=white, emitter={
+                         "type": "area", "radiance": {
+                             "type": "bitmap", "data": tx["light"],
+                             "id": "light_radiance"}}, id="light"))
+    blobs = [{"type": "mask", "opacity": 0.5, "bsdf": {
+                  "type": "roughplastic", "alpha": 0.2,
+                  "diffuse_reflectance": GALLERY_ALBEDO[0]}},
+             {"type": "blendbsdf", "weight": 0.35, "bsdfs": [
+                 {"type": "diffuse", "reflectance": GALLERY_ALBEDO[1]},
+                 {"type": "roughconductor", "material": "Cu",
+                  "alpha": 0.15}]},
+             {"type": "null"}]
+    base_v, faces = P._icosphere(subdiv)
+    for k in range(6):
+        i, j = divmod(k, 2)
+        v = P._displace(base_v.copy(), seed=k)
+        v = v * 0.34 + np.asarray([(i + 0.5) * X / 3,
+                                   0.45 + 0.1 * ((i + j) % 3),
+                                   (j + 0.75) * Z / 2.5], np.float32)
+        bsdf = (blobs[k] if k < len(blobs) else
+                {"type": "diffuse", "reflectance": GALLERY_ALBEDO[k]})
+        s.append(P.shapes.mesh(v, faces, bsdf=bsdf, id=f"blob{k}"))
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 50.0}
+    projector = {"type": "projector", "position": [1.5, 1.3, 0.3],
+                 "direction": [0.0, -0.15, 1.0], "fov": 35.0,
+                 "irradiance": {"type": "bitmap", "data": tx["slide"],
+                                "id": "slide"}, "id": "projector"}
+    return P.build_scene(s, sensor, emitters=[projector], **build_kw)
+
+
 def phase_kernels_vs_twins(torch, mt, dev):
     """Each path's scene (and the sphere field under "bvh8") and its
     kernels against their twins on probe rays; returns the paths' scenes
@@ -765,9 +903,10 @@ def phase_kernels_vs_twins(torch, mt, dev):
 def _material_scenes(mt, dev):
     """The paths of config 2's materials: veach_mis() under "auto" (brute
     force) and under "pallas" (the BVH2 walk, K3), and gallery_materials
-    at SUBDIV (the cluster walk, K1 and K2); and config 3's:
+    at SUBDIV (the cluster walk, K1 and K2); config 3's:
     veach_mis(envmap=True) under "auto" and "pallas", and gallery_lights
-    at SUBDIV (K1 and K2)."""
+    at SUBDIV (K1 and K2); and config 4's gallery_textured at SUBDIV (K1
+    and K2)."""
     from mitsuba2_tpu_torch.scene import presets
     veach = functools.partial(mt.veach_mis, device=dev)
     sky = functools.partial(mt.veach_mis, envmap=True, device=dev)
@@ -776,7 +915,9 @@ def _material_scenes(mt, dev):
                 gallery_materials, presets, SUBDIV, device=dev),
             "veach_spectral": sky, "veach_spectral_bvh2": sky,
             "gallery_lights": functools.partial(gallery_lights, presets,
-                                                SUBDIV, device=dev)}
+                                                SUBDIV, device=dev),
+            "gallery_textured": functools.partial(
+                gallery_textured, presets, SUBDIV, device=dev)}
     out = {}
     for name in make:
         t0 = time.perf_counter()
@@ -794,6 +935,17 @@ def _material_scenes(mt, dev):
         check((scene.envmap is not None) == (name in (
             "veach_spectral", "veach_spectral_bvh2", "gallery_lights")),
               f"{name}: envmap")
+        atlas = scene.textures
+        check((atlas is not None) == (name == "gallery_textured"),
+              f"{name}: textures")
+        if atlas is not None:
+            log(f"phase 2: {name}: {atlas.data.shape[0]} textures in an "
+                f"atlas of {tuple(atlas.data.shape[1:3])}, "
+                f"{atlas.data.numel() * 4 / 2**20:.1f} MiB, and "
+                f"{len(atlas.level_shapes)} mip levels, "
+                f"{atlas.mips.numel() * 4 / 2**20:.1f} MiB; textured "
+                f"slots by family {[(f, sorted(k)) for f, k in scene.family_tex if k]}"
+                f", emitter types {scene.emitter_tex}")
     return out
 
 
@@ -1143,7 +1295,11 @@ def phase_small_renders(torch, mt, dev):
             ("spectral: mesh_gallery(subdiv=1) (K1, K2)",
              lambda d: gallery(device=d), {}),
             ("spectral: gallery_lights(subdiv=1) (K1, K2)",
-             lambda d: gallery_lights(presets, 1, device=d), {})):
+             lambda d: gallery_lights(presets, 1, device=d), {}),
+            ("gallery_textured(subdiv=1), 64x64 textures (K1, K2)",
+             lambda d: gallery_textured(presets, 1, 64, device=d), {}),
+            ("spectral: gallery_textured(subdiv=1), 64x64 textures (K1, K2)",
+             lambda d: gallery_textured(presets, 1, 64, device=d), {})):
         c = cfg.replace(color_mode="spectral") if name.startswith(
             "spectral") else cfg
         with switches(**sw):
@@ -1173,11 +1329,32 @@ def _category(name):
     return "elementwise and reductions"
 
 
+def range_kernels(prof, range_name):
+    """{kernel name: [device ms, launches]} of the kernels the CPU ops
+    inside the profiler ranges named `range_name` launched."""
+    out = {}
+
+    def walk(e):
+        for k in getattr(e, "kernels", ()):
+            v = out.setdefault(k.name, [0.0, 0])
+            v[0] += k.duration / 1e3
+            v[1] += 1
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == range_name and not str(e.device_type).endswith("CUDA"):
+            walk(e)
+    return out
+
+
 def phase_profile(torch, mt, path, scene, render_ms):
     """One render of `path` under torch.profiler: device time by kernel
-    and by kind, and the device's busy share of the render's wall time,
-    profiled (the profiler's host cost inflates it) and unprofiled
-    (`render_ms`, phase 3's median)."""
+    and by kind (on a scene with textures, the kernels launched inside
+    its texture lookups as a kind of their own), and the device's busy
+    share of the render's wall time, profiled (the profiler's host cost
+    inflates it) and unprofiled (`render_ms`, phase 3's median)."""
+    from mitsuba2_tpu_torch.render.texture import TEXTURE_RANGE
     from torch.profiler import ProfilerActivity, profile
     cfg = mt.RenderConfig(**PATH_RENDER.get(path, RENDER))
     torch.cuda.synchronize()
@@ -1189,8 +1366,10 @@ def phase_profile(torch, mt, path, scene, render_ms):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
-        # kernel rows only: an operator's row repeats its kernels' time
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # kernel rows only: an operator's row repeats its kernels' time,
+        # and a profiler range's device-side row spans its kernels
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and e.key not in RANGES):
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
             if us > 0:
@@ -1203,6 +1382,22 @@ def phase_profile(torch, mt, path, scene, render_ms):
         c = cats.setdefault(_category(key), [0.0, 0])
         c[0] += ms
         c[1] += n
+    if scene.textures is not None:
+        tex = range_kernels(prof, TEXTURE_RANGE)
+        lookups = cats["texture lookups"] = [0.0, 0]
+        for key, (ms, n) in tex.items():
+            c = cats[_category(key)]
+            c[0] -= ms
+            c[1] -= n
+            lookups[0] += ms
+            lookups[1] += n
+        gathers = sum(v[0] for k, v in tex.items()
+                      if _category(k) == "gathers and scatters")
+        log(f"phase 5: {path}: texture lookups: {lookups[0]:.2f} ms of "
+            f"device kernels in {lookups[1]} launches, {gathers:.2f} ms of "
+            "them texel gathers" if lookups[1] else
+            f"phase 5: {path}: texture lookups: not measured (no kernel "
+            "linked to the profiler's texture ranges)")
     log(f"phase 5: {path}: profiled render: {dev_ms:.2f} ms of device "
         f"kernels in {sum(r[1] for r in rows)} launches; device busy "
         f"{dev_ms / wall_ms:.3f} of the profiled wall time ({wall_ms:.1f} ms), "
@@ -1399,6 +1594,10 @@ def phase_probes(torch, dev, card, launches):
 # ---------------------------------------------------------------------------
 
 BACKWARD_RANGE = "adjoint backward"
+# the profiler ranges, whose device-side rows span kernels (not kernels):
+# this script's backward sweeps, the port's texture lookups and texel
+# gathers' backward (render/texture.py)
+RANGES = (BACKWARD_RANGE, "texture lookup", "texel gather backward")
 
 
 def rays_per_pass(cfg):
@@ -1542,11 +1741,13 @@ def _adjoint_path(torch, mt, name, scene, card):
     return adj_ms
 
 
-def _adjoint_profile(torch, mt, scene, card, adj_ms):
-    """One render_l2_grad of the gallery under torch.profiler: device time
-    by kind, the kernels that ran inside a backward sweep apart."""
+def _adjoint_profile(torch, mt, scene, card, adj_ms, name="gallery"):
+    """One render_l2_grad of path `name` under torch.profiler: device
+    time by kind, the kernels that ran inside a backward sweep apart; on a
+    scene with textures, the texel gathers' backward (index_add_) too."""
+    from mitsuba2_tpu_torch.render.texture import TEXEL_BACKWARD_RANGE
     from torch.profiler import ProfilerActivity, profile
-    cfg = mt.RenderConfig(**ADJOINT["gallery"])
+    cfg = mt.RenderConfig(**ADJOINT[name])
     target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
     torch.cuda.synchronize()
     with watch_backward(torch, [], BACKWARD_RANGE), profile(
@@ -1561,7 +1762,7 @@ def _adjoint_profile(torch, mt, scene, card, adj_ms):
                and not str(e.device_type).endswith("CUDA")]
     cats = {}
     for e in events:
-        if not str(e.device_type).endswith("CUDA") or e.name == BACKWARD_RANGE:
+        if not str(e.device_type).endswith("CUDA") or e.name in RANGES:
             continue
         start = e.time_range.start
         bwd = any(a <= start <= b for a, b in windows)
@@ -1573,7 +1774,15 @@ def _adjoint_profile(torch, mt, scene, card, adj_ms):
     bwd_ms = sum(v[0] for k, v in cats.items() if k.startswith("backward"))
     check(dev_ms > 0 and bwd_ms > 0 and windows,
           "the profiler shows no device time in the backward sweeps")
-    log(f"phase 7: gallery: profiled render_l2_grad on {card}: {dev_ms:.2f} "
+    if scene.textures is not None:
+        tex = range_kernels(prof, TEXEL_BACKWARD_RANGE)
+        log(f"phase 7: {name}: texel gathers' backward: "
+            f"{sum(v[0] for v in tex.values()):.2f} ms of device kernels in "
+            f"{sum(v[1] for v in tex.values())} launches: "
+            + ", ".join(f"{k[:40]} {v[0]:.2f} ms x{v[1]}"
+                        for k, v in sorted(tex.items(), key=lambda kv:
+                                           -kv[1][0])[:4]))
+    log(f"phase 7: {name}: profiled render_l2_grad on {card}: {dev_ms:.2f} "
         f"ms of device kernels, {bwd_ms:.2f} of them in the backward sweep; "
         f"device busy {dev_ms / wall_ms:.3f} of the profiled wall time "
         f"({wall_ms:.1f} ms), {dev_ms / adj_ms:.3f} of the median "
@@ -1617,6 +1826,108 @@ def _adjoint_card_vs_cpu(torch, mt, dev):
     _veach_card_vs_cpu(torch, mt, dev, cfg.replace(**SPECTRAL), target,
                        "veach_mis(envmap=True), spectral",
                        functools.partial(mt.veach_mis, envmap=True))
+    _textured_card_vs_cpu(torch, mt, dev, cfg, target)
+
+
+def _textured_card_vs_cpu(torch, mt, dev, cfg, target):
+    """gallery_textured(subdiv=1) with 64 x 64 textures: render_l2_grad on
+    the card against the CPU: the texels' gradients (tex_data) within
+    1e-3 of their largest magnitude, the other tables within 1e-3 in
+    relative norm, the image within phase 4's limits."""
+    from mitsuba2_tpu_torch.scene import presets
+    t0 = time.perf_counter()
+    make = functools.partial(gallery_textured, presets, 1, 64)
+    img_c, _, g_c = mt.render_l2_grad(make(device="cpu"), cfg, target,
+                                      seed=5, device="cpu")
+    img_g, _, g_g = mt.render_l2_grad(make(device=dev), cfg, target.to(dev),
+                                      seed=5)
+    g_g = {k: v.cpu() for k, v in g_g.items()}
+    tex_err = float((g_g["tex_data"] - g_c["tex_data"]).abs().max()
+                    / g_c["tex_data"].abs().max())
+    rel = {k: float((g_g[k] - g_c[k]).norm() / g_c[k].norm()) for k in g_c}
+    img_g, img_c = img_g.cpu().numpy(), img_c.numpy()
+    close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
+    mrel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
+    good = (np.isfinite(img_g).all() and close >= 0.99 and mrel <= 1e-3
+            and tex_err <= 1e-3 and _finite(torch, [*g_g.values()])
+            and max(v for k, v in rel.items() if k != "tex_data") <= 1e-3)
+    log(f"phase 7: gallery_textured(subdiv=1), 64x64 textures, "
+        f"{cfg.width}x{cfg.height} render_l2_grad card vs CPU: tex_data's "
+        f"largest difference "
+        f"{tex_err:.2e} of its largest magnitude; relative norm difference "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; {close:.4f} of pixels within rtol 1e-3/atol 1e-4, mean rel "
+        f"diff {mrel:.2e} {'ok' if good else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(good, "gallery_textured: the card's gradients disagree with the "
+          "CPU's")
+
+
+def _textured_train(torch, mt, dev, card, scene):
+    """Config 4's texture optimization: Adam on gallery_textured's texels
+    (tex_data, every texture) from its own floor albedo toward its render
+    under another floor texture (each texel's complement, times 0.8),
+    every step at one seed; the loss must fall, and the floor's texels
+    move toward the other texture."""
+    from mitsuba2_tpu_torch.diff.adjoint import diff_tables, with_tables
+    from mitsuba2_tpu_torch.diff.optimizers import adam_init, adam_step
+    cfg = mt.RenderConfig(**INVERT)
+    key = "floor_albedo.data"
+    floor = mt.traverse(scene)[key].clone()
+    other = (1.0 - floor) * 0.8
+    target = mt.render(mt.scene_with(scene, {key: other}), cfg, seed=0)
+    theta = {"tex_data": scene.textures.data.detach()}
+    state = adam_init(theta)
+    losses, t0 = [], time.perf_counter()
+    for it in range(TEXTURED_TRAIN_STEPS):
+        _, loss, grads = mt.render_and_grad(
+            scene, cfg, lambda im: torch.mean((im - target) ** 2), seed=1)
+        theta, state = adam_step(theta, {"tex_data": grads["tex_data"]},
+                                 state, lr=TEXTURED_TRAIN_LR)
+        scene = with_tables(scene, {**diff_tables(scene), **theta})
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TEXTURED_TRAIN_STEPS
+    err = [float((floor - other).abs().mean()),
+           float((mt.traverse(scene)[key] - other).abs().mean())]
+    log(f"phase 7: gallery_textured texture optimization on {card}: "
+        f"{TEXTURED_TRAIN_STEPS} Adam steps (lr {TEXTURED_TRAIN_LR}) on "
+        f"tex_data {tuple(theta['tex_data'].shape)} at {cfg.width}x"
+        f"{cfg.height}x{cfg.spp}spp depth {cfg.max_depth}, {step_ms:.1f} ms "
+        "a step: loss " + " ".join(f"{v:.6f}" for v in losses)
+        + f"; the floor's mean texel error {err[0]:.4f} -> {err[1]:.4f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "gallery_textured: the loss did not fall")
+
+
+def _plate_roughness(torch, mt, dev, card):
+    """veach_mis()'s plate0 roughness (alpha 0.005, f32's worst case):
+    render_l2_grad's gradient on the card and on the CPU beside a central
+    difference on the card (the two images' difference summed in float64
+    at one seed, tests/test_torch_veach.py's), printed, not held."""
+    cfg = mt.RenderConfig(**PLATE_RENDER)
+    name, v0, eps = PLATE["name"], PLATE["value"], PLATE["eps"]
+    target = torch.zeros((cfg.height, cfg.width, 3))
+    out = {}
+    for d in ("cpu", dev):
+        scene = mt.veach_mis(device=d)
+        row, c0 = {p[0]: p[2:4] for p in scene.param_paths}[name]
+        _, _, g = mt.render_l2_grad(scene, cfg, target.to(d), seed=0,
+                                    device=d)
+        out[str(d)] = float(g["mat_data"][row, c0])
+    scene = mt.veach_mis(device=dev)
+    with torch.no_grad():
+        hi, lo = (mt.render(mt.scene_with(scene, {name: torch.tensor(
+            v0 + s, device=dev)}), cfg, seed=0).double() for s in (eps, -eps))
+    fd = float((hi * hi - lo * lo).mean()) / (2 * eps)
+    card_g, cpu_g = out[str(dev)], out["cpu"]
+    log(f"phase 7: veach_mis() {name} = {v0} at {cfg.width}x{cfg.height}x"
+        f"{cfg.spp}spp depth {cfg.max_depth}: render_l2_grad's gradient "
+        f"{card_g:.6e} on {card}, {cpu_g:.6e} on the CPU (card/CPU "
+        f"{card_g / cpu_g:.4f}); central difference (eps {eps}) on the card "
+        f"{fd:.6e} (card/fd {card_g / fd:.4f}, CPU/fd {cpu_g / fd:.4f})")
+    check(np.isfinite([card_g, cpu_g, fd]).all(),
+          f"veach: {name}: a non-finite gradient")
 
 
 def _veach_card_vs_cpu(torch, mt, dev, cfg, target, label, make):
@@ -1721,17 +2032,34 @@ def _adjoint_train(torch, mt, dev, card):
           f"halve ({err[0]:.4f} -> {err[1]:.4f})")
 
 
-def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral):
+def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral,
+                  textured):
     """Phase 7 (see the module docstring); `gallery`, `veach`,
-    `veach_spectral`: phase 2's scenes."""
+    `veach_spectral`, `textured`: phase 2's scenes."""
+    def step(what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase 7: {what} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     with path_switches("gallery"):
-        adj_ms = _adjoint_path(torch, mt, "gallery", gallery, card)
+        adj_ms = step("gallery", _adjoint_path, torch, mt, "gallery",
+                      gallery, card)
         _adjoint_profile(torch, mt, gallery, card, adj_ms)
-    _adjoint_path(torch, mt, "cornell", mt.cornell_box(device=dev), card)
-    _adjoint_path(torch, mt, "veach", veach, card)
-    _adjoint_path(torch, mt, "veach_spectral", veach_spectral, card)
-    _adjoint_card_vs_cpu(torch, mt, dev)
-    _adjoint_train(torch, mt, dev, card)
+    step("cornell", _adjoint_path, torch, mt, "cornell",
+         mt.cornell_box(device=dev), card)
+    step("veach", _adjoint_path, torch, mt, "veach", veach, card)
+    step("veach_spectral", _adjoint_path, torch, mt, "veach_spectral",
+         veach_spectral, card)
+    adj_ms = step("gallery_textured", _adjoint_path, torch, mt,
+                  "gallery_textured", textured, card)
+    step("gallery_textured's profile", _adjoint_profile, torch, mt,
+         textured, card, adj_ms, "gallery_textured")
+    step("card vs CPU", _adjoint_card_vs_cpu, torch, mt, dev)
+    step("invert_cbox", _adjoint_train, torch, mt, dev, card)
+    step("the texture optimization", _textured_train, torch, mt, dev, card,
+         textured)
+    step("plate0's roughness", _plate_roughness, torch, mt, dev, card)
 
 
 def merge_row(by_name, path, row):
@@ -1785,7 +2113,8 @@ def main():
                       render_ms[path])
         rows += timed(6, phase_probes, torch, dev, card, launches)
         timed(7, phase_adjoint, torch, mt, dev, card, scenes["gallery"],
-              scenes["veach"], scenes["veach_spectral"])
+              scenes["veach"], scenes["veach_spectral"],
+              scenes["gallery_textured"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -18,9 +18,11 @@ the cluster plane rows (K7). The BVH8 tables (scene.BVH8_FIELDS) may be
 absent from `fields`. `fields["envmap"]` carries an envmap's tables
 (emitters.ENV_FIELDS: the image, its importance and alias tables, the
 rotation, the scale and the per-texel coefficients), None or absent
-without one. A table that names a feature this slice does not render
-(the BSDF families bsdf.UNPORTED, textured colors, roughness or
-projectors) raises.
+without one; `fields["textures"]` the texture atlas' tables
+(texture.TEX_FIELDS: the padded texels, `info` and `uvt`), whose mip
+pyramid is rebuilt here, on the device. A table that names a feature the
+port does not render (the BSDF families bsdf.UNPORTED) raises, and so
+does a textured slot without the atlas that holds its texture.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from .device import resolve_device
 from .kernels import traverse
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
+from .render import texture as texture_mod
 from .render.spectra import SLOT_TEX_BASE
 from .scene.bvh import BLAS_EXIT, LEAF_K
 from .scene.scene import (BVH8_FIELDS, CLUSTER_FIELDS, FIELDS, INST_FIELDS,
@@ -204,17 +207,15 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
                 f"mitsuba2_tpu_torch does not support the {name!r} BSDF yet")
     # the kind column of every spectrum slot a row may carry: a material's
     # three color slots and its roughness slot, an emitter's radiance
-    proj = etype == emitters_mod.PROJECTOR
-    slot_kinds = {
-        "textured colors": np.concatenate([
-            f["mat_data"][:, [7, 15, 23]].ravel(),
-            f["emitter_data"][~proj, 7]]),
-        "textured roughness": f["mat_data"][:, bsdf_mod.ALPHA_SLOT + 7],
-        "textured projectors": f["emitter_data"][proj, 7]}
-    for what, kind in slot_kinds.items():
-        if (kind >= SLOT_TEX_BASE).any():
-            raise NotImplementedError(
-                f"mitsuba2_tpu_torch does not support {what} yet")
+    kinds = np.concatenate([
+        f["mat_data"][:, [7, 15, 23, bsdf_mod.ALPHA_SLOT + 7]].ravel(),
+        f["emitter_data"][:n_emitters, 7]])
+    tex = fields.get("textures")
+    n_tex = 0 if tex is None else np.asarray(tex["data"]).shape[0]
+    textured = kinds[kinds >= SLOT_TEX_BASE].astype(np.int64)
+    if ((textured - 2) // 2 >= n_tex).any():
+        raise KeyError("scene_from_numpy: a textured slot names a texture "
+                       "beyond the atlas under 'textures'")
     n_clusters = int((f["mxu_node_f"][:, 6] >= 0).sum())
     cluster_k = f["cluster_slot_prim"].shape[0] // max(n_clusters, 1)
     has_spheres = bool((f["prim_type"] == PRIM_SPHERE).any())
@@ -256,11 +257,19 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         **tabs,
         envmap=(None if envmap is None
                 else emitters_mod.envmap_from_numpy(envmap, dev)),
+        textures=(None if tex is None
+                  else texture_mod.atlas_from_numpy(tex, dev)),
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,
         mat_families=families,
         family_rows=tuple(int(np.argmax(f["mat_type"] == fid))
                           for fid in families),
+        family_tex=bsdf_mod.textured_slots(f["mat_type"], f["mat_data"]),
+        wrapper_children=bsdf_mod.wrapper_children(f["mat_type"],
+                                                   f["mat_data"]),
+        emitter_tex=tuple(sorted({int(t) for t, k in zip(
+            etype[:n_emitters], f["emitter_data"][:n_emitters, 7])
+            if k >= SLOT_TEX_BASE})),
         n_emitters=n_emitters,
         env_emitter=int(env[0]) if env.size else -1,
         emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),

@@ -60,6 +60,28 @@ class Ray:
         return Ray(o=o, d=d, maxt=maxt, wavelengths=wavelengths)
 
 
+@dataclasses.dataclass
+class RayDifferential(Ray):
+    """A ray with the two offset rays of its pixel footprint
+    (include/mitsuba/core/ray.h::RayDifferential): o_x/d_x through the
+    film sample one pixel over in x, o_y/d_y one pixel over in y. The
+    shading record derives the uv footprint `duv_dx`/`duv_dy` from them
+    (texture filtering)."""
+    o_x: Vec3 = None
+    o_y: Vec3 = None
+    d_x: Vec3 = None
+    d_y: Vec3 = None
+
+    def scale_differential(self, amount) -> "RayDifferential":
+        """ray.h::scale_differential: the offset rays moved toward the
+        main ray (amount 1/sqrt(spp): a sample covers 1/spp of a pixel)."""
+        return dataclasses.replace(
+            self, o_x=self.o + (self.o_x - self.o) * amount,
+            o_y=self.o + (self.o_y - self.o) * amount,
+            d_x=self.d + (self.d_x - self.d) * amount,
+            d_y=self.d + (self.d_y - self.d) * amount)
+
+
 class Transform4:
     """Host 4x4 affine transform (numpy f32), used to place preset geometry
     and the camera. Same constructors and conventions as the JAX package's

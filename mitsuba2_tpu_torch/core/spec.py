@@ -60,6 +60,15 @@ class Spec:
             out = torch.maximum(out, c)
         return out
 
+    def hsum(self):
+        out = self.ch[0]
+        for c in self.ch[1:]:
+            out = out + c
+        return out
+
+    def hmean(self):
+        return self.hsum() * (1.0 / len(self.ch))
+
     def any_positive(self):
         out = self.ch[0] > 0
         for c in self.ch[1:]:

@@ -14,8 +14,10 @@ The same two-phase schedule as the JAX package's:
 Traversal is detached (scene.ray_test, scene._preliminary_dispatch): a
 pass's tape holds its shading alone, so the backward sweep traces no
 ray, and gradients flow through shading and emission only, into
-`mat_data` and `emitter_data`, and on a scene with an envmap into its
-image and scale (`env_image`, `env_scale`). The JAX package's
+`mat_data` and `emitter_data`, on a scene with textures into the atlas'
+texels (`tex_data`, through every level of the pyramid, rebuilt from
+them), and on a scene with an envmap into its image and scale
+(`env_image`, `env_scale`). The JAX package's
 config.remat has no
 counterpart: checkpointing each bounce's shading kept as much memory as
 the tape it replaced (PERF.md).
@@ -31,21 +33,26 @@ from ..config import RenderConfig
 from ..device import resolve_device
 from ..render import film as film_mod
 from ..render.integrators import pass_seeds, render_pass
-from ..scene.scene import DIFF_TABLES, ENV_DIFF_TABLES, diff_tables, to_device
+from ..scene.scene import (DIFF_TABLES, ENV_DIFF_TABLES, TEX_DIFF_TABLE,
+                           diff_tables, to_device)
 
-# diff tables of the JAX package that come with later slices
-_LATER = ("tex_data", "med_data", "med_grid")
+# diff tables of the JAX package that come with a later slice
+_LATER = ("med_data", "med_grid")
 
 
 def with_tables(scene, tables: Dict[str, torch.Tensor]):
-    """The scene with `tables` (diff_tables' keys) in place of its own. An
-    envmap's importance table and spectral coefficients stay as built, as
-    in the JAX package: only its image and scale are replaced."""
+    """The scene with `tables` (diff_tables' keys) in place of its own.
+    New texels rebuild the mip pyramid, so that gradients flow through
+    every level. An envmap's importance table and spectral coefficients
+    stay as built, as in the JAX package: only its image and scale are
+    replaced."""
     later = sorted(set(tables) & set(_LATER))
     if later:
         raise NotImplementedError(
             f"mitsuba2_tpu_torch has no {later} tables yet")
     new = {k: tables[k] for k in DIFF_TABLES}
+    if TEX_DIFF_TABLE in tables:
+        new["textures"] = scene.textures.with_data(tables[TEX_DIFF_TABLE])
     env = {f: tables[k] for k, f in ENV_DIFF_TABLES.items() if k in tables}
     if env:
         new["envmap"] = dataclasses.replace(scene.envmap, **env)

@@ -6,7 +6,9 @@ time in `SceneData.param_paths`. Updates are functional: `scene_with` and
 `ParameterMap.update` return a new SceneData (dataclasses.replace) with
 new tables and never write into the old ones. `scene_with` is
 differentiable with respect to the values: an RGB slot is rebuilt on the
-device through the coefficient lattice, as the JAX package rebuilds it.
+device through the coefficient lattice, as the JAX package rebuilds it,
+and a texture's texels ("image" entries, `textures.data`) rebuild the
+atlas' mip pyramid.
 """
 from __future__ import annotations
 
@@ -29,6 +31,23 @@ def _slot_update(row_slice, rgb):
     coeffs = sp.srgb_model_fetch_interp(sp.srgb_model_fetch_lattice(),
                                         rgb / scale)
     return torch.cat([rgb, coeffs, scale[None], row_slice[7:8]])
+
+
+def _get_table(scene, table: str):
+    obj = scene
+    for part in table.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _set_table(scene, table: str, value):
+    """The scene with `table` replaced: a table of SceneData, or the
+    atlas' texels ("textures.data"), whose pyramid is rebuilt from them
+    (parameters_changed())."""
+    if table == "textures.data":
+        return dataclasses.replace(scene,
+                                   textures=scene.textures.with_data(value))
+    return dataclasses.replace(scene, **{table: value})
 
 
 class ParameterMap:
@@ -56,8 +75,10 @@ class ParameterMap:
         return iter(self._entries)
 
     def __getitem__(self, name) -> torch.Tensor:
-        table, row, c0, c1, _ = self._entries[name]
-        arr = getattr(self.scene, table)
+        table, row, c0, c1, kind = self._entries[name]
+        arr = _get_table(self.scene, table)
+        if kind == "image":
+            return arr[row]
         return arr[row, c0:c1] if c1 - c0 > 1 else arr[row, c0]
 
     def keep(self, patterns) -> "ParameterMap":
@@ -87,7 +108,8 @@ def traverse(scene) -> ParameterMap:
 def scene_with(scene, values: Dict[str, torch.Tensor], entries=None):
     """A new scene with {name: value} applied onto its tables,
     differentiable with respect to the values: an "rgb" entry rebuilds its
-    whole spectrum slot (_slot_update), a "scalar" one writes its column."""
+    whole spectrum slot (_slot_update), a "scalar" one writes its column,
+    an "image" one a texture's (TH, TW, 3) texels."""
     if entries is None:
         entries = {p[0]: p[1:] for p in scene.param_paths}
     # group updates by table so each table is copied once
@@ -95,16 +117,17 @@ def scene_with(scene, values: Dict[str, torch.Tensor], entries=None):
     for name, value in values.items():
         table, row, c0, c1, kind = entries[name]
         by_table.setdefault(table, []).append((row, c0, c1, kind, value))
-    new = {}
     for table, ups in by_table.items():
-        arr = getattr(scene, table).clone()
+        arr = _get_table(scene, table).clone()
         for row, c0, c1, kind, value in ups:
             value = torch.as_tensor(value, dtype=torch.float32,
                                     device=arr.device)
-            if kind == "rgb":
+            if kind == "image":
+                arr[row] = value.reshape(arr.shape[1:])
+            elif kind == "rgb":
                 arr[row, c0:c0 + 8] = _slot_update(arr[row, c0:c0 + 8],
                                                    value)
             else:
                 arr[row, c0:c1] = value.reshape(c1 - c0)
-        new[table] = arr
-    return dataclasses.replace(scene, **new)
+        scene = _set_table(scene, table, arr)
+    return scene

@@ -1,14 +1,17 @@
-"""BSDF layer (counterpart of render/bsdf.py): the leaf families of
-config 2 and the `twosided` wrapper.
+"""BSDF layer (counterpart of render/bsdf.py): the leaf families, the
+wrappers and `twosided`.
 
 A family is a set of pure functions over a packed material row; the
 wavefront dispatch is masked evaluate-all over the families present in
-the scene, as in the JAX package. This slice ports diffuse, conductor,
-roughconductor, dielectric, thindielectric, roughdielectric, plastic and
-roughplastic, and `twosided` (a flag on its child's row: the dispatch
-flips the local frame of a lane that hits it from behind). The other
-families raise at scene build, naming themselves, and so does a
-roughness texture.
+the scene, as in the JAX package. The leaves are diffuse, conductor,
+roughconductor, dielectric, thindielectric, roughdielectric, plastic,
+roughplastic and null; the wrappers mask, blendbsdf, normalmap and
+bumpmap hold their children's row indices (cols 30 and 31) and dispatch
+them per lane; `twosided` is a flag on its child's row (the dispatch
+flips the local frame of a lane that hits it from behind). Any color
+slot may be a texture (render/texture.py), and the rough families'
+roughness too (ALPHA_SLOT). The measured and polarized families raise at
+scene build, naming themselves.
 
 Conventions follow the reference: directions in the LOCAL shading frame,
 `wi` points away from the surface, `sample(u1, u2)` returns (BSDFSample,
@@ -26,7 +29,8 @@ import torch
 from ..core import warp
 from ..core.geometry import Frame
 from ..core.spec import Spec, swhere
-from ..core.vec import Vec3, vdot, vnormalize, vwhere
+from ..core.spectrum import _clip as sp_clip, _max as sp_max
+from ..core.vec import Vec2, Vec3, vdot, vnormalize, vwhere
 from . import fresnel as fr
 from . import ior as ior_mod
 from . import microfacet as mf
@@ -34,9 +38,9 @@ from .spectra import LaneRows, SLOT_W, eval_spectrum_slot, pack_color
 
 MAT_W = 40
 # cols [0:24]: three 8-wide spectrum slots (family-specific)
-# cols [24:32]: family-specific scalars (alphas, IOR ratios)
-# cols [32:40]: ALPHA_SLOT, the JAX package's roughness texture of the
-#   rough families: all zero here (a textured roughness is refused)
+# cols [24:32]: family-specific scalars (alphas, IOR ratios, child rows)
+# cols [32:40]: ALPHA_SLOT, the rough families' roughness texture (its
+#   channel mean, isotropic); all zero for a scalar roughness
 ALPHA_SLOT = 32
 
 # BSDFFlags (include/mitsuba/render/bsdf.h)
@@ -60,13 +64,16 @@ THINDIELECTRIC = 4
 ROUGHDIELECTRIC = 5
 PLASTIC = 6
 ROUGHPLASTIC = 7
+NULL_BSDF = 8
+MASK = 9
+BLEND = 10
+NORMALMAP = 11
+BUMPMAP = 12
 
-# the JAX package's families this slice does not port, by id, and the
-# names that select them
-UNPORTED = {8: "null", 9: "mask", 10: "blendbsdf", 11: "normalmap",
-            12: "bumpmap", 13: "measured", 14: "polarizer", 15: "retarder",
+# the JAX package's families the port does not render, by id
+UNPORTED = {13: "measured", 14: "polarizer", 15: "retarder",
             16: "measured_polarized"}
-_UNPORTED_NAMES = set(UNPORTED.values()) | {"blend"}
+_UNPORTED_NAMES = set(UNPORTED.values())
 
 _DIST_NAME = {"ggx": mf.GGX, "beckmann": mf.BECKMANN}
 
@@ -95,19 +102,47 @@ def _flags2(active, pick, flag_a, flag_b):
                        0).to(torch.int32)
 
 
+def _duv(si):
+    return None if si.duv_dx is None else (si.duv_dx, si.duv_dy)
+
+
+def _tex(data, i, si):
+    """The atlas where slot i of the lanes' rows may be a texture, else
+    None: no row of the family textures it, and the lookup the JAX
+    package makes there on every lane, its value discarded, is skipped."""
+    return si.tex if i in data.textured else None
+
+
 def _spec(data, i, si, config) -> Spec:
-    return eval_spectrum_slot(data.slot(i), si.wavelengths, config.color_mode)
+    return eval_spectrum_slot(data.slot(i), si.wavelengths, config.color_mode,
+                              tex=_tex(data, i, si), uv=si.uv, duv=_duv(si))
 
 
-def _pack_alpha(props, key="alpha", default=0.1) -> float:
-    """Host: a scalar roughness, for its column. The JAX package also
-    takes a texture here (into ALPHA_SLOT): not in this slice."""
+def _pack_alpha(data, props, key="alpha", default=0.1) -> float:
+    """Host: a scalar roughness, for its column; a texture packs into
+    ALPHA_SLOT (isotropic, alpha_u and alpha_v share it) and the column
+    takes the mean of its slot's RGB columns."""
     a = props.get(key, default)
     if isinstance(a, dict):
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support textured roughness yet "
-            f"({key} = {a.get('type')!r})")
+        slot = pack_color(a)
+        data[ALPHA_SLOT:ALPHA_SLOT + SLOT_W] = slot
+        return float(np.mean(slot[0:3]))
     return float(a)
+
+
+def _alpha_tex(data, si, au, av):
+    """Where ALPHA_SLOT holds a texture (kind column >= 2), a lane's
+    roughness is the texture's channel mean at its uv (Texture::eval_1),
+    for both alphas; skipped where no material of the scene has one."""
+    if _tex(data, ALPHA_SLOT // SLOT_W, si) is None:
+        return au, av
+    from . import texture as texture_mod
+    kind = data.col(ALPHA_SLOT + 7).to(torch.int64)
+    tid = torch.clamp_min(torch.div(kind - 2, 2, rounding_mode="floor"), 0)
+    rgb = texture_mod.eval_rgb(si.tex, tid, si.uv, duv=_duv(si))
+    a = sp_max(sum(rgb.ch) / len(rgb.ch), 1e-4)
+    is_tex = kind >= 2
+    return torch.where(is_tex, a, au), torch.where(is_tex, a, av)
 
 
 def _dielectric_eta(props, default_int):
@@ -220,21 +255,21 @@ class RoughConductor:
     @staticmethod
     def pack(props, build_child) -> np.ndarray:
         data = Conductor.pack(props, build_child)
-        a = _pack_alpha(props)
-        data[24] = _pack_alpha(props, "alpha_u", a)
-        data[25] = _pack_alpha(props, "alpha_v", a)
+        a = _pack_alpha(data, props)
+        data[24] = _pack_alpha(data, props, "alpha_u", a)
+        data[25] = _pack_alpha(data, props, "alpha_v", a)
         data[26] = _DIST_NAME[props.get("distribution", "ggx")]
         return data
 
     @staticmethod
-    def _params(data):
-        return (torch.clamp_min(data.col(24), 1e-4),
-                torch.clamp_min(data.col(25), 1e-4),
+    def _params(data, si):
+        return (*_alpha_tex(data, si, torch.clamp_min(data.col(24), 1e-4),
+                            torch.clamp_min(data.col(25), 1e-4)),
                 data.col(26).to(torch.int32))
 
     @staticmethod
     def sample(data, si, u1, u2, config):
-        au, av, dist = RoughConductor._params(data)
+        au, av, dist = RoughConductor._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         m_dir, pdf_m = mf.sample(dist, si.wi, au, av, u2)
         wo = fr.reflect_m(si.wi, m_dir)
@@ -252,7 +287,7 @@ class RoughConductor:
 
     @staticmethod
     def eval(data, si, wo, config):
-        au, av, dist = RoughConductor._params(data)
+        au, av, dist = RoughConductor._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         h = vnormalize(si.wi + wo)
@@ -265,7 +300,7 @@ class RoughConductor:
 
     @staticmethod
     def pdf(data, si, wo, config):
-        au, av, dist = RoughConductor._params(data)
+        au, av, dist = RoughConductor._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         h = vnormalize(si.wi + wo)
@@ -363,21 +398,22 @@ class RoughDielectric:
     @staticmethod
     def pack(props, build_child) -> np.ndarray:
         data = Dielectric.pack(props, build_child)
-        a = _pack_alpha(props)
-        data[25] = _pack_alpha(props, "alpha_u", a)
-        data[26] = _pack_alpha(props, "alpha_v", a)
+        a = _pack_alpha(data, props)
+        data[25] = _pack_alpha(data, props, "alpha_u", a)
+        data[26] = _pack_alpha(data, props, "alpha_v", a)
         data[27] = _DIST_NAME[props.get("distribution", "ggx")]
         return data
 
     @staticmethod
-    def _params(data):
-        return (data.col(24), torch.clamp_min(data.col(25), 1e-4),
-                torch.clamp_min(data.col(26), 1e-4),
+    def _params(data, si):
+        return (data.col(24),
+                *_alpha_tex(data, si, torch.clamp_min(data.col(25), 1e-4),
+                            torch.clamp_min(data.col(26), 1e-4)),
                 data.col(27).to(torch.int32))
 
     @staticmethod
     def sample(data, si, u1, u2, config):
-        eta, au, av, dist = RoughDielectric._params(data)
+        eta, au, av, dist = RoughDielectric._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         # m stays in the upper hemisphere; the SIGNED dot(wi, m) tells
         # fresnel which side the ray comes from
@@ -418,7 +454,7 @@ class RoughDielectric:
 
     @staticmethod
     def eval(data, si, wo, config):
-        eta, au, av, dist = RoughDielectric._params(data)
+        eta, au, av, dist = RoughDielectric._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         is_reflect = cos_i * cos_o > 0
@@ -451,7 +487,7 @@ class RoughDielectric:
 
     @staticmethod
     def pdf(data, si, wo, config):
-        eta, au, av, dist = RoughDielectric._params(data)
+        eta, au, av, dist = RoughDielectric._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         is_reflect = cos_i * cos_o > 0
@@ -582,21 +618,21 @@ class RoughPlastic:
     @staticmethod
     def pack(props, build_child) -> np.ndarray:
         data = Plastic.pack(props, build_child)
-        data[29] = _pack_alpha(props)
+        data[29] = _pack_alpha(data, props)
         data[30] = _DIST_NAME[props.get("distribution", "ggx")]
         return data
 
     @staticmethod
-    def _params(data):
-        return (torch.clamp_min(data.col(29), 1e-4),
-                data.col(30).to(torch.int32))
+    def _params(data, si):
+        au = _alpha_tex(data, si, torch.clamp_min(data.col(29), 1e-4), 0.0)[0]
+        return au, data.col(30).to(torch.int32)
 
     @staticmethod
     def sample(data, si, u1, u2, config):
         cos_i = Frame.cos_theta(si.wi)
         prob_spec = Plastic._probs(data, cos_i)[1]
         pick_spec = u1 < prob_spec
-        au, dist = RoughPlastic._params(data)
+        au, dist = RoughPlastic._params(data, si)
 
         m_dir = mf.sample(dist, si.wi, au, au, u2)[0]
         wo = vwhere(pick_spec, fr.reflect_m(si.wi, m_dir),
@@ -616,7 +652,7 @@ class RoughPlastic:
     @staticmethod
     def eval(data, si, wo, config):
         eta = data.col(24)
-        au, dist = RoughPlastic._params(data)
+        au, dist = RoughPlastic._params(data, si)
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         h = vnormalize(si.wi + wo)
@@ -635,13 +671,248 @@ class RoughPlastic:
         cos_i = Frame.cos_theta(si.wi)
         cos_o = Frame.cos_theta(wo)
         prob_spec = Plastic._probs(data, cos_i)[1]
-        au, dist = RoughPlastic._params(data)
+        au, dist = RoughPlastic._params(data, si)
         h = vnormalize(si.wi + wo)
         pdf_m = mf.pdf(dist, si.wi, h, au, au)
         pdf_spec = pdf_m / torch.clamp_min(4.0 * vdot(si.wi, h).abs(), 1e-20)
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo)
         pdf = prob_spec * pdf_spec + (1.0 - prob_spec) * pdf_diff
         return torch.where((cos_i > 0) & (cos_o > 0), pdf, 0.0)
+
+
+# ===========================================================================
+# null (src/bsdfs/null.cpp): pass-through
+# ===========================================================================
+
+class Null:
+    id = NULL_BSDF
+    flags = F_NULL
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        return np.zeros(MAT_W, np.float32)
+
+    @staticmethod
+    def sample(data, si, u1, u2, config):
+        one = torch.ones_like(si.wi.z)
+        bs = BSDFSample(wo=-si.wi, pdf=one, eta=one,
+                        sampled_flags=torch.full_like(
+                            si.wi.z, F_NULL, dtype=torch.int32))
+        return bs, Spec.ones(one.shape[0], config.n_channels, one.device)
+
+    eval = staticmethod(_no_eval)
+    pdf = staticmethod(_no_pdf)
+
+
+# ===========================================================================
+# The wrappers: a wrapper's row holds its children's row indices (col 30,
+# blend's second child col 31), and it dispatches each lane's child through
+# the leaf dispatch (_sample_leaf, _eval_leaf, _pdf_leaf) with the lane's
+# child row, each leaf family on rows of its own family (_leaf_lanes)
+# ===========================================================================
+
+def _child(scene, data, wrapper, col=30):
+    """The lanes' child rows (col `col` of their rows of family
+    `wrapper`), their families, and the leaf families a child in that
+    column of the scene's rows of `wrapper` has (scene.wrapper_children):
+    the only ones the child dispatch runs. The JAX package runs every
+    leaf family of the scene there, and its selects discard the others."""
+    idx = data.col(col).to(torch.int64)
+    return (idx, scene.mat_type[idx],
+            dict(scene.wrapper_children).get((wrapper, col), ()))
+
+
+class Mask:
+    """mask.cpp: the child with probability q = mean(opacity), else the
+    null lobe (wo = -wi, pdf 1 - q, F_NULL)."""
+    id = MASK
+    flags = F_NULL   # | the child's lobes at build
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[2 * SLOT_W:3 * SLOT_W] = pack_color(props.get("opacity",
+                                                           [0.5, 0.5, 0.5]))
+        data[30] = build_child(props.get("bsdf", {"type": "diffuse"}))
+        return data
+
+    @staticmethod
+    def _q(opacity):
+        return sp_clip(opacity.hmean(), 1e-6, 1.0 - 1e-6)
+
+    @staticmethod
+    def sample(scene, data, si, u1, u2, config):
+        opacity = _spec(data, 2, si, config)
+        q = Mask._q(opacity)
+        pick = u1 < q
+        u1r = torch.where(pick, u1 / q, (u1 - q) / (1.0 - q))
+        idx, ct, fams = _child(scene, data, Mask.id)
+        bs_c, w_c = _sample_leaf(scene, ct, idx, si, u1r, u2, config, fams)
+        w_c = w_c * opacity / q
+        bs = BSDFSample(
+            wo=vwhere(pick, bs_c.wo, -si.wi),
+            pdf=torch.where(pick, bs_c.pdf * q, 1.0 - q),
+            eta=torch.where(pick, bs_c.eta, 1.0),
+            sampled_flags=torch.where(pick, bs_c.sampled_flags,
+                                      F_NULL).to(torch.int32))
+        return bs, swhere(pick, w_c, (1.0 - opacity) / (1.0 - q))
+
+    @staticmethod
+    def eval(scene, data, si, wo, config):
+        idx, ct, fams = _child(scene, data, Mask.id)
+        return _spec(data, 2, si, config) * _eval_leaf(scene, ct, idx, si,
+                                                       wo, config, fams)
+
+    @staticmethod
+    def pdf(scene, data, si, wo, config):
+        q = Mask._q(_spec(data, 2, si, config))
+        idx, ct, fams = _child(scene, data, Mask.id)
+        return q * _pdf_leaf(scene, ct, idx, si, wo, config, fams)
+
+
+class Blend:
+    """blendbsdf.cpp: child b with probability `weight`, else child a;
+    eval and pdf the weighted sums."""
+    id = BLEND
+    flags = 0   # | the children's lobes at build
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[29] = float(props.get("weight", 0.5))
+        children = props.get("bsdfs")
+        if children is None:
+            children = [props.get("bsdf_0", {"type": "diffuse"}),
+                        props.get("bsdf_1", {"type": "diffuse"})]
+        data[30] = build_child(children[0])
+        data[31] = build_child(children[1])
+        return data
+
+    @staticmethod
+    def sample(scene, data, si, u1, u2, config):
+        w = data.col(29)
+        pick_b = u1 < w
+        u1r = torch.where(pick_b, u1 / sp_max(w, 1e-8),
+                          (u1 - w) / sp_max(1.0 - w, 1e-8))
+        ia, ta, fa = _child(scene, data, Blend.id, 30)
+        ib, tb, fb = _child(scene, data, Blend.id, 31)
+        bs_a, w_a = _sample_leaf(scene, ta, ia, si, u1r, u2, config, fa)
+        bs_b, w_b = _sample_leaf(scene, tb, ib, si, u1r, u2, config, fb)
+        bs = BSDFSample(
+            wo=vwhere(pick_b, bs_b.wo, bs_a.wo),
+            pdf=torch.where(pick_b, w * bs_b.pdf, (1 - w) * bs_a.pdf),
+            eta=torch.where(pick_b, bs_b.eta, bs_a.eta),
+            sampled_flags=torch.where(pick_b, bs_b.sampled_flags,
+                                      bs_a.sampled_flags))
+        return bs, swhere(pick_b, w_b, w_a)
+
+    @staticmethod
+    def eval(scene, data, si, wo, config):
+        w = data.col(29)
+        ia, ta, fa = _child(scene, data, Blend.id, 30)
+        ib, tb, fb = _child(scene, data, Blend.id, 31)
+        return (_eval_leaf(scene, ta, ia, si, wo, config, fa) * (1.0 - w)
+                + _eval_leaf(scene, tb, ib, si, wo, config, fb) * w)
+
+    @staticmethod
+    def pdf(scene, data, si, wo, config):
+        w = data.col(29)
+        ia, ta, fa = _child(scene, data, Blend.id, 30)
+        ib, tb, fb = _child(scene, data, Blend.id, 31)
+        return ((1.0 - w) * _pdf_leaf(scene, ta, ia, si, wo, config, fa)
+                + w * _pdf_leaf(scene, tb, ib, si, wo, config, fb))
+
+
+def _normalmap_frame(data, si) -> Frame:
+    """normalmap.cpp: the tangent-space normal of slot 2's RGB (2 rgb -
+    1, a texture read at level 0) -> a frame inside the local one."""
+    rgb = eval_spectrum_slot(data.slot(2), si.wavelengths, "rgb",
+                             tex=_tex(data, 2, si), uv=si.uv)
+    return Frame.from_n(vnormalize(Vec3(2.0 * rgb.ch[0] - 1.0,
+                                        2.0 * rgb.ch[1] - 1.0,
+                                        2.0 * rgb.ch[2] - 1.0)))
+
+
+BUMP_EPS = 5e-4
+
+
+def _bumpmap_frame(data, si) -> Frame:
+    """bumpmap.cpp: the height of slot 2 (its channel mean, a texture
+    read at level 0) differenced centrally at uv +- BUMP_EPS, scaled by
+    col 29 -> the perturbed normal's frame inside the local one."""
+    def h(uv):
+        return eval_spectrum_slot(data.slot(2), si.wavelengths, "rgb",
+                                  tex=_tex(data, 2, si), uv=uv).hmean()
+
+    scale = data.col(29)
+    uv = si.uv
+    dh_du = (h(Vec2(uv.x + BUMP_EPS, uv.y))
+             - h(Vec2(uv.x - BUMP_EPS, uv.y))) / (2 * BUMP_EPS)
+    dh_dv = (h(Vec2(uv.x, uv.y + BUMP_EPS))
+             - h(Vec2(uv.x, uv.y - BUMP_EPS))) / (2 * BUMP_EPS)
+    return Frame.from_n(vnormalize(Vec3(-scale * dh_du, -scale * dh_dv,
+                                        torch.ones_like(dh_du))))
+
+
+class _FramePerturb:
+    """normalmap and bumpmap: the child in a perturbed frame inside the
+    local one (the reference's frame-within-frame)."""
+
+    @classmethod
+    def sample(cls, scene, data, si, u1, u2, config):
+        fp = cls._frame(data, si)
+        si_p = dataclasses.replace(si, wi=fp.to_local(si.wi))
+        idx, ct, fams = _child(scene, data, cls.id)
+        bs, w = _sample_leaf(scene, ct, idx, si_p, u1, u2, config, fams)
+        wo = fp.to_world(bs.wo)
+        # a sample the perturbation pushed below the true surface is void
+        ok = Frame.cos_theta(wo) * Frame.cos_theta(bs.wo) > 0
+        bs = dataclasses.replace(bs, wo=wo, pdf=torch.where(ok, bs.pdf, 0.0))
+        return bs, w.masked(ok)
+
+    @classmethod
+    def eval(cls, scene, data, si, wo, config):
+        fp = cls._frame(data, si)
+        si_p = dataclasses.replace(si, wi=fp.to_local(si.wi))
+        idx, ct, fams = _child(scene, data, cls.id)
+        return _eval_leaf(scene, ct, idx, si_p, fp.to_local(wo), config,
+                          fams)
+
+    @classmethod
+    def pdf(cls, scene, data, si, wo, config):
+        fp = cls._frame(data, si)
+        si_p = dataclasses.replace(si, wi=fp.to_local(si.wi))
+        idx, ct, fams = _child(scene, data, cls.id)
+        return _pdf_leaf(scene, ct, idx, si_p, fp.to_local(wo), config,
+                         fams)
+
+
+class NormalMap(_FramePerturb):
+    id = NORMALMAP
+    flags = 0   # | the child's lobes at build
+    _frame = staticmethod(_normalmap_frame)
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[2 * SLOT_W:3 * SLOT_W] = pack_color(
+            props.get("normalmap", [0.5, 0.5, 1.0]))
+        data[30] = build_child(props.get("bsdf", {"type": "diffuse"}))
+        return data
+
+
+class BumpMap(_FramePerturb):
+    id = BUMPMAP
+    flags = 0
+    _frame = staticmethod(_bumpmap_frame)
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[2 * SLOT_W:3 * SLOT_W] = pack_color(props.get("bumpmap", 0.0))
+        data[29] = float(props.get("scale", 1.0))
+        data[30] = build_child(props.get("bsdf", {"type": "diffuse"}))
+        return data
 
 
 # Differentiable parameters of each family (name -> location in its row),
@@ -663,21 +934,32 @@ RoughDielectric.param_spec = {**Dielectric.param_spec,
 Plastic.param_spec = {"diffuse_reflectance": ("slot", 0),
                       "specular_reflectance": ("slot", 1)}
 RoughPlastic.param_spec = {**Plastic.param_spec, "alpha": ("scalar", 29)}
+Null.param_spec = {}
+Mask.param_spec = {"opacity": ("slot", 2)}
+Blend.param_spec = {"weight": ("scalar", 29)}
+NormalMap.param_spec = {"normalmap": ("slot", 2)}
+BumpMap.param_spec = {"bumpmap": ("slot", 2), "scale": ("scalar", 29)}
 
-FAMILIES = {c.id: c for c in (Diffuse, Conductor, RoughConductor,
-                              Dielectric, ThinDielectric, RoughDielectric,
-                              Plastic, RoughPlastic)}
+LEAF_FAMILIES = {c.id: c for c in (Diffuse, Conductor, RoughConductor,
+                                   Dielectric, ThinDielectric,
+                                   RoughDielectric, Plastic, RoughPlastic,
+                                   Null)}
+WRAPPER_FAMILIES = {c.id: c for c in (Mask, Blend, NormalMap, BumpMap)}
+FAMILIES = {**LEAF_FAMILIES, **WRAPPER_FAMILIES}
 _BY_NAME = {"diffuse": Diffuse, "conductor": Conductor,
             "roughconductor": RoughConductor, "dielectric": Dielectric,
             "thindielectric": ThinDielectric,
             "roughdielectric": RoughDielectric, "plastic": Plastic,
-            "roughplastic": RoughPlastic}
+            "roughplastic": RoughPlastic, "null": Null, "mask": Mask,
+            "blendbsdf": Blend, "blend": Blend, "normalmap": NormalMap,
+            "bumpmap": BumpMap}
 
 
 def build_material(desc: dict, mats: List) -> int:
     """Host: append the rows of `desc` to `mats` ([type, flags, row]
     entries); returns its row index. `twosided` (nested too) is a flag on
-    its child's row; a wrapper's flags take in its children's lobes."""
+    its child's row; a wrapper's children get rows of their own after
+    its, and its flags take in their lobes."""
     desc = dict(desc or {"type": "diffuse"})
     t = desc.get("type")
     extra_flags = 0
@@ -714,6 +996,32 @@ def build_material(desc: dict, mats: List) -> int:
 # Wavefront dispatch
 # ---------------------------------------------------------------------------
 
+def textured_slots(mat_type: np.ndarray, mat_data: np.ndarray) -> tuple:
+    """((family id, slots), ...): each family's spectrum slots (0-2, and
+    4 for ALPHA_SLOT) that some row of it fills with a texture (kind
+    column >= 2), the static metadata of the lookups it makes."""
+    slots = np.asarray([0, 1, 2, ALPHA_SLOT // SLOT_W])  # not the scalars
+    kinds = mat_data[:, slots * SLOT_W + SLOT_W - 1]
+    return tuple(
+        (int(fid), frozenset(int(k) for k in slots[
+            (kinds[mat_type == fid] >= 2).any(0)]))
+        for fid in np.unique(mat_type))
+
+
+def wrapper_children(mat_type: np.ndarray, mat_data: np.ndarray) -> tuple:
+    """(((wrapper family, column), leaf families), ...): the families of
+    the children in each child column of each wrapper family's rows."""
+    out = []
+    for fid, cls in WRAPPER_FAMILIES.items():
+        rows = mat_data[mat_type == fid]
+        for col in (30, 31) if cls is Blend else (30,):
+            if rows.shape[0]:
+                kids = mat_type[rows[:, col].astype(np.int64)]
+                out.append(((fid, col), frozenset(
+                    int(k) for k in kids if int(k) in LEAF_FAMILIES)))
+    return tuple(out)
+
+
 def _lane_materials(scene, si):
     mat_idx = torch.clamp_min(scene.shape_mat[torch.clamp_min(si.shape, 0)], 0)
     return mat_idx, scene.mat_type[mat_idx], scene.mat_flags[mat_idx]
@@ -724,22 +1032,64 @@ def lane_flags(scene, si):
     return _lane_materials(scene, si)[2]
 
 
-def _family_lanes(scene, mat_idx, mtype):
-    """(family id, its lanes, the rows it reads) for each family of the
-    scene: the masked evaluate-all runs every family on every lane, each
-    on rows of its own family (a lane of another family's reads the
-    family's first row, scene.family_rows). The JAX package runs a family
-    on the other families' rows, whose columns mean other things (a
-    diffuse row's eta is 0): values its selects discard, but whose
-    infinite derivatives its backward multiplies by the zero cotangent of
-    the unselected branch, NaN in every mat_data gradient of veach_mis()
-    (diffuse walls beside conductor plates) and of the material
-    gallery."""
+def _family_lanes(scene, mat_idx, mtype, families):
+    """(family id, its lanes, the rows it reads) for each of `families`
+    the scene holds: the masked evaluate-all runs every family on every
+    lane, each on rows of its own family (a lane of another family's
+    reads the family's first row, scene.family_rows). The JAX package
+    runs a family on the other families' rows, whose columns mean other
+    things (a diffuse row's eta is 0): values its selects discard, but
+    whose infinite derivatives its backward multiplies by the zero
+    cotangent of the unselected branch, NaN in every mat_data gradient of
+    veach_mis() (diffuse walls beside conductor plates) and of the
+    material gallery. A wrapper's children (mat_idx its lanes' child
+    rows, mtype their families) follow the same rule."""
     single = len(scene.mat_families) == 1
+    tex_slots = dict(scene.family_tex)
     for fid, row in zip(scene.mat_families, scene.family_rows):
+        if fid not in families:
+            continue
         own = mtype == fid
         idx = mat_idx if single else torch.where(own, mat_idx, row)
-        yield fid, own, LaneRows(scene.mat_data, idx)
+        yield fid, own, LaneRows(scene.mat_data, idx,
+                                 textured=tex_slots.get(fid, frozenset()))
+
+
+def _sample_leaf(scene, mtype, mat_idx, si, u1, u2, config,
+                 families=LEAF_FAMILIES):
+    """BSDF::sample of the leaf families (of `families`) on their lanes."""
+    n, dev = mtype.shape[0], mtype.device
+    bs = _zero_sample(n, dev)
+    weight = Spec.zeros(n, config.n_channels, dev)
+    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype, families):
+        fam_bs, fam_w = LEAF_FAMILIES[fid].sample(mdata, si, u1, u2, config)
+        bs = _select_sample(sel, fam_bs, bs)
+        weight = swhere(sel, fam_w, weight)
+    return bs, weight
+
+
+def _eval_leaf(scene, mtype, mat_idx, si, wo, config,
+               families=LEAF_FAMILIES) -> Spec:
+    out = Spec.zeros(mtype.shape[0], config.n_channels, mtype.device)
+    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype, families):
+        out = swhere(sel, LEAF_FAMILIES[fid].eval(mdata, si, wo, config), out)
+    return out
+
+
+def _pdf_leaf(scene, mtype, mat_idx, si, wo, config,
+              families=LEAF_FAMILIES) -> torch.Tensor:
+    out = torch.zeros(mtype.shape[0], dtype=torch.float32, device=mtype.device)
+    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype, families):
+        out = torch.where(sel, LEAF_FAMILIES[fid].pdf(mdata, si, wo, config),
+                          out)
+    return out
+
+
+def _select_sample(sel, a: BSDFSample, b: BSDFSample) -> BSDFSample:
+    return BSDFSample(
+        wo=vwhere(sel, a.wo, b.wo), pdf=torch.where(sel, a.pdf, b.pdf),
+        eta=torch.where(sel, a.eta, b.eta),
+        sampled_flags=torch.where(sel, a.sampled_flags, b.sampled_flags))
 
 
 def _maybe_flip(scene, si, flags):
@@ -759,20 +1109,16 @@ def _flip_wo(wo, flip):
 
 
 def sample(scene, si, u1, u2, config) -> Tuple[BSDFSample, Spec]:
-    """BSDF::sample over the wavefront."""
+    """BSDF::sample over the wavefront: the leaf families, then the
+    wrappers on their lanes."""
     mat_idx, mtype, flags = _lane_materials(scene, si)
     si_f, flip = _maybe_flip(scene, si, flags)
-    n, dev = mtype.shape[0], mtype.device
-    bs = _zero_sample(n, dev)
-    weight = Spec.zeros(n, config.n_channels, dev)
-    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype):
-        fam_bs, fam_w = FAMILIES[fid].sample(mdata, si_f, u1, u2, config)
-        bs = BSDFSample(
-            wo=vwhere(sel, fam_bs.wo, bs.wo),
-            pdf=torch.where(sel, fam_bs.pdf, bs.pdf),
-            eta=torch.where(sel, fam_bs.eta, bs.eta),
-            sampled_flags=torch.where(sel, fam_bs.sampled_flags,
-                                      bs.sampled_flags))
+    bs, weight = _sample_leaf(scene, mtype, mat_idx, si_f, u1, u2, config)
+    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype,
+                                         WRAPPER_FAMILIES):
+        fam_bs, fam_w = WRAPPER_FAMILIES[fid].sample(scene, mdata, si_f, u1,
+                                                     u2, config)
+        bs = _select_sample(sel, fam_bs, bs)
         weight = swhere(sel, fam_w, weight)
     bs.wo = _flip_wo(bs.wo, flip)
     return bs, weight
@@ -783,9 +1129,11 @@ def eval_(scene, si, wo, config) -> Spec:
     mat_idx, mtype, flags = _lane_materials(scene, si)
     si_f, flip = _maybe_flip(scene, si, flags)
     wo_f = _flip_wo(wo, flip)
-    out = Spec.zeros(mtype.shape[0], config.n_channels, mtype.device)
-    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype):
-        out = swhere(sel, FAMILIES[fid].eval(mdata, si_f, wo_f, config), out)
+    out = _eval_leaf(scene, mtype, mat_idx, si_f, wo_f, config)
+    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype,
+                                         WRAPPER_FAMILIES):
+        out = swhere(sel, WRAPPER_FAMILIES[fid].eval(scene, mdata, si_f,
+                                                     wo_f, config), out)
     return out
 
 
@@ -794,8 +1142,9 @@ def pdf(scene, si, wo, config) -> torch.Tensor:
     mat_idx, mtype, flags = _lane_materials(scene, si)
     si_f, flip = _maybe_flip(scene, si, flags)
     wo_f = _flip_wo(wo, flip)
-    out = torch.zeros(mtype.shape[0], dtype=torch.float32, device=mtype.device)
-    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype):
-        out = torch.where(sel, FAMILIES[fid].pdf(mdata, si_f, wo_f, config),
-                          out)
+    out = _pdf_leaf(scene, mtype, mat_idx, si_f, wo_f, config)
+    for fid, sel, mdata in _family_lanes(scene, mat_idx, mtype,
+                                         WRAPPER_FAMILIES):
+        out = torch.where(sel, WRAPPER_FAMILIES[fid].pdf(scene, mdata, si_f,
+                                                         wo_f, config), out)
     return out

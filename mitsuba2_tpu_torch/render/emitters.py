@@ -1,6 +1,8 @@
 """Emitters: packing, evaluation, NEE sampling and pdfs (counterpart of
 render/emitters.py): area, point, constant, envmap, spot, directional and
-untextured projector emitters.
+projector emitters. An area emitter's radiance and a projector's
+irradiance may be textures (render/texture.py), read at the emitter
+point's uv and at the projector's frustum uv.
 
 Emitter row layout (EMIT_W = 16):
     [0:8]   radiance / intensity / irradiance spectrum slot (spectra.py)
@@ -129,7 +131,7 @@ def _unit(v) -> np.ndarray:
 
 def pack_emitter(desc: dict):
     """Host: emitter descriptor -> (type id, packed row, the envmap's
-    tables or None). A textured projector raises (textures come later)."""
+    tables or None)."""
     row = np.zeros(EMIT_W, np.float32)
     t = desc.get("type")
     if t == "envmap":
@@ -139,10 +141,6 @@ def pack_emitter(desc: dict):
            "projector": "irradiance"}.get(t)
     if key is None:
         raise ValueError(f"unknown emitter type {t!r}")
-    if t == "projector" and isinstance(desc.get(key), dict) and \
-            desc[key].get("type") in ("bitmap", "checkerboard"):
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support textured projectors yet")
     row[0:SLOT_W] = pack_color(desc.get(key, [1, 1, 1]), illuminant=True)
     if t in ("point", "spot", "projector"):
         row[8:11] = np.asarray(desc.get("position", [0, 0, 0]), np.float32)
@@ -233,13 +231,15 @@ def envmap_eval(env: EnvMapData, d: Vec3, wavelengths, color_mode) -> Spec:
 # ---------------------------------------------------------------------------
 
 def eval_hit(scene, si, config) -> Spec:
-    """Area radiance toward the viewer; zero from the back side."""
+    """Area radiance toward the viewer (a texture read at the hit's uv,
+    level 0); zero from the back side."""
     e_idx = scene.shape_emitter[torch.clamp_min(si.shape, 0)]
     has_e = si.valid & (si.shape >= 0) & (e_idx >= 0)
     row = LaneRows(scene.emitter_data, torch.clamp_min(e_idx, 0))
     front = Frame.cos_theta(si.wi) > 0
-    return eval_spectrum_slot(row, si.wavelengths,
-                              config.color_mode).masked(has_e & front)
+    tex = si.tex if AREA in scene.emitter_tex else None
+    return eval_spectrum_slot(row, si.wavelengths, config.color_mode,
+                              tex=tex, uv=si.uv).masked(has_e & front)
 
 
 def eval_env(scene, d_world: Vec3, wavelengths, config) -> Spec:
@@ -298,8 +298,8 @@ def sample_direction(scene, ref_p: Vec3, wavelengths, u1, u2, config):
         ds, val = _sample_directional(wavelengths, etype, row, pick, ds,
                                       val, config)
     if PROJECTOR in kinds:
-        ds, val = _sample_projector(ref_p, wavelengths, etype, row, pick,
-                                    ds, val, config)
+        ds, val = _sample_projector(scene, ref_p, wavelengths, etype, row,
+                                    pick, ds, val, config)
     return ds, val
 
 
@@ -390,10 +390,11 @@ def _sample_directional(wavelengths, etype, row, pick, ds, val, config):
     return ds, swhere(is_dir, irradiance, val)
 
 
-def _sample_projector(ref_p, wavelengths, etype, row, pick, ds, val, config):
-    """Projector (emitters/projector.cpp), untextured: a delta position,
-    the irradiance scaled 1/dist^2 inside the pinhole frustum, zero
-    outside it."""
+def _sample_projector(scene, ref_p, wavelengths, etype, row, pick, ds, val,
+                      config):
+    """Projector (emitters/projector.cpp): a delta position, the
+    irradiance (a texture read at the frustum uv of the reference point)
+    scaled 1/dist^2 inside the pinhole frustum, zero outside it."""
     is_proj = etype == PROJECTOR
     p_l = Vec3(row.col(8), row.col(9), row.col(10))
     fwd = Vec3(row.col(11), row.col(12), row.col(13))
@@ -405,11 +406,22 @@ def _sample_projector(ref_p, wavelengths, etype, row, pick, ds, val, config):
     dist2 = vdot(v, v)
     dist = torch.sqrt(torch.clamp_min(dist2, 1e-30))
     d_unit = v * (-1.0 / dist)   # from ref toward the projector
-    zc = torch.clamp_min(z, 1e-20)
+    # behind the projector (z <= 0, never inside) the frustum uv divides
+    # by 1 instead of 1e-20: finite derivatives for a textured slide
+    zc = torch.clamp_min(torch.where(z > 0, z, 1.0), 1e-20)
     u_f = 0.5 * (x / (zc * torch.clamp_min(tan_x, 1e-8)) + 1.0)
     v_f = 0.5 * (y / (zc * torch.clamp_min(tan_y, 1e-8)) + 1.0)
     inside = (z > 0) & (u_f >= 0) & (u_f <= 1) & (v_f >= 0) & (v_f <= 1)
-    irr = eval_spectrum_slot(row, wavelengths, config.color_mode)
+    tex = scene.textures if PROJECTOR in scene.emitter_tex else None
+    if tex is not None:
+        # a slide is read inside the frustum alone: far off it the texel
+        # arithmetic overflows, and the zero cotangent of the discarded
+        # value times its infinite derivative would be NaN in
+        # emitter_data's gradient
+        u_f = torch.where(inside, u_f, 0.5)
+        v_f = torch.where(inside, v_f, 0.5)
+    irr = eval_spectrum_slot(row, wavelengths, config.color_mode,
+                             tex=tex, uv=Vec2(u_f, v_f))
     ok = is_proj & inside
     ds = _delta_sample(is_proj, ok, d_unit, dist, pick, ds)
     return ds, swhere(ok, irr / torch.clamp_min(dist2, 1e-20),
@@ -441,6 +453,14 @@ def _sample_area(scene, ref_p, wavelengths, e_idx, etype, row, scaled, u2,
     e1x, e1y, e1z = e1.unbind(1)
     e2x, e2y, e2z = e2.unbind(1)
     b0, b1 = warp.square_to_uniform_triangle(*u2)
+    uv = None
+    if AREA in scene.emitter_tex:
+        # the point's uv, for a textured radiance (a sphere's: u2)
+        bw = 1.0 - b0 - b1
+        uv0, uv1, uv2 = (t[pc].unbind(1) for t in (
+            scene.prim_uv0, scene.prim_uv1, scene.prim_uv2))
+        uv = Vec2(uv0[0] * bw + uv1[0] * b0 + uv2[0] * b1,
+                  uv0[1] * bw + uv1[1] * b0 + uv2[1] * b1)
     px = p0x + e1x * b0 + e2x * b1
     py = p0y + e1y * b0 + e2y * b1
     pz = p0z + e1z * b0 + e2z * b1
@@ -461,6 +481,9 @@ def _sample_area(scene, ref_p, wavelengths, e_idx, etype, row, scaled, u2,
         nx = torch.where(is_sph, s.x * sgn, nx)
         ny = torch.where(is_sph, s.y * sgn, ny)
         nz = torch.where(is_sph, s.z * sgn, nz)
+        if uv is not None:
+            uv = Vec2(torch.where(is_sph, u2[0], uv.x),
+                      torch.where(is_sph, u2[1], uv.y))
     dvx, dvy, dvz = px - ref_p.x, py - ref_p.y, pz - ref_p.z
     dist2 = dvx * dvx + dvy * dvy + dvz * dvz
     dist = torch.sqrt(torch.clamp_min(dist2, 1e-30))
@@ -470,7 +493,9 @@ def _sample_area(scene, ref_p, wavelengths, e_idx, etype, row, scaled, u2,
     pdf_area = 1.0 / torch.clamp_min(total, 1e-20)
     pdf_sa = pick * pdf_area * dist2 / torch.clamp_min(cos_e, 1e-20)
     area_ok = (etype == AREA) & (cos_e > 0) & (prim >= 0)
-    radiance = eval_spectrum_slot(row, wavelengths, config.color_mode)
+    radiance = eval_spectrum_slot(row, wavelengths, config.color_mode,
+                                  tex=scene.textures if uv is not None
+                                  else None, uv=uv)
     ds = DirectionSample(
         d=vwhere(area_ok, Vec3(dux, duy, duz), ds.d),
         dist=torch.where(area_ok, dist, ds.dist),

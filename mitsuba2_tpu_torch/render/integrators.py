@@ -8,18 +8,24 @@ first, in spectral mode the hero wavelengths' draw, then per bounce
 u_nee, u2_nee, u1_b, u2_b and, only when rr_depth < max_depth, u_rr.
 Spectral mode carries four hero wavelengths a lane on its rays and
 shading records and develops each lane to linear sRGB before the film.
+On a scene with textures the camera rays carry differentials, scaled to
+a sample's share of its pixel, so that the first hit's lookups are
+mip-filtered; later hits carry a zero footprint (level 0), as in the
+reference.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..config import RenderConfig
 from ..core import spectrum as sp
 from ..core.geometry import Ray
 from ..core.spec import Spec, swhere
+from ..core.vec import Vec2
 from ..device import resolve_device
 from ..scene.scene import diff_tables
 from . import bsdf as bsdf_mod
@@ -91,6 +97,11 @@ def _path_bounce(scene, config: RenderConfig, depth: int, carry):
         active = active & (u_rr < q)
 
     active = active & si_next.valid
+    if si.duv_dx is not None:
+        # a bounce ray carries no differentials: a zero footprint, the
+        # finest level (interaction.h: differentials from the camera alone)
+        z = torch.zeros_like(si.duv_dx.x)
+        si_next.duv_dx = si_next.duv_dy = Vec2(z, z)
     return si_next, active, throughput, result, sampler
 
 
@@ -139,7 +150,15 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
     if config.color_mode == "spectral":
         u_wl, sampler = sampler.next_1d()
         wl, wl_pdf = sp.sample_hero_wavelengths_t(u_wl)
-    ray = sensors.sample_ray(scene, uv, wavelengths=wl)
+    if (scene.textures is not None
+            and scene.cam_type in sensors.HAS_DIFFERENTIALS):
+        # a sample covers 1 / spp of its pixel (integrator.cpp's
+        # diff_scale_factor), the factor in f32 as the JAX package takes it
+        ray = sensors.sample_ray_differential(scene, uv, W, wavelengths=wl)
+        ray = ray.scale_differential(
+            float(np.float32(1.0) / np.sqrt(np.float32(config.spp))))
+    else:
+        ray = sensors.sample_ray(scene, uv, wavelengths=wl)
     spec, _ = sample_path(scene, ray, sampler, config)
     if wl is not None:
         spec = sp.spectrum_to_srgb_t(spec, wl, wl_pdf)

@@ -23,6 +23,9 @@ class SurfaceInteraction:
     shape: torch.Tensor
     prim_index: torch.Tensor
     wavelengths: object = None   # the ray's Spec4 (spectral mode) or None
+    tex: object = None           # the scene's TextureAtlas, None without
+    duv_dx: Vec2 = None          # the uv footprint of a camera ray's
+    duv_dy: Vec2 = None          # differentials; zero past the first hit
 
     def to_world(self, v: Vec3) -> Vec3:
         return self.sh_frame.to_world(v)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.geometry import Ray
+from ..core.geometry import Ray, RayDifferential
 from ..core.vec import Vec2, Vec3, vnormalize
 
 
@@ -51,6 +51,25 @@ def sample_ray(scene, uv: Vec2, wavelengths=None) -> Ray:
             f"mitsuba2_tpu_torch does not support {scene.cam_type!r} "
             "sensors yet")
     return _apply_clip(scene, perspective_ray(scene, uv, wavelengths))
+
+
+# the sensors whose one-pixel film offset has a footprint (the JAX
+# package's list; the port builds the perspective camera alone)
+HAS_DIFFERENTIALS = ("perspective", "thinlens", "orthographic")
+
+
+def sample_ray_differential(scene, uv: Vec2, film_width: int,
+                            wavelengths=None) -> RayDifferential:
+    """Sensor::sample_ray_differential (sensor.cpp): the main ray and the
+    rays through the film samples one pixel over in x and in y; film_uv
+    scales both uv axes by 1 / film_width (square pixels)."""
+    main = sample_ray(scene, uv, wavelengths)
+    duv = 1.0 / film_width
+    rx = sample_ray(scene, Vec2(uv.x + duv, uv.y), wavelengths)
+    ry = sample_ray(scene, Vec2(uv.x, uv.y + duv), wavelengths)
+    return RayDifferential(o=main.o, d=main.d, maxt=main.maxt,
+                           wavelengths=main.wavelengths,
+                           o_x=rx.o, o_y=ry.o, d_x=rx.d, d_y=ry.d)
 
 
 def film_uv(x, y, jitter, width: int, height: int,

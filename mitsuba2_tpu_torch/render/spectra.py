@@ -7,11 +7,18 @@ and the brightness the fit normalized away, and whether it is a
 reflectance or an illuminant (which multiplies D65 in spectral mode).
 rgb and mono read the RGB columns, spectral mode evaluates the
 coefficients at each lane's hero wavelengths. Tabulated (regular,
-irregular) and blackbody spectra pack into the same slots; textured
-slots (kind >= 2) raise at build.
+irregular) and blackbody spectra pack into the same slots.
+
+Textured slots (src/textures/bitmap.cpp): kind = 2 + 2 * tex_id + the
+illuminant bit. Evaluation reads the scene's texture atlas at the
+lane's uv (render/texture.py) and, in spectral mode, upsamples the RGB
+through the coefficient lattice lane by lane. A build stages the
+textures its colors name (`texture_staging`) and packs them into the
+atlas in that order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -23,7 +30,7 @@ from ..core.spec import Spec, swhere
 SLOT_W = 8
 SLOT_REFLECTANCE = 0.0
 SLOT_ILLUMINANT = 1.0
-SLOT_TEX_BASE = 2.0   # the JAX package's textured slots: refused here
+SLOT_TEX_BASE = 2.0   # kind >= 2: textured; kind = 2 + 2 * tex_id + illum
 
 
 # lanes whose gradients a column gather's backward adds up apart (below),
@@ -72,16 +79,18 @@ class LaneRows:
     """Lazy per-lane rows of a small packed (M, W) table: one (N,) column
     gather per column read: through _LaneGather under autograd, else a
     plain index_select (the forward render skips the Function call's
-    host time)."""
+    host time). `textured`: the slots (k of slot(k)) that a row these
+    lanes may read fills with a texture; the others skip the lookup."""
     table: torch.Tensor
     idx: torch.Tensor
     base: int = 0
+    textured: frozenset = frozenset()
 
     def col(self, i: int):
         return lane_gather(self.table[:, self.base + i], self.idx)
 
     def slot(self, k: int) -> "LaneRows":
-        return LaneRows(self.table, self.idx, self.base + k * SLOT_W)
+        return dataclasses.replace(self, base=self.base + k * SLOT_W)
 
 
 def pack_spectrum_slot(rgb, illuminant: bool = False) -> np.ndarray:
@@ -90,6 +99,32 @@ def pack_spectrum_slot(rgb, illuminant: bool = False) -> np.ndarray:
     return np.array([rgb[0], rgb[1], rgb[2], coeffs[0], coeffs[1], coeffs[2],
                      scale, SLOT_ILLUMINANT if illuminant else SLOT_REFLECTANCE],
                     np.float32)
+
+
+def pack_texture_slot(tex_id: int, illuminant: bool = False,
+                      mean_rgb=(0.5, 0.5, 0.5)) -> np.ndarray:
+    """Host: a slot naming texture `tex_id`; its RGB columns hold the
+    texture's mean."""
+    m = np.asarray(mean_rgb, np.float32).reshape(3)
+    kind = SLOT_TEX_BASE + 2 * tex_id + (1 if illuminant else 0)
+    return np.array([m[0], m[1], m[2], 0, 0, 0, 1.0, kind], np.float32)
+
+
+# the textures of the build in progress (texture_staging), None outside one
+_TEX_STAGING = None
+
+
+@contextlib.contextmanager
+def texture_staging():
+    """A scene build's texture staging: inside the block, pack_color
+    appends each texture descriptor it meets to the list it yields (a
+    slot's texture id is its index there)."""
+    global _TEX_STAGING
+    outer, _TEX_STAGING = _TEX_STAGING, []
+    try:
+        yield _TEX_STAGING
+    finally:
+        _TEX_STAGING = outer
 
 
 def tabulated_wls_vals(value: dict):
@@ -107,11 +142,21 @@ def tabulated_wls_vals(value: dict):
 
 
 def pack_color(value, illuminant: bool = False) -> np.ndarray:
-    """Host: a scalar, an RGB triple, or a spectrum dict (uniform, srgb,
-    d65, regular, irregular, blackbody) -> one slot. Textures come in a
-    later slice."""
+    """Host: a scalar, an RGB triple, a spectrum dict (uniform, srgb,
+    d65, regular, irregular, blackbody) or a texture dict (bitmap,
+    checkerboard; inside texture_staging) -> one slot."""
     if isinstance(value, dict):
         t = value.get("type")
+        if t in ("bitmap", "checkerboard"):
+            from . import texture as texture_mod
+            tb = texture_mod.build_texture(value, name=value.get("id", ""))
+            if _TEX_STAGING is None:
+                raise RuntimeError(
+                    "textured color outside scene build (no staging active)")
+            tid = len(_TEX_STAGING)
+            _TEX_STAGING.append(tb)
+            return pack_texture_slot(tid, illuminant,
+                                     tb.data.reshape(-1, 3).mean(0))
         if t in ("uniform", "d65", "srgb", "rgb"):
             return pack_color(value.get("value", 1.0), illuminant or t == "d65")
         if t in ("regular", "irregular"):
@@ -133,9 +178,6 @@ def pack_color(value, illuminant: bool = False) -> np.ndarray:
             vals = vals * float(value.get("scale", 1.0))
             return pack_color({"type": "irregular", "wavelengths": wls,
                                "values": vals}, illuminant=True)
-        if t in ("bitmap", "checkerboard"):
-            raise NotImplementedError(
-                f"mitsuba2_tpu_torch does not support {t!r} textures yet")
         raise ValueError(f"unknown spectrum/texture type {t!r}")
     v = value
     if isinstance(v, (int, float)):
@@ -172,13 +214,29 @@ def _tex_value(rgb: Spec, wavelengths, color_mode) -> Spec:
                       for w in wavelengths.ch))
 
 
-def eval_spectrum_slot(slot: LaneRows, wavelengths, color_mode: str) -> Spec:
-    """Device: a batch of constant slots -> planar Spec: 1 channel (mono),
-    3 (rgb) or 4 (spectral, at the lanes' hero wavelengths `wavelengths`,
-    ignored otherwise; an illuminant slot times D65)."""
+def eval_spectrum_slot(slot: LaneRows, wavelengths, color_mode: str,
+                       tex=None, uv=None, duv=None) -> Spec:
+    """Device: a batch of slots -> planar Spec: 1 channel (mono), 3 (rgb)
+    or 4 (spectral, at the lanes' hero wavelengths `wavelengths`, ignored
+    otherwise; an illuminant slot times D65). With the scene's texture
+    atlas `tex` and the lanes' `uv`, a textured slot reads the atlas
+    (mip-filtered over `duv` = (duv_dx, duv_dy) where given)."""
     val = _const_value(slot.col, wavelengths, color_mode)
+    textured = tex is not None and uv is not None
+    if not textured and color_mode != "spectral":
+        return val
+    kind = slot.col(7)
+    is_illum = kind == SLOT_ILLUMINANT
+    if textured:
+        from . import texture as texture_mod
+        kind_i = kind.to(torch.int64)
+        is_tex = kind_i >= 2
+        tid = torch.clamp_min(torch.div(kind_i - 2, 2, rounding_mode="floor"),
+                              0)
+        rgb_t = texture_mod.eval_rgb(tex, tid, uv, duv=duv)
+        val = swhere(is_tex, _tex_value(rgb_t, wavelengths, color_mode), val)
+        is_illum = is_illum | (is_tex & (torch.remainder(kind_i - 2, 2) == 1))
     if color_mode != "spectral":
         return val
-    is_illum = slot.col(7) == SLOT_ILLUMINANT
     d65 = Spec(tuple(sp.d65_approx(w) for w in wavelengths.ch))
     return swhere(is_illum, val * d65, val)

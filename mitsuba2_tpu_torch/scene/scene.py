@@ -4,9 +4,9 @@ dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
 The build half packs meshes, analytic spheres, shared-BLAS instances of
 shape groups, the materials of render/bsdf.py, the emitters of
 render/emitters.py (area, point, constant, envmap, spot, directional,
-untextured projector) and a perspective camera into numpy tables
-byte-equal to the JAX package's
-`SceneData` fields of the same names (tests/test_torch_scene.py,
+projector), the textures their colors name (render/texture.py's atlas)
+and a perspective camera into numpy tables byte-equal to the JAX
+package's `SceneData` fields of the same names (tests/test_torch_scene.py,
 tests/test_torch_instancing.py, tests/test_torch_spheres.py), then
 uploads them with `convert.scene_from_numpy`. Anything else a scene can
 hold raises `NotImplementedError` naming the feature.
@@ -36,6 +36,8 @@ from ..core.math import safe_acos
 from ..core.vec import Vec2, Vec3, vwhere
 from ..render import bsdf as bsdf_mod
 from ..render import emitters as emitters_mod
+from ..render import spectra as spectra_mod
+from ..render import texture as texture_mod
 from ..render.interaction import SurfaceInteraction
 from . import bvh as bvh_mod
 from .shapes import PRIM_SPHERE, PRIM_TRI, Instance, MeshData
@@ -63,11 +65,13 @@ UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
 # ...and those of an instanced scene (absent, or None, on the others): the
 # per-instance transforms and the two walk bounds
 INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
-# ...and the tables gradients flow to (diff_tables): these two, and on a
-# scene with an envmap its image and scale under the JAX package's names
-# (ENV_DIFF_TABLES, name -> EnvMapData field); the JAX package's texture
-# and medium tables come with their slices
+# ...and the tables gradients flow to (diff_tables): these two, on a
+# scene with textures the atlas' texels (`tex_data`), and on a scene with
+# an envmap its image and scale, under the JAX package's names
+# (ENV_DIFF_TABLES, name -> EnvMapData field); the JAX package's medium
+# tables come with their slice
 DIFF_TABLES = ("mat_data", "emitter_data")
+TEX_DIFF_TABLE = "tex_data"
 ENV_DIFF_TABLES = {"env_image": "image", "env_scale": "scale"}
 # ...and the BVH8 walks' tables (bvh.collapse_bvh8; None, depth 0, where
 # the JAX build skips them: tiny or instanced scenes, a one-cluster cut):
@@ -159,8 +163,18 @@ class SceneData:
     inst_bvh_root: Optional[torch.Tensor] = None
     # the environment map (render/emitters.py::EnvMapData), None without
     envmap: Optional[emitters_mod.EnvMapData] = None
+    # the texture atlas (render/texture.py::TextureAtlas), None without
+    textures: Optional[texture_mod.TextureAtlas] = None
     mat_families: Tuple[int, ...] = ()
     family_rows: Tuple[int, ...] = ()   # each family's first material row
+    # ((family id, slots), ...): the spectrum slots some row of the family
+    # fills with a texture (bsdf.textured_slots), and the emitter types
+    # with a textured row: the lookups the shading makes
+    family_tex: Tuple = ()
+    emitter_tex: Tuple[int, ...] = ()
+    # (((wrapper family, child column), leaf families), ...): the families
+    # a wrapper's children in that column have (bsdf.wrapper_children)
+    wrapper_children: Tuple = ()
     n_emitters: int = 0
     env_emitter: int = -1       # index of the constant emitter or the
                                 # envmap, -1 = none
@@ -200,13 +214,17 @@ def to_device(scene: SceneData, device) -> SceneData:
              if torch.is_tensor(getattr(scene, f.name))}
     if scene.envmap is not None:
         moved["envmap"] = scene.envmap.to(dev)
+    if scene.textures is not None:
+        moved["textures"] = scene.textures.to(dev)
     return dataclasses.replace(scene, **moved)
 
 
 def diff_tables(scene) -> dict:
     """The tensors a render's gradients flow to, by the JAX package's
-    names: DIFF_TABLES, and an envmap's image and scale."""
+    names: DIFF_TABLES, the atlas' texels, an envmap's image and scale."""
     out = {k: getattr(scene, k) for k in DIFF_TABLES}
+    if scene.textures is not None:
+        out[TEX_DIFF_TABLE] = scene.textures.data
     if scene.envmap is not None:
         out.update({k: getattr(scene.envmap, f)
                     for k, f in ENV_DIFF_TABLES.items()})
@@ -442,8 +460,15 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     """Host build: shapes (meshes and Instance records) + sensor + shapeless
     emitters -> dict of numpy tables (FIELDS, BVH8_FIELDS, and INST_FIELDS
     for a shared-BLAS scene), `envmap` (an envmap's tables,
-    emitters.ENV_FIELDS, or None) and `param_paths`, the same arithmetic as the
-    JAX package's _build_scene_impl for the features this slice supports."""
+    emitters.ENV_FIELDS, or None), `textures` (the atlas' tables,
+    texture.TEX_FIELDS, or None) and `param_paths`, the same arithmetic
+    as the JAX package's _build_scene_impl for the features the port
+    supports."""
+    with spectra_mod.texture_staging() as tex_staging:
+        return _build_fields(shapes, sensor, emitters, tex_staging)
+
+
+def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
     shapes, inst_records, group_of, group_shape0 = _split_instances(shapes)
     _refuse_unsupported(shapes, sensor)
     mats, mat_key2idx = [], {}
@@ -638,6 +663,9 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
                  if s_idx >= 0 else desc.get("id") or f"emitter{e_idx}")
         param_paths.append((f"{ename}.{pname}", "emitter_data", e_idx, 0, 3,
                             "rgb"))
+    for t_idx, tb in enumerate(tex_staging):
+        param_paths.append((f"{tb.name or f'texture{t_idx}'}.data",
+                            "textures.data", t_idx, -1, -1, "image"))
 
     # --- sensor -------------------------------------------------------------
     cam_to_world = np.asarray(sensor["to_world"], np.float32).reshape(4, 4)
@@ -677,7 +705,8 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
         bvh8_child=acc.get("bvh8_child"), bvh8_order=acc.get("bvh8_order"),
         bvh8_depth=acc.get("bvh8_depth", 0),
         **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)),
-        envmap=envmap, param_paths=tuple(param_paths))
+        envmap=envmap, textures=texture_mod.pack_atlas(tex_staging),
+        param_paths=tuple(param_paths))
     if inst_records:
         out.update({k: acc[k] for k in INST_FIELDS})
     return out
@@ -805,6 +834,38 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
         uv = Vec2(torch.where(tri, uv.x, phi * (0.5 / math.pi)),
                   torch.where(tri, uv.y, theta / math.pi))
     sh_frame = Frame.from_n(ns)
+    duv_dx = duv_dy = None
+    if getattr(ray, "o_x", None) is not None:
+        # the uv footprint (interaction.h::compute_uv_partials): each
+        # offset ray meets the tangent plane at p; the position delta goes
+        # to barycentric deltas by the normal equations of (e1, e2), then
+        # to uv deltas through the triangle's uvs; zero off triangles
+        a11 = e1x * e1x + e1y * e1y + e1z * e1z
+        a12 = e1x * e2x + e1y * e2y + e1z * e2z
+        a22 = e2x * e2x + e2y * e2y + e2z * e2z
+        det2 = a11 * a22 - a12 * a12
+        inv_det = 1.0 / torch.where(det2.abs() < 1e-20, float("inf"), det2)
+        tri_ok = valid & (ptype == PRIM_TRI)
+
+        def plane_delta(o_off: Vec3, d_off: Vec3) -> Vec2:
+            denom = d_off.x * ng.x + d_off.y * ng.y + d_off.z * ng.z
+            denom = torch.where(denom.abs() < 1e-12, float("inf"), denom)
+            tt = ((p.x - o_off.x) * ng.x + (p.y - o_off.y) * ng.y
+                  + (p.z - o_off.z) * ng.z) / denom
+            dpx = o_off.x + d_off.x * tt - p.x
+            dpy = o_off.y + d_off.y * tt - p.y
+            dpz = o_off.z + d_off.z * tt - p.z
+            b1 = dpx * e1x + dpy * e1y + dpz * e1z
+            b2 = dpx * e2x + dpy * e2y + dpz * e2z
+            du_b = (a22 * b1 - a12 * b2) * inv_det
+            dv_b = (a11 * b2 - a12 * b1) * inv_det
+            ok = tri_ok & torch.isfinite(tt)
+            return Vec2(
+                torch.where(ok, (u1x - u0x) * du_b + (u2x - u0x) * dv_b, 0.0),
+                torch.where(ok, (u1y - u0y) * du_b + (u2y - u0y) * dv_b, 0.0))
+
+        duv_dx = plane_delta(ray.o_x, ray.d_x)
+        duv_dy = plane_delta(ray.o_y, ray.d_y)
     return SurfaceInteraction(
         valid=valid,
         t=torch.where(valid, t_ref, float("inf")),
@@ -812,7 +873,8 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
         wi=sh_frame.to_local(-ray.d),
         shape=torch.where(valid, scene.prim_shape[idx], -1),
         prim_index=torch.where(valid, idx, -1).to(torch.int32),
-        wavelengths=ray.wavelengths)
+        wavelengths=ray.wavelengths, tex=scene.textures,
+        duv_dx=duv_dx, duv_dy=duv_dy)
 
 
 # ---------------------------------------------------------------------------

@@ -168,10 +168,14 @@ def test_gradient_matches_finite_differences(name, value, atol):
 
 
 def test_later_tables_raise(refs):
+    """The medium tables come with media; the texels (tex_data) came with
+    the textures' slice (tests/test_torch_texture.py)."""
     scene = refs["cornell"][0]
-    with pytest.raises(NotImplementedError, match="tex_data"):
-        adjoint.with_tables(scene, {**adjoint.diff_tables(scene),
-                                    "tex_data": torch.zeros(1)})
+    assert "tex_data" not in adjoint.diff_tables(scene)
+    for k in ("med_data", "med_grid"):
+        with pytest.raises(NotImplementedError, match=k):
+            adjoint.with_tables(scene, {**adjoint.diff_tables(scene),
+                                        k: torch.zeros(1)})
 
 
 @pytest.fixture
@@ -181,13 +185,21 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["cornell", "gallery"])
+def _textured(device):
+    import chip_smoke
+    from mitsuba2_tpu_torch.scene import presets
+    return chip_smoke.gallery_textured(presets, 1, 32, device=device)
+
+
+@pytest.mark.parametrize("name", ["cornell", "gallery", "gallery_textured"])
 def test_cuda_render_l2_grad_matches_cpu(cuda, name):
     """chip_smoke.py phase 7's card-vs-CPU check: each gradient table
-    within 1e-3 of the CPU's in relative norm, the images within phase 4's
-    limits, and no kernel launched during a backward sweep."""
+    within 1e-3 of the CPU's in relative norm (the textured gallery's
+    texels among them), the images within phase 4's limits, and no kernel
+    launched during a backward sweep."""
     mk = {"cornell": lambda d: mt.cornell_box(boxes=False, device=d),
-          "gallery": lambda d: mt.mesh_gallery(subdiv=2, device=d)}[name]
+          "gallery": lambda d: mt.mesh_gallery(subdiv=2, device=d),
+          "gallery_textured": _textured}[name]
     cfg = mt.RenderConfig(width=32, height=32, spp=4, spp_per_pass=2,
                           max_depth=3, rr_depth=8)
     target = torch.zeros((32, 32, 3))
@@ -217,6 +229,40 @@ def test_cuda_render_l2_grad_matches_cpu(cuda, name):
     close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
     assert np.isfinite(img_g).all() and close >= 0.99
     assert abs(img_g.mean() - img_c.mean()) <= 1e-3 * img_c.mean()
+
+
+def test_cuda_textured_gallery_kernels_match_twins(cuda):
+    """chip_smoke.py phases 2-3 on the textured gallery (subdiv 1): K1 and
+    K2 on the card bit-equal to their twins on probe rays of each kind
+    (the null blob's pass-through and the mask's among their hits)."""
+    from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
+    from mitsuba2_tpu_torch.core.vec import Vec3
+
+    def planar(a, device):
+        return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(
+            device) for i in range(3)))
+
+    sc = _textured("cpu")
+
+    def closest(o, d, t_max):
+        t, prim, _, _ = traverse.ray_intersect_preliminary(
+            sc, planar(o, "cpu"), planar(d, "cpu"), torch.from_numpy(t_max))
+        return t.numpy(), prim.numpy(), None
+
+    rays = probe_rays(sc, 4096, 0, closest)
+    st = mt.to_device(sc, cuda)
+    tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
+    for kind in KINDS:
+        o, d, tm = rays[kind]
+        args = (*planar(o, cuda).__dict__.values(),
+                *planar(d, cuda).__dict__.values(),
+                torch.from_numpy(tm).to(cuda))
+        t, slot = traverse.cluster_closest_hit(*tabs, *args, st.cluster_k)
+        occ = traverse.cluster_any_hit(*tabs, *args, st.cluster_k)
+        t_p, slot_p = traverse.closest_hit_plain(*tabs, *args, st.cluster_k)
+        occ_p = traverse.any_hit_plain(*tabs, *args, st.cluster_k)
+        assert torch.equal(t, t_p) and torch.equal(slot, slot_p), kind
+        assert torch.equal(occ, occ_p), kind
 
 
 def test_diff_tables_and_with_tables_are_functional(refs):

@@ -6,8 +6,11 @@ Rows and flags from `build_material` are byte-equal; each family's
 (grazing and normal incidence included) and the same `u1`, `u2`, agree
 within rtol 1e-4 / atol 1e-5 with the same sampled flags, in rgb and
 mono, alone and through the dispatch (twosided rows hit from behind
-included). The refusals: every family the port lacks, a roughness
-texture, and a textured color in any slot a row carries.
+included). The refusals: every family the port lacks (null and the
+wrappers, refused before the textures' slice, now build the JAX
+package's rows), and a textured slot whose atlas is missing; a texture
+in any slot a row carries and a textured roughness carry across with
+their atlas.
 """
 import dataclasses
 
@@ -82,7 +85,12 @@ DESCS = [
     {"type": "twosided", "bsdf": {"type": "diffuse"}},
     {"type": "twosided"},
 ]
-FAMILY_IDS = sorted(B.FAMILIES)
+# the eight leaf families of DESCS; null and the wrappers have their own
+# tests (tests/test_torch_wrappers.py)
+FAMILY_IDS = sorted(set(B.LEAF_FAMILIES) - {B.NULL_BSDF})
+# the families this file's refusal tests were written for: the first six
+# render since the textures' slice (held to the JAX package's rows here),
+# the last four still raise
 UNPORTED = ["null", "mask", "blendbsdf", "blend", "normalmap", "bumpmap",
             "measured", "measured_polarized", "polarizer", "retarder"]
 
@@ -257,7 +265,7 @@ def test_build_material_rows_and_flags_byte_equal(tables):
         assert rj.dtype == rt.dtype == np.float32 and rj.shape == rt.shape
         assert rj.tobytes() == rt.tobytes(), d
     # every family and the twosided flag are exercised
-    assert {m[0] for m in mats_t} == set(B.FAMILIES)
+    assert {m[0] for m in mats_t} == set(FAMILY_IDS)
     assert sum(m[1] & B.F_TWOSIDED_FLAG != 0 for m in mats_t) == 4
 
 
@@ -391,6 +399,10 @@ class _StandIn:
         self.family_rows = tuple(
             [m[0] for m in mats].index(f) for f in self.mat_families)
         self.has_twosided = any(m[1] & B.F_TWOSIDED_FLAG for m in mats)
+        self.family_tex = B.textured_slots(np.asarray([m[0] for m in mats]),
+                                           _table(mats))
+        self.wrapper_children = B.wrapper_children(
+            np.asarray([m[0] for m in mats]), _table(mats))
 
 
 @pytest.mark.parametrize("mode", ["rgb", "mono"])
@@ -434,23 +446,42 @@ def test_twosided_diffuse_from_behind():
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_family_raises_by_name(name):
-    with pytest.raises(NotImplementedError, match=f"'{name}' BSDF"):
-        B.build_material({"type": name}, [])
-    with pytest.raises(NotImplementedError, match=f"'{name}' BSDF"):
-        B.build_material({"type": "twosided", "bsdf": {"type": name}}, [])
+    """The measured and polarized families raise by name; null and the
+    wrappers build the JAX package's rows, twosided too."""
+    for desc in ({"type": name}, {"type": "twosided", "bsdf": {"type": name}}):
+        if name not in B.UNPORTED.values():
+            mats_t, mats_j = [], []
+            B.build_material(desc, mats_t)
+            JB.build_material(desc, mats_j)
+            assert [(t, f, r.tobytes()) for t, f, r in mats_t] == \
+                [(t, f, r.tobytes()) for t, f, r in mats_j]
+            continue
+        with pytest.raises(NotImplementedError, match=f"'{name}' BSDF"):
+            B.build_material(desc, [])
 
 
-def _jax_fields(desc, emitter=None):
+def _jax_fields(desc, emitter=None, textures=False):
+    """A JAX-built rectangle's tables; with `textures`, its atlas' too."""
     sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
     sj = jbuild([jshapes.rectangle(bsdf=desc, emitter=emitter)], sensor)
-    return {**{k: np.asarray(getattr(sj, k)) for k in FIELDS},
-            "param_paths": sj.param_paths}
+    out = {**{k: np.asarray(getattr(sj, k)) for k in FIELDS},
+           "param_paths": sj.param_paths}
+    if textures:
+        out["textures"] = {k: np.asarray(getattr(sj.textures, k))
+                           for k in ("data", "info", "uvt")}
+        out["mips"] = np.asarray(sj.textures.mips)
+    return out
 
 
-@pytest.mark.parametrize("fid", sorted(B.UNPORTED))
+@pytest.mark.parametrize("fid", range(8, 17))
 def test_scene_from_numpy_names_unported_family(fid):
+    """The JAX package's family ids 8-16: null and the wrappers (8-12)
+    carry across, the measured and polarized ones raise by name."""
     fields = _jax_fields({"type": "diffuse"})
     fields["mat_type"] = np.full_like(fields["mat_type"], fid)
+    if fid not in B.UNPORTED:
+        assert mt.scene_from_numpy(fields, device="cpu").mat_families == (fid,)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"'{B.UNPORTED[fid]}' BSDF"):
         mt.scene_from_numpy(fields, device="cpu")
@@ -465,8 +496,15 @@ def test_scene_from_numpy_names_unported_family(fid):
      "'blendbsdf' BSDF"),
 ])
 def test_scene_from_numpy_refuses_jax_built_unported(desc, what):
-    with pytest.raises(NotImplementedError, match=what):
-        mt.scene_from_numpy(_jax_fields(desc), device="cpu")
+    """null, mask and blendbsdf (refused before the textures' slice) carry
+    across: the rows, flags and families of the JAX build."""
+    fields = _jax_fields(desc)
+    st = mt.scene_from_numpy(fields, device="cpu")
+    assert np.array_equal(st.mat_data.numpy(), fields["mat_data"])
+    assert np.array_equal(st.mat_flags.numpy(), fields["mat_flags"])
+    assert st.mat_families == tuple(sorted(set(fields["mat_type"].tolist())))
+    assert what.split("'")[1] in {B.FAMILIES[f].__name__.lower()
+                                  for f in st.mat_families} | {"blendbsdf"}
 
 
 CHECKER = {"type": "checkerboard", "color0": [0.2] * 3, "color1": [0.8] * 3}
@@ -486,27 +524,53 @@ CHECKER = {"type": "checkerboard", "color0": [0.2] * 3, "color1": [0.8] * 3}
 ])
 def test_scene_from_numpy_refuses_textures_in_any_slot(col, desc, what):
     """A JAX-built row with a texture in slot 1, slot 2 or the roughness
-    slot (the parent looked at slot 0's kind column alone)."""
-    fields = _jax_fields(desc)
+    slot (refused before the textures' slice) carries across with its
+    atlas, whose pyramid the port rebuilds byte-equal; without the atlas
+    it raises."""
+    fields = _jax_fields(desc, textures=True)
     assert (fields["mat_data"][:, col] >= 2).any()
     assert not (fields["mat_data"][:, 7] >= 2).any()
-    with pytest.raises(NotImplementedError, match=what):
-        mt.scene_from_numpy(fields, device="cpu")
+    st = mt.scene_from_numpy(fields, device="cpu")
+    assert np.array_equal(st.textures.mips.numpy(), fields["mips"])
+    alpha = B.ALPHA_SLOT // 8 in dict(st.family_tex)[int(fields["mat_type"][0])]
+    assert alpha == (what == "textured roughness")
+    with pytest.raises(KeyError, match="textures"):
+        mt.scene_from_numpy({k: v for k, v in fields.items()
+                             if k != "textures"}, device="cpu")
 
 
 def test_scene_from_numpy_refuses_textured_emitter():
+    """An emitter slot naming a texture the scene has no atlas for."""
     fields = _jax_fields({"type": "diffuse"},
                          {"type": "area", "radiance": [1.0, 1.0, 1.0]})
     mt.scene_from_numpy(fields, device="cpu")
     fields["emitter_data"] = fields["emitter_data"].copy()
     fields["emitter_data"][:, 7] = 2.0
-    with pytest.raises(NotImplementedError, match="textured colors"):
+    with pytest.raises(KeyError, match="textures"):
         mt.scene_from_numpy(fields, device="cpu")
 
 
 def test_build_refuses_textured_roughness():
-    with pytest.raises(NotImplementedError, match="textured roughness"):
-        B.build_material({"type": "roughdielectric", "alpha_u": CHECKER}, [])
+    """A textured roughness builds the JAX package's row inside a scene
+    build's texture staging, and raises outside one, as there."""
+    from mitsuba2_tpu.render import spectra as jspectra
+    from mitsuba2_tpu_torch.render import spectra
+    desc = {"type": "roughdielectric", "alpha_u": CHECKER}
+    for build in (B.build_material, JB.build_material):
+        with pytest.raises(RuntimeError, match="staging"):
+            build(desc, [])
+    with spectra.texture_staging() as staged:
+        mats_t = []
+        B.build_material(desc, mats_t)
+    jspectra.begin_texture_staging()
+    try:
+        mats_j = []
+        JB.build_material(desc, mats_j)
+    finally:
+        staged_j = jspectra.end_texture_staging()
+    assert mats_t[0][2].tobytes() == mats_j[0][2].tobytes()
+    assert mats_t[0][2][B.ALPHA_SLOT + 7] == 2.0 and len(staged) == 1
+    assert np.array_equal(staged[0].data, staged_j[0].data)
     with pytest.raises(ValueError, match="unknown bsdf type"):
         B.build_material({"type": "velvet"}, [])
 

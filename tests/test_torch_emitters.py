@@ -427,9 +427,25 @@ def test_envmap_spectral_coeff_bake_matches_lattice_path():
 
 
 def test_textured_projector_raises_by_name():
-    with pytest.raises(NotImplementedError, match="textured projectors"):
+    """A projector's slide read from an image file raises by name; one
+    given as an array (since the textures' slice) packs the JAX package's
+    row inside a build's texture staging."""
+    from mitsuba2_tpu_torch.render import spectra
+    with pytest.raises(NotImplementedError, match="image files"):
         em.pack_emitter({"type": "projector", "irradiance": {
             "type": "bitmap", "filename": "slide.png"}})
+    desc = {"type": "projector", "irradiance": {
+        "type": "bitmap", "data": np.full((4, 4, 3), 2.0, np.float32)}}
+    with spectra.texture_staging() as staged:
+        row_t = em.pack_emitter(desc)[1]
+    from mitsuba2_tpu.render import spectra as jspectra
+    jspectra.begin_texture_staging()
+    try:
+        row_j = jem.pack_emitter(desc)[1]
+    finally:
+        jspectra.end_texture_staging()
+    assert row_t.tobytes() == row_j.tobytes() and row_t[7] == 3.0
+    assert len(staged) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -589,7 +605,8 @@ def test_scene_from_numpy_refuses_textured_projector(scene_pairs):
     fields["emitter_data"] = fields["emitter_data"].copy()
     proj = fields["emitter_type"] == em.PROJECTOR
     fields["emitter_data"][proj, 7] = 3.0
-    with pytest.raises(NotImplementedError, match="textured projectors"):
+    # a textured slide needs the atlas that holds it (the textures' slice)
+    with pytest.raises(KeyError, match="textures"):
         mt.scene_from_numpy(fields, device="cpu")
 
 

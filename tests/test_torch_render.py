@@ -158,6 +158,16 @@ assert all(bool(g.isfinite().all()) for g in grads.values())
 img = mt.render(mt.veach_mis(envmap=True, device="cpu"),
                 cfg.replace(color_mode="spectral"), device="cpu")
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+import chip_smoke
+from mitsuba2_tpu_torch import chi2
+from mitsuba2_tpu_torch.render import bsdf, texture
+from mitsuba2_tpu_torch.scene import presets
+scene = chip_smoke.gallery_textured(presets, 1, 16, device="cpu")
+assert scene.textures is not None and {bsdf.MASK, bsdf.BLEND, bsdf.NULL_BSDF,
+    bsdf.NORMALMAP, bsdf.BUMPMAP} <= set(scene.mat_families)
+img = mt.render(scene, cfg, device="cpu")
+assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+assert chi2.rlgamma(2.0, 1.0) > 0 and texture.TEXTURE_RANGE
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)

@@ -112,14 +112,15 @@ def test_unsupported_features_raise_by_name(feature):
     sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
     emitters = ()
     if feature == "sphere":
-        # spheres render now: a sphere under a BSDF the port lacks
-        mesh = shapes.sphere(bsdf={"type": "null"})
+        # spheres render now: a sphere under a BSDF the port lacks (null,
+        # the first one, renders since the textures' slice)
+        mesh = shapes.sphere(bsdf={"type": "polarizer"})
     elif feature == "medium":
         mesh.interior = {"type": "homogeneous"}
     elif feature == "instance":
-        # an instanced group holding a BSDF the port lacks
-        metal = shapes.cube(bsdf={"type": "mask", "opacity": 0.5,
-                                  "bsdf": {"type": "diffuse"}})
+        # an instanced group holding a BSDF the port lacks (mask, the
+        # first one, renders since the textures' slice)
+        metal = shapes.cube(bsdf={"type": "retarder"})
         mesh = shapes.instance(shapes.shapegroup([metal, shapes.sphere()]),
                                np.eye(4))
     elif feature == "envmap":
@@ -128,17 +129,19 @@ def test_unsupported_features_raise_by_name(feature):
         mesh.bsdf = {"type": "diffuse",
                      "reflectance": {"type": "bitmap", "filename": "x.exr"}}
     elif feature == "plastic":
-        # the plastics render now: a rough plastic's roughness texture
+        # the plastics render now, and textured roughness since the
+        # textures' slice: one read from an image file
         mesh.bsdf = {"type": "roughplastic",
                      "alpha": {"type": "bitmap", "filename": "x.exr"}}
     elif feature == "twosided":
         # twosided renders now: twosided around a BSDF the port lacks
-        mesh.bsdf = {"type": "twosided", "bsdf": {"type": "blendbsdf"}}
+        # (blendbsdf, the first one, renders since the textures' slice)
+        mesh.bsdf = {"type": "twosided", "bsdf": {"type": "measured"}}
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
-    names = {"sphere": "null", "medium": "media", "instance": "mask",
-             "envmap": "envmap", "texture": "bitmap",
-             "plastic": "textured roughness", "twosided": "blendbsdf",
+    names = {"sphere": "polarizer", "medium": "media",
+             "instance": "retarder", "envmap": "envmap", "texture": "bitmap",
+             "plastic": "image files", "twosided": "measured",
              "orthographic": "orthographic"}
     with pytest.raises(NotImplementedError, match=names[feature]):
         build_scene([mesh], sensor, emitters, device="cpu")
@@ -162,11 +165,19 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
                     "type": "checkerboard", "color0": [0.2] * 3,
                     "color1": [0.8] * 3}})
         shape = jshapes.rectangle(bsdf=bsdf)
-    fields = jax_fields(jbuild([shape], sensor))
-    match = {"spheres": "'null' BSDF", "twosided": "'mask' BSDF"}.get(
-        what, what)
-    with pytest.raises(NotImplementedError, match=match):
-        mt.scene_from_numpy(fields, device="cpu")
+    sj = jbuild([shape], sensor)
+    fields = jax_fields(sj)
+    if what == "textured":
+        # a textured slot needs its atlas (the textures' slice)
+        with pytest.raises(KeyError, match="textures"):
+            mt.scene_from_numpy(fields, device="cpu")
+        fields["textures"] = {k: np.asarray(getattr(sj.textures, k))
+                              for k in ("data", "info", "uvt")}
+    # null and mask carry across since the textures' slice
+    st = mt.scene_from_numpy(fields, device="cpu")
+    assert np.array_equal(st.mat_data.numpy(), fields["mat_data"])
+    assert st.mat_families == tuple(sorted(set(fields["mat_type"].tolist())))
+    assert (st.textures is None) == (what != "textured")
 
 
 @pytest.mark.parametrize("kw,what", [
