@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Fifteen main paths, each a forward render at 256x256, 16 spp, max_depth 3
-through `mitsuba2_tpu_torch.render` (in one pass but for veach and
-veach_spectral), in rgb but for veach_spectral, veach_spectral_bvh2,
-gallery_spectral and gallery_lights, which render spectrally:
+Seventeen main paths, each a forward render at 256x256 through
+`mitsuba2_tpu_torch.render`, 16 spp at max_depth 3 (in one pass but for
+veach and veach_spectral) but for config 5's two, in rgb but for
+veach_spectral, veach_spectral_bvh2, gallery_spectral and
+gallery_lights, which render spectrally:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
   instanced  instanced_field(n=1024, subdiv=4), 1 024 shared-BLAS instances
@@ -54,7 +55,15 @@ gallery_spectral and gallery_lights, which render spectrally:
              checkerboard bump map, a textured area light and projector;
              mask, blendbsdf and null blobs), its six textures in one
              atlas padded to 1024 x 1024 with its mip pyramid, the camera
-             rays carrying differentials: K1, K2.
+             rays carrying differentials: K1, K2;
+  cornell_reparam  config 5 (reparam=True: the camera, NEE and BSDF
+             directions warped by K = 16 auxiliary rays each) on
+             cornell_box() at bench.py m_reparam's sizes, 16 spp in 4
+             passes of 4, depth 4: brute force, the auxiliary rays in
+             2M-lane chunks;
+  gallery_reparam  config 5 on the gallery's scene, 4 spp in one pass,
+             depth 3: K1 on the 4.2M camera-site and 8.4M bounce-site
+             auxiliary rays too (6 launches), K2.
 Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
 before it builds its scene (a scene uploads the tables of the walk it
 takes) and resets them after each use.
@@ -80,7 +89,10 @@ Phase 3  renders each path: launch counts (set to 0 just before the path's
          renders, read just after), time, Mrays/s, peak memory. Each kernel
          is then timed and held against its twin on the very inputs the
          main path gave it, beside its bound; K6 also on the inputs the
-         spheres path gave K3, for a same-ray comparison.
+         spheres path gave K3, for a same-ray comparison. Config 5's
+         paths print bench.py's counted and all-rays Mrays/s, and their
+         image against the plain render of the same seed (held within
+         atol 1e-5 on the Cornell box).
 Phase 4  small renders on the card against the same renders on the CPU
          (twins and brute force there): the cluster, instanced, BVH2 and
          instanced BVH2 paths and brute force, with and without a sphere,
@@ -131,7 +143,17 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          Adam steps on gallery_textured's texels toward its render under
          another floor texture (the loss must fall); then veach_mis()'s
          plate0 roughness gradients (alpha 0.005) on the card, on the CPU
-         and by a central difference on the card, printed.
+         and by a central difference on the card, printed. Config 5:
+         the gallery with its last blob moved and the walk tables
+         refreshed (scene.refresh_mxu_feat), K1 and K2 held bit for bit
+         against their twins there; the gradient of gallery_reparam's
+         image mean with respect to that blob's translation by plain AD,
+         reparameterized AD and a central difference on refreshed
+         scenes, printed with the backward's peak memory; and the
+         occluder scenes of examples/occluder_pose_grad.py and
+         tests/test_reparam.py (occluder_scene, shadow_scene): plain AD,
+         reparameterized AD and a central difference held to the JAX
+         tests' bands, and the card's reparameterized AD to the CPU's.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} (one row a kernel: its first path's
@@ -191,11 +213,35 @@ VEACH_RENDER = dict(width=256, height=256, spp=16, spp_per_pass=4,
 # the spectral paths (veach_spectral: bench.py's veach_spectral_fwd,
 # :341-355)
 SPECTRAL = dict(color_mode="spectral")
+# config 5's paths (reparam=True): bench.py m_reparam's Cornell box (its
+# forward config, :357-360 and :370-388: 16 spp in passes of 4, depth 4,
+# rr_depth 8, K 16), and the gallery in one pass of 4 spp at depth 3
+REPARAM_CORNELL = dict(width=256, height=256, spp=16, spp_per_pass=4,
+                       max_depth=4, rr_depth=8, reparam=True,
+                       reparam_kaux=16)
+REPARAM_GALLERY = dict(width=256, height=256, spp=4, spp_per_pass=4,
+                       max_depth=3, rr_depth=8, reparam=True)
 PATH_RENDER = {"veach": VEACH_RENDER,
                "veach_spectral": {**VEACH_RENDER, **SPECTRAL},
                "veach_spectral_bvh2": {**RENDER, **SPECTRAL},
                "gallery_spectral": {**RENDER, **SPECTRAL},
-               "gallery_lights": {**RENDER, **SPECTRAL}}
+               "gallery_lights": {**RENDER, **SPECTRAL},
+               "cornell_reparam": REPARAM_CORNELL,
+               "gallery_reparam": REPARAM_GALLERY}
+# config 5's occluder scenes (occluder_scene, shadow_scene): the JAX
+# tests' configs, central-difference steps and bands of |AD| / |FD|
+# (tests/test_reparam.py; examples/occluder_pose_grad.py)
+OCCLUDER_CHECKS = {
+    "occluder_pose_grad": dict(
+        render=dict(width=24, height=24, spp=16, spp_per_pass=16,
+                    max_depth=2), eps=0.04, band=(0.4, 2.5)),
+    "test_reparam occluder": dict(
+        render=dict(width=32, height=32, spp=4, spp_per_pass=4,
+                    max_depth=1), eps=0.03, band=(0.5, 2.0)),
+}
+# gallery_reparam's blob move (the last blob, along x): refresh_mxu_feat's
+# check and the central difference's step
+BLOB_SHIFT, BLOB_EPS = 0.05, 0.02
 # gallery_textured's texel optimization, at invert_cbox's size (INVERT)
 TEXTURED_TRAIN_STEPS, TEXTURED_TRAIN_LR = 8, 0.05
 # veach's plate0 roughness, its central difference's step (the test's,
@@ -224,8 +270,9 @@ VEACH_PARAMS = {
     "plates' alpha_u, alpha_v": [f"plate{i}.bsdf.alpha_{a}"
                                  for i in range(4) for a in "uv"],
     "floor's reflectance": ["floor.bsdf.reflectance"]}
-# a K8 launch takes a tenth of a second or more: fewer repetitions
-PATH_REPS = {"gallery_dense": 3}
+# a K8 launch takes a tenth of a second or more, gallery_reparam's K1
+# launches of 4.2M and 8.4M auxiliary rays several ms: fewer repetitions
+PATH_REPS = {"gallery_dense": 3, "gallery_reparam": 5}
 # ~0.1 s of the device's clock: ample for the host to queue KERNEL_REPS
 # launches ahead of it
 SLEEP_CYCLES = 200_000_000
@@ -273,6 +320,8 @@ PATH_KERNELS = {
     "gallery_spectral": ("cluster_closest_hit", "cluster_any_hit"),
     "gallery_lights": ("cluster_closest_hit", "cluster_any_hit"),
     "gallery_textured": ("cluster_closest_hit", "cluster_any_hit"),
+    "cornell_reparam": (),
+    "gallery_reparam": ("cluster_closest_hit", "cluster_any_hit"),
 }
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
@@ -281,6 +330,9 @@ BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8", "veach_bvh2": "pallas",
            "veach_spectral_bvh2": "pallas"}
 DENSE = {"gallery_dense"}
+# the paths phase 5 profiles one pass of: the profiler's host cost is
+# ~0.4 ms a launch, and cornell_reparam's renders launch ~240 000 kernels
+PROFILE_ONE_PASS = {"cornell_reparam"}
 # the kernels held bit-equal to their twins on every lane of phases 2 and
 # 3: the warp-cooperative cluster visits, the warp-wide leaf tests, the
 # pair walks and K6's any hit: every walk kernel
@@ -292,7 +344,7 @@ BIT_EQUAL = {"cluster_closest_hit", "inst_cluster_closest_hit",
              "bvh8_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery",
-              "gallery_spectral": "gallery"}
+              "gallery_spectral": "gallery", "gallery_reparam": "gallery"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
 # (L1-resident) and one of the sphere field's BVH2 size (8 MiB, in L2)
 PROBE_LANES = 1 << 20
@@ -304,6 +356,9 @@ EXPECTED_LAUNCHES = {
     path: {k: 3 if k in ks[:1] else 2 if k in ks[1:] else 0
            for k in REPLACES}
     for path, ks in PATH_KERNELS.items()}
+# reparam=True adds one closest-hit launch a warp site: the camera's
+# auxiliary rays, and each bounce's NEE and BSDF sites' in one
+EXPECTED_LAUNCHES["gallery_reparam"]["cluster_closest_hit"] = 6
 
 
 class SmokeFailure(Exception):
@@ -664,6 +719,68 @@ def gallery_materials(P, subdiv=SUBDIV, **build_kw):
     return P.build_scene(s, sensor, **build_kw)
 
 
+def occluder_scene(P, **build_kw):
+    """tests/test_reparam.py's _occluder_scene from the presets module `P`
+    of either package: a bright emissive wall at z = 0 and a small dark
+    occluder at z = 1.5 whose left edge crosses the view of a camera at
+    z = 4 (4 triangles: brute force). Returns (scene, the occluder's prim
+    rows as numpy)."""
+    T4, sh = P.Transform4, P.shapes
+    wall = sh.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0, 0, 0]},
+        emitter={"type": "area", "radiance": [2.0] * 3},
+        id="wall").transformed(np.asarray(T4.scale([2, 2, 1]).matrix))
+    occ = sh.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0.0, 0.0, 0.0]},
+        id="occ").transformed(np.asarray(
+            (T4.translate([0.6, 0, 1.5]) @ T4.scale([0.5, 0.5, 1])).matrix))
+    cam = T4.look_at(origin=[0, 0, 4], target=[0, 0, 0], up=[0, 1, 0])
+    scene = P.build_scene([occ, wall], {
+        "type": "perspective", "to_world": np.asarray(cam.matrix),
+        "fov": 35.0}, **build_kw)
+    return scene, _rows_of_shape(scene, 0)
+
+
+def _rows_of_shape(scene, shape):
+    """The prim rows of shape `shape`, as numpy, from either package's
+    scene (the port's tables may lie on the card)."""
+    a = scene.prim_shape
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return np.nonzero(a == shape)[0]
+
+
+def shadow_scene(P, **build_kw):
+    """examples/occluder_pose_grad.py's build_occluder_scene (and
+    tests/test_reparam.py's _shadow_scene) from the presets module `P` of
+    either package: a diffuse floor, a small dark occluder at y = 1 and a
+    small area light above it; the camera sees the floor alone, so the
+    shadow's edge, which moves with the occluder, lies in the NEE and
+    BSDF directions of the second path vertex (6 triangles: brute
+    force). Returns (scene, the occluder's prim rows as numpy)."""
+    T4, sh = P.Transform4, P.shapes
+    floor = sh.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0.8] * 3},
+        id="floor").transformed(np.asarray(
+            (T4.rotate([1, 0, 0], -90) @ T4.scale([2, 2, 1])).matrix))
+    occ = sh.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0.0] * 3},
+        id="occ").transformed(np.asarray(
+            (T4.translate([0.6, 1.0, 0]) @ T4.rotate([1, 0, 0], -90)
+             @ T4.scale([0.25, 0.25, 1])).matrix))
+    light = sh.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0] * 3},
+        emitter={"type": "area", "radiance": [30.0] * 3},
+        id="light").transformed(np.asarray(
+            (T4.translate([0.25, 2.0, 0]) @ T4.rotate([1, 0, 0], 90)
+             @ T4.scale([0.12, 0.12, 1])).matrix))
+    cam = T4.look_at(origin=[0.15, 0.55, 0.0], target=[0.25, 0.0, 0.0],
+                     up=[0, 0, 1])
+    scene = P.build_scene([occ, floor, light], {
+        "type": "perspective", "to_world": np.asarray(cam.matrix),
+        "fov": 50.0}, **build_kw)
+    return scene, _rows_of_shape(scene, 0)
+
+
 # gallery_lights' emitters: every shapeless kind of config 3 but the
 # constant one (a scene holds one environment emitter: the sky)
 LIGHTS = (
@@ -881,6 +998,10 @@ def phase_kernels_vs_twins(torch, mt, dev):
     gallery = scenes["gallery_dense"] = scenes["gallery"]
     scenes["gallery_spectral"] = gallery
     scenes.update(_material_scenes(mt, dev))
+    # config 5: reparam is read at render; the Cornell box takes brute
+    # force
+    scenes["cornell_reparam"] = mt.cornell_box(device=dev)
+    scenes["gallery_reparam"] = gallery
     with path_switches("gallery_dense"):
         ks = kernels_of(gallery)
     check(ks["closest"] == "dense_closest_hit", "the dense switch did not "
@@ -1231,6 +1352,47 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     return rows, med * 1e3, per
 
 
+def phase_reparam_path(torch, mt, path, scene, card, render_ms):
+    """A reparam=True path after phase 3: its rates by bench.py's
+    cornell_reparam accounting (:379-387): the rays counted as a plain
+    render's, and all rays with the K auxiliary rays of each warp site (1
+    camera site + 2 a bounce); then its image at seed 0 against the plain
+    render's (reparam=False, the same seed): the primal is unchanged,
+    within atol 1e-5 on the Cornell box; the gallery's, whose camera and
+    bounce rays take the reparameterized directions' last bits into its
+    walk, printed."""
+    cfg = mt.RenderConfig(**PATH_RENDER[path])
+    passes = cfg.spp // cfg.spp_per_pass
+    counted = rays_per_pass(cfg) * passes
+    lanes = cfg.width * cfg.height * cfg.spp_per_pass
+    aux = lanes * cfg.reparam_kaux * (1 + 2 * (cfg.max_depth - 1)) * passes
+    img = mt.render(scene, cfg, seed=0)
+    plain = mt.render(scene, cfg.replace(reparam=False), seed=0)
+    torch.cuda.synchronize()
+    err = (img - plain).abs()
+    # what the auxiliary rays cost the forward, which traces them whether
+    # or not a gradient is asked (as the JAX package does)
+    plain_ms, plain_t = median_ms(torch, lambda r: mt.render(
+        scene, cfg.replace(reparam=False), seed=r))
+    log(f"phase 3: {path}: {counted / render_ms / 1e3:.3f} Mrays/s counted "
+        f"({counted} rays, bench.py's cornell_reparam count), "
+        f"{(counted + aux) / render_ms / 1e3:.3f} Mrays/s with the {aux} "
+        f"auxiliary rays (K {cfg.reparam_kaux}, its _all_rays count), "
+        f"render median {render_ms:.1f} ms on {card}; the same render with "
+        f"reparam=False {plain_ms:.1f} ms (median of "
+        f"{[round(t, 1) for t in plain_t]}): the warps cost "
+        f"{render_ms - plain_ms:.1f} ms a render, "
+        f"{render_ms / plain_ms:.2f}x")
+    log(f"phase 3: {path}: image against the plain render (seed 0): max "
+        f"abs diff {float(err.max()):.3e}, "
+        f"{float((err <= 1e-5).all(-1).float().mean()):.6f} of pixels "
+        f"within 1e-5, means {float(img.mean()):.6f} and "
+        f"{float(plain.mean()):.6f}")
+    if path == "cornell_reparam":
+        check(float(err.max()) <= 1e-5, f"{path}: the reparameterized image "
+              "is not the plain render's")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: small renders on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -1353,10 +1515,19 @@ def phase_profile(torch, mt, path, scene, render_ms):
     and by kind (on a scene with textures, the kernels launched inside
     its texture lookups as a kind of their own), and the device's busy
     share of the render's wall time, profiled (the profiler's host cost
-    inflates it) and unprofiled (`render_ms`, phase 3's median)."""
+    inflates it) and unprofiled (`render_ms`, phase 3's median). A path of
+    PROFILE_ONE_PASS profiles one of its passes, which do the same work
+    (no Russian roulette before rr_depth), and counts a render as that
+    many of them."""
     from mitsuba2_tpu_torch.render.texture import TEXTURE_RANGE
     from torch.profiler import ProfilerActivity, profile
     cfg = mt.RenderConfig(**PATH_RENDER.get(path, RENDER))
+    passes = 1
+    if path in PROFILE_ONE_PASS:
+        check(cfg.rr_depth >= cfg.max_depth, f"{path}: Russian roulette "
+              "makes its passes' work differ")
+        passes = cfg.spp // cfg.spp_per_pass
+        cfg = cfg.replace(spp=cfg.spp_per_pass)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1398,10 +1569,17 @@ def phase_profile(torch, mt, path, scene, render_ms):
             "them texel gathers" if lookups[1] else
             f"phase 5: {path}: texture lookups: not measured (no kernel "
             "linked to the profiler's texture ranges)")
-    log(f"phase 5: {path}: profiled render: {dev_ms:.2f} ms of device "
-        f"kernels in {sum(r[1] for r in rows)} launches; device busy "
-        f"{dev_ms / wall_ms:.3f} of the profiled wall time ({wall_ms:.1f} ms), "
-        f"{dev_ms / render_ms:.3f} of phase 3's median ({render_ms:.1f} ms)")
+    launches = sum(r[1] for r in rows)
+    if passes > 1:
+        log(f"phase 5: {path}: profiled one of its {passes} passes: "
+            f"{dev_ms:.2f} ms of device kernels in {launches} launches; a "
+            f"render, {passes} such passes: {dev_ms * passes:.2f} ms in "
+            f"{launches * passes} launches")
+    log(f"phase 5: {path}: profiled render: {dev_ms * passes:.2f} ms of "
+        f"device kernels in {launches * passes} launches; device busy "
+        f"{dev_ms / wall_ms:.3f} of the profiled wall time ({wall_ms:.1f} ms"
+        f"{' a pass' if passes > 1 else ''}), {dev_ms * passes / render_ms:.3f}"
+        f" of phase 3's median ({render_ms:.1f} ms)")
     for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
         log(f"  {c}: {ms:.2f} ms ({ms / dev_ms:.3f}) in {n} launches")
     for ms, n, key in rows[:12]:
@@ -2033,9 +2211,9 @@ def _adjoint_train(torch, mt, dev, card):
 
 
 def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral,
-                  textured):
+                  textured, gallery_reparam):
     """Phase 7 (see the module docstring); `gallery`, `veach`,
-    `veach_spectral`, `textured`: phase 2's scenes."""
+    `veach_spectral`, `textured`, `gallery_reparam`: phase 2's scenes."""
     def step(what, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2060,6 +2238,172 @@ def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral,
     step("the texture optimization", _textured_train, torch, mt, dev, card,
          textured)
     step("plate0's roughness", _plate_roughness, torch, mt, dev, card)
+    with path_switches("gallery_reparam"):
+        step("gallery_reparam's refresh", _refresh_check, torch, mt, dev,
+             gallery_reparam)
+        step("gallery_reparam's blob gradient", _blob_gradient, torch, mt,
+             card, gallery_reparam)
+    for name in OCCLUDER_CHECKS:
+        step(name, _occluder_check, torch, mt, dev, card, name)
+
+
+def _moved(torch, scene, rows, theta):
+    """The scene with prim_p0's `rows` (a bool mask) shifted by theta along
+    x (tests/test_reparam.py's `_translated`)."""
+    import dataclasses
+    shift = torch.stack([theta, torch.zeros_like(theta),
+                         torch.zeros_like(theta)])
+    return dataclasses.replace(
+        scene, prim_p0=scene.prim_p0 + rows[:, None] * shift[None])
+
+
+def _grad(torch, loss):
+    """d loss / d theta at 0, and its wall ms; 0 where the loss does not
+    depend on theta (no tape: plain AD of a visibility change)."""
+    theta = torch.tensor(0.0, device=DEVICE, requires_grad=True)
+    t0 = time.perf_counter()
+    out = loss(theta)
+    g = (torch.autograd.grad(out, theta, allow_unused=True)[0]
+         if out.requires_grad else None)
+    torch.cuda.synchronize()
+    return (0.0 if g is None else float(g),
+            (time.perf_counter() - t0) * 1e3)
+
+
+def _fd(torch, loss, eps):
+    """(loss(eps) - loss(-eps)) / (2 eps), no tape, and its wall ms."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hi, lo = (float(loss(torch.tensor(v, device=DEVICE)))
+                  for v in (eps, -eps))
+    torch.cuda.synchronize()
+    return (hi - lo) / (2 * eps), (time.perf_counter() - t0) * 1e3
+
+
+def _blob_rows(torch, scene):
+    """The last blob's prims (mesh_gallery's last shape), a bool mask."""
+    return scene.prim_shape == int(scene.prim_shape.max())
+
+
+def _refresh_check(torch, mt, dev, scene):
+    """Moves gallery_reparam's last blob by BLOB_SHIFT along x and
+    refreshes the walk tables (scene.refresh_mxu_feat): K1 and K2 on the
+    refreshed tables held against their twins, bit for bit, on 65 536
+    camera rays; the hits on the blob then move with it, which the stale
+    tables miss."""
+    from mitsuba2_tpu_torch.core.vec import Vec2
+    from mitsuba2_tpu_torch.render import sensors
+    from mitsuba2_tpu_torch.scene.scene import refresh_mxu_feat
+    rows = _blob_rows(torch, scene)
+    moved = _moved(torch, scene, rows, torch.tensor(BLOB_SHIFT, device=dev))
+    t0 = time.perf_counter()
+    fresh = refresh_mxu_feat(moved)
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    g = torch.Generator(device=dev).manual_seed(5)
+    uv = torch.rand((2, N_PROBE), device=dev, generator=g)
+    ray = sensors.sample_ray(fresh, Vec2(uv[0], uv[1]))
+    args = [ray.o.x, ray.o.y, ray.o.z, ray.d.x, ray.d.y, ray.d.z, ray.maxt]
+    ks = kernels_of(fresh)
+    c = compare(torch, ks, args)
+    check(passes(c, **exactness("gallery_reparam", ks))
+          and c["closest_bit_equal"] and c["occ_agree"] == 1.0,
+          f"K1/K2 on the refreshed tables disagree with their twins: {c}")
+    t_new = wrapper(ks["closest"])(*ks["tabs"], *args, *ks["extra"])
+    t_old = wrapper(ks["closest"])(*kernels_of(moved)["tabs"], *args,
+                                   *ks["extra"])
+    moved_hits = int((t_new[0] != t_old[0]).sum())
+    check(moved_hits > 0, "the refreshed tables find the same hits as the "
+          "stale ones")
+    log(f"phase 7: gallery_reparam: refresh_mxu_feat after moving blob "
+        f"{int(scene.prim_shape.max())} ({int(rows.sum())} prims) by "
+        f"{BLOB_SHIFT} along x: {refresh_ms:.2f} ms; K1, K2 on the "
+        f"refreshed tables against their twins on {N_PROBE} camera rays: "
+        f"closest bit-equal {c['closest_bit_equal']}, occlusion agree "
+        f"{c['occ_agree']:.6f}, hit {c['hit_frac']:.4f}; {moved_hits} lanes' "
+        "t differ from the stale tables'")
+
+
+def _blob_gradient(torch, mt, card, scene):
+    """d mean(image) / d(the last blob's x) on gallery_reparam at its
+    config, three ways: plain AD, reparameterized AD (reparam=True) and a
+    central difference (BLOB_EPS) on refreshed scenes, with their times and
+    the reparameterized backward's peak memory; printed, each finite."""
+    from mitsuba2_tpu_torch.scene.scene import refresh_mxu_feat
+    cfg = mt.RenderConfig(**REPARAM_GALLERY)
+    rows = _blob_rows(torch, scene)
+
+    def loss(rep):
+        return lambda th: mt.render(refresh_mxu_feat(_moved(
+            torch, scene, rows, th)), cfg.replace(reparam=rep), seed=0).mean()
+    fd, fd_ms = _fd(torch, loss(False), BLOB_EPS)
+    plain, plain_ms = _grad(torch, loss(False))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rep, rep_ms = _grad(torch, loss(True))
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase 7: gallery_reparam: d mean(image) / d(blob "
+        f"{int(scene.prim_shape.max())}'s x) at {cfg.width}x{cfg.height}x"
+        f"{cfg.spp}spp depth {cfg.max_depth} on {card}: plain AD {plain:.6e} "
+        f"({plain_ms:.1f} ms), reparameterized AD {rep:.6e} ({rep_ms:.1f} ms, "
+        f"backward peak {peak / 2**20:.0f} MiB over the resident), central "
+        f"difference (eps {BLOB_EPS}, refreshed scenes) {fd:.6e} "
+        f"({fd_ms:.1f} ms); reparam / fd "
+        f"{rep / fd if fd else float('nan'):.4f}, plain / fd "
+        f"{plain / fd if fd else float('nan'):.4f}")
+    check(np.isfinite([fd, plain, rep]).all() and rep != 0.0,
+          "gallery_reparam: a non-finite or zero gradient")
+
+
+def _occluder_check(torch, mt, dev, card, name):
+    """Config 5's occluder-translation gradient on one of its scenes
+    (OCCLUDER_CHECKS: examples/occluder_pose_grad.py's, through the path
+    integrator with reparam=True; tests/test_reparam.py's, through
+    render_direct_reparam) on the card: plain AD, reparameterized AD and a
+    central difference, held to the JAX tests' bands (|plain| < 0.25
+    |FD|; the reparameterized AD of FD's sign, its size within the band),
+    and the reparameterized AD on the card against the CPU's within 1e-3
+    relative."""
+    from mitsuba2_tpu_torch.diff.reparam import render_direct_reparam
+    from mitsuba2_tpu_torch.scene import presets
+    from mitsuba2_tpu_torch.scene.scene import refresh_mxu_feat
+    spec = OCCLUDER_CHECKS[name]
+    direct = spec["render"]["max_depth"] == 1
+    make = occluder_scene if direct else shadow_scene
+    cfg = mt.RenderConfig(**spec["render"])
+    for i, d in enumerate(("cpu", dev)):
+        scene, rows = make(presets, device=d)
+        mask = torch.zeros(scene.n_prims, dtype=torch.bool, device=d)
+        mask[torch.as_tensor(rows, device=d)] = True
+
+        def loss(rep):
+            def f(th):
+                s = refresh_mxu_feat(_moved(torch, scene, mask, th.to(d)))
+                if direct and rep:
+                    return render_direct_reparam(s, cfg, device=d).mean()
+                return mt.render(s, cfg.replace(reparam=rep),
+                                 device=d).mean()
+            return f
+        if i == 0:
+            cpu = _grad(torch, loss(True))[0]
+            continue
+        fd, fd_ms = _fd(torch, loss(False), spec["eps"])
+        plain, plain_ms = _grad(torch, loss(False))
+        rep, rep_ms = _grad(torch, loss(True))
+    lo, hi = spec["band"]
+    rel = abs(rep - cpu) / abs(cpu)
+    good = (abs(fd) > 1e-3 and abs(plain) < 0.25 * abs(fd)
+            and np.sign(rep) == np.sign(fd)
+            and lo * abs(fd) < abs(rep) < hi * abs(fd) and rel <= 1e-3)
+    log(f"phase 7: {name} ({cfg.width}x{cfg.height}x{cfg.spp}spp, depth "
+        f"{cfg.max_depth}) on {card}: central difference (eps "
+        f"{spec['eps']}) {fd:+.6f} ({fd_ms:.1f} ms), plain AD {plain:+.6f} "
+        f"({plain_ms:.1f} ms), reparameterized AD {rep:+.6f} ({rep_ms:.1f} "
+        f"ms; / fd {rep / fd:.4f}, band {lo}-{hi}); the CPU's "
+        f"{cpu:+.6f}, card / CPU relative diff {rel:.2e} "
+        f"{'ok' if good else 'FAIL'}")
+    check(good, f"{name}: the occluder gradient is outside its bands")
 
 
 def merge_row(by_name, path, row):
@@ -2105,6 +2449,9 @@ def main():
                     card, extra["spheres_bvh8"] if path == "spheres" else None)
             for row in r:
                 merge_row(by_name, path, row)
+            if PATH_RENDER.get(path, {}).get("reparam"):
+                timed(f"3 ({path}, reparam)", phase_reparam_path, torch,
+                      mt, path, scene, card, render_ms[path])
         rows = list(by_name.values())
         timed(4, phase_small_renders, torch, mt, dev)
         for path, scene in scenes.items():
@@ -2114,7 +2461,7 @@ def main():
         rows += timed(6, phase_probes, torch, dev, card, launches)
         timed(7, phase_adjoint, torch, mt, dev, card, scenes["gallery"],
               scenes["veach"], scenes["veach_spectral"],
-              scenes["gallery_textured"])
+              scenes["gallery_textured"], scenes["gallery_reparam"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,7 +5,9 @@ renders on an NVIDIA H100 through hand-written CUDA traversal kernels
 (csrc/cluster_walk.cu) and plain PyTorch around them, in rgb, mono or
 spectral mode, and differentiates a render with respect to the scene's
 material and emitter tables and an envmap's image and scale (diff/: the
-pass-by-pass adjoint, the parameter map and the optimizers):
+pass-by-pass adjoint, the parameter map and the optimizers), and with
+respect to its geometry, visibility boundaries included, under
+RenderConfig(reparam=True) (diff/reparam.py):
 
     import mitsuba2_tpu_torch as mt
     scene = mt.mesh_gallery(subdiv=4)          # tensors on the CUDA device

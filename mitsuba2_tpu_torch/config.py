@@ -15,6 +15,15 @@ import torch
 COLOR_MODES = ("mono", "rgb", "spectral")
 
 
+def check_kaux(k: int) -> int:
+    """The auxiliary rays a reparameterized direction traces, refused
+    below 1 with the JAX package's message (diff/reparam.py)."""
+    if int(k) < 1:
+        raise ValueError(
+            f"reparam_kaux={k}: the warp needs >= 1 auxiliary ray")
+    return int(k)
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     color_mode: str = "rgb"           # mono | rgb | spectral
@@ -58,12 +67,13 @@ class RenderConfig:
             (self.integrator != "path", f"integrator={self.integrator!r}"),
             (self.sampler != "independent", f"sampler={self.sampler!r}"),
             (self.compact, "compact=True"),
-            (self.reparam, "reparam=True"),
         ]
         for bad, what in unsupported:
             if bad:
                 raise NotImplementedError(
                     f"mitsuba2_tpu_torch does not render {what} yet")
+        if self.reparam:
+            check_kaux(self.reparam_kaux)
 
     @property
     def float_dtype(self) -> torch.dtype:

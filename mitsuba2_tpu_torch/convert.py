@@ -42,13 +42,18 @@ from .scene.scene import (BVH8_FIELDS, CLUSTER_FIELDS, FIELDS, INST_FIELDS,
                           PRIM_SPHERE, UPLOAD_FIELDS, SceneData, upload_walk)
 
 
-def slot_major_feat(mxu_feat: np.ndarray, cluster_k: int) -> np.ndarray:
+def slot_major_feat(mxu_feat, cluster_k: int):
     """(16, 4*C*CK) transposed, cluster-major plane rows -> (C*CK, 20)
-    slot-major rows [det(3) | u(6) | v(6) | t(4) | pad] for the walk."""
+    slot-major rows [det(3) | u(6) | v(6) | t(4) | pad] for the walk: a
+    numpy table in, a numpy table out; a tensor in, a tensor on its
+    device out (scene.refresh_mxu_feat's)."""
+    if isinstance(mxu_feat, np.ndarray):
+        return slot_major_feat(torch.from_numpy(np.array(
+            mxu_feat, np.float32, order="C")), cluster_k).numpy()
     S = mxu_feat.shape[1] // 4
     C = S // cluster_k
-    fv = np.ascontiguousarray(mxu_feat.T).reshape(C, 4, cluster_k, 16)
-    out = np.zeros((C, cluster_k, traverse.FEAT_W), np.float32)
+    fv = mxu_feat.T.reshape(C, 4, cluster_k, 16)
+    out = mxu_feat.new_zeros((C, cluster_k, traverse.FEAT_W))
     out[..., 0:3] = fv[:, 0, :, 0:3]
     out[..., 3:9] = fv[:, 1, :, 0:6]
     out[..., 9:15] = fv[:, 2, :, 0:6]
@@ -66,10 +71,15 @@ def slot_counts(slot_prim: np.ndarray, cluster_k: int) -> np.ndarray:
     return np.where(real.any(1), last, 0).astype(np.int32)
 
 
-def prim_rows(f: Dict[str, np.ndarray]) -> np.ndarray:
+def prim_rows(f):
     """The prim rows the BVH2 and BVH8 walks test, (P, 12) f32 [p0, e1,
-    e2, type, 0, 0]."""
+    e2, type, 0, 0], from the SceneData arrays (numpy) or tensors (a
+    tensor on their device: scene.refresh_mxu_feat's)."""
     P = f["prim_p0"].shape[0]
+    if torch.is_tensor(f["prim_p0"]):
+        return torch.cat([f["prim_p0"], f["prim_e1"], f["prim_e2"],
+                          f["prim_type"].to(torch.float32)[:, None],
+                          f["prim_p0"].new_zeros((P, 2))], -1)
     prim = np.concatenate([f["prim_p0"], f["prim_e1"], f["prim_e2"],
                            f["prim_type"].astype(np.float32)[:, None],
                            np.zeros((P, 2), np.float32)], -1)

@@ -145,6 +145,15 @@ def _alpha_tex(data, si, au, av):
     return torch.where(is_tex, a, au), torch.where(is_tex, a, av)
 
 
+def _f64_derivative(value, exact):
+    """`value` (f32) as it stands, with the derivative of `exact`, the same
+    quantity computed in f64: value + (exact - exact.detach()), the
+    second term zero where exact is finite, else dropped."""
+    d = exact - exact.detach()
+    return value.detach() + torch.where(torch.isfinite(exact), d,
+                                        0.0).to(value.dtype)
+
+
 def _dielectric_eta(props, default_int):
     int_ior = ior_mod.lookup_dielectric(props.get("int_ior"), default_int)
     ext_ior = ior_mod.lookup_dielectric(props.get("ext_ior"), 1.000277)
@@ -262,38 +271,67 @@ class RoughConductor:
         return data
 
     @staticmethod
-    def _params(data, si):
-        return (*_alpha_tex(data, si, torch.clamp_min(data.col(24), 1e-4),
-                            torch.clamp_min(data.col(25), 1e-4)),
-                data.col(26).to(torch.int32))
+    def _params(data, si, dtype=torch.float32):
+        au, av = _alpha_tex(data, si, torch.clamp_min(data.col(24), 1e-4),
+                            torch.clamp_min(data.col(25), 1e-4))
+        return au.to(dtype), av.to(dtype), data.col(26).to(torch.int32)
 
     @staticmethod
     def sample(data, si, u1, u2, config):
-        au, av, dist = RoughConductor._params(data, si)
-        cos_i = Frame.cos_theta(si.wi)
-        m_dir, pdf_m = mf.sample(dist, si.wi, au, av, u2)
-        wo = fr.reflect_m(si.wi, m_dir)
+        bs, weight = RoughConductor._sample(data, si, si.wi, u2, config)
+        if not torch.is_grad_enabled():
+            return bs, weight
+        # the values in f32, as the JAX package computes them, and their
+        # derivatives from the same arithmetic in f64: at alpha 0.005 the
+        # weight's roughness derivative is a difference of terms of size
+        # 1/alpha, which f32 leaves wrong by up to 120% on some lanes
+        # (the JAX package's f32 by up to 13%)
+        bs64, w64 = RoughConductor._sample(
+            data, si, Vec3(*(c.double() for c in (si.wi.x, si.wi.y,
+                                                  si.wi.z))),
+            tuple(c.double() for c in u2), config)
+        return (BSDFSample(wo=Vec3(*(_f64_derivative(a, b) for a, b in zip(
+                    (bs.wo.x, bs.wo.y, bs.wo.z),
+                    (bs64.wo.x, bs64.wo.y, bs64.wo.z)))),
+                    pdf=_f64_derivative(bs.pdf, bs64.pdf), eta=bs.eta,
+                    sampled_flags=bs.sampled_flags),
+                Spec(tuple(_f64_derivative(a, b)
+                           for a, b in zip(weight.ch, w64.ch))))
+
+    @staticmethod
+    def _sample(data, si, wi, u2, config):
+        """sample() at incident wi in wi's dtype (the table's f32 columns
+        promote to it)."""
+        au, av, dist = params = RoughConductor._params(data, si, wi.x.dtype)
+        cos_i = Frame.cos_theta(wi)
+        m_dir, pdf_m = mf.sample(dist, wi, au, av, u2)
+        wo = fr.reflect_m(wi, m_dir)
         cos_o = Frame.cos_theta(wo)
-        dot_wim = vdot(si.wi, m_dir)
+        dot_wim = vdot(wi, m_dir)
         pdf = pdf_m / torch.clamp_min(4.0 * dot_wim.abs(), 1e-20)
         active = (cos_i > 0) & (cos_o > 0) & (pdf_m > 0)
-        # weight = f cos_o / pdf, through eval
-        f_cos = RoughConductor.eval(data, si, wo, config)
+        # weight = f cos_o / pdf, through eval (on the same roughness
+        # tensors: their derivatives' terms cancel in wi's dtype)
+        f_cos = RoughConductor._eval(data, si, wi, wo, config, params)
         weight = f_cos / torch.clamp_min(pdf, 1e-20)
         bs = BSDFSample(wo=wo, pdf=torch.where(active, pdf, 0.0),
-                        eta=torch.ones_like(pdf),
+                        eta=torch.ones_like(si.wi.z),
                         sampled_flags=_flags(active, F_GLOSSY_R))
         return bs, weight.masked(active)
 
     @staticmethod
     def eval(data, si, wo, config):
-        au, av, dist = RoughConductor._params(data, si)
-        cos_i = Frame.cos_theta(si.wi)
+        return RoughConductor._eval(data, si, si.wi, wo, config)
+
+    @staticmethod
+    def _eval(data, si, wi, wo, config, params=None):
+        au, av, dist = params or RoughConductor._params(data, si)
+        cos_i = Frame.cos_theta(wi)
         cos_o = Frame.cos_theta(wo)
-        h = vnormalize(si.wi + wo)
+        h = vnormalize(wi + wo)
         D = mf.eval_d(dist, h, au, av)
-        G = mf.g_smith(dist, si.wi, wo, h, au, av)
-        F = Conductor._fresnel(data, vdot(si.wi, h), si, config)
+        G = mf.g_smith(dist, wi, wo, h, au, av)
+        F = Conductor._fresnel(data, vdot(wi, h), si, config)
         spec = _spec(data, 2, si, config)
         f_cos = spec * F * (D * G / torch.clamp_min(4.0 * cos_i, 1e-20))
         return f_cos.masked((cos_i > 0) & (cos_o > 0))

@@ -35,7 +35,7 @@ from ..core.vec import Vec2, Vec3, vdot, vwhere
 from ..scene.shapes import PRIM_TRI
 from .interaction import DirectionSample
 from .spectra import (LaneRows, SLOT_W, _tex_value, eval_spectrum_slot,
-                      lane_gather, pack_color)
+                      gather_columns, lane_gather, pack_color)
 
 EMIT_W = 16
 AREA = 0
@@ -448,10 +448,9 @@ def _sample_area(scene, ref_p, wavelengths, e_idx, etype, row, scaled, u2,
     prim = scene.emitter_prims.reshape(-1)[base + slot]
     pc = torch.clamp_min(prim, 0)
 
-    p0, e1, e2 = scene.prim_p0[pc], scene.prim_e1[pc], scene.prim_e2[pc]
-    p0x, p0y, p0z = p0.unbind(1)
-    e1x, e1y, e1z = e1.unbind(1)
-    e2x, e2y, e2z = e2.unbind(1)
+    p0x, p0y, p0z = gather_columns(scene.prim_p0, pc, 3)
+    e1x, e1y, e1z = gather_columns(scene.prim_e1, pc, 3)
+    e2x, e2y, e2z = gather_columns(scene.prim_e2, pc, 3)
     b0, b1 = warp.square_to_uniform_triangle(*u2)
     uv = None
     if AREA in scene.emitter_tex:

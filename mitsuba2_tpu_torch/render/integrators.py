@@ -27,7 +27,7 @@ from ..core.geometry import Ray
 from ..core.spec import Spec, swhere
 from ..core.vec import Vec2
 from ..device import resolve_device
-from ..scene.scene import diff_tables
+from ..scene.scene import needs_tape
 from . import bsdf as bsdf_mod
 from . import emitters, film as film_mod, sensors
 from .sampler import Sampler, make_sampler
@@ -64,17 +64,35 @@ def _path_bounce(scene, config: RenderConfig, depth: int, carry):
     bounce_d = si.to_world(bs.wo)
     next_ray = si.spawn_ray_d(bounce_d)
 
+    d_nee, det_nee, det_b = ds.d, None, None
+    if config.reparam:
+        from ..diff import reparam as reparam_mod
+        # the NEE direction and the BSDF-sampled continuation follow the
+        # moving silhouettes (diff/reparam.py); both sites' auxiliary rays
+        # in one traversal, from the rays' origins
+        (Vn, det_nee), (Vb, det_b) = reparam_mod.warp_and_divergence_multi(
+            scene, [(shadow_ray.o, ds.d), (next_ray.o, bounce_d)],
+            config.reparam_kaux)
+        d_nee = reparam_mod.reparameterize(ds.d, Vn)
+        bounce_d = reparam_mod.reparameterize(bounce_d, Vb)
+        next_ray.d = bounce_d
+
     occluded = scene_mod.ray_test(scene, shadow_ray)
-    wo_local = si.to_local(ds.d)
+    wo_local = si.to_local(d_nee)
     f_val = bsdf_mod.eval_(scene, si, wo_local, config)
     f_pdf = bsdf_mod.pdf(scene, si, wo_local, config)
     w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, f_pdf))
+    if det_nee is not None:
+        w_nee = det_nee * w_nee
     contrib = throughput * e_val * f_val * \
         (w_nee / torch.clamp_min(ds.pdf, 1e-20))
     result = result + contrib.masked(nee_active & ~occluded)
 
     throughput = throughput * swhere(active, b_weight, 1.0)
     active = active & (bs.pdf > 0) & b_weight.any_positive()
+    if det_b is not None:
+        # the Jacobian chains into every later contribution of the path
+        throughput = throughput * torch.where(active, det_b, 1.0)
     next_ray.maxt = torch.where(active, float("inf"), 0.0)
     si_next = scene_mod.ray_intersect(scene, next_ray)
 
@@ -159,7 +177,16 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
             float(np.float32(1.0) / np.sqrt(np.float32(config.spp))))
     else:
         ray = sensors.sample_ray(scene, uv, wavelengths=wl)
+    det_cam = None
+    if config.reparam:
+        from ..diff import reparam as reparam_mod
+        # reparameterized camera rays: the primary visibility's boundary
+        Vc, det_cam = reparam_mod.warp_and_divergence(
+            scene, ray.o, ray.d, config.reparam_kaux)
+        ray.d = reparam_mod.reparameterize(ray.d, Vc)
     spec, _ = sample_path(scene, ray, sampler, config)
+    if det_cam is not None:
+        spec = spec * det_cam
     if wl is not None:
         spec = sp.spectrum_to_srgb_t(spec, wl, wl_pdf)
     image = torch.zeros((H, W, config.n_image_channels), dtype=torch.float32,
@@ -178,11 +205,17 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
     develop. Runs on `device` (None = the CUDA device; raises without
     one), moving the scene there if it is elsewhere. Returns (H, W, C).
 
-    Differentiable: where a table of scene.diff_tables(scene) requires
-    grad and grad is enabled, the render runs under autograd; else in inference
-    mode. The traversals run detached either way (scene.ray_test,
-    scene._preliminary_dispatch), so the tape holds the shading alone and
-    a backward sweep traces no ray."""
+    Differentiable: where grad is enabled and a tensor of the scene
+    requires grad (scene.needs_tape: a table of diff_tables, or the
+    geometry: prim_p0, prim_e1, prim_e2, inst_fwd), the render runs
+    under autograd; else in inference mode. The traversals run detached
+    either way (scene.ray_test, scene._preliminary_dispatch), so the tape
+    holds the shading alone and a backward sweep traces no ray. With
+    RenderConfig(reparam=True) the camera, NEE and BSDF directions are
+    reparameterized (diff/reparam.py): the image is unchanged, and a
+    geometry table's gradient carries the visibility boundary's term; the
+    auxiliary rays are traced whether or not a gradient is asked, as in
+    the JAX package."""
     from ..scene.scene import to_device
     dev = resolve_device(device)
     scene = to_device(scene, dev)
@@ -192,9 +225,8 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
     config = config.replace(spp_per_pass=sppc)
     n_passes = (config.spp + sppc - 1) // sppc
     image, wsum = None, 0
-    grad = torch.is_grad_enabled() and any(
-        v.requires_grad for v in diff_tables(scene).values())
-    with contextlib.nullcontext() if grad else torch.inference_mode():
+    with (contextlib.nullcontext() if needs_tape(scene)
+          else torch.inference_mode()):
         for s in pass_seeds(seed, n_passes):
             img_p, w_p = render_pass(scene, config, s, dev)
             image = img_p if image is None else image + img_p

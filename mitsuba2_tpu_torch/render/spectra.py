@@ -74,6 +74,15 @@ def lane_gather(col, idx):
     return col.index_select(0, idx)
 
 
+def gather_columns(table, idx, k: int):
+    """Columns 0..k-1 of table[idx], each (N,): column by column through
+    _LaneGather where autograd records into `table` (the geometry's
+    gathers under a loss over moved prims), else one row gather."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return tuple(_LaneGather.apply(table[:, c], idx) for c in range(k))
+    return table[idx].unbind(1)[:k]
+
+
 @dataclasses.dataclass
 class LaneRows:
     """Lazy per-lane rows of a small packed (M, W) table: one (N,) column

@@ -19,7 +19,12 @@ cluster walk, or the instanced BVH2 walk when it holds a sphere; with
 MI_MXU_LEAVES=0 the BVH2 walks on every scene (kernels/traverse.py).
 `set_backend` forces another choice with the JAX package's names and
 errors, the BVH8 walks among them. Wavefronts go through the same coherence presort as the JAX
-package's.
+package's. Every traversal is detached, the geometry tables too; the
+shading record's position, and ray_intersect_positions' (the
+reparameterization's auxiliary rays), follow prim_p0, prim_e1, prim_e2
+and inst_fwd under differentiation, through spectra.gather_columns'
+lane gathers. refresh_mxu_feat rebuilds the walk tables derived at
+upload after the prim tables are replaced.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..render import emitters as emitters_mod
 from ..render import spectra as spectra_mod
 from ..render import texture as texture_mod
 from ..render.interaction import SurfaceInteraction
+from ..render.spectra import gather_columns
 from . import bvh as bvh_mod
 from .shapes import PRIM_SPHERE, PRIM_TRI, Instance, MeshData
 
@@ -716,28 +722,34 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
 # Shading record (Shape::compute_surface_interaction, triangles)
 # ---------------------------------------------------------------------------
 
-def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
-                                inst=None) -> SurfaceInteraction:
-    """Preliminary hit (t, prim, u, v[, inst]) -> full shading record, with
-    the exact f32 Möller–Trumbore re-solve of (u, v, t) for the winning
-    triangle (the cluster walks emit u = v = 0). On an instanced scene the
-    hit's local-space prim is first lifted to world space by its instance's
-    transform: points and edges by inst_fwd, shading normals by the
-    inverse transpose (the columns of inst_inv's 3x3), a sphere's center
-    as a point and its radius by the uniform scale (inst_fwd col 12). A
-    sphere hit is re-projected onto the sphere, its normals flipped where
-    e1.y < 0, its uv from the spherical angles."""
+# the tables a traversal reads that a loss may move (prim_p0 and inst_fwd
+# are what config 5 differentiates): cut from the tape before a traversal
+GEOMETRY_TABLES = ("prim_p0", "prim_e1", "prim_e2", "inst_fwd", "inst_inv")
+
+
+def _norm3(x, y, z):
+    inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
+    return x * inv, y * inv, z * inv
+
+
+def _hit_geometry(scene: SceneData, ray: Ray, t, prim, u, v, inst):
+    """The hit's prim in world space and its position, as
+    compute_surface_interaction and ray_intersect_positions both take
+    them: a dict of idx, valid, ptype, the prim's e1/e2 component
+    tuples, u, v (the detached exact re-solve where it holds), t_ref, the
+    position p, a sphere's unit offset s (None on a sphere-less scene),
+    and `iv`, the instances' inverse rows (None unless lifted)."""
     idx = torch.clamp_min(prim, 0).long()
     valid = torch.isfinite(t) & (prim >= 0)
     ptype = scene.prim_type[idx]
-    p0x, p0y, p0z = scene.prim_p0[idx].unbind(1)
-    e1x, e1y, e1z = scene.prim_e1[idx].unbind(1)
-    e2x, e2y, e2z = scene.prim_e2[idx].unbind(1)
-    lift = scene.has_instances and inst is not None
-    if lift:
+    p0x, p0y, p0z = gather_columns(scene.prim_p0, idx, 3)
+    e1x, e1y, e1z = gather_columns(scene.prim_e1, idx, 3)
+    e2x, e2y, e2z = gather_columns(scene.prim_e2, idx, 3)
+    iv = None
+    if scene.has_instances and inst is not None:
         iid = torch.clamp_min(inst, 0).long()
-        fw = scene.inst_fwd[iid].unbind(1)
-        iv = scene.inst_inv[iid].unbind(1)
+        fw = gather_columns(scene.inst_fwd, iid, 13)
+        iv = gather_columns(scene.inst_inv, iid, 12)
 
         def w_point(x, y, z):
             return (fw[0] * x + fw[1] * y + fw[2] * z + fw[3],
@@ -749,11 +761,6 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
                     fw[4] * x + fw[5] * y + fw[6] * z,
                     fw[8] * x + fw[9] * y + fw[10] * z)
 
-        def w_normal(x, y, z):
-            return (iv[0] * x + iv[4] * y + iv[8] * z,
-                    iv[1] * x + iv[5] * y + iv[9] * z,
-                    iv[2] * x + iv[6] * y + iv[10] * z)
-
         p0x, p0y, p0z = w_point(p0x, p0y, p0z)   # tri vertex / sphere center
         v1, v2 = w_vec(e1x, e1y, e1z), w_vec(e2x, e2y, e2z)
         if scene.has_spheres:
@@ -764,10 +771,6 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
                   torch.where(tri, v1[1], e1y), torch.where(tri, v1[2], 0.0))
             v2 = tuple(torch.where(tri, c, 0.0) for c in v2)
         (e1x, e1y, e1z), (e2x, e2y, e2z) = v1, v2
-
-    def norm3(x, y, z):
-        inv = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
-        return x * inv, y * inv, z * inv
 
     d, o = ray.d, ray.o
     pvx = d.y * e2z - d.z * e2y
@@ -784,7 +787,9 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
     t_x = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
     if torch.is_grad_enabled():
         # detached, as the JAX package detaches them: the re-solve fixes
-        # the primal's precision only. A ray direction that carries a
+        # the primal's precision only, and the hit then follows the
+        # geometry at fixed barycentrics (the reparameterization's
+        # contract, diff/reparam.py). A ray direction that carries a
         # gradient (a rough lobe's sample) would otherwise send 0 * inf
         # into it through 1 / det where det = 0 (spheres, parallel rays)
         u_x, v_x, t_x = u_x.detach(), v_x.detach(), t_x.detach()
@@ -792,43 +797,71 @@ def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
             torch.isfinite(t_x) & (t_x > 0.0))
     u = torch.where(ok_x, u_x, u)
     v = torch.where(ok_x, v_x, v)
-    w = 1.0 - u - v
-    t_ref = torch.where(ok_x, t_x, t)
-
     p = Vec3(p0x + e1x * u + e2x * v, p0y + e1y * u + e2y * v,
              p0z + e1z * u + e2z * v)
-    ng = Vec3(*norm3(e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
-                     e1x * e2y - e1y * e2x))
-    n0x, n0y, n0z = scene.prim_n0[idx].unbind(1)
-    n1x, n1y, n1z = scene.prim_n1[idx].unbind(1)
-    n2x, n2y, n2z = scene.prim_n2[idx].unbind(1)
-    if lift:
+    s = None
+    if scene.has_spheres:
+        # sphere (center p0, radius e1.x): the position re-projected onto
+        # it (sphere.cpp) along the unit offset s; t clamped on miss
+        # lanes, where o + inf * d would give NaN
+        t_safe = torch.where(valid, t, 1.0)
+        r_sph = torch.clamp_min(e1x, 1e-20)
+        s = Vec3(*_norm3(o.x + d.x * t_safe - p0x, o.y + d.y * t_safe - p0y,
+                         o.z + d.z * t_safe - p0z))
+        p = vwhere(ptype == PRIM_TRI, p, Vec3(p0x + s.x * r_sph,
+                                              p0y + s.y * r_sph,
+                                              p0z + s.z * r_sph))
+    return dict(idx=idx, valid=valid, ptype=ptype, e1=(e1x, e1y, e1z),
+                e2=(e2x, e2y, e2z), u=u, v=v,
+                t_ref=torch.where(ok_x, t_x, t), p=p, s=s, iv=iv)
+
+
+def compute_surface_interaction(scene: SceneData, ray: Ray, t, prim, u, v,
+                                inst=None) -> SurfaceInteraction:
+    """Preliminary hit (t, prim, u, v[, inst]) -> full shading record, with
+    the exact f32 Möller–Trumbore re-solve of (u, v, t) for the winning
+    triangle (the cluster walks emit u = v = 0). On an instanced scene the
+    hit's local-space prim is first lifted to world space by its instance's
+    transform: points and edges by inst_fwd, shading normals by the
+    inverse transpose (the columns of inst_inv's 3x3), a sphere's center
+    as a point and its radius by the uniform scale (inst_fwd col 12). A
+    sphere hit is re-projected onto the sphere, its normals flipped where
+    e1.y < 0, its uv from the spherical angles. The position is
+    ray_intersect_positions' (_hit_geometry)."""
+    g = _hit_geometry(scene, ray, t, prim, u, v, inst)
+    idx, valid, ptype, iv = g["idx"], g["valid"], g["ptype"], g["iv"]
+    (e1x, e1y, e1z), (e2x, e2y, e2z) = g["e1"], g["e2"]
+    u, v, t_ref, p = g["u"], g["v"], g["t_ref"], g["p"]
+    w = 1.0 - u - v
+    ng = Vec3(*_norm3(e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
+                      e1x * e2y - e1y * e2x))
+    n0x, n0y, n0z = gather_columns(scene.prim_n0, idx, 3)
+    n1x, n1y, n1z = gather_columns(scene.prim_n1, idx, 3)
+    n2x, n2y, n2z = gather_columns(scene.prim_n2, idx, 3)
+    if iv is not None:
+        def w_normal(x, y, z):
+            return (iv[0] * x + iv[4] * y + iv[8] * z,
+                    iv[1] * x + iv[5] * y + iv[9] * z,
+                    iv[2] * x + iv[6] * y + iv[10] * z)
+
         n0x, n0y, n0z = w_normal(n0x, n0y, n0z)
         n1x, n1y, n1z = w_normal(n1x, n1y, n1z)
         n2x, n2y, n2z = w_normal(n2x, n2y, n2z)
-    ns = Vec3(*norm3(n0x * w + n1x * u + n2x * v,
-                     n0y * w + n1y * u + n2y * v,
-                     n0z * w + n1z * u + n2z * v))
-    u0x, u0y = scene.prim_uv0[idx].unbind(1)
-    u1x, u1y = scene.prim_uv1[idx].unbind(1)
-    u2x, u2y = scene.prim_uv2[idx].unbind(1)
+    ns = Vec3(*_norm3(n0x * w + n1x * u + n2x * v,
+                      n0y * w + n1y * u + n2y * v,
+                      n0z * w + n1z * u + n2z * v))
+    u0x, u0y = gather_columns(scene.prim_uv0, idx, 2)
+    u1x, u1y = gather_columns(scene.prim_uv1, idx, 2)
+    u2x, u2y = gather_columns(scene.prim_uv2, idx, 2)
     uv = Vec2(u0x * w + u1x * u + u2x * v, u0y * w + u1y * u + u2y * v)
-    if scene.has_spheres:
-        # sphere (center p0, radius e1.x); t clamped on miss lanes, where
-        # o + inf * d would give NaN
-        t_safe = torch.where(valid, t, 1.0)
-        r_sph = torch.clamp_min(e1x, 1e-20)
-        sx, sy, sz = norm3(o.x + d.x * t_safe - p0x, o.y + d.y * t_safe - p0y,
-                           o.z + d.z * t_safe - p0z)
+    if g["s"] is not None:
+        sx, sy, sz = g["s"].x, g["s"].y, g["s"].z
         theta = safe_acos(sz)
         phi = torch.atan2(sy, sx)
         phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
         tri = ptype == PRIM_TRI
-        # the position is re-projected onto the sphere (sphere.cpp) with
-        # the unflipped s; e1.y < 0 marks flip_normals spheres
+        # e1.y < 0 marks flip_normals spheres
         sgn = torch.where(e1y < 0, -1.0, 1.0)
-        p = vwhere(tri, p, Vec3(p0x + sx * r_sph, p0y + sy * r_sph,
-                                p0z + sz * r_sph))
         n_s = Vec3(sx * sgn, sy * sgn, sz * sgn)
         ng, ns = vwhere(tri, ng, n_s), vwhere(tri, ns, n_s)
         uv = Vec2(torch.where(tri, uv.x, phi * (0.5 / math.pi)),
@@ -1026,6 +1059,18 @@ def _detached(ray: Ray) -> Ray:
                maxt=ray.maxt.detach())
 
 
+def _detached_scene(scene):
+    """The scene with its geometry tables cut from the tape where autograd
+    records into them, so that a traversal records nothing (else the
+    scene itself)."""
+    if not torch.is_grad_enabled():
+        return scene
+    cut = {k: getattr(scene, k).detach() for k in GEOMETRY_TABLES
+           if getattr(scene, k) is not None
+           and getattr(scene, k).requires_grad}
+    return dataclasses.replace(scene, **cut) if cut else scene
+
+
 def _preliminary_dispatch(scene, ray: Ray, sort=None):
     """Closest-hit query: (t, prim, u, v, inst), inst None except on an
     instanced scene. `sort=None` presorts wavefronts of SORT_MIN_LANES
@@ -1033,7 +1078,7 @@ def _preliminary_dispatch(scene, ray: Ray, sort=None):
     traversal: gradients flow through the shading record alone (prim ids
     are integers, and the record re-solves u, v from the tables)."""
     from ..kernels import brute, traverse
-    ray = _detached(ray)
+    ray, scene = _detached(ray), _detached_scene(scene)
     backend = _pick_backend(scene)
     if backend == "brute":
         return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
@@ -1057,10 +1102,27 @@ def ray_intersect(scene, ray: Ray, sort=None) -> SurfaceInteraction:
     return compute_surface_interaction(scene, ray, t, prim, u, v, inst)
 
 
+def ray_intersect_positions(scene, ray: Ray):
+    """Closest-hit positions that follow the geometry: (p: Vec3, t,
+    valid). The reparameterization's auxiliary rays (diff/reparam.py)
+    read the hit position alone: a triangle's point at the detached
+    barycentrics of the exact re-solve, a sphere's center plus its radius
+    along compute_surface_interaction's unit offset, lifted by inst_fwd on
+    an instanced scene, so that p moves with prim_p0, prim_e1, prim_e2
+    and inst_fwd under differentiation. p, t and valid are ray_intersect's
+    si.p, si.t and si.valid bit for bit (both come from _hit_geometry
+    after the same traversal and presort), p in its gradient too; t is
+    detached."""
+    t, prim, u, v, inst = _preliminary_dispatch(scene, ray)
+    g = _hit_geometry(scene, ray, t, prim, u, v, inst)
+    t = torch.where(g["valid"], g["t_ref"], float("inf"))
+    return g["p"], t.detach(), g["valid"]
+
+
 def ray_test(scene, ray: Ray) -> torch.Tensor:
     """Scene::ray_test — occlusion within ray.maxt, detached."""
     from ..kernels import brute
-    ray = _detached(ray)
+    ray, scene = _detached(ray), _detached_scene(scene)
     backend = _pick_backend(scene)
     if backend == "brute":
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
@@ -1069,3 +1131,113 @@ def ray_test(scene, ray: Ray) -> torch.Tensor:
         occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
         return _unsort(occ, lane)
     return fn(scene, ray.o, ray.d, ray.maxt)
+
+
+# ---------------------------------------------------------------------------
+# Derived tables of moved geometry
+# ---------------------------------------------------------------------------
+
+def needs_tape(scene) -> bool:
+    """Whether a render of `scene` must record autograd's tape: grad is
+    enabled and a tensor of the scene requires grad (its geometry and
+    instance transforms among them, not only diff_tables')."""
+    if not torch.is_grad_enabled():
+        return False
+    tensors = [v for v in vars(scene).values() if torch.is_tensor(v)]
+    return any(t.requires_grad
+               for t in tensors + list(diff_tables(scene).values()))
+
+
+# XLA's CPU compiler sums a long axis in windows of this many elements
+# (its tree-reduction rewrite), each window from its first element on,
+# then the windows' sums in order
+XLA_SUM_WINDOW = 32
+
+
+def _xla_sum(x):
+    """x (C, K, 3) summed over K in the JAX package's order on the CPU:
+    each window of XLA_SUM_WINDOW consecutive entries in turn, then the
+    windows' sums in turn, so that a refreshed table is byte-equal to the
+    JAX package's there."""
+    w = min(XLA_SUM_WINDOW, x.shape[1])
+    win = x.reshape(x.shape[0], -1, w, x.shape[2])
+    acc = win[:, :, 0]
+    for j in range(1, w):
+        acc = acc + win[:, :, j]
+    out = acc[:, 0]
+    for b in range(1, acc.shape[1]):
+        out = out + acc[:, b]
+    return out
+
+
+def plane_rows(scene):
+    """The cluster walks' plane rows of the scene's current prim tables,
+    detached, as the JAX package's refresh_mxu_feat computes them:
+    (mxu_feat (16, 4*C*CK) in the JAX layout, each cluster's centroid
+    (C, 3)). The planes are recentred at the centroid of the cluster's
+    real slots' first vertices."""
+    sp = scene.cluster_slot_prim
+    idx = torch.clamp_min(sp, 0).long()
+    valid = (sp >= 0)[:, None].to(torch.float32)
+    p0 = scene.prim_p0.detach()[idx] * valid
+    e1 = scene.prim_e1.detach()[idx] * valid
+    e2 = scene.prim_e2.detach()[idx] * valid
+    S, CK = sp.shape[0], scene.cluster_k
+    C = S // CK
+    vcnt = torch.clamp_min(valid.reshape(C, CK).sum(1), 1.0)
+    cl_c = _xla_sum(p0.reshape(C, CK, 3)) / vcnt[:, None]
+    p0 = p0 - cl_c.repeat_interleave(CK, 0) * valid
+    n = torch.linalg.cross(e1, e2)
+    fv = p0.new_zeros((C, 4, CK, 16))
+    fv[:, 0, :, 0:3] = (-n).reshape(C, CK, 3)
+    fv[:, 1, :, 0:3] = torch.linalg.cross(p0, e2).reshape(C, CK, 3)
+    fv[:, 1, :, 3:6] = e2.reshape(C, CK, 3)
+    fv[:, 2, :, 0:3] = (-torch.linalg.cross(p0, e1)).reshape(C, CK, 3)
+    fv[:, 2, :, 3:6] = (-e1).reshape(C, CK, 3)
+    fv[:, 3, :, 6:9] = n.reshape(C, CK, 3)
+    fv[:, 3, :, 9] = -(p0 * n).sum(-1).reshape(C, CK)
+    return fv.reshape(4 * S, 16).T.contiguous(), cl_c
+
+
+def refresh_mxu_feat(scene: SceneData) -> SceneData:
+    """The walk tables of the scene's current prim tables, detached, on
+    its device: call it after replacing prim_p0, prim_e1 or prim_e2 (an
+    optimizer step on the geometry), before the scene is rendered on a
+    walk, whose tables are derived at upload and do not follow a
+    replaced prim table. As the JAX package's refresh_mxu_feat: the plane
+    rows recentred at each cluster's new centroid (plane_rows; the walks
+    read them slot-major, `cluster_feat`), the centroids in mxu_node_f
+    cols 8:11 and mxu_ccs cols 0:3; and, where the scene holds them, the
+    tables the JAX package's kernels read live from the prim tables: the
+    BVH2 and BVH8 walks' prim rows (`bvh_prim`) and the centroids of the
+    cut tree's BVH8 cluster leaves (bvh8c_child cols 8:11, K7's). The
+    boxes (BVH bounds and mxu_ccount) stay as built, as in the reference:
+    a move that leaves a box culls what it should test. A scene with
+    none of these tables (brute force) is returned as it is."""
+    from ..convert import prim_rows, slot_major_feat
+    new = {}
+    if scene.cluster_feat is not None:
+        CK = scene.cluster_k
+        feat, cl_c = plane_rows(scene)
+        new["cluster_feat"] = slot_major_feat(feat, CK)
+
+        def centroids(rows, col):
+            slot = rows[:, col].to(torch.int64)
+            c = torch.where((slot >= 0)[:, None],
+                            cl_c[torch.clamp_min(slot, 0) // CK], 0.0)
+            return torch.cat([rows[:, :8], c, rows[:, 11:]], 1)
+
+        if scene.mxu_node_f is not None:
+            new["mxu_node_f"] = centroids(scene.mxu_node_f, 6)
+        if scene.mxu_ccs is not None:
+            new["mxu_ccs"] = torch.cat([cl_c, scene.mxu_ccs[:, 3:]], 1)
+        if scene.bvh8c_child is not None:
+            # a cluster leaf's kind (col 6) is its slot base, >= 0; an
+            # empty or inner child's is negative and keeps its zeros
+            new["bvh8c_child"] = torch.where(
+                (scene.bvh8c_child[:, 6] >= 0)[:, None],
+                centroids(scene.bvh8c_child, 6), scene.bvh8c_child)
+    if scene.bvh_prim is not None:
+        new["bvh_prim"] = prim_rows({k: getattr(scene, k).detach() for k in (
+            "prim_p0", "prim_e1", "prim_e2", "prim_type")})
+    return dataclasses.replace(scene, **new) if new else scene

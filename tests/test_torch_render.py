@@ -168,6 +168,18 @@ assert scene.textures is not None and {bsdf.MASK, bsdf.BLEND, bsdf.NULL_BSDF,
 img = mt.render(scene, cfg, device="cpu")
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
 assert chi2.rlgamma(2.0, 1.0) > 0 and texture.TEXTURE_RANGE
+import dataclasses
+from mitsuba2_tpu_torch.diff import reparam
+from mitsuba2_tpu_torch.scene.scene import refresh_mxu_feat
+scene, rows = chip_smoke.shadow_scene(presets, device="cpu")
+p0 = scene.prim_p0.clone().requires_grad_(True)
+img = mt.render(refresh_mxu_feat(dataclasses.replace(scene, prim_p0=p0)),
+                cfg.replace(reparam=True, reparam_kaux=4), device="cpu")
+(g,) = torch.autograd.grad(img.mean(), p0)
+assert bool(g.isfinite().all()) and float(g[rows].abs().max()) > 0
+img = reparam.render_direct_reparam(scene, cfg.replace(max_depth=1),
+                                    device="cpu")
+assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)

@@ -188,7 +188,9 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
     ({"rfilter": "gaussian"}, "gaussian"),
     ({"integrator": "volpath"}, "volpath"),
     ({"compact": True}, "compact"),
-    ({"reparam": True}, "reparam"),
+    # reparam=True renders since the reparameterization's slice: the
+    # direct integrator not
+    ({"integrator": "direct"}, "direct"),
 ])
 def test_config_refuses_what_the_port_does_not_render(kw, what):
     with pytest.raises(NotImplementedError, match=what):
