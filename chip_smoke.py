@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Seventeen main paths, each a forward render at 256x256 through
+Twenty-one main paths, each a forward render at 256x256 through
 `mitsuba2_tpu_torch.render`, 16 spp at max_depth 3 (in one pass but for
-veach and veach_spectral) but for config 5's two, in rgb but for
-veach_spectral, veach_spectral_bvh2, gallery_spectral and
-gallery_lights, which render spectrally:
+veach, veach_spectral, smoke_box and kitchen_sink) but for config 5's
+two, instanced, gallery_dense and kitchen_sink, in rgb but for
+veach_spectral, veach_spectral_bvh2, gallery_spectral and gallery_lights,
+which render spectrally:
   gallery    mesh_gallery(subdiv=4), 30 732 triangles: the cluster walk
              (K1 closest hit, K2 any hit);
   instanced  instanced_field(n=1024, subdiv=4), 1 024 shared-BLAS instances
              of one 5 120-triangle blob, 5 242 882 effective triangles: the
-             instanced cluster walk (K5 closest hit and any hit);
+             instanced cluster walk (K5 closest hit and any hit), at depth
+             2 (3 until the media paths came);
   spheres    the sphere field (instanced_field's construction with a sphere
              added to the group, built here from the shape API) at n=64,
              subdiv=4: 327 746 prims, 64 of them spheres, which the JAX
@@ -26,7 +28,7 @@ gallery_lights, which render spectrally:
              over cluster leaves (K7);
   gallery_dense    the gallery's scene with the dense switch on
              (traverse._MXU_DENSE = "1", the JAX package's MI_MXU_DENSE=1):
-             every cluster against every ray (K8);
+             every cluster against every ray (K8), at depth 2;
   veach      veach_mis() (four rough aluminium plates, four sphere lights,
              16 prims) at bench.py m_veach's sizes, 16 spp in 4 passes of
              4: brute force, as "auto" takes it (no kernel);
@@ -62,8 +64,26 @@ gallery_lights, which render spectrally:
              passes of 4, depth 4: brute force, the auxiliary rays in
              2M-lane chunks;
   gallery_reparam  config 5 on the gallery's scene, 4 spp in one pass,
-             depth 3: K1 on the 4.2M camera-site and 8.4M bounce-site
-             auxiliary rays too (6 launches), K2.
+             depth 2 (3 until the media paths came, whose time it gave):
+             K1 on the 4.2M camera-site and 8.4M bounce-site auxiliary
+             rays too (4 launches), K2 (1);
+  smoke_box  participating media (volpath): presets.smoke_box(32), a
+             32^3 density grid in a null box over a floor, at bench.py
+             m_smoke's config (16 spp in passes of 4, depth 3, rr_depth
+             8): delta tracking, brute force (16 prims); it also prints
+             the delta-tracking trials a flight;
+  smoke_box_bvh2  the same scene under set_backend("pallas") with
+             MXU_LEAVES off, 16 spp in one pass: the BVH2 walk (K3) on
+             volpath's flight and transmittance rays (15 launches, no
+             any hit);
+  gallery_fog  mesh_gallery(subdiv=4) with a null cube holding a
+             homogeneous medium (sigma_t 1, albedo 0.8, g 0.3) around
+             its third blob (gallery_fog), volpath: K1 on the flight and
+             transmittance rays (15 launches, no any hit);
+  kitchen_sink  presets.kitchen_sink(): the thin-lens camera, an envmap,
+             textures, a rough conductor, a dielectric sphere and a
+             homogeneous medium, 16 spp in passes of 4, depth 4: brute
+             force.
 Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
 before it builds its scene (a scene uploads the tables of the walk it
 takes) and resets them after each use.
@@ -102,7 +122,13 @@ Phase 4  small renders on the card against the same renders on the CPU
          and in spectral mode veach_mis(envmap=True) (brute force and
          K3), mesh_gallery(subdiv=1) and gallery_lights(subdiv=1), and
          gallery_textured(subdiv=1) with 64 x 64 textures in rgb and in
-         spectral mode.
+         spectral mode, gallery_fog(subdiv=1), a slab over a random
+         density grid and smoke_box(8) with its floor 1e-3 lower (delta
+         tracking without ties); and kitchen_sink and
+         smoke_box(8), whose dielectric paths and coplanar null box and
+         floor may take another turn where the card rounds otherwise:
+         their image means within 1e-3 and SMOKE_TIE_RTOL, the share of
+         pixels beyond rtol 1e-3 / atol 1e-4 printed.
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind (the kernels of the texture lookups apart),
          and the device's busy share.
@@ -154,6 +180,13 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          tests/test_reparam.py (occluder_scene, shadow_scene): plain AD,
          reparameterized AD and a central difference held to the JAX
          tests' bands, and the card's reparameterized AD to the CPU's.
+         Media: tests/test_medium_grad.py's slabs (medium_slab; the
+         homogeneous one's med_data, the heterogeneous one's med_data
+         and med_grid) by render_and_grad on the card against the CPU
+         within 1e-3 of the largest entry, sigma_t's against a central
+         difference on the card within that test's band (rtol 0.12);
+         and one render_l2_grad of smoke_box(32) at 128x128, 4 spp,
+         depth 3: its time and peak memory.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} (one row a kernel: its first path's
@@ -215,19 +248,61 @@ VEACH_RENDER = dict(width=256, height=256, spp=16, spp_per_pass=4,
 SPECTRAL = dict(color_mode="spectral")
 # config 5's paths (reparam=True): bench.py m_reparam's Cornell box (its
 # forward config, :357-360 and :370-388: 16 spp in passes of 4, depth 4,
-# rr_depth 8, K 16), and the gallery in one pass of 4 spp at depth 3
+# rr_depth 8, K 16), and the gallery in one pass of 4 spp at depth 2 (a
+# bounce's aux rays, 8.4M lanes, once: the smoke's time limit)
 REPARAM_CORNELL = dict(width=256, height=256, spp=16, spp_per_pass=4,
                        max_depth=4, rr_depth=8, reparam=True,
                        reparam_kaux=16)
 REPARAM_GALLERY = dict(width=256, height=256, spp=4, spp_per_pass=4,
-                       max_depth=3, rr_depth=8, reparam=True)
+                       max_depth=2, rr_depth=8, reparam=True)
+# participating media: bench.py m_smoke's config (:390-406): smoke_box(32),
+# 16 spp in passes of 4, depth 3, rr_depth 8, volpath; kitchen_sink in
+# passes of 4 at depth 4 (the golden's depth)
+SMOKE_RES = 32
+SMOKE_RENDER = dict(width=256, height=256, spp=16, spp_per_pass=4,
+                    max_depth=3, rr_depth=8, integrator="volpath")
+KITCHEN_RENDER = dict(width=256, height=256, spp=16, spp_per_pass=4,
+                      max_depth=4, rr_depth=8)
+# gallery_fog's medium, in a null cube of half-extent FOG_HALF about its
+# blob FOG_BLOB
+FOG = {"type": "homogeneous", "sigma_t": 1.0, "albedo": 0.8, "g": 0.3}
+FOG_BLOB, FOG_HALF = 2, 0.5
+# tests/test_medium_grad.py's slabs and config: the homogeneous slab's
+# sigma_t and seed, the heterogeneous one's and its grid; the central
+# difference's step and band
+MEDIUM_SLABS = {"homogeneous": dict(sigma=0.6, seed=3),
+                "heterogeneous": dict(sigma=0.8, seed=5,
+                                      grid=np.full((4, 8, 8), 1.0,
+                                                   np.float32))}
+MEDIUM_GRAD = dict(width=24, height=24, spp=32, spp_per_pass=32,
+                   max_depth=3, integrator="volpath")
+MEDIUM_FD_EPS, MEDIUM_FD_RTOL = 0.05, 0.12
+# phase 4's tie-free delta-tracked scene: a slab over a random grid
+GRID_SLAB = dict(sigma=1.2, albedo=0.7, grid=np.random.default_rng(9).uniform(
+    0, 1.5, (4, 6, 6)).astype(np.float32))
+# smoke_box's null box and its floor share the plane y = 0: a lane that
+# leaves the smoke downward meets both at one t, and an ulp of its origin
+# (the card's sines and cosines) decides which it takes. Phase 4 holds its
+# card-vs-CPU image mean within this (1e-3 is not met: ROADMAP Queue 3)
+SMOKE_TIE_RTOL = 2e-2
+# one render_l2_grad of smoke_box(32)
+SMOKE_ADJOINT = dict(width=128, height=128, spp=4, spp_per_pass=4,
+                     max_depth=3, rr_depth=8, integrator="volpath")
 PATH_RENDER = {"veach": VEACH_RENDER,
                "veach_spectral": {**VEACH_RENDER, **SPECTRAL},
                "veach_spectral_bvh2": {**RENDER, **SPECTRAL},
                "gallery_spectral": {**RENDER, **SPECTRAL},
                "gallery_lights": {**RENDER, **SPECTRAL},
                "cornell_reparam": REPARAM_CORNELL,
-               "gallery_reparam": REPARAM_GALLERY}
+               "gallery_reparam": REPARAM_GALLERY,
+               # depth 2 since the media paths came, whose time they gave
+               # (their K5 and K8 twins take seconds a launch)
+               "instanced": {**RENDER, "max_depth": 2},
+               "gallery_dense": {**RENDER, "max_depth": 2},
+               "smoke_box": SMOKE_RENDER,
+               "smoke_box_bvh2": {**SMOKE_RENDER, "spp_per_pass": 16},
+               "gallery_fog": {**RENDER, "integrator": "volpath"},
+               "kitchen_sink": KITCHEN_RENDER}
 # config 5's occluder scenes (occluder_scene, shadow_scene): the JAX
 # tests' configs, central-difference steps and bands of |AD| / |FD|
 # (tests/test_reparam.py; examples/occluder_pose_grad.py)
@@ -301,9 +376,11 @@ PROBE_REPLACES = {
     "row_load": "benchmarks/probe_mxu_dma.py:98",
     "cluster_visit": "benchmarks/probe_mxu_cost.py:159",
 }
-# each path's closest-hit and any-hit kernels: 3 and 2 launches a render
-# (the camera and two bounce wavefronts, two shadow rounds), 0 of the rest;
-# none on veach, whose 16 prims take brute force
+# each path's closest-hit and any-hit kernels: max_depth and max_depth - 1
+# launches a render (the camera and a bounce wavefront a bounce, a shadow
+# round a bounce: 3 and 2 at depth 3), 0 of the rest;
+# none on veach, whose 16 prims take brute force; a volumetric path's
+# closest hit alone (its shadow rays measure transmittance)
 PATH_KERNELS = {
     "gallery": ("cluster_closest_hit", "cluster_any_hit"),
     "instanced": ("inst_cluster_closest_hit", "inst_cluster_any_hit"),
@@ -322,17 +399,23 @@ PATH_KERNELS = {
     "gallery_textured": ("cluster_closest_hit", "cluster_any_hit"),
     "cornell_reparam": (),
     "gallery_reparam": ("cluster_closest_hit", "cluster_any_hit"),
+    "smoke_box": (),
+    "smoke_box_bvh2": ("bvh_closest_hit",),
+    "gallery_fog": ("cluster_closest_hit",),
+    "kitchen_sink": (),
 }
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
 # rays each shares
 BACKEND = {"gallery_bvh8": "bvh8", "gallery_bvh8mxu": "bvh8mxu",
            "spheres_bvh8": "bvh8", "veach_bvh2": "pallas",
-           "veach_spectral_bvh2": "pallas"}
+           "veach_spectral_bvh2": "pallas", "smoke_box_bvh2": "pallas"}
 DENSE = {"gallery_dense"}
+# the paths with MXU_LEAVES off: the BVH2 walk on a triangle scene
+LEAVES_OFF = {"smoke_box_bvh2"}
 # the paths phase 5 profiles one pass of: the profiler's host cost is
 # ~0.4 ms a launch, and cornell_reparam's renders launch ~240 000 kernels
-PROFILE_ONE_PASS = {"cornell_reparam"}
+PROFILE_ONE_PASS = {"cornell_reparam", "smoke_box", "kitchen_sink"}
 # the kernels held bit-equal to their twins on every lane of phases 2 and
 # 3: the warp-cooperative cluster visits, the warp-wide leaf tests, the
 # pair walks and K6's any hit: every walk kernel
@@ -353,12 +436,30 @@ P1_ROWS = (768, 262144)
 P3_MODES = {0: "step", 4: "visit4", 1: "visit1"}
 PROBE_REPS = 5
 EXPECTED_LAUNCHES = {
-    path: {k: 3 if k in ks[:1] else 2 if k in ks[1:] else 0
+    path: {k: (PATH_RENDER.get(path, RENDER)["max_depth"]
+               - (0 if k in ks[:1] else 1)) if k in ks else 0
            for k in REPLACES}
     for path, ks in PATH_KERNELS.items()}
 # reparam=True adds one closest-hit launch a warp site: the camera's
-# auxiliary rays, and each bounce's NEE and BSDF sites' in one
-EXPECTED_LAUNCHES["gallery_reparam"]["cluster_closest_hit"] = 6
+# auxiliary rays, and each bounce's NEE and BSDF sites' in one; at depth 2
+# one bounce: a closest hit and a shadow ray
+EXPECTED_LAUNCHES["gallery_reparam"].update(
+    cluster_closest_hit=4, cluster_any_hit=1)
+
+
+def volpath_closest_launches(max_depth):
+    """A volpath render pass's closest-hit launches: a flight a bounce
+    and the trailing one, and each bounce's two shadow rays, whose
+    transmittance crosses up to _MAX_NULL = 3 null boundaries, a launch
+    a segment."""
+    return 7 * (max_depth - 1) + 1
+
+
+for _path in ("smoke_box_bvh2", "gallery_fog"):
+    _cfg = PATH_RENDER[_path]
+    EXPECTED_LAUNCHES[_path][PATH_KERNELS[_path][0]] = (
+        volpath_closest_launches(_cfg["max_depth"])
+        * (_cfg["spp"] // _cfg["spp_per_pass"]))
 
 
 class SmokeFailure(Exception):
@@ -457,7 +558,7 @@ def switches(backend="auto", dense="0", leaves=True):
 def path_switches(path):
     """The switches of a main path (or of phase 2's extra scene)."""
     return switches(BACKEND.get(path, "auto"),
-                    "1" if path in DENSE else "0")
+                    "1" if path in DENSE else "0", path not in LEAVES_OFF)
 
 
 def kernels_of(scene, backend="auto"):
@@ -571,7 +672,9 @@ def compare(torch, ks, rays):
                                  zip(outs_k[:-1], outs_p[:-1])),
         "hit_equal": bool(torch.equal(hit_k, hit_p)),
         "hit_frac": n_hit / t_p.numel(),
-        "slot_agree": int(same.sum()) / max(n_hit, 1),
+        # a launch whose lanes all miss (a shadow segment no lane still
+        # walks) agrees vacuously
+        "slot_agree": int(same.sum()) / n_hit if n_hit else 1.0,
         "t_ok_same": bool((dt[same] <= tol[same]).all()),
         "t_ok_tie": bool((dt[both & ~same] <= tol[both & ~same]).all()),
         "t_max_abs_err": float(dt[both].max()) if bool(both.any()) else 0.0,
@@ -779,6 +882,97 @@ def shadow_scene(P, **build_kw):
         "type": "perspective", "to_world": np.asarray(cam.matrix),
         "fov": 50.0}, **build_kw)
     return scene, _rows_of_shape(scene, 0)
+
+
+def medium_slab(P, sigma=0.6, albedo=0.0, grid=None, **build_kw):
+    """tests/test_medium_grad.py's slab, built from the presets module `P`
+    of either package: a null cube (half-extents 2, 2, 0.5) holding a
+    homogeneous medium of extinction `sigma`, or a heterogeneous one over
+    `grid` (D, H, W) spanning the cube, in front of an emissive wall."""
+    T = P.Transform4
+    cube = P.shapes.cube(bsdf={"type": "null"}, id="vol").transformed(
+        np.asarray((T.translate([0, 0, 0]) @ T.scale([2.0, 2.0, 0.5]))
+                   .matrix))
+    wall = P.shapes.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0, 0, 0]},
+        emitter={"type": "area", "radiance": [2.0] * 3},
+        id="wall").transformed(np.asarray(T.translate([0, 0, -2.0]).matrix))
+    med = {"type": "homogeneous", "sigma_t": sigma, "albedo": albedo}
+    if grid is not None:
+        med = {"type": "heterogeneous", "sigma_t": sigma,
+               "albedo": albedo, "density": grid,
+               "bbox_min": [-2.0, -2.0, -0.5], "bbox_max": [2.0, 2.0, 0.5]}
+    cube.interior = med
+    cam = T.look_at(origin=[0, 0, 4], target=[0, 0, 0], up=[0, 1, 0])
+    return P.build_scene([cube, wall],
+                         {"type": "perspective",
+                          "to_world": np.asarray(cam.matrix), "fov": 25.0},
+                         **build_kw)
+
+
+def smoke_floor_lowered(mt, device, dy=1e-3):
+    """smoke_box(8) with its floor (shape 1) moved dy down, off the plane
+    of the null box's bottom face: the scene without its tie (brute
+    force reads the prim tables as they stand)."""
+    import dataclasses
+    scene = mt.smoke_box(8, device=device)
+    floor = (scene.prim_shape == 1)[:, None] & (
+        scene.prim_p0.new_tensor([0.0, 1.0, 0.0]) > 0)
+    return dataclasses.replace(scene, prim_p0=scene.prim_p0 - floor * dy)
+
+
+def gallery_fog(P, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv)'s room, light and blobs (the same seeds,
+    placement and albedos) with a null cube of half-extent FOG_HALF about
+    blob FOG_BLOB holding the homogeneous medium FOG, built from the
+    presets module `P` of either package: 6 x 20 x 4^subdiv + 24
+    triangles."""
+    X, Y, Z = 3.0, 2.0, 3.0
+    white = {"type": "diffuse", "reflectance": P.WHITE}
+    s = [
+        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf=white,
+                id="floor"),
+        P._quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], bsdf=white,
+                id="ceiling"),
+        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf=white,
+                id="back"),
+        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0],
+                bsdf={"type": "diffuse", "reflectance": P.RED}, id="left"),
+        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z],
+                bsdf={"type": "diffuse", "reflectance": P.GREEN},
+                id="right"),
+    ]
+    lx0, lx1, lz0, lz1, ly = 1.1, 1.9, 1.2, 1.8, Y - 5e-4
+    s.append(P._quad([lx0, ly, lz0], [lx1, ly, lz0], [lx1, ly, lz1],
+                     [lx0, ly, lz1], bsdf=white,
+                     emitter={"type": "area", "radiance": P.LIGHT},
+                     id="light"))
+    base_v, faces = P._icosphere(subdiv)
+    nx, nz = 3, 2
+    k = 0
+    for i in range(nx):
+        for j in range(nz):
+            v = P._displace(base_v.copy(), seed=k)
+            c = np.asarray([(i + 0.5) * X / nx, 0.45 + 0.1 * ((i + j) % 3),
+                            (j + 0.75) * Z / (nz + 0.5)], np.float32)
+            s.append(P.shapes.mesh(
+                v * 0.34 + c, faces, bsdf={
+                    "type": "diffuse", "reflectance": GALLERY_ALBEDO[k]},
+                id=f"blob{k}"))
+            if k == FOG_BLOB:
+                fog = P.shapes.cube(bsdf={"type": "null"},
+                                    id="fog").transformed(np.asarray(
+                                        (P.Transform4.translate(c)
+                                         @ P.Transform4.scale(
+                                             [FOG_HALF] * 3)).matrix))
+                fog.interior = dict(FOG)
+                s.append(fog)
+            k += 1
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 50.0}
+    return P.build_scene(s, sensor, **build_kw)
 
 
 # gallery_lights' emitters: every shapeless kind of config 3 but the
@@ -1002,6 +1196,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     # force
     scenes["cornell_reparam"] = mt.cornell_box(device=dev)
     scenes["gallery_reparam"] = gallery
+    scenes.update(_media_scenes(mt, dev))
     with path_switches("gallery_dense"):
         ks = kernels_of(gallery)
     check(ks["closest"] == "dense_closest_hit", "the dense switch did not "
@@ -1067,6 +1262,39 @@ def _material_scenes(mt, dev):
                 f"{atlas.mips.numel() * 4 / 2**20:.1f} MiB; textured "
                 f"slots by family {[(f, sorted(k)) for f, k in scene.family_tex if k]}"
                 f", emitter types {scene.emitter_tex}")
+    return out
+
+
+def _media_scenes(mt, dev):
+    """The participating-media paths' scenes: smoke_box(SMOKE_RES) (brute
+    force) and again under its path's switches (the BVH2 walk, K3),
+    gallery_fog at SUBDIV (the cluster walk, K1) and kitchen_sink (brute
+    force)."""
+    from mitsuba2_tpu_torch.scene import presets
+    make = {"smoke_box": functools.partial(mt.smoke_box, SMOKE_RES,
+                                           device=dev),
+            "smoke_box_bvh2": functools.partial(mt.smoke_box, SMOKE_RES,
+                                                device=dev),
+            "gallery_fog": functools.partial(gallery_fog, presets, SUBDIV,
+                                             device=dev),
+            "kitchen_sink": functools.partial(mt.kitchen_sink, device=dev)}
+    want = {"smoke_box": "brute force", "smoke_box_bvh2": "BVH2",
+            "gallery_fog": "cluster", "kitchen_sink": "brute force"}
+    out = {}
+    for name in make:
+        t0 = time.perf_counter()
+        with path_switches(name):
+            scene = out[name] = make[name]()
+        walk = ("BVH2" if scene.bvh_node is not None else "cluster"
+                if scene.mxu_node_f is not None else "brute force")
+        grid = scene.medium_grid
+        log(f"phase 2: built {name} in {time.perf_counter() - t0:.1f} s: "
+            f"{scene.n_prims} prims, {scene.med_data.shape[0]} medium "
+            f"row(s), density grid "
+            f"{tuple(grid.data.shape) if grid is not None else None}, "
+            f"sensor {scene.cam_type}, {walk}")
+        check(walk == want[name], f"{name} took the {walk} walk")
+        check(scene.has_media, f"{name}: no medium")
     return out
 
 
@@ -1333,7 +1561,8 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
                   f"twin: {r['c']}")
             log_launch(f"{name8} (on {path}'s {name} inputs)", i, r)
     rows = []
-    for name, rs in per.items():
+    # a volumetric path launches no any-hit kernel
+    for name, rs in ((k, v) for k, v in per.items() if v):
         bound_by = [r["bound_by"] for r in rs]
         row = {
             "name": name, "route": "cuda", "source": SRC,
@@ -1350,6 +1579,36 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
             row["also_replaces"] = REPLACES[name][1]
         rows.append(row)
     return rows, med * 1e3, per
+
+
+def phase_tracking(torch, mt, path, scene):
+    """One more render of a path whose scene holds a density grid, with
+    the delta-tracking loop's stats on (render/volpath.py::TRACK_STATS):
+    each heterogeneous flight's trip count (the JAX package's while_loop
+    count: the most trials a lane of the flight took), the loop's own
+    count (it tests for done lanes every 8 trials) and the trials a
+    tracked lane took."""
+    from mitsuba2_tpu_torch.render import volpath
+    cfg = mt.RenderConfig(**PATH_RENDER[path])
+    volpath.TRACK_STATS = []
+    try:
+        mt.render(scene, cfg, seed=0)
+        torch.cuda.synchronize()
+        stats = volpath.TRACK_STATS
+    finally:
+        volpath.TRACK_STATS = None
+    trips = [st[0] for st in stats]
+    loops = [st[3] for st in stats]
+    lanes = sum(st[2] for st in stats)
+    log(f"phase 3: {path}: delta tracking over {len(stats)} flights "
+        f"({cfg.spp // cfg.spp_per_pass} passes of {cfg.max_depth}): trips "
+        f"a flight mean {statistics.fmean(trips):.2f}, largest {max(trips)} "
+        f"of {volpath._DELTA_STEPS} ({trips}); the loop ran "
+        f"{statistics.fmean(loops):.1f} trials a flight (a done test each "
+        f"{volpath._DONE_CHECK}); {lanes} tracked lanes, "
+        f"{sum(st[1] for st in stats) / max(lanes, 1):.3f} trials a lane")
+    check(stats and max(trips) <= volpath._DELTA_STEPS and lanes > 0,
+          f"{path}: no lane was delta-tracked")
 
 
 def phase_reparam_path(torch, mt, path, scene, card, render_ms):
@@ -1461,7 +1720,13 @@ def phase_small_renders(torch, mt, dev):
             ("gallery_textured(subdiv=1), 64x64 textures (K1, K2)",
              lambda d: gallery_textured(presets, 1, 64, device=d), {}),
             ("spectral: gallery_textured(subdiv=1), 64x64 textures (K1, K2)",
-             lambda d: gallery_textured(presets, 1, 64, device=d), {})):
+             lambda d: gallery_textured(presets, 1, 64, device=d), {}),
+            ("gallery_fog(subdiv=1), volpath (K1)",
+             lambda d: gallery_fog(presets, 1, device=d), {}),
+            ("medium_slab over a random grid, volpath (delta tracking)",
+             lambda d: medium_slab(presets, device=d, **GRID_SLAB), {}),
+            ("smoke_box(8) with its floor 1e-3 lower (no tie)",
+             lambda d: smoke_floor_lowered(mt, d), {})):
         c = cfg.replace(color_mode="spectral") if name.startswith(
             "spectral") else cfg
         with switches(**sw):
@@ -1474,6 +1739,24 @@ def phase_small_renders(torch, mt, dev):
             f"within rtol 1e-3/atol 1e-4, mean rel diff {rel:.2e} "
             f"{'ok' if good else 'FAIL'}")
         check(good, f"{name}: the card's render disagrees with the CPU's")
+    # a dielectric path decides by a Fresnel draw, and smoke_box's lanes
+    # meet a tie (SMOKE_TIE_RTOL): where the card rounds otherwise a lane
+    # may take another path, so these hold the image means
+    for name, mk, rtol in (("kitchen_sink, volpath (brute force)",
+                            lambda d: mt.kitchen_sink(device=d), 1e-3),
+                           ("smoke_box(8), volpath (brute force)",
+                            lambda d: mt.smoke_box(8, device=d),
+                            SMOKE_TIE_RTOL)):
+        c = cfg.replace(integrator="volpath")
+        img_c = mt.render(mk("cpu"), c, seed=5, device="cpu").numpy()
+        img_g = mt.render(mk(dev), c, seed=5).cpu().numpy()
+        close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
+        rel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
+        good = np.isfinite(img_g).all() and rel <= rtol
+        log(f"phase 4: {name} 32x32 card vs CPU: mean rel diff {rel:.2e} "
+            f"(limit {rtol:g}) {'ok' if good else 'FAIL'}; {1 - close:.4f} of "
+            f"pixels beyond rtol 1e-3/atol 1e-4")
+        check(good, f"{name}: the card's image mean is not the CPU's")
 
 
 # ---------------------------------------------------------------------------
@@ -2211,9 +2494,10 @@ def _adjoint_train(torch, mt, dev, card):
 
 
 def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral,
-                  textured, gallery_reparam):
+                  textured, gallery_reparam, smoke):
     """Phase 7 (see the module docstring); `gallery`, `veach`,
-    `veach_spectral`, `textured`, `gallery_reparam`: phase 2's scenes."""
+    `veach_spectral`, `textured`, `gallery_reparam`, `smoke`: phase 2's
+    scenes."""
     def step(what, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2245,6 +2529,100 @@ def phase_adjoint(torch, mt, dev, card, gallery, veach, veach_spectral,
              card, gallery_reparam)
     for name in OCCLUDER_CHECKS:
         step(name, _occluder_check, torch, mt, dev, card, name)
+    step("the medium gradients", _medium_gradients, torch, mt, dev, card)
+    step("smoke_box's render_l2_grad", _smoke_adjoint, torch, mt, card,
+         smoke)
+
+
+def _medium_gradients(torch, mt, dev, card):
+    """render_and_grad of tests/test_medium_grad.py's slabs (the image
+    mean) on the card and on the CPU: every table's gradient within 1e-3
+    of the CPU's largest entry, all finite; on the homogeneous slab the
+    summed sigma_t gradient against a central difference on the card
+    within that test's band."""
+    from mitsuba2_tpu_torch.diff import adjoint
+    from mitsuba2_tpu_torch.scene import presets
+    cfg = mt.RenderConfig(**MEDIUM_GRAD)
+    for name, kw in MEDIUM_SLABS.items():
+        build = {k: v for k, v in kw.items() if k != "seed"}
+        got = {}
+        for d in ("cpu", dev):
+            scene = medium_slab(presets, device=d, **build)
+            t0 = time.perf_counter()
+            img, _, g = mt.render_and_grad(scene, cfg, torch.mean,
+                                           seed=kw["seed"], device=d)
+            got[str(d)] = ({k: v.cpu() for k, v in g.items()}, img.cpu(),
+                           (time.perf_counter() - t0) * 1e3)
+        (g_c, img_c, _), (g_g, img_g, ms) = got["cpu"], got[str(dev)]
+        check(_finite(torch, list(g_g.values())),
+              f"{name} slab: non-finite gradients on the card")
+        errs = {k: float((g_g[k] - g_c[k]).abs().max()
+                         / g_c[k].abs().max().clamp_min(1e-30))
+                for k in ("med_data", "med_grid") if k in g_c}
+        log(f"phase 7: {name} slab ({cfg.width}x{cfg.height}x{cfg.spp}spp, "
+            f"depth {cfg.max_depth}, volpath): render_and_grad {ms:.1f} ms "
+            f"on {card}; card vs CPU: image mean rel diff "
+            f"{abs(float(img_g.mean() / img_c.mean()) - 1):.2e}, gradients "
+            + ", ".join(f"{k} {e:.2e} of the largest entry"
+                        for k, e in errs.items())
+            + f"; largest |med_data| {float(g_c['med_data'].abs().max()):.4e}"
+            + (f", |med_grid| {float(g_c['med_grid'].abs().max()):.4e}"
+               if "med_grid" in g_c else ""))
+        check(all(e <= 1e-3 for e in errs.values()),
+              f"{name} slab: card gradients {errs} off the CPU's")
+        if name != "homogeneous":
+            continue
+        scene = medium_slab(presets, device=dev, **build)
+
+        def loss_at(ds):
+            med = scene.med_data.clone()
+            med[0, 0:3] += ds
+            s = adjoint.with_tables(scene, {**adjoint.diff_tables(scene),
+                                            "med_data": med})
+            return float(mt.render(s, cfg, seed=kw["seed"],
+                                   device=dev).mean())
+
+        fd = (loss_at(MEDIUM_FD_EPS) - loss_at(-MEDIUM_FD_EPS)) / (
+            2 * MEDIUM_FD_EPS)
+        ad = float(g_g["med_data"][0, 0:3].sum())
+        good = ad < 0 and abs(ad - fd) <= MEDIUM_FD_RTOL * abs(fd)
+        log(f"phase 7: {name} slab: d mean / d sigma_t on {card}: AD "
+            f"{ad:+.6f}, central difference (eps {MEDIUM_FD_EPS}) "
+            f"{fd:+.6f}, |AD / FD - 1| {abs(ad / fd - 1):.4f} (band "
+            f"{MEDIUM_FD_RTOL}) {'ok' if good else 'FAIL'}")
+        check(good, f"{name} slab: sigma_t's gradient is off its central "
+              "difference")
+
+
+def _smoke_adjoint(torch, mt, card, scene):
+    """One render_l2_grad of smoke_box(SMOKE_RES) at SMOKE_ADJOINT (zero
+    target): the forward's and render_l2_grad's medians of 3 after a
+    warm-up, render_l2_grad's peak memory over the resident scenes,
+    every gradient finite and the grid's nonzero."""
+    cfg = mt.RenderConfig(**SMOKE_ADJOINT)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
+    fwd_ms, fwd_t = median_ms(torch, lambda r: mt.render(scene, cfg, seed=r))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adj_ms, adj_t = median_ms(torch, lambda r: mt.render_l2_grad(
+        scene, cfg, target, seed=r))
+    peak = torch.cuda.max_memory_allocated() - resident
+    img, loss, grads = mt.render_l2_grad(scene, cfg, target, seed=7)
+    check(_finite(torch, [img, loss, *grads.values()])
+          and float(grads["med_grid"].abs().max()) > 0,
+          "smoke_box: non-finite gradients or a zero grid gradient")
+    rays = rays_per_pass(cfg) * (cfg.spp // cfg.spp_per_pass)
+    log(f"phase 7: smoke_box({SMOKE_RES}): {cfg.width}x{cfg.height}x"
+        f"{cfg.spp}spp, depth {cfg.max_depth}, volpath, on {card}: forward "
+        f"median {fwd_ms:.1f} ms of {[round(t, 1) for t in fwd_t]}, "
+        f"render_l2_grad median {adj_ms:.1f} ms of "
+        f"{[round(t, 1) for t in adj_t]} ({2 * rays / adj_ms / 1e3:.3f} "
+        f"Mrays/s forward + adjoint, {adj_ms / fwd_ms:.3f}x the forward), "
+        f"peak memory {peak / 2**20:.0f} MiB over the "
+        f"{resident / 2**20:.0f} MiB resident; largest |med_grid| "
+        f"{float(grads['med_grid'].abs().max()):.4e}, |med_data| "
+        f"{float(grads['med_data'].abs().max()):.4e}")
 
 
 def _moved(torch, scene, rows, theta):
@@ -2452,6 +2830,10 @@ def main():
             if PATH_RENDER.get(path, {}).get("reparam"):
                 timed(f"3 ({path}, reparam)", phase_reparam_path, torch,
                       mt, path, scene, card, render_ms[path])
+            if getattr(scene, "medium_grid", None) is not None:
+                with path_switches(path):
+                    timed(f"3 ({path}, tracking)", phase_tracking, torch, mt,
+                          path, scene)
         rows = list(by_name.values())
         timed(4, phase_small_renders, torch, mt, dev)
         for path, scene in scenes.items():
@@ -2461,7 +2843,8 @@ def main():
         rows += timed(6, phase_probes, torch, dev, card, launches)
         timed(7, phase_adjoint, torch, mt, dev, card, scenes["gallery"],
               scenes["veach"], scenes["veach_spectral"],
-              scenes["gallery_textured"], scenes["gallery_reparam"])
+              scenes["gallery_textured"], scenes["gallery_reparam"],
+              scenes["smoke_box"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

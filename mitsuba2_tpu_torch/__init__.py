@@ -3,11 +3,12 @@
 A second package beside the JAX one, which stays the reference. It
 renders on an NVIDIA H100 through hand-written CUDA traversal kernels
 (csrc/cluster_walk.cu) and plain PyTorch around them, in rgb, mono or
-spectral mode, and differentiates a render with respect to the scene's
-material and emitter tables and an envmap's image and scale (diff/: the
-pass-by-pass adjoint, the parameter map and the optimizers), and with
-respect to its geometry, visibility boundaries included, under
-RenderConfig(reparam=True) (diff/reparam.py):
+spectral mode, participating media through the volumetric path tracer
+(render/volpath.py), and differentiates a render with respect to the
+scene's material, emitter and medium tables, an envmap's image and scale
+and a density grid (diff/: the pass-by-pass adjoint, the parameter map
+and the optimizers), and with respect to its geometry, visibility
+boundaries included, under RenderConfig(reparam=True) (diff/reparam.py):
 
     import mitsuba2_tpu_torch as mt
     scene = mt.mesh_gallery(subdiv=4)          # tensors on the CUDA device
@@ -25,14 +26,15 @@ standard library only, never jax or mitsuba2_tpu.
 from .config import RenderConfig
 from .convert import scene_from_numpy
 from .scene.presets import (cornell_box, furnace, instanced_field,
-                             mesh_gallery, veach_mis)
+                             kitchen_sink, mesh_gallery, smoke_box,
+                             veach_mis)
 from .scene.scene import SceneData, build_scene, to_device
 from .render.integrators import render, render_pass
 from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
                    traverse)
 
 __all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
-           "cornell_box", "furnace", "instanced_field", "mesh_gallery",
-           "render", "render_and_grad", "render_l2_grad", "render_pass",
-           "scene_from_numpy", "scene_with", "to_device", "traverse",
-           "veach_mis"]
+           "cornell_box", "furnace", "instanced_field", "kitchen_sink",
+           "mesh_gallery", "render", "render_and_grad", "render_l2_grad",
+           "render_pass", "scene_from_numpy", "scene_with", "smoke_box", "to_device",
+           "traverse", "veach_mis"]

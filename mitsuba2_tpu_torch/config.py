@@ -64,7 +64,8 @@ class RenderConfig:
             (self.polarized, f"polarized=True (the JAX package's "
                              f"{self.color_mode}_polarized variant)"),
             (self.rfilter != "box", f"rfilter={self.rfilter!r}"),
-            (self.integrator != "path", f"integrator={self.integrator!r}"),
+            (self.integrator not in ("path", "volpath", "volpathmis"),
+             f"integrator={self.integrator!r}"),
             (self.sampler != "independent", f"sampler={self.sampler!r}"),
             (self.compact, "compact=True"),
         ]

@@ -20,7 +20,10 @@ absent from `fields`. `fields["envmap"]` carries an envmap's tables
 rotation, the scale and the per-texel coefficients), None or absent
 without one; `fields["textures"]` the texture atlas' tables
 (texture.TEX_FIELDS: the padded texels, `info` and `uvt`), whose mip
-pyramid is rebuilt here, on the device. A table that names a feature the
+pyramid is rebuilt here, on the device; `fields["medium_grid"]` the
+heterogeneous media's density grid (`data`, `bbox_min`, `bbox_max`; the
+JAX SceneData's GridVolume), None or absent without one;
+`fields["cam_type"]` the sensor's type (absent: "perspective"). A table that names a feature the
 port does not render (the BSDF families bsdf.UNPORTED) raises, and so
 does a textured slot without the atlas that holds its texture.
 """
@@ -35,6 +38,7 @@ from .device import resolve_device
 from .kernels import traverse
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
+from .render import media as media_mod
 from .render import texture as texture_mod
 from .render.spectra import SLOT_TEX_BASE
 from .scene.bvh import BLAS_EXIT, LEAF_K
@@ -204,6 +208,13 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
                                      == emitters_mod.ENVMAP).any()):
         raise KeyError("scene_from_numpy: an envmap emitter needs its "
                        "tables under 'envmap', and only it")
+    grid = fields.get("medium_grid")
+    in_use = f["med_type"][np.unique(f["shape_interior"][
+        f["shape_interior"] >= 0])]
+    if (grid is not None) != bool(
+            (in_use == media_mod.MEDIUM_HETEROGENEOUS).any()):
+        raise KeyError("scene_from_numpy: a heterogeneous medium needs its "
+                       "density grid under 'medium_grid', and only it")
     inst = fields.get("inst_inv") is not None
     if inst:
         missing = [k for k in INST_FIELDS if fields.get(k) is None]
@@ -269,6 +280,10 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
                 else emitters_mod.envmap_from_numpy(envmap, dev)),
         textures=(None if tex is None
                   else texture_mod.atlas_from_numpy(tex, dev)),
+        medium_grid=(None if grid is None else media_mod.GridVolume(
+            *(up(np.asarray(grid[k], np.float32))
+              for k in ("data", "bbox_min", "bbox_max")))),
+        has_media=bool(in_use.size),
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,
         mat_families=families,
@@ -284,6 +299,7 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         env_emitter=int(env[0]) if env.size else -1,
         emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),
         n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
+        cam_type=str(fields.get("cam_type", "perspective")),
         has_instances=inst, has_spheres=has_spheres,
         has_twosided=bool(
             (f["mat_flags"] & bsdf_mod.F_TWOSIDED_FLAG).any()),

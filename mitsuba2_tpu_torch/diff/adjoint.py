@@ -16,8 +16,11 @@ pass's tape holds its shading alone, so the backward sweep traces no
 ray, and gradients flow through shading and emission only, into
 `mat_data` and `emitter_data`, on a scene with textures into the atlas'
 texels (`tex_data`, through every level of the pyramid, rebuilt from
-them), and on a scene with an envmap into its image and scale
-(`env_image`, `env_scale`). The JAX package's
+them), on a scene with an envmap into its image and scale (`env_image`,
+`env_scale`), and on a scene with media into the medium rows
+(`med_data`: Beer-Lambert attenuation, the free-flight weights, the
+shadow rays' transmittance) and the density grid (`med_grid`, through
+delta tracking's differential factor and the transmittance raymarch). The JAX package's
 config.remat has no
 counterpart: checkpointing each bounce's shading kept as much memory as
 the tape it replaced (PERF.md).
@@ -33,11 +36,9 @@ from ..config import RenderConfig
 from ..device import resolve_device
 from ..render import film as film_mod
 from ..render.integrators import pass_seeds, render_pass
-from ..scene.scene import (DIFF_TABLES, ENV_DIFF_TABLES, TEX_DIFF_TABLE,
-                           diff_tables, to_device)
-
-# diff tables of the JAX package that come with a later slice
-_LATER = ("med_data", "med_grid")
+from ..scene.scene import (DIFF_TABLES, ENV_DIFF_TABLES, GRID_DIFF_TABLE,
+                           MED_DIFF_TABLE, TEX_DIFF_TABLE, diff_tables,
+                           to_device)
 
 
 def with_tables(scene, tables: Dict[str, torch.Tensor]):
@@ -45,12 +46,14 @@ def with_tables(scene, tables: Dict[str, torch.Tensor]):
     New texels rebuild the mip pyramid, so that gradients flow through
     every level. An envmap's importance table and spectral coefficients
     stay as built, as in the JAX package: only its image and scale are
-    replaced."""
-    later = sorted(set(tables) & set(_LATER))
-    if later:
-        raise NotImplementedError(
-            f"mitsuba2_tpu_torch has no {later} tables yet")
+    replaced; so does the majorant's source, the grid, which each flight
+    reads anew."""
     new = {k: tables[k] for k in DIFF_TABLES}
+    if MED_DIFF_TABLE in tables:
+        new["med_data"] = tables[MED_DIFF_TABLE]
+    if GRID_DIFF_TABLE in tables:
+        new["medium_grid"] = dataclasses.replace(
+            scene.medium_grid, data=tables[GRID_DIFF_TABLE])
     if TEX_DIFF_TABLE in tables:
         new["textures"] = scene.textures.with_data(tables[TEX_DIFF_TABLE])
     env = {f: tables[k] for k, f in ENV_DIFF_TABLES.items() if k in tables}

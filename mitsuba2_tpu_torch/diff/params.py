@@ -7,8 +7,10 @@ time in `SceneData.param_paths`. Updates are functional: `scene_with` and
 new tables and never write into the old ones. `scene_with` is
 differentiable with respect to the values: an RGB slot is rebuilt on the
 device through the coefficient lattice, as the JAX package rebuilds it,
-and a texture's texels ("image" entries, `textures.data`) rebuild the
-atlas' mip pyramid.
+a texture's texels ("image" entries, `textures.data`) rebuild the
+atlas' mip pyramid, a medium's RGB columns and scalars ("vec",
+"scalar") are plain columns of `med_data`, and the density grid
+(`medium.density.data`) is one whole-table entry ("full").
 """
 from __future__ import annotations
 
@@ -41,12 +43,15 @@ def _get_table(scene, table: str):
 
 
 def _set_table(scene, table: str, value):
-    """The scene with `table` replaced: a table of SceneData, or the
-    atlas' texels ("textures.data"), whose pyramid is rebuilt from them
-    (parameters_changed())."""
+    """The scene with `table` replaced: a table of SceneData, the atlas'
+    texels ("textures.data"), whose pyramid is rebuilt from them
+    (parameters_changed()), or the density grid ("medium_grid.data")."""
     if table == "textures.data":
         return dataclasses.replace(scene,
                                    textures=scene.textures.with_data(value))
+    if table == "medium_grid.data":
+        return dataclasses.replace(scene, medium_grid=dataclasses.replace(
+            scene.medium_grid, data=value))
     return dataclasses.replace(scene, **{table: value})
 
 
@@ -79,6 +84,8 @@ class ParameterMap:
         arr = _get_table(self.scene, table)
         if kind == "image":
             return arr[row]
+        if kind == "full":
+            return arr
         return arr[row, c0:c1] if c1 - c0 > 1 else arr[row, c0]
 
     def keep(self, patterns) -> "ParameterMap":
@@ -108,8 +115,9 @@ def traverse(scene) -> ParameterMap:
 def scene_with(scene, values: Dict[str, torch.Tensor], entries=None):
     """A new scene with {name: value} applied onto its tables,
     differentiable with respect to the values: an "rgb" entry rebuilds its
-    whole spectrum slot (_slot_update), a "scalar" one writes its column,
-    an "image" one a texture's (TH, TW, 3) texels."""
+    whole spectrum slot (_slot_update), a "scalar" or "vec" one writes its
+    columns, an "image" one a texture's (TH, TW, 3) texels, a "full" one
+    the whole table."""
     if entries is None:
         entries = {p[0]: p[1:] for p in scene.param_paths}
     # group updates by table so each table is copied once
@@ -124,6 +132,8 @@ def scene_with(scene, values: Dict[str, torch.Tensor], entries=None):
                                     device=arr.device)
             if kind == "image":
                 arr[row] = value.reshape(arr.shape[1:])
+            elif kind == "full":
+                arr = value.reshape(arr.shape)
             elif kind == "rgb":
                 arr[row, c0:c0 + 8] = _slot_update(arr[row, c0:c0 + 8],
                                                    value)

@@ -19,6 +19,8 @@ from .render.emitters import _INF_DIST
 
 RAY_EPSILON = float(np.finfo(np.float32).eps) / 2 * 1500.0
 KINDS = ("camera", "bounce", "shadow", "random")
+# rounds of shadow-ray candidates drawn before giving up
+SHADOW_ROUNDS = 16
 
 
 def _normalize(v):
@@ -103,7 +105,26 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
         sd = np.where((np.sum(ng * sd, -1) < 0)[:, None], -sd, sd)
         out["shadow"] = (org, sd, np.full(n, _INF_DIST * (1.0 - 1e-3)))
         return _finish(out, tab, fwd, rng, n)
-    m = 8 * n
+    # rounds of 8 n candidates until n qualify: one round on most scenes;
+    # more where few camera hits face a light (a scene seen mostly
+    # through null boundaries)
+    got = []
+    for _ in range(SHADOW_ROUNDS):
+        got.append(_shadow_candidates(tab, lights, org, ng, rng, n, 8 * n))
+        if sum(g[0].shape[0] for g in got) >= n:
+            break
+    else:
+        raise ValueError("too few camera hits see the emitting side of a light")
+    o, sd, dist = (np.concatenate(x)[:n] for x in zip(*got))
+    out["shadow"] = (o, sd, dist * (1.0 - 1e-3))
+    return _finish(out, tab, fwd, rng, n)
+
+
+def _shadow_candidates(tab, lights, org, ng, rng, n, m):
+    """`m` shadow rays from random origins of `org` (normals `ng`) to
+    uniform points on random light prims: (origins, directions,
+    distances) of those whose light's emitting side faces the origin and
+    whose origin's side faces the light."""
     src = rng.integers(0, n, m)
     lp = lights[rng.integers(0, lights.size, m)]
     b = rng.uniform(0.0, 1.0, (m, 2))
@@ -128,11 +149,7 @@ def probe_rays(scene, n: int, seed: int, closest_hit):
     sd = sd / dist[:, None]
     ok = np.nonzero((np.sum(n_light * sd, -1) < 0)
                     & (np.sum(ng[src] * sd, -1) > 0))[0]
-    if ok.size < n:
-        raise ValueError("too few camera hits see the emitting side of a light")
-    keep = ok[:n]
-    out["shadow"] = (org[src[keep]], sd[keep], dist[keep] * (1.0 - 1e-3))
-    return _finish(out, tab, fwd, rng, n)
+    return org[src[ok]], sd[ok], dist[ok]
 
 
 def _finish(out, tab, fwd, rng, n):

@@ -1186,3 +1186,18 @@ def pdf(scene, si, wo, config) -> torch.Tensor:
         out = torch.where(sel, WRAPPER_FAMILIES[fid].pdf(scene, mdata, si_f,
                                                          wo_f, config), out)
     return out
+
+
+def null_transmission(scene, si, config) -> Spec:
+    """The straight-through transmission of the hit surface's null lobe
+    (BSDF::eval_null_transmission, read by volpath's transmittance): 1
+    for `null` boundaries, 1 - opacity for `mask` surfaces, 1 on the
+    other lanes (whose callers gate on F_NULL). A scene without a mask
+    row reads no table."""
+    one = Spec.ones(si.t.shape[0], config.n_channels, si.t.device)
+    if MASK not in scene.mat_families:
+        return one
+    mat_idx, mtype, _ = _lane_materials(scene, si)
+    for _, sel, mdata in _family_lanes(scene, mat_idx, mtype, (MASK,)):
+        one = swhere(sel, one - _spec(mdata, 2, si, config), one)
+    return one

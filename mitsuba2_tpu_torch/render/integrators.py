@@ -4,8 +4,12 @@ render/integrators.py).
 `lax.scan` over bounces becomes a Python loop over bounces, and the
 passes run as a Python loop with the JAX package's pass seeds, so both
 packages draw the same PCG32 numbers in the same order: the pixel jitter
-first, in spectral mode the hero wavelengths' draw, then per bounce
-u_nee, u2_nee, u1_b, u2_b and, only when rr_depth < max_depth, u_rr.
+first, in spectral mode the hero wavelengths' draw, under the thin-lens
+camera the aperture sample, then per bounce u_nee, u2_nee, u1_b, u2_b
+and, only when rr_depth < max_depth, u_rr. A scene with media, or
+RenderConfig(integrator="volpath" | "volpathmis"), goes through the
+volumetric path tracer instead (render/volpath.py, its own stream
+layout after the camera's draws).
 Spectral mode carries four hero wavelengths a lane on its rays and
 shading records and develops each lane to linear sRGB before the film.
 On a scene with textures the camera rays carry differentials, scaled to
@@ -168,15 +172,25 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
     if config.color_mode == "spectral":
         u_wl, sampler = sampler.next_1d()
         wl, wl_pdf = sp.sample_hero_wavelengths_t(u_wl)
+    u_lens = None
+    if scene.cam_type in sensors.NEEDS_APERTURE_SAMPLE:
+        u_lens, sampler = sampler.next_2d()
+    volumetric = (config.integrator in ("volpath", "volpathmis")
+                  or scene.has_media)
+    if volumetric and config.reparam:
+        raise NotImplementedError(
+            "mitsuba2_tpu_torch does not render reparam=True with "
+            "participating media (volpath) yet")
     if (scene.textures is not None
             and scene.cam_type in sensors.HAS_DIFFERENTIALS):
         # a sample covers 1 / spp of its pixel (integrator.cpp's
         # diff_scale_factor), the factor in f32 as the JAX package takes it
-        ray = sensors.sample_ray_differential(scene, uv, W, wavelengths=wl)
+        ray = sensors.sample_ray_differential(scene, uv, W, wavelengths=wl,
+                                              u_lens=u_lens)
         ray = ray.scale_differential(
             float(np.float32(1.0) / np.sqrt(np.float32(config.spp))))
     else:
-        ray = sensors.sample_ray(scene, uv, wavelengths=wl)
+        ray = sensors.sample_ray(scene, uv, wavelengths=wl, u_lens=u_lens)
     det_cam = None
     if config.reparam:
         from ..diff import reparam as reparam_mod
@@ -184,7 +198,11 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
         Vc, det_cam = reparam_mod.warp_and_divergence(
             scene, ray.o, ray.d, config.reparam_kaux)
         ray.d = reparam_mod.reparameterize(ray.d, Vc)
-    spec, _ = sample_path(scene, ray, sampler, config)
+    if volumetric:
+        from .volpath import sample_path_vol
+        spec, _ = sample_path_vol(scene, ray, sampler, config)
+    else:
+        spec, _ = sample_path(scene, ray, sampler, config)
     if det_cam is not None:
         spec = spec * det_cam
     if wl is not None:

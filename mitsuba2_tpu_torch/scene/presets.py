@@ -1,7 +1,7 @@
 """Built-in scenes (counterpart of scene/presets.py): the Cornell box, the
-furnace, Veach's MIS scene, the mesh gallery and the instanced field,
-built from the same host geometry as the JAX package's presets so their
-tables are byte-equal."""
+furnace, Veach's MIS scene, the mesh gallery, the instanced field, the
+kitchen sink and the smoke box, built from the same host geometry as the
+JAX package's presets so their tables are byte-equal."""
 from __future__ import annotations
 
 import numpy as np
@@ -263,4 +263,107 @@ def instanced_field(n: int = 64, subdiv: int = 3, flatten: bool = False,
               "fov": 55.0}
     return build_scene(s, sensor,
                        [{"type": "constant", "radiance": [0.9, 0.95, 1.0]}],
+                       device=device)
+
+
+def kitchen_sink(device=None) -> SceneData:
+    """Many subsystems in one scene: an envmap (a procedural sky, alias
+    sampled), a bitmap-textured diffuse floor, a roughconductor cube with
+    a checkerboard roughness texture, a dielectric sphere, a homogeneous
+    absorber in a null cube, an area light and a thin-lens camera (depth
+    of field). All data procedural (the golden kitchen_sink's scene)."""
+    rng = np.random.default_rng(42)
+
+    # procedural sky: horizon-to-zenith gradient and a bright sun blob
+    H, W = 32, 64
+    th = (np.arange(H) + 0.5) / H * np.pi
+    sky = np.zeros((H, W, 3), np.float32)
+    sky[..., 2] = 0.3 + 0.5 * np.cos(th)[:, None]
+    sky[..., 0] = 0.15 + 0.1 * np.sin(th)[:, None]
+    sky[..., 1] = 0.2
+    sky[6:9, 10:13] = [6.0, 5.4, 4.2]
+    envmap = {"type": "envmap", "data": sky, "scale": 1.0}
+
+    tex = np.zeros((16, 16, 3), np.float32)
+    tex[::2, ::2] = [0.7, 0.3, 0.2]
+    tex[1::2, 1::2] = [0.7, 0.3, 0.2]
+    tex += rng.uniform(0, 0.1, tex.shape).astype(np.float32)
+    floor = shapes.rectangle(
+        bsdf={"type": "diffuse",
+              "reflectance": {"type": "bitmap", "data": tex}}).transformed(
+        np.asarray((Transform4.translate([0, -1.0, 0])
+                    @ Transform4.rotate([1, 0, 0], -90.0)
+                    @ Transform4.scale([4.0, 4.0, 1.0])).matrix))
+    metal = shapes.cube(
+        bsdf={"type": "roughconductor", "material": "Au",
+              "alpha": {"type": "checkerboard", "color0": [0.05] * 3,
+                        "color1": [0.4] * 3}}).transformed(
+        np.asarray((Transform4.translate([-1.4, -0.5, 0.6])
+                    @ Transform4.rotate([0, 1, 0], 25.0)
+                    @ Transform4.scale([0.5, 0.5, 0.5])).matrix))
+    glass = shapes.sphere(center=(0.0, -0.4, 0.0), radius=0.6,
+                          bsdf={"type": "dielectric", "int_ior": 1.5})
+    fog = shapes.cube(bsdf={"type": "null"}).transformed(
+        np.asarray((Transform4.translate([1.5, -0.55, -0.2])
+                    @ Transform4.scale([0.45, 0.45, 0.45])).matrix))
+    fog.interior = {"type": "homogeneous", "sigma_t": 1.2, "albedo": 0.6,
+                    "g": 0.4}
+    light = _quad([0.6, 1.4, -0.9], [1.4, 1.4, -0.9],
+                  [1.4, 1.4, -0.1], [0.6, 1.4, -0.1],
+                  bsdf={"type": "diffuse", "reflectance": [0, 0, 0]},
+                  emitter={"type": "area", "radiance": [9.0, 7.0, 4.0]},
+                  id="klight")
+    cam = Transform4.look_at(origin=[0.3, 0.4, -3.4], target=[0, -0.4, 0],
+                             up=[0, 1, 0])
+    sensor = {"type": "thinlens", "to_world": np.asarray(cam.matrix),
+              "fov": 42.0, "aperture_radius": 0.06,
+              "focus_distance": float(np.linalg.norm([0.3, 0.8, -3.4]))}
+    return build_scene([floor, metal, glass, fog, light], sensor,
+                       emitters=[envmap], device=device)
+
+
+def smoke_box(res: int = 32, device=None) -> SceneData:
+    """The volumetric scene: a procedural smoke plume (a res^3
+    heterogeneous density grid, albedo 0.7, HG g = 0.3) in a null box over
+    a diffuse floor, lit by an area light above (bench.py's smoke_volpath
+    scene). Procedural turbulence from a fixed seed."""
+    rng = np.random.default_rng(7)
+    z, y, x = np.meshgrid(np.linspace(-1, 1, res),
+                          np.linspace(-1, 1, res),
+                          np.linspace(-1, 1, res), indexing="ij")
+    h = (z + 1.0) * 0.5                      # 0 at the bottom, 1 at the top
+    r2 = x * x + y * y
+    core = np.exp(-r2 / (0.08 + 0.35 * h * h))   # a widening column
+    noise = np.zeros_like(core)
+    for oct_ in range(3):
+        k = 2 ** oct_
+        n = rng.uniform(-1, 1, (4 * k, 4 * k, 4 * k)).astype(np.float32)
+        reps = -(-res // (4 * k))
+        n = np.tile(n, (reps, reps, reps))[:res, :res, :res]
+        noise += n / (1.6 ** oct_)
+    dens = np.clip(core * (0.75 + 0.45 * noise) * (1.0 - 0.55 * h),
+                   0.0, None).astype(np.float32)
+
+    box = shapes.cube(bsdf={"type": "null"}, id="smoke").transformed(
+        np.asarray((Transform4.translate([0, 0.9, 0])
+                    @ Transform4.scale([0.8, 0.9, 0.8])).matrix))
+    box.interior = {"type": "heterogeneous", "sigma_t": 4.0,
+                    "albedo": 0.7, "g": 0.3, "density": dens,
+                    "bbox_min": [-0.8, 0.0, -0.8],
+                    "bbox_max": [0.8, 1.8, 0.8]}
+    floor = shapes.rectangle(
+        bsdf={"type": "diffuse", "reflectance": [0.5] * 3},
+        id="floor").transformed(
+        np.asarray((Transform4.rotate([1, 0, 0], -90)
+                    @ Transform4.scale([3.0, 3.0, 1.0])).matrix))
+    light = _quad([-0.5, 2.6, -0.5], [0.5, 2.6, -0.5],
+                  [0.5, 2.6, 0.5], [-0.5, 2.6, 0.5],
+                  bsdf={"type": "diffuse", "reflectance": [0, 0, 0]},
+                  emitter={"type": "area", "radiance": [14.0] * 3},
+                  id="slight")
+    cam = Transform4.look_at(origin=[0.0, 1.1, -3.2],
+                             target=[0.0, 0.9, 0.0], up=[0, 1, 0])
+    return build_scene([box, floor, light],
+                       {"type": "perspective",
+                        "to_world": np.asarray(cam.matrix), "fov": 40.0},
                        device=device)

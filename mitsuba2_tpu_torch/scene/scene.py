@@ -4,8 +4,9 @@ dispatch (counterpart of mitsuba2_tpu/scene/scene.py).
 The build half packs meshes, analytic spheres, shared-BLAS instances of
 shape groups, the materials of render/bsdf.py, the emitters of
 render/emitters.py (area, point, constant, envmap, spot, directional,
-projector), the textures their colors name (render/texture.py's atlas)
-and a perspective camera into numpy tables byte-equal to the JAX
+projector), the textures their colors name (render/texture.py's atlas),
+the shapes' interior media (render/media.py: the medium rows and the one
+density grid) and a perspective or thin-lens camera into numpy tables byte-equal to the JAX
 package's `SceneData` fields of the same names (tests/test_torch_scene.py,
 tests/test_torch_instancing.py, tests/test_torch_spheres.py), then
 uploads them with `convert.scene_from_numpy`. Anything else a scene can
@@ -41,9 +42,11 @@ from ..core.math import safe_acos
 from ..core.vec import Vec2, Vec3, vwhere
 from ..render import bsdf as bsdf_mod
 from ..render import emitters as emitters_mod
+from ..render import media as media_mod
 from ..render import spectra as spectra_mod
 from ..render import texture as texture_mod
 from ..render.interaction import SurfaceInteraction
+from ..render.sensors import SENSORS
 from ..render.spectra import gather_columns
 from . import bvh as bvh_mod
 from .shapes import PRIM_SPHERE, PRIM_TRI, Instance, MeshData
@@ -58,7 +61,8 @@ FIELDS = (
     "mat_type", "mat_flags", "mat_data", "emitter_type", "emitter_data",
     "emitter_shape", "emitter_prims", "emitter_prim_cdf", "emitter_area",
     "cam_to_world", "cam_fov_x", "cam_data", "mxu_node_f", "mxu_link",
-    "cluster_slot_prim", "mxu_feat", "mxu_ccs")
+    "cluster_slot_prim", "mxu_feat", "mxu_ccs", "med_type", "med_data",
+    "shape_interior")
 # ...of which the cluster walks' own, on the device only for a scene that
 # takes them (mxu_ccs: the dense sweep's centroids, 32 bytes a cluster,
 # held so that the dense switch is read at dispatch; uploaded with
@@ -72,13 +76,14 @@ UPLOAD_FIELDS = ("bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "bvh_hit8",
 # per-instance transforms and the two walk bounds
 INST_FIELDS = ("inst_inv", "inst_fwd", "inst_fuel", "inst_mxu_fuel")
 # ...and the tables gradients flow to (diff_tables): these two, on a
-# scene with textures the atlas' texels (`tex_data`), and on a scene with
-# an envmap its image and scale, under the JAX package's names
-# (ENV_DIFF_TABLES, name -> EnvMapData field); the JAX package's medium
-# tables come with their slice
+# scene with textures the atlas' texels (`tex_data`), on a scene with an
+# envmap its image and scale, and on a scene with media the medium rows
+# (`med_data`) and the density grid (`med_grid`), under the JAX package's
+# names (ENV_DIFF_TABLES, name -> EnvMapData field)
 DIFF_TABLES = ("mat_data", "emitter_data")
 TEX_DIFF_TABLE = "tex_data"
 ENV_DIFF_TABLES = {"env_image": "image", "env_scale": "scale"}
+MED_DIFF_TABLE, GRID_DIFF_TABLE = "med_data", "med_grid"
 # ...and the BVH8 walks' tables (bvh.collapse_bvh8; None, depth 0, where
 # the JAX build skips them: tiny or instanced scenes, a one-cluster cut):
 # on the device only for a scene uploaded under set_backend("bvh8") or
@@ -125,6 +130,9 @@ class SceneData:
     cam_to_world: torch.Tensor  # (4, 4)
     cam_fov_x: torch.Tensor     # () degrees
     cam_data: torch.Tensor      # (12,) see build_fields
+    med_type: torch.Tensor      # (Md,) i32 (one zero row without media)
+    med_data: torch.Tensor      # (Md, MED_W) render/media.py's rows
+    shape_interior: torch.Tensor  # (S,) i32 medium row, -1 = vacuum
     # the cluster walks' tables
     mxu_node_f: Optional[torch.Tensor] = None   # (R, 16) f32 pruned cut tree
     mxu_link: Optional[torch.Tensor] = None     # (R, 16) i32 [hit8 | miss8]
@@ -171,6 +179,10 @@ class SceneData:
     envmap: Optional[emitters_mod.EnvMapData] = None
     # the texture atlas (render/texture.py::TextureAtlas), None without
     textures: Optional[texture_mod.TextureAtlas] = None
+    # the heterogeneous media's density grid (render/media.py), None
+    # without
+    medium_grid: Optional[media_mod.GridVolume] = None
+    has_media: bool = False     # a shape has an interior medium
     mat_families: Tuple[int, ...] = ()
     family_rows: Tuple[int, ...] = ()   # each family's first material row
     # ((family id, slots), ...): the spectrum slots some row of the family
@@ -222,18 +234,25 @@ def to_device(scene: SceneData, device) -> SceneData:
         moved["envmap"] = scene.envmap.to(dev)
     if scene.textures is not None:
         moved["textures"] = scene.textures.to(dev)
+    if scene.medium_grid is not None:
+        moved["medium_grid"] = scene.medium_grid.to(dev)
     return dataclasses.replace(scene, **moved)
 
 
 def diff_tables(scene) -> dict:
     """The tensors a render's gradients flow to, by the JAX package's
-    names: DIFF_TABLES, the atlas' texels, an envmap's image and scale."""
+    names: DIFF_TABLES, the atlas' texels, an envmap's image and scale,
+    the medium rows and the density grid."""
     out = {k: getattr(scene, k) for k in DIFF_TABLES}
     if scene.textures is not None:
         out[TEX_DIFF_TABLE] = scene.textures.data
     if scene.envmap is not None:
         out.update({k: getattr(scene.envmap, f)
                     for k, f in ENV_DIFF_TABLES.items()})
+    if scene.has_media:
+        out[MED_DIFF_TABLE] = scene.med_data
+        if scene.medium_grid is not None:
+            out[GRID_DIFF_TABLE] = scene.medium_grid.data
     return out
 
 
@@ -244,7 +263,7 @@ def diff_tables(scene) -> dict:
 def build_scene(shapes: List[MeshData], sensor: dict, emitters=(),
                 device=None) -> SceneData:
     """Pack shapes (meshes and `shapes.Instance` records) + a perspective
-    sensor (+ shapeless emitters) into a SceneData on `device` (None = the
+    or thin-lens sensor (+ shapeless emitters) into a SceneData on `device` (None = the
     CUDA device; raises without one)."""
     from ..convert import scene_from_numpy
     from ..device import resolve_device
@@ -332,11 +351,8 @@ def _refuse_unsupported(shapes, sensor):
     for sh in shapes:
         if not isinstance(sh, MeshData):
             raise TypeError(f"not a shape: {type(sh).__name__}")
-        if sh.interior is not None:
-            raise NotImplementedError(
-                "mitsuba2_tpu_torch does not support participating media yet")
     kind = sensor.get("type", "perspective")
-    if kind != "perspective":
+    if kind not in SENSORS:
         raise NotImplementedError(
             f"mitsuba2_tpu_torch does not support {kind!r} sensors yet")
     if "to_world_keys" in sensor:
@@ -467,7 +483,9 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     emitters -> dict of numpy tables (FIELDS, BVH8_FIELDS, and INST_FIELDS
     for a shared-BLAS scene), `envmap` (an envmap's tables,
     emitters.ENV_FIELDS, or None), `textures` (the atlas' tables,
-    texture.TEX_FIELDS, or None) and `param_paths`, the same arithmetic
+    texture.TEX_FIELDS, or None), `medium_grid` (the density grid's
+    `data`, `bbox_min` and `bbox_max`, or None), `cam_type` and
+    `param_paths`, the same arithmetic
     as the JAX package's _build_scene_impl for the features the port
     supports."""
     with spectra_mod.texture_staging() as tex_staging:
@@ -673,6 +691,48 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
         param_paths.append((f"{tb.name or f'texture{t_idx}'}.data",
                             "textures.data", t_idx, -1, -1, "image"))
 
+    # --- media: one row per distinct descriptor (keyed by its repr, as
+    # the JAX build keys it), one shared density grid ------------------------
+    med_types, med_rows, med_key2idx = [], [], {}
+    shape_interior = np.full(max(len(shapes), 1), -1, np.int32)
+    medium_grid = None
+    for s_idx, sh in enumerate(shapes):
+        if sh.interior is None:
+            continue
+        key = repr(sh.interior)
+        if key not in med_key2idx:
+            mtype, mrow, grid = media_mod.pack_medium(sh.interior)
+            med_key2idx[key] = len(med_rows)
+            med_types.append(mtype)
+            med_rows.append(mrow)
+            if grid is not None:
+                if medium_grid is not None:
+                    raise ValueError("only one heterogeneous grid supported")
+                medium_grid = {"data": grid["density"],
+                               "bbox_min": grid["bbox_min"],
+                               "bbox_max": grid["bbox_max"]}
+        shape_interior[s_idx] = med_key2idx[key]
+    if not med_rows:
+        med_types, med_rows = [0], [np.zeros(media_mod.MED_W, np.float32)]
+    # their parameters (medium.cpp's traverse entries): raw RGB columns
+    # ("vec") and scalars, the grid one whole-table entry ("full")
+    seen_med = set()
+    for s_idx, sh in enumerate(shapes):
+        m_row = int(shape_interior[s_idx])
+        if m_row < 0 or m_row in seen_med:
+            continue
+        seen_med.add(m_row)
+        mname = f"{sh.id or f'shape{s_idx}'}.interior"
+        for pname, c0, c1, kind in (("sigma_t", 0, 3, "vec"),
+                                    ("albedo", 3, 6, "vec"),
+                                    ("phase_g", 6, 7, "scalar"),
+                                    ("scale", 7, 8, "scalar")):
+            param_paths.append((f"{mname}.{pname}", "med_data", m_row, c0,
+                                c1, kind))
+    if medium_grid is not None:
+        param_paths.append(("medium.density.data", "medium_grid.data",
+                            -1, -1, -1, "full"))
+
     # --- sensor -------------------------------------------------------------
     cam_to_world = np.asarray(sensor["to_world"], np.float32).reshape(4, 4)
     cam_data = np.zeros(12, np.float32)
@@ -704,15 +764,17 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
         emitter_prim_cdf=emitter_cdf, emitter_area=emitter_area,
         cam_to_world=cam_to_world,
         cam_fov_x=np.float32(sensor.get("fov", 45.0)),
-        cam_data=cam_data,
+        cam_data=cam_data, cam_type=sensor.get("type", "perspective"),
         mxu_node_f=mxu_node_f.astype(np.float32),
         mxu_link=acc["mxu_link"].astype(np.int32),
         cluster_slot_prim=slot_prim, mxu_feat=feat, mxu_ccs=mxu_ccs,
         bvh8_child=acc.get("bvh8_child"), bvh8_order=acc.get("bvh8_order"),
         bvh8_depth=acc.get("bvh8_depth", 0),
         **dict(zip(("bvh8c_child", "bvh8c_order", "bvh8c_depth"), bvh8c)),
+        med_type=np.asarray(med_types, np.int32),
+        med_data=np.stack(med_rows), shape_interior=shape_interior,
         envmap=envmap, textures=texture_mod.pack_atlas(tex_staging),
-        param_paths=tuple(param_paths))
+        medium_grid=medium_grid, param_paths=tuple(param_paths))
     if inst_records:
         out.update({k: acc[k] for k in INST_FIELDS})
     return out

@@ -168,14 +168,23 @@ def test_gradient_matches_finite_differences(name, value, atol):
 
 
 def test_later_tables_raise(refs):
-    """The medium tables come with media; the texels (tex_data) came with
-    the textures' slice (tests/test_torch_texture.py)."""
+    """The medium tables came with the media slice: a medium scene's diff
+    tables carry `med_data` and, with a density grid, `med_grid`, which
+    with_tables replaces; the Cornell box's carry neither (nor texels:
+    tests/test_torch_texture.py)."""
     scene = refs["cornell"][0]
-    assert "tex_data" not in adjoint.diff_tables(scene)
-    for k in ("med_data", "med_grid"):
-        with pytest.raises(NotImplementedError, match=k):
-            adjoint.with_tables(scene, {**adjoint.diff_tables(scene),
-                                        k: torch.zeros(1)})
+    assert not {"tex_data", "med_data", "med_grid"} & set(
+        adjoint.diff_tables(scene))
+    smoke = mt.smoke_box(4, device="cpu")
+    tables = adjoint.diff_tables(smoke)
+    assert tables["med_data"] is smoke.med_data
+    assert tables["med_grid"] is smoke.medium_grid.data
+    new = adjoint.with_tables(smoke, {**tables,
+                                      "med_data": tables["med_data"] * 2,
+                                      "med_grid": tables["med_grid"] + 1})
+    assert torch.equal(new.med_data, smoke.med_data * 2)
+    assert torch.equal(new.medium_grid.data, smoke.medium_grid.data + 1)
+    assert torch.equal(new.medium_grid.bbox_min, smoke.medium_grid.bbox_min)
 
 
 @pytest.fixture

@@ -180,6 +180,12 @@ assert bool(g.isfinite().all()) and float(g[rows].abs().max()) > 0
 img = reparam.render_direct_reparam(scene, cfg.replace(max_depth=1),
                                     device="cpu")
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+from mitsuba2_tpu_torch.core import io_vol
+from mitsuba2_tpu_torch.render import media, volpath
+img = mt.render(mt.smoke_box(4, device="cpu"),
+                cfg.replace(integrator="volpath"), device="cpu")
+assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+assert media.MED_W == 8 and volpath._MAX_NULL == 3 and io_vol.read_vol
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)

@@ -116,7 +116,10 @@ def test_unsupported_features_raise_by_name(feature):
         # the first one, renders since the textures' slice)
         mesh = shapes.sphere(bsdf={"type": "polarizer"})
     elif feature == "medium":
+        # media render since the media slice: a medium seen by a sensor
+        # the port lacks (radiancemeter)
         mesh.interior = {"type": "homogeneous"}
+        sensor["type"] = "radiancemeter"
     elif feature == "instance":
         # an instanced group holding a BSDF the port lacks (mask, the
         # first one, renders since the textures' slice)
@@ -139,7 +142,7 @@ def test_unsupported_features_raise_by_name(feature):
         mesh.bsdf = {"type": "twosided", "bsdf": {"type": "measured"}}
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
-    names = {"sphere": "polarizer", "medium": "media",
+    names = {"sphere": "polarizer", "medium": "radiancemeter",
              "instance": "retarder", "envmap": "envmap", "texture": "bitmap",
              "plastic": "image files", "twosided": "measured",
              "orthographic": "orthographic"}
@@ -186,7 +189,9 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
     ({"color_mode": "spectral", "polarized": True}, "spectral"),
     ({"polarized": True}, "polarized"),
     ({"rfilter": "gaussian"}, "gaussian"),
-    ({"integrator": "volpath"}, "volpath"),
+    # volpath renders since the media slice: the depth integrator not
+    # (the case keeps its id)
+    pytest.param({"integrator": "depth"}, "depth", id="kw4-volpath"),
     ({"compact": True}, "compact"),
     # reparam=True renders since the reparameterization's slice: the
     # direct integrator not
