@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Twenty-one main paths, each a forward render at 256x256 through
-`mitsuba2_tpu_torch.render`, 16 spp at max_depth 3 (in one pass but for
+Twenty-two main paths, each a forward render at 256x256 through
+`mitsuba2_tpu_torch.render` (xml_gallery's through `render_any`), 16 spp at max_depth 3 (in one pass but for
 veach, veach_spectral, smoke_box and kitchen_sink) but for config 5's
 two, instanced, gallery_dense and kitchen_sink, in rgb but for
 veach_spectral, veach_spectral_bvh2, gallery_spectral and gallery_lights,
@@ -83,7 +83,16 @@ which render spectrally:
   kitchen_sink  presets.kitchen_sink(): the thin-lens camera, an envmap,
              textures, a rough conductor, a dielectric sphere and a
              homogeneous medium, 16 spp in passes of 4, depth 4: brute
-             force.
+             force;
+  xml_gallery  mesh_gallery(subdiv=4) written as a Mitsuba XML scene
+             (write_gallery_xml: the room's quads as ASCII PLY, the
+             blobs as binary PLY, .serialized and OBJ files) and loaded
+             by mt.load_file, its tables held to the preset's (the parse
+             and mesh reads timed apart from the build): K1, K2; then
+             `python -m mitsuba2_tpu_torch gallery.xml -o out.pfm` in a
+             subprocess, its wall time and launches, its PFM bit-equal
+             to the in-process render and within the limits of phase 4
+             of the gallery path's.
 Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
 before it builds its scene (a scene uploads the tables of the walk it
 takes) and resets them after each use.
@@ -91,7 +100,7 @@ takes) and resets them after each use.
 Phase 0  the card, torch, CUDA and nvcc.
 Phase 1  builds the CUDA kernels (csrc/cluster_walk.cu and csrc/probes.cu,
          one nvcc each, started together -> ctypes) and the C++ BVH
-         builder from the checkout's sources.
+         builder and OBJ parser from the checkout's sources.
 Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          each path's scene with 65 536 rays of each kind a forward render
          traces (camera, first bounce, shadow, random; on the sphere
@@ -128,10 +137,16 @@ Phase 4  small renders on the card against the same renders on the CPU
          smoke_box(8), whose dielectric paths and coplanar null box and
          floor may take another turn where the card rounds otherwise:
          their image means within 1e-3 and SMOKE_TIE_RTOL, the share of
-         pixels beyond rtol 1e-3 / atol 1e-4 printed.
+         pixels beyond rtol 1e-3 / atol 1e-4 printed. Then a scene from
+         files (write_file_scene: OBJ and PLY meshes, an EXR and a PNG
+         bitmap, an EXR envmap, a .vol grid, a disk, a cylinder, a
+         flip_normals rectangle; volpath) loaded on the card and the
+         CPU: its atlas and envmap tables byte-equal to those of the
+         same images as arrays, the two renders to the limits above.
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind (the kernels of the texture lookups apart),
-         and the device's busy share.
+         and the device's busy share (xml_gallery's tables are the
+         gallery's: not profiled again).
 Phase 6  the probes (csrc/probes.cu) at 1M lanes: each configuration
          launched once with the counts at 0, each held bit for bit
          against its twin and timed; their costs per walk step, per row
@@ -195,6 +210,7 @@ numbers, a later path's under "also_on") and, last, {"ok": true,
 no CUDA device or a phase fails.
 """
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -403,6 +419,7 @@ PATH_KERNELS = {
     "smoke_box_bvh2": ("bvh_closest_hit",),
     "gallery_fog": ("cluster_closest_hit",),
     "kitchen_sink": (),
+    "xml_gallery": ("cluster_closest_hit", "cluster_any_hit"),
 }
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
@@ -514,13 +531,19 @@ def phase_build():
                                   ("probes", probes._SRC))]
         native.build_bvh_native(np.zeros((1, 3), np.float32),
                                 np.ones((1, 3), np.float32))
+        # the OBJ parser, built at its first parse: a triangle's
+        import tempfile
+        with tempfile.NamedTemporaryFile("w", suffix=".obj") as f:
+            f.write("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+            f.flush()
+            native.parse_obj_native(f.name)
         for j in jobs:
             j.result()
     traverse.load_cuda_library()
     probes.load_cuda_library()
     log(f"phase 1: built {SRC} and {PROBE_SRC} (route cuda: nvcc "
-        f"{' '.join(traverse.NVCC_FLAGS)} -> ctypes) and the C++ BVH "
-        f"builder in {time.perf_counter() - t0:.1f} s")
+        f"{' '.join(traverse.NVCC_FLAGS)} -> ctypes), the C++ BVH "
+        f"builder and OBJ parser in {time.perf_counter() - t0:.1f} s")
     for name in ("cluster_walk", "probes"):
         report = native.BUILD_LOG.get(name)
         if report is None:
@@ -1140,6 +1163,217 @@ def gallery_textured(P, subdiv=SUBDIV, res=TEX_FLOOR, **build_kw):
     return P.build_scene(s, sensor, emitters=[projector], **build_kw)
 
 
+# ---------------------------------------------------------------------------
+# Scenes from files: the XML gallery (the path xml_gallery) and phase 4's
+# small scene from files
+# ---------------------------------------------------------------------------
+
+def _g(*xs):
+    """Numbers as Mitsuba XML text, each float32 value exactly (%.9g)."""
+    return " ".join("%.9g" % float(np.float32(x)) for x in xs)
+
+
+def _write_ply(path, verts, faces, uvs=None, ascii=False):
+    """A PLY of float32 vertices (and uvs) and triangle faces."""
+    names = ["x", "y", "z"] + (["u", "v"] if uvs is not None else [])
+    vals = verts if uvs is None else np.concatenate([verts, uvs], -1)
+    fmt = "ascii" if ascii else "binary_little_endian"
+    hdr = (f"ply\nformat {fmt} 1.0\nelement vertex {len(verts)}\n"
+           + "".join(f"property float {n}\n" for n in names)
+           + f"element face {len(faces)}\n"
+           "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(hdr.encode())
+        if ascii:
+            f.write("".join(_g(*r) + "\n" for r in vals).encode())
+            f.write("".join("3 %d %d %d\n" % tuple(r) for r in faces).encode())
+        else:
+            f.write(np.ascontiguousarray(vals, "<f4").tobytes())
+            rows = np.zeros(len(faces), [("n", "u1"), ("i", "<i4", (3,))])
+            rows["n"], rows["i"] = 3, faces
+            f.write(rows.tobytes())
+
+
+def write_gallery_xml(d, subdiv=SUBDIV, render=RENDER):
+    """mesh_gallery(subdiv) as a Mitsuba scene in directory `d`, its
+    scene.xml naming a file a shape: the room's six quads as ASCII PLY,
+    the blobs in turn as binary PLY, .serialized and OBJ (every value
+    float32 exactly: binary, or %.9g text), its BSDFs and area light
+    inline, the camera's matrix with %.9g, and film, sampler and
+    integrator blocks of `render`'s width, height, spp, max_depth and
+    rr_depth. Loaded, it builds the preset's tables byte for byte.
+    Returns the XML's path."""
+    from mitsuba2_tpu_torch.scene import mesh_io, presets
+    shapes_, sensor = presets.mesh_gallery_shapes(subdiv)
+    body = []
+    for k, m in enumerate(shapes_):
+        kind = ("ply" if m.uvs is not None else
+                ("ply", "serialized", "obj")[k % 3])
+        name = f"{m.id}.{kind}"
+        path = os.path.join(d, name)
+        if kind == "obj":
+            with open(path, "w") as f:
+                f.write("".join("v " + _g(*v) + "\n" for v in m.vertices))
+                f.write("".join("f %d %d %d\n" % tuple(r + 1)
+                                for r in m.faces))
+        elif kind == "serialized":
+            mesh_io.save_serialized(path, m, name=m.id)
+        else:
+            _write_ply(path, m.vertices, m.faces, m.uvs,
+                       ascii=m.uvs is not None)
+        emitter = ("" if m.emitter is None else
+                   f'<emitter type="area"><rgb name="radiance" value="'
+                   f'{_g(*m.emitter["radiance"])}"/></emitter>')
+        body.append(
+            f'<shape type="{kind}" id="{m.id}">'
+            f'<string name="filename" value="{name}"/>'
+            f'<bsdf type="diffuse"><rgb name="reflectance" value="'
+            f'{_g(*m.bsdf["reflectance"])}"/></bsdf>{emitter}</shape>')
+    xml = f"""<scene version="2.0.0">
+  <integrator type="path">
+    <integer name="max_depth" value="{render['max_depth']}"/>
+    <integer name="rr_depth" value="{render['rr_depth']}"/>
+  </integrator>
+  <sensor type="perspective">
+    <float name="fov" value="{_g(sensor['fov'])}"/>
+    <transform name="to_world">
+      <matrix value="{_g(*np.asarray(sensor['to_world']).reshape(-1))}"/>
+    </transform>
+    <film type="hdrfilm">
+      <integer name="width" value="{render['width']}"/>
+      <integer name="height" value="{render['height']}"/>
+    </film>
+    <sampler type="independent">
+      <integer name="sample_count" value="{render['spp']}"/>
+    </sampler>
+  </sensor>
+  {chr(10).join('  ' + b for b in body)}
+</scene>
+"""
+    path = os.path.join(d, "gallery.xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    return path
+
+
+# phase 4's scene from files: its images' seed
+FILE_SEED = 21
+
+
+def write_file_scene(d, medium=True):
+    """A small scene from files in directory `d` (scene.xml, $res square
+    at $spp spp, 32 and 2 by default): an OBJ floor with uvs and a normal
+    under a float EXR bitmap albedo, a binary-PLY blob, a disk under an
+    8-bit PNG bitmap (read by the port's own codec), a cylinder, a
+    rectangle with flip_normals turning it to the camera, an envmap from
+    a half EXR, and with `medium` a null cube holding a heterogeneous
+    medium over a .vol density grid (HG, g 0.3; volpath, else path). The
+    bitmaps' paths are absolute: the loader resolves an envmap's, a
+    mesh's and a grid's file against the scene's directory, not a
+    texture's. Returns the XML's path and the arrays the two bitmaps and
+    the envmap decode to (the bitmaps linearised, as no `raw` is set)."""
+    from mitsuba2_tpu_torch.core import io_bitmap, io_vol
+    from mitsuba2_tpu_torch.scene import presets
+    rng = np.random.default_rng(FILE_SEED)
+    albedo = rng.uniform(0.05, 0.95, (16, 16, 3)).astype(np.float32)
+    io_bitmap.write_exr(os.path.join(d, "albedo.exr"), albedo, half=False)
+    stripes = np.zeros((8, 8, 3), np.float32)
+    stripes[:, ::2] = (0.9, 0.2, 0.1)
+    stripes[:, 1::2] = rng.uniform(0.1, 0.9, 3)
+    io_bitmap.write(os.path.join(d, "stripes.png"), stripes)
+    io_bitmap.write_exr(os.path.join(d, "sky.exr"), rng.uniform(
+        0.2, 2.0, (16, 32, 3)).astype(np.float32), half=True)
+    io_vol.write_vol(os.path.join(d, "grid.vol"), rng.uniform(
+        0.0, 3.0, (6, 6, 6)).astype(np.float32), (0.5, 0.5, -0.5),
+        (1.5, 1.5, 0.5))
+    with open(os.path.join(d, "floor.obj"), "w") as f:
+        f.write("v -3 0 -3\nv 3 0 -3\nv 3 0 3\nv -3 0 3\n"
+                "vt 0 0\nvt 2 0\nvt 2 2\nvt 0 2\nvn 0 1 0\n"
+                "f 1/1/1 4/4/1 3/3/1 2/2/1\n")
+    v, faces = presets._icosphere(1)
+    _write_ply(os.path.join(d, "blob.ply"),
+               (v * 0.5 + np.float32([-1.0, 0.5, 0.5])).astype(np.float32),
+               faces)
+    med = ("""
+  <shape type="cube">
+    <transform name="to_world"><scale value="0.5"/>
+      <translate x="1" y="1" z="0"/></transform>
+    <bsdf type="null"/>
+    <medium type="heterogeneous" name="interior">
+      <volume name="density" type="gridvolume">
+        <string name="filename" value="grid.vol"/></volume>
+      <float name="sigma_t" value="1.5"/>
+      <rgb name="albedo" value="0.8 0.7 0.6"/>
+      <phase type="hg"><float name="g" value="0.3"/></phase>
+    </medium>
+  </shape>""" if medium else "")
+    xml = f"""<scene version="2.0.0">
+  <default name="res" value="32"/>
+  <default name="spp" value="2"/>
+  <integrator type="{'volpath' if medium else 'path'}">
+    <integer name="max_depth" value="3"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="50"/>
+    <transform name="to_world">
+      <lookat origin="0 2.2 -4" target="0 0.6 0.5" up="0 1 0"/></transform>
+    <film type="hdrfilm"><integer name="width" value="$res"/>
+      <integer name="height" value="$res"/></film>
+    <sampler type="independent">
+      <integer name="sample_count" value="$spp"/></sampler>
+  </sensor>
+  <emitter type="envmap"><string name="filename" value="sky.exr"/></emitter>
+  <shape type="obj" id="floor"><string name="filename" value="floor.obj"/>
+    <bsdf type="diffuse"><texture name="reflectance" type="bitmap">
+      <string name="filename" value="{d}/albedo.exr"/></texture></bsdf>
+  </shape>
+  <shape type="ply" id="blob"><string name="filename" value="blob.ply"/>
+    <bsdf type="roughconductor"><float name="alpha" value="0.2"/></bsdf>
+  </shape>
+  <shape type="disk" id="disk">
+    <transform name="to_world"><scale value="0.6"/>
+      <rotate x="1" angle="-120"/><translate x="0.2" y="0.7" z="1.6"/>
+    </transform>
+    <bsdf type="diffuse"><texture name="reflectance" type="bitmap">
+      <string name="filename" value="{d}/stripes.png"/>
+      <string name="filter_type" value="nearest"/></texture></bsdf>
+  </shape>
+  <shape type="cylinder" id="post"><float name="radius" value="0.2"/>
+    <transform name="to_world"><rotate x="1" angle="-90"/>
+      <translate x="-1.6" y="0" z="1.2"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.3 0.6 0.3"/></bsdf>
+  </shape>
+  <shape type="rectangle" id="wall">
+    <boolean name="flip_normals" value="true"/>
+    <transform name="to_world"><scale x="3" y="1.5"/>
+      <translate y="1.5" z="3"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.7 0.7 0.75"/></bsdf>
+  </shape>{med}
+</scene>
+"""
+    path = os.path.join(d, "scene.xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    arrays = {"albedo": io_bitmap.srgb_to_linear(albedo),
+              "stripes": io_bitmap.srgb_to_linear(io_bitmap.read(
+                  os.path.join(d, "stripes.png"))),
+              "sky": io_bitmap.read(os.path.join(d, "sky.exr"))}
+    return path, arrays
+
+
+def file_scene_from_arrays(mt, arrays, device):
+    """write_file_scene's bitmaps and envmap given as arrays, in its
+    texture order: a scene whose atlas and envmap tables the file scene's
+    must equal byte for byte."""
+    from mitsuba2_tpu_torch.scene import shapes
+    quads = [shapes.rectangle(bsdf={"type": "diffuse", "reflectance": {
+        "type": "bitmap", "data": arrays[k], **kw}})
+        for k, kw in (("albedo", {}), ("stripes", {"filter_type": "nearest"}))]
+    return mt.build_scene(quads, {"type": "perspective",
+                                  "to_world": np.eye(4), "fov": 50.0},
+                          [{"type": "envmap", "data": arrays["sky"]}],
+                          device=device)
+
+
 def phase_kernels_vs_twins(torch, mt, dev):
     """Each path's scene (and the sphere field under "bvh8") and its
     kernels against their twins on probe rays; returns the paths' scenes
@@ -1478,6 +1712,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     ms and each kernel's launches (time_launch's records)."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**PATH_RENDER.get(path, RENDER))
+    render = mt.render_any if path in XML_PATHS else mt.render
     names = list(EXPECTED_LAUNCHES[path])
     # brute force (veach) reaches no kernel: nothing to record or time
     ks = (kernels_of(scene, BACKEND.get(path, "auto"))
@@ -1488,7 +1723,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     for k, f in rec.items():
         setattr(traverse, k, f)
     try:
-        mt.render(scene, cfg, seed=0)
+        render(scene, cfg, seed=0)
     finally:
         for k, f in orig.items():
             setattr(traverse, k, f)
@@ -1507,7 +1742,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
             wrapper(k).launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = mt.render(scene, cfg, seed=r)
+        img = render(scene, cfg, seed=r)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         run_counts = {k: wrapper(k).launches for k in names}
@@ -1579,6 +1814,112 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
             row["also_replaces"] = REPLACES[name][1]
         rows.append(row)
     return rows, med * 1e3, per
+
+
+# the paths whose scene is loaded from a Mitsuba XML file (mt.load_file)
+# and rendered through render_any, the loader's and the CLI's entry point
+XML_PATHS = {"xml_gallery"}
+# the spectral-fit columns of a material or emitter row
+# (spectra.pack_color): fitted in float64 from a color as given, so a
+# scene file's float32 colors fit otherwise than a preset's literals
+FIT_COLS = slice(3, 6)
+
+
+def load_xml_gallery(torch, mt, gallery, d):
+    """xml_gallery's scene: write_gallery_xml into `d`, then mt.load_file
+    on the card, the parse and mesh reads timed apart from the build (the
+    BVH, the cluster cut, the upload). Its tables are held to the gallery
+    preset's: every one byte-equal but for the spectral-fit columns of
+    mat_data and emitter_data, and its config to RENDER. Returns the
+    scene, its config and the XML's path."""
+    from mitsuba2_tpu_torch.scene import loader
+    path = write_gallery_xml(d)
+    build_s = []
+    build = loader.build_scene
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        return out
+    loader.build_scene = timed_build
+    try:
+        t0 = time.perf_counter()
+        scene, cfg = mt.load_file(path)
+        total = time.perf_counter() - t0
+    finally:
+        loader.build_scene = build
+    check(cfg.replace(spp_per_pass=RENDER["spp_per_pass"])
+          == mt.RenderConfig(**RENDER), f"xml_gallery: its config {cfg}")
+    same, fit_only = 0, []
+    for k, v in vars(gallery).items():
+        w = getattr(scene, k)
+        if not torch.is_tensor(v):
+            check(v == w, f"xml_gallery: {k} {w!r} is not the preset's {v!r}")
+        elif torch.equal(v, w):
+            same += 1
+        else:
+            keep = torch.ones(v.shape[-1], dtype=torch.bool, device=v.device)
+            keep[FIT_COLS] = False
+            check(k in ("mat_data", "emitter_data")
+                  and torch.equal(v[:, keep], w[:, keep]),
+                  f"xml_gallery: table {k} differs from the preset's")
+            fit_only.append(k)
+    log(f"phase 3: xml_gallery: loaded {os.path.basename(path)} "
+        f"(mesh_gallery(subdiv={SUBDIV}) from {len(os.listdir(d)) - 1} mesh "
+        f"files: ASCII PLY, binary PLY, .serialized, OBJ) in {total:.3f} s: "
+        f"parse and mesh reads {total - sum(build_s):.3f} s, build "
+        f"{sum(build_s):.3f} s; {same} tables byte-equal to the preset's, "
+        f"{fit_only} but for their spectral-fit columns {FIT_COLS.start}-"
+        f"{FIT_COLS.stop - 1} (fitted in float64 from the file's float32 "
+        f"colors)")
+    return scene, cfg, path
+
+
+def phase_cli(torch, mt, xml, scene, cfg, gallery, render_ms):
+    """`python -m mitsuba2_tpu_torch` on xml_gallery's file in a
+    subprocess on the card: its wall time, its kernel launches (its log
+    line; the counts start at 0 in its process) against the path's, and
+    its PFM bit-equal to the in-process render of the loaded scene at the
+    config's seed; that image against the gallery path's render of the
+    same seed (tables equal in rgb mode's columns)."""
+    import ast
+    out = os.path.join(os.path.dirname(xml), "out.pfm")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mitsuba2_tpu_torch", xml,
+                           "-o", out], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    launched = None
+    for line in proc.stderr.splitlines():
+        log(f"phase 3: cli: {line}")
+        if "kernel launches: " in line:
+            launched = ast.literal_eval(line.split("kernel launches: ")[1])
+    want = {k: n for k, n in EXPECTED_LAUNCHES["xml_gallery"].items() if n}
+    check(launched == want, f"the CLI launched {launched}, expected {want}")
+    img_cli = mt.read_bitmap(out)
+    img = mt.render_any(scene, cfg).cpu().numpy()
+    check(img_cli.shape == img.shape and np.array_equal(img_cli, img),
+          "the CLI's image is not the in-process render's bit for bit")
+    img_g = mt.render(gallery, mt.RenderConfig(**RENDER),
+                      seed=cfg.seed).cpu().numpy()
+    close = np.isclose(img, img_g, rtol=1e-3, atol=1e-4).all(-1).mean()
+    log(f"phase 3: xml_gallery: the CLI (python -m mitsuba2_tpu_torch "
+        f"gallery.xml -o out.pfm, a process of its own: torch import, "
+        f"kernel library load, XML load, build, render, PFM write) took "
+        f"{wall:.2f} s wall, launches {launched}; its PFM bit-equal to "
+        f"load_file + render_any in process; against the gallery path's "
+        f"render: {close:.4f} of pixels within rtol 1e-3/atol 1e-4, "
+        f"{'bit-equal' if np.array_equal(img, img_g) else 'not bit-equal'}; "
+        f"render median {render_ms['xml_gallery']:.1f} ms beside the "
+        f"gallery's {render_ms['gallery']:.1f} ms")
+    check(close >= 0.99, "xml_gallery's render is not the gallery's")
 
 
 def phase_tracking(torch, mt, path, scene):
@@ -1757,6 +2098,61 @@ def phase_small_renders(torch, mt, dev):
             f"(limit {rtol:g}) {'ok' if good else 'FAIL'}; {1 - close:.4f} of "
             f"pixels beyond rtol 1e-3/atol 1e-4")
         check(good, f"{name}: the card's image mean is not the CPU's")
+    _file_scene(torch, mt, dev)
+
+
+def _tables(obj, prefix=""):
+    """An atlas' or envmap's tensors by name, its distribution's too."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(_tables(v, f"{prefix}{f.name}."))
+        elif hasattr(v, "shape"):
+            out[prefix + f.name] = v
+    return out
+
+
+def _file_scene(torch, mt, dev):
+    """write_file_scene's scene (an EXR and a PNG bitmap, an EXR envmap, a
+    .vol grid, a disk, a cylinder, a flip_normals rectangle) loaded on the
+    card and on the CPU: its atlas and envmap tables byte-equal to the
+    same images given as arrays on both, and the card's volpath render
+    against the CPU's to this phase's limits."""
+    import tempfile
+    d = tempfile.mkdtemp()
+    try:
+        path, arrays = write_file_scene(d)
+        t0 = time.perf_counter()
+        scene_c, cfg = mt.load_file(path, device="cpu")
+        scene_g, _ = mt.load_file(path)
+        load_s = time.perf_counter() - t0
+        ref = file_scene_from_arrays(mt, arrays, "cpu")
+        for what in ("textures", "envmap"):
+            want = _tables(getattr(ref, what))
+            for scene in (scene_c, scene_g):
+                got = _tables(getattr(scene, what))
+                check(got.keys() == want.keys() and all(
+                    got[k].cpu().numpy().tobytes() == v.numpy().tobytes()
+                    for k, v in want.items()), f"the file scene's {what} "
+                      "tables are not those of its arrays")
+        check(scene_c.medium_grid is not None and cfg.integrator == "volpath",
+              "the file scene lost its medium")
+        img_c = mt.render_any(scene_c, cfg, seed=5, device="cpu").numpy()
+        img_g = mt.render_any(scene_g, cfg, seed=5).cpu().numpy()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
+    rel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
+    good = np.isfinite(img_g).all() and close >= 0.99 and rel <= 1e-3
+    log(f"phase 4: scene from files (OBJ, PLY, disk, cylinder, flip_normals; "
+        f"EXR and PNG bitmaps, EXR envmap, .vol grid), loaded on the CPU and "
+        f"the card in {load_s:.2f} s: atlas ({scene_c.textures.data.shape[0]} "
+        f"textures) and envmap tables byte-equal to the arrays' build; "
+        f"{cfg.width}x{cfg.height} volpath card vs CPU: {close:.4f} of "
+        f"pixels within rtol 1e-3/atol 1e-4, mean rel diff {rel:.2e} "
+        f"{'ok' if good else 'FAIL'}")
+    check(good, "the file scene's card render disagrees with the CPU's")
 
 
 # ---------------------------------------------------------------------------
@@ -2813,12 +3209,17 @@ def main():
         log(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
         return out
 
+    import tempfile
+    xml_dir = tempfile.mkdtemp()
     try:
         card = timed(0, phase_device, torch)
         import mitsuba2_tpu_torch as mt
         dev = torch.device(DEVICE)
         timed(1, phase_build)
         scenes, extra = timed(2, phase_kernels_vs_twins, torch, mt, dev)
+        scenes["xml_gallery"], xml_cfg, xml = timed(
+            "3 (xml_gallery, load)", load_xml_gallery, torch, mt,
+            scenes["gallery"], xml_dir)
         by_name, render_ms, launches = {}, {}, {}
         for path, scene in scenes.items():
             with path_switches(path):
@@ -2834,9 +3235,13 @@ def main():
                 with path_switches(path):
                     timed(f"3 ({path}, tracking)", phase_tracking, torch, mt,
                           path, scene)
+        timed("3 (xml_gallery, cli)", phase_cli, torch, mt, xml,
+              scenes["xml_gallery"], xml_cfg, scenes["gallery"], render_ms)
         rows = list(by_name.values())
         timed(4, phase_small_renders, torch, mt, dev)
         for path, scene in scenes.items():
+            if path in XML_PATHS:   # the gallery's tables: profiled there
+                continue
             with path_switches(path):
                 timed(f"5 ({path})", phase_profile, torch, mt, path, scene,
                       render_ms[path])
@@ -2848,6 +3253,8 @@ def main():
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(xml_dir, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

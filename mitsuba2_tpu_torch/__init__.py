@@ -17,24 +17,79 @@ boundaries included, under RenderConfig(reparam=True) (diff/reparam.py):
     img = mt.render(scene, cfg)
     image, loss, grads = mt.render_l2_grad(scene, cfg, target=img * 0.5)
 
+A scene file goes through the Mitsuba XML loader, and the command line
+renders one (`python -m mitsuba2_tpu_torch scene.xml -o out.pfm`):
+
+    scene, cfg = mt.load_file("scene.xml", spp=16)   # $spp = 16
+    mt.write_bitmap("out.pfm", mt.render_any(scene, cfg).cpu().numpy())
+
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
 a CUDA device and without that argument they raise. Importing this
 package touches no CUDA device and builds no kernel: the kernels are
 built with nvcc at their first launch. It imports torch, numpy and the
 standard library only, never jax or mitsuba2_tpu.
 """
-from .config import RenderConfig
+from .config import RenderConfig, parse_variant, variants
 from .convert import scene_from_numpy
+from .core.io_bitmap import read as read_bitmap, write as write_bitmap
 from .scene.presets import (cornell_box, furnace, instanced_field,
                              kitchen_sink, mesh_gallery, smoke_box,
                              veach_mis)
 from .scene.scene import SceneData, build_scene, to_device
-from .render.integrators import render, render_pass
+from .render.integrators import render, render_any, render_pass
 from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
                    traverse)
 
 __all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
            "cornell_box", "furnace", "instanced_field", "kitchen_sink",
-           "mesh_gallery", "render", "render_and_grad", "render_l2_grad",
-           "render_pass", "scene_from_numpy", "scene_with", "smoke_box", "to_device",
-           "traverse", "veach_mis"]
+           "load_dict", "load_file", "load_string", "mesh_gallery",
+           "parse_variant", "read_bitmap", "render", "render_and_grad",
+           "render_any", "render_l2_grad", "render_pass", "scene_from_numpy",
+           "scene_with", "set_variant", "smoke_box", "to_device", "traverse",
+           "variant", "variants", "veach_mis", "write_bitmap"]
+
+# set_variant / variant: the reference's variant switcher, as the JAX
+# package has it: a default applied to the configs the loaders return
+_variant = None
+
+
+def set_variant(name: str) -> None:
+    """Select the default variant of scenes loaded from now on
+    (mitsuba.set_variant). A variant the port does not render (the
+    _polarized and _double ones) raises by name when a scene is loaded."""
+    global _variant
+    parse_variant(name)  # validate
+    _variant = name
+
+
+def variant():
+    """The active default variant string, or None (mitsuba.variant())."""
+    return _variant
+
+
+def _apply_variant(out):
+    scene, config = out
+    if _variant is not None:
+        config = config.replace(**parse_variant(_variant))
+    return scene, config
+
+
+def load_file(path: str, device=None, **params):
+    """Parse a scene XML file -> (SceneData on `device`, RenderConfig).
+    Keywords substitute `$var` parameters (the CLI's -D); `sensor_index`
+    picks a <sensor>. The active set_variant() applies to the config."""
+    from .scene import loader
+    return _apply_variant(loader.load_file(path, device=device, **params))
+
+
+def load_string(xml: str, base_dir: str = "", device=None, **params):
+    """Parse scene XML text -> (SceneData on `device`, RenderConfig)."""
+    from .scene import loader
+    return _apply_variant(loader.load_string(xml, base_dir, device=device,
+                                             **params))
+
+
+def load_dict(d: dict, device=None):
+    """Build a scene from a nested dict (mitsuba.load_dict) on `device`."""
+    from .scene import loader
+    return _apply_variant(loader.load_dict(d, device=device))

@@ -1,0 +1,114 @@
+"""Command-line renderer: the `mitsuba` binary of the port.
+
+    python -m mitsuba2_tpu_torch scene.xml -o out.pfm -D spp=64 -m rgb
+
+The JAX package's flags: `-o` output (exr/pfm/hdr/png/...; default the
+scene's name with .exr), `-D key=value` XML parameter substitution, `-m`
+the variant, `-s` samples per pixel, `--sensor` the <sensor> to render,
+`-v` verbose; and `--device` (default cuda), the counterpart of the JAX
+CLI's JAX_PLATFORMS=cpu: without a CUDA device and without `--device cpu`
+it exits non-zero. AOVs (`-a`) and the polarized variants raise
+NotImplementedError by name until the port renders them.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="mitsuba2_tpu_torch",
+        description="Differentiable renderer on CUDA (Mitsuba 2 rebuild)")
+    ap.add_argument("scene", help="scene file (.xml)")
+    ap.add_argument("-o", "--output", default=None,
+                    help="output image (exr/pfm/png/...; default: scene "
+                         "name .exr)")
+    ap.add_argument("-D", "--define", action="append", default=[],
+                    metavar="key=value", help="XML $parameter substitution")
+    ap.add_argument("-m", "--mode", default=None,
+                    metavar="{mono,rgb,spectral}[_polarized][_double]",
+                    help="variant string, e.g. rgb or spectral")
+    ap.add_argument("-s", "--spp", type=int, default=None,
+                    help="override samples per pixel")
+    ap.add_argument("-a", "--aov", action="append", default=[],
+                    help="also write AOV images (not rendered yet)")
+    ap.add_argument("--sensor", type=int, default=0,
+                    help="render the Nth <sensor> of the scene (default 0)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to render on (default cuda)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    from .config import parse_variant
+    if args.mode is not None:
+        try:
+            parse_variant(args.mode)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.aov:
+        raise NotImplementedError(
+            f"mitsuba2_tpu_torch does not render AOVs yet (-a "
+            f"{' -a '.join(args.aov)})")
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(levelname).1s %(message)s")
+    log = logging.getLogger("mitsuba2_tpu_torch")
+
+    from .device import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.exit(1, f"{ap.prog}: {e} (--device cpu renders on the CPU)\n")
+
+    import torch
+
+    from .core import io_bitmap
+    from .kernels import traverse
+    from .render.integrators import render_any
+    from .scene import loader
+
+    params = {}
+    for d in args.define:
+        k, _, v = d.partition("=")
+        params[k] = v
+
+    t0 = time.time()
+    scene, config = loader.load_file(args.scene, sensor_index=args.sensor,
+                                     device=device, **params)
+    log.info("loaded %s (%d prims) in %.2fs", args.scene, scene.n_prims,
+             time.time() - t0)
+    if args.mode:
+        config = config.replace(**parse_variant(args.mode))
+    if args.spp:
+        config = config.replace(spp=args.spp,
+                                spp_per_pass=min(config.spp_per_pass, args.spp))
+
+    log.info("rendering %dx%d spp=%d depth=%d mode=%s on %s",
+             config.width, config.height, config.spp, config.max_depth,
+             config.color_mode, device)
+    before = traverse.launch_counts()
+    t0 = time.time()
+    img = render_any(scene, config, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    n_rays = config.width * config.height * config.spp * \
+        (1 + 2 * (config.max_depth - 1))
+    log.info("rendered in %.2fs (%.2f Mrays/s incl. kernel builds)", dt,
+             n_rays / dt / 1e6)
+    launched = {k: n - before[k] for k, n in traverse.launch_counts().items()
+                if n > before[k]}
+    log.info("kernel launches: %s", launched)
+
+    out = args.output or (args.scene.rsplit(".", 1)[0] + ".exr")
+    io_bitmap.write(out, img.float().cpu().numpy())
+    log.info("wrote %s", out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -92,3 +92,38 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def variant(self) -> str:
+        """The reference-style variant string of this config."""
+        return (self.color_mode
+                + ("_polarized" if self.polarized else "")
+                + ("_double" if self.dtype == "float64" else ""))
+
+
+def variants() -> tuple:
+    """The JAX package's variant strings (mitsuba.variants()):
+    {mono,rgb,spectral}[_polarized][_double]. The port renders the
+    unpolarized single-precision ones; a config of the others raises."""
+    return tuple(mode + pol + dbl for mode in COLOR_MODES
+                 for pol in ("", "_polarized") for dbl in ("", "_double"))
+
+
+def parse_variant(name: str) -> dict:
+    """Variant string -> RenderConfig.replace keywords (the CLI's -m).
+    Raises ValueError on a name outside variants()."""
+    mode, kw = name, {}
+    if mode.endswith("_double"):
+        mode, kw["dtype"] = mode[: -len("_double")], "float64"
+    else:
+        kw["dtype"] = "float32"
+    if mode.endswith("_polarized"):
+        mode, kw["polarized"] = mode[: -len("_polarized")], True
+    else:
+        kw["polarized"] = False
+    if mode not in COLOR_MODES:
+        raise ValueError(
+            f"unknown variant {name!r}: expected "
+            "{mono,rgb,spectral}[_polarized][_double]")
+    kw["color_mode"] = mode
+    return kw

@@ -91,6 +91,14 @@ class Transform4:
         self.matrix = np.asarray(matrix, np.float32).reshape(4, 4)
 
     @staticmethod
+    def from_matrix(mat) -> "Transform4":
+        return Transform4(mat)
+
+    @staticmethod
+    def identity() -> "Transform4":
+        return Transform4(np.eye(4, dtype=np.float32))
+
+    @staticmethod
     def translate(v) -> "Transform4":
         mat = np.eye(4, dtype=np.float32)
         mat[:3, 3] = np.asarray(v, np.float32)

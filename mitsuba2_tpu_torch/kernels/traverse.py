@@ -643,6 +643,19 @@ def dense_any_hit(ccs, count, feat, ox, oy, oz, dx, dy, dz, t_max,
 
 dense_any_hit.launches = 0
 
+# the kernel wrappers above, K1-K8's closest and any hits
+WRAPPERS = ("cluster_closest_hit", "cluster_any_hit",
+            "inst_cluster_closest_hit", "inst_cluster_any_hit",
+            "bvh_closest_hit", "bvh_any_hit", "inst_bvh_closest_hit",
+            "inst_bvh_any_hit", "bvh8_closest_hit", "bvh8_any_hit",
+            "bvh8mxu_closest_hit", "bvh8mxu_any_hit", "dense_closest_hit",
+            "dense_any_hit")
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches so far, by name."""
+    return {k: globals()[k].launches for k in WRAPPERS}
+
 
 # ---------------------------------------------------------------------------
 # Plain twins: a vectorised lane walk, each lane with its own cursor. The

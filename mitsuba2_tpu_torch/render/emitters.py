@@ -85,11 +85,11 @@ def build_envmap(desc: dict) -> dict:
     byte-equal to the JAX package's EnvMapData. The importance table
     carries alias tables unless MI_ENVMAP_ALIAS (the JAX package's
     switch, read here) is not "1": then NEE inverts its CDFs."""
-    if "data" not in desc:
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not read image files yet (envmap "
-            f"filename {desc.get('filename')!r}); pass the image as 'data'")
-    img = np.asarray(desc["data"], np.float32)
+    if "data" in desc:
+        img = np.asarray(desc["data"], np.float32)
+    else:   # read as stored: the JAX package linearises no envmap file
+        from ..core import io_bitmap
+        img = io_bitmap.read(desc["filename"])
     if img.ndim == 2:
         img = img[..., None]
     if img.shape[-1] == 1:

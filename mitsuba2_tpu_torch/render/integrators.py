@@ -250,3 +250,13 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
             image = img_p if image is None else image + img_p
             wsum += w_p
     return film_mod.develop(image, wsum)
+
+
+def render_any(scene, config: RenderConfig, seed: int = None, device=None):
+    """Top-level integrator dispatch on `config.integrator`: the loader's
+    and the CLI's entry point (the JAX package's render_any). The port
+    renders path, volpath and volpathmis, each an (H, W, C) image; the
+    JAX package's other branches (direct, depth, aov, moment, stokes)
+    come with their integrators, and until then RenderConfig refuses them
+    by name, so every config reaching here takes render()."""
+    return render(scene, config, seed, device)

@@ -101,9 +101,9 @@ def _uv_transform(desc: dict) -> np.ndarray:
 def build_texture(desc: dict, name: str = "") -> TextureBuild:
     """Texture descriptor -> staged host texture.
 
-    bitmap: {"type": "bitmap", "data": (H, W, 3 | 1) array, "wrap_mode",
-             "filter_type", "to_uv"} (an image file raises: the port reads
-             none yet);
+    bitmap: {"type": "bitmap", "data": (H, W, 3 | 1) array or "filename"
+             (read by core/io_bitmap, linearised unless "raw"),
+             "wrap_mode", "filter_type", "to_uv"};
     checkerboard: {"type": "checkerboard", "color0", "color1", "to_uv"},
              a 2x2 nearest texture with a repeat wrap."""
     t = desc.get("type")
@@ -120,12 +120,15 @@ def build_texture(desc: dict, name: str = "") -> TextureBuild:
         return TextureBuild(data, WRAP_REPEAT, FILTER_NEAREST,
                             _uv_transform(desc), name)
     if t == "bitmap":
-        if "data" not in desc:
-            raise NotImplementedError(
-                "mitsuba2_tpu_torch does not read image files yet (bitmap "
-                f"filename {desc.get('filename')!r}); pass the image as "
-                "'data'")
-        data = np.asarray(desc["data"], np.float32)
+        if "data" in desc:
+            data = np.asarray(desc["data"], np.float32)
+        else:
+            # as the JAX package reads a file: the sRGB transfer undone
+            # unless `raw` is set, whatever the format (an EXR's too)
+            from ..core import io_bitmap
+            data = io_bitmap.read(desc["filename"])
+            if not desc.get("raw", False):
+                data = io_bitmap.srgb_to_linear(data)
         if data.ndim == 2:
             data = data[..., None]
         if data.shape[-1] == 1:

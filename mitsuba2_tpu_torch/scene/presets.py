@@ -184,6 +184,11 @@ def mesh_gallery(subdiv: int = 4, grid: tuple = (3, 2),
     """The BVH-bound scene: a Cornell-style room holding a grid of
     displaced icosphere blobs, 20*4^subdiv triangles each (subdiv=4 with
     the 3x2 grid: 30 720 blob triangles + 12 room triangles)."""
+    return build_scene(*mesh_gallery_shapes(subdiv, grid), device=device)
+
+
+def mesh_gallery_shapes(subdiv: int = 4, grid: tuple = (3, 2)):
+    """mesh_gallery's shapes and sensor, before the build."""
     white = {"type": "diffuse", "reflectance": WHITE}
     X, Y, Z = 3.0, 2.0, 3.0
     s = [
@@ -218,7 +223,7 @@ def mesh_gallery(subdiv: int = 4, grid: tuple = (3, 2),
     cam = Transform4.look_at(origin=[X / 2, 1.0, -2.6],
                              target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
     sensor = {"type": "perspective", "to_world": cam.matrix, "fov": 50.0}
-    return build_scene(s, sensor, device=device)
+    return s, sensor
 
 
 def instanced_field(n: int = 64, subdiv: int = 3, flatten: bool = False,

@@ -1,6 +1,6 @@
 """Procedural shape constructors (host, numpy; counterpart of
-scene/shapes.py: triangle meshes and analytic spheres) and shared-BLAS
-instances."""
+scene/shapes.py: rectangles, cubes, disks and cylinders as triangle meshes,
+analytic spheres) and shared-BLAS instances."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,8 +17,7 @@ PRIM_SPHERE = 1
 @dataclasses.dataclass
 class MeshData:
     """One shape: a triangle mesh or an analytic sphere, with its scene
-    wiring. `interior` exists so a scene naming it can be refused by
-    name."""
+    wiring (BSDF, emitter and interior medium descriptors)."""
     vertices: np.ndarray                   # (V, 3) f32
     faces: np.ndarray                      # (F, 3) i32
     normals: Optional[np.ndarray] = None   # (V, 3) f32 vertex normals
@@ -34,6 +33,18 @@ class MeshData:
 
     def copy(self) -> "MeshData":
         return dataclasses.replace(self)
+
+    def flipped(self) -> "MeshData":
+        """`flip_normals` (shape.cpp's property): reversed winding and
+        negated vertex normals; a sphere flips its analytic normal."""
+        out = dataclasses.replace(self)
+        if self.sphere_center is not None:
+            out.sphere_flip = not self.sphere_flip
+            return out
+        out.faces = np.ascontiguousarray(self.faces[:, [0, 2, 1]])
+        if self.normals is not None:
+            out.normals = -self.normals
+        return out
 
     def transformed(self, to_world) -> "MeshData":
         """Apply a host 4x4 matrix. A sphere's center moves and its radius
@@ -100,6 +111,42 @@ def sphere(center=(0, 0, 0), radius=1.0, bsdf=None, emitter=None,
                     faces=np.zeros((0, 3), np.int32),
                     sphere_center=np.asarray(center, np.float32),
                     sphere_radius=float(radius),
+                    bsdf=bsdf, emitter=emitter, id=id)
+
+
+def disk(bsdf=None, emitter=None, segments: int = 64, id="") -> MeshData:
+    """Unit disk on z=0 (shapes/disk.cpp), a triangle fan."""
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+    v = np.concatenate([[[0, 0, 0]], rim]).astype(np.float32)
+    f = np.stack([np.zeros(segments, np.int64),
+                  np.arange(1, segments + 1),
+                  np.roll(np.arange(1, segments + 1), -1)], -1).astype(np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (segments + 1, 1))
+    uv = (v[:, :2] + 1) / 2
+    return MeshData(vertices=v, faces=f, normals=n, uvs=uv.astype(np.float32),
+                    bsdf=bsdf, emitter=emitter, id=id)
+
+
+def cylinder(radius=1.0, length=1.0, segments: int = 64, bsdf=None,
+             emitter=None, id="") -> MeshData:
+    """Cylinder along +z from 0 to length (shapes/cylinder.cpp), open
+    ends."""
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    ring = np.stack([radius * np.cos(ang), radius * np.sin(ang)], -1)
+    v0 = np.concatenate([ring, np.zeros((segments, 1))], -1)
+    v1 = np.concatenate([ring, np.full((segments, 1), length)], -1)
+    v = np.concatenate([v0, v1]).astype(np.float32)
+    n = np.concatenate(
+        [np.concatenate([ring / radius, np.zeros((segments, 1))], -1)] * 2)
+    faces = []
+    for i in range(segments):
+        j = (i + 1) % segments
+        faces += [[i, j, segments + i], [j, segments + j, segments + i]]
+    uv = np.stack([np.tile(ang / (2 * np.pi), 2),
+                   np.concatenate([np.zeros(segments), np.ones(segments)])], -1)
+    return MeshData(vertices=v, faces=np.asarray(faces, np.int32),
+                    normals=n.astype(np.float32), uvs=uv.astype(np.float32),
                     bsdf=bsdf, emitter=emitter, id=id)
 
 

@@ -174,9 +174,44 @@ def test_build_envmap_tables_byte_equal(name, alias, monkeypatch):
     assert (tabs["alias_p"] is None) == (alias == "0")
 
 
-def test_envmap_from_file_raises_by_name():
-    with pytest.raises(NotImplementedError, match="image files"):
-        em.build_envmap({"type": "envmap", "filename": "sky.exr"})
+def _env_files(tmp_path):
+    """An envmap image as a half EXR and as an RGBE file."""
+    img = _env_image(8, 16, "noise") * np.float32(2.0)
+    paths = {ext: str(tmp_path / f"sky{ext}") for ext in (".exr", ".hdr")}
+    from mitsuba2_tpu_torch.core import io_bitmap
+    io_bitmap.write_exr(paths[".exr"], img, half=True)
+    io_bitmap.write(paths[".hdr"], img)
+    return paths
+
+
+def test_envmap_from_file_raises_by_name(tmp_path):
+    """An envmap read from an image file builds since the scene loader's
+    slice; a scene seen by a sensor the port lacks (orthographic) still
+    raises by name."""
+    cam = {"type": "orthographic", "to_world": np.eye(4)}
+    plane = tpresets.shapes.rectangle(bsdf={"type": "diffuse"})
+    with pytest.raises(NotImplementedError, match="orthographic"):
+        mt.build_scene([plane], cam, [{"type": "envmap", "filename":
+                                       _env_files(tmp_path)[".exr"]}],
+                       device="cpu")
+
+
+@pytest.mark.parametrize("ext", [".exr", ".hdr"])
+def test_envmap_from_file_matches_jax(tmp_path, ext):
+    """build_envmap of a file: the JAX package's tables of the same file
+    byte for byte, and the port's of the array it decodes to (envmap
+    files are not linearised)."""
+    from mitsuba2_tpu_torch.core import io_bitmap
+    path = _env_files(tmp_path)[ext]
+    tabs = em.build_envmap({"type": "envmap", "filename": path})
+    ej = jem.build_envmap({"type": "envmap", "filename": path})
+    own = em.build_envmap({"type": "envmap", "data": io_bitmap.read(path)})
+    for k in em.ENV_FIELDS:
+        a = getattr(ej.distr, k) if k in distr.FIELDS else getattr(ej, k)
+        assert (a is None) == (tabs[k] is None) == (own[k] is None), k
+        if a is not None:
+            assert np.asarray(a).tobytes() == tabs[k].tobytes(), k
+            assert own[k].tobytes() == tabs[k].tobytes(), k
 
 
 # ---------------------------------------------------------------------------
@@ -426,26 +461,39 @@ def test_envmap_spectral_coeff_bake_matches_lattice_path():
         em.envmap_eval(no_bake, dv, None, "rgb").ch[0].numpy())
 
 
-def test_textured_projector_raises_by_name():
-    """A projector's slide read from an image file raises by name; one
-    given as an array (since the textures' slice) packs the JAX package's
-    row inside a build's texture staging."""
+def test_textured_projector_raises_by_name(tmp_path):
+    """A projector's slide packs the JAX package's row inside a build's
+    texture staging, given as an array (since the textures' slice) or read
+    from a PNG (since the scene loader's: the same row and texels as the
+    array the file decodes to, linearised); a scene seen by a sensor the
+    port lacks (radiancemeter) still raises by name."""
+    from mitsuba2_tpu_torch.core import io_bitmap
     from mitsuba2_tpu_torch.render import spectra
-    with pytest.raises(NotImplementedError, match="image files"):
-        em.pack_emitter({"type": "projector", "irradiance": {
-            "type": "bitmap", "filename": "slide.png"}})
-    desc = {"type": "projector", "irradiance": {
-        "type": "bitmap", "data": np.full((4, 4, 3), 2.0, np.float32)}}
-    with spectra.texture_staging() as staged:
-        row_t = em.pack_emitter(desc)[1]
     from mitsuba2_tpu.render import spectra as jspectra
-    jspectra.begin_texture_staging()
-    try:
-        row_j = jem.pack_emitter(desc)[1]
-    finally:
-        jspectra.end_texture_staging()
-    assert row_t.tobytes() == row_j.tobytes() and row_t[7] == 3.0
-    assert len(staged) == 1
+    slide = str(tmp_path / "slide.png")
+    io_bitmap.write(slide, np.linspace(0, 1, 48, dtype=np.float32).reshape(
+        4, 4, 3))
+    data = io_bitmap.srgb_to_linear(io_bitmap.read(slide))
+    for tex, fill in (({"data": np.full((4, 4, 3), 2.0, np.float32)}, 3.0),
+                      ({"filename": slide}, None)):
+        desc = {"type": "projector",
+                "irradiance": {"type": "bitmap", **tex}}
+        with spectra.texture_staging() as staged:
+            row_t = em.pack_emitter(desc)[1]
+        jspectra.begin_texture_staging()
+        try:
+            row_j = jem.pack_emitter(desc)[1]
+        finally:
+            jspectra.end_texture_staging()
+        assert row_t.tobytes() == row_j.tobytes() and len(staged) == 1
+        if fill is not None:
+            assert row_t[7] == fill
+        else:
+            assert np.array_equal(staged[0].data, data)
+    sensor = {"type": "radiancemeter", "to_world": np.eye(4)}
+    plane = tpresets.shapes.rectangle(bsdf={"type": "diffuse"})
+    with pytest.raises(NotImplementedError, match="radiancemeter"):
+        mt.build_scene([plane], sensor, [desc], device="cpu")
 
 
 # ---------------------------------------------------------------------------

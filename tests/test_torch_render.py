@@ -186,6 +186,39 @@ img = mt.render(mt.smoke_box(4, device="cpu"),
                 cfg.replace(integrator="volpath"), device="cpu")
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
 assert media.MED_W == 8 and volpath._MAX_NULL == 3 and io_vol.read_vol
+import contextlib, io, runpy, tempfile
+import numpy as np
+from mitsuba2_tpu_torch import cli, native
+from mitsuba2_tpu_torch.core import io_bitmap
+from mitsuba2_tpu_torch.scene import loader, mesh_io
+d = tempfile.mkdtemp()
+io_bitmap.write(d + "/t.png", np.full((2, 3, 3), 0.5, np.float32))
+assert io_bitmap.read(d + "/t.png").shape == (2, 3, 3)
+assert "imageio" not in sys.modules and "PIL" not in sys.modules
+with open(d + "/m.obj", "w") as f:
+    f.write("v 0 0 1\\nv 1 0 1\\nv 0 1 1\\nf 1 2 3\\n")
+assert native.parse_obj_native(d + "/m.obj")[1].shape == (1, 3)
+xml = ('<scene version="2.0.0"><shape type="obj"><string name="filename" '
+       'value="m.obj"/><bsdf type="diffuse"><texture name="reflectance" '
+       f'type="bitmap"><string name="filename" value="{d}/t.png"/>'
+       '</texture></bsdf></shape><sensor type="perspective"><film '
+       'type="hdrfilm"><integer name="width" value="4"/><integer '
+       'name="height" value="4"/></film></sensor></scene>')
+with open(d + "/s.xml", "w") as f:
+    f.write(xml)
+scene, cfg = loader.load_file(d + "/s.xml", device="cpu")
+assert scene.n_prims == 1 and scene.textures is not None
+assert mesh_io.load_mesh(d + "/m.obj").faces.shape == (1, 3)
+assert cli.main([d + "/s.xml", "-o", d + "/o.pfm", "--device", "cpu"]) == 0
+assert mt.read_bitmap(d + "/o.pfm").shape == (4, 4, 3)
+out, sys.argv = io.StringIO(), ["mitsuba2_tpu_torch", "--help"]
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module("mitsuba2_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        assert e.code == 0
+assert "--device" in out.getvalue()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)

@@ -105,7 +105,7 @@ def test_to_device_and_default_device():
 @pytest.mark.parametrize("feature", ["sphere", "medium", "instance",
                                      "envmap", "texture", "plastic",
                                      "twosided", "orthographic"])
-def test_unsupported_features_raise_by_name(feature):
+def test_unsupported_features_raise_by_name(feature, tmp_path):
     from mitsuba2_tpu_torch.scene import shapes
     from mitsuba2_tpu_torch.scene.scene import build_scene
     mesh = shapes.rectangle(bsdf={"type": "diffuse"})
@@ -127,15 +127,25 @@ def test_unsupported_features_raise_by_name(feature):
         mesh = shapes.instance(shapes.shapegroup([metal, shapes.sphere()]),
                                np.eye(4))
     elif feature == "envmap":
-        emitters = ({"type": "envmap"},)
+        # envmaps render since the emitters' slice, read from an image
+        # file since the scene loader's: one seen by a sensor the port
+        # lacks (irradiancemeter)
+        emitters = ({"type": "envmap",
+                     "filename": _bitmap_files(tmp_path)[".exr"]},)
+        sensor["type"] = "irradiancemeter"
     elif feature == "texture":
-        mesh.bsdf = {"type": "diffuse",
-                     "reflectance": {"type": "bitmap", "filename": "x.exr"}}
+        # bitmaps read from image files build since the scene loader's
+        # slice: one seen by a sensor the port lacks (distant)
+        mesh.bsdf = {"type": "diffuse", "reflectance": {
+            "type": "bitmap", "filename": _bitmap_files(tmp_path)[".exr"]}}
+        sensor["type"] = "distant"
     elif feature == "plastic":
-        # the plastics render now, and textured roughness since the
-        # textures' slice: one read from an image file
-        mesh.bsdf = {"type": "roughplastic",
-                     "alpha": {"type": "bitmap", "filename": "x.exr"}}
+        # the plastics render now, textured roughness since the textures'
+        # slice, and read from an image file since the scene loader's:
+        # one seen by a moving camera (motion blur)
+        mesh.bsdf = {"type": "roughplastic", "alpha": {
+            "type": "bitmap", "filename": _bitmap_files(tmp_path)[".png"]}}
+        sensor["to_world_keys"] = [np.eye(4), np.eye(4)]
     elif feature == "twosided":
         # twosided renders now: twosided around a BSDF the port lacks
         # (blendbsdf, the first one, renders since the textures' slice)
@@ -143,11 +153,68 @@ def test_unsupported_features_raise_by_name(feature):
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
     names = {"sphere": "polarizer", "medium": "radiancemeter",
-             "instance": "retarder", "envmap": "envmap", "texture": "bitmap",
-             "plastic": "image files", "twosided": "measured",
+             "instance": "retarder", "envmap": "irradiancemeter",
+             "texture": "distant",
+             "plastic": "motion blur", "twosided": "measured",
              "orthographic": "orthographic"}
     with pytest.raises(NotImplementedError, match=names[feature]):
         build_scene([mesh], sensor, emitters, device="cpu")
+
+
+def _bitmap_files(tmp_path):
+    """One image as a float EXR and as an 8-bit PNG."""
+    from mitsuba2_tpu_torch.core import io_bitmap
+    img = np.random.default_rng(4).uniform(0.02, 0.98, (6, 10, 3)).astype(
+        np.float32)
+    paths = {ext: str(tmp_path / f"tex{ext}") for ext in (".exr", ".png")}
+    io_bitmap.write_exr(paths[".exr"], img, half=False)
+    io_bitmap.write(paths[".png"], img)
+    return paths
+
+
+@pytest.mark.parametrize("raw", [False, True])
+def test_bitmap_files_build_like_jax_and_arrays(tmp_path, raw):
+    """Bitmaps read from an EXR (an albedo) and a PNG (a roughness): the
+    atlas, its pyramid and the material rows byte-equal to the JAX
+    package's build of the same files, and to the port's build of the
+    arrays the files decode to (sRGB-linearised, the EXR too, unless
+    `raw` is set, as the JAX package reads them)."""
+    from mitsuba2_tpu.scene import shapes as jshapes
+    from mitsuba2_tpu.scene.scene import build_scene as jbuild
+    from mitsuba2_tpu_torch.core import io_bitmap
+    from mitsuba2_tpu_torch.scene import shapes
+    files = _bitmap_files(tmp_path)
+
+    def bsdfs(src):
+        return [{"type": "diffuse", "reflectance": {
+                    "type": "bitmap", **src(".exr")}},
+                {"type": "roughplastic", "alpha": {
+                    "type": "bitmap", "filter_type": "nearest",
+                    **src(".png")}}]
+
+    def from_file(ext):
+        return {"filename": files[ext], "raw": raw}
+
+    def from_array(ext):
+        data = io_bitmap.read(files[ext])
+        return {"data": data if raw else io_bitmap.srgb_to_linear(data)}
+    sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
+    with recorded_fields() as got:
+        st = mt.build_scene([shapes.rectangle(bsdf=b)
+                             for b in bsdfs(from_file)], sensor,
+                            device="cpu")
+        sa = mt.build_scene([shapes.rectangle(bsdf=b)
+                             for b in bsdfs(from_array)], sensor,
+                            device="cpu")
+    sj = jbuild([jshapes.rectangle(bsdf=b) for b in bsdfs(from_file)],
+                sensor)
+    assert_port_tables(jax_fields(sj), got[0], st)
+    for k in ("data", "info", "uvt", "mips"):
+        a = getattr(st.textures, k).numpy().tobytes()
+        assert a == np.asarray(getattr(sj.textures, k)).tobytes(), k
+        assert a == getattr(sa.textures, k).numpy().tobytes(), k
+    for k in ("mat_type", "mat_flags", "mat_data"):
+        assert torch.equal(getattr(st, k), getattr(sa, k)), k
 
 
 @pytest.mark.parametrize("what", ["spheres", "twosided", "textured"])

@@ -290,9 +290,28 @@ def test_slots_match_jax(name, illuminant):
         assert np.array_equal(a, b)
 
 
-def test_textured_slot_raises_by_name():
-    with pytest.raises(NotImplementedError, match="bitmap"):
-        spectra.pack_color({"type": "bitmap", "filename": "x.exr"})
+def test_textured_slot_raises_by_name(tmp_path):
+    """A bitmap read from an image file (since the scene loader's slice)
+    packs the JAX package's spectral slot, and the texels of the array it
+    decodes to, linearised; rendering it in the spectral_polarized variant
+    still raises by name."""
+    from mitsuba2_tpu_torch.core import io_bitmap
+    path = str(tmp_path / "x.exr")
+    io_bitmap.write_exr(path, np.random.default_rng(3).uniform(
+        0, 1, (4, 6, 3)).astype(np.float32))
+    desc = {"type": "bitmap", "filename": path}
+    with spectra.texture_staging() as staged:
+        row_t = spectra.pack_color(desc)
+    jspectra.begin_texture_staging()
+    try:
+        row_j = jspectra.pack_color(desc)
+    finally:
+        jspectra.end_texture_staging()
+    assert row_t.tobytes() == np.asarray(row_j).tobytes()
+    assert np.array_equal(staged[0].data, io_bitmap.srgb_to_linear(
+        io_bitmap.read(path)))
+    with pytest.raises(NotImplementedError, match="spectral_polarized"):
+        mt.RenderConfig(color_mode="spectral", polarized=True)
 
 
 @pytest.mark.parametrize("mode", ["spectral", "rgb", "mono"])
