@@ -4,9 +4,10 @@ Both packages draw the same PCG32 numbers in the same order and replay
 the same passes, so `render_l2_grad` gives the same image, loss and
 table gradients up to f32 rounding: on the Cornell box (brute force) and
 on mesh_gallery(subdiv=1) (the cluster walks' twins on the port's side,
-the JAX package's f32 BVH2 walker on its side). Each JAX reference is
-computed once per module. JAX is imported where a reference needs it,
-so that the card-only cases run where JAX is not installed.
+the JAX package's f32 BVH2 walker on its side). The JAX references are
+committed (tests/goldens/test_torch_adjoint.npz); one is recomputed
+live. JAX is imported where a reference needs it, so that the card-only
+cases run where JAX is not installed.
 """
 import numpy as np
 import pytest
@@ -15,6 +16,15 @@ import torch
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.diff import adjoint
 from mitsuba2_tpu_torch.kernels import brute, traverse
+
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_adjoint")
 
 # tests/test_adjoint.py's CFG
 CORNELL = dict(width=12, height=12, spp=16, spp_per_pass=4, max_depth=3,
@@ -37,19 +47,34 @@ ENTRIES = ((traverse, "ray_intersect_preliminary"), (traverse, "ray_test"),
 def refs():
     """Each case's port scene, config, and the JAX package's render_l2_grad
     (image, loss, grads) against a zero target, seed 0."""
-    jnp = pytest.importorskip("jax.numpy")
+    pytest.importorskip("jax")
+    return {name: (mk_t("cpu"), mt.RenderConfig(**kw),
+                   REFS.get(name, lambda n=name: _jax_l2_grad(n)))
+            for name, (mk_t, _, kw) in CASES.items()}
+
+
+def _jax_l2_grad(name):
+    """The JAX package's render_l2_grad of case `name` (read from
+    tests/goldens/test_torch_adjoint.npz by refs)."""
+    import jax.numpy as jnp
     import mitsuba2_tpu as mi
     from mitsuba2_tpu.diff import render_l2_grad as j_render_l2_grad
     from mitsuba2_tpu.scene import presets as jpresets
-    out = {}
-    for name, (mk_t, mk_j, kw) in CASES.items():
-        target = jnp.zeros((kw["height"], kw["width"], 3), jnp.float32)
-        img, loss, grads = j_render_l2_grad(
-            mk_j(jpresets), mi.RenderConfig(**kw), target, seed=0)
-        out[name] = (mk_t("cpu"), mt.RenderConfig(**kw), (
-            np.asarray(img), float(loss),
-            {k: np.asarray(v) for k, v in grads.items()}))
-    return out
+    _, mk_j, kw = CASES[name]
+    target = jnp.zeros((kw["height"], kw["width"], 3), jnp.float32)
+    img, loss, grads = j_render_l2_grad(
+        mk_j(jpresets), mi.RenderConfig(**kw), target, seed=0)
+    return (np.asarray(img), float(loss),
+            {k: np.asarray(v) for k, v in grads.items()})
+
+
+def test_golden_is_fresh():
+    """The golden's cornell gradients recomputed by the JAX package now."""
+    stored, live = REFS.fresh("cornell", lambda: _jax_l2_grad("cornell"))
+    np.testing.assert_array_equal(stored[0], live[0])
+    assert stored[1] == live[1]
+    for k in live[2]:
+        np.testing.assert_array_equal(stored[2][k], live[2][k])
 
 
 def _zero_target(cfg):

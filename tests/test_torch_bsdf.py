@@ -10,7 +10,8 @@ included). The refusals: every family the port lacks (null and the
 wrappers, refused before the textures' slice, now build the JAX
 package's rows), and a textured slot whose atlas is missing; a texture
 in any slot a row carries and a textured roughness carry across with
-their atlas.
+their atlas. The JAX package's compiled lanes and gradients are committed
+(tests/goldens/test_torch_bsdf.npz); one entry is recomputed live.
 """
 import dataclasses
 
@@ -40,6 +41,14 @@ from mitsuba2_tpu_torch.render.spectra import LaneRows
 from mitsuba2_tpu_torch.scene import shapes as tshapes
 from mitsuba2_tpu_torch.scene.scene import FIELDS
 
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_bsdf")
 N = 4096
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -375,11 +384,23 @@ def test_smith_g1_gradients_are_finite():
 # each family alone, then through the dispatch
 # --------------------------------------------------------------------------
 
+def test_golden_is_fresh(tables):
+    """The golden's diffuse family in mono recomputed by the JAX package
+    now: a stale golden (new lanes, new rows) fails here."""
+    fid = FAMILY_IDS[0]
+    idx = _lane_rows(tables, fid)
+    stored, live = REFS.fresh(f"family_{fid}_mono", lambda: _run_j(
+        JB.FAMILIES[fid], tables["mats_j"], idx, tables, "mono"))
+    for k in live:
+        np.testing.assert_array_equal(stored[k], live[k], err_msg=k)
+
+
 @pytest.mark.parametrize("mode", ["rgb", "mono"])
 @pytest.mark.parametrize("fid", FAMILY_IDS)
 def test_family_sample_eval_pdf_match_jax(tables, fid, mode):
     idx = _lane_rows(tables, fid)
-    out_j = _run_j(JB.FAMILIES[fid], tables["mats_j"], idx, tables, mode)
+    out_j = REFS.get(f"family_{fid}_{mode}", lambda: _run_j(
+        JB.FAMILIES[fid], tables["mats_j"], idx, tables, mode))
     out_t = _run_t(B.FAMILIES[fid], tables["mats_t"], idx, tables, mode)
     _assert_same(out_t, out_j)
     # the lanes sample something, in the hemisphere the family allows
@@ -410,8 +431,9 @@ def test_dispatch_matches_jax(tables, mode):
     """sample, eval_ and pdf over a wavefront of every row (the twosided
     ones from both sides), with the masked evaluate-all."""
     idx = _lane_rows(tables, None)
-    out_j = _run_j(None, None, idx, tables, mode,
-                   scene=_StandIn(tables["mats_j"], jnp))
+    out_j = REFS.get(f"dispatch_{mode}", lambda: _run_j(
+        None, None, idx, tables, mode, scene=_StandIn(tables["mats_j"],
+                                                      jnp)))
     out_t = _run_t(None, None, idx, tables, mode,
                    scene=_StandIn(tables["mats_t"], torch))
     _assert_same(out_t, out_j)
@@ -620,6 +642,26 @@ def _grads_j(fid, rows, t):
     return [np.asarray(a) for a in g]
 
 
+def _compact(grads):
+    """Each gradient table as (its columns not all zero, those columns):
+    most of a row's 40 columns are another family's, zero throughout."""
+    out = []
+    for g in grads:
+        cols = np.nonzero((g != 0).any(0))[0]
+        out.append((cols, g[:, cols]))
+    return out
+
+
+def _expand(compact, shape):
+    """_compact's tables, whole again."""
+    out = []
+    for cols, data in compact:
+        g = np.zeros(shape, np.float32)
+        g[:, np.asarray(cols, np.int64)] = data
+        out.append(g)
+    return out
+
+
 def _outs_t(fid, table, t):
     """A family's per-lane sample weight (summed over channels), eval
     (summed) and pdfs (at the random wo, plus the sample's), in the
@@ -676,7 +718,8 @@ def test_family_gradients_match_jax(tables, fid):
     its lanes; XLA's fused multiply-adds lose less)."""
     idx = _lane_rows(tables, fid)
     rows = _table(tables["mats_t"])[idx]
-    g_j = _grads_j(fid, rows, tables)
+    g_j = _expand(REFS.get(f"grads_{fid}", lambda: _compact(
+        _grads_j(fid, rows, tables))), rows.shape)
     g_64 = _grads_t(fid, rows, tables, torch.float64)
     g_32 = _grads_t(fid, rows, tables, torch.float32)
     for k, (a, b, c) in enumerate(zip(g_64, g_j, g_32)):

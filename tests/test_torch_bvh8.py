@@ -28,6 +28,9 @@ Tolerances:
   in the twin's order and tie rule, and K7, whose warp-cooperative visits
   keep them, bit-equal (t, prim or slot, u and v, and K7's occlusion, on
   every lane).
+
+The JAX package's walk answers and renders are committed (tests/goldens/
+test_torch_bvh8.npz); one is recomputed live.
 """
 import contextlib
 import functools
@@ -46,12 +49,19 @@ from mitsuba2_tpu_torch.scene import bvh as bvh_mod
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import BVH8_FIELDS
 
+from goldens.jax_refs import Refs
 from test_torch_instancing import flatten_mode, recorded_fields
 from test_torch_dense import source_constant
 from test_torch_spheres import package, sphere_field
 from test_torch_traverse import (build_emulation, load_counters, planar,
                                  work_counter)
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_bvh8")
 N_RAYS = 512
 N_ORACLE = 2048
 
@@ -239,13 +249,17 @@ def test_k6_twin_matches_oracle(gallery, coherent):
     import jax.numpy as jnp
     from mitsuba2_tpu.kernels import traverse_jnp
     scenes, _ = gallery
-    sj = jax_scene("gallery")
     o, d = _rays(scenes["auto"], N_ORACLE, 1, coherent)
     tm = np.full(N_ORACLE, np.inf, np.float32)
     (t, p, u, v), _ = k6(scenes["bvh8"], o, d, tm)
-    tj, pj, uj, vj = (np.asarray(a) for a in
-                      traverse_jnp.ray_intersect_preliminary(
-                          sj, jvec(o), jvec(d), jnp.inf))
+
+    def oracle():
+        sj = jax_scene("gallery")
+        out = traverse_jnp.ray_intersect_preliminary(sj, jvec(o), jvec(d),
+                                                     jnp.inf)
+        occ = traverse_jnp.ray_test(sj, jvec(o), jvec(d), jnp.asarray(3.0))
+        return (*(np.asarray(a) for a in out), np.asarray(occ))
+    tj, pj, uj, vj, occ_j = REFS.get(f"k6_oracle_{coherent}", oracle)
     t, p, u = t.numpy(), p.numpy(), u.numpy()
     hit = np.isfinite(t)
     assert 0.2 < hit.mean()
@@ -256,20 +270,38 @@ def test_k6_twin_matches_oracle(gallery, coherent):
     assert bool(v.abs().max() > 0)
     tm3 = np.full(N_ORACLE, 3.0, np.float32)
     _, occ = k6(scenes["bvh8"], o, d, tm3)
-    occ_j = traverse_jnp.ray_test(sj, jvec(o), jvec(d), jnp.asarray(3.0))
-    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_j))
+    np.testing.assert_array_equal(occ.numpy(), occ_j)
+
+
+def test_golden_is_fresh(gallery):
+    """The golden's K6 oracle answer on coherent rays recomputed now."""
+    import jax.numpy as jnp
+    from mitsuba2_tpu.kernels import traverse_jnp
+    scenes, _ = gallery
+    o, d = _rays(scenes["auto"], N_ORACLE, 1, True)
+    t, p = traverse_jnp.ray_intersect_preliminary(
+        jax_scene("gallery"), jvec(o), jvec(d), jnp.inf)[:2]
+    stored = REFS.get("k6_oracle_True", None)
+    np.testing.assert_array_equal(stored[0], np.asarray(t))
+    np.testing.assert_array_equal(stored[1], np.asarray(p))
 
 
 def test_k6_twin_matches_interpret_pallas(gallery):
     import jax.numpy as jnp
     from mitsuba2_tpu.kernels import traverse_pallas
     scenes, _ = gallery
-    sj = jax_scene("gallery")
     o, d = _rays(scenes["auto"], 1024, 2, False)
     tm = np.full(1024, 3.0, np.float32)
     (t, p, u, v), occ = k6(scenes["bvh8"], o, d, tm)
-    tj, pj, uj, vj = (np.asarray(a) for a in traverse_pallas.ray_intersect_bvh8(
-        sj, jvec(o), jvec(d), jnp.asarray(tm), interpret=True))
+
+    def interpret():
+        sj = jax_scene("gallery")
+        out = traverse_pallas.ray_intersect_bvh8(
+            sj, jvec(o), jvec(d), jnp.asarray(tm), interpret=True)
+        occ_j = traverse_pallas.ray_test_bvh8(sj, jvec(o), jvec(d),
+                                              jnp.asarray(tm), interpret=True)
+        return (*(np.asarray(a) for a in out), np.asarray(occ_j))
+    tj, pj, uj, vj, occ_j = REFS.get("k6_pallas", interpret)
     hit = np.isfinite(t.numpy())
     assert 0.1 < hit.mean()
     np.testing.assert_array_equal(hit, np.isfinite(tj))
@@ -277,9 +309,7 @@ def test_k6_twin_matches_interpret_pallas(gallery):
     np.testing.assert_allclose(t.numpy()[hit], tj[hit], rtol=1e-5)
     np.testing.assert_allclose(u.numpy()[hit], uj[hit], atol=1e-5)
     np.testing.assert_allclose(v.numpy()[hit], vj[hit], atol=1e-5)
-    occ_j = traverse_pallas.ray_test_bvh8(sj, jvec(o), jvec(d),
-                                          jnp.asarray(tm), interpret=True)
-    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_j))
+    np.testing.assert_array_equal(occ.numpy(), occ_j)
 
 
 @pytest.mark.parametrize("coherent", [True, False])
@@ -290,8 +320,15 @@ def test_k7_twin_matches_brute_and_oracle(gallery, coherent):
     from mitsuba2_tpu.kernels import traverse_jnp
     from mitsuba2_tpu_torch.kernels import brute
     scenes, _ = gallery
-    sj = jax_scene("gallery")
     o, d = _rays(scenes["auto"], N_ORACLE, 3, coherent)
+
+    def oracle():
+        sj = jax_scene("gallery")
+        out = traverse_jnp.ray_intersect_preliminary(sj, jvec(o), jvec(d),
+                                                     jnp.inf)
+        occ = traverse_jnp.ray_test(sj, jvec(o), jvec(d), jnp.asarray(3.0))
+        return np.asarray(out[0]), np.asarray(out[1]), np.asarray(occ)
+    tj, pj, occ_j = REFS.get(f"k7_oracle_{coherent}", oracle)
     (t, p, u, v), _ = k7(scenes["bvh8mxu"], o, d,
                          np.full(N_ORACLE, np.inf, np.float32))
     assert not u.any() and not v.any()
@@ -300,9 +337,7 @@ def test_k7_twin_matches_brute_and_oracle(gallery, coherent):
     assert 0.2 < hit.mean()
     inf = torch.full((N_ORACLE,), np.inf)
     for ref in (brute.ray_intersect_brute(scenes["auto"], planar(o),
-                                          planar(d), inf),
-                traverse_jnp.ray_intersect_preliminary(sj, jvec(o), jvec(d),
-                                                       jnp.inf)):
+                                          planar(d), inf), (tj, pj)):
         tb, pb = np.asarray(ref[0]), np.asarray(ref[1])
         np.testing.assert_array_equal(hit, np.isfinite(tb))
         np.testing.assert_allclose(t[hit], tb[hit], rtol=1e-3, atol=1e-5)
@@ -311,22 +346,25 @@ def test_k7_twin_matches_brute_and_oracle(gallery, coherent):
         assert (p == pb)[hit].mean() > 0.99
     tm3 = np.full(N_ORACLE, 3.0, np.float32)
     _, occ = k7(scenes["bvh8mxu"], o, d, tm3)
-    occ_j = traverse_jnp.ray_test(sj, jvec(o), jvec(d), jnp.asarray(3.0))
-    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_j))
+    np.testing.assert_array_equal(occ.numpy(), occ_j)
 
 
 def test_k7_twin_matches_interpret_pallas(gallery):
     import jax.numpy as jnp
     from mitsuba2_tpu.kernels import traverse_pallas
     scenes, _ = gallery
-    sj = jax_scene("gallery")
     o, d = _rays(scenes["auto"], 1024, 4, True)
     tm = np.full(1024, 3.0, np.float32)
     (t, p, _, _), occ = k7(scenes["bvh8mxu"], o, d, tm)
-    tj, pj, _, _ = (np.asarray(a) for a in
-                    traverse_pallas.ray_intersect_bvh8mxu(
-                        sj, jvec(o), jvec(d), jnp.asarray(tm),
-                        interpret=True))
+
+    def interpret():
+        sj = jax_scene("gallery")
+        out = traverse_pallas.ray_intersect_bvh8mxu(
+            sj, jvec(o), jvec(d), jnp.asarray(tm), interpret=True)
+        occ_j = traverse_pallas.ray_test_bvh8mxu(
+            sj, jvec(o), jvec(d), jnp.asarray(tm), interpret=True)
+        return np.asarray(out[0]), np.asarray(out[1]), np.asarray(occ_j)
+    tj, pj, occ_j = REFS.get("k7_pallas", interpret)
     hit = np.isfinite(t.numpy())
     np.testing.assert_array_equal(hit, np.isfinite(tj))
     # the Pallas kernel's plane dots run in split bf16: tests/
@@ -334,9 +372,7 @@ def test_k7_twin_matches_interpret_pallas(gallery):
     np.testing.assert_allclose(t.numpy()[hit], tj[hit], rtol=1e-3,
                                atol=1e-5)
     assert (p.numpy() == pj)[hit].mean() > 0.99
-    occ_j = traverse_pallas.ray_test_bvh8mxu(sj, jvec(o), jvec(d),
-                                             jnp.asarray(tm), interpret=True)
-    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_j))
+    np.testing.assert_array_equal(occ.numpy(), occ_j)
 
 
 def probe(scene):
@@ -643,20 +679,23 @@ def test_render_matches_jax_under_backend(which):
     """A 32x32 render of mesh_gallery(subdiv=1) under the same
     set_backend in both packages (JAX: the interpret-mode BVH8 kernels;
     the port: the K6 or K7 twins), same seed."""
-    import jax
-    import mitsuba2_tpu as mi
-    from mitsuba2_tpu.scene import presets as jpresets
-    from mitsuba2_tpu.scene import scene as jscene
     kw = dict(width=32, height=32, spp=1, spp_per_pass=1, max_depth=2,
               rr_depth=8)
-    sj = jpresets.mesh_gallery(subdiv=1)
-    jscene.set_backend(which)
-    jax.clear_caches()
-    try:
-        img_j = np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=0))
-    finally:
-        jscene.set_backend("auto")
+
+    def jax_render():
+        import jax
+        import mitsuba2_tpu as mi
+        from mitsuba2_tpu.scene import presets as jpresets
+        from mitsuba2_tpu.scene import scene as jscene
+        sj = jpresets.mesh_gallery(subdiv=1)
+        jscene.set_backend(which)
         jax.clear_caches()
+        try:
+            return np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=0))
+        finally:
+            jscene.set_backend("auto")
+            jax.clear_caches()
+    img_j = REFS.get(f"render_{which}", jax_render)
     counts = {k: getattr(traverse, k).launches for k in (
         "bvh8_closest_hit", "bvh8mxu_closest_hit", "cluster_closest_hit")}
     seen = []

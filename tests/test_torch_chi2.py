@@ -26,6 +26,11 @@ from mitsuba2_tpu_torch.render import fresnel as fr
 from mitsuba2_tpu_torch.render.interaction import SurfaceInteraction
 from mitsuba2_tpu_torch.render.spectra import LaneRows
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 CFG = mt.RenderConfig(color_mode="rgb")
 WI_30 = np.array([np.sin(np.pi / 6), 0.0, np.cos(np.pi / 6)])
 WI_60 = np.array([np.sin(np.pi / 3), 0.0, np.cos(np.pi / 3)])

@@ -21,6 +21,11 @@ from mitsuba2_tpu_torch import cli
 
 import test_cli
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX CLI test's scene, its sample count a parameter and its camera
 # on the lit side of the light (the JAX test's sees its back: black)

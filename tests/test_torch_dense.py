@@ -17,6 +17,9 @@ Tolerances:
   oracle (traverse_jnp), t at rtol 1e-5 / atol 1e-5;
 - MI_MXU_LEAVES off: the BVH2 walks are f32 in both packages: t at rtol
   1e-5 / atol 1e-5, u/v at atol 1e-4, prims equal on 99% of hit lanes.
+
+The JAX package's answers and render are committed (tests/goldens/
+test_torch_dense.npz); one is recomputed live.
 """
 import dataclasses
 import os
@@ -36,6 +39,15 @@ from test_torch_instancing import (assert_port_tables, flatten_mode,
                                    jax_fields, recorded_fields)
 from test_torch_traverse import (_SHIM, build_emulation, emulate_source,
                                  load_counters, planar)
+
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_dense")
 
 N_RAYS = 2048
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,11 +107,11 @@ class Case:
 
     def ref(self, kind, which):
         """The JAX package's answer: its interpret-mode dense sweep
-        ("pallas") or its f32 oracle ("jnp")."""
-        import jax.numpy as jnp
-        from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
-
+        ("pallas") or its f32 oracle ("jnp"), read from
+        tests/goldens/test_torch_dense.npz."""
         def run():
+            import jax.numpy as jnp
+            from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
             o, d, tm = self.rays[kind]
             args = (self.sj(), jplanar(o), jplanar(d), jnp.asarray(tm))
             if which == "jnp":
@@ -113,7 +125,8 @@ class Case:
                         *args, interpret=True)
                     occ = traverse_pallas.ray_test(*args, interpret=True)
             return np.asarray(t), np.asarray(prim), np.asarray(occ)
-        return self.memo((which, kind), run)
+        return self.memo((which, kind), lambda: REFS.get(f"{which}_{kind}",
+                                                         run))
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +191,19 @@ def test_mxu_ccount(name):
 # ---------------------------------------------------------------------------
 # The dense twin (K8)
 # ---------------------------------------------------------------------------
+
+def test_golden_is_fresh(case):
+    """The golden's oracle answer on shadow rays recomputed now: a stale
+    golden (new probe rays, a new scene) fails here."""
+    import jax.numpy as jnp
+    from mitsuba2_tpu.kernels import traverse_jnp
+    o, d, tm = case.rays["shadow"]
+    args = (case.sj(), jplanar(o), jplanar(d), jnp.asarray(tm))
+    t, prim, _, _ = traverse_jnp.ray_intersect_preliminary(*args)
+    live = (t, prim, traverse_jnp.ray_test(*args))
+    for a, b in zip(case.ref("shadow", "jnp"), live):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
 
 @pytest.mark.parametrize("which", ["walk", "pallas", "jnp"])
 @pytest.mark.parametrize("kind", KINDS)
@@ -353,24 +379,29 @@ def test_render_matches_jax_under_dense(monkeypatch):
     """A 16x16 render of mesh_gallery(subdiv=1) with the dense switch on
     in both packages (JAX: its Pallas backend, the interpret-mode dense
     kernels; the port: the K8 twins), same seed."""
-    import jax
-    import mitsuba2_tpu as mi
-    from mitsuba2_tpu.kernels import traverse_pallas
-    from mitsuba2_tpu.scene import presets as jpresets
-    from mitsuba2_tpu.scene import scene as jscene
     kw = dict(width=16, height=16, spp=1, spp_per_pass=1, max_depth=3,
               rr_depth=8)
-    monkeypatch.setattr(traverse_pallas, "MXU_LEAVES", True)
-    monkeypatch.setattr(traverse_pallas, "_MXU_DENSE", "1")
+
+    def jax_render():
+        import jax
+        import mitsuba2_tpu as mi
+        from mitsuba2_tpu.kernels import traverse_pallas
+        from mitsuba2_tpu.scene import presets as jpresets
+        from mitsuba2_tpu.scene import scene as jscene
+        sj = jpresets.mesh_gallery(subdiv=1)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(traverse_pallas, "MXU_LEAVES", True)
+            mp.setattr(traverse_pallas, "_MXU_DENSE", "1")
+            jscene.set_backend("pallas")
+            jax.clear_caches()
+            try:
+                return np.asarray(mi.render(sj, mi.RenderConfig(**kw),
+                                            seed=3))
+            finally:
+                jscene.set_backend("auto")
+                jax.clear_caches()
+    img_j = REFS.get("render_dense", jax_render)
     monkeypatch.setattr(traverse, "_MXU_DENSE", "1")
-    sj = jpresets.mesh_gallery(subdiv=1)
-    jscene.set_backend("pallas")
-    jax.clear_caches()
-    try:
-        img_j = np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=3))
-    finally:
-        jscene.set_backend("auto")
-        jax.clear_caches()
     seen = []
     for name in ("dense_closest_hit", "dense_any_hit"):
         fn = getattr(traverse, name)
@@ -444,10 +475,12 @@ def test_leaves_off_takes_the_bvh2_walks(case, monkeypatch, name):
         assert torch.equal(occ, twin_a(*bargs))
         jargs = (sj, jplanar(o), jplanar(d), jnp.asarray(tm))
         if kind == "shadow":
-            np.testing.assert_array_equal(
-                occ.numpy(), np.asarray(ja(*jargs, interpret=True)))
+            np.testing.assert_array_equal(occ.numpy(), REFS.get(
+                f"leaves_off_{name}_shadow",
+                lambda: np.asarray(ja(*jargs, interpret=True))))
             continue
-        ref = [np.asarray(a) for a in jc(*jargs, interpret=True)]
+        ref = REFS.get(f"leaves_off_{name}_bounce", lambda: tuple(
+            np.asarray(a) for a in jc(*jargs, interpret=True)))
         t, prim, u, v = (a.numpy() for a in out[:4])
         hit = np.isfinite(t)
         np.testing.assert_array_equal(hit, np.isfinite(ref[0]))

@@ -14,6 +14,8 @@ pixel for pixel. Gradients: render_l2_grad of veach_mis(envmap=True) at
 12x12 in spectral and rgb mode against the JAX package's (its roughness
 columns NaN: tests/test_torch_veach.py), all four tables within 1e-3,
 and env_scale and a sun texel of env_image against central differences.
+The JAX package's renders and gradients are committed
+(tests/goldens/test_torch_emitters.npz); one is recomputed live.
 """
 import dataclasses
 
@@ -40,7 +42,15 @@ from mitsuba2_tpu_torch.render import emitters as em
 from mitsuba2_tpu_torch.scene import presets as tpresets
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 
+from goldens.jax_refs import Refs
 from test_torch_veach import _jax_l2_grad, _rel
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_emitters")
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096
@@ -510,12 +520,11 @@ def test_gallery_lights_render_matches_jax(mode):
     and K2, on shadow rays toward delta lights and the sky, t_max up to
     ~1e7) against the JAX package: >= 99% of pixels within rtol 1e-3 /
     atol 1e-4, the mean within rtol 1e-3."""
-    sj = chip_smoke.gallery_lights(jpresets, 1)
     st = chip_smoke.gallery_lights(tpresets, 1, device="cpu")
     assert st.mxu_node_f is not None and st.envmap is not None
-    img_j = np.asarray(mi.render(sj, mi.RenderConfig(**LIGHTS,
-                                                     color_mode=mode),
-                                 seed=0))
+    img_j = REFS.get(f"gallery_lights_{mode}", lambda: np.asarray(mi.render(
+        chip_smoke.gallery_lights(jpresets, 1),
+        mi.RenderConfig(**LIGHTS, color_mode=mode), seed=0)))
     img_t = mt.render(st, mt.RenderConfig(**LIGHTS, color_mode=mode),
                       seed=0, device="cpu").numpy()
     assert img_t.shape == img_j.shape == (16, 16, 3)
@@ -534,9 +543,20 @@ def grad_refs():
     """The JAX package's render_l2_grad of veach_mis(envmap=True) at GRAD's
     sizes, spectral and rgb, under tests/test_torch_veach.py's own-rows
     dispatch (its roughness columns still NaN)."""
-    sj = jpresets.veach_mis(envmap=True)
-    return {mode: _jax_l2_grad(sj, mi.RenderConfig(**GRAD, color_mode=mode))
+    return {mode: REFS.get(f"envmap_grads_{mode}", lambda m=mode:
+                           _jax_l2_grad(jpresets.veach_mis(envmap=True),
+                                        mi.RenderConfig(**GRAD,
+                                                        color_mode=m)))
             for mode in ("spectral", "rgb")}
+
+
+def test_golden_is_fresh():
+    """The golden's rgb light-gallery image recomputed by the JAX
+    package."""
+    stored, live = REFS.fresh("gallery_lights_rgb", lambda: np.asarray(
+        mi.render(chip_smoke.gallery_lights(jpresets, 1),
+                  mi.RenderConfig(**LIGHTS, color_mode="rgb"), seed=0)))
+    np.testing.assert_array_equal(stored, live)
 
 
 @pytest.mark.parametrize("mode", ["spectral", "rgb"])

@@ -17,6 +17,9 @@ Tolerances, as tests/test_torch_traverse.py holds the flat walk:
   1e-5, the atol for the plane form's absolute error near t = 0;
 - vs interpret-mode Pallas (split-bf16 plane dots): t at rtol 1e-3 /
   atol 1e-5, or the port the closer of the two to the oracle.
+
+The JAX package's walk answers and renders are committed (tests/goldens/
+test_torch_instancing.npz); one is recomputed live.
 """
 import contextlib
 import functools
@@ -34,9 +37,16 @@ from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import FIELDS, INST_FIELDS
 
+from goldens.jax_refs import Refs
 from test_torch_traverse import (assert_kernel_work, build_emulation,
                                  load_counters, planar, work_counter)
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_instancing")
 N_RAYS = 2048
 META = ("has_instances", "inst_fuel", "inst_mxu_fuel", "n_emitters",
         "env_emitter", "emitter_kinds", "n_shapes", "cluster_k",
@@ -265,14 +275,16 @@ class Case:
         return self.memo(("port", kind), run)
 
     def ref(self, kind, which):
-        import jax.numpy as jnp
-        from mitsuba2_tpu.core.vec import Vec3 as JVec3
-        from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
-
-        def jplanar(a):
-            return JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
-
+        """The JAX package's answer, its interpret-mode walk ("pallas") or
+        its f32 walker ("jnp"), read from tests/goldens/
+        test_torch_instancing.npz."""
         def run():
+            import jax.numpy as jnp
+            from mitsuba2_tpu.core.vec import Vec3 as JVec3
+            from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
+
+            def jplanar(a):
+                return JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
             o, d, tm = self.rays[kind]
             args = (self.sj, jplanar(o), jplanar(d), jnp.asarray(tm))
             if which == "pallas":
@@ -285,7 +297,8 @@ class Case:
                     *args)
                 occ = traverse_jnp._ray_test_instanced(*args)
             return tuple(np.array(a) for a in (t, prim, inst, occ))
-        return self.memo((which, kind), run)
+        return self.memo((which, kind), lambda: REFS.get(
+            f"{self.name}_{which}_{kind}", run))
 
 
 @pytest.fixture(scope="module")
@@ -451,6 +464,20 @@ def test_constant_emitter_matches_jax(case):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6)
 
 
+def test_golden_is_fresh(case):
+    """The golden's f32-walker answer on camera rays recomputed now."""
+    import jax.numpy as jnp
+    from mitsuba2_tpu.core.vec import Vec3 as JVec3
+    from mitsuba2_tpu.kernels import traverse_jnp
+    o, d, tm = case.rays["camera"]
+    t, prim = traverse_jnp._ray_intersect_instanced(
+        case.sj, *(JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
+                   for a in (o, d)), jnp.asarray(tm))[:2]
+    stored = case.ref("camera", "jnp")
+    np.testing.assert_array_equal(stored[0], np.asarray(t))
+    np.testing.assert_array_equal(stored[1], np.asarray(prim))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_render_matches_jax(case, seed):
     """A 32x32 render of the shared-BLAS field: the JAX package traverses
@@ -460,7 +487,8 @@ def test_render_matches_jax(case, seed):
     import mitsuba2_tpu as mi
     kw = dict(width=32, height=32, spp=1, spp_per_pass=1, max_depth=3,
               rr_depth=8)
-    img_j = np.asarray(mi.render(case.sj, mi.RenderConfig(**kw), seed=seed))
+    img_j = REFS.get(f"field_render_{seed}", lambda: np.asarray(
+        mi.render(case.sj, mi.RenderConfig(**kw), seed=seed)))
     img_t = mt.render(case.st, mt.RenderConfig(**kw), seed=seed,
                       device="cpu").numpy()
     assert img_t.shape == img_j.shape == (32, 32, 3)
@@ -500,15 +528,18 @@ def mirrored_renders():
     kw = dict(width=16, height=16, spp=4, spp_per_pass=4, max_depth=3,
               rr_depth=8)
     out = {}
-    for mode in ("0", "1"):
+    def jax_render(mode):
         with flatten_mode(mode):
             sj = mirrored_scene(package("jax"))
+        assert sj.has_instances == (mode == "0")
+        return np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=2))
+    for mode in ("0", "1"):
+        with flatten_mode(mode):
             st = mirrored_scene(package("port"))
-        assert sj.has_instances == st.has_instances == (mode == "0")
-        out[mode] = (
-            np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=2)),
-            mt.render(st, mt.RenderConfig(**kw), seed=2,
-                      device="cpu").numpy())
+        assert st.has_instances == (mode == "0")
+        out[mode] = (REFS.get(f"mirrored_{mode}", lambda: jax_render(mode)),
+                     mt.render(st, mt.RenderConfig(**kw), seed=2,
+                               device="cpu").numpy())
     return out
 
 

@@ -16,6 +16,7 @@ import logging
 
 import numpy as np
 import pytest
+import torch
 
 from mitsuba2_tpu.render.integrators import render as jrender
 from mitsuba2_tpu.scene import loader as jl
@@ -28,6 +29,11 @@ import test_loader
 from test_torch_instancing import (assert_port_tables, flatten_mode,
                                    jax_fields, recorded_fields)
 from test_torch_media import jax_fields as jax_extras
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
 
 META = ("n_prims", "n_shapes", "n_emitters", "has_instances", "has_spheres",
         "has_media", "cam_type", "mat_families", "env_emitter")

@@ -30,6 +30,11 @@ from mitsuba2_tpu_torch.scene import shapes as tshapes
 import chip_smoke
 from test_torch_instancing import assert_port_tables, recorded_fields
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 N = 4096
 
 

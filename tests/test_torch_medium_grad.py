@@ -30,6 +30,11 @@ from test_torch_render import GOLDEN_DIR
 
 # tests/test_medium_grad.py's config, slabs and seeds, and its central
 # difference's step and band (chip_smoke's phase 7 holds the card's)
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 CFG = chip_smoke.MEDIUM_GRAD
 SLABS = chip_smoke.MEDIUM_SLABS
 FD_EPS, FD_RTOL = chip_smoke.MEDIUM_FD_EPS, chip_smoke.MEDIUM_FD_RTOL

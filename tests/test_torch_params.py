@@ -13,6 +13,11 @@ from mitsuba2_tpu_torch.core import math as tmath
 from mitsuba2_tpu_torch.diff import optimizers as topt
 from mitsuba2_tpu_torch.diff.torch_interop import render_torch
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 SCENES = {"cornell_box": (lambda p: p.cornell_box(),
                           lambda: mt.cornell_box(device="cpu")),
           "mesh_gallery": (lambda p: p.mesh_gallery(subdiv=1),

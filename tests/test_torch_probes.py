@@ -18,6 +18,11 @@ import torch
 from mitsuba2_tpu_torch.kernels import probes, traverse
 from test_torch_traverse import _SHIM, emulate_source
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 N = 256          # lanes: two blocks of 128
 R = 768          # node rows, the TPU probes' (the gallery's cut tree)
 STEPS = 24

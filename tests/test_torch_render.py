@@ -4,7 +4,8 @@ On the CPU the JAX package traverses mesh_gallery with its f32 BVH2
 walker (traverse_jnp) and the port with its cluster-walk twins; both draw
 the same PCG32 numbers in the same order, so the images agree pixel for
 pixel up to f32 rounding and the rare exact tie between two triangles
-(see tests/test_torch_traverse.py).
+(see tests/test_torch_traverse.py). The JAX package's renders are
+committed (tests/goldens/test_torch_render.npz); one is recomputed live.
 """
 import ast
 import os
@@ -21,8 +22,16 @@ import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.kernels import traverse
 from mitsuba2_tpu_torch.render import film, integrators
 
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
+REFS = Refs("test_torch_render")
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +47,8 @@ def test_mesh_gallery_render_matches_jax(gallery, seed, color_mode):
     kw = dict(width=32, height=32, spp=1, spp_per_pass=1, max_depth=3,
               rr_depth=8, color_mode=color_mode)
     n_ch = {"rgb": 3, "mono": 1}[color_mode]
-    img_j = np.asarray(mi.render(sj, mi.RenderConfig(**kw), seed=seed))
+    img_j = REFS.get(f"gallery_{seed}_{color_mode}", lambda: np.asarray(
+        mi.render(sj, mi.RenderConfig(**kw), seed=seed)))
     launches = (traverse.cluster_closest_hit.launches,
                 traverse.cluster_any_hit.launches)
     img_t = mt.render(st, mt.RenderConfig(**kw), seed=seed,
@@ -102,7 +112,8 @@ def test_cornell_pass_matches_jax():
     cfg_kw = dict(width=16, height=16, spp=4, spp_per_pass=4, max_depth=3,
                   rr_depth=2)
     from mitsuba2_tpu.render.integrators import render_pass as jpass
-    img_j, _ = jpass(jpresets.cornell_box(), mi.RenderConfig(**cfg_kw), 77)
+    img_j = REFS.get("cornell_pass", lambda: np.asarray(jpass(
+        jpresets.cornell_box(), mi.RenderConfig(**cfg_kw), 77)[0]))
     img_t, w = integrators.render_pass(mt.cornell_box(device="cpu"),
                                        mt.RenderConfig(**cfg_kw), 77,
                                        device="cpu")
@@ -110,6 +121,16 @@ def test_cornell_pass_matches_jax():
     close = np.isclose(img_t.numpy(), np.asarray(img_j), rtol=1e-3,
                        atol=1e-4).all(-1)
     assert close.mean() >= 0.99
+
+
+def test_golden_is_fresh():
+    """The golden's cornell pass recomputed by the JAX package now."""
+    from mitsuba2_tpu.render.integrators import render_pass as jpass
+    cfg_kw = dict(width=16, height=16, spp=4, spp_per_pass=4, max_depth=3,
+                  rr_depth=2)
+    np.testing.assert_array_equal(
+        REFS.get("cornell_pass"), np.asarray(jpass(
+            jpresets.cornell_box(), mi.RenderConfig(**cfg_kw), 77)[0]))
 
 
 # each a config field no other port test sets, over CONFIG_BASE
@@ -131,8 +152,8 @@ def test_config_field_matches_jax(field):
     port against JAX on the same seed: the same PCG32 streams and the same
     f32 shading give every pixel within 1e-6."""
     kw = {**CONFIG_BASE, **CONFIG_FIELDS[field]}
-    img_j = np.asarray(mi.render(jpresets.cornell_box(),
-                                 mi.RenderConfig(**kw), seed=3))
+    img_j = REFS.get(f"config_{field}", lambda: np.asarray(mi.render(
+        jpresets.cornell_box(), mi.RenderConfig(**kw), seed=3)))
     img_t = mt.render(mt.cornell_box(device="cpu"), mt.RenderConfig(**kw),
                       seed=3, device="cpu").numpy()
     assert img_t.shape == img_j.shape == (kw["height"], kw["width"], 3)

@@ -40,6 +40,11 @@ from mitsuba2_tpu_torch.scene import scene as scene_mod
 
 from test_torch_render import GOLDEN_DIR
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 OCC_CFG = dict(width=32, height=32, spp=4, spp_per_pass=4, max_depth=1)
 OCC_EPS = 0.03
 SHADOW_CFG = dict(width=24, height=24, spp=16, spp_per_pass=16,

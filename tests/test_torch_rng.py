@@ -10,6 +10,11 @@ from mitsuba2_tpu.render import sampler as jsampler
 from mitsuba2_tpu_torch.core import pcg32
 from mitsuba2_tpu_torch.render import integrators, sampler
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 M32 = 0xFFFFFFFF
 M64 = (1 << 64) - 1
 MULT = 0x5851F42D4C957F2D

@@ -18,6 +18,11 @@ from mitsuba2_tpu_torch.scene.scene import FIELDS, SceneData
 
 from test_torch_instancing import assert_port_tables, recorded_fields
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 SCENES = {
     "cornell_box": (jpresets.cornell_box, mt.cornell_box, {}),
     "mesh_gallery_1": (jpresets.mesh_gallery, mt.mesh_gallery, {"subdiv": 1}),

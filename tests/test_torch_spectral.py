@@ -15,7 +15,9 @@ depth 3, pixel for pixel (>= 99% within rtol 1e-3 / atol 1e-4, the mean
 within 1e-3): veach_mis(envmap=True) under "auto" (brute force) and
 "pallas" (the BVH2 walk's twins, K3), and mesh_gallery(subdiv=1) (the
 cluster walk's twins, K1 and K2); and the port of the JAX package's
-tests/test_veach.py::test_veach_spectral_matches_rgb.
+tests/test_veach.py::test_veach_spectral_matches_rgb. The JAX package's
+renders are committed (tests/goldens/test_torch_spectral.npz); one is
+recomputed live.
 """
 import numpy as np
 import pytest
@@ -34,6 +36,15 @@ from mitsuba2_tpu_torch.core import spectrum as tsp
 from mitsuba2_tpu_torch.core.spec import Spec
 from mitsuba2_tpu_torch.render import spectra
 from mitsuba2_tpu_torch.scene import scene as scene_mod
+
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_spectral")
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096
@@ -383,10 +394,17 @@ def refs():
     """The JAX package's spectral renders of veach_mis(envmap=True) and
     mesh_gallery(subdiv=1) at RENDER, seed 0."""
     cfg = mi.RenderConfig(**RENDER)
-    return {"veach": np.asarray(mi.render(jpresets.veach_mis(envmap=True),
-                                          cfg, seed=0)),
-            "gallery": np.asarray(mi.render(jpresets.mesh_gallery(subdiv=1),
-                                            cfg, seed=0))}
+    return {"veach": REFS.get("veach", lambda: np.asarray(mi.render(
+                jpresets.veach_mis(envmap=True), cfg, seed=0))),
+            "gallery": REFS.get("gallery", lambda: np.asarray(mi.render(
+                jpresets.mesh_gallery(subdiv=1), cfg, seed=0)))}
+
+
+def test_golden_is_fresh():
+    """The golden's gallery image recomputed by the JAX package now."""
+    stored, live = REFS.fresh("gallery", lambda: np.asarray(mi.render(
+        jpresets.mesh_gallery(subdiv=1), mi.RenderConfig(**RENDER), seed=0)))
+    np.testing.assert_array_equal(stored, live)
 
 
 def _assert_image_close(img_t, img_j):
@@ -427,17 +445,9 @@ def test_veach_spectral_matches_rgb():
     scene = mt.veach_mis(device="cpu")
     cfg = mt.RenderConfig(width=32, height=32, spp=48, spp_per_pass=48,
                           max_depth=3, rr_depth=99)
-    # one intra-op thread: 49 152 lanes make every op an OpenMP region,
-    # whose barriers stall for minutes when the test workers oversubscribe
-    # the cores
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        rgb = mt.render(scene, cfg, device="cpu").numpy()
-        spec = mt.render(scene, cfg.replace(color_mode="spectral"),
-                         device="cpu").numpy()
-    finally:
-        torch.set_num_threads(threads)
+    rgb = mt.render(scene, cfg, device="cpu").numpy()
+    spec = mt.render(scene, cfg.replace(color_mode="spectral"),
+                     device="cpu").numpy()
     assert np.isfinite(spec).all()
     mask = rgb.max(-1) > 0.05
     rel = np.abs(spec - rgb)[mask] / np.maximum(rgb[mask], 0.05)

@@ -32,6 +32,9 @@ Tolerances:
   instances) on 99.9% of hit lanes, t at rtol 1e-5, occlusion on 99.9%;
   K4's closest hit, whose warps test a step's due prims together in the
   twin's order and tie rule, bit-equal (t, prim, u, v and instance).
+
+The JAX package's walk answers and renders are committed (tests/goldens/
+test_torch_spheres.npz); one is recomputed live.
 """
 import functools
 import os
@@ -54,6 +57,14 @@ from test_torch_instancing import (assert_port_tables, flatten_mode,
 from test_torch_traverse import (build_emulation, load_counters, planar,
                                  work_counter)
 
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_spheres")
 N_RAYS = 2048
 META = ("has_instances", "has_spheres", "inst_fuel", "inst_mxu_fuel",
         "n_emitters", "env_emitter", "emitter_kinds", "n_shapes",
@@ -408,11 +419,13 @@ class Case:
         return self.memo(("port", kind), run)
 
     def ref(self, kind, which):
-        import jax.numpy as jnp
-        from mitsuba2_tpu.core.vec import Vec3 as JVec3
-        from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
-
+        """The JAX package's answer, its interpret-mode walks ("pallas")
+        or its f32 walkers ("jnp"), read from tests/goldens/
+        test_torch_spheres.npz."""
         def run():
+            import jax.numpy as jnp
+            from mitsuba2_tpu.core.vec import Vec3 as JVec3
+            from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
             o, d, tm = self.rays[kind]
             args = (self.sj, *(JVec3(*(jnp.asarray(a[:, i])
                                        for i in range(3))) for a in (o, d)),
@@ -433,7 +446,8 @@ class Case:
             out = [np.array(a) for a in closest(*args, **kw)]
             occ = np.array(test(*args, **kw))
             return (*out[:4], out[4] if inst else None, occ)
-        return self.memo((which, kind), run)
+        return self.memo((which, kind), lambda: REFS.get(
+            f"{self.name}_{which}_{kind}", run))
 
 
 @pytest.fixture(scope="module", params=["field_flat", "field_shared"])
@@ -545,6 +559,23 @@ def test_shading_on_sphere_hits_matches_jax(case):
     assert n_sphere > 100
 
 
+def test_golden_is_fresh(case):
+    """The golden's f32-walker answer on camera rays recomputed now."""
+    import jax.numpy as jnp
+    from mitsuba2_tpu.core.vec import Vec3 as JVec3
+    from mitsuba2_tpu.kernels import traverse_jnp
+    o, d, tm = case.rays["camera"]
+    args = (case.sj, *(JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
+                       for a in (o, d)), jnp.asarray(tm))
+    closest = (traverse_jnp._ray_intersect_instanced
+               if case.st.has_instances
+               else traverse_jnp.ray_intersect_preliminary)
+    t, prim = closest(*args)[:2]
+    stored = case.ref("camera", "jnp")
+    np.testing.assert_array_equal(stored[0], np.asarray(t))
+    np.testing.assert_array_equal(stored[1], np.asarray(prim))
+
+
 @pytest.mark.parametrize("seed", [0])
 def test_render_matches_jax(case, seed):
     """A 32x32 render of the sphere field: the JAX package traverses it
@@ -554,7 +585,8 @@ def test_render_matches_jax(case, seed):
     import mitsuba2_tpu as mi
     kw = dict(width=32, height=32, spp=1, spp_per_pass=1, max_depth=3,
               rr_depth=8)
-    img_j = np.asarray(mi.render(case.sj, mi.RenderConfig(**kw), seed=seed))
+    img_j = REFS.get(f"{case.name}_render_{seed}", lambda: np.asarray(
+        mi.render(case.sj, mi.RenderConfig(**kw), seed=seed)))
     img_t = mt.render(case.st, mt.RenderConfig(**kw), seed=seed,
                       device="cpu").numpy()
     assert img_t.shape == img_j.shape == (32, 32, 3)

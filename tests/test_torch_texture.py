@@ -56,6 +56,11 @@ from mitsuba2_tpu_torch.scene import scene as scene_mod
 from test_torch_emitters import _close_lanes
 from test_torch_veach import _rel
 
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
 N = 4096
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "gallery_textured.npz")

@@ -17,6 +17,9 @@ Tolerances:
   tests/test_traverse_pallas.py holds the MXU kernel, since the Pallas
   kernel's plane dots run in split bf16. A lane outside that band passes
   only if the port is the closer of the two to the f32 oracle.
+
+The JAX package's answers are committed (tests/goldens/
+test_torch_traverse.npz); one is recomputed live.
 """
 import contextlib
 import ctypes
@@ -35,6 +38,14 @@ from mitsuba2_tpu_torch.kernels import traverse
 from mitsuba2_tpu_torch.probe_rays import KINDS, probe_rays
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_traverse")
 N_RAYS = 2048
 
 
@@ -77,30 +88,55 @@ class Case:
         return self.memo(("port", kind), run)
 
     def ref(self, kind, which):
-        jnp = pytest.importorskip("jax.numpy")
-        from mitsuba2_tpu.core.vec import Vec3 as JVec3
-        from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
-        from mitsuba2_tpu.scene import presets as jpresets
-        mod = {"pallas": traverse_pallas, "jnp": traverse_jnp}[which]
-        kw = {"interpret": True} if which == "pallas" else {}
-        sj = self.memo("jax_scene", lambda: jpresets.mesh_gallery(subdiv=1))
-
-        def jplanar(a):
-            return JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
-
+        """The JAX package's (t, prim, occlusion): its interpret-mode
+        kernels ("pallas") or its f32 oracle ("jnp"), read from
+        tests/goldens/test_torch_traverse.npz."""
         def run():
+            jnp = pytest.importorskip("jax.numpy")
+            from mitsuba2_tpu.core.vec import Vec3 as JVec3
+            from mitsuba2_tpu.kernels import traverse_jnp, traverse_pallas
+            from mitsuba2_tpu.scene import presets as jpresets
+            mod = {"pallas": traverse_pallas, "jnp": traverse_jnp}[which]
+            kw = {"interpret": True} if which == "pallas" else {}
+            sj = self.memo("jax_scene",
+                           lambda: jpresets.mesh_gallery(subdiv=1))
+
+            def jplanar(a):
+                return JVec3(*(jnp.asarray(a[:, i]) for i in range(3)))
             o, d, tm = self.rays[kind]
             t, prim, _, _ = mod.ray_intersect_preliminary(
                 sj, jplanar(o), jplanar(d), jnp.asarray(tm), **kw)
             occ = mod.ray_test(sj, jplanar(o), jplanar(d), jnp.asarray(tm),
                                **kw)
             return np.asarray(t), np.asarray(prim), np.asarray(occ)
-        return self.memo((which, kind), run)
+        return self.memo((which, kind), lambda: REFS.get(
+            f"{which}_{kind}", run))
 
 
 @pytest.fixture(scope="module")
 def case():
     return Case()
+
+
+def test_golden_is_fresh(case):
+    """The golden's oracle answer on camera rays recomputed now: a stale
+    golden (new probe rays, a new scene) fails here."""
+    for a, b in zip(case.ref("camera", "jnp"), _live_jnp(case)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _live_jnp(case):
+    import jax.numpy as jnp
+    from mitsuba2_tpu.core.vec import Vec3 as JVec3
+    from mitsuba2_tpu.kernels import traverse_jnp
+    from mitsuba2_tpu.scene import presets as jpresets
+    sj = jpresets.mesh_gallery(subdiv=1)
+    o, d, tm = (jnp.asarray(a) for a in case.rays["camera"])
+    args = (sj, JVec3(o[:, 0], o[:, 1], o[:, 2]),
+            JVec3(d[:, 0], d[:, 1], d[:, 2]), tm)
+    t, prim, _, _ = traverse_jnp.ray_intersect_preliminary(*args)
+    return (np.asarray(t), np.asarray(prim),
+            np.asarray(traverse_jnp.ray_test(*args)))
 
 
 @pytest.mark.parametrize("which", ["pallas", "jnp"])

@@ -19,7 +19,8 @@ which leaves NaN its roughness columns alone on veach and, on the
 gallery, columns 24-27 (the rough families' roughness, the dielectrics'
 eta); the port's gradients there are held to central differences here
 and, family by family, to the JAX package's in
-tests/test_torch_bsdf.py. Each JAX reference is computed once per module.
+tests/test_torch_bsdf.py. The JAX package's renders and gradients are
+committed (tests/goldens/test_torch_veach.npz); one is recomputed live.
 """
 import numpy as np
 import pytest
@@ -32,8 +33,16 @@ from mitsuba2_tpu_torch.scene import presets as tpresets
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene.scene import FIELDS
 
+from goldens.jax_refs import Refs
 from test_torch_instancing import assert_port_tables, recorded_fields
 from test_torch_render import GOLDEN_DIR, golden_z_test
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_veach")
 
 VEACH = dict(width=16, height=16, spp=4, spp_per_pass=4, max_depth=3,
              rr_depth=8)
@@ -124,29 +133,55 @@ def _jax_l2_grad(scene, cfg):
     return out
 
 
+def _jax_image(name, mode):
+    import mitsuba2_tpu as mi
+    from mitsuba2_tpu.scene import presets as jpresets
+    scene = (jpresets.veach_mis() if name == "veach"
+             else chip_smoke.gallery_materials(jpresets, 1))
+    kw = VEACH if name == "veach" else GALLERY
+    return np.asarray(mi.render(scene, mi.RenderConfig(
+        **kw, color_mode=mode), seed=0))
+
+
+def _jax_grads(name):
+    import mitsuba2_tpu as mi
+    from mitsuba2_tpu.scene import presets as jpresets
+    scene = (jpresets.veach_mis() if name == "veach"
+             else chip_smoke.gallery_materials(jpresets, 1))
+    return _jax_l2_grad(scene, mi.RenderConfig(**VEACH))
+
+
 @pytest.fixture(scope="module")
 def refs():
     """The JAX package's scenes, its renders of veach in mono and of the
     gallery, and its render_l2_grad (_jax_l2_grad) of veach and of the
     gallery at VEACH's sizes, NaN still in some columns (see
     test_render_l2_grad_matches_jax and
-    test_gallery_render_l2_grad_matches_jax)."""
+    test_gallery_render_l2_grad_matches_jax). The renders and gradients
+    are read from tests/goldens/test_torch_veach.npz (python
+    tests/goldens/make_refs.py test_torch_veach writes it)."""
     pytest.importorskip("jax")
-    import mitsuba2_tpu as mi
     from mitsuba2_tpu.scene import presets as jpresets
     scenes = {"veach": jpresets.veach_mis(),
               "gallery": chip_smoke.gallery_materials(jpresets, 1)}
     out = {"scenes": scenes, "images": {}}
-    out["images"]["veach", "mono"] = np.asarray(mi.render(
-        scenes["veach"], mi.RenderConfig(**VEACH, color_mode="mono"),
-        seed=0))
-    out["images"]["gallery", "rgb"] = np.asarray(mi.render(
-        scenes["gallery"], mi.RenderConfig(**GALLERY), seed=0))
-    out["grads"] = {name: _jax_l2_grad(sj, mi.RenderConfig(**VEACH))
-                    for name, sj in scenes.items()}
+    out["images"]["veach", "mono"] = REFS.get(
+        "veach_mono", lambda: _jax_image("veach", "mono"))
+    out["images"]["gallery", "rgb"] = REFS.get(
+        "gallery_rgb", lambda: _jax_image("gallery", "rgb"))
+    out["grads"] = {name: REFS.get(f"{name}_grads",
+                                   lambda n=name: _jax_grads(n))
+                    for name in scenes}
     # the forward is the JAX package's own: the patch moves no value
     out["images"]["veach", "rgb"] = out["grads"]["veach"][0]
     return out
+
+
+def test_golden_is_fresh():
+    """The golden's smallest entry, veach's mono image, recomputed now."""
+    stored, live = REFS.fresh("veach_mono",
+                              lambda: _jax_image("veach", "mono"))
+    np.testing.assert_array_equal(stored, live)
 
 
 @pytest.mark.parametrize("name,make", [("veach", _veach),
@@ -205,16 +240,31 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _l2_grad_matches_jax(scene, ref):
-    """The port's render_l2_grad of `scene` at VEACH's sizes against the
-    JAX package's (`ref`, _jax_l2_grad): the image, the loss and every
-    gradient entry the JAX package leaves finite within 1e-3 in relative
-    norm, the port's finite everywhere. Returns the port's gradients and
-    the mat_data columns the JAX package leaves NaN."""
+@pytest.fixture(scope="module")
+def port_l2():
+    """The port's render_l2_grad of each scene at VEACH's sizes against a
+    zero target, seed 0, computed once for the module: the scene, and
+    (image, loss, grads)."""
+    memo = {}
+
+    def get(name):
+        if name not in memo:
+            scene = _veach() if name == "veach" else _gallery()
+            memo[name] = scene, mt.render_l2_grad(
+                scene, mt.RenderConfig(**VEACH), torch.zeros(16, 16, 3),
+                seed=0, device="cpu")
+        return memo[name]
+    return get
+
+
+def _l2_grad_matches_jax(port, ref):
+    """The port's render_l2_grad (`port`, port_l2's) at VEACH's sizes
+    against the JAX package's (`ref`, _jax_l2_grad): the image, the loss
+    and every gradient entry the JAX package leaves finite within 1e-3 in
+    relative norm, the port's finite everywhere. Returns the port's
+    gradients and the mat_data columns the JAX package leaves NaN."""
     img_j, loss_j, grads_j = ref
-    img, loss, grads = mt.render_l2_grad(
-        scene, mt.RenderConfig(**VEACH), torch.zeros(16, 16, 3), seed=0,
-        device="cpu")
+    img, loss, grads = port
     _assert_image_close(img.numpy(), img_j)
     np.testing.assert_allclose(float(loss), loss_j, rtol=1e-3)
     assert set(grads) == set(grads_j)
@@ -233,7 +283,7 @@ def _named(grads, scene, name):
     return np.asarray(grads[table][row, c0:c1])
 
 
-def test_render_l2_grad_matches_jax(refs):
+def test_render_l2_grad_matches_jax(refs, port_l2):
     """veach_mis() at 16x16, 4 spp, depth 3 (_l2_grad_matches_jax), each
     named parameter too (the floor's albedo, the plates' conductor
     colors). The JAX package's roughness columns stay NaN (its backward
@@ -241,8 +291,8 @@ def test_render_l2_grad_matches_jax(refs):
     one-hot gather adjoint spreads over the column);
     tests/test_torch_bsdf.py's family gradients and the finite
     differences below hold the port's roughness gradients instead."""
-    scene = _veach()
-    grads, nan_cols = _l2_grad_matches_jax(scene, refs["grads"]["veach"])
+    scene, port = port_l2("veach")
+    grads, nan_cols = _l2_grad_matches_jax(port, refs["grads"]["veach"])
     grads_j = refs["grads"]["veach"][2]
     assert nan_cols <= {24, 25}             # the roughness columns alone
     # floor and back share one row (one material), the lights another
@@ -262,7 +312,7 @@ GALLERY_NAN = {"blob1.bsdf.alpha_u", "blob1.bsdf.alpha_v", "blob2.bsdf.eta",
                "metal.bsdf.alpha_u", "metal.bsdf.alpha_v", "pane.bsdf.eta"}
 
 
-def test_gallery_render_l2_grad_matches_jax(refs):
+def test_gallery_render_l2_grad_matches_jax(refs, port_l2):
     """gallery_materials (subdiv 1) at VEACH's sizes
     (_l2_grad_matches_jax), each named parameter whose gradient the JAX
     package leaves finite too, within 1e-3 in relative norm (zero where
@@ -275,8 +325,8 @@ def test_gallery_render_l2_grad_matches_jax(refs):
     the rough families' roughness are held to it family by family
     (tests/test_torch_bsdf.py) and, metal's alpha, to central
     differences (test_gallery_gradients_finite_and_end_to_end)."""
-    scene = _gallery()
-    grads, nan_cols = _l2_grad_matches_jax(scene, refs["grads"]["gallery"])
+    scene, port = port_l2("gallery")
+    grads, nan_cols = _l2_grad_matches_jax(port, refs["grads"]["gallery"])
     grads_j = refs["grads"]["gallery"][2]
     assert nan_cols <= {24, 25, 26, 27}
     held = 0
@@ -330,16 +380,14 @@ GALLERY_PARAMS = ["blob1.bsdf.alpha_u", "blob1.bsdf.alpha_v",
                   "blob0.bsdf.specular_reflectance"]
 
 
-def test_gallery_gradients_finite_and_end_to_end():
+def test_gallery_gradients_finite_and_end_to_end(port_l2):
     """gallery_materials (subdiv 1) at 16x16, 4 spp, depth 3: every
     gradient entry finite (the JAX package's are NaN in every row there),
     render_l2_grad equal to plain autograd through the whole render, and
     metal.bsdf.alpha_v (the twosided quad seen from behind) within 5% of
     a central difference, and alpha_u too."""
-    scene = _gallery()
+    scene, (img, loss, grads) = port_l2("gallery")
     cfg = mt.RenderConfig(**VEACH)
-    img, loss, grads = mt.render_l2_grad(scene, cfg, torch.zeros(16, 16, 3),
-                                         seed=0, device="cpu")
     assert all(bool(g.isfinite().all()) for g in grads.values())
     tables = {k: v.clone().requires_grad_(True)
               for k, v in adjoint.diff_tables(scene).items()}
@@ -443,9 +491,11 @@ def test_plate0_roughness_gradients_per_lane_match_jax():
                                      for k in range(3)))(jnp.asarray(rows,
                                                                      dt))
         return [np.asarray(a, np.float64)[:, 24:26] for a in g]
-    g_32 = jax_grads(jnp.float32)
-    with jax.enable_x64(True):
-        g_64 = jax_grads(jnp.float64)
+    def both():
+        g_32 = jax_grads(jnp.float32)
+        with jax.enable_x64(True):
+            return g_32, jax_grads(jnp.float64)
+    g_32, g_64 = REFS.get("plate0_lane_grads", both)
     fam, cfg = B.FAMILIES[fid], mt.RenderConfig()
     si = _si_t(wi, np.zeros(n, np.int32))
     ut = torch.from_numpy(u)

@@ -40,7 +40,15 @@ from mitsuba2_tpu_torch.render import volpath
 from mitsuba2_tpu_torch.scene import scene as scene_mod
 from mitsuba2_tpu_torch.scene import shapes as tshapes
 
+from goldens.jax_refs import Refs
 from test_torch_render import GOLDEN_DIR, golden_z_test
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_volpath")
 
 RENDER = dict(width=16, height=16, spp=8, spp_per_pass=8, max_depth=4,
               rr_depth=2)
@@ -59,9 +67,11 @@ MEDIA = {
 
 
 def _slab(name, pkg):
+    """The slab holding MEDIA[name]: the port's scene, or (pkg "jax") a
+    function that builds the JAX package's."""
     med = MEDIA[name]
     if pkg == "jax":
-        return _with_medium(jshapes, jbuild, med)
+        return lambda: _with_medium(jshapes, jbuild, med)
     return _with_medium(tshapes, mt.build_scene, med, device="cpu")
 
 
@@ -90,9 +100,12 @@ def _with_medium(shapes, build, med, **kw):
                   "to_world": np.asarray(cam.matrix), "fov": 35.0}, **kw)
 
 
-def _renders(sj, st, seed=1, **kw):
+def _renders(key, mk_j, st, seed=1, **kw):
+    """The port's render of `st` and the JAX package's of mk_j()'s scene,
+    read from tests/goldens/test_torch_volpath.npz under `key`."""
     cfg = {**RENDER, **kw}
-    img_j = np.asarray(mi.render(sj, mi.RenderConfig(**cfg), seed=seed))
+    img_j = REFS.get(key, lambda: np.asarray(
+        mi.render(mk_j(), mi.RenderConfig(**cfg), seed=seed)))
     img_t = mt.render(st, mt.RenderConfig(**cfg), seed=seed,
                       device="cpu").numpy()
     assert img_t.shape == img_j.shape and np.isfinite(img_t).all()
@@ -107,22 +120,30 @@ def _every_pixel(img_t, img_j):
 
 @pytest.mark.parametrize("name", ["absorbing", "scattering"])
 def test_homogeneous_slab_matches_jax(name):
-    _every_pixel(*_renders(_slab(name, "jax"), _slab(name, "port"),
-                           integrator="volpath"))
+    _every_pixel(*_renders(f"slab_{name}", _slab(name, "jax"),
+                           _slab(name, "port"), integrator="volpath"))
+
+
+def test_golden_is_fresh():
+    """The golden's absorbing-slab image recomputed by the JAX package."""
+    cfg = mi.RenderConfig(**RENDER, integrator="volpath")
+    stored, live = REFS.fresh("slab_absorbing", lambda: np.asarray(
+        mi.render(_slab("absorbing", "jax")(), cfg, seed=1)))
+    np.testing.assert_array_equal(stored, live)
 
 
 @pytest.mark.parametrize("mode", ["rgb", "spectral"])
 def test_volpathmis_chromatic_matches_jax(mode):
     """Spectral MIS over the channels (volpathmis.cpp) on a medium whose
     extinction spans 10x across the channels."""
-    _every_pixel(*_renders(_slab("chromatic", "jax"),
+    _every_pixel(*_renders(f"chromatic_{mode}", _slab("chromatic", "jax"),
                            _slab("chromatic", "port"),
                            integrator="volpathmis", color_mode=mode))
 
 
 def test_mono_matches_jax():
     """mono: the channel-mean extinction and albedo."""
-    _every_pixel(*_renders(_slab("chromatic", "jax"),
+    _every_pixel(*_renders("chromatic_mono", _slab("chromatic", "jax"),
                            _slab("chromatic", "port"),
                            integrator="volpath", color_mode="mono"))
 
@@ -164,10 +185,9 @@ def _mask_scene(shapes, build, **kw):
 def test_mask_shadow_matches_jax():
     """volpath's shadow rays through a mask (1 - opacity) and a null pane
     (1): the partial shadow on the floor, pixel by pixel."""
-    sj = _mask_scene(jshapes, jbuild)
     st = _mask_scene(tshapes, mt.build_scene, device="cpu")
-    img_t, img_j = _renders(sj, st, integrator="volpath", max_depth=3,
-                            rr_depth=8)
+    img_t, img_j = _renders("mask", lambda: _mask_scene(jshapes, jbuild), st,
+                            integrator="volpath", max_depth=3, rr_depth=8)
     _every_pixel(img_t, img_j)
     # the mask's shadow is partial: neither black nor the open floor
     from mitsuba2_tpu_torch.render import bsdf
@@ -181,8 +201,8 @@ def test_mask_shadow_matches_jax():
 
 def test_heterogeneous_slab_matches_jax():
     """Delta tracking on a tie-free scene: every pixel."""
-    img_t, img_j = _renders(_slab("grid", "jax"), _slab("grid", "port"),
-                            integrator="volpath")
+    img_t, img_j = _renders("slab_grid", _slab("grid", "jax"),
+                            _slab("grid", "port"), integrator="volpath")
     _every_pixel(img_t, img_j)
 
 
@@ -192,7 +212,9 @@ def test_heterogeneous_slab_matches_jax():
 
 @pytest.fixture(scope="module")
 def smoke():
-    return jpresets.smoke_box(8), mt.smoke_box(8, device="cpu")
+    """A function that builds the JAX package's smoke_box(8), and the
+    port's."""
+    return (lambda: jpresets.smoke_box(8)), mt.smoke_box(8, device="cpu")
 
 
 def _inside_lanes(n=4096, seed=0):
@@ -226,21 +248,26 @@ def test_delta_tracking_decisions_match_jax(smoke):
     from mitsuba2_tpu.render import sampler as jsampler
     from mitsuba2_tpu.render import volpath as jvolpath
     from mitsuba2_tpu.scene import scene as jscene
-    sj, st = smoke
+    mk_j, st = smoke
     o, d = _inside_lanes()
     n = o.shape[0]
-    rj = _jax_ray(o, d)
-    si = jscene.ray_intersect(sj, rj)
-    t_surf = np.asarray(jnp.where(si.valid, si.t, 1e20))
     med = np.zeros(n, np.int32)
     med[::7] = -1                                   # some lanes in vacuum
     u = np.random.default_rng(1).uniform(size=n).astype(np.float32)
-    flight = jax.jit(lambda r, m, t, uu, s: jvolpath._sample_free_flight(
-        sj, m, r, t, uu, s, mi.RenderConfig(integrator="volpath")))
-    tj, ej, wj, _ = flight(rj, jnp.asarray(med), jnp.asarray(t_surf),
-                           jnp.asarray(u), jsampler.make_sampler(
-                               "independent", jnp.uint32(5),
-                               jnp.arange(n, dtype=jnp.uint32), 1, 1))
+
+    def jax_flight():
+        sj = mk_j()
+        rj = _jax_ray(o, d)
+        si = jscene.ray_intersect(sj, rj)
+        t_surf = np.asarray(jnp.where(si.valid, si.t, 1e20))
+        flight = jax.jit(lambda r, m, t, uu, s: jvolpath._sample_free_flight(
+            sj, m, r, t, uu, s, mi.RenderConfig(integrator="volpath")))
+        tj, ej, wj, _ = flight(rj, jnp.asarray(med), jnp.asarray(t_surf),
+                               jnp.asarray(u), jsampler.make_sampler(
+                                   "independent", jnp.uint32(5),
+                                   jnp.arange(n, dtype=jnp.uint32), 1, 1))
+        return t_surf, np.asarray(tj), np.asarray(ej), np.asarray(wj.ch[0])
+    t_surf, tj, ej, wj = REFS.get("smoke_flight", jax_flight)
     volpath.TRACK_STATS = []
     try:
         tt, et, wt, _ = volpath._sample_free_flight(
@@ -254,7 +281,7 @@ def test_delta_tracking_decisions_match_jax(smoke):
     flips = int((et.numpy() != np.asarray(ej)).sum())
     assert flips == 0 and 0.1 < et.numpy().mean() < 0.9
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), rtol=1e-5)
-    assert (wt.ch[0].numpy() == 1.0).all() and (np.asarray(wj.ch[0]) == 1).all()
+    assert (wt.ch[0].numpy() == 1.0).all() and (wj == 1).all()
     assert tracked == n - len(med[::7]) and trials >= tracked
     assert 0 < trip <= loop <= volpath._DELTA_STEPS and loop % 8 == 0
 
@@ -271,34 +298,41 @@ def test_smoke_box_bounce_differs_only_on_the_tie(smoke):
     from mitsuba2_tpu.render import sampler as jsampler
     from mitsuba2_tpu.render import volpath as jvolpath
     from mitsuba2_tpu.scene import scene as jscene
-    sj, st = smoke
+    mk_j, st = smoke
     o, d = _inside_lanes(seed=2)
     n = o.shape[0]
     cfg = dict(integrator="volpath", max_depth=3, rr_depth=8)
-    carry_j = (_jax_ray(o, d), jsampler.make_sampler(
-        "independent", jnp.uint32(5), jnp.arange(n, dtype=jnp.uint32), 1, 1),
-        JSpec.ones((n,), 3), JSpec.zeros((n,), 3), jnp.zeros(n, jnp.int32),
-        jnp.ones(n, bool), jnp.full(n, 0.3, jnp.float32),
-        jnp.zeros(n, bool))
+
+    def jax_bounce():
+        sj = mk_j()
+        carry_j = (_jax_ray(o, d), jsampler.make_sampler(
+            "independent", jnp.uint32(5), jnp.arange(n, dtype=jnp.uint32), 1,
+            1), JSpec.ones((n,), 3), JSpec.zeros((n,), 3),
+            jnp.zeros(n, jnp.int32), jnp.ones(n, bool),
+            jnp.full(n, 0.3, jnp.float32), jnp.zeros(n, bool))
+        out_j = jax.jit(lambda c: jvolpath._vol_bounce(
+            sj, mi.RenderConfig(**cfg), 1, c))(carry_j)
+        prim_j = jax.jit(lambda r: jscene.ray_intersect(sj, r))(
+            _jax_ray(o, d)).prim_index
+        return ({k: [np.asarray(c) for c in out_j[k].ch] for k in (2, 3)},
+                {k: np.asarray(out_j[k]) for k in (4, 5, 7)},
+                np.asarray(prim_j))
+    specs_j, flags_j, prim_j = REFS.get("smoke_bounce", jax_bounce)
     carry_t = (_port_ray(o, d),
                tsampler.make_sampler("independent", 5, torch.arange(n)),
                Spec.ones(n, 3, "cpu"), Spec.zeros(n, 3, "cpu"),
                torch.zeros(n, dtype=torch.int32),
                torch.ones(n, dtype=torch.bool), torch.full((n,), 0.3),
                torch.zeros(n, dtype=torch.bool))
-    out_j = jax.jit(lambda c: jvolpath._vol_bounce(
-        sj, mi.RenderConfig(**cfg), 1, c))(carry_j)
     out_t = volpath._vol_bounce(st, mt.RenderConfig(**cfg), 1, carry_t)
     differ = np.zeros(n, bool)
     for k in (2, 3):    # throughput, result
         for c in range(3):
             differ |= ~np.isclose(out_t[k].ch[c].numpy(),
-                                  np.asarray(out_j[k].ch[c]), rtol=1e-4,
+                                  specs_j[str(k)][c], rtol=1e-4,
                                   atol=1e-6)
     for k in (4, 5, 7):  # medium, active, previous delta
-        differ |= out_t[k].numpy() != np.asarray(out_j[k])
-    prim_j = np.asarray(jax.jit(lambda r: jscene.ray_intersect(sj, r))(
-        _jax_ray(o, d)).prim_index)
+        differ |= out_t[k].numpy() != flags_j[str(k)]
     prim_t = scene_mod.ray_intersect(st, _port_ray(o, d)).prim_index.numpy()
     tie = (prim_j != prim_t) & (d[:, 1] < 0)
     assert set(prim_t[tie]) | set(prim_j[tie]) <= {0, 1, 2, 3}
@@ -311,10 +345,10 @@ def test_smoke_box_image_mean(smoke):
     test size): depth 2 (no scattering vertex) pixel for pixel; depth 3
     within 8% of the JAX package's image mean, darker (the tie above:
     6.4% at this seed), most pixels close."""
-    sj, st = smoke
+    mk_j, st = smoke
     kw = dict(spp=4, spp_per_pass=4, rr_depth=8, integrator="volpath")
-    _every_pixel(*_renders(sj, st, max_depth=2, **kw))
-    img_t, img_j = _renders(sj, st, max_depth=3, **kw)
+    _every_pixel(*_renders("smoke_d2", mk_j, st, max_depth=2, **kw))
+    img_t, img_j = _renders("smoke_d3", mk_j, st, max_depth=3, **kw)
     ratio = img_t.mean() / img_j.mean()
     assert 0.92 < ratio < 1.0
     close = np.isclose(img_t, img_j, rtol=1e-3, atol=1e-4).all(-1)

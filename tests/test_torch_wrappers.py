@@ -44,6 +44,14 @@ from mitsuba2_tpu_torch.scene import presets as tpresets
 from test_torch_bsdf import _StandIn, _assert_close, _pack, _si_j, _si_t, _v3t
 from test_torch_veach import _own_rows_dispatch
 
+from goldens.jax_refs import Refs
+
+# one intra-op thread: the suite's test processes share the cores
+# (pytest-xdist), and torch's OpenMP regions stall when they
+# oversubscribe them
+torch.set_num_threads(1)
+
+REFS = Refs("test_torch_wrappers")
 N = 4096
 RNG_TEX = np.random.default_rng(31)
 CHECKER = {"type": "checkerboard", "color0": [0.1, 0.3, 0.2],
@@ -186,7 +194,17 @@ def _run(tables, mode, pkg):
 
 @pytest.fixture(scope="module")
 def refs(tables):
-    return {mode: _run(tables, mode, "jax") for mode in ("rgb", "mono")}
+    """The JAX package's lanes in each mode, read from tests/goldens/
+    test_torch_wrappers.npz."""
+    return {mode: REFS.get(mode, lambda m=mode: _run(tables, m, "jax"))
+            for mode in ("rgb", "mono")}
+
+
+def test_golden_is_fresh(tables):
+    """The golden's mono lanes recomputed by the JAX package now."""
+    stored, live = REFS.fresh("mono", lambda: _run(tables, "mono", "jax"))
+    for k in live:
+        np.testing.assert_array_equal(stored[k], live[k], err_msg=k)
 
 
 @pytest.mark.parametrize("mode", ["rgb", "mono"])
