@@ -93,6 +93,17 @@ which render spectrally:
              subprocess, its wall time and launches, its PFM bit-equal
              to the in-process render and within the limits of phase 4
              of the gallery path's.
+The variants phase (VARIANTS) renders eleven more paths through
+`render_any` at the same size: the gallery under the direct, depth, aov
+(all eight AOVs, a path child) and moment (4 passes of 4) integrators,
+the stratified sampler with the gaussian filter and the ld sampler with
+lanczos, and the gallery seen by gallery_sensor's orthographic camera,
+distant sensor, radiance meter (every lane on one ray), irradiance meter
+(a floor patch) and moving camera, whose camera-ray K1 launch and first
+K2 launch are held bit-equal to their twins; then `python -m
+mitsuba2_tpu_torch moment.xml -a depth -a sh_normal`, its mean and
+sidecars equal to the in-process results; phase 4 renders each variant
+on the card and the CPU.
 Each path sets its switches (the backend, the dense switch, MXU_LEAVES)
 before it builds its scene (a scene uploads the tables of the walk it
 takes) and resets them after each use.
@@ -117,7 +128,7 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
 Phase 3  renders each path: launch counts (set to 0 just before the path's
          renders, read just after), time, Mrays/s, peak memory. Each kernel
          is then timed and held against its twin on the very inputs the
-         main path gave it, beside its bound; K6 also on the inputs the
+         main path gave it (that kernel's twin alone), beside its bound; K6 also on the inputs the
          spheres path gave K3, for a same-ray comparison. Config 5's
          paths print bench.py's counted and all-rays Mrays/s, and their
          image against the plain render of the same seed (held within
@@ -432,7 +443,9 @@ DENSE = {"gallery_dense"}
 LEAVES_OFF = {"smoke_box_bvh2"}
 # the paths phase 5 profiles one pass of: the profiler's host cost is
 # ~0.4 ms a launch, and cornell_reparam's renders launch ~240 000 kernels
-PROFILE_ONE_PASS = {"cornell_reparam", "smoke_box", "kitchen_sink"}
+# (veach's and veach_spectral's 42 000 and 62 000, since PR 21)
+PROFILE_ONE_PASS = {"cornell_reparam", "smoke_box", "kitchen_sink",
+                    "veach", "veach_spectral"}
 # the kernels held bit-equal to their twins on every lane of phases 2 and
 # 3: the warp-cooperative cluster visits, the warp-wide leaf tests, the
 # pair walks and K6's any hit: every walk kernel
@@ -708,6 +721,59 @@ def compare(torch, ks, rays):
         "any_plain_ms": ev[1].elapsed_time(ev[2]),
         "closest_stats": st_c, "any_stats": st_a,
     }
+
+
+def compare_one(torch, ks, name, rays):
+    """Kernel `name` (of `ks`) and its twin alone on the same CUDA
+    tensors, every lane: compare()'s record, the other kernel's fields
+    vacuous (a launch's rays are its own kernel's inputs: the other
+    kernel never sees them on the main path)."""
+    tabs, extra = ks["tabs"], ks["extra"]
+    closest = name == ks["closest"]
+    out_k = wrapper(name)(*tabs, *rays, *extra)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    st = {}
+    ev[0].record()
+    out_p = ks["closest_plain" if closest else "any_plain"](
+        *tabs, *rays, *extra, chunk=ks["chunk"], stats=st)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    if not closest:
+        agree = float((out_k == out_p).float().mean())
+        return {"bit_equal": bool(torch.equal(out_k, out_p)),
+                "closest_bit_equal": True, "hit_equal": True,
+                "hit_frac": float(out_p.float().mean()), "slot_agree": 1.0,
+                "t_ok_same": True, "t_ok_tie": True, "t_max_abs_err": 0.0,
+                "uv_max_abs_err": 0.0, "occ_agree": agree,
+                "occ_max_abs_err": float((out_k.int()
+                                          - out_p.int()).abs().max()),
+                "any_plain_ms": plain_ms, "any_stats": st}
+    t_k, t_p = out_k[0], out_p[0]
+    hit_k, hit_p = torch.isfinite(t_k), torch.isfinite(t_p)
+    both = hit_k & hit_p
+    same = both
+    for i in ks["ids"]:
+        same = same & (out_k[i] == out_p[i])
+    n_hit = int(hit_p.sum())
+    dt = (t_k - t_p).abs()
+    tol = 1e-5 * t_p.abs()
+    uv_err = 0.0
+    if ks["uv"] and bool(same.any()):
+        uv_err = max(float((out_k[i] - out_p[i])[same].abs().max())
+                     for i in (2, 3))
+    equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    return {
+        "bit_equal": equal, "closest_bit_equal": equal,
+        "hit_equal": bool(torch.equal(hit_k, hit_p)),
+        "hit_frac": n_hit / t_p.numel(),
+        "slot_agree": int(same.sum()) / n_hit if n_hit else 1.0,
+        "t_ok_same": bool((dt[same] <= tol[same]).all()),
+        "t_ok_tie": bool((dt[both & ~same] <= tol[both & ~same]).all()),
+        "t_max_abs_err": float(dt[both].max()) if bool(both.any()) else 0.0,
+        "uv_max_abs_err": uv_err, "occ_agree": 1.0, "occ_max_abs_err": 0.0,
+        "closest_plain_ms": plain_ms, "closest_stats": st}
 
 
 def passes(c, exact=False, exact_closest=False, exact_any=False):
@@ -1161,6 +1227,111 @@ def gallery_textured(P, subdiv=SUBDIV, res=TEX_FLOOR, **build_kw):
                  "irradiance": {"type": "bitmap", "data": tx["slide"],
                                 "id": "slide"}, "id": "projector"}
     return P.build_scene(s, sensor, emitters=[projector], **build_kw)
+
+
+# ---------------------------------------------------------------------------
+# The variants phase's scenes: mesh_gallery's shapes seen by each sensor
+# ---------------------------------------------------------------------------
+
+def gallery_shapes(P, subdiv=SUBDIV):
+    """mesh_gallery(subdiv)'s shapes (the same room, light, seeds and
+    placement) from the presets module `P` of either package, and its
+    camera's to_world."""
+    X, Y, Z = 3.0, 2.0, 3.0
+    white = {"type": "diffuse", "reflectance": P.WHITE}
+    s = [
+        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf=white,
+                id="floor"),
+        P._quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], bsdf=white,
+                id="ceiling"),
+        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf=white,
+                id="back"),
+        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0],
+                bsdf={"type": "diffuse", "reflectance": P.RED}, id="left"),
+        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z],
+                bsdf={"type": "diffuse", "reflectance": P.GREEN},
+                id="right"),
+        P._quad([1.1, Y - 5e-4, 1.2], [1.9, Y - 5e-4, 1.2],
+                [1.9, Y - 5e-4, 1.8], [1.1, Y - 5e-4, 1.8], bsdf=white,
+                emitter={"type": "area", "radiance": P.LIGHT}, id="light")]
+    base_v, faces = P._icosphere(subdiv)
+    k = 0
+    for i in range(3):
+        for j in range(2):
+            v = P._displace(base_v.copy(), seed=k)
+            v = v * 0.34 + np.asarray([(i + 0.5) * X / 3,
+                                       0.45 + 0.1 * ((i + j) % 3),
+                                       (j + 0.75) * Z / 2.5], np.float32)
+            s.append(P.shapes.mesh(v, faces, bsdf={
+                "type": "diffuse", "reflectance": GALLERY_ALBEDO[k]},
+                id=f"blob{k}"))
+            k += 1
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    return s, np.asarray(cam.matrix)
+
+
+def _rot(axis, deg):
+    """A 4x4 rotation (float64) about `axis` by `deg` degrees."""
+    x, y, z = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    c, s_ = np.cos(np.deg2rad(deg)), np.sin(np.deg2rad(deg))
+    m = np.eye(4)
+    m[:3, :3] = [[c + x * x * (1 - c), x * y * (1 - c) - z * s_,
+                  x * z * (1 - c) + y * s_],
+                 [y * x * (1 - c) + z * s_, c + y * y * (1 - c),
+                  y * z * (1 - c) - x * s_],
+                 [z * x * (1 - c) - y * s_, z * y * (1 - c) + x * s_,
+                  c + z * z * (1 - c)]]
+    return m
+
+
+def _affine(*mats):
+    """The product of 4x4 matrices in float64, as float32 (the same
+    sensor whichever package builds it)."""
+    out = np.eye(4)
+    for m in mats:
+        out = out @ np.asarray(m, np.float64)
+    return out.astype(np.float32)
+
+
+def variant_sensor(P, kind, cam):
+    """The sensor dict of the variants phase's `kind` around the gallery
+    camera's to_world `cam`: an orthographic view of the room 1.6 wide, a
+    distant sensor looking down into the room, a radiance meter at a
+    blob, an irradiance meter on a 0.6 x 0.6 rectangle 5 cm above the
+    floor facing up, and the camera moving over its shutter by 0.15 to
+    the right with a 10 degree yaw."""
+    look = P.Transform4.look_at
+    if kind == "orthographic":
+        return {"type": kind,
+                "to_world": _affine(cam, np.diag([1.6, 1.6, 1.0, 1.0]))}
+    if kind == "distant":
+        return {"type": kind, "to_world": np.asarray(look(
+            origin=[1.5, 3.0, -0.5], target=[1.5, 0.0, 1.8],
+            up=[0, 1, 0]).matrix)}
+    if kind == "radiancemeter":
+        return {"type": kind, "to_world": np.asarray(look(
+            origin=[1.5, 1.0, -1.0], target=[0.5, 0.45, 0.9],
+            up=[0, 1, 0]).matrix)}
+    if kind == "irradiancemeter":
+        shift = np.eye(4)
+        shift[:3, 3] = [1.5, 0.05, 0.5]
+        return {"type": kind, "to_world": _affine(
+            shift, _rot([1, 0, 0], -90.0), np.diag([0.3, 0.3, 1.0, 1.0]))}
+    if kind == "motion":
+        shift = np.eye(4)
+        shift[0, 3] = 0.15
+        moved = _affine(shift, cam, _rot([0, 1, 0], 10.0))
+        return {"type": "perspective", "to_world": cam, "fov": 50.0,
+                "to_world_keys": [(0.0, cam), (1.0, moved)]}
+    raise ValueError(kind)
+
+
+def gallery_sensor(P, kind, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv) seen by variant_sensor(kind), from the presets
+    module `P` of either package."""
+    s, cam = gallery_shapes(P, subdiv)
+    return P.build_scene(s, variant_sensor(P, kind, cam), **build_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1632,12 +1803,13 @@ def kernel_ms(torch, fn, reps):
 
 def time_launch(torch, ks, scene, name, rays, reps=KERNEL_REPS):
     """One launch of kernel `name` (of `ks`, kernels_of's) on `rays`: its
-    device time over `reps` launches, its agreement with its twin, the
-    twin's time, the work the twin counted and the bound of that work."""
+    device time over `reps` launches, its agreement with its twin
+    (compare_one's), the twin's time, the work the twin counted and the
+    bound of that work."""
     tabs, extra = ks["tabs"], ks["extra"]
     n = rays[0].numel()
     ms = kernel_ms(torch, lambda: wrapper(name)(*tabs, *rays, *extra), reps)
-    c = compare(torch, ks, list(rays))
+    c = compare_one(torch, ks, name, list(rays))
     closest = name == ks["closest"]
     st = c["closest_stats" if closest else "any_stats"]
     live = int((rays[6] > 0).sum())
@@ -1920,6 +2092,287 @@ def phase_cli(torch, mt, xml, scene, cfg, gallery, render_ms):
         f"render median {render_ms['xml_gallery']:.1f} ms beside the "
         f"gallery's {render_ms['gallery']:.1f} ms")
     check(close >= 0.99, "xml_gallery's render is not the gallery's")
+
+
+# ---------------------------------------------------------------------------
+# The variants phase: the integrator variants, samplers and filters on the
+# gallery, and the gallery seen by the other sensors
+# ---------------------------------------------------------------------------
+
+AOV_NAMES = ("depth", "position", "sh_normal", "geo_normal", "uv",
+             "prim_index", "shape_index", "albedo")
+# path -> (its scene: the gallery, or gallery_sensor's kind; the config's
+# fields over RENDER)
+VARIANTS = {
+    "gallery_direct": ("gallery", dict(integrator="direct")),
+    "gallery_depth": ("gallery", dict(integrator="depth")),
+    "gallery_aov": ("gallery", dict(integrator="aov", aovs=AOV_NAMES,
+                                    aov_child="path")),
+    "gallery_moment": ("gallery", dict(integrator="moment",
+                                       spp_per_pass=4)),
+    "gallery_stratified_gaussian": ("gallery", dict(sampler="stratified",
+                                                    rfilter="gaussian")),
+    "gallery_ld_lanczos": ("gallery", dict(sampler="ldsampler",
+                                           rfilter="lanczos")),
+    "gallery_ortho": ("orthographic", {}),
+    "gallery_distant": ("distant", {}),
+    "gallery_radiancemeter": ("radiancemeter", {}),
+    "gallery_irradiancemeter": ("irradiancemeter", {}),
+    "gallery_motion": ("motion", {}),
+}
+# the paths whose camera-ray K1 launch and first K2 launch are held to
+# the twins: the wavefronts new to the cluster walks
+SENSOR_PATHS = ("gallery_ortho", "gallery_distant", "gallery_radiancemeter",
+                "gallery_irradiancemeter", "gallery_motion")
+# K1 and K2 launches a render: the path tracer's 3 and 2 at depth 3; direct
+# at depth 2; depth's and aov's one first-hit pass (aov's path child
+# after it); moment's 4 passes
+VARIANT_LAUNCHES = {
+    "gallery_direct": (2, 1), "gallery_depth": (1, 0), "gallery_aov": (4, 2),
+    "gallery_moment": (12, 8)}
+
+
+def variant_rays(cfg):
+    """The rays a render_any of `cfg` traces: bench.py's count of the path
+    tracer's (direct's at depth 2), a first-hit pass for depth, both for
+    aov (its pass and its path child)."""
+    first = cfg.width * cfg.height * min(cfg.spp_per_pass, cfg.spp)
+    if cfg.integrator == "depth":
+        return first
+    path = rays_per_pass(cfg.replace(
+        spp_per_pass=cfg.spp,
+        max_depth=2 if cfg.integrator == "direct" else cfg.max_depth))
+    return path + (first if cfg.integrator == "aov" else 0)
+
+
+def _variant_outputs(torch, path, cfg, out):
+    """The images of a render_any result, checked: finite, of the
+    config's shape, lit; the AOVs non-zero where the first hit is."""
+    H, W = cfg.height, cfg.width
+    if cfg.integrator == "moment":
+        mean, var = out
+        # m2 / n - mean^2 in f32: a variance near 0 may round below it
+        floor = -1e-6 * float((mean * mean).max())
+        check(float(var.min()) >= floor and float(var.max()) > 0,
+              f"{path}: variance {float(var.min())}..{float(var.max())}")
+        images = {"image": mean, "variance": var}
+    elif cfg.integrator == "aov":
+        images = dict(out)
+    elif cfg.integrator == "depth":
+        images = {"depth": out}
+    else:
+        images = {"image": out}
+    from mitsuba2_tpu_torch.render.integrators import AOV_CHANNELS
+    for k, v in images.items():
+        c = AOV_CHANNELS.get(k) or 3
+        check(tuple(v.shape) == (H, W, c), f"{path}: {k} {tuple(v.shape)}")
+        check(bool(torch.isfinite(v).all()), f"{path}: {k} not finite")
+        check(float(v.abs().max()) > 0, f"{path}: {k} is zero")
+    if "image" in images:
+        check(float(images["image"].mean()) > 0, f"{path}: image mean 0")
+    if "depth" in images:
+        hit = images["depth"][..., 0] > 0
+        check(float(hit.float().mean()) > 0.5, f"{path}: few first hits")
+        for k in ("position", "sh_normal", "geo_normal", "albedo"):
+            if k in images:
+                nz = images[k].abs().amax(-1) > 0
+                check(bool(nz[hit].all()) and not bool(nz[~hit].any()),
+                      f"{path}: {k} is not non-zero exactly where it hits")
+        if "sh_normal" in images:
+            # a pixel's mean of its samples' unit normals: at most 1
+            norm = images["sh_normal"][hit].norm(dim=-1)
+            check(bool((norm <= 1 + 1e-4).all()) and float(norm.mean())
+                  > 0.9, f"{path}: shading normals' norms {norm}")
+    return images
+
+
+def variant_scene(mt, kind, subdiv, device, gallery=None):
+    from mitsuba2_tpu_torch.scene import presets
+    if kind == "gallery":
+        return gallery if gallery is not None else mt.mesh_gallery(
+            subdiv=subdiv, device=device)
+    return gallery_sensor(presets, kind, subdiv, device=device)
+
+
+def phase_variants(torch, mt, dev, card, gallery):
+    """Each VARIANTS path at RENDER's size through render_any: a warm-up
+    (recording the traversal calls), then 3 timed renders with the K1 and
+    K2 counts set to 0 before each; the launches a render, the median ms
+    and Mrays/s; the outputs checked (_variant_outputs); on SENSOR_PATHS
+    the camera's K1 launch and the first K2 launch held bit-equal to
+    their twins and timed. Returns the kernels' rows by path."""
+    from mitsuba2_tpu_torch.kernels import traverse
+    rows = {}
+    for path, (kind, over) in VARIANTS.items():
+        scene = variant_scene(mt, kind, SUBDIV, dev, gallery)
+        cfg = mt.RenderConfig(**{**RENDER, **over})
+        ks = kernels_of(scene)
+        check(ks["closest"] == "cluster_closest_hit",
+              f"{path} does not take the cluster walk")
+        record = []
+        orig, rec = _recorders(traverse, record, ks)
+        if path in SENSOR_PATHS:
+            for k, f in rec.items():
+                setattr(traverse, k, f)
+        try:
+            mt.render_any(scene, cfg, seed=0)
+        finally:
+            for k, f in orig.items():
+                setattr(traverse, k, f)
+        torch.cuda.synchronize()
+        times, counts = [], None
+        names = (ks["closest"], ks["any"])
+        for r in range(3):
+            for k in names:
+                wrapper(k).launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mt.render_any(scene, cfg, seed=r)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            run = tuple(wrapper(k).launches for k in names)
+            check(counts is None or run == counts,
+                  f"{path}: launch counts vary: {run}")
+            counts = run
+            images = _variant_outputs(torch, path, cfg, out)
+        want = VARIANT_LAUNCHES.get(path, (cfg.max_depth, cfg.max_depth - 1))
+        check(counts == want, f"{path}: K1, K2 launches {counts}, "
+                              f"expected {want}")
+        med = statistics.median(times)
+        means = {k: round(float(v.float().mean()), 6)
+                 for k, v in images.items()}
+        log(f"phase 3 (variants): {path}: render_any {cfg.width}x"
+            f"{cfg.height}x{cfg.spp}spp ({cfg.spp // min(cfg.spp_per_pass,
+                                                         cfg.spp)} pass(es)), "
+            f"depth {cfg.max_depth}, {kind} sensor, integrator "
+            f"{cfg.integrator}, sampler {cfg.sampler}, filter {cfg.rfilter} "
+            f"on {card}: median {med * 1e3:.1f} ms of "
+            f"{[round(t * 1e3, 1) for t in times]}, "
+            f"{variant_rays(cfg) / med / 1e6:.3f} Mrays/s; K1, K2 launches "
+            f"a render {counts}; means {means}")
+        if path not in SENSOR_PATHS:
+            continue
+        firsts = {}
+        for name, rays in record:
+            firsts.setdefault(name, rays)
+        rows[path] = []
+        for name in names:
+            r = time_launch(torch, ks, scene, name, firsts[name])
+            check(r["c"]["bit_equal"], f"{path}: {name}'s first launch is "
+                                       f"not bit-equal to its twin: "
+                                       f"{r['c']}")
+            log_launch(f"{name} ({path}, bit-equal to its twin)", 0, r)
+            rows[path].append({
+                "name": name, "route": "cuda", "source": SRC,
+                "replaces": REPLACES[name][0],
+                "launches": counts[names.index(name)],
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None})
+        if path == "gallery_radiancemeter":
+            o = firsts[names[0]]
+            same = all(bool((a == a[0]).all()) for a in o[:6])
+            log(f"phase 3 (variants): {path}: the camera launch's "
+                f"{o[0].numel()} lanes all along one ray: {same}")
+            check(same, f"{path}: the meter's lanes are not one ray")
+    return rows
+
+
+def phase_variants_small(torch, mt, dev):
+    """Each VARIANTS path at 32x32 (phase 4's small config, subdiv 1) on
+    the card and on the CPU: images (and moment's variance) >= 99% of
+    pixels within rtol 1e-3 / atol 1e-4; the AOVs depth, position, uv
+    and normals within 1e-5 where both first hits are the same prim, the
+    prim ids equal but on exact ties (<= 1% of hit pixels), the shape
+    ids and albedo where the prims are equal."""
+    base = dict(width=32, height=32, spp=2, spp_per_pass=1, max_depth=3,
+                rr_depth=2)
+    for path, (kind, over) in VARIANTS.items():
+        cfg = mt.RenderConfig(**{**base, **{k: v for k, v in over.items()
+                                            if k != "spp_per_pass"}})
+        outs = [mt.render_any(variant_scene(mt, kind, 1, d), cfg, seed=5,
+                              device=d) for d in ("cpu", dev)]
+        im = [_variant_outputs(torch, path, cfg, o) for o in outs]
+        im = [{k: v.float().cpu() for k, v in x.items()} for x in im]
+        worst = []
+        for k in ("image", "variance"):
+            if k in im[0]:
+                close = torch.isclose(im[1][k], im[0][k], rtol=1e-3,
+                                      atol=1e-4).all(-1).float().mean()
+                worst.append((k, round(float(close), 4)))
+                check(float(close) >= 0.99, f"{path}: {k} card vs CPU: "
+                                            f"{float(close):.4f} close")
+        if "prim_index" in im[0]:
+            hit = (im[0]["depth"][..., 0] > 0) & (im[1]["depth"][..., 0] > 0)
+            same = hit & (im[0]["prim_index"][..., 0]
+                          == im[1]["prim_index"][..., 0])
+            ties = float((hit & ~same).float().sum() / hit.float().sum())
+            worst.append(("prim ties", round(ties, 5)))
+            check(ties <= 0.01, f"{path}: prims differ on {ties} of hits")
+            for k in ("depth", "position", "sh_normal", "geo_normal", "uv",
+                      "shape_index", "albedo"):
+                ok = bool(torch.isclose(im[1][k][same], im[0][k][same],
+                                        rtol=1e-5, atol=1e-5).all())
+                err = float((im[1][k] - im[0][k])[same].abs().max())
+                worst.append((k, err))
+                check(ok, f"{path}: {k} card vs CPU off by {err}")
+        elif "depth" in im[0]:
+            hit = (im[0]["depth"] > 0) & (im[1]["depth"] > 0)
+            err = float((im[1]["depth"] - im[0]["depth"])[hit].abs().max())
+            close = float(torch.isclose(im[1]["depth"], im[0]["depth"],
+                                        rtol=1e-5, atol=1e-5)[hit].float()
+                          .mean())
+            worst.append(("depth", err, close))
+            check(close >= 0.99, f"{path}: depth card vs CPU: {close}")
+        log(f"phase 4 (variants): {path} 32x32 card vs CPU: {worst} ok")
+
+
+def phase_variants_cli(torch, mt, d):
+    """`python -m mitsuba2_tpu_torch moment.xml -a depth -a sh_normal
+    --device cuda` on the gallery written as XML with the moment
+    integrator: its mean (PFM) bit-equal to the in-process render_any,
+    its _variance, _depth and _sh_normal sidecars (half-float EXR) to
+    the in-process results rounded to half."""
+    src = open(write_gallery_xml(d)).read()
+    path = os.path.join(d, "moment.xml")
+    with open(path, "w") as f:
+        f.write(src.replace('<integrator type="path">',
+                            '<integrator type="moment"><integrator '
+                            'type="path">').replace(
+            '</integrator>', '</integrator></integrator>', 1))
+    out = os.path.join(d, "moment.pfm")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mitsuba2_tpu_torch", path,
+                           "-o", out, "-a", "depth", "-a", "sh_normal",
+                           "--device", "cuda"], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    scene, cfg = mt.load_file(path)
+    check(cfg.integrator == "moment", f"moment.xml loads {cfg.integrator}")
+    mean, var = mt.render_any(scene, cfg)
+    want = {"variance": var}
+    for name in ("depth", "sh_normal"):
+        want[name] = mt.render_aovs(scene, cfg, (name,))[name]
+    got = mt.read_bitmap(out)
+    check(np.array_equal(got, mean.cpu().numpy()),
+          "the CLI's moment mean is not the in-process one bit for bit")
+    from mitsuba2_tpu_torch.core import io_bitmap
+    for name, v in want.items():
+        arr = io_bitmap.read(out.rsplit(".", 1)[0] + f"_{name}.exr")
+        half = v.float().cpu().numpy().astype(np.float16).astype(np.float32)
+        check(np.array_equal(arr.reshape(half.shape), half),
+              f"the CLI's _{name}.exr is not the in-process result")
+    log(f"phase 3 (variants): cli: python -m mitsuba2_tpu_torch moment.xml "
+        f"-a depth -a sh_normal (a process of its own) took {wall:.2f} s "
+        f"wall; its mean bit-equal to render_any in process, its "
+        f"_variance, _depth and _sh_normal sidecars (half-float EXR) equal "
+        f"to the in-process results rounded to half; {cfg.spp} spp in "
+        f"{cfg.spp // min(cfg.spp_per_pass, cfg.spp)} pass(es)")
 
 
 def phase_tracking(torch, mt, path, scene):
@@ -3237,8 +3690,21 @@ def main():
                           path, scene)
         timed("3 (xml_gallery, cli)", phase_cli, torch, mt, xml,
               scenes["xml_gallery"], xml_cfg, scenes["gallery"], render_ms)
+        t_var = time.perf_counter()
+        var_rows = timed("3 (variants)", phase_variants, torch, mt, dev,
+                         card, scenes["gallery"])
+        for path, rs in var_rows.items():
+            for row in rs:
+                merge_row(by_name, path, row)
+        timed("3 (variants, cli)", phase_variants_cli, torch, mt, xml_dir)
+        t_var = time.perf_counter() - t_var
         rows = list(by_name.values())
         timed(4, phase_small_renders, torch, mt, dev)
+        t0 = time.perf_counter()
+        timed("4 (variants)", phase_variants_small, torch, mt, dev)
+        t_var += time.perf_counter() - t0
+        log(f"the variants phase (its phase 3 paths, its cli, its phase 4 "
+            f"renders) took {t_var:.1f} s")
         for path, scene in scenes.items():
             if path in XML_PATHS:   # the gallery's tables: profiled there
                 continue

@@ -36,7 +36,8 @@ from .scene.presets import (cornell_box, furnace, instanced_field,
                              kitchen_sink, mesh_gallery, smoke_box,
                              veach_mis)
 from .scene.scene import SceneData, build_scene, to_device
-from .render.integrators import render, render_any, render_pass
+from .render.integrators import (render, render_any, render_aovs,
+                                  render_pass, render_with_variance)
 from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
                    traverse)
 
@@ -44,7 +45,8 @@ __all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
            "cornell_box", "furnace", "instanced_field", "kitchen_sink",
            "load_dict", "load_file", "load_string", "mesh_gallery",
            "parse_variant", "read_bitmap", "render", "render_and_grad",
-           "render_any", "render_l2_grad", "render_pass", "scene_from_numpy",
+           "render_any", "render_aovs", "render_l2_grad", "render_pass",
+           "render_with_variance", "scene_from_numpy",
            "scene_with", "set_variant", "smoke_box", "to_device", "traverse",
            "variant", "variants", "veach_mis", "write_bitmap"]
 

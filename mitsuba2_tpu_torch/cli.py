@@ -5,9 +5,12 @@
 The JAX package's flags: `-o` output (exr/pfm/hdr/png/...; default the
 scene's name with .exr), `-D key=value` XML parameter substitution, `-m`
 the variant, `-s` samples per pixel, `--sensor` the <sensor> to render,
-`-v` verbose; and `--device` (default cuda), the counterpart of the JAX
-CLI's JAX_PLATFORMS=cpu: without a CUDA device and without `--device cpu`
-it exits non-zero. AOVs (`-a`) and the polarized variants raise
+`-a NAME` an AOV image written beside the output as `_<NAME>.exr`
+(repeatable), `-v` verbose; and `--device` (default cuda), the
+counterpart of the JAX CLI's JAX_PLATFORMS=cpu: without a CUDA device
+and without `--device cpu` it exits non-zero. An aov integrator's AOVs
+and the moment integrator's variance are written as sidecars too
+(`_<name>.exr`, `_variance.exr`). The polarized variants raise
 NotImplementedError by name until the port renders them.
 """
 from __future__ import annotations
@@ -34,7 +37,7 @@ def main(argv=None) -> int:
     ap.add_argument("-s", "--spp", type=int, default=None,
                     help="override samples per pixel")
     ap.add_argument("-a", "--aov", action="append", default=[],
-                    help="also write AOV images (not rendered yet)")
+                    help="also write AOV images (depth, sh_normal, ...)")
     ap.add_argument("--sensor", type=int, default=0,
                     help="render the Nth <sensor> of the scene (default 0)")
     ap.add_argument("--device", default="cuda",
@@ -48,10 +51,6 @@ def main(argv=None) -> int:
             parse_variant(args.mode)
         except ValueError as e:
             ap.error(str(e))
-    if args.aov:
-        raise NotImplementedError(
-            f"mitsuba2_tpu_torch does not render AOVs yet (-a "
-            f"{' -a '.join(args.aov)})")
 
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
@@ -68,7 +67,7 @@ def main(argv=None) -> int:
 
     from .core import io_bitmap
     from .kernels import traverse
-    from .render.integrators import render_any
+    from .render.integrators import render_any, render_aovs
     from .scene import loader
 
     params = {}
@@ -92,7 +91,15 @@ def main(argv=None) -> int:
              config.color_mode, device)
     before = traverse.launch_counts()
     t0 = time.time()
-    img = render_any(scene, config, device=device)
+    out_any = render_any(scene, config, device=device)
+    sidecars = {}   # suffix -> image, written beside the main output
+    if isinstance(out_any, dict):          # aov integrator
+        img = out_any.pop("image")
+        sidecars.update(out_any)
+    elif isinstance(out_any, tuple):       # moment: (mean, variance)
+        img, sidecars["variance"] = out_any
+    else:
+        img = out_any
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -107,6 +114,13 @@ def main(argv=None) -> int:
     out = args.output or (args.scene.rsplit(".", 1)[0] + ".exr")
     io_bitmap.write(out, img.float().cpu().numpy())
     log.info("wrote %s", out)
+    for aov in args.aov:
+        sidecars[aov] = render_aovs(scene, config, (aov,),
+                                    device=device)[aov]
+    for suffix, arr in sidecars.items():
+        path = out.rsplit(".", 1)[0] + f"_{suffix}.exr"
+        io_bitmap.write_exr(path, arr.float().cpu().numpy())
+        log.info("wrote %s", path)
     return 0
 
 

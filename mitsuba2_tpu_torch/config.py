@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 
 COLOR_MODES = ("mono", "rgb", "spectral")
+# the samplers (render/sampler.py::make_sampler)
+SAMPLERS = ("independent", "stratified", "ldsampler", "halton")
 
 
 def check_kaux(k: int) -> int:
@@ -59,14 +61,22 @@ class RenderConfig:
         if self.integrator not in ("path", "volpath", "volpathmis", "direct",
                                    "depth", "aov", "moment", "stokes"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
+        # the aov wrapper's child is a transport integrator (no aov in aov)
+        if self.aov_child not in ("path", "volpath", "volpathmis", "direct",
+                                  "moment", "stokes"):
+            raise ValueError(f"invalid aov child {self.aov_child!r}")
+        from .render.film import FILTER_RADIUS
+        if self.rfilter not in FILTER_RADIUS:
+            raise ValueError(f"unknown rfilter {self.rfilter!r}")
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        stokes = "stokes" in (self.integrator, (self.integrator == "aov"
+                                                and self.aov_child))
         unsupported = [
             (self.dtype == "float64", "dtype='float64'"),
             (self.polarized, f"polarized=True (the JAX package's "
                              f"{self.color_mode}_polarized variant)"),
-            (self.rfilter != "box", f"rfilter={self.rfilter!r}"),
-            (self.integrator not in ("path", "volpath", "volpathmis"),
-             f"integrator={self.integrator!r}"),
-            (self.sampler != "independent", f"sampler={self.sampler!r}"),
+            (stokes, "integrator='stokes'"),
             (self.compact, "compact=True"),
         ]
         for bad, what in unsupported:

@@ -23,8 +23,11 @@ without one; `fields["textures"]` the texture atlas' tables
 pyramid is rebuilt here, on the device; `fields["medium_grid"]` the
 heterogeneous media's density grid (`data`, `bbox_min`, `bbox_max`; the
 JAX SceneData's GridVolume), None or absent without one;
-`fields["cam_type"]` the sensor's type (absent: "perspective"). A table that names a feature the
-port does not render (the BSDF families bsdf.UNPORTED) raises, and so
+`fields["cam_type"]` the sensor's type (absent: "perspective"), whose
+importance weight (pi for the irradiance meter, else 1) is derived here,
+and `fields["cam_motion"]` a keyframed camera's tables
+(geometry.ANIM_FIELDS), None or absent without one. A table that names a
+feature the port does not render (the BSDF families bsdf.UNPORTED) raises, and so
 does a textured slot without the atlas that holds its texture.
 """
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .core.geometry import AnimatedTransform
 from .device import resolve_device
 from .kernels import traverse
 from .render import bsdf as bsdf_mod
@@ -274,8 +278,16 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
                     cluster_feat=up(slot_major_feat(f["mxu_feat"],
                                                     cluster_k)),
                     bvh8c_depth=int(b8["bvh8c_depth"]))
+    cam_type = str(fields.get("cam_type", "perspective"))
+    # sensor importance: the cosine-sampled irradiance meter's pdf is
+    # cos / pi (sensors/irradiancemeter.cpp)
+    cam_weight = np.pi if cam_type == "irradiancemeter" else 1.0
+    motion = fields.get("cam_motion")
     return SceneData(
         **tabs,
+        cam_weight=up(np.float32(cam_weight)),
+        cam_motion=(None if motion is None
+                    else AnimatedTransform.from_numpy(motion, dev)),
         envmap=(None if envmap is None
                 else emitters_mod.envmap_from_numpy(envmap, dev)),
         textures=(None if tex is None
@@ -299,7 +311,7 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         env_emitter=int(env[0]) if env.size else -1,
         emitter_kinds=tuple(sorted({int(t) for t in etype[:n_emitters]})),
         n_shapes=int(f["shape_mat"].shape[0]), cluster_k=cluster_k,
-        cam_type=str(fields.get("cam_type", "perspective")),
+        cam_type=cam_type,
         has_instances=inst, has_spheres=has_spheres,
         has_twosided=bool(
             (f["mat_flags"] & bsdf_mod.F_TWOSIDED_FLAG).any()),

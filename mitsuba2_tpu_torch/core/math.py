@@ -69,3 +69,9 @@ def safe_acos(x):
 def mulsign(x, y):
     """x * sign(y), +1 for y = +0 (enoki::mulsign)."""
     return torch.where(y >= 0, x, -x)
+
+
+def sinxx(x):
+    """sin(x) / x with the limit 1 at 0."""
+    return torch.where(torch.abs(x) < 1e-6, 1.0,
+                       torch.sin(x) / torch.where(x == 0, 1.0, x))

@@ -8,8 +8,10 @@ The same two-phase schedule as the JAX package's:
    alone.
 2. Phase 2 replays each pass with the same seed under autograd, on fresh
    leaf copies of the diff tables, with the adjoint image dLoss/dImage /
-   wsum as the output gradient, and adds up the tables' gradients pass by
-   pass: the peak memory is one pass's tape, whatever the spp.
+   wsum as the output gradient (wsum per pixel under a wide filter), and
+   adds up the tables' gradients pass by pass: the peak memory is one
+   pass's tape, whatever the spp. Any sampler and filter: the replay
+   draws the same streams.
 
 Traversal is detached (scene.ray_test, scene._preliminary_dispatch): a
 pass's tape holds its shading alone, so the backward sweep traces no
@@ -84,15 +86,16 @@ def render_and_grad(scene, config: RenderConfig,
         for s in seeds:
             img_p, w_p = render_pass(scene, config, s, dev)
             image_sum = img_p if image_sum is None else image_sum + img_p
-            wsum += w_p
+            wsum = wsum + w_p
         image = film_mod.develop(image_sum, wsum)
 
-    # ---- the adjoint image: dLoss/dImage / wsum (develop's derivative) -----
+    # ---- the adjoint image: dLoss/dImage / wsum (develop's derivative; the
+    # filter's weights do not depend on the tables) --------------------------
     image = image.clone().requires_grad_(True)
     with torch.enable_grad():
         loss = loss_fn(image)
         dl_dimage, = torch.autograd.grad(loss, image)
-    ct_image = dl_dimage / max(float(wsum), 1e-8)
+    ct_image = film_mod.develop(dl_dimage, wsum)
 
     # ---- phase 2: each pass replayed under autograd -------------------------
     grads = {k: torch.zeros_like(v) for k, v in diff_tables(scene).items()}

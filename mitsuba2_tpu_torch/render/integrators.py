@@ -5,8 +5,11 @@ render/integrators.py).
 passes run as a Python loop with the JAX package's pass seeds, so both
 packages draw the same PCG32 numbers in the same order: the pixel jitter
 first, in spectral mode the hero wavelengths' draw, under the thin-lens
-camera the aperture sample, then per bounce u_nee, u2_nee, u1_b, u2_b
-and, only when rr_depth < max_depth, u_rr. A scene with media, or
+camera and the irradiance meter the aperture sample, under a keyframed
+camera the shutter time, then per bounce u_nee, u2_nee, u1_b, u2_b
+and, only when rr_depth < max_depth, u_rr; from the sampler the config
+names (render/sampler.py), into the film under its filter
+(render/film.py). A scene with media, or
 RenderConfig(integrator="volpath" | "volpathmis"), goes through the
 volumetric path tracer instead (render/volpath.py, its own stream
 layout after the camera's draws).
@@ -15,7 +18,9 @@ shading records and develops each lane to linear sRGB before the film.
 On a scene with textures the camera rays carry differentials, scaled to
 a sample's share of its pixel, so that the first hit's lookups are
 mip-filtered; later hits carry a zero footprint (level 0), as in the
-reference.
+reference. Beside `render` stand the JAX package's other integrators:
+direct, depth, aov and moment (`render_any` dispatches on
+RenderConfig.integrator).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from ..scene.scene import needs_tape
 from . import bsdf as bsdf_mod
 from . import emitters, film as film_mod, sensors
 from .sampler import Sampler, make_sampler
+from .spectra import LaneRows, eval_spectrum_slot
 
 M32 = 0xFFFFFFFF
 
@@ -148,11 +154,11 @@ def sample_path(scene, ray: Ray, sampler: Sampler, config: RenderConfig
     return carry[3], carry[4]
 
 
-def render_pass(scene, config: RenderConfig, seed: int, device=None
-                ) -> Tuple[torch.Tensor, int]:
+def render_pass(scene, config: RenderConfig, seed: int, device=None):
     """One pass of (spp_per_pass x H x W) lanes -> ((H, W, C) image sum,
-    weight), on `device` (None = the CUDA device; raises without one),
-    moving the scene there if it is elsewhere."""
+    weight sum), on `device` (None = the CUDA device; raises without
+    one), moving the scene there if it is elsewhere. The weight is a
+    count under the box filter, else an (H, W) tensor."""
     from ..scene.scene import to_device
     dev = resolve_device(device)
     scene = to_device(scene, dev)
@@ -160,8 +166,8 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
     sppc = config.spp_per_pass
     n = sppc * H * W
     lane = torch.arange(n, dtype=torch.int64, device=dev)
-    sampler = make_sampler(config.sampler, int(seed) & M32, lane)
-    pix = torch.arange(n, dtype=torch.int64, device=dev) % (H * W)
+    sampler = make_sampler(config.sampler, int(seed) & M32, lane, H * W, sppc)
+    pix = lane % (H * W)
     x = (pix % W).to(torch.float32)
     y = (pix // W).to(torch.float32)
     jitter, sampler = sampler.next_2d()
@@ -175,6 +181,15 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
     u_lens = None
     if scene.cam_type in sensors.NEEDS_APERTURE_SAMPLE:
         u_lens, sampler = sampler.next_2d()
+    cam_time = None
+    if scene.cam_motion is not None:
+        # camera motion blur: a uniform shutter time over the keys' range,
+        # clamped to [shutter_open, shutter_close] (cam_data[10:12])
+        u_time, sampler = sampler.next_1d()
+        times = scene.cam_motion.times
+        t0 = torch.maximum(times[0], scene.cam_data[10])
+        t1 = torch.minimum(times[-1], scene.cam_data[11])
+        cam_time = t0 + u_time * (t1 - t0)
     volumetric = (config.integrator in ("volpath", "volpathmis")
                   or scene.has_media)
     if volumetric and config.reparam:
@@ -186,11 +201,12 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
         # a sample covers 1 / spp of its pixel (integrator.cpp's
         # diff_scale_factor), the factor in f32 as the JAX package takes it
         ray = sensors.sample_ray_differential(scene, uv, W, wavelengths=wl,
-                                              u_lens=u_lens)
+                                              u_lens=u_lens, time=cam_time)
         ray = ray.scale_differential(
             float(np.float32(1.0) / np.sqrt(np.float32(config.spp))))
     else:
-        ray = sensors.sample_ray(scene, uv, wavelengths=wl, u_lens=u_lens)
+        ray = sensors.sample_ray(scene, uv, wavelengths=wl, u_lens=u_lens,
+                                 time=cam_time)
     det_cam = None
     if config.reparam:
         from ..diff import reparam as reparam_mod
@@ -205,16 +221,32 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None
         spec, _ = sample_path(scene, ray, sampler, config)
     if det_cam is not None:
         spec = spec * det_cam
+    spec = spec * scene.cam_weight  # sensor importance (irradiance meter)
     if wl is not None:
         spec = sp.spectrum_to_srgb_t(spec, wl, wl_pdf)
     image = torch.zeros((H, W, config.n_image_channels), dtype=torch.float32,
                         device=dev)
-    return film_mod.accumulate_pass(image, 0, spec, config)
+    return film_mod.accumulate_pass(image, film_mod.zero_weight(config, dev),
+                                    spec, jitter, config)
 
 
 def pass_seeds(seed: int, n_passes: int):
     """The JAX package's pass seeds: seed * 0x9E3779B1 + p (mod 2^32)."""
     return [((seed & M32) * 0x9E3779B1 + p) & M32 for p in range(n_passes)]
+
+
+def _passes(config: RenderConfig):
+    """(config with spp_per_pass clamped to spp, number of passes)."""
+    sppc = min(config.spp_per_pass, config.spp)
+    return (config.replace(spp_per_pass=sppc),
+            (config.spp + sppc - 1) // sppc)
+
+
+def _tape(scene):
+    """Autograd where a tensor of the scene requires grad, else inference
+    mode."""
+    return (contextlib.nullcontext() if needs_tape(scene)
+            else torch.inference_mode())
 
 
 def render(scene, config: RenderConfig, seed: int = None, device=None
@@ -239,24 +271,153 @@ def render(scene, config: RenderConfig, seed: int = None, device=None
     scene = to_device(scene, dev)
     if seed is None:
         seed = config.seed
-    sppc = min(config.spp_per_pass, config.spp)
-    config = config.replace(spp_per_pass=sppc)
-    n_passes = (config.spp + sppc - 1) // sppc
+    config, n_passes = _passes(config)
     image, wsum = None, 0
-    with (contextlib.nullcontext() if needs_tape(scene)
-          else torch.inference_mode()):
+    with _tape(scene):
         for s in pass_seeds(seed, n_passes):
             img_p, w_p = render_pass(scene, config, s, dev)
             image = img_p if image is None else image + img_p
-            wsum += w_p
+            wsum = wsum + w_p
     return film_mod.develop(image, wsum)
+
+
+# ---------------------------------------------------------------------------
+# The other integrators (src/integrators/{direct,depth,aov,moment}.cpp)
+# ---------------------------------------------------------------------------
+
+def sample_depth(scene, ray: Ray, config: RenderConfig) -> torch.Tensor:
+    """`depth` integrator: the hit distance, 0 on a miss; (N, 1)."""
+    from ..scene import scene as scene_mod
+    si = scene_mod.ray_intersect(scene, ray)
+    return torch.where(si.valid, si.t, 0.0)[:, None]
+
+
+# the channels of each AOV (albedo: the image's)
+AOV_CHANNELS = {"depth": 1, "position": 3, "sh_normal": 3, "geo_normal": 3,
+                "uv": 2, "prim_index": 1, "shape_index": 1, "albedo": None}
+
+
+def _masked(valid, *chans):
+    return torch.where(valid[:, None], torch.stack(chans, -1), 0.0)
+
+
+def sample_aovs(scene, ray: Ray, config: RenderConfig,
+                aovs: Tuple[str, ...]) -> dict:
+    """`aov` integrator: geometric output variables of the first hit,
+    {name: (N, C)}."""
+    from ..scene import scene as scene_mod
+    si = scene_mod.ray_intersect(scene, ray)
+    v = si.valid
+    out = {}
+    for name in aovs:
+        if name == "depth":
+            out[name] = torch.where(v, si.t, 0.0)[:, None]
+        elif name == "position":
+            out[name] = _masked(v, si.p.x, si.p.y, si.p.z)
+        elif name == "sh_normal":
+            n = si.sh_frame.n
+            out[name] = _masked(v, n.x, n.y, n.z)
+        elif name == "geo_normal":
+            out[name] = _masked(v, si.n.x, si.n.y, si.n.z)
+        elif name == "uv":
+            out[name] = _masked(v, si.uv.x, si.uv.y)
+        elif name == "prim_index":
+            out[name] = si.prim_index.to(torch.float32)[:, None]
+        elif name == "shape_index":
+            out[name] = si.shape.to(torch.float32)[:, None]
+        elif name == "albedo":
+            # the hit material's first spectrum slot (a denoiser's guide)
+            mat_idx = bsdf_mod._lane_materials(scene, si)[0]
+            alb = eval_spectrum_slot(LaneRows(scene.mat_data, mat_idx).slot(0),
+                                     si.wavelengths, "rgb", tex=si.tex,
+                                     uv=si.uv)
+            out[name] = _masked(v, *alb.ch)
+        else:
+            raise ValueError(f"unknown aov {name!r}")
+    return out
+
+
+def render_aovs(scene, config: RenderConfig,
+                aovs: Tuple[str, ...] = ("depth", "sh_normal", "position"),
+                seed: int = None, device=None) -> dict:
+    """AOV render, {name: (H, W, C)}: one pass of min(spp_per_pass, spp)
+    samples, as the JAX package renders it: the independent sampler
+    seeded with the raw seed, the box filter, no crop, no shutter time,
+    no wavelength draw."""
+    from ..scene.scene import to_device
+    dev = resolve_device(device)
+    scene = to_device(scene, dev)
+    if seed is None:
+        seed = config.seed
+    H, W = config.height, config.width
+    sppc = min(config.spp_per_pass, config.spp)
+    with torch.inference_mode():
+        lane = torch.arange(sppc * H * W, dtype=torch.int64, device=dev)
+        sampler = Sampler.seed(int(seed) & M32, lane)
+        pix = lane % (H * W)
+        jitter, sampler = sampler.next_2d()
+        uv = sensors.film_uv((pix % W).to(torch.float32),
+                             (pix // W).to(torch.float32), jitter, W, H)
+        u_lens = None
+        if scene.cam_type in sensors.NEEDS_APERTURE_SAMPLE:
+            u_lens, sampler = sampler.next_2d()
+        ray = sensors.sample_ray(scene, uv, u_lens=u_lens)
+        outs = sample_aovs(scene, ray, config, tuple(aovs))
+        return {k: v.reshape(sppc, H, W, v.shape[-1]).mean(0)
+                for k, v in outs.items()}
+
+
+def render_direct(scene, config: RenderConfig, seed: int = None,
+                  device=None) -> torch.Tensor:
+    """`direct` integrator: one-bounce MIS direct illumination, the path
+    tracer at depth 2."""
+    return render(scene, config.replace(max_depth=2, integrator="path"),
+                  seed, device)
+
+
+def render_with_variance(scene, config: RenderConfig, seed: int = None,
+                         device=None):
+    """`moment` integrator: (mean, variance of the mean). Each pass is
+    developed on its own and the variance is taken across passes, so it
+    needs two passes or more."""
+    from ..scene.scene import to_device
+    dev = resolve_device(device)
+    scene = to_device(scene, dev)
+    if seed is None:
+        seed = config.seed
+    config, n_passes = _passes(config)
+    m1 = m2 = None
+    with _tape(scene):
+        for s in pass_seeds(seed, n_passes):
+            img_p = film_mod.develop(*render_pass(scene, config, s, dev))
+            m1 = img_p if m1 is None else m1 + img_p
+            m2 = img_p ** 2 if m2 is None else m2 + img_p ** 2
+    mean = m1 / n_passes
+    var_pass = m2 / n_passes - mean ** 2
+    return mean, var_pass / max(n_passes - 1, 1)
 
 
 def render_any(scene, config: RenderConfig, seed: int = None, device=None):
     """Top-level integrator dispatch on `config.integrator`: the loader's
-    and the CLI's entry point (the JAX package's render_any). The port
-    renders path, volpath and volpathmis, each an (H, W, C) image; the
-    JAX package's other branches (direct, depth, aov, moment, stokes)
-    come with their integrators, and until then RenderConfig refuses them
-    by name, so every config reaching here takes render()."""
+    and the CLI's entry point. Returns, by integrator:
+
+      path | volpath | volpathmis | direct   (H, W, C) image
+      depth                                  (H, W, 1) first-hit distance
+      aov     {"image": the aov_child's render, name: (H, W, Ck), ...}
+      moment                                 (mean, variance) pair
+
+    `stokes` is refused by RenderConfig."""
+    it = config.integrator
+    if it == "direct":
+        return render_direct(scene, config, seed, device)
+    if it == "depth":
+        return render_aovs(scene, config, ("depth",), seed, device)["depth"]
+    if it == "aov":
+        names = tuple(config.aovs) or ("depth", "sh_normal", "position")
+        out = dict(render_aovs(scene, config, names, seed, device))
+        out["image"] = render_any(
+            scene, config.replace(integrator=config.aov_child), seed, device)
+        return out
+    if it == "moment":
+        return render_with_variance(scene, config, seed, device)
     return render(scene, config, seed, device)

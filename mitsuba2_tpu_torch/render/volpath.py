@@ -440,7 +440,8 @@ def sample_path_vol(scene, ray: Ray, sampler: Sampler, config: RenderConfig
     n, dev = ray.o.x.shape[0], ray.o.x.device
     C = config.n_channels
     # a camera RayDifferential becomes a plain Ray (no footprints here)
-    ray = Ray(o=ray.o, d=ray.d, maxt=ray.maxt, wavelengths=ray.wavelengths)
+    ray = Ray(o=ray.o, d=ray.d, maxt=ray.maxt, wavelengths=ray.wavelengths,
+              time=ray.time)
     carry = (ray, sampler, Spec.ones(n, C, dev), Spec.zeros(n, C, dev),
              torch.full((n,), -1, dtype=torch.int32, device=dev),
              torch.ones(n, dtype=torch.bool, device=dev),

@@ -37,7 +37,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.geometry import Frame, Ray
+from ..core.geometry import AnimatedTransform, Frame, Ray
 from ..core.math import safe_acos
 from ..core.vec import Vec2, Vec3, vwhere
 from ..render import bsdf as bsdf_mod
@@ -130,6 +130,8 @@ class SceneData:
     cam_to_world: torch.Tensor  # (4, 4)
     cam_fov_x: torch.Tensor     # () degrees
     cam_data: torch.Tensor      # (12,) see build_fields
+    cam_weight: torch.Tensor    # () sensor importance (pi for the
+                                # irradiance meter, else 1)
     med_type: torch.Tensor      # (Md,) i32 (one zero row without media)
     med_data: torch.Tensor      # (Md, MED_W) render/media.py's rows
     shape_interior: torch.Tensor  # (S,) i32 medium row, -1 = vacuum
@@ -182,6 +184,8 @@ class SceneData:
     # the heterogeneous media's density grid (render/media.py), None
     # without
     medium_grid: Optional[media_mod.GridVolume] = None
+    # a keyframed camera's pose (core/geometry.py), None without
+    cam_motion: Optional[AnimatedTransform] = None
     has_media: bool = False     # a shape has an interior medium
     mat_families: Tuple[int, ...] = ()
     family_rows: Tuple[int, ...] = ()   # each family's first material row
@@ -236,6 +240,8 @@ def to_device(scene: SceneData, device) -> SceneData:
         moved["textures"] = scene.textures.to(dev)
     if scene.medium_grid is not None:
         moved["medium_grid"] = scene.medium_grid.to(dev)
+    if scene.cam_motion is not None:
+        moved["cam_motion"] = scene.cam_motion.to(dev)
     return dataclasses.replace(scene, **moved)
 
 
@@ -262,9 +268,9 @@ def diff_tables(scene) -> dict:
 
 def build_scene(shapes: List[MeshData], sensor: dict, emitters=(),
                 device=None) -> SceneData:
-    """Pack shapes (meshes and `shapes.Instance` records) + a perspective
-    or thin-lens sensor (+ shapeless emitters) into a SceneData on `device` (None = the
-    CUDA device; raises without one)."""
+    """Pack shapes (meshes and `shapes.Instance` records) + a sensor (+
+    shapeless emitters) into a SceneData on `device` (None = the CUDA
+    device; raises without one)."""
     from ..convert import scene_from_numpy
     from ..device import resolve_device
     dev = resolve_device(device)
@@ -353,11 +359,7 @@ def _refuse_unsupported(shapes, sensor):
             raise TypeError(f"not a shape: {type(sh).__name__}")
     kind = sensor.get("type", "perspective")
     if kind not in SENSORS:
-        raise NotImplementedError(
-            f"mitsuba2_tpu_torch does not support {kind!r} sensors yet")
-    if "to_world_keys" in sensor:
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not support camera motion blur yet")
+        raise ValueError(f"unknown sensor type {kind!r}")
 
 
 def _flat_accel(bb_min, bb_max, CK):
@@ -734,14 +736,32 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
                             -1, -1, -1, "full"))
 
     # --- sensor -------------------------------------------------------------
+    cam_motion = None
+    if "to_world_keys" in sensor:
+        # a keyframed to_world (camera motion blur); the static pose is
+        # the first key's
+        keys = sensor["to_world_keys"]
+        cam_motion = AnimatedTransform.decompose(
+            [float(t) for t, _ in keys], [mat for _, mat in keys])
+        sensor = dict(sensor, to_world=keys[0][1])
+    cam_type = sensor.get("type", "perspective")
     cam_to_world = np.asarray(sensor["to_world"], np.float32).reshape(4, 4)
     cam_data = np.zeros(12, np.float32)
     cam_data[8] = float(sensor.get("near_clip", 0.0))
     cam_data[9] = float(sensor.get("far_clip", np.inf))
     cam_data[10] = float(sensor.get("shutter_open", -np.inf))
     cam_data[11] = float(sensor.get("shutter_close", np.inf))
-    cam_data[0] = float(sensor.get("aperture_radius", 0.0))
-    cam_data[1] = float(sensor.get("focus_distance", 1.0))
+    if cam_type == "orthographic":
+        # the extent from to_world's scale (sensors/orthographic.cpp)
+        sx = float(np.linalg.norm(cam_to_world[:3, 0]))
+        sy = float(np.linalg.norm(cam_to_world[:3, 1]))
+        cam_to_world = cam_to_world.copy()
+        cam_to_world[:3, 0] /= max(sx, 1e-20)
+        cam_to_world[:3, 1] /= max(sy, 1e-20)
+        cam_data[2:4] = [sx, sy]
+    else:
+        cam_data[0] = float(sensor.get("aperture_radius", 0.0))
+        cam_data[1] = float(sensor.get("focus_distance", 1.0))
     # the accel root is the world box in both layouts
     n_min, n_max = acc["bvh_min"], acc["bvh_max"]
     cam_data[4:7] = 0.5 * (n_min[0] + n_max[0])
@@ -764,7 +784,7 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
         emitter_prim_cdf=emitter_cdf, emitter_area=emitter_area,
         cam_to_world=cam_to_world,
         cam_fov_x=np.float32(sensor.get("fov", 45.0)),
-        cam_data=cam_data, cam_type=sensor.get("type", "perspective"),
+        cam_data=cam_data, cam_type=cam_type, cam_motion=cam_motion,
         mxu_node_f=mxu_node_f.astype(np.float32),
         mxu_link=acc["mxu_link"].astype(np.int32),
         cluster_slot_prim=slot_prim, mxu_feat=feat, mxu_ccs=mxu_ccs,

@@ -5,8 +5,8 @@ The CLI given `--device cpu` writes the image of the in-process
 load_file + render_any of the same scene at the same seed, bit for bit
 (a PFM keeps float32); without a CUDA device and without that flag it
 exits non-zero. Its flags are the JAX package's: a bad `-m` exits through
-argparse, `-s` overrides the samples, `-D` substitutes parameters; AOVs
-and the polarized variants raise NotImplementedError by name.
+argparse, `-s` overrides the samples, `-D` substitutes parameters; the
+polarized and double variants raise NotImplementedError by name.
 """
 import os
 import subprocess
@@ -79,9 +79,12 @@ def test_cli_without_a_card_exits_nonzero(scene_file, tmp_path, monkeypatch):
     assert e.value.code == 1 and not out.exists()
 
 
-@pytest.mark.parametrize("args,name", [(["-a", "depth"], "AOV"),
-                                       (["-m", "rgb_polarized"], "polarized"),
-                                       (["-m", "rgb_double"], "float64")])
+@pytest.mark.parametrize("args,name", [
+    # AOVs render since the integrator variants' slice (the case keeps
+    # its id): mono's polarized variant not
+    pytest.param(["-m", "mono_polarized"], "polarized", id="args0-AOV"),
+    (["-m", "rgb_polarized"], "polarized"),
+    (["-m", "rgb_double"], "float64")])
 def test_cli_refuses_by_name(scene_file, tmp_path, args, name):
     with pytest.raises(NotImplementedError, match=name):
         cli.main([scene_file, "-o", str(tmp_path / "o.pfm"), "--device",

@@ -195,15 +195,16 @@ def _env_files(tmp_path):
 
 
 def test_envmap_from_file_raises_by_name(tmp_path):
-    """An envmap read from an image file builds since the scene loader's
-    slice; a scene seen by a sensor the port lacks (orthographic) still
-    raises by name."""
+    """An envmap read from an image file builds, seen by an orthographic
+    sensor too; beside a BSDF the port lacks (polarizer) the build raises
+    naming it."""
     cam = {"type": "orthographic", "to_world": np.eye(4)}
     plane = tpresets.shapes.rectangle(bsdf={"type": "diffuse"})
-    with pytest.raises(NotImplementedError, match="orthographic"):
-        mt.build_scene([plane], cam, [{"type": "envmap", "filename":
-                                       _env_files(tmp_path)[".exr"]}],
-                       device="cpu")
+    env = [{"type": "envmap", "filename": _env_files(tmp_path)[".exr"]}]
+    assert mt.build_scene([plane], cam, env, device="cpu").envmap is not None
+    other = tpresets.shapes.rectangle(bsdf={"type": "polarizer"})
+    with pytest.raises(NotImplementedError, match="polarizer"):
+        mt.build_scene([plane, other], cam, env, device="cpu")
 
 
 @pytest.mark.parametrize("ext", [".exr", ".hdr"])
@@ -502,8 +503,11 @@ def test_textured_projector_raises_by_name(tmp_path):
             assert np.array_equal(staged[0].data, data)
     sensor = {"type": "radiancemeter", "to_world": np.eye(4)}
     plane = tpresets.shapes.rectangle(bsdf={"type": "diffuse"})
-    with pytest.raises(NotImplementedError, match="radiancemeter"):
-        mt.build_scene([plane], sensor, [desc], device="cpu")
+    assert mt.build_scene([plane], sensor, [desc],
+                          device="cpu").cam_type == "radiancemeter"
+    other = tpresets.shapes.rectangle(bsdf={"type": "retarder"})
+    with pytest.raises(NotImplementedError, match="retarder"):
+        mt.build_scene([plane, other], sensor, [desc], device="cpu")
 
 
 # ---------------------------------------------------------------------------

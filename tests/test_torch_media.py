@@ -382,6 +382,7 @@ def test_thinlens_rays_match_jax():
     r = torch.sqrt((rt.o.x - 0.3) ** 2 + (rt.o.y - 0.4) ** 2
                    + (rt.o.z + 3.4) ** 2)
     assert float(r.max()) <= 0.06 + 1e-6 and float(r.mean()) > 0.03
-    with pytest.raises(NotImplementedError, match="orthographic"):
-        mt.build_scene([tshapes.rectangle()], {
-            "type": "orthographic", "to_world": np.eye(4)}, device="cpu")
+    # the orthographic camera, beside it, keeps its aperture slots empty
+    ortho = mt.build_scene([tshapes.rectangle()], {
+        "type": "orthographic", "to_world": np.eye(4)}, device="cpu")
+    assert ortho.cam_type == "orthographic" and not ortho.cam_data[:2].any()

@@ -116,5 +116,5 @@ def test_pass_seeds_match_jax(seed, n_passes):
 
 
 def test_unknown_sampler_raises():
-    with pytest.raises(NotImplementedError, match="stratified"):
-        sampler.make_sampler("stratified", 0, torch.arange(4))
+    with pytest.raises(ValueError, match="sobol"):
+        sampler.make_sampler("sobol", 0, torch.arange(4))

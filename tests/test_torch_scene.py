@@ -111,59 +111,55 @@ def test_to_device_and_default_device():
                                      "envmap", "texture", "plastic",
                                      "twosided", "orthographic"])
 def test_unsupported_features_raise_by_name(feature, tmp_path):
+    """Each feature builds; beside a BSDF the port lacks (the measured and
+    polarized families) the build raises naming that BSDF."""
     from mitsuba2_tpu_torch.scene import shapes
     from mitsuba2_tpu_torch.scene.scene import build_scene
     mesh = shapes.rectangle(bsdf={"type": "diffuse"})
     sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
     emitters = ()
+    lacking = "polarizer"
     if feature == "sphere":
-        # spheres render now: a sphere under a BSDF the port lacks (null,
-        # the first one, renders since the textures' slice)
-        mesh = shapes.sphere(bsdf={"type": "polarizer"})
+        mesh = shapes.sphere(bsdf={"type": "diffuse"})
     elif feature == "medium":
-        # media render since the media slice: a medium seen by a sensor
-        # the port lacks (radiancemeter)
+        # seen by a radiance meter, which renders since the sensors' slice
         mesh.interior = {"type": "homogeneous"}
         sensor["type"] = "radiancemeter"
+        lacking = "measured_polarized"
     elif feature == "instance":
-        # an instanced group holding a BSDF the port lacks (mask, the
-        # first one, renders since the textures' slice)
-        metal = shapes.cube(bsdf={"type": "retarder"})
+        metal = shapes.cube(bsdf={"type": "conductor"})
         mesh = shapes.instance(shapes.shapegroup([metal, shapes.sphere()]),
                                np.eye(4))
+        lacking = "retarder"
     elif feature == "envmap":
-        # envmaps render since the emitters' slice, read from an image
-        # file since the scene loader's: one seen by a sensor the port
-        # lacks (irradiancemeter)
+        # read from an image file, seen by an irradiance meter
         emitters = ({"type": "envmap",
                      "filename": _bitmap_files(tmp_path)[".exr"]},)
         sensor["type"] = "irradiancemeter"
     elif feature == "texture":
-        # bitmaps read from image files build since the scene loader's
-        # slice: one seen by a sensor the port lacks (distant)
+        # a bitmap read from an image file, seen by the distant sensor
         mesh.bsdf = {"type": "diffuse", "reflectance": {
             "type": "bitmap", "filename": _bitmap_files(tmp_path)[".exr"]}}
         sensor["type"] = "distant"
+        lacking = "retarder"
     elif feature == "plastic":
-        # the plastics render now, textured roughness since the textures'
-        # slice, and read from an image file since the scene loader's:
-        # one seen by a moving camera (motion blur)
+        # textured roughness read from an image file, seen by a moving
+        # camera (motion blur)
         mesh.bsdf = {"type": "roughplastic", "alpha": {
             "type": "bitmap", "filename": _bitmap_files(tmp_path)[".png"]}}
-        sensor["to_world_keys"] = [np.eye(4), np.eye(4)]
+        sensor["to_world_keys"] = [(0.0, np.eye(4)), (1.0, np.eye(4))]
+        lacking = "measured_polarized"
     elif feature == "twosided":
-        # twosided renders now: twosided around a BSDF the port lacks
-        # (blendbsdf, the first one, renders since the textures' slice)
-        mesh.bsdf = {"type": "twosided", "bsdf": {"type": "measured"}}
+        mesh.bsdf = {"type": "twosided", "bsdf": {"type": "blendbsdf"}}
+        lacking = "measured"
     elif feature == "orthographic":
         sensor["type"] = "orthographic"
-    names = {"sphere": "polarizer", "medium": "radiancemeter",
-             "instance": "retarder", "envmap": "irradiancemeter",
-             "texture": "distant",
-             "plastic": "motion blur", "twosided": "measured",
-             "orthographic": "orthographic"}
-    with pytest.raises(NotImplementedError, match=names[feature]):
-        build_scene([mesh], sensor, emitters, device="cpu")
+    st = build_scene([mesh], sensor, emitters, device="cpu")
+    assert st.cam_type == sensor["type"]
+    assert (st.cam_motion is not None) == ("to_world_keys" in sensor)
+    other = shapes.rectangle(bsdf={"type": lacking})
+    with pytest.raises(NotImplementedError, match=f"'{lacking}' BSDF"):
+        build_scene([mesh, other], sensor, emitters, device="cpu")
 
 
 def _bitmap_files(tmp_path):
@@ -260,14 +256,15 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
     # spectral renders since the spectral slice: its polarized variant not
     ({"color_mode": "spectral", "polarized": True}, "spectral"),
     ({"polarized": True}, "polarized"),
-    ({"rfilter": "gaussian"}, "gaussian"),
-    # volpath renders since the media slice: the depth integrator not
-    # (the case keeps its id)
-    pytest.param({"integrator": "depth"}, "depth", id="kw4-volpath"),
+    # the filters, the depth and direct integrators render since the
+    # integrator variants' slice: the stokes integrator not, nor an aov
+    # over it, nor mono's polarized variant (the cases keep their ids)
+    pytest.param({"integrator": "stokes"}, "stokes", id="kw3-gaussian"),
+    pytest.param({"integrator": "aov", "aov_child": "stokes"}, "stokes",
+                 id="kw4-volpath"),
     ({"compact": True}, "compact"),
-    # reparam=True renders since the reparameterization's slice: the
-    # direct integrator not
-    ({"integrator": "direct"}, "direct"),
+    pytest.param({"color_mode": "mono", "polarized": True}, "mono_polarized",
+                 id="kw6-direct"),
 ])
 def test_config_refuses_what_the_port_does_not_render(kw, what):
     with pytest.raises(NotImplementedError, match=what):
