@@ -670,64 +670,21 @@ def wrapper(name):
 
 def compare(torch, ks, rays):
     """Both kernels and both twins on the same CUDA tensors, every lane:
-    agreement, the twins' times (ms, CUDA events) and the walk work they
-    counted."""
-    tabs, extra = ks["tabs"], ks["extra"]
-    out_k = wrapper(ks["closest"])(*tabs, *rays, *extra)
-    occ_k = wrapper(ks["any"])(*tabs, *rays, *extra)
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    st_c, st_a = {}, {}
-    ev[0].record()
-    out_p = ks["closest_plain"](*tabs, *rays, *extra, chunk=ks["chunk"],
-                                stats=st_c)
-    ev[1].record()
-    occ_p = ks["any_plain"](*tabs, *rays, *extra, chunk=ks["chunk"],
-                            stats=st_a)
-    ev[2].record()
-    torch.cuda.synchronize()
-    t_k, t_p = out_k[0], out_p[0]
-    hit_k, hit_p = torch.isfinite(t_k), torch.isfinite(t_p)
-    both = hit_k & hit_p
-    # slot or prim, and on the instanced walks the instance, of the same hit
-    same = both
-    for i in ks["ids"]:
-        same = same & (out_k[i] == out_p[i])
-    n_hit = int(hit_p.sum())
-    dt = (t_k - t_p).abs()
-    tol = 1e-5 * t_p.abs()
-    uv_err = 0.0
-    if ks["uv"] and bool(same.any()):
-        uv_err = max(float((out_k[i] - out_p[i])[same].abs().max())
-                     for i in (2, 3))
-    outs_k = (out_k if isinstance(out_k, tuple) else (out_k,)) + (occ_k,)
-    outs_p = (out_p if isinstance(out_p, tuple) else (out_p,)) + (occ_p,)
-    return {
-        "bit_equal": all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)),
-        "closest_bit_equal": all(torch.equal(a, b) for a, b in
-                                 zip(outs_k[:-1], outs_p[:-1])),
-        "hit_equal": bool(torch.equal(hit_k, hit_p)),
-        "hit_frac": n_hit / t_p.numel(),
-        # a launch whose lanes all miss (a shadow segment no lane still
-        # walks) agrees vacuously
-        "slot_agree": int(same.sum()) / n_hit if n_hit else 1.0,
-        "t_ok_same": bool((dt[same] <= tol[same]).all()),
-        "t_ok_tie": bool((dt[both & ~same] <= tol[both & ~same]).all()),
-        "t_max_abs_err": float(dt[both].max()) if bool(both.any()) else 0.0,
-        "uv_max_abs_err": uv_err,
-        "occ_agree": float((occ_k == occ_p).float().mean()),
-        "occ_max_abs_err": float((occ_k.int() - occ_p.int()).abs().max()),
-        "closest_plain_ms": ev[0].elapsed_time(ev[1]),
-        "any_plain_ms": ev[1].elapsed_time(ev[2]),
-        "closest_stats": st_c, "any_stats": st_a,
-    }
+    compare_one's two records, each kernel's own fields, and bit_equal
+    over both kernels' outputs."""
+    c = compare_one(torch, ks, ks["closest"], rays)
+    a = compare_one(torch, ks, ks["any"], rays)
+    return {**c, **{k: a[k] for k in ("occ_agree", "occ_max_abs_err",
+                                      "any_plain_ms", "any_stats")},
+            "bit_equal": c["bit_equal"] and a["bit_equal"]}
 
 
 def compare_one(torch, ks, name, rays):
     """Kernel `name` (of `ks`) and its twin alone on the same CUDA
-    tensors, every lane: compare()'s record, the other kernel's fields
-    vacuous (a launch's rays are its own kernel's inputs: the other
-    kernel never sees them on the main path)."""
+    tensors, every lane: agreement, the twin's time (ms, CUDA events) and
+    the walk work it counted; the other kernel's fields vacuous (a
+    launch's rays are its own kernel's inputs: the other kernel never
+    sees them on the main path)."""
     tabs, extra = ks["tabs"], ks["extra"]
     closest = name == ks["closest"]
     out_k = wrapper(name)(*tabs, *rays, *extra)
@@ -753,6 +710,7 @@ def compare_one(torch, ks, name, rays):
     t_k, t_p = out_k[0], out_p[0]
     hit_k, hit_p = torch.isfinite(t_k), torch.isfinite(t_p)
     both = hit_k & hit_p
+    # slot or prim, and on the instanced walks the instance, of the same hit
     same = both
     for i in ks["ids"]:
         same = same & (out_k[i] == out_p[i])
@@ -768,6 +726,8 @@ def compare_one(torch, ks, name, rays):
         "bit_equal": equal, "closest_bit_equal": equal,
         "hit_equal": bool(torch.equal(hit_k, hit_p)),
         "hit_frac": n_hit / t_p.numel(),
+        # a launch whose lanes all miss (a shadow segment no lane still
+        # walks) agrees vacuously
         "slot_agree": int(same.sum()) / n_hit if n_hit else 1.0,
         "t_ok_same": bool((dt[same] <= tol[same]).all()),
         "t_ok_tie": bool((dt[both & ~same] <= tol[both & ~same]).all()),
@@ -1233,44 +1193,6 @@ def gallery_textured(P, subdiv=SUBDIV, res=TEX_FLOOR, **build_kw):
 # The variants phase's scenes: mesh_gallery's shapes seen by each sensor
 # ---------------------------------------------------------------------------
 
-def gallery_shapes(P, subdiv=SUBDIV):
-    """mesh_gallery(subdiv)'s shapes (the same room, light, seeds and
-    placement) from the presets module `P` of either package, and its
-    camera's to_world."""
-    X, Y, Z = 3.0, 2.0, 3.0
-    white = {"type": "diffuse", "reflectance": P.WHITE}
-    s = [
-        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf=white,
-                id="floor"),
-        P._quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], bsdf=white,
-                id="ceiling"),
-        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf=white,
-                id="back"),
-        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0],
-                bsdf={"type": "diffuse", "reflectance": P.RED}, id="left"),
-        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z],
-                bsdf={"type": "diffuse", "reflectance": P.GREEN},
-                id="right"),
-        P._quad([1.1, Y - 5e-4, 1.2], [1.9, Y - 5e-4, 1.2],
-                [1.9, Y - 5e-4, 1.8], [1.1, Y - 5e-4, 1.8], bsdf=white,
-                emitter={"type": "area", "radiance": P.LIGHT}, id="light")]
-    base_v, faces = P._icosphere(subdiv)
-    k = 0
-    for i in range(3):
-        for j in range(2):
-            v = P._displace(base_v.copy(), seed=k)
-            v = v * 0.34 + np.asarray([(i + 0.5) * X / 3,
-                                       0.45 + 0.1 * ((i + j) % 3),
-                                       (j + 0.75) * Z / 2.5], np.float32)
-            s.append(P.shapes.mesh(v, faces, bsdf={
-                "type": "diffuse", "reflectance": GALLERY_ALBEDO[k]},
-                id=f"blob{k}"))
-            k += 1
-    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
-                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
-    return s, np.asarray(cam.matrix)
-
-
 def _rot(axis, deg):
     """A 4x4 rotation (float64) about `axis` by `deg` degrees."""
     x, y, z = np.asarray(axis, np.float64) / np.linalg.norm(axis)
@@ -1327,11 +1249,14 @@ def variant_sensor(P, kind, cam):
     raise ValueError(kind)
 
 
-def gallery_sensor(P, kind, subdiv=SUBDIV, **build_kw):
-    """mesh_gallery(subdiv) seen by variant_sensor(kind), from the presets
-    module `P` of either package."""
-    s, cam = gallery_shapes(P, subdiv)
-    return P.build_scene(s, variant_sensor(P, kind, cam), **build_kw)
+def gallery_sensor(kind, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv)'s shapes (presets.mesh_gallery_shapes) seen by
+    variant_sensor(kind) around the gallery's camera."""
+    from mitsuba2_tpu_torch.scene import presets
+    s, sensor = presets.mesh_gallery_shapes(subdiv)
+    return presets.build_scene(
+        s, variant_sensor(presets, kind, np.asarray(sensor["to_world"])),
+        **build_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -2187,11 +2112,10 @@ def _variant_outputs(torch, path, cfg, out):
 
 
 def variant_scene(mt, kind, subdiv, device, gallery=None):
-    from mitsuba2_tpu_torch.scene import presets
     if kind == "gallery":
         return gallery if gallery is not None else mt.mesh_gallery(
             subdiv=subdiv, device=device)
-    return gallery_sensor(presets, kind, subdiv, device=device)
+    return gallery_sensor(kind, subdiv, device=device)
 
 
 def phase_variants(torch, mt, dev, card, gallery):

@@ -3,8 +3,9 @@
 Lanes are laid out (spp, H, W), so a box filter is a reshape and a sum
 and its weight a count. A wider filter (tent, gaussian, mitchell,
 catmullrom, lanczos) splats each sample to its (2R+1)^2 neighbours, one
-tap at a time (a roll and a border mask, as the JAX package does), and
-its weight sum is an (H, W) tensor.
+tap at a time (a roll and a border mask, as the JAX package does), from
+2R+1 column and 2R+1 row weights, and its weight sum is an (H, W)
+tensor.
 """
 from __future__ import annotations
 
@@ -73,12 +74,14 @@ def accumulate_pass(image, wsum, values: Spec, jitter, config):
     dev = image.device
     ys = torch.arange(H, device=dev)
     xs = torch.arange(W, device=dev)
+    # the 2R+1 column weights, evaluated once for every row of taps
+    wxs = [filter_eval(name, dx - rel_x) for dx in range(-R, R + 1)]
     for dy in range(-R, R + 1):
         wy = filter_eval(name, dy - rel_y)
         ymask = (ys >= max(dy, 0)) & (ys < H + min(dy, 0))
-        for dx in range(-R, R + 1):
+        for dx, wx in zip(range(-R, R + 1), wxs):
             # the sample's weight at pixel (y + dy, x + dx)
-            wgt = filter_eval(name, dx - rel_x) * wy
+            wgt = wx * wy
             contrib = torch.stack([(c * wgt).sum(0) for c in vals], -1)
             wimg = wgt.sum(0)
             del wgt

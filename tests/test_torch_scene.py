@@ -257,8 +257,9 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
     ({"color_mode": "spectral", "polarized": True}, "spectral"),
     ({"polarized": True}, "polarized"),
     # the filters, the depth and direct integrators render since the
-    # integrator variants' slice: the stokes integrator not, nor an aov
-    # over it, nor mono's polarized variant (the cases keep their ids)
+    # integrator variants' slice. The cases keep the ids of the refusals
+    # they replace: kw3-gaussian holds the stokes integrator's, kw4-volpath
+    # an aov over stokes, kw6-direct mono's polarized variant
     pytest.param({"integrator": "stokes"}, "stokes", id="kw3-gaussian"),
     pytest.param({"integrator": "aov", "aov_child": "stokes"}, "stokes",
                  id="kw4-volpath"),

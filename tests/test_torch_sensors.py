@@ -48,25 +48,75 @@ RENDER = dict(width=8, height=8, spp=4, spp_per_pass=4, max_depth=3,
 N = 512
 
 
+def _jax_gallery_shapes(subdiv):
+    """mesh_gallery(subdiv)'s shapes (the same room, light, seeds and
+    placement) and its camera's to_world from the JAX package's presets,
+    which build the gallery whole; the port's presets.mesh_gallery_shapes
+    counterpart, which test_tables_byte_equal holds it to."""
+    from mitsuba2_tpu.scene import presets as P
+    X, Y, Z = 3.0, 2.0, 3.0
+    white = {"type": "diffuse", "reflectance": P.WHITE}
+    s = [
+        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf=white,
+                id="floor"),
+        P._quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], bsdf=white,
+                id="ceiling"),
+        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf=white,
+                id="back"),
+        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0],
+                bsdf={"type": "diffuse", "reflectance": P.RED}, id="left"),
+        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z],
+                bsdf={"type": "diffuse", "reflectance": P.GREEN},
+                id="right"),
+        P._quad([1.1, Y - 5e-4, 1.2], [1.9, Y - 5e-4, 1.2],
+                [1.9, Y - 5e-4, 1.8], [1.1, Y - 5e-4, 1.8], bsdf=white,
+                emitter={"type": "area", "radiance": P.LIGHT}, id="light")]
+    base_v, faces = P._icosphere(subdiv)
+    for k in range(6):
+        i, j = divmod(k, 2)
+        v = P._displace(base_v.copy(), seed=k)
+        v = v * 0.34 + np.asarray([(i + 0.5) * X / 3,
+                                   0.45 + 0.1 * ((i + j) % 3),
+                                   (j + 0.75) * Z / 2.5], np.float32)
+        s.append(P.shapes.mesh(v, faces, bsdf={
+            "type": "diffuse", "reflectance": chip_smoke.GALLERY_ALBEDO[k]},
+            id=f"blob{k}"))
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    return s, np.asarray(cam.matrix)
+
+
+def _gallery_scene(kind, port):
+    """mesh_gallery(subdiv=1) seen by `kind`: a variants-phase sensor
+    (chip_smoke.variant_sensor), the gallery's own perspective camera or a
+    thin lens at it; the port's on the CPU, else the JAX package's."""
+    from mitsuba2_tpu.scene import presets as jpresets
+    if port and kind in KINDS:
+        return chip_smoke.gallery_sensor(kind, 1, device="cpu")
+    P, kw = (tpresets, {"device": "cpu"}) if port else (jpresets, {})
+    if port:
+        s, sensor = tpresets.mesh_gallery_shapes(1)
+        cam = np.asarray(sensor["to_world"])
+    else:
+        s, cam = _jax_gallery_shapes(1)
+    if kind in KINDS:
+        return P.build_scene(s, chip_smoke.variant_sensor(P, kind, cam),
+                             **kw)
+    sensor = {"type": kind, "to_world": cam, "fov": 50.0}
+    if kind == "thinlens":
+        sensor.update(aperture_radius=0.05, focus_distance=2.5)
+    return P.build_scene(s, sensor, **kw)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     """Each kind's scene from both packages (subdiv 1), the port's tables
     recorded at its build; the gallery's own camera, and a thin lens."""
-    from mitsuba2_tpu.scene import presets as jpresets
     out = {}
     for kind in KINDS + ("perspective", "thinlens"):
-        if kind in KINDS:
-            mk = lambda P, **kw: chip_smoke.gallery_sensor(P, kind, 1, **kw)
-        else:
-            def mk(P, _k=kind, **kw):
-                s, cam = chip_smoke.gallery_shapes(P, 1)
-                sensor = {"type": _k, "to_world": cam, "fov": 50.0}
-                if _k == "thinlens":
-                    sensor.update(aperture_radius=0.05, focus_distance=2.5)
-                return P.build_scene(s, sensor, **kw)
         with recorded_fields() as got:
-            st = mk(tpresets, device="cpu")
-        out[kind] = (mk(jpresets), st, got[0])
+            st = _gallery_scene(kind, port=True)
+        out[kind] = (_gallery_scene(kind, port=False), st, got[0])
     return out
 
 
@@ -224,8 +274,7 @@ def test_rotation_midpoint_is_slerp():
 
 def _jax_image(kind):
     import mitsuba2_tpu as mi
-    from mitsuba2_tpu.scene import presets as jpresets
-    return np.asarray(mi.render(chip_smoke.gallery_sensor(jpresets, kind, 1),
+    return np.asarray(mi.render(_gallery_scene(kind, port=False),
                                 mi.RenderConfig(**RENDER), seed=2))
 
 
