@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-two main paths, each a forward render at 256x256 through
+Twenty-three main paths, each a forward render at 256x256 through
 `mitsuba2_tpu_torch.render` (xml_gallery's through `render_any`), 16 spp at max_depth 3 (in one pass but for
 veach, veach_spectral, smoke_box and kitchen_sink) but for config 5's
 two, instanced, gallery_dense and kitchen_sink, in rgb but for
@@ -92,7 +92,12 @@ which render spectrally:
              `python -m mitsuba2_tpu_torch gallery.xml -o out.pfm` in a
              subprocess, its wall time and launches, its PFM bit-equal
              to the in-process render and within the limits of phase 4
-             of the gallery path's.
+             of the gallery path's;
+  gallery_compact  the gallery with RenderConfig(compact=True): each
+             bounce permutes the wavefront (dead lanes last, live lanes
+             in Morton order of their hits): K1, K2 on the compacted
+             wavefronts; its image at seed 0 against the gallery's
+             (rtol 1e-5 / atol 1e-6).
 The variants phase (VARIANTS) renders eleven more paths through
 `render_any` at the same size: the gallery under the direct, depth, aov
 (all eight AOVs, a path child) and moment (4 passes of 4) integrators,
@@ -142,7 +147,8 @@ Phase 4  small renders on the card against the same renders on the CPU
          and in spectral mode veach_mis(envmap=True) (brute force and
          K3), mesh_gallery(subdiv=1) and gallery_lights(subdiv=1), and
          gallery_textured(subdiv=1) with 64 x 64 textures in rgb and in
-         spectral mode, gallery_fog(subdiv=1), a slab over a random
+         spectral mode, gallery_fog(subdiv=1), without and with
+         reparam=True (the camera ray warped), a slab over a random
          density grid and smoke_box(8) with its floor 1e-3 lower (delta
          tracking without ties); and kitchen_sink and
          smoke_box(8), whose dielectric paths and coplanar null box and
@@ -213,6 +219,24 @@ Phase 7  the adjoint (mitsuba2_tpu_torch.diff), at bench.py's two adjoint
          difference on the card within that test's band (rtol 0.12);
          and one render_l2_grad of smoke_box(32) at 128x128, 4 spp,
          depth 3: its time and peak memory.
+
+Phase 8  several processes and long renders: render_instrumented on the
+         gallery (4 passes of 4: a JSONL record a pass, the image
+         render()'s, a cancel after two passes the 2-pass image);
+         render_sharded over an NCCL group of one rank in this process
+         (a FileStore): bit-equal to render(); then two gloo ranks on
+         the one card (NCCL refuses two ranks on one device), spawned,
+         each building the gallery: render_sharded (524 288 lanes a
+         rank; its camera K1 launch and first K2 launch held bit-equal
+         to their twins and timed, one rank at a time), within rtol
+         2e-5 / atol 2e-5 of render(); render_and_grad_sharded at the
+         gallery's adjoint config, its gradients within rtol 5e-4 / atol
+         1e-6 of render_l2_grad's; four train steps (the loss falls); an
+         optimization checkpointed after 2 of 3 steps and resumed from
+         the file, mat_data within rtol 1e-6 / atol 1e-8 of the
+         uninterrupted run's; gallery_reparam's config sharded, within
+         rtol 1e-4 / atol 1e-5 of one process. Each rank's results
+         equal; a failed or hung rank (DIST_TIMEOUT) fails the phase.
 
 Prints each phase's wall time, the card's `nvidia-smi` name and power
 limit, a JSON line {"kernels": [...]} (one row a kernel: its first path's
@@ -329,7 +353,8 @@ PATH_RENDER = {"veach": VEACH_RENDER,
                "smoke_box": SMOKE_RENDER,
                "smoke_box_bvh2": {**SMOKE_RENDER, "spp_per_pass": 16},
                "gallery_fog": {**RENDER, "integrator": "volpath"},
-               "kitchen_sink": KITCHEN_RENDER}
+               "kitchen_sink": KITCHEN_RENDER,
+               "gallery_compact": {**RENDER, "compact": True}}
 # config 5's occluder scenes (occluder_scene, shadow_scene): the JAX
 # tests' configs, central-difference steps and bands of |AD| / |FD|
 # (tests/test_reparam.py; examples/occluder_pose_grad.py)
@@ -431,6 +456,7 @@ PATH_KERNELS = {
     "gallery_fog": ("cluster_closest_hit",),
     "kitchen_sink": (),
     "xml_gallery": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_compact": ("cluster_closest_hit", "cluster_any_hit"),
 }
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
@@ -457,7 +483,11 @@ BIT_EQUAL = {"cluster_closest_hit", "inst_cluster_closest_hit",
              "bvh8_any_hit"}
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery",
-              "gallery_spectral": "gallery", "gallery_reparam": "gallery"}
+              "gallery_spectral": "gallery", "gallery_reparam": "gallery",
+              "gallery_compact": "gallery"}
+# the paths under RenderConfig(compact=True): the gallery's scene and walk
+# on permuted wavefronts, whose probe rays phase 2 does not repeat
+COMPACT = {"gallery_compact"}
 # the probes' configurations at 1M lanes: P1 over the gallery-sized table
 # (L1-resident) and one of the sphere field's BVH2 size (8 MiB, in L2)
 PROBE_LANES = 1 << 20
@@ -490,6 +520,18 @@ for _path in ("smoke_box_bvh2", "gallery_fog"):
     EXPECTED_LAUNCHES[_path][PATH_KERNELS[_path][0]] = (
         volpath_closest_launches(_cfg["max_depth"])
         * (_cfg["spp"] // _cfg["spp_per_pass"]))
+
+
+# phase 8: two gloo ranks on the one card (NCCL refuses two ranks on one
+# device), spawned; the limit of their whole run (start, scene build,
+# every case), their Adam steps (tests/test_sharding.py's four) and the
+# checkpoint's step (2 of 3)
+DIST_RANKS = 2
+DIST_TIMEOUT = 480
+DIST_TRAIN_STEPS, DIST_LR = 4, 0.05
+DIST_CKPT_STEP = 2
+# render_instrumented on the gallery: 4 passes of 4
+INSTRUMENTED = {**RENDER, "spp_per_pass": 4}
 
 
 class SmokeFailure(Exception):
@@ -1527,6 +1569,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     scenes["cornell_reparam"] = mt.cornell_box(device=dev)
     scenes["gallery_reparam"] = gallery
     scenes.update(_media_scenes(mt, dev))
+    scenes["gallery_compact"] = gallery
     with path_switches("gallery_dense"):
         ks = kernels_of(gallery)
     check(ks["closest"] == "dense_closest_hit", "the dense switch did not "
@@ -1539,7 +1582,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     ok = True
     probes = {}
     for name, scene in {**scenes, **extra}.items():
-        if PATH_KERNELS.get(name, True):
+        if PATH_KERNELS.get(name, True) and name not in COMPACT:
             with path_switches(name):
                 ok &= _kernels_vs_twins(torch, name, scene, probes, dev)
     check(ok, "a kernel disagrees with its twin on the probe rays")
@@ -2370,6 +2413,23 @@ def phase_reparam_path(torch, mt, path, scene, card, render_ms):
               "is not the plain render's")
 
 
+def phase_compact_path(torch, mt, path, scene):
+    """A compact=True path after phase 3: its image at seed 0 against the
+    same render uncompacted (the gallery path's), within
+    tests/test_compact.py's rtol 1e-5 / atol 1e-6: each lane's sampler
+    state moves with it, so it draws and decides as it would in place."""
+    cfg = mt.RenderConfig(**PATH_RENDER[path])
+    img = mt.render(scene, cfg, seed=0)
+    plain = mt.render(scene, cfg.replace(compact=False), seed=0)
+    torch.cuda.synchronize()
+    err = float((img - plain).abs().max())
+    log(f"phase 3: {path}: image against the uncompacted render (seed 0): "
+        f"max abs diff {err:.3e}, bit-equal {bool(torch.equal(img, plain))}"
+        f", means {float(img.mean()):.6f} and {float(plain.mean()):.6f}")
+    check(torch.allclose(img, plain, rtol=1e-5, atol=1e-6),
+          f"{path}: the compacted image is not the uncompacted one")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: small renders on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -2441,12 +2501,15 @@ def phase_small_renders(torch, mt, dev):
              lambda d: gallery_textured(presets, 1, 64, device=d), {}),
             ("gallery_fog(subdiv=1), volpath (K1)",
              lambda d: gallery_fog(presets, 1, device=d), {}),
+            ("reparam: gallery_fog(subdiv=1), volpath, the camera ray "
+             "warped (K1)", lambda d: gallery_fog(presets, 1, device=d), {}),
             ("medium_slab over a random grid, volpath (delta tracking)",
              lambda d: medium_slab(presets, device=d, **GRID_SLAB), {}),
             ("smoke_box(8) with its floor 1e-3 lower (no tie)",
              lambda d: smoke_floor_lowered(mt, d), {})):
         c = cfg.replace(color_mode="spectral") if name.startswith(
-            "spectral") else cfg
+            "spectral") else cfg.replace(reparam=True) if name.startswith(
+            "reparam") else cfg
         with switches(**sw):
             img_c = mt.render(mk("cpu"), c, seed=5, device="cpu").numpy()
             img_g = mt.render(mk(dev), c, seed=5).cpu().numpy()
@@ -3557,6 +3620,317 @@ def _occluder_check(torch, mt, dev, card, name):
     check(good, f"{name}: the occluder gradient is outside its bands")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: several processes (dist/) and long renders (utils/observability)
+# ---------------------------------------------------------------------------
+
+def _launch_row(name, r, launches):
+    """A kernel row of a launch timed by time_launch."""
+    return {"name": name, "route": "cuda", "source": SRC,
+            "replaces": REPLACES[name][0], "launches": launches,
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None}
+
+
+def phase_instrumented(torch, mt, gallery, d):
+    """render_instrumented on the gallery, 4 passes of 4: a JSONL record a
+    pass, the image render()'s within rtol 1e-5 / atol 1e-6, and a cancel
+    after two passes the two-pass render's."""
+    from mitsuba2_tpu_torch.utils.observability import render_instrumented
+    cfg = mt.RenderConfig(**INSTRUMENTED)
+    n_passes = cfg.spp // cfg.spp_per_pass
+    jsonl = os.path.join(d, "render.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)    # the monitor appends
+    img, mon = render_instrumented(gallery, cfg, seed=0, jsonl_path=jsonl)
+    recs = [json.loads(ln) for ln in open(jsonl)]
+    calls = {"n": 0}
+
+    def cancel():
+        calls["n"] += 1
+        return calls["n"] > 2
+
+    part, mon2 = render_instrumented(gallery, cfg, seed=0, cancel=cancel)
+    ref = mt.render(gallery, cfg, seed=0)
+    ref2 = mt.render(gallery, cfg.replace(spp=2 * cfg.spp_per_pass), seed=0)
+    torch.cuda.synchronize()
+    log(f"phase 8: render_instrumented, the gallery {cfg.width}x"
+        f"{cfg.height}, {n_passes} passes of {cfg.spp_per_pass}: "
+        f"{len(recs)} JSONL records, Mrays/s a pass "
+        f"{[r['mrays_s'] for r in recs]}, live lanes after each bounce "
+        f"{recs[-1]['occupancy']}; image against render(): max abs diff "
+        f"{float((img - ref).abs().max()):.3e}; cancelled after "
+        f"{len(mon2.records)} passes: against the 2-pass render "
+        f"{float((part - ref2).abs().max()):.3e}")
+    check(len(recs) == n_passes and recs == mon.records,
+          "render_instrumented: a JSONL record a pass")
+    check(torch.allclose(img, ref, rtol=1e-5, atol=1e-6),
+          "render_instrumented: the image is not render()'s")
+    check(mon2.cancelled and len(mon2.records) == 2
+          and torch.allclose(part, ref2, rtol=1e-5, atol=1e-6),
+          "render_instrumented: the cancelled image is not the 2-pass one")
+
+
+def phase_nccl_one(torch, mt, gallery, d):
+    """render_sharded over an NCCL group of one rank, in this process (a
+    FileStore): its all-reduces run, as the identity, and its image is
+    render()'s bit for bit; its K1, K2 launches a render's."""
+    import torch.distributed as tdist
+    from mitsuba2_tpu_torch.dist import sharding
+    cfg = mt.RenderConfig(**RENDER)
+    names = PATH_KERNELS["gallery"]
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(os.path.join(d, "nccl_store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(device=DEVICE)
+        check(mesh.grouped and mesh.size == 1
+              and tdist.get_backend() == "nccl", f"the NCCL mesh: {mesh}")
+        sharding.render_sharded(gallery, cfg, mesh, seed=0)
+        for k in names:
+            wrapper(k).launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_s = sharding.render_sharded(gallery, cfg, mesh, seed=0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = [wrapper(k).launches for k in names]
+    finally:
+        tdist.destroy_process_group()
+    img = mt.render(gallery, cfg, seed=0)
+    equal = bool(torch.equal(img_s, img))
+    log(f"phase 8: NCCL, world size 1: render_sharded of the gallery "
+        f"{ms:.1f} ms, K1, K2 launches {counts}, bit-equal to render(): "
+        f"{equal}")
+    check(equal, "the NCCL world-1 render is not render()'s")
+    check(counts == [EXPECTED_LAUNCHES["gallery"][k] for k in names],
+          f"the NCCL world-1 render launched {counts}")
+
+
+def run_ranks(torch, fn, world, timeout, *args):
+    """fn(rank, world, store, out_path, *args) in `world` processes of the
+    spawn start method (this one holds CUDA); returns each rank's saved
+    results. A rank that fails stops the others, and one still running
+    after `timeout` s is killed: either fails the phase."""
+    import tempfile
+    ctx = torch.multiprocessing.get_context("spawn")
+    d = tempfile.mkdtemp(prefix="ranks_")
+    try:
+        procs = [ctx.Process(target=fn, args=(r, world, f"{d}/store",
+                                              f"{d}/out{r}.pt", *args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while (any(p.is_alive() for p in procs)
+               and time.monotonic() < deadline
+               and not any(p.exitcode not in (None, 0) for p in procs)):
+            time.sleep(0.5)
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        check(not alive and codes == [0] * world,
+              f"the ranks exited with {codes}; ranks {alive} were still "
+              f"running after {timeout} s or after another rank failed")
+        return [torch.load(f"{d}/out{r}.pt", weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _dist_rank(rank, world, store, out, ckpt_dir):
+    """A gloo rank on the card: the gallery built here; render_sharded
+    (timed, its K1, K2 launches counted, its camera K1 launch and first
+    K2 launch timed and held against their twins, one rank at a time),
+    render_and_grad_sharded, DIST_TRAIN_STEPS train steps, a checkpointed
+    optimization resumed from its file, and config 5 sharded. Saves its
+    results to `out`."""
+    import torch
+    import torch.distributed as tdist
+    import mitsuba2_tpu_torch as mt
+    from mitsuba2_tpu_torch.diff import adjoint as adjoint_mod
+    from mitsuba2_tpu_torch.dist import checkpoint, multihost, sharding
+    from mitsuba2_tpu_torch.kernels import traverse
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", store=tdist.FileStore(store, world),
+                             rank=rank, world_size=world)
+    try:
+        dev = torch.device(DEVICE)
+        res = {}
+        t0 = time.perf_counter()
+        gallery = mt.mesh_gallery(subdiv=SUBDIV, device=dev)
+        res["build_s"] = time.perf_counter() - t0
+        mesh = sharding.make_mesh(device=dev)
+        cfg = mt.RenderConfig(**RENDER)
+        ks = kernels_of(gallery)
+        names = (ks["closest"], ks["any"])
+        record = []
+        orig, rec = _recorders(traverse, record, ks)
+        for k, f in rec.items():
+            setattr(traverse, k, f)
+        try:
+            sharding.render_sharded(gallery, cfg, mesh, seed=0)
+        finally:
+            for k, f in orig.items():
+                setattr(traverse, k, f)
+        torch.cuda.synchronize()
+        tdist.barrier()
+        for k in names:
+            wrapper(k).launches = 0
+        t0 = time.perf_counter()
+        img = sharding.render_sharded(gallery, cfg, mesh, seed=0)
+        torch.cuda.synchronize()
+        res["render_ms"] = (time.perf_counter() - t0) * 1e3
+        res["launches"] = {k: wrapper(k).launches for k in names}
+        res["image"] = img.cpu()
+        firsts = {}
+        for name, rays in record:
+            firsts.setdefault(name, rays)
+        res["rows"] = []
+        for r in range(world):
+            if r == rank:   # one rank's kernels on the card at a time
+                for name in names:
+                    t = time_launch(torch, ks, gallery, name, firsts[name])
+                    res["rows"].append({
+                        **_launch_row(name, t, res["launches"][name]),
+                        "bit_equal": t["c"]["bit_equal"], "lanes": t["n"]})
+            torch.cuda.synchronize()
+            tdist.barrier()
+
+        zero = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+        for _ in range(2):  # the first call starts the backward's kernels
+            t0 = time.perf_counter()
+            _, loss, grads = sharding.render_and_grad_sharded(
+                gallery, cfg, lambda im: torch.mean((im - zero) ** 2), mesh,
+                seed=0)
+            torch.cuda.synchronize()
+            res["adjoint_ms"] = (time.perf_counter() - t0) * 1e3
+        res["adjoint"] = (float(loss), {k: v.cpu() for k, v in grads.items()})
+
+        target = mt.render(gallery, cfg, seed=11) * 0.5
+        s, opt, losses = gallery, None, []
+        t0 = time.perf_counter()
+        for i in range(DIST_TRAIN_STEPS):
+            s, opt, loss, _ = sharding.train_step_sharded(
+                s, cfg, target, i + 1, mesh, opt_state=opt, lr=DIST_LR)
+            losses.append(float(loss))
+        res["train"] = {"losses": losses, "step": int(opt["step"]),
+                        "s": (time.perf_counter() - t0) / DIST_TRAIN_STEPS}
+
+        s, opt = gallery, None
+        for i in range(DIST_CKPT_STEP):
+            s, opt, _, _ = sharding.train_step_sharded(s, cfg, zero, i, mesh,
+                                                       opt_state=opt)
+        path = os.path.join(ckpt_dir, "opt.npz")
+        state = {"tables": adjoint_mod.diff_tables(s), "opt": opt}
+        if multihost.is_coordinator():
+            checkpoint.save(path, state, step=DIST_CKPT_STEP)
+        tdist.barrier()
+        s_a, _, loss_a, _ = sharding.train_step_sharded(
+            s, cfg, zero, DIST_CKPT_STEP, mesh, opt_state=opt)
+        restored, step, _ = checkpoint.load(path, like=state, device=dev)
+        s_c, _, loss_c, _ = sharding.train_step_sharded(
+            adjoint_mod.with_tables(gallery, restored["tables"]), cfg, zero,
+            DIST_CKPT_STEP, mesh, opt_state=restored["opt"])
+        res["resume"] = {"step": step, "mat_a": s_a.mat_data.cpu(),
+                         "mat_c": s_c.mat_data.cpu(), "loss_a": float(loss_a),
+                         "loss_c": float(loss_c)}
+
+        t0 = time.perf_counter()
+        res["reparam"] = sharding.render_sharded(
+            gallery, mt.RenderConfig(**REPARAM_GALLERY), mesh, seed=0).cpu()
+        torch.cuda.synchronize()
+        res["reparam_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.save(res, out)
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_dist(torch, mt, card, gallery, d):
+    """render_instrumented; NCCL at world size 1 in this process; then
+    DIST_RANKS gloo ranks on the one card (_dist_rank), their results
+    against this process's: the image within rtol 2e-5 / atol 2e-5 of
+    render() (tests/test_sharding.py's pass limits), the gradients within
+    rtol 5e-4 / atol 1e-6 of render_l2_grad's, the train steps' loss
+    falling, the resumed optimization's mat_data within rtol 1e-6 / atol
+    1e-8 of the uninterrupted one's, config 5's image within rtol 1e-4 /
+    atol 1e-5 of render()'s; every rank's results equal. Returns the K1,
+    K2 rows by rank."""
+    from mitsuba2_tpu_torch.diff.adjoint import render_l2_grad
+    phase_instrumented(torch, mt, gallery, d)
+    phase_nccl_one(torch, mt, gallery, d)
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(d, "ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ranks = run_ranks(torch, _dist_rank, DIST_RANKS, DIST_TIMEOUT, ckpt_dir)
+    wall = time.perf_counter() - t0
+    cfg = mt.RenderConfig(**RENDER)
+    img = mt.render(gallery, cfg, seed=0).cpu()
+    zero = torch.zeros((cfg.height, cfg.width, 3), device=DEVICE)
+    _, loss, grads = render_l2_grad(gallery, cfg, zero, seed=0)
+    reparam = mt.render(gallery, mt.RenderConfig(**REPARAM_GALLERY),
+                        seed=0).cpu()
+    rows = {}
+    for r, res in enumerate(ranks):
+        log(f"phase 8: gloo rank {r} of {DIST_RANKS} on {card}: gallery "
+            f"built in {res['build_s']:.1f} s; render_sharded "
+            f"{cfg.width}x{cfg.height}x{cfg.spp}spp, depth {cfg.max_depth} "
+            f"({cfg.spp_per_pass // DIST_RANKS * cfg.width * cfg.height} "
+            f"lanes a rank) {res['render_ms']:.1f} ms, launches "
+            f"{json.dumps(res['launches'])}; render_and_grad_sharded "
+            f"{res['adjoint_ms']:.1f} ms (its second call); a train step "
+            f"{res['train']['s'] * 1e3:.1f} ms, losses "
+            f"{[round(x, 6) for x in res['train']['losses']]}; config 5 "
+            f"{res['reparam_ms']:.1f} ms")
+        for row in res["rows"]:
+            log(f"  {row['name']} (rank {r}'s first launch, {row['lanes']} "
+                f"lanes): {row['ms']:.3f} ms, twin {row['plain_ms']:.1f} ms, "
+                f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"bit-equal to its twin {row['bit_equal']}")
+            check(row.pop("bit_equal") and row.pop("lanes") > 0,
+                  f"rank {r}: {row['name']} disagrees with its twin")
+        rows[f"dist_gloo_rank{r}"] = res["rows"]
+        check(res["launches"] == {k: EXPECTED_LAUNCHES["gallery"][k]
+                                  for k in res["launches"]},
+              f"rank {r} launched {res['launches']}")
+        for k in ("image", "reparam"):
+            check(torch.equal(res[k], ranks[0][k]),
+                  f"rank {r}'s {k} is not rank 0's")
+    res = ranks[0]
+    g_err = {k: float((res["adjoint"][1][k] - grads[k].cpu()).abs().max())
+             for k in grads}
+    resume = res["resume"]
+    losses = res["train"]["losses"]
+    log(f"phase 8: the ranks against one process: image max abs diff "
+        f"{float((res['image'] - img).abs().max()):.3e}; loss "
+        f"{res['adjoint'][0]:.6f} against {float(loss):.6f}, gradients max "
+        f"abs diff {g_err}; resumed at step {resume['step']}: mat_data max "
+        f"abs diff {float((resume['mat_c'] - resume['mat_a']).abs().max()):.3e}"
+        f", losses {resume['loss_c']:.6f}, {resume['loss_a']:.6f}; config 5 "
+        f"image max abs diff {float((res['reparam'] - reparam).abs().max()):.3e}"
+        f"; the ranks' run {wall:.1f} s")
+    check(torch.allclose(res["image"], img, rtol=2e-5, atol=2e-5),
+          "the ranks' image is not render()'s")
+    check(abs(res["adjoint"][0] - float(loss)) <= 1e-4 * abs(float(loss)),
+          "the ranks' loss is not render_l2_grad's")
+    for k, g in grads.items():
+        check(torch.allclose(res["adjoint"][1][k], g.cpu(), rtol=5e-4,
+                             atol=1e-6),
+              f"the ranks' {k} gradient is not render_l2_grad's")
+    check(res["train"]["step"] == DIST_TRAIN_STEPS and losses[-1] < losses[0],
+          f"the sharded train steps' loss did not fall: {losses}")
+    check(resume["step"] == DIST_CKPT_STEP and torch.allclose(
+        resume["mat_c"], resume["mat_a"], rtol=1e-6, atol=1e-8),
+          "the resumed optimization is not the uninterrupted one")
+    check(torch.allclose(res["reparam"], reparam, rtol=1e-4, atol=1e-5),
+          "config 5 sharded is not the one-process render")
+    return rows
+
+
 def merge_row(by_name, path, row):
     """One kernel row a kernel: a kernel's first path (its own, the
     earlier slice's) keeps the row's numbers and `launches`; each later
@@ -3608,6 +3982,9 @@ def main():
             if PATH_RENDER.get(path, {}).get("reparam"):
                 timed(f"3 ({path}, reparam)", phase_reparam_path, torch,
                       mt, path, scene, card, render_ms[path])
+            if path in COMPACT:
+                timed(f"3 ({path}, image)", phase_compact_path, torch, mt,
+                      path, scene)
             if getattr(scene, "medium_grid", None) is not None:
                 with path_switches(path):
                     timed(f"3 ({path}, tracking)", phase_tracking, torch, mt,
@@ -3640,6 +4017,10 @@ def main():
               scenes["veach"], scenes["veach_spectral"],
               scenes["gallery_textured"], scenes["gallery_reparam"],
               scenes["smoke_box"])
+        for path, rs in timed(8, phase_dist, torch, mt, card,
+                              scenes["gallery"], xml_dir).items():
+            for row in rs:
+                merge_row(by_name, path, row)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

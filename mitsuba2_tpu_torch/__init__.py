@@ -23,6 +23,10 @@ renders one (`python -m mitsuba2_tpu_torch scene.xml -o out.pfm`):
     scene, cfg = mt.load_file("scene.xml", spp=16)   # $spp = 16
     mt.write_bitmap("out.pfm", mt.render_any(scene, cfg).cpu().numpy())
 
+`dist/` splits a render, its adjoint and an optimizer step over the
+ranks of a torch.distributed group and checkpoints long runs;
+`utils/observability.py` reports a render pass by pass.
+
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
 a CUDA device and without that argument they raise. Importing this
 package touches no CUDA device and builds no kernel: the kernels are

@@ -77,7 +77,6 @@ class RenderConfig:
             (self.polarized, f"polarized=True (the JAX package's "
                              f"{self.color_mode}_polarized variant)"),
             (stokes, "integrator='stokes'"),
-            (self.compact, "compact=True"),
         ]
         for bad, what in unsupported:
             if bad:

@@ -73,20 +73,32 @@ def render_and_grad(scene, config: RenderConfig,
     without one). Returns (image, loss, grads), grads keyed as
     diff_tables."""
     dev = resolve_device(device)
-    scene = to_device(scene, dev)
     if seed is None:
         seed = config.seed
     sppc = min(config.spp_per_pass, config.spp)
     config = config.replace(spp_per_pass=sppc)
-    seeds = pass_seeds(seed, (config.spp + sppc - 1) // sppc)
+    return adjoint_passes(to_device(scene, dev), config, loss_fn,
+                          pass_seeds(seed, (config.spp + sppc - 1) // sppc),
+                          dev)
 
+
+def adjoint_passes(scene, config: RenderConfig, loss_fn, seeds, dev,
+                   lane_offset: int = 0, reduce=None):
+    """render_and_grad's two phases over the passes of `seeds`, each a
+    render_pass of `config` at `lane_offset`. `reduce`, where given,
+    sums a tensor over the ranks in place (dist/sharding.py): the film
+    and its weight before the develop, the gradients at the end."""
     # ---- phase 1: every pass, no tape ---------------------------------------
     image_sum, wsum = None, 0
     with torch.inference_mode():
         for s in seeds:
-            img_p, w_p = render_pass(scene, config, s, dev)
+            img_p, w_p = render_pass(scene, config, s, dev, lane_offset)
             image_sum = img_p if image_sum is None else image_sum + img_p
             wsum = wsum + w_p
+        if reduce is not None:
+            wsum = reduce(torch.as_tensor(wsum, dtype=torch.float32,
+                                          device=dev).clone())
+            image_sum = reduce(image_sum)
         image = film_mod.develop(image_sum, wsum)
 
     # ---- the adjoint image: dLoss/dImage / wsum (develop's derivative; the
@@ -103,10 +115,14 @@ def render_and_grad(scene, config: RenderConfig,
         for s in seeds:
             leaves = {k: v.detach().clone().requires_grad_(True)
                       for k, v in diff_tables(scene).items()}
-            img_p, _ = render_pass(with_tables(scene, leaves), config, s, dev)
+            img_p, _ = render_pass(with_tables(scene, leaves), config, s, dev,
+                                   lane_offset)
             torch.autograd.backward(img_p, ct_image)
             for k, v in leaves.items():
                 grads[k] += v.grad
+    if reduce is not None:
+        for g in grads.values():
+            reduce(g)
     return image.detach(), loss.detach(), grads
 
 

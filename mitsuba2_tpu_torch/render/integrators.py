@@ -20,11 +20,18 @@ a sample's share of its pixel, so that the first hit's lookups are
 mip-filtered; later hits carry a zero footprint (level 0), as in the
 reference. Beside `render` stand the JAX package's other integrators:
 direct, depth, aov and moment (`render_any` dispatches on
-RenderConfig.integrator).
+RenderConfig.integrator). With RenderConfig(compact=True) each bounce
+first permutes its wavefront (kernels/compact.py: dead lanes to the
+back, live lanes in Morton order of their hit points) and the path's
+radiance is put back in lane order at its end. `render_pass`'s
+`lane_offset` shifts the lanes' global ids, the sampler streams' seeds,
+so that ranks rendering a pass's samples apart draw what one process
+draws (dist/sharding.py).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -54,9 +61,21 @@ def mis_weight(pdf_a, pdf_b):
 
 def _path_bounce(scene, config: RenderConfig, depth: int, carry):
     """One bounce of path.cpp's loop: NEE (+MIS), BSDF sampling, the
-    emitter hit along the new ray (+MIS), Russian roulette."""
+    emitter hit along the new ray (+MIS), Russian roulette. carry = (si,
+    active, throughput, result, sampler, orig): `orig` the lanes' places
+    in the wavefront as it was made, which compaction permutes with the
+    rest."""
     from ..scene import scene as scene_mod
-    si, active, throughput, result, sampler = carry
+    si, active, throughput, result, sampler, orig = carry
+    if config.compact:
+        from ..kernels import compact as compact_mod
+        perm = compact_mod.compaction_order(active, si.p, scene.bvh_min[0],
+                                            scene.bvh_max[0])
+        # the scene's atlas rides on si and is no lane's: kept out
+        tex, si = si.tex, dataclasses.replace(si, tex=None)
+        si, active, throughput, result, sampler, orig = compact_mod.permute(
+            (si, active, throughput, result, sampler, orig), perm)
+        si.tex = tex
 
     flags = bsdf_mod.lane_flags(scene, si)
     is_smooth = (flags & bsdf_mod.F_SMOOTH) != 0
@@ -130,7 +149,7 @@ def _path_bounce(scene, config: RenderConfig, depth: int, carry):
         # finest level (interaction.h: differentials from the camera alone)
         z = torch.zeros_like(si.duv_dx.x)
         si_next.duv_dx = si_next.duv_dy = Vec2(z, z)
-    return si_next, active, throughput, result, sampler
+    return si_next, active, throughput, result, sampler, orig
 
 
 def sample_path(scene, ray: Ray, sampler: Sampler, config: RenderConfig
@@ -148,26 +167,41 @@ def sample_path(scene, ray: Ray, sampler: Sampler, config: RenderConfig
         result = result + emitters.eval_hit(scene, si, config)
         result = result + emitters.eval_env(
             scene, ray.d, ray.wavelengths, config).masked(~si.valid)
-    carry = (si, active, throughput, result, sampler)
+    carry = (si, active, throughput, result, sampler,
+             torch.arange(n, device=dev))
     for depth in range(1, config.max_depth):
         carry = _path_bounce(scene, config, depth, carry)
-    return carry[3], carry[4]
+    _, _, _, result, sampler, orig = carry
+    if config.compact:
+        from ..kernels import compact as compact_mod
+        result = compact_mod.unsort(result, orig)
+    return result, sampler
 
 
-def render_pass(scene, config: RenderConfig, seed: int, device=None):
+def render_pass(scene, config: RenderConfig, seed: int, device=None,
+                lane_offset: int = 0):
     """One pass of (spp_per_pass x H x W) lanes -> ((H, W, C) image sum,
     weight sum), on `device` (None = the CUDA device; raises without
     one), moving the scene there if it is elsewhere. The weight is a
-    count under the box filter, else an (H, W) tensor."""
+    count under the box filter, else an (H, W) tensor.
+
+    `lane_offset` shifts the lanes' global ids, which seed every sampler
+    stream (mod 2^32, as the JAX package's uint32 lanes): D ranks, rank
+    r rendering spp_per_pass / D samples at offset r * that many lanes
+    with the same seed, draw the independent sampler's numbers of the
+    whole pass. The pixel of a lane is its local index's, and the
+    stratified and ld samplers take the local spp_per_pass, as in the
+    JAX package."""
     from ..scene.scene import to_device
     dev = resolve_device(device)
     scene = to_device(scene, dev)
     H, W = config.height, config.width
     sppc = config.spp_per_pass
     n = sppc * H * W
-    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    local = torch.arange(n, dtype=torch.int64, device=dev)
+    lane = (local + int(lane_offset)) & M32
     sampler = make_sampler(config.sampler, int(seed) & M32, lane, H * W, sppc)
-    pix = lane % (H * W)
+    pix = local % (H * W)
     x = (pix % W).to(torch.float32)
     y = (pix // W).to(torch.float32)
     jitter, sampler = sampler.next_2d()
@@ -190,12 +224,6 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None):
         t0 = torch.maximum(times[0], scene.cam_data[10])
         t1 = torch.minimum(times[-1], scene.cam_data[11])
         cam_time = t0 + u_time * (t1 - t0)
-    volumetric = (config.integrator in ("volpath", "volpathmis")
-                  or scene.has_media)
-    if volumetric and config.reparam:
-        raise NotImplementedError(
-            "mitsuba2_tpu_torch does not render reparam=True with "
-            "participating media (volpath) yet")
     if (scene.textures is not None
             and scene.cam_type in sensors.HAS_DIFFERENTIALS):
         # a sample covers 1 / spp of its pixel (integrator.cpp's
@@ -214,7 +242,9 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None):
         Vc, det_cam = reparam_mod.warp_and_divergence(
             scene, ray.o, ray.d, config.reparam_kaux)
         ray.d = reparam_mod.reparameterize(ray.d, Vc)
-    if volumetric:
+    if config.integrator in ("volpath", "volpathmis") or scene.has_media:
+        # with reparam=True the camera ray alone is warped: volpath's
+        # bounces take no warps, as in the JAX package
         from .volpath import sample_path_vol
         spec, _ = sample_path_vol(scene, ray, sampler, config)
     else:

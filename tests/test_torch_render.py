@@ -240,6 +240,14 @@ with contextlib.redirect_stdout(out):
     except SystemExit as e:
         assert e.code == 0
 assert "--device" in out.getvalue()
+from mitsuba2_tpu_torch import dist as _dist
+from mitsuba2_tpu_torch.dist import checkpoint, multihost, sharding
+from mitsuba2_tpu_torch.utils import observability
+mesh = multihost.pod_mesh(device="cpu")
+img = sharding.render_sharded(mt.cornell_box(device="cpu"), mt.RenderConfig(
+    width=8, height=8, spp=2, spp_per_pass=2, compact=True), mesh)
+assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+assert checkpoint.CheckpointedRender and observability.render_instrumented
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)
