@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Twenty-three main paths, each a forward render at 256x256 through
-`mitsuba2_tpu_torch.render` (xml_gallery's through `render_any`), 16 spp at max_depth 3 (in one pass but for
+Twenty-six main paths, each a forward render at 256x256 through
+`mitsuba2_tpu_torch.render` (xml_gallery's and gallery_stokes' through
+`render_any`, gallery_polarized's through `render_polarized`), 16 spp at
+max_depth 3 (in one pass but for
 veach, veach_spectral, smoke_box and kitchen_sink) but for config 5's
 two, instanced, gallery_dense and kitchen_sink, in rgb but for
 veach_spectral, veach_spectral_bvh2, gallery_spectral and gallery_lights,
@@ -97,7 +99,25 @@ which render spectrally:
              bounce permutes the wavefront (dead lanes last, live lanes
              in Morton order of their hits): K1, K2 on the compacted
              wavefronts; its image at seed 0 against the gallery's
-             (rtol 1e-5 / atol 1e-6).
+             (rtol 1e-5 / atol 1e-6);
+  gallery_polarized  gallery_polarized(): mesh_gallery(subdiv=4)'s room,
+             light and blobs under smooth gold, glass, a measured rough
+             gold (baked at build), the same as measured_polarized with
+             gold's Mueller structure, rough copper and a diffuse blob,
+             a polarizer pane at 30 degrees and a quarter-wave retarder
+             pane, and a constant sky: render_polarized (the Mueller
+             chain of the *_polarized variants, BSDF sampling alone): K1
+             3 launches, K2 none;
+  gallery_stokes   the same scene under the stokes integrator
+             (render_any): K1 on the camera and mirror rays, K2 on one
+             NEE round;
+  gallery_measured the same scene through mt.render: the measured
+             families' sampling and lookups, K1 3, K2 2.
+After the paths: the polarized paths' peak memory beside the gallery's,
+and `python -m mitsuba2_tpu_torch pol.xml -m rgb_polarized` on a small
+file scene (a measured plate read from an RGL .bsdf file, gold and glass
+spheres, a polarizer and a retarder): its S0 bit-equal to the
+in-process render_polarized, its _s1.._s3 sidecars equal at half float.
 The variants phase (VARIANTS) renders eleven more paths through
 `render_any` at the same size: the gallery under the direct, depth, aov
 (all eight AOVs, a path child) and moment (4 passes of 4) integrators,
@@ -127,7 +147,9 @@ Phase 2  holds each kernel against its plain PyTorch twin on the card, on
          closest hit (warp-wide leaf tests), K3's closest and any hit and
          K4's any hit (the pair walk) and K6's any hit (one thread a
          ray). The paths on one scene share its
-         probe rays. Prints the walk work the twins count per lane (K4's
+         probe rays, and a path on an earlier path's scene and walk
+         (gallery_spectral, gallery_reparam, gallery_stokes,
+         gallery_measured) is held there once. Prints the walk work the twins count per lane (K4's
          and K6's closest hit: their warps' leaf passes too) and the
          bound of 1M such lanes.
 Phase 3  renders each path: launch counts (set to 0 just before the path's
@@ -160,6 +182,11 @@ Phase 4  small renders on the card against the same renders on the CPU
          flip_normals rectangle; volpath) loaded on the card and the
          CPU: its atlas and envmap tables byte-equal to those of the
          same images as arrays, the two renders to the limits above.
+         Then gallery_polarized(subdiv=1) on the card and the CPU:
+         render_polarized in rgb and spectral mode, render_stokes and
+         the measured render within these limits (every Stokes
+         component), and the share of 1M random lanes whose measured
+         lookup cells the card rounds otherwise (under 1%).
 Phase 5  one render of each path under torch.profiler: device time by
          kernel and by kind (the kernels of the texture lookups apart),
          and the device's busy share (xml_gallery's tables are the
@@ -354,7 +381,9 @@ PATH_RENDER = {"veach": VEACH_RENDER,
                "smoke_box_bvh2": {**SMOKE_RENDER, "spp_per_pass": 16},
                "gallery_fog": {**RENDER, "integrator": "volpath"},
                "kitchen_sink": KITCHEN_RENDER,
-               "gallery_compact": {**RENDER, "compact": True}}
+               "gallery_compact": {**RENDER, "compact": True},
+               "gallery_polarized": {**RENDER, "polarized": True},
+               "gallery_stokes": {**RENDER, "integrator": "stokes"}}
 # config 5's occluder scenes (occluder_scene, shadow_scene): the JAX
 # tests' configs, central-difference steps and bands of |AD| / |FD|
 # (tests/test_reparam.py; examples/occluder_pose_grad.py)
@@ -457,7 +486,17 @@ PATH_KERNELS = {
     "kitchen_sink": (),
     "xml_gallery": ("cluster_closest_hit", "cluster_any_hit"),
     "gallery_compact": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_polarized": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_stokes": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_measured": ("cluster_closest_hit", "cluster_any_hit"),
 }
+# the paths rendered through another entry point than mt.render (the
+# loader's and the CLI's render_any, the polarized transport's
+# render_polarized), and the stokes integrator's, whose image is its S0
+PATH_ENTRY = {"xml_gallery": "render_any",
+              "gallery_polarized": "render_polarized",
+              "gallery_stokes": "render_any"}
+STOKES_PATHS = {"gallery_stokes"}
 # the backend each path (and phase 2's extra scene) runs under, the paths
 # with the dense switch on, and the path whose scene geometry and probe
 # rays each shares
@@ -484,7 +523,9 @@ BIT_EQUAL = {"cluster_closest_hit", "inst_cluster_closest_hit",
 SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "spheres_bvh8": "spheres", "gallery_dense": "gallery",
               "gallery_spectral": "gallery", "gallery_reparam": "gallery",
-              "gallery_compact": "gallery"}
+              "gallery_compact": "gallery",
+              "gallery_stokes": "gallery_polarized",
+              "gallery_measured": "gallery_polarized"}
 # the paths under RenderConfig(compact=True): the gallery's scene and walk
 # on permuted wavefronts, whose probe rays phase 2 does not repeat
 COMPACT = {"gallery_compact"}
@@ -505,6 +546,12 @@ EXPECTED_LAUNCHES = {
 # one bounce: a closest hit and a shadow ray
 EXPECTED_LAUNCHES["gallery_reparam"].update(
     cluster_closest_hit=4, cluster_any_hit=1)
+# the polarized transport samples BSDFs alone (no NEE): a closest hit a
+# vertex, no any hit; the stokes integrator's camera and mirror rays and
+# one NEE shadow ray
+EXPECTED_LAUNCHES["gallery_polarized"].update(cluster_any_hit=0)
+EXPECTED_LAUNCHES["gallery_stokes"].update(cluster_closest_hit=2,
+                                           cluster_any_hit=1)
 
 
 def volpath_closest_launches(max_depth):
@@ -633,10 +680,16 @@ def switches(backend="auto", dense="0", leaves=True):
         traverse._MXU_DENSE, traverse.MXU_LEAVES = "0", True
 
 
+def switch_values(path):
+    """(backend, dense switch, MXU_LEAVES) of a main path (or of phase 2's
+    extra scene)."""
+    return (BACKEND.get(path, "auto"), "1" if path in DENSE else "0",
+            path not in LEAVES_OFF)
+
+
 def path_switches(path):
     """The switches of a main path (or of phase 2's extra scene)."""
-    return switches(BACKEND.get(path, "auto"),
-                    "1" if path in DENSE else "0", path not in LEAVES_OFF)
+    return switches(*switch_values(path))
 
 
 def kernels_of(scene, backend="auto"):
@@ -697,12 +750,15 @@ def kernels_of(scene, backend="auto"):
             any_plain=traverse.dense_any_hit_plain,
             tabs=(scene.mxu_ccs, scene.mxu_ccount, scene.cluster_feat),
             extra=(scene.cluster_k,), ids=(1,), uv=False, chunk=1 << 20)
+    # the cluster walks' twins in 1M-lane chunks: 8x faster than in 64k
+    # chunks on a 1M-lane K1 launch (0.50 against 4.20 s, 6.6 GiB peak;
+    # per-lane arithmetic, so the same outputs)
     return dict(
         closest="cluster_closest_hit", any="cluster_any_hit",
         closest_plain=traverse.closest_hit_plain,
         any_plain=traverse.any_hit_plain,
         tabs=(scene.mxu_node_f, scene.mxu_link, scene.cluster_feat),
-        extra=(scene.cluster_k,), ids=(1,), uv=False, chunk=65536)
+        extra=(scene.cluster_k,), ids=(1,), uv=False, chunk=1 << 20)
 
 
 def wrapper(name):
@@ -911,6 +967,78 @@ def gallery_materials(P, subdiv=SUBDIV, **build_kw):
     sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
               "fov": 50.0}
     return P.build_scene(s, sensor, **build_kw)
+
+
+# gallery_polarized: the gallery's blobs under the polarized and measured
+# families, by blob index: a smooth gold conductor, a dielectric, a
+# measured capture baked from rough gold (alpha 0.2, the default 32 x 64 x
+# 64 grid), the same bake as measured_polarized with gold's Mueller
+# structure (green channel's complex IOR), a rough copper conductor and a
+# diffuse blob; a polarizer pane at 30 degrees and a quarter-wave retarder
+# pane in front of the outer blobs; a constant environment beside the
+# area light, which the open front lets BSDF-sampled paths find
+ROUGH_AU = {"type": "roughconductor", "material": "Au", "alpha": 0.2}
+AU_ETA = complex(0.3749, 2.3857)
+POLARIZED_MATERIALS = (
+    {"type": "conductor", "material": "Au"},
+    {"type": "dielectric", "int_ior": "bk7"},
+    {"type": "measured", "bake": ROUGH_AU},
+    {"type": "measured_polarized", "bake": ROUGH_AU, "pbake_eta": AU_ETA},
+    {"type": "roughconductor", "material": "Cu", "alpha": 0.1},
+    {"type": "diffuse", "reflectance": GALLERY_ALBEDO[5]},
+)
+POLARIZED_PANES = (
+    ({"type": "polarizer", "theta": 30.0}, 2.1, 2.9, "polarizer"),
+    ({"type": "retarder", "theta": 0.0, "delta": 90.0}, 0.1, 0.9,
+     "retarder"),
+)
+POLARIZED_SKY = {"type": "constant", "radiance": [0.5, 0.5, 0.5]}
+
+
+def gallery_polarized(P, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv)'s room, light and blobs (the same seeds and
+    placement) under POLARIZED_MATERIALS, the two POLARIZED_PANES and
+    POLARIZED_SKY, built from the presets module `P` of either package:
+    6 x 20 x 4^subdiv + 16 triangles. The measured tables are baked at
+    build time (each package evaluating its own rough gold)."""
+    X, Y, Z = 3.0, 2.0, 3.0
+    white = {"type": "diffuse", "reflectance": P.WHITE}
+    s = [
+        P._quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], bsdf=white,
+                id="floor"),
+        P._quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], bsdf=white,
+                id="ceiling"),
+        P._quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], bsdf=white,
+                id="back"),
+        P._quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0],
+                bsdf={"type": "diffuse", "reflectance": P.RED}, id="left"),
+        P._quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z],
+                bsdf={"type": "diffuse", "reflectance": P.GREEN},
+                id="right"),
+    ]
+    lx0, lx1, lz0, lz1, ly = 1.1, 1.9, 1.2, 1.8, Y - 5e-4
+    s.append(P._quad([lx0, ly, lz0], [lx1, ly, lz0], [lx1, ly, lz1],
+                     [lx0, ly, lz1], bsdf=white,
+                     emitter={"type": "area", "radiance": P.LIGHT},
+                     id="light"))
+    base_v, faces = P._icosphere(subdiv)
+    for k in range(6):
+        i, j = divmod(k, 2)
+        v = P._displace(base_v.copy(), seed=k)
+        v = v * 0.34 + np.asarray([(i + 0.5) * X / 3,
+                                   0.45 + 0.1 * ((i + j) % 3),
+                                   (j + 0.75) * Z / 2.5], np.float32)
+        s.append(P.shapes.mesh(v, faces, bsdf=dict(POLARIZED_MATERIALS[k]),
+                               id=f"blob{k}"))
+    for bsdf, x0, x1, name in POLARIZED_PANES:
+        s.append(P._quad([x1, 0.05, 0.3], [x0, 0.05, 0.3], [x0, 1.2, 0.3],
+                         [x1, 1.2, 0.3], bsdf=dict(bsdf), id=name))
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
+              "fov": 50.0}
+    return P.build_scene(s, sensor, emitters=[dict(POLARIZED_SKY)],
+                         **build_kw)
 
 
 def occluder_scene(P, **build_kw):
@@ -1570,6 +1698,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     scenes["gallery_reparam"] = gallery
     scenes.update(_media_scenes(mt, dev))
     scenes["gallery_compact"] = gallery
+    scenes.update(_polarized_scenes(mt, dev))
     with path_switches("gallery_dense"):
         ks = kernels_of(gallery)
     check(ks["closest"] == "dense_closest_hit", "the dense switch did not "
@@ -1582,9 +1711,17 @@ def phase_kernels_vs_twins(torch, mt, dev):
     ok = True
     probes = {}
     for name, scene in {**scenes, **extra}.items():
-        if PATH_KERNELS.get(name, True) and name not in COMPACT:
-            with path_switches(name):
-                ok &= _kernels_vs_twins(torch, name, scene, probes, dev)
+        if not PATH_KERNELS.get(name, True) or name in COMPACT:
+            continue
+        base = SAME_SCENE.get(name)
+        if scenes.get(base) is scene and switch_values(name) == switch_values(
+                base):
+            # the same scene, walk and probe rays: the same comparisons
+            log(f"phase 2: {name}: {base}'s scene, walk and probe rays, "
+                "held there")
+            continue
+        with path_switches(name):
+            ok &= _kernels_vs_twins(torch, name, scene, probes, dev)
     check(ok, "a kernel disagrees with its twin on the probe rays")
     return scenes, extra
 
@@ -1669,6 +1806,28 @@ def _media_scenes(mt, dev):
         check(walk == want[name], f"{name} took the {walk} walk")
         check(scene.has_media, f"{name}: no medium")
     return out
+
+
+def _polarized_scenes(mt, dev):
+    """The polarized slice's paths, all on gallery_polarized at SUBDIV
+    (the cluster walk: K1, K2): render_polarized, render_any's stokes
+    integrator and the plain render of its measured blobs."""
+    from mitsuba2_tpu_torch.scene import presets
+    t0 = time.perf_counter()
+    scene = gallery_polarized(presets, SUBDIV, device=dev)
+    md = scene.measured
+    log(f"phase 2: built gallery_polarized in {time.perf_counter() - t0:.1f}"
+        f" s (two rough-gold bakes on the CPU and gold's Mueller bake): "
+        f"{scene.n_prims} prims, BSDF families {scene.mat_families}, "
+        f"measured tables {tuple(md.values.shape)} "
+        f"({sum(t.numel() * 4 for t in vars(md).values() if t is not None) / 2**20:.1f}"
+        f" MiB with the CDFs and the Mueller table), cluster walk "
+        f"{scene.mxu_node_f is not None}")
+    check(scene.mxu_node_f is not None and md.mueller is not None
+          and set(scene.mat_families) >= {13, 14, 15, 16},
+          "gallery_polarized: wrong walk or families")
+    return {"gallery_polarized": scene, "gallery_stokes": scene,
+            "gallery_measured": scene}
 
 
 def _kernels_vs_twins(torch, name, scene, probes, dev):
@@ -1843,6 +2002,23 @@ def log_launch(name, i, r):
         f"{c['slot_agree']:.6f}, occ-agree {c['occ_agree']:.6f}")
 
 
+def path_render(mt, path):
+    """The entry point a path renders through."""
+    return getattr(mt, PATH_ENTRY.get(path, "render"))
+
+
+def path_image(path, out):
+    """A path's radiance image: S0 of a Stokes image (the stokes
+    integrator's one channel, the polarized transport's per channel)."""
+    if path in STOKES_PATHS:
+        return out[..., 0:1]
+    return out[..., 0] if PATH_RENDER.get(path, {}).get("polarized") else out
+
+
+# each path's peak memory (MiB) over its renders
+PEAK_MIB = {}
+
+
 def phase_main_path(torch, mt, path, scene, card, also=None):
     """Renders `path`: warm-up (recording each kernel call's inputs), then
     3 timed renders with every wrapper's count set to 0 before each; then
@@ -1852,7 +2028,7 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
     ms and each kernel's launches (time_launch's records)."""
     from mitsuba2_tpu_torch.kernels import traverse
     cfg = mt.RenderConfig(**PATH_RENDER.get(path, RENDER))
-    render = mt.render_any if path in XML_PATHS else mt.render
+    render = path_render(mt, path)
     names = list(EXPECTED_LAUNCHES[path])
     # brute force (veach) reaches no kernel: nothing to record or time
     ks = (kernels_of(scene, BACKEND.get(path, "auto"))
@@ -1882,20 +2058,22 @@ def phase_main_path(torch, mt, path, scene, card, also=None):
             wrapper(k).launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = render(scene, cfg, seed=r)
+        out = render(scene, cfg, seed=r)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         run_counts = {k: wrapper(k).launches for k in names}
         counts = counts or run_counts
         check(run_counts == counts, f"{path}: launch counts vary: {run_counts}")
-        img = img.float()
-        check(tuple(img.shape) == (cfg.height, cfg.width, 3),
-              f"{path}: image shape {tuple(img.shape)}")
-        check(bool(torch.isfinite(img).all()),
+        check(bool(torch.isfinite(out).all()),
               f"{path}: image has non-finite values")
+        img = path_image(path, out).float()
+        check(tuple(img.shape) == (cfg.height, cfg.width,
+                                   1 if path in STOKES_PATHS else 3),
+              f"{path}: image shape {tuple(img.shape)}")
         mean = float(img.mean())
         check(mean > 0.0, f"{path}: image mean {mean}")
     peak = torch.cuda.max_memory_allocated()
+    PEAK_MIB[path] = (peak / 2**20, (peak - resident) / 2**20)
     med = statistics.median(times)
     n_passes = cfg.spp // cfg.spp_per_pass
     log(f"phase 3: {path}: render {cfg.width}x{cfg.height}x{cfg.spp}spp "
@@ -2541,6 +2719,153 @@ def phase_small_renders(torch, mt, dev):
     _file_scene(torch, mt, dev)
 
 
+# phase 4's polarized renders: gallery_polarized(subdiv=1) at phase 4's
+# config; the random lanes of the measured lookups' card-vs-CPU cells
+POL_SMALL = dict(width=32, height=32, spp=2, spp_per_pass=1, max_depth=3,
+                 rr_depth=2)
+LOOKUP_LANES = 1 << 20
+
+
+def phase_polarized_small(torch, mt, dev):
+    """gallery_polarized(subdiv=1) at 32x32 on the card and on the CPU:
+    render_polarized in rgb and in spectral mode, render_stokes and the
+    plain render of its measured blobs, each within phase 4's limits
+    (99% of pixels, every channel and Stokes component, within rtol 1e-3
+    / atol 1e-4; the S0 means within 1e-3); then the measured lookups'
+    cells (measured.lookup_cells) on LOOKUP_LANES random directions on
+    both: the share of lanes the card rounds to another cell, printed
+    and held under 1%."""
+    from mitsuba2_tpu_torch.core.vec import Vec3
+    from mitsuba2_tpu_torch.render import measured as measured_mod
+    from mitsuba2_tpu_torch.scene import presets
+    cfg = mt.RenderConfig(**POL_SMALL)
+    scenes = {d: gallery_polarized(presets, 1, device=d) for d in ("cpu", dev)}
+    for name, fn, c in (
+            ("render_polarized", mt.render_polarized, cfg),
+            ("render_polarized, spectral", mt.render_polarized,
+             cfg.replace(color_mode="spectral")),
+            ("render_stokes", mt.render_stokes, cfg),
+            ("render (the measured blobs' scalar transport)", mt.render,
+             cfg)):
+        out_c = fn(scenes["cpu"], c, seed=5, device="cpu").numpy()
+        out_g = fn(scenes[dev], c, seed=5, device=dev).cpu().numpy()
+        H, W = out_c.shape[:2]
+        close = np.isclose(out_g.reshape(H, W, -1), out_c.reshape(H, W, -1),
+                           rtol=1e-3, atol=1e-4).all(-1).mean()
+        s0_c = out_c if fn is mt.render else out_c[..., 0]
+        s0_g = out_g if fn is mt.render else out_g[..., 0]
+        rel = abs(s0_g.mean() - s0_c.mean()) / s0_c.mean()
+        good = np.isfinite(out_g).all() and close >= 0.99 and rel <= 1e-3
+        log(f"phase 4: gallery_polarized(subdiv=1) {name} 32x32 card vs "
+            f"CPU: {close:.4f} of pixels within rtol 1e-3/atol 1e-4 (every "
+            f"Stokes component), S0 mean rel diff {rel:.2e} "
+            f"{'ok' if good else 'FAIL'}")
+        check(good, f"gallery_polarized {name}: the card's render disagrees "
+              "with the CPU's")
+    rng = np.random.default_rng(31)
+    dirs = []
+    for _ in range(2):
+        w = rng.normal(size=(LOOKUP_LANES, 3))
+        w[:, 2] = np.abs(w[:, 2])
+        dirs.append((w / np.linalg.norm(w, axis=-1, keepdims=True)).astype(
+            np.float32))
+    cells = {}
+    for d in ("cpu", dev):
+        wi, wo = (Vec3(*torch.from_numpy(a).to(d).unbind(1)) for a in dirs)
+        cells[d] = measured_mod.lookup_cells(scenes[d].measured, wi,
+                                             wo).cpu()
+    differ = (cells["cpu"] != cells[dev]).any(1).float().mean().item()
+    log(f"phase 4: measured lookups: {differ:.3e} of {LOOKUP_LANES} random "
+        "lanes round arccos or arctan2 to another cell on the card than on "
+        f"the CPU (limit 1e-2) {'ok' if differ < 1e-2 else 'FAIL'}")
+    check(differ < 1e-2, "the card's measured lookups round to other cells")
+
+
+POLARIZED_XML = """<scene version="2.0.0">
+  <integrator type="path"><integer name="max_depth" value="3"/></integrator>
+  <sensor type="perspective">
+    <transform name="to_world">
+      <lookat origin="0,-3.5,2.2" target="0,0,0.3" up="0,0,1"/></transform>
+    <float name="fov" value="45"/>
+    <film type="hdrfilm"><integer name="width" value="32"/>
+      <integer name="height" value="32"/></film>
+    <sampler type="independent"><integer name="sample_count" value="4"/>
+    </sampler>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="to_world"><scale value="3"/></transform>
+    <bsdf type="measured"><string name="filename" value="$capture"/>
+      <integer name="n_ti" value="8"/><integer name="n_to" value="16"/>
+      <integer name="n_phi" value="16"/></bsdf>
+  </shape>
+  <shape type="sphere"><point name="center" value="-0.8,0,0.5"/>
+    <float name="radius" value="0.45"/>
+    <bsdf type="conductor"><string name="material" value="Au"/></bsdf>
+  </shape>
+  <shape type="sphere"><point name="center" value="0.8,0,0.5"/>
+    <float name="radius" value="0.45"/>
+    <bsdf type="dielectric"><float name="int_ior" value="1.5"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="to_world"><rotate x="1" angle="70"/>
+      <translate value="-0.8,-1.2,0.8"/></transform>
+    <bsdf type="polarizer"><float name="theta" value="30"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="to_world"><rotate x="1" angle="70"/>
+      <translate value="0.8,-1.2,0.8"/></transform>
+    <bsdf type="retarder"><float name="delta" value="90"/></bsdf>
+  </shape>
+  <emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter>
+</scene>"""
+
+
+def phase_polarized_cli(torch, mt, d):
+    """`python -m mitsuba2_tpu_torch pol.xml -m rgb_polarized --device
+    cuda` on a small file scene (a measured plate read from an RGL .bsdf
+    file, a gold and a glass sphere, a polarizer and a retarder pane, the
+    sky): its S0 (PFM) bit-equal to the in-process render_polarized of
+    the loaded scene, its _s1.._s3 sidecars (half-float EXR) to the
+    in-process components rounded to half."""
+    from mitsuba2_tpu_torch.core import io_bitmap
+    from mitsuba2_tpu_torch.render import rgl
+    capture = os.path.join(d, "ggx.bsdf")
+    rgl.write_rgl_ggx(capture, alpha=0.3, n_ti=8, res=32, res2=32)
+    path = os.path.join(d, "pol.xml")
+    with open(path, "w") as f:
+        f.write(POLARIZED_XML.replace("$capture", capture))
+    out = os.path.join(d, "pol.pfm")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mitsuba2_tpu_torch", path,
+                           "-o", out, "-m", "rgb_polarized", "--device",
+                           "cuda"], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    scene, cfg = mt.load_file(path)
+    cfg = cfg.replace(**mt.parse_variant("rgb_polarized"))
+    stokes = mt.render_polarized(scene, cfg).cpu().numpy()
+    check(np.array_equal(mt.read_bitmap(out), stokes[..., 0]),
+          "the CLI's S0 is not the in-process render_polarized's bit for bit")
+    for i in (1, 2, 3):
+        arr = io_bitmap.read(out.rsplit(".", 1)[0] + f"_s{i}.exr")
+        half = stokes[..., i].astype(np.float16).astype(np.float32)
+        check(np.array_equal(arr.reshape(half.shape), half),
+              f"the CLI's _s{i}.exr is not the in-process S{i}")
+    dop = float(np.sqrt((stokes[..., 1:] ** 2).sum(-1)).mean()
+                / stokes[..., 0].mean())
+    log(f"phase 3 (polarized, cli): python -m mitsuba2_tpu_torch pol.xml -m "
+        f"rgb_polarized (a process of its own) took {wall:.2f} s wall; its "
+        f"S0 bit-equal to render_polarized in process, its _s1.._s3 "
+        f"sidecars (half-float EXR) equal to S1-S3 rounded to half; "
+        f"{scene.n_prims} prims, families {scene.mat_families}, mean "
+        f"polarized share |S1..S3| / S0 {dop:.4f}")
+
+
 def _tables(obj, prefix=""):
     """An atlas' or envmap's tensors by name, its distribution's too."""
     out = {}
@@ -2651,7 +2976,7 @@ def phase_profile(torch, mt, path, scene, render_ms):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mt.render(scene, cfg, seed=11)
+        path_render(mt, path)(scene, cfg, seed=11)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -3991,6 +4316,15 @@ def main():
                           path, scene)
         timed("3 (xml_gallery, cli)", phase_cli, torch, mt, xml,
               scenes["xml_gallery"], xml_cfg, scenes["gallery"], render_ms)
+        for path in ("gallery_polarized", "gallery_stokes",
+                     "gallery_measured"):
+            log(f"phase 3: {path}: peak memory {PEAK_MIB[path][0]:.0f} MiB, "
+                f"its renders' working set {PEAK_MIB[path][1]:.0f} MiB, "
+                f"beside the gallery's {PEAK_MIB['gallery'][0]:.0f} MiB and "
+                f"{PEAK_MIB['gallery'][1]:.0f} MiB; render median "
+                f"{render_ms[path]:.1f} ms beside the gallery's "
+                f"{render_ms['gallery']:.1f} ms")
+        timed("3 (polarized, cli)", phase_polarized_cli, torch, mt, xml_dir)
         t_var = time.perf_counter()
         var_rows = timed("3 (variants)", phase_variants, torch, mt, dev,
                          card, scenes["gallery"])
@@ -4001,6 +4335,7 @@ def main():
         t_var = time.perf_counter() - t_var
         rows = list(by_name.values())
         timed(4, phase_small_renders, torch, mt, dev)
+        timed("4 (polarized)", phase_polarized_small, torch, mt, dev)
         t0 = time.perf_counter()
         timed("4 (variants)", phase_variants_small, torch, mt, dev)
         t_var += time.perf_counter() - t0

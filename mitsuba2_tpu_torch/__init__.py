@@ -4,7 +4,11 @@ A second package beside the JAX one, which stays the reference. It
 renders on an NVIDIA H100 through hand-written CUDA traversal kernels
 (csrc/cluster_walk.cu) and plain PyTorch around them, in rgb, mono or
 spectral mode, participating media through the volumetric path tracer
-(render/volpath.py), and differentiates a render with respect to the
+(render/volpath.py), polarized light through Mueller calculus
+(render/stokes.py: `render_polarized` for the *_polarized variants,
+`render_stokes` for the stokes integrator), measured BRDFs among its
+materials (render/measured.py, RGL .bsdf files), and differentiates a
+render with respect to the
 scene's material, emitter and medium tables, an envmap's image and scale
 and a density grid (diff/: the pass-by-pass adjoint, the parameter map
 and the optimizers), and with respect to its geometry, visibility
@@ -42,6 +46,7 @@ from .scene.presets import (cornell_box, furnace, instanced_field,
 from .scene.scene import SceneData, build_scene, to_device
 from .render.integrators import (render, render_any, render_aovs,
                                   render_pass, render_with_variance)
+from .render.stokes import render_polarized, render_stokes
 from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
                    traverse)
 
@@ -50,7 +55,8 @@ __all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
            "load_dict", "load_file", "load_string", "mesh_gallery",
            "parse_variant", "read_bitmap", "render", "render_and_grad",
            "render_any", "render_aovs", "render_l2_grad", "render_pass",
-           "render_with_variance", "scene_from_numpy",
+           "render_polarized", "render_stokes", "render_with_variance",
+           "scene_from_numpy",
            "scene_with", "set_variant", "smoke_box", "to_device", "traverse",
            "variant", "variants", "veach_mis", "write_bitmap"]
 
@@ -62,7 +68,7 @@ _variant = None
 def set_variant(name: str) -> None:
     """Select the default variant of scenes loaded from now on
     (mitsuba.set_variant). A variant the port does not render (the
-    _polarized and _double ones) raises by name when a scene is loaded."""
+    _double ones) raises by name when a scene is loaded."""
     global _variant
     parse_variant(name)  # validate
     _variant = name

@@ -10,8 +10,11 @@ the variant, `-s` samples per pixel, `--sensor` the <sensor> to render,
 counterpart of the JAX CLI's JAX_PLATFORMS=cpu: without a CUDA device
 and without `--device cpu` it exits non-zero. An aov integrator's AOVs
 and the moment integrator's variance are written as sidecars too
-(`_<name>.exr`, `_variance.exr`). The polarized variants raise
-NotImplementedError by name until the port renders them.
+(`_<name>.exr`, `_variance.exr`). A `_polarized` variant renders the full
+polarized transport (render/stokes.py::render_polarized): the image is
+S0 and `_s1.exr`, `_s2.exr`, `_s3.exr` hold the other Stokes components;
+the stokes integrator writes its S0 and the same three sidecars. The
+`_double` variants raise NotImplementedError by name.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ def main(argv=None) -> int:
     from .core import io_bitmap
     from .kernels import traverse
     from .render.integrators import render_any, render_aovs
+    from .render.stokes import render_polarized
     from .scene import loader
 
     params = {}
@@ -91,15 +95,25 @@ def main(argv=None) -> int:
              config.color_mode, device)
     before = traverse.launch_counts()
     t0 = time.time()
-    out_any = render_any(scene, config, device=device)
     sidecars = {}   # suffix -> image, written beside the main output
-    if isinstance(out_any, dict):          # aov integrator
-        img = out_any.pop("image")
-        sidecars.update(out_any)
-    elif isinstance(out_any, tuple):       # moment: (mean, variance)
-        img, sidecars["variance"] = out_any
+    if config.polarized and config.integrator != "stokes":
+        # the full polarized transport: S0 the image, S1-S3 beside it
+        stokes = render_polarized(scene, config, device=device)
+        img = stokes[..., 0]
+        sidecars.update({f"s{i}": stokes[..., i] for i in (1, 2, 3)})
     else:
-        img = out_any
+        out_any = render_any(scene, config, device=device)
+        if isinstance(out_any, dict):          # aov integrator
+            img = out_any.pop("image")
+            sidecars.update(out_any)
+        elif isinstance(out_any, tuple):       # moment: (mean, variance)
+            img, sidecars["variance"] = out_any
+        elif config.integrator == "stokes":    # (H, W, 4): S0, S1-S3
+            img = out_any[..., 0:1]
+            sidecars.update({f"s{i}": out_any[..., i:i + 1]
+                             for i in (1, 2, 3)})
+        else:
+            img = out_any
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0

@@ -70,18 +70,9 @@ class RenderConfig:
             raise ValueError(f"unknown rfilter {self.rfilter!r}")
         if self.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.sampler!r}")
-        stokes = "stokes" in (self.integrator, (self.integrator == "aov"
-                                                and self.aov_child))
-        unsupported = [
-            (self.dtype == "float64", "dtype='float64'"),
-            (self.polarized, f"polarized=True (the JAX package's "
-                             f"{self.color_mode}_polarized variant)"),
-            (stokes, "integrator='stokes'"),
-        ]
-        for bad, what in unsupported:
-            if bad:
-                raise NotImplementedError(
-                    f"mitsuba2_tpu_torch does not render {what} yet")
+        if self.dtype == "float64":
+            raise NotImplementedError(
+                "mitsuba2_tpu_torch does not render dtype='float64' yet")
         if self.reparam:
             check_kaux(self.reparam_kaux)
 
@@ -113,7 +104,7 @@ class RenderConfig:
 def variants() -> tuple:
     """The JAX package's variant strings (mitsuba.variants()):
     {mono,rgb,spectral}[_polarized][_double]. The port renders the
-    unpolarized single-precision ones; a config of the others raises."""
+    single-precision ones; a config of a _double one raises."""
     return tuple(mode + pol + dbl for mode in COLOR_MODES
                  for pol in ("", "_polarized") for dbl in ("", "_double"))
 

@@ -26,9 +26,12 @@ JAX SceneData's GridVolume), None or absent without one;
 `fields["cam_type"]` the sensor's type (absent: "perspective"), whose
 importance weight (pi for the irradiance meter, else 1) is derived here,
 and `fields["cam_motion"]` a keyframed camera's tables
-(geometry.ANIM_FIELDS), None or absent without one. A table that names a
-feature the port does not render (the BSDF families bsdf.UNPORTED) raises, and so
-does a textured slot without the atlas that holds its texture.
+(geometry.ANIM_FIELDS), None or absent without one; `fields["measured"]`
+the measured BSDFs' tables (measured.TABLES: `values`, `weights`,
+`marg_cdf`, `cond_cdf` and, where a row is measured_polarized,
+`mueller`), None or absent without one. A table that names a family the
+port does not know raises, and so does a textured slot without the atlas
+that holds its texture, or a measured row without the tables.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from .device import resolve_device
 from .kernels import traverse
 from .render import bsdf as bsdf_mod
 from .render import emitters as emitters_mod
+from .render import measured as measured_mod
 from .render import media as media_mod
 from .render import texture as texture_mod
 from .render.spectra import SLOT_TEX_BASE
@@ -227,9 +231,16 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
     families = tuple(sorted({int(t) for t in f["mat_type"]}))
     for fid in families:
         if fid not in bsdf_mod.FAMILIES:
-            name = bsdf_mod.UNPORTED.get(fid, f"family {fid}")
-            raise NotImplementedError(
-                f"mitsuba2_tpu_torch does not support the {name!r} BSDF yet")
+            raise ValueError(f"mat_type: unknown BSDF family {fid}")
+    measured = fields.get("measured")
+    if (measured is not None) != bool(
+            {bsdf_mod.MEASURED, bsdf_mod.MEASURED_POLARIZED} & set(families)):
+        raise KeyError("scene_from_numpy: a measured BSDF needs its tables "
+                       "under 'measured', and only it")
+    if (bsdf_mod.MEASURED_POLARIZED in families
+            and measured.get("mueller") is None):
+        raise KeyError("scene_from_numpy: a measured_polarized BSDF needs "
+                       "the Mueller tables under measured['mueller']")
     # the kind column of every spectrum slot a row may carry: a material's
     # three color slots and its roughness slot, an emitter's radiance
     kinds = np.concatenate([
@@ -295,6 +306,8 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         medium_grid=(None if grid is None else media_mod.GridVolume(
             *(up(np.asarray(grid[k], np.float32))
               for k in ("data", "bbox_min", "bbox_max")))),
+        measured=(None if measured is None
+                  else measured_mod.measured_from_numpy(measured, dev)),
         has_media=bool(in_use.size),
         inst_inv=up(fields["inst_inv"]) if inst else None,
         inst_fwd=up(fields["inst_fwd"]) if inst else None,

@@ -5,13 +5,16 @@ A family is a set of pure functions over a packed material row; the
 wavefront dispatch is masked evaluate-all over the families present in
 the scene, as in the JAX package. The leaves are diffuse, conductor,
 roughconductor, dielectric, thindielectric, roughdielectric, plastic,
-roughplastic and null; the wrappers mask, blendbsdf, normalmap and
-bumpmap hold their children's row indices (cols 30 and 31) and dispatch
-them per lane; `twosided` is a flag on its child's row (the dispatch
-flips the local frame of a lane that hits it from behind). Any color
-slot may be a texture (render/texture.py), and the rough families'
-roughness too (ALPHA_SLOT). The measured and polarized families raise at
-scene build, naming themselves.
+roughplastic, null and the ideal optical elements polarizer and
+retarder; the wrappers mask, blendbsdf, normalmap and bumpmap hold their
+children's row indices (cols 30 and 31) and dispatch them per lane, and
+measured and measured_polarized read the scene's tabulated BRDFs
+(render/measured.py, SceneData.measured) by the table id in col 28;
+`twosided` is a flag on its child's row (the dispatch flips the local
+frame of a lane that hits it from behind). Any color slot may be a
+texture (render/texture.py), and the rough families' roughness too
+(ALPHA_SLOT). The polarizing action of polarizer, retarder and
+measured_polarized lives in the polarized integrator (render/stokes.py).
 
 Conventions follow the reference: directions in the LOCAL shading frame,
 `wi` points away from the surface, `sample(u1, u2)` returns (BSDFSample,
@@ -33,7 +36,9 @@ from ..core.spectrum import _clip as sp_clip, _max as sp_max
 from ..core.vec import Vec2, Vec3, vdot, vnormalize, vwhere
 from . import fresnel as fr
 from . import ior as ior_mod
+from . import measured as measured_mod
 from . import microfacet as mf
+from . import rgl
 from .spectra import LaneRows, SLOT_W, eval_spectrum_slot, pack_color
 
 MAT_W = 40
@@ -69,11 +74,10 @@ MASK = 9
 BLEND = 10
 NORMALMAP = 11
 BUMPMAP = 12
-
-# the JAX package's families the port does not render, by id
-UNPORTED = {13: "measured", 14: "polarizer", 15: "retarder",
-            16: "measured_polarized"}
-_UNPORTED_NAMES = set(UNPORTED.values())
+MEASURED = 13
+POLARIZER = 14
+RETARDER = 15
+MEASURED_POLARIZED = 16
 
 _DIST_NAME = {"ggx": mf.GGX, "beckmann": mf.BECKMANN}
 
@@ -953,6 +957,149 @@ class BumpMap(_FramePerturb):
         return data
 
 
+# ===========================================================================
+# measured (src/bsdfs/measured.cpp): a tabulated BRDF sampled by per-
+# incident-angle 2D CDF inversion (render/measured.py); it reads
+# scene.measured, so it dispatches with the wrappers. Row: [28] table id
+# ===========================================================================
+
+def _measured_table(props, grid):
+    """A measured row's table: from `values`, an RGL `.bsdf` file
+    (`filename`) or a bake of an analytic family (`bake`)."""
+    if "values" in props:
+        return np.asarray(props["values"], np.float32)
+    if "filename" in props:
+        return rgl.load_rgl(props["filename"], *grid)
+    if "bake" in props:
+        return measured_mod.bake_from_desc(props["bake"], *grid)
+    raise ValueError(f"{props.get('type', 'measured')} bsdf needs "
+                     "'filename' (.bsdf), 'values' or 'bake'")
+
+
+def _grid(props):
+    return (int(props.get("n_ti", 32)), int(props.get("n_to", 64)),
+            int(props.get("n_phi", 64)))
+
+
+class Measured:
+    id = MEASURED
+    flags = F_GLOSSY_R
+    stages_table = True   # build_material passes the build's staging list
+
+    @staticmethod
+    def pack(props, build_child, staging) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[28] = measured_mod.stage_table(
+            staging, _measured_table(props, _grid(props)))
+        return data
+
+    @staticmethod
+    def _rgb_to_channels(val: Spec, config) -> Spec:
+        """The table's RGB in the config's channels: their mean, splat,
+        outside rgb mode."""
+        C = config.n_channels
+        return val if C == 3 else Spec((val.hmean(),) * C)
+
+    @staticmethod
+    def sample(scene, data, si, u1, u2, config):
+        tid = data.col(28)
+        wo, pdf = measured_mod.sample_measured(scene.measured, tid, si.wi, u2)
+        val = measured_mod.eval_measured(scene.measured, tid, si.wi, wo)
+        weight = Measured._rgb_to_channels(val / sp_max(pdf, 1e-20), config)
+        bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
+                        sampled_flags=_flags(pdf > 0, F_GLOSSY_R))
+        return bs, weight.masked(pdf > 0)
+
+    @staticmethod
+    def eval(scene, data, si, wo, config):
+        return Measured._rgb_to_channels(measured_mod.eval_measured(
+            scene.measured, data.col(28), si.wi, wo), config)
+
+    @staticmethod
+    def pdf(scene, data, si, wo, config):
+        return measured_mod.pdf_measured(scene.measured, data.col(28), si.wi,
+                                         wo)
+
+
+class MeasuredPolarized(Measured):
+    """measured_polarized (src/bsdfs/measured_polarized.cpp): a measured
+    intensity table and, per cell, an intensity-normalized Mueller matrix
+    (`mueller` (n_ti, n_to, n_phi, 4, 4), or `pbake_eta`, a conductor's
+    complex IOR baked by measured.bake_mueller_conductor) that the
+    polarized integrator reads; eval, sample and pdf are measured's."""
+    id = MEASURED_POLARIZED
+
+    @staticmethod
+    def pack(props, build_child, staging) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        table = _measured_table(props, _grid(props))
+        if "mueller" in props:
+            mm = np.asarray(props["mueller"], np.float32)
+        elif "pbake_eta" in props:
+            eta = props["pbake_eta"]
+            mm = measured_mod.bake_mueller_conductor(
+                float(np.real(eta)), float(np.imag(eta)), *table.shape[:3])
+        else:
+            raise ValueError("measured_polarized needs 'mueller' "
+                             "(n_ti,n_to,n_phi,4,4) or 'pbake_eta'")
+        data[28] = measured_mod.stage_table(staging, table, mueller=mm)
+        return data
+
+
+# ===========================================================================
+# polarizer and retarder (src/bsdfs/{polarizer,retarder}.cpp): ideal optical
+# elements, delta straight-through transmission. Unpolarized scalar
+# transport passes t / 2 through a polarizer, everything through a
+# retarder; their Mueller matrices act in render/stokes.py.
+# Row: [24] the element's angle theta (rad), [25] transmittance | phase
+# ===========================================================================
+
+def _straight_through(si, config, value):
+    one = torch.ones_like(si.wi.z)
+    bs = BSDFSample(wo=-si.wi, pdf=one, eta=one,
+                    sampled_flags=torch.full_like(si.wi.z, F_DELTA_T,
+                                                  dtype=torch.int32))
+    return bs, Spec((value,) * config.n_channels)
+
+
+class Polarizer:
+    id = POLARIZER
+    flags = F_DELTA_T
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[24] = np.deg2rad(float(props.get("theta", 0.0)))
+        data[25] = float(props.get("transmittance", 1.0))
+        return data
+
+    @staticmethod
+    def sample(data, si, u1, u2, config):
+        return _straight_through(si, config, 0.5 * data.col(25))
+
+    eval = staticmethod(_no_eval)
+    pdf = staticmethod(_no_pdf)
+
+
+class Retarder:
+    id = RETARDER
+    flags = F_DELTA_T
+
+    @staticmethod
+    def pack(props, build_child) -> np.ndarray:
+        data = np.zeros(MAT_W, np.float32)
+        data[24] = np.deg2rad(float(props.get("theta", 0.0)))
+        data[25] = np.deg2rad(float(props.get("delta", 90.0)))  # retardance
+        return data
+
+    @staticmethod
+    def sample(data, si, u1, u2, config):
+        return _straight_through(si, config, torch.ones_like(si.wi.z))
+
+    eval = staticmethod(_no_eval)
+    pdf = staticmethod(_no_pdf)
+
+
 # Differentiable parameters of each family (name -> location in its row),
 # read by scene.build_fields into SceneData.param_paths: ("slot", k) is the
 # RGB at cols [8k, 8k + 3) of spectrum slot k, ("scalar", c) one column
@@ -977,12 +1124,22 @@ Mask.param_spec = {"opacity": ("slot", 2)}
 Blend.param_spec = {"weight": ("scalar", 29)}
 NormalMap.param_spec = {"normalmap": ("slot", 2)}
 BumpMap.param_spec = {"bumpmap": ("slot", 2), "scale": ("scalar", 29)}
+Measured.param_spec = {}
+MeasuredPolarized.param_spec = {}
+Polarizer.param_spec = {"theta": ("scalar", 24),
+                        "transmittance": ("scalar", 25)}
+Retarder.param_spec = {"theta": ("scalar", 24), "delta": ("scalar", 25)}
+# the columns of a wrapper's rows that hold child rows
+Mask.child_cols = NormalMap.child_cols = BumpMap.child_cols = (30,)
+Blend.child_cols = (30, 31)
+Measured.child_cols = ()
 
 LEAF_FAMILIES = {c.id: c for c in (Diffuse, Conductor, RoughConductor,
                                    Dielectric, ThinDielectric,
                                    RoughDielectric, Plastic, RoughPlastic,
-                                   Null)}
-WRAPPER_FAMILIES = {c.id: c for c in (Mask, Blend, NormalMap, BumpMap)}
+                                   Null, Polarizer, Retarder)}
+WRAPPER_FAMILIES = {c.id: c for c in (Mask, Blend, NormalMap, BumpMap,
+                                      Measured, MeasuredPolarized)}
 FAMILIES = {**LEAF_FAMILIES, **WRAPPER_FAMILIES}
 _BY_NAME = {"diffuse": Diffuse, "conductor": Conductor,
             "roughconductor": RoughConductor, "dielectric": Dielectric,
@@ -990,14 +1147,17 @@ _BY_NAME = {"diffuse": Diffuse, "conductor": Conductor,
             "roughdielectric": RoughDielectric, "plastic": Plastic,
             "roughplastic": RoughPlastic, "null": Null, "mask": Mask,
             "blendbsdf": Blend, "blend": Blend, "normalmap": NormalMap,
-            "bumpmap": BumpMap}
+            "bumpmap": BumpMap, "measured": Measured,
+            "measured_polarized": MeasuredPolarized,
+            "polarizer": Polarizer, "retarder": Retarder}
 
 
-def build_material(desc: dict, mats: List) -> int:
+def build_material(desc: dict, mats: List, staging: list = None) -> int:
     """Host: append the rows of `desc` to `mats` ([type, flags, row]
     entries); returns its row index. `twosided` (nested too) is a flag on
     its child's row; a wrapper's children get rows of their own after
-    its, and its flags take in their lobes."""
+    its, and its flags take in their lobes. A measured family stages its
+    table in `staging`, the scene build's list (render/measured.py)."""
     desc = dict(desc or {"type": "diffuse"})
     t = desc.get("type")
     extra_flags = 0
@@ -1007,9 +1167,6 @@ def build_material(desc: dict, mats: List) -> int:
         t = desc.get("type")
     cls = _BY_NAME.get(t)
     if cls is None:
-        if t in _UNPORTED_NAMES:
-            raise NotImplementedError(
-                f"mitsuba2_tpu_torch does not support the {t!r} BSDF yet")
         raise ValueError(f"unknown bsdf type {t!r}")
 
     idx = len(mats)
@@ -1017,11 +1174,14 @@ def build_material(desc: dict, mats: List) -> int:
     child_flags = []
 
     def build_child(child_desc) -> int:
-        ci = build_material(child_desc, mats)
+        ci = build_material(child_desc, mats, staging)
         child_flags.append(mats[ci][1])
         return ci
 
-    row = cls.pack(desc, build_child)
+    if getattr(cls, "stages_table", False):
+        row = cls.pack(desc, build_child, staging)
+    else:
+        row = cls.pack(desc, build_child)
     flags = cls.flags | extra_flags
     for cf in child_flags:  # wrappers inherit their children's lobes
         flags |= cf & ~F_TWOSIDED_FLAG
@@ -1052,7 +1212,7 @@ def wrapper_children(mat_type: np.ndarray, mat_data: np.ndarray) -> tuple:
     out = []
     for fid, cls in WRAPPER_FAMILIES.items():
         rows = mat_data[mat_type == fid]
-        for col in (30, 31) if cls is Blend else (30,):
+        for col in cls.child_cols:
             if rows.shape[0]:
                 kids = mat_type[rows[:, col].astype(np.int64)]
                 out.append(((fid, col), frozenset(

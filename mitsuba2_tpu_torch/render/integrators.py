@@ -19,8 +19,9 @@ On a scene with textures the camera rays carry differentials, scaled to
 a sample's share of its pixel, so that the first hit's lookups are
 mip-filtered; later hits carry a zero footprint (level 0), as in the
 reference. Beside `render` stand the JAX package's other integrators:
-direct, depth, aov and moment (`render_any` dispatches on
-RenderConfig.integrator). With RenderConfig(compact=True) each bounce
+direct, depth, aov, moment and stokes (`render_any` dispatches on
+RenderConfig.integrator; stokes and the polarized transport are
+render/stokes.py's). With RenderConfig(compact=True) each bounce
 first permutes its wavefront (kernels/compact.py: dead lanes to the
 back, live lanes in Morton order of their hit points) and the path's
 radiance is put back in lane order at its end. `render_pass`'s
@@ -435,8 +436,8 @@ def render_any(scene, config: RenderConfig, seed: int = None, device=None):
       depth                                  (H, W, 1) first-hit distance
       aov     {"image": the aov_child's render, name: (H, W, Ck), ...}
       moment                                 (mean, variance) pair
-
-    `stokes` is refused by RenderConfig."""
+      stokes                                 (H, W, 4) Stokes image
+                                             (render/stokes.py)"""
     it = config.integrator
     if it == "direct":
         return render_direct(scene, config, seed, device)
@@ -450,4 +451,8 @@ def render_any(scene, config: RenderConfig, seed: int = None, device=None):
         return out
     if it == "moment":
         return render_with_variance(scene, config, seed, device)
+    if it == "stokes":
+        from .stokes import render_stokes
+        return render_stokes(scene, config.replace(polarized=True), seed,
+                             device)
     return render(scene, config, seed, device)

@@ -167,11 +167,16 @@ def phase_hg_sample(g, wi: Vec3, u2):
     """Sample wo from HG around -wi (forward scattering for g > 0); wi
     points toward the viewer (as si.wi), wo along the new propagation
     direction. u2: a (ua, ub) pair. Returns (wo Vec3, pdf); g is clamped
-    to 1e-4 in magnitude."""
+    to 1e-4 in magnitude. The sampling is detached (Mitsuba 2's
+    convention): wo carries no derivative, the pdf carries g's, so a
+    caller's weight value / detach(pdf), 1 in value, has d/dg of
+    d(pdf)/dg / pdf. Moving wo with g instead would differentiate the
+    radiance along it, whose visibility steps a derivative misses."""
     ua, ub = u2
     g = torch.where(g.abs() < 1e-4, torch.full_like(g, 1e-4), g)
-    sqr = (1.0 - g * g) / (1.0 - g + 2.0 * g * ua)
-    cos_theta = -(1.0 + g * g - sqr * sqr) / (2.0 * g)
+    gd = g.detach()
+    sqr = (1.0 - gd * gd) / (1.0 - gd + 2.0 * gd * ua)
+    cos_theta = -(1.0 + gd * gd - sqr * sqr) / (2.0 * gd)
     cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
     sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     phi = 2.0 * math.pi * ub

@@ -363,10 +363,11 @@ def _vol_bounce(scene, config: RenderConfig, depth: int, carry, sort=None):
     contrib = throughput * alb * e_val * tr_sh * \
         (ph_val * w_nee / torch.clamp_min(ds.pdf, 1e-20))
     result = result + contrib.masked(m_act & (ds.pdf > 0))
-    # phase sampling: value / pdf = 1
+    # phase sampling: value / detach(pdf), 1 in value, its derivative
+    # d(phase)/dg / phase (media.phase_hg_sample's detached sampling)
     u2_ph, sampler = sampler.next_2d()
     wo_med, ph_pdf = media_mod.phase_hg_sample(g_hg, wi_med, u2_ph)
-    thr_med = throughput * alb
+    thr_med = throughput * alb * (ph_pdf / ph_pdf.detach())
 
     # ---- a surface interaction ----------------------------------------------
     s_act = active & ~med_event & si.valid

@@ -620,7 +620,7 @@ def load_dict(d: dict, device=None) -> Tuple[SceneData, RenderConfig]:
 
     Object dicts use the same property names as XML; shapes may embed
     "bsdf"/"emitter" sub-dicts. Every BSDF name the JAX package knows is
-    a BSDF here: one the port does not render raises at the build.
+    a BSDF here.
     """
     if d.get("type") != "scene":
         raise ValueError('top-level dict must have type "scene"')
@@ -630,8 +630,7 @@ def load_dict(d: dict, device=None) -> Tuple[SceneData, RenderConfig]:
     refs: Dict[str, dict] = {}
     from ..render import bsdf as bsdf_mod
 
-    bsdf_types = (set(bsdf_mod._BY_NAME) | bsdf_mod._UNPORTED_NAMES
-                  | {"twosided"})
+    bsdf_types = set(bsdf_mod._BY_NAME) | {"twosided"}
     emitter_types = {"area", "point", "constant", "envmap", "spot",
                      "directional", "projector"}
     integrator_types = {"path", "volpath", "volpathmis", "direct", "depth",

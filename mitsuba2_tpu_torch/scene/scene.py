@@ -6,11 +6,13 @@ shape groups, the materials of render/bsdf.py, the emitters of
 render/emitters.py (area, point, constant, envmap, spot, directional,
 projector), the textures their colors name (render/texture.py's atlas),
 the shapes' interior media (render/media.py: the medium rows and the one
-density grid) and a perspective or thin-lens camera into numpy tables byte-equal to the JAX
-package's `SceneData` fields of the same names (tests/test_torch_scene.py,
-tests/test_torch_instancing.py, tests/test_torch_spheres.py), then
-uploads them with `convert.scene_from_numpy`. Anything else a scene can
-hold raises `NotImplementedError` naming the feature.
+density grid), the measured BSDFs' tables (render/measured.py, staged in
+a list of the build's own) and a perspective or thin-lens camera into
+numpy tables byte-equal to the JAX package's `SceneData` fields of the
+same names (tests/test_torch_scene.py, tests/test_torch_instancing.py,
+tests/test_torch_spheres.py), then uploads them with
+`convert.scene_from_numpy`. Anything else a scene can hold raises
+naming the feature.
 
 The dispatch half picks, as the JAX package does: brute force for flat
 scenes of 192 prims or fewer; above that the cluster walk (or the dense
@@ -42,6 +44,7 @@ from ..core.math import safe_acos
 from ..core.vec import Vec2, Vec3, vwhere
 from ..render import bsdf as bsdf_mod
 from ..render import emitters as emitters_mod
+from ..render import measured as measured_mod
 from ..render import media as media_mod
 from ..render import spectra as spectra_mod
 from ..render import texture as texture_mod
@@ -184,6 +187,8 @@ class SceneData:
     # the heterogeneous media's density grid (render/media.py), None
     # without
     medium_grid: Optional[media_mod.GridVolume] = None
+    # the measured BSDFs' tables (render/measured.py), None without
+    measured: Optional[measured_mod.MeasuredData] = None
     # a keyframed camera's pose (core/geometry.py), None without
     cam_motion: Optional[AnimatedTransform] = None
     has_media: bool = False     # a shape has an interior medium
@@ -240,6 +245,8 @@ def to_device(scene: SceneData, device) -> SceneData:
         moved["textures"] = scene.textures.to(dev)
     if scene.medium_grid is not None:
         moved["medium_grid"] = scene.medium_grid.to(dev)
+    if scene.measured is not None:
+        moved["measured"] = scene.measured.to(dev)
     if scene.cam_motion is not None:
         moved["cam_motion"] = scene.cam_motion.to(dev)
     return dataclasses.replace(scene, **moved)
@@ -486,7 +493,8 @@ def build_fields(shapes, sensor: dict, emitters=()) -> dict:
     for a shared-BLAS scene), `envmap` (an envmap's tables,
     emitters.ENV_FIELDS, or None), `textures` (the atlas' tables,
     texture.TEX_FIELDS, or None), `medium_grid` (the density grid's
-    `data`, `bbox_min` and `bbox_max`, or None), `cam_type` and
+    `data`, `bbox_min` and `bbox_max`, or None), `measured` (the measured
+    BSDFs' tables, measured.TABLES, or None), `cam_type` and
     `param_paths`, the same arithmetic
     as the JAX package's _build_scene_impl for the features the port
     supports."""
@@ -498,12 +506,14 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
     shapes, inst_records, group_of, group_shape0 = _split_instances(shapes)
     _refuse_unsupported(shapes, sensor)
     mats, mat_key2idx = [], {}
+    measured_staging = []   # this build's measured tables, by table id
 
     def add_material(desc) -> int:
         desc = desc or {"type": "diffuse"}
         key = repr(desc)
         if key not in mat_key2idx:
-            mat_key2idx[key] = bsdf_mod.build_material(desc, mats)
+            mat_key2idx[key] = bsdf_mod.build_material(desc, mats,
+                                                       measured_staging)
         return mat_key2idx[key]
 
     p0s, e1s, e2s, n0s, n1s, n2s, uv0s, uv1s, uv2s = ([] for _ in range(9))
@@ -794,7 +804,9 @@ def _build_fields(shapes, sensor, emitters, tex_staging) -> dict:
         med_type=np.asarray(med_types, np.int32),
         med_data=np.stack(med_rows), shape_interior=shape_interior,
         envmap=envmap, textures=texture_mod.pack_atlas(tex_staging),
-        medium_grid=medium_grid, param_paths=tuple(param_paths))
+        medium_grid=medium_grid, param_paths=tuple(param_paths),
+        measured=(measured_mod.build_measured(measured_staging)
+                  if measured_staging else None))
     if inst_records:
         out.update({k: acc[k] for k in INST_FIELDS})
     return out

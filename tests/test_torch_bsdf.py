@@ -42,6 +42,7 @@ from mitsuba2_tpu_torch.scene import shapes as tshapes
 from mitsuba2_tpu_torch.scene.scene import FIELDS
 
 from goldens.jax_refs import Refs
+from test_torch_scene import OPTICS_DESCS
 
 # one intra-op thread: the suite's test processes share the cores
 # (pytest-xdist), and torch's OpenMP regions stall when they
@@ -95,13 +96,16 @@ DESCS = [
     {"type": "twosided"},
 ]
 # the eight leaf families of DESCS; null and the wrappers have their own
-# tests (tests/test_torch_wrappers.py)
-FAMILY_IDS = sorted(set(B.LEAF_FAMILIES) - {B.NULL_BSDF})
+# tests (tests/test_torch_wrappers.py), and so do the optical elements
+# polarizer and retarder (tests/test_torch_polarized.py)
+FAMILY_IDS = sorted(set(B.LEAF_FAMILIES) - {B.NULL_BSDF, B.POLARIZER,
+                                            B.RETARDER})
 # the families this file's refusal tests were written for: the first six
-# render since the textures' slice (held to the JAX package's rows here),
-# the last four still raise
+# render since the textures' slice, the last four since the polarized
+# slice; each builds the JAX package's rows here
 UNPORTED = ["null", "mask", "blendbsdf", "blend", "normalmap", "bumpmap",
             "measured", "measured_polarized", "polarizer", "retarder"]
+MEASURED = ("measured", "measured_polarized")
 
 
 def _build(build_material):
@@ -287,8 +291,8 @@ def test_param_spec_and_flags_match_jax():
                  "F_GLOSSY_T", "F_DELTA_R", "F_DELTA_T", "F_TWOSIDED_FLAG",
                  "F_SMOOTH", "F_DELTA", "ALPHA_SLOT", "MAT_W"):
         assert getattr(B, name) == getattr(JB, name), name
-    for fid, name in B.UNPORTED.items():
-        assert JB._BY_NAME[name].id == fid
+    for name, jcls in JB._BY_NAME.items():
+        assert B._BY_NAME[name].id == jcls.id, name
 
 
 def test_ior_tables_match_jax():
@@ -468,18 +472,32 @@ def test_twosided_diffuse_from_behind():
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_family_raises_by_name(name):
-    """The measured and polarized families raise by name; null and the
-    wrappers build the JAX package's rows, twosided too."""
-    for desc in ({"type": name}, {"type": "twosided", "bsdf": {"type": name}}):
-        if name not in B.UNPORTED.values():
-            mats_t, mats_j = [], []
-            B.build_material(desc, mats_t)
+    """Null, the wrappers, the polarizer and retarder and the measured
+    families build the JAX package's rows and flags, twosided too; a
+    measured one stages the JAX package's table (and Mueller table) in
+    the build's list, and without a table source both raise."""
+    from mitsuba2_tpu.render import measured as jms
+    leaf = OPTICS_DESCS.get(name, {"type": name})
+    for desc in (leaf, {"type": "twosided", "bsdf": leaf}):
+        mats_t, mats_j, staged = [], [], []
+        B.build_material(desc, mats_t, staged)
+        jms.begin_staging()
+        try:
             JB.build_material(desc, mats_j)
-            assert [(t, f, r.tobytes()) for t, f, r in mats_t] == \
-                [(t, f, r.tobytes()) for t, f, r in mats_j]
-            continue
-        with pytest.raises(NotImplementedError, match=f"'{name}' BSDF"):
-            B.build_material(desc, [])
+        finally:
+            staged_j = jms.end_staging()
+        assert [(t, f, r.tobytes()) for t, f, r in mats_t] == \
+            [(t, f, r.tobytes()) for t, f, r in mats_j]
+        assert len(staged) == len(staged_j) == (name in MEASURED)
+        for (tab, mm), (tab_j, mm_j) in zip(staged, staged_j):
+            assert tab.tobytes() == tab_j.tobytes()
+            assert (mm is None) == (mm_j is None) == (name == "measured")
+            assert mm is None or mm.tobytes() == mm_j.tobytes()
+    if name in MEASURED:
+        for build in (lambda d: B.build_material(d, [], []),
+                      lambda d: JB.build_material(d, [])):
+            with pytest.raises(ValueError, match="'filename'"):
+                build({"type": name})
 
 
 def _jax_fields(desc, emitter=None, textures=False):
@@ -497,16 +515,31 @@ def _jax_fields(desc, emitter=None, textures=False):
 
 @pytest.mark.parametrize("fid", range(8, 17))
 def test_scene_from_numpy_names_unported_family(fid):
-    """The JAX package's family ids 8-16: null and the wrappers (8-12)
-    carry across, the measured and polarized ones raise by name."""
+    """The JAX package's family ids 8-16 carry across: null, the wrappers,
+    the polarizer (14) and the retarder (15); the measured ones (13, 16)
+    need their tables under "measured" (KeyError without them, as a
+    heterogeneous medium without its grid), which a JAX build of such a
+    row carries."""
     fields = _jax_fields({"type": "diffuse"})
     fields["mat_type"] = np.full_like(fields["mat_type"], fid)
-    if fid not in B.UNPORTED:
+    if fid not in (B.MEASURED, B.MEASURED_POLARIZED):
         assert mt.scene_from_numpy(fields, device="cpu").mat_families == (fid,)
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"'{B.UNPORTED[fid]}' BSDF"):
+    with pytest.raises(KeyError, match="measured"):
         mt.scene_from_numpy(fields, device="cpu")
+    name = B.FAMILIES[fid].__name__
+    desc = OPTICS_DESCS[MEASURED[fid == B.MEASURED_POLARIZED]]
+    sensor = {"type": "perspective", "to_world": np.eye(4), "fov": 45.0}
+    sj = jbuild([jshapes.rectangle(bsdf=desc)], sensor)
+    fields = {**{k: np.asarray(getattr(sj, k)) for k in FIELDS},
+              "measured": {k: None if getattr(sj.measured, k) is None
+                           else np.asarray(getattr(sj.measured, k))
+                           for k in ("values", "weights", "marg_cdf",
+                                     "cond_cdf", "mueller")}}
+    st = mt.scene_from_numpy(fields, device="cpu")
+    assert st.mat_families == (fid,), name
+    assert np.array_equal(st.measured.values.numpy(), fields["measured"][
+        "values"])
 
 
 @pytest.mark.parametrize("desc,what", [

@@ -5,8 +5,10 @@ The CLI given `--device cpu` writes the image of the in-process
 load_file + render_any of the same scene at the same seed, bit for bit
 (a PFM keeps float32); without a CUDA device and without that flag it
 exits non-zero. Its flags are the JAX package's: a bad `-m` exits through
-argparse, `-s` overrides the samples, `-D` substitutes parameters; the
-polarized and double variants raise NotImplementedError by name.
+argparse, `-s` overrides the samples, `-D` substitutes parameters; a
+polarized variant, and the stokes integrator, write S0 as the image and
+the other Stokes components beside it (`_s1.exr` to `_s3.exr`); the
+double variants raise NotImplementedError by name.
 """
 import os
 import subprocess
@@ -79,16 +81,54 @@ def test_cli_without_a_card_exits_nonzero(scene_file, tmp_path, monkeypatch):
     assert e.value.code == 1 and not out.exists()
 
 
+def _assert_stokes_files(out, stokes):
+    """The CLI's image `out` (a PFM) is S0 bit for bit, its _s1.._s3
+    sidecars (half-float EXR) the other components rounded to half."""
+    from mitsuba2_tpu_torch.core import io_bitmap
+    img = mt.read_bitmap(out)
+    assert np.array_equal(img.reshape(stokes[..., 0].shape), stokes[..., 0])
+    for i in (1, 2, 3):
+        arr = io_bitmap.read(out.rsplit(".", 1)[0] + f"_s{i}.exr")
+        half = stokes[..., i].astype(np.float16).astype(np.float32)
+        assert np.array_equal(arr.reshape(half.shape), half), i
+
+
 @pytest.mark.parametrize("args,name", [
-    # AOVs render since the integrator variants' slice (the case keeps
-    # its id): mono's polarized variant not
+    # AOVs render since the integrator variants' slice and the polarized
+    # variants since the polarized slice (the cases keep their ids)
     pytest.param(["-m", "mono_polarized"], "polarized", id="args0-AOV"),
     (["-m", "rgb_polarized"], "polarized"),
     (["-m", "rgb_double"], "float64")])
 def test_cli_refuses_by_name(scene_file, tmp_path, args, name):
-    with pytest.raises(NotImplementedError, match=name):
-        cli.main([scene_file, "-o", str(tmp_path / "o.pfm"), "--device",
-                  "cpu", *args])
+    """The _double variants raise by name; a _polarized one writes the
+    in-process render_polarized's S0 and its S1-S3 sidecars."""
+    out = str(tmp_path / "o.pfm")
+    argv = [scene_file, "-o", out, "--device", "cpu", *args]
+    if name == "float64":
+        with pytest.raises(NotImplementedError, match=name):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    scene, cfg = mt.load_file(scene_file, device="cpu")
+    cfg = cfg.replace(**mt.parse_variant(args[1]))
+    stokes = mt.render_polarized(scene, cfg, device="cpu").numpy()
+    assert stokes.shape[-2:] == (cfg.n_image_channels, 4)
+    _assert_stokes_files(out, stokes)
+
+
+def test_cli_stokes_integrator_writes_sidecars(tmp_path):
+    """The stokes integrator: the image is S0 (one channel), S1-S3
+    beside it, as the in-process render_any's."""
+    p = tmp_path / "stokes.xml"
+    p.write_text(XML.replace('<integrator type="path">',
+                             '<integrator type="stokes">'))
+    out = str(tmp_path / "o.pfm")
+    assert cli.main([str(p), "-o", out, "--device", "cpu"]) == 0
+    scene, cfg = mt.load_file(str(p), device="cpu")
+    assert cfg.integrator == "stokes"
+    stokes = mt.render_any(scene, cfg, device="cpu").numpy()
+    assert stokes.shape[-1] == 4 and stokes[..., 0].max() > 0
+    _assert_stokes_files(out, stokes[..., None, :])
 
 
 def test_set_variant_applies_to_loaded_scenes(scene_file, monkeypatch):

@@ -196,15 +196,18 @@ def _env_files(tmp_path):
 
 def test_envmap_from_file_raises_by_name(tmp_path):
     """An envmap read from an image file builds, seen by an orthographic
-    sensor too; beside a BSDF the port lacks (polarizer) the build raises
-    naming it."""
+    sensor too, and beside a polarizer (since the polarized slice), which
+    render_polarized renders under it."""
     cam = {"type": "orthographic", "to_world": np.eye(4)}
     plane = tpresets.shapes.rectangle(bsdf={"type": "diffuse"})
     env = [{"type": "envmap", "filename": _env_files(tmp_path)[".exr"]}]
     assert mt.build_scene([plane], cam, env, device="cpu").envmap is not None
     other = tpresets.shapes.rectangle(bsdf={"type": "polarizer"})
-    with pytest.raises(NotImplementedError, match="polarizer"):
-        mt.build_scene([plane, other], cam, env, device="cpu")
+    both = mt.build_scene([plane, other], cam, env, device="cpu")
+    assert both.envmap is not None and 14 in both.mat_families
+    img = mt.render_polarized(both, mt.RenderConfig(
+        width=4, height=4, spp=2, spp_per_pass=2, max_depth=2), device="cpu")
+    assert img.shape == (4, 4, 3, 4) and torch.isfinite(img).all()
 
 
 @pytest.mark.parametrize("ext", [".exr", ".hdr"])
@@ -506,8 +509,8 @@ def test_textured_projector_raises_by_name(tmp_path):
     assert mt.build_scene([plane], sensor, [desc],
                           device="cpu").cam_type == "radiancemeter"
     other = tpresets.shapes.rectangle(bsdf={"type": "retarder"})
-    with pytest.raises(NotImplementedError, match="retarder"):
-        mt.build_scene([plane, other], sensor, [desc], device="cpu")
+    both = mt.build_scene([plane, other], sensor, [desc], device="cpu")
+    assert both.cam_type == "radiancemeter" and 15 in both.mat_families
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ import test_loader
 from test_torch_instancing import (assert_port_tables, flatten_mode,
                                    jax_fields, recorded_fields)
 from test_torch_media import jax_fields as jax_extras
+from test_torch_scene import OPTICS_DESCS
 
 # one intra-op thread: the suite's test processes share the cores
 # (pytest-xdist), and torch's OpenMP regions stall when they
@@ -40,9 +41,10 @@ META = ("n_prims", "n_shapes", "n_emitters", "has_instances", "has_spheres",
 
 
 def _extras_equal(sj, fields):
-    """The envmap's, the atlas' and the density grid's tables."""
+    """The envmap's, the atlas', the density grid's and the measured
+    BSDFs' tables."""
     want = jax_extras(sj)
-    for what in ("envmap", "textures", "medium_grid"):
+    for what in ("envmap", "textures", "medium_grid", "measured"):
         assert (fields[what] is None) == (what not in want), what
         for k, v in want.get(what, {}).items():
             got = fields[what][k]
@@ -239,16 +241,17 @@ def test_load_dict_full_types_matches_jax():
 
 
 def test_load_dict_knows_every_bsdf_name():
-    """A dict naming a family the port does not render is a BSDF to the
-    loader, as to the JAX package's, and the build refuses it by name."""
+    """Every BSDF name the JAX package knows is the port's, and a dict
+    naming one of the families that came with the polarized slice loads
+    the JAX loader's tables, the measured ones' too."""
     from mitsuba2_tpu.render import bsdf as jbsdf
     from mitsuba2_tpu_torch.render import bsdf as tbsdf
-    assert set(jbsdf._BY_NAME) <= set(tbsdf._BY_NAME) | tbsdf._UNPORTED_NAMES
-    for name in sorted(tbsdf._UNPORTED_NAMES):
-        d = {"type": "scene", "mat": {"type": name},
+    assert set(jbsdf._BY_NAME) <= set(tbsdf._BY_NAME)
+    for name, desc in OPTICS_DESCS.items():
+        d = {"type": "scene", "mat": desc,
              "ball": {"type": "sphere", "bsdf": "mat"}}
-        with pytest.raises(NotImplementedError, match=name):
-            tl.load_dict(d, device="cpu")
+        _, st, _ = both("load_dict", d)
+        assert st.mat_families == (tbsdf._BY_NAME[name].id,)
 
 
 # ---------------------------------------------------------------------------
@@ -282,33 +285,97 @@ def test_xml_refusals_name_the_feature(feature):
     ({"sensor": {"type": "perspective",
                  "film": {"width": 8, "height": 8, "rfilter": "gaussian"}}},
      "gaussian"),
+    # its file is written by the test (rgl_file)
     ({"gold": {"type": "measured", "filename": "x.bsdf"}}, "measured"),
     ({"integrator": {"type": "depth"}}, "depth"),
 ])
-def test_dict_refusals_name_the_feature(over, name):
-    """The sampler, filter and integrator load as in the JAX package; a
-    measured BSDF is refused by name."""
+def test_dict_refusals_name_the_feature(over, name, rgl_file):
+    """The sampler, filter, integrator and (since the polarized slice) a
+    measured BSDF read from an RGL .bsdf file load as in the JAX
+    package: the measured tables byte-equal."""
     d = full_types_dict(**(over or {}))
     if over is not None:
         d["sensor"] = {**d["sensor"], "sampler": {"type": "independent",
                                                   "sample_count": 8}}
     if name == "measured":
-        with pytest.raises(NotImplementedError, match=name):
-            tl.load_dict(d, device="cpu")
+        d["gold"] = {**d["gold"], "filename": rgl_file, "n_ti": 8,
+                     "n_to": 16, "n_phi": 16}
+        _, st, _ = both("load_dict", d)
+        assert st.measured.values.shape == (1, 8, 16, 16, 3)
         return
     _, _, ct = both("load_dict", d)
     assert name in (ct.sampler, ct.rfilter, ct.integrator)
 
 
+@pytest.fixture(scope="module")
+def rgl_file(tmp_path_factory):
+    """A synthetic GGX capture in RGL .bsdf layout."""
+    from mitsuba2_tpu_torch.render import rgl
+    p = str(tmp_path_factory.mktemp("rgl") / "ggx.bsdf")
+    rgl.write_rgl_ggx(p, alpha=0.3, n_ti=8, res=32, res2=32)
+    return p
+
+
+POLARIZED_XML = """<scene version="2.0.0">
+  <integrator type="stokes"/>
+  <sensor type="perspective">
+    <transform name="to_world">
+      <lookat origin="0,-3,2" target="0,0,0" up="0,0,1"/></transform>
+    <float name="fov" value="40"/>
+    <film type="hdrfilm"><integer name="width" value="8"/>
+      <integer name="height" value="8"/></film>
+    <sampler type="independent"><integer name="sample_count" value="4"/>
+    </sampler>
+  </sensor>
+  <bsdf type="measured" id="gold">
+    <string name="filename" value="$capture"/>
+    <integer name="n_ti" value="8"/><integer name="n_to" value="16"/>
+    <integer name="n_phi" value="16"/>
+  </bsdf>
+  <shape type="rectangle"><ref id="gold"/></shape>
+  <shape type="rectangle">
+    <transform name="to_world"><translate value="0,0,0.5"/></transform>
+    <bsdf type="polarizer"><float name="theta" value="30"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="to_world"><translate value="0,0,1"/></transform>
+    <bsdf type="retarder"><float name="delta" value="90"/></bsdf>
+  </shape>
+  <emitter type="constant"><rgb name="radiance" value="1,1,1"/></emitter>
+</scene>"""
+
+
+def test_polarized_xml_loads_as_jax(rgl_file):
+    """An XML scene of a measured capture (its file resolved as the JAX
+    loader resolves it), a polarizer and a retarder under the stokes
+    integrator: the JAX loader's tables and config; it renders."""
+    _, st, ct = both("load_string", POLARIZED_XML, capture=rgl_file)
+    assert ct.integrator == "stokes"
+    assert set(st.mat_families) == {13, 14, 15}
+    img = mt.render_any(st, ct, device="cpu")
+    assert img.shape == (8, 8, 4) and torch.isfinite(img).all()
+
+
 def test_variants_refused_at_load(monkeypatch):
-    """set_variant applies to the loaded config; a _polarized or _double
-    variant raises there by name."""
+    """set_variant applies to the loaded config: a _double variant raises
+    there by name; a _polarized one (since the polarized slice) loads the
+    JAX package's config under its set_variant and renders through
+    render_polarized."""
+    import mitsuba2_tpu as mi
     monkeypatch.setattr(mt, "_variant", None)
-    for name, match in (("rgb_polarized", "polarized"),
-                        ("mono_double", "float64")):
-        mt.set_variant(name)
-        with pytest.raises(NotImplementedError, match=match):
-            mt.load_string(test_cli.XML, device="cpu")
+    mt.set_variant("mono_double")
+    with pytest.raises(NotImplementedError, match="float64"):
+        mt.load_string(test_cli.XML, device="cpu")
+    mt.set_variant("rgb_polarized")
+    st, ct = mt.load_string(test_cli.XML, device="cpu")
+    monkeypatch.setattr(mi, "_variant", None)
+    mi.set_variant("rgb_polarized")
+    _, cj = mi.load_string(test_cli.XML)
+    assert ct.variant == "rgb_polarized"
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    img = mt.render_polarized(st, ct.replace(width=4, height=4),
+                              device="cpu")
+    assert img.shape == (4, 4, 3, 4) and torch.isfinite(img).all()
 
 
 def test_unknown_integrator_falls_back_to_path(caplog):

@@ -284,8 +284,8 @@ def _build(name, pkg, tmp_path):
 
 
 def jax_fields(sj):
-    """A JAX scene's tables as numpy, with its envmap's, atlas' and density
-    grid's, and the sensor type."""
+    """A JAX scene's tables as numpy, with its envmap's, atlas', density
+    grid's and measured BSDFs', and the sensor type."""
     from mitsuba2_tpu_torch.render import emitters as em
     out = {**{k: np.asarray(getattr(sj, k)) for k in scene_mod.FIELDS},
            "param_paths": sj.param_paths, "cam_type": sj.cam_type}
@@ -300,6 +300,11 @@ def jax_fields(sj):
     if sj.medium_grid is not None:
         out["medium_grid"] = {k: np.asarray(getattr(sj.medium_grid, k))
                               for k in ("data", "bbox_min", "bbox_max")}
+    if sj.measured is not None:
+        from mitsuba2_tpu_torch.render.measured import TABLES
+        out["measured"] = {k: None if getattr(sj.measured, k) is None
+                           else np.asarray(getattr(sj.measured, k))
+                           for k in TABLES}
     return out
 
 

@@ -14,6 +14,7 @@ import torch
 from mitsuba2_tpu.scene import presets as jpresets
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch import convert
+from mitsuba2_tpu_torch.render import bsdf as bsdf_mod
 from mitsuba2_tpu_torch.scene.scene import FIELDS, SceneData
 
 from test_torch_instancing import assert_port_tables, recorded_fields
@@ -107,12 +108,27 @@ def test_to_device_and_default_device():
         mt.to_device(st, None)
 
 
+# the measured and polarized families, each with what its build needs: a
+# tiny table (and Mueller table) for the measured ones
+_TABLE = np.random.default_rng(12).uniform(0.0, 0.5, (4, 8, 8, 3)).astype(
+    np.float32)
+OPTICS_DESCS = {
+    "measured": {"type": "measured", "values": _TABLE},
+    "measured_polarized": {"type": "measured_polarized", "values": _TABLE,
+                           "mueller": np.broadcast_to(np.eye(
+                               4, dtype=np.float32), (4, 8, 8, 4, 4))},
+    "polarizer": {"type": "polarizer", "theta": 30.0, "transmittance": 0.9},
+    "retarder": {"type": "retarder", "theta": 15.0, "delta": 90.0},
+}
+
+
 @pytest.mark.parametrize("feature", ["sphere", "medium", "instance",
                                      "envmap", "texture", "plastic",
                                      "twosided", "orthographic"])
 def test_unsupported_features_raise_by_name(feature, tmp_path):
-    """Each feature builds; beside a BSDF the port lacks (the measured and
-    polarized families) the build raises naming that BSDF."""
+    """Each feature builds, and so does each beside one of the measured and
+    polarized families, which render since the polarized slice: the
+    family's row, and a measured one's table, in the scene."""
     from mitsuba2_tpu_torch.scene import shapes
     from mitsuba2_tpu_torch.scene.scene import build_scene
     mesh = shapes.rectangle(bsdf={"type": "diffuse"})
@@ -157,9 +173,17 @@ def test_unsupported_features_raise_by_name(feature, tmp_path):
     st = build_scene([mesh], sensor, emitters, device="cpu")
     assert st.cam_type == sensor["type"]
     assert (st.cam_motion is not None) == ("to_world_keys" in sensor)
-    other = shapes.rectangle(bsdf={"type": lacking})
-    with pytest.raises(NotImplementedError, match=f"'{lacking}' BSDF"):
-        build_scene([mesh, other], sensor, emitters, device="cpu")
+    other = shapes.rectangle(bsdf=OPTICS_DESCS[lacking])
+    both = build_scene([mesh, other], sensor, emitters, device="cpu")
+    fid = bsdf_mod._BY_NAME[lacking].id
+    assert fid in both.mat_families
+    measured = lacking.startswith("measured")
+    assert (both.measured is not None) == measured
+    if measured:
+        assert (both.measured.mueller is not None) == (
+            lacking == "measured_polarized")
+        np.testing.assert_array_equal(both.measured.values[0].numpy(),
+                                      OPTICS_DESCS[lacking]["values"])
 
 
 def _bitmap_files(tmp_path):
@@ -253,7 +277,8 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
 
 @pytest.mark.parametrize("kw,what", [
     ({"dtype": "float64"}, "float64"),
-    # spectral renders since the spectral slice: its polarized variant not
+    # the polarized variants and the stokes integrator render since the
+    # polarized slice: their cases render a small scene
     ({"color_mode": "spectral", "polarized": True}, "spectral"),
     ({"polarized": True}, "polarized"),
     # the filters, the depth and direct integrators render since the
@@ -271,6 +296,24 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
                  id="kw6-direct"),
 ])
 def test_config_refuses_what_the_port_does_not_render(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        mt.RenderConfig(**kw)
+    """The _double variants raise by name; the polarized variants and the
+    stokes integrator make a config that renders: the variant string,
+    render_polarized's (H, W, C, 4) Stokes image, render_any's stokes
+    image (an aov's child too)."""
     assert mt.RenderConfig().float_dtype is torch.float32
+    if kw.get("dtype") == "float64":
+        with pytest.raises(NotImplementedError, match=what):
+            mt.RenderConfig(**kw)
+        return
+    cfg = mt.RenderConfig(width=4, height=4, spp=2, spp_per_pass=2,
+                          max_depth=2, **kw)
+    scene = mt.cornell_box(device="cpu")
+    if cfg.polarized:
+        assert what in cfg.variant and cfg.variant.endswith("_polarized")
+        img = mt.render_polarized(scene, cfg, device="cpu")
+        assert img.shape == (4, 4, cfg.n_image_channels, 4)
+    else:
+        out = mt.render_any(scene, cfg, device="cpu")
+        img = out["image"] if cfg.integrator == "aov" else out
+        assert img.shape == (4, 4, 4)
+    assert torch.isfinite(img).all() and float(img[..., 0].mean()) > 0

@@ -304,8 +304,8 @@ def test_slots_match_jax(name, illuminant):
 def test_textured_slot_raises_by_name(tmp_path):
     """A bitmap read from an image file (since the scene loader's slice)
     packs the JAX package's spectral slot, and the texels of the array it
-    decodes to, linearised; rendering it in the spectral_polarized variant
-    still raises by name."""
+    decodes to, linearised; the spectral_polarized variant (since the
+    polarized slice) makes a config."""
     from mitsuba2_tpu_torch.core import io_bitmap
     path = str(tmp_path / "x.exr")
     io_bitmap.write_exr(path, np.random.default_rng(3).uniform(
@@ -321,8 +321,8 @@ def test_textured_slot_raises_by_name(tmp_path):
     assert row_t.tobytes() == np.asarray(row_j).tobytes()
     assert np.array_equal(staged[0].data, io_bitmap.srgb_to_linear(
         io_bitmap.read(path)))
-    with pytest.raises(NotImplementedError, match="spectral_polarized"):
-        mt.RenderConfig(color_mode="spectral", polarized=True)
+    cfg = mt.RenderConfig(color_mode="spectral", polarized=True)
+    assert cfg.variant == "spectral_polarized" and cfg.n_channels == 4
 
 
 @pytest.mark.parametrize("mode", ["spectral", "rgb", "mono"])

@@ -468,11 +468,39 @@ def emulated(tmp_path_factory):
 
 
 def test_cuda_source_emulated_matches_twins(case, emulated):
-    lib = emulated
-    st = case.st
+    _emulated_matches_twins(emulated, case.st, case.rays)
+
+
+@pytest.mark.parametrize("cluster_k", [40, 200])
+def test_cuda_source_emulated_matches_twins_other_cluster_sizes(
+        emulated, cluster_k):
+    """K1 and K2 at cluster sizes other than the default 128 (the
+    MI_CLUSTER_K override, set for the build and restored): the
+    emulation bit-equal to the twins on a quarter as many of
+    mesh_gallery(subdiv=1)'s probe rays, every kind."""
+    from mitsuba2_tpu_torch.scene import bvh as bvh_mod
+    saved = bvh_mod.CLUSTER_K, bvh_mod.CK_FORCED
+    bvh_mod.CLUSTER_K, bvh_mod.CK_FORCED = cluster_k, True
+    try:
+        st = mt.mesh_gallery(subdiv=1, device="cpu")
+    finally:
+        bvh_mod.CLUSTER_K, bvh_mod.CK_FORCED = saved
+    assert st.cluster_k == cluster_k
+
+    def closest_np(o, d, t_max):
+        t, prim, _, _ = traverse.ray_intersect_preliminary(
+            st, planar(o), planar(d), torch.from_numpy(t_max))
+        return t.numpy(), prim.numpy(), None
+    _emulated_matches_twins(emulated, st,
+                            probe_rays(st, N_RAYS // 4, 0, closest_np))
+
+
+def _emulated_matches_twins(lib, st, probe):
+    """The emulated K1 and K2 against their twins on each kind of the
+    probe rays `probe` of scene `st`: bit-equal."""
     tabs = (st.mxu_node_f, st.mxu_link, st.cluster_feat)
     for kind in KINDS:
-        o, d, tm = case.rays[kind]
+        o, d, tm = probe[kind]
         rays = (*planar(o).__dict__.values(), *planar(d).__dict__.values(),
                 torch.from_numpy(tm))
         n = tm.shape[0]

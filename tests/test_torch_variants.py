@@ -171,11 +171,14 @@ def test_wrapper_integrator_guards():
       <sensor type="perspective"/><shape type="sphere"/></scene>"""
     cfg2 = tl.load_string(xml2, device="cpu")[1]
     assert cfg2.integrator == "moment" and cfg2.max_depth == 5
-    # stokes comes with the polarized slice: refused by name
-    for kw in (dict(integrator="stokes"),
-               dict(integrator="aov", aov_child="stokes")):
-        with pytest.raises(NotImplementedError, match="stokes"):
-            mt.RenderConfig(**kw)
+    # stokes came with the polarized slice: it loads as the JAX package's
+    xml3 = xml2.replace('type="moment"><integrator type="path">',
+                        'type="aov"><integrator type="stokes">')
+    for xml_s, want in ((xml.replace("ptracer", "stokes"), "stokes"),
+                        (xml3, "aov")):
+        cfg3 = tl.load_string(xml_s, device="cpu")[1]
+        assert cfg3.integrator == want
+        assert want == "stokes" or cfg3.aov_child == "stokes"
 
 
 def test_render_any_thinlens_aov():

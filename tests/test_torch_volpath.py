@@ -21,6 +21,7 @@ the floor's t one ulp lower. A lane that takes the null face is moved
 1e-4 below the floor and escapes, one that takes the floor scatters off
 it: the port's image is darker there (ROADMAP.md, Queue 3).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -400,6 +401,36 @@ def test_reparam_with_media_refused():
         np.testing.assert_allclose(g[k].numpy()[~nan], gj[~nan], rtol=0,
                                    atol=1e-3 * np.abs(gj[~nan]).max(),
                                    err_msg=k)
+
+
+def test_phase_g_gradient_matches_central_difference():
+    """d/d med_data[0, 6] (the HG asymmetry g 0.3) of the scattering slab's
+    mean squared image (16x16, 8 spp, depth 4, seed 1) by render_and_grad
+    against a central difference of two renders at the same seed, in
+    tests/test_medium_grad.py's band. The JAX package's is NaN here
+    (ROADMAP.md, Queue 3); the port samples HG detached, so the
+    derivative is d(phase)/dg / phase on the phase-sampled paths."""
+    import chip_smoke
+    from mitsuba2_tpu_torch.diff.adjoint import render_and_grad
+    scene = _slab("scattering", "port")
+    cfg = mt.RenderConfig(**RENDER, integrator="volpath")
+    _, _, g = render_and_grad(scene, cfg, lambda im: torch.mean(im ** 2),
+                              seed=1, device="cpu")
+    ad = float(g["med_data"][0, 6])
+
+    def loss_at(d):
+        md = scene.med_data.clone()
+        md[0, 6] += d
+        img = mt.render(dataclasses.replace(scene, med_data=md), cfg, seed=1,
+                        device="cpu")
+        return float(torch.mean(img ** 2))
+
+    # tests/test_medium_grad.py's central-difference step and band
+    eps = chip_smoke.MEDIUM_FD_EPS
+    fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+    print(f"d/dg: AD {ad:.4e}, central difference {fd:.4e}")
+    assert np.isfinite(ad) and ad < 0
+    np.testing.assert_allclose(ad, fd, rtol=chip_smoke.MEDIUM_FD_RTOL)
 
 
 def test_volpath_traversal_calls_per_pass():
