@@ -383,7 +383,10 @@ PATH_RENDER = {"veach": VEACH_RENDER,
                "kitchen_sink": KITCHEN_RENDER,
                "gallery_compact": {**RENDER, "compact": True},
                "gallery_polarized": {**RENDER, "polarized": True},
-               "gallery_stokes": {**RENDER, "integrator": "stokes"}}
+               "gallery_stokes": {**RENDER, "integrator": "stokes"},
+               # the float64 slice: the gallery in double precision (its
+               # walks on f32-rounded rays)
+               "gallery_double": {**RENDER, "dtype": "float64"}}
 # config 5's occluder scenes (occluder_scene, shadow_scene): the JAX
 # tests' configs, central-difference steps and bands of |AD| / |FD|
 # (tests/test_reparam.py; examples/occluder_pose_grad.py)
@@ -489,6 +492,9 @@ PATH_KERNELS = {
     "gallery_polarized": ("cluster_closest_hit", "cluster_any_hit"),
     "gallery_stokes": ("cluster_closest_hit", "cluster_any_hit"),
     "gallery_measured": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_double": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_nif": ("cluster_closest_hit", "cluster_any_hit"),
+    "gallery_plugin": ("cluster_closest_hit", "cluster_any_hit"),
 }
 # the paths rendered through another entry point than mt.render (the
 # loader's and the CLI's render_any, the polarized transport's
@@ -525,7 +531,8 @@ SAME_SCENE = {"gallery_bvh8": "gallery", "gallery_bvh8mxu": "gallery",
               "gallery_spectral": "gallery", "gallery_reparam": "gallery",
               "gallery_compact": "gallery",
               "gallery_stokes": "gallery_polarized",
-              "gallery_measured": "gallery_polarized"}
+              "gallery_measured": "gallery_polarized",
+              "gallery_double": "gallery", "gallery_nif": "gallery"}
 # the paths under RenderConfig(compact=True): the gallery's scene and walk
 # on permuted wavefronts, whose probe rays phase 2 does not repeat
 COMPACT = {"gallery_compact"}
@@ -552,6 +559,8 @@ EXPECTED_LAUNCHES["gallery_reparam"].update(
 EXPECTED_LAUNCHES["gallery_polarized"].update(cluster_any_hit=0)
 EXPECTED_LAUNCHES["gallery_stokes"].update(cluster_closest_hit=2,
                                            cluster_any_hit=1)
+# the neural shadow oracle answers every NEE shadow ray: no any hit
+EXPECTED_LAUNCHES["gallery_nif"].update(cluster_any_hit=0)
 
 
 def volpath_closest_launches(max_depth):
@@ -579,6 +588,36 @@ DIST_TRAIN_STEPS, DIST_LR = 4, 0.05
 DIST_CKPT_STEP = 2
 # render_instrumented on the gallery: 4 passes of 4
 INSTRUMENTED = {**RENDER, "spp_per_pass": 4}
+
+
+# the NIF trainings: the gallery's at train_shadow_nif's defaults (its
+# K2 launches label the segments), the Cornell box's at tests/test_nif.py's
+# arguments, whose bounds the card holds; the render its L1 is taken on
+NIF_GALLERY = dict(seed=0)
+NIF_CORNELL = dict(steps=3000, dataset_size=131072, width=128, seed=1)
+NIF_RENDER = dict(width=32, height=32, spp=16, spp_per_pass=16, max_depth=3,
+                  rr_depth=99)
+NIF_ACCURACY, NIF_REL_L1 = 0.95, 0.2
+# tests/test_double.py's limits of a float64 render against float32 and
+# the share of the gallery's pixels held to them
+DOUBLE_RTOL, DOUBLE_ATOL, DOUBLE_SHARE = 2e-4, 2e-5, 0.999
+# each example (examples/torch/<name>.py) at small sizes: the examples
+# phase and tests/test_torch_examples.py run them so
+EXAMPLE_ARGS = {
+    "render_cbox": ["--width", "8", "--spp", "2", "--out", "cbox.exr"],
+    "invert_cbox": ["--iterations", "2", "--res", "8", "--spp", "4"],
+    "spectral_render": ["--res", "8", "--spp", "4"],
+    "instancing_field": ["--n", "4", "--subdiv", "1", "--width", "8",
+                         "--spp", "2", "--out", "field.exr"],
+    "occluder_pose_grad": ["--res", "8", "--spp", "4"],
+    "volumetric_smoke": ["--res", "8", "--spp", "2", "--out", "smoke.exr"],
+    "smoke_recovery": ["--iterations", "2", "--res", "8", "--spp", "4"],
+    "polarized_stokes": ["--res", "8", "--spp", "4", "--malus-res", "8"],
+    "multichip_train": ["--res", "8", "--spp", "4", "--steps", "2"],
+    "neural_occlusion": ["--steps", "20", "--dataset-size", "4096",
+                         "--res", "8", "--spp", "4"],
+}
+EXAMPLES_LIMIT_S = 60.0
 
 
 class SmokeFailure(Exception):
@@ -913,12 +952,10 @@ GALLERY_ALBEDO = ([0.7, 0.3, 0.25], [0.3, 0.55, 0.7], [0.65, 0.6, 0.3],
                   [0.5, 0.5, 0.65], [0.35, 0.6, 0.4], [0.6, 0.4, 0.6])
 
 
-def gallery_materials(P, subdiv=SUBDIV, **build_kw):
-    """mesh_gallery(subdiv)'s room, light and blobs (the same seeds and
-    placement) under the materials of config 2, built from the presets
-    module `P` of either package (its _quad, _icosphere, _displace,
-    shapes, Transform4 and build_scene): 6 x 20 x 4^subdiv + 16
-    triangles. The plastics keep their blobs' gallery albedo."""
+def _gallery_room(P, subdiv, blob_bsdf):
+    """mesh_gallery(subdiv)'s room, light and six blobs (the same seeds
+    and placement), blob k under the BSDF blob_bsdf(k), from the presets
+    module `P` of either package: (shapes, X, Y, Z)."""
     X, Y, Z = 3.0, 2.0, 3.0
     white = {"type": "diffuse", "reflectance": P.WHITE}
     s = [
@@ -949,11 +986,32 @@ def gallery_materials(P, subdiv=SUBDIV, **build_kw):
             cz = (j + 0.75) * Z / (nz + 0.5)
             cy = 0.45 + 0.1 * ((i + j) % 3)
             v = v * 0.34 + np.asarray([cx, cy, cz], np.float32)
-            bsdf = dict(MATERIALS[k])
-            if "plastic" in bsdf["type"]:
-                bsdf["diffuse_reflectance"] = GALLERY_ALBEDO[k]
-            s.append(P.shapes.mesh(v, faces, bsdf=bsdf, id=f"blob{k}"))
+            s.append(P.shapes.mesh(v, faces, bsdf=blob_bsdf(k),
+                                   id=f"blob{k}"))
             k += 1
+    return s, X, Y, Z
+
+
+def _gallery_sensor(P, X):
+    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
+                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
+    return {"type": "perspective", "to_world": np.asarray(cam.matrix),
+            "fov": 50.0}
+
+
+def gallery_materials(P, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv)'s room, light and blobs (the same seeds and
+    placement) under the materials of config 2, built from the presets
+    module `P` of either package (its _quad, _icosphere, _displace,
+    shapes, Transform4 and build_scene): 6 x 20 x 4^subdiv + 16
+    triangles. The plastics keep their blobs' gallery albedo."""
+    def blob(k):
+        bsdf = dict(MATERIALS[k])
+        if "plastic" in bsdf["type"]:
+            bsdf["diffuse_reflectance"] = GALLERY_ALBEDO[k]
+        return bsdf
+
+    s, X, Y, Z = _gallery_room(P, subdiv, blob)
     # its normal faces the back wall (+z): the camera sees its back
     s.append(P._quad([1.1, 1.05, 2.6], [1.9, 1.05, 2.6], [1.9, 1.6, 2.6],
                      [1.1, 1.6, 2.6], bsdf={"type": "twosided", "bsdf": {
@@ -962,11 +1020,78 @@ def gallery_materials(P, subdiv=SUBDIV, **build_kw):
     s.append(P._quad([2.9, 0.05, 0.3], [2.1, 0.05, 0.3], [2.1, 1.2, 0.3],
                      [2.9, 1.2, 0.3], bsdf={"type": "thindielectric",
                                             "int_ior": "bk7"}, id="pane"))
-    cam = P.Transform4.look_at(origin=[X / 2, 1.0, -2.6],
-                               target=[X / 2, 0.8, 1.5], up=[0, 1, 0])
-    sensor = {"type": "perspective", "to_world": np.asarray(cam.matrix),
-              "fov": 50.0}
-    return P.build_scene(s, sensor, **build_kw)
+    return P.build_scene(s, _gallery_sensor(P, X), **build_kw)
+
+
+class HemiDiffuse:
+    """A user BSDF plugin (render/bsdf.py::register_bsdf), the JAX
+    package's tests/test_plugins.py's: a Lambertian surface sampled with
+    a uniform (not cosine) hemisphere warp, so that its sample, eval and
+    pdf differ and a chi^2 test or a furnace sees real plugin arithmetic.
+    Registered under PLUGIN by register_plugin()."""
+    id = None                    # given by register_bsdf
+    flags = 1 << 1               # F_DIFFUSE_R
+
+    @staticmethod
+    def pack(props, build_child):
+        from mitsuba2_tpu_torch.render import bsdf as B
+        data = np.zeros(B.MAT_W, np.float32)
+        data[0:B.SLOT_W] = B.pack_color(props.get("reflectance",
+                                                  [0.5, 0.5, 0.5]))
+        return data
+
+    @staticmethod
+    def sample(data, si, u1, u2, config):
+        import torch
+        from mitsuba2_tpu_torch.core import warp
+        from mitsuba2_tpu_torch.render import bsdf as B
+        cos_i = si.wi.z
+        wo = warp.square_to_uniform_hemisphere(*u2)
+        pdf = warp.square_to_uniform_hemisphere_pdf(wo)
+        active = cos_i > 0
+        # weight = eval / pdf = (albedo / pi cos_o) / (1 / 2pi)
+        value = B._spec(data, 0, si, config) * (2.0 * wo.z)
+        bs = B.BSDFSample(wo=wo, pdf=torch.where(active, pdf, 0.0),
+                          eta=torch.ones_like(pdf),
+                          sampled_flags=torch.where(
+                              active, B.F_DIFFUSE_R, 0).to(torch.int32))
+        return bs, value.masked(active)
+
+    @staticmethod
+    def eval(data, si, wo, config):
+        from mitsuba2_tpu_torch.core import warp
+        from mitsuba2_tpu_torch.render import bsdf as B
+        active = (si.wi.z > 0) & (wo.z > 0)
+        value = B._spec(data, 0, si, config)
+        return (value * (warp.INV_PI * wo.z)).masked(active)
+
+    @staticmethod
+    def pdf(data, si, wo, config):
+        import torch
+        from mitsuba2_tpu_torch.core import warp
+        return torch.where((si.wi.z > 0) & (wo.z > 0),
+                           warp.square_to_uniform_hemisphere_pdf(wo), 0.0)
+
+
+PLUGIN = "hemi_diffuse"
+
+
+def register_plugin():
+    """HemiDiffuse registered under PLUGIN (once a process): the plugin's
+    class."""
+    from mitsuba2_tpu_torch.render import bsdf as B
+    if PLUGIN not in B._BY_NAME:
+        B.register_bsdf(PLUGIN, HemiDiffuse)
+    return B._BY_NAME[PLUGIN]
+
+
+def gallery_plugin(P, subdiv=SUBDIV, **build_kw):
+    """mesh_gallery(subdiv)'s room and light, its six blobs under the
+    registered plugin PLUGIN at the gallery's albedos (register_plugin
+    first)."""
+    s, X, _, _ = _gallery_room(P, subdiv, lambda k: {
+        "type": PLUGIN, "reflectance": GALLERY_ALBEDO[k]})
+    return P.build_scene(s, _gallery_sensor(P, X), **build_kw)
 
 
 # gallery_polarized: the gallery's blobs under the polarized and measured
@@ -1699,6 +1824,7 @@ def phase_kernels_vs_twins(torch, mt, dev):
     scenes.update(_media_scenes(mt, dev))
     scenes["gallery_compact"] = gallery
     scenes.update(_polarized_scenes(mt, dev))
+    scenes.update(_slice_scenes(mt, dev, gallery))
     with path_switches("gallery_dense"):
         ks = kernels_of(gallery)
     check(ks["closest"] == "dense_closest_hit", "the dense switch did not "
@@ -1828,6 +1954,24 @@ def _polarized_scenes(mt, dev):
           "gallery_polarized: wrong walk or families")
     return {"gallery_polarized": scene, "gallery_stokes": scene,
             "gallery_measured": scene}
+
+
+def _slice_scenes(mt, dev, gallery):
+    """The float64 slice's paths: gallery_double (the gallery's scene,
+    read in f64 at render) and gallery_plugin (the gallery's room, its
+    blobs under the plugin HemiDiffuse, registered here). gallery_nif's
+    scene comes with its oracle (phase_nif)."""
+    from mitsuba2_tpu_torch.scene import presets
+    cls = register_plugin()
+    t0 = time.perf_counter()
+    scene = gallery_plugin(presets, SUBDIV, device=dev)
+    log(f"phase 2: built gallery_plugin in {time.perf_counter() - t0:.1f} s: "
+        f"{scene.n_prims} prims, BSDF families {scene.mat_families} (the "
+        f"plugin {PLUGIN!r} has id {cls.id}), cluster walk "
+        f"{scene.mxu_node_f is not None}")
+    check(scene.mxu_node_f is not None and cls.id in scene.mat_families,
+          "gallery_plugin: wrong walk or families")
+    return {"gallery_double": gallery, "gallery_plugin": scene}
 
 
 def _kernels_vs_twins(torch, name, scene, probes, dev):
@@ -2195,6 +2339,33 @@ def load_xml_gallery(torch, mt, gallery, d):
     return scene, cfg, path
 
 
+def run_cli(xml, out, *args):
+    """`python -m mitsuba2_tpu_torch xml -o out *args` in a subprocess on
+    the card: (wall seconds, its kernel launches (its log line "kernel
+    launches:"; the counts start at 0 in its process), its stderr
+    lines)."""
+    import ast
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mitsuba2_tpu_torch", xml,
+                           "-o", out, *args], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI {args} failed ({proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    lines = proc.stderr.splitlines()
+    launched = None
+    for line in lines:
+        if "kernel launches: " in line:
+            launched = ast.literal_eval(line.split("kernel launches: ")[1])
+    want = {k: n for k, n in EXPECTED_LAUNCHES["xml_gallery"].items() if n}
+    check(launched == want, f"the CLI {args} launched {launched}, expected "
+          f"{want}")
+    return wall, launched, lines
+
+
 def phase_cli(torch, mt, xml, scene, cfg, gallery, render_ms):
     """`python -m mitsuba2_tpu_torch` on xml_gallery's file in a
     subprocess on the card: its wall time, its kernel launches (its log
@@ -2202,25 +2373,10 @@ def phase_cli(torch, mt, xml, scene, cfg, gallery, render_ms):
     its PFM bit-equal to the in-process render of the loaded scene at the
     config's seed; that image against the gallery path's render of the
     same seed (tables equal in rgb mode's columns)."""
-    import ast
     out = os.path.join(os.path.dirname(xml), "out.pfm")
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mitsuba2_tpu_torch", xml,
-                           "-o", out], cwd=repo, env=env,
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0,
-          f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
-    launched = None
-    for line in proc.stderr.splitlines():
+    wall, launched, lines = run_cli(xml, out)
+    for line in lines:
         log(f"phase 3: cli: {line}")
-        if "kernel launches: " in line:
-            launched = ast.literal_eval(line.split("kernel launches: ")[1])
-    want = {k: n for k, n in EXPECTED_LAUNCHES["xml_gallery"].items() if n}
-    check(launched == want, f"the CLI launched {launched}, expected {want}")
     img_cli = mt.read_bitmap(out)
     img = mt.render_any(scene, cfg).cpu().numpy()
     check(img_cli.shape == img.shape and np.array_equal(img_cli, img),
@@ -4256,6 +4412,231 @@ def phase_dist(torch, mt, card, gallery, d):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The float64 slice: the neural shadow oracle's trainings, the float64
+# checks, the plugin, the examples
+# ---------------------------------------------------------------------------
+
+def _sync(torch):
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def phase_nif(torch, mt, dev, card, gallery):
+    """train_shadow_nif on the card: on the gallery at its defaults,
+    whose K2 launches label the training segments (each timed and held
+    bit-equal to its twin on every lane), and on the Cornell box at
+    tests/test_nif.py's arguments, held to its bounds (held-out accuracy
+    > NIF_ACCURACY, a depth-3 render's relative L1 against the exact one
+    < NIF_REL_L1, and not equal to it). Returns the gallery's oracle."""
+    from mitsuba2_tpu_torch.kernels import traverse
+    from mitsuba2_tpu_torch.render import nif as nif_mod
+    ks = kernels_of(gallery)
+    record = []
+    orig, rec = _recorders(traverse, record, ks)
+    for k, f in rec.items():
+        setattr(traverse, k, f)
+    try:
+        wrapper(ks["any"]).launches = 0
+        t0 = _sync(torch)
+        nif = mt.train_shadow_nif(gallery, **NIF_GALLERY)
+        t_gallery = _sync(torch) - t0
+        launches = wrapper(ks["any"]).launches
+    finally:
+        for k, f in orig.items():
+            setattr(traverse, k, f)
+    acc_g = nif_mod.accuracy(nif, gallery)
+    check(launches > 0 and len(record) == launches
+          and all(name == ks["any"] for name, _ in record),
+          f"the gallery's NIF training launched {launches} any hits, "
+          f"recorded {[name for name, _ in record]}")
+    for i, (name, rays) in enumerate(record):
+        r = time_launch(torch, ks, gallery, name, rays, 5)
+        check(passes(r["c"], **exactness("gallery", ks)),
+              f"{name} on the NIF's training segments, launch {i}, "
+              f"disagrees with its twin: {r['c']}")
+        log_launch(f"{name} (the NIF's training segments)", i, r)
+    log(f"phase 3 (nif): train_shadow_nif(mesh_gallery(subdiv={SUBDIV}), "
+        f"{NIF_GALLERY}) on {card}: {t_gallery:.2f} s wall, {launches} "
+        f"{ks['any']} launches labelling its segments (bit-equal to the "
+        f"twin), held-out accuracy {acc_g:.4f} (not held)")
+    cornell = mt.cornell_box(device=dev)
+    t0 = _sync(torch)
+    nif_c = mt.train_shadow_nif(cornell, **NIF_CORNELL)
+    t_cornell = _sync(torch) - t0
+    acc_c = nif_mod.accuracy(nif_c, cornell)
+    cfg = mt.RenderConfig(**NIF_RENDER)
+    exact = mt.render(cornell, cfg)
+    approx = mt.render(dataclasses.replace(cornell, shadow_nif=nif_c), cfg)
+    rel = float((approx - exact).abs().mean() / exact.mean())
+    log(f"phase 3 (nif): train_shadow_nif(cornell_box(), {NIF_CORNELL}) on "
+        f"{card}: {t_cornell:.2f} s wall, held-out accuracy {acc_c:.4f} "
+        f"(limit > {NIF_ACCURACY}), depth-3 {cfg.width}x{cfg.height}x"
+        f"{cfg.spp}spp render's relative L1 against the exact one "
+        f"{rel:.4f} (limit < {NIF_REL_L1})")
+    check(acc_c > NIF_ACCURACY, f"the Cornell NIF's accuracy {acc_c}")
+    check(rel < NIF_REL_L1 and not torch.allclose(approx, exact),
+          f"the Cornell NIF's render: relative L1 {rel}")
+    return nif
+
+
+def phase_double_check(torch, mt, gallery):
+    """gallery_double's image against the gallery's f32 render of the
+    same seed: the share of pixels within tests/test_double.py's
+    limits."""
+    cfg = mt.RenderConfig(**RENDER)
+    img32 = mt.render(gallery, cfg, seed=0)
+    img64 = mt.render(gallery, cfg.replace(dtype="float64"), seed=0)
+    check(img64.dtype == torch.float64 and img32.dtype == torch.float32,
+          "gallery_double's dtypes")
+    close = float(torch.isclose(img64, img32.double(), rtol=DOUBLE_RTOL,
+                                atol=DOUBLE_ATOL).all(-1).float().mean())
+    log(f"phase 3: gallery_double against the gallery's f32 render, seed 0: "
+        f"{close:.6f} of pixels within rtol {DOUBLE_RTOL:g} / atol "
+        f"{DOUBLE_ATOL:g} (limit {DOUBLE_SHARE}), largest gap "
+        f"{float((img64 - img32.double()).abs().max()):.3e}")
+    check(close >= DOUBLE_SHARE, "gallery_double is not the gallery's image")
+
+
+def phase_double_cli(torch, mt, xml, scene, cfg):
+    """`python -m mitsuba2_tpu_torch gallery.xml -m rgb_double` in a
+    subprocess on the card: its launches the xml_gallery path's, its PFM
+    the in-process float64 render_any's (rounded to the PFM's f32) bit for
+    bit."""
+    out = os.path.join(os.path.dirname(xml), "out_double.pfm")
+    wall, launched, _ = run_cli(xml, out, "-m", "rgb_double")
+    cfg64 = cfg.replace(**mt.parse_variant("rgb_double"))
+    img = mt.render_any(scene, cfg64)
+    check(img.dtype == torch.float64, "rgb_double rendered in f32")
+    img_cli = mt.read_bitmap(out)
+    ref = img.float().cpu().numpy()
+    check(img_cli.shape == ref.shape and np.array_equal(img_cli, ref),
+          "the CLI's rgb_double image is not the in-process f64 render's")
+    log(f"phase 3: the CLI with -m rgb_double took {wall:.2f} s wall, "
+        f"launches {launched}; its PFM bit-equal to the in-process float64 "
+        f"render_any rounded to f32")
+
+
+def phase_slice_small(torch, mt, dev):
+    """Phase 4 of the float64 slice, card against CPU at 32x32: the Cornell
+    box and mesh_gallery(subdiv=1) in float64 at depth 3, the plugin
+    gallery, render_l2_grad in float64 on the Cornell box, and
+    nif_ray_test on one fixed set of weights."""
+    from mitsuba2_tpu_torch.render import nif as nif_mod
+    from mitsuba2_tpu_torch.core.vec import Vec3
+    from mitsuba2_tpu_torch.scene import presets
+    from mitsuba2_tpu_torch.scene.scene import to_float64
+    cfg = mt.RenderConfig(width=32, height=32, spp=2, spp_per_pass=1,
+                          max_depth=3, rr_depth=2)
+    for name, mk, c in (
+            ("cornell_box, float64 (brute force)",
+             lambda d: mt.cornell_box(device=d), cfg.replace(dtype="float64")),
+            ("mesh_gallery(subdiv=1), float64 (K1, K2 on f32-rounded rays)",
+             lambda d: mt.mesh_gallery(subdiv=1, device=d),
+             cfg.replace(dtype="float64")),
+            ("gallery_plugin(subdiv=1) (K1, K2)",
+             lambda d: gallery_plugin(presets, 1, device=d), cfg)):
+        img_c = mt.render(mk("cpu"), c, seed=5, device="cpu").numpy()
+        img_g = mt.render(mk(dev), c, seed=5).cpu().numpy()
+        close = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1).mean()
+        rel = abs(img_g.mean() - img_c.mean()) / img_c.mean()
+        good = (np.isfinite(img_g).all() and close >= 0.99 and rel <= 1e-3
+                and str(img_g.dtype) == c.dtype)
+        log(f"phase 4: {name} 32x32 card vs CPU: {close:.4f} of pixels "
+            f"within rtol 1e-3/atol 1e-4, mean rel diff {rel:.2e}, "
+            f"{img_g.dtype} {'ok' if good else 'FAIL'}")
+        check(good, f"{name}: the card's render disagrees with the CPU's")
+    gcfg = mt.RenderConfig(width=16, height=16, spp=16, spp_per_pass=16,
+                           max_depth=2, dtype="float64")
+    grads = {}
+    for d in ("cpu", dev):
+        scene64 = to_float64(mt.cornell_box(boxes=False, device=d))
+        target = torch.zeros((16, 16, 3), dtype=torch.float64, device=d)
+        _, _, g = mt.render_l2_grad(scene64, gcfg, target, seed=3, device=d)
+        grads[str(d)] = {k: v.cpu() for k, v in g.items()}
+    for k, g_c in grads["cpu"].items():
+        g_g = grads[str(dev)][k]
+        scale = float(g_c.abs().max())
+        err = float((g_g - g_c).abs().max()) / max(scale, 1e-300)
+        log(f"phase 4: render_l2_grad float64 on cornell_box(boxes=False), "
+            f"{k}: card vs CPU largest gap {err:.3e} of its largest entry "
+            f"({scale:.3e}), dtype {g_g.dtype}")
+        check(g_g.dtype == torch.float64 and err <= 1e-6,
+              f"render_l2_grad float64: {k} differs on the card")
+    nif = nif_mod.init_nif(mt.cornell_box(device="cpu"), width=128,
+                           n_freq=6, seed=5)
+    rng = np.random.default_rng(12)
+    n = 1 << 16
+    a = rng.uniform([-1, 0, -1], [1, 2, 1], (n, 3)).astype(np.float32)
+    b = rng.uniform([-1, 0, -1], [1, 2, 1], (n, 3)).astype(np.float32)
+    dist = np.linalg.norm(b - a, axis=1).astype(np.float32)
+    dirs = ((b - a) / dist[:, None]).astype(np.float32)
+
+    def logits(net, d):
+        o = Vec3(*torch.from_numpy(a.T.copy()).to(d))
+        v = Vec3(*torch.from_numpy(dirs.T.copy()).to(d))
+        return nif_mod.nif_logits(net, o, v, torch.from_numpy(dist).to(d))
+
+    l_c = logits(nif, "cpu")
+    l_g = logits(nif.to(dev), dev).cpu()
+    near = l_c.abs() < 1e-5
+    differ = (l_c > 0) != (l_g > 0)
+    log(f"phase 4: nif_ray_test, fixed weights (init_nif seed 5, width 128, "
+        f"6 octaves), {n} segments card vs CPU: {int(differ.sum())} answers "
+        f"differ, {int(near.sum())} lanes within 1e-5 of the decision, "
+        f"largest logit gap {float((l_g - l_c).abs().max()):.3e}")
+    check(not bool((differ & ~near).any()),
+          "nif_ray_test differs on the card away from the decision")
+
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch")
+
+
+def run_example(name, argv, cwd):
+    """examples/torch/<name>.py run as a script in this process, with
+    sys.argv = [name, *argv] and working directory `cwd`: its RESULT."""
+    import runpy
+    old_argv, old_cwd = sys.argv, os.getcwd()
+    sys.argv = [f"{name}.py", *argv]
+    os.chdir(cwd)
+    try:
+        g = runpy.run_path(os.path.join(EXAMPLES_DIR, f"{name}.py"),
+                           run_name="__example__")
+        g["main"]()
+        return g["RESULT"]
+    finally:
+        sys.argv = old_argv
+        os.chdir(old_cwd)
+
+
+def phase_examples(torch, d):
+    """Each examples/torch/*.py once on the card at EXAMPLE_ARGS, in
+    process (runpy, its own sys.argv, working directory `d`): its RESULT
+    finite, the phase under EXAMPLES_LIMIT_S."""
+    names = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
+                   if f.endswith(".py"))
+    check(names == sorted(EXAMPLE_ARGS), f"examples/torch holds {names}")
+    t_all = time.perf_counter()
+    for name in names:
+        t0 = time.perf_counter()
+        result = run_example(name, EXAMPLE_ARGS[name], d)
+        torch.cuda.synchronize()
+        finite = bool(result) and all(
+            bool(torch.isfinite(v).all()) if torch.is_tensor(v)
+            else bool(np.isfinite(np.asarray(v, np.float64)).all())
+            for v in result.values())
+        log(f"phase 9: examples/torch/{name}.py "
+            f"{' '.join(EXAMPLE_ARGS[name])} on the card: "
+            f"{time.perf_counter() - t0:.2f} s, outputs "
+            f"{'finite' if finite else 'NOT finite'}")
+        check(finite, f"examples/torch/{name}.py: non-finite output")
+    took = time.perf_counter() - t_all
+    log(f"phase 9: the {len(names)} examples took {took:.1f} s (limit "
+        f"{EXAMPLES_LIMIT_S:g} s)")
+    check(took < EXAMPLES_LIMIT_S, "the examples phase overran")
+
+
 def merge_row(by_name, path, row):
     """One kernel row a kernel: a kernel's first path (its own, the
     earlier slice's) keeps the row's numbers and `launches`; each later
@@ -4296,6 +4677,10 @@ def main():
         scenes["xml_gallery"], xml_cfg, xml = timed(
             "3 (xml_gallery, load)", load_xml_gallery, torch, mt,
             scenes["gallery"], xml_dir)
+        scenes["gallery_nif"] = dataclasses.replace(
+            scenes["gallery"], shadow_nif=timed(
+                "3 (nif)", phase_nif, torch, mt, dev, card,
+                scenes["gallery"]))
         by_name, render_ms, launches = {}, {}, {}
         for path, scene in scenes.items():
             with path_switches(path):
@@ -4316,8 +4701,13 @@ def main():
                           path, scene)
         timed("3 (xml_gallery, cli)", phase_cli, torch, mt, xml,
               scenes["xml_gallery"], xml_cfg, scenes["gallery"], render_ms)
+        timed("3 (gallery_double, image)", phase_double_check, torch, mt,
+              scenes["gallery"])
+        timed("3 (double, cli)", phase_double_cli, torch, mt, xml,
+              scenes["xml_gallery"], xml_cfg)
         for path in ("gallery_polarized", "gallery_stokes",
-                     "gallery_measured"):
+                     "gallery_measured", "gallery_double", "gallery_nif",
+                     "gallery_plugin"):
             log(f"phase 3: {path}: peak memory {PEAK_MIB[path][0]:.0f} MiB, "
                 f"its renders' working set {PEAK_MIB[path][1]:.0f} MiB, "
                 f"beside the gallery's {PEAK_MIB['gallery'][0]:.0f} MiB and "
@@ -4336,6 +4726,7 @@ def main():
         rows = list(by_name.values())
         timed(4, phase_small_renders, torch, mt, dev)
         timed("4 (polarized)", phase_polarized_small, torch, mt, dev)
+        timed("4 (float64, plugin, nif)", phase_slice_small, torch, mt, dev)
         t0 = time.perf_counter()
         timed("4 (variants)", phase_variants_small, torch, mt, dev)
         t_var += time.perf_counter() - t0
@@ -4352,6 +4743,7 @@ def main():
               scenes["veach"], scenes["veach_spectral"],
               scenes["gallery_textured"], scenes["gallery_reparam"],
               scenes["smoke_box"])
+        timed(9, phase_examples, torch, xml_dir)
         for path, rs in timed(8, phase_dist, torch, mt, card,
                               scenes["gallery"], xml_dir).items():
             for row in rs:

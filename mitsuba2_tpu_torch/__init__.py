@@ -30,6 +30,10 @@ renders one (`python -m mitsuba2_tpu_torch scene.xml -o out.pfm`):
 `dist/` splits a render, its adjoint and an optimizer step over the
 ranks of a torch.distributed group and checkpoints long runs;
 `utils/observability.py` reports a render pass by pass.
+RenderConfig(dtype="float64") (the `_double` variants) renders in double
+precision, `register_bsdf` adds a user BSDF plugin, and
+`train_shadow_nif` fits the optional neural shadow oracle a scene can
+carry (`SceneData.shadow_nif`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; without
 a CUDA device and without that argument they raise. Importing this
@@ -39,26 +43,35 @@ standard library only, never jax or mitsuba2_tpu.
 """
 from .config import RenderConfig, parse_variant, variants
 from .convert import scene_from_numpy
+from .core.geometry import Transform4
 from .core.io_bitmap import read as read_bitmap, write as write_bitmap
+from .scene import presets, shapes
 from .scene.presets import (cornell_box, furnace, instanced_field,
                              kitchen_sink, mesh_gallery, smoke_box,
                              veach_mis)
 from .scene.scene import SceneData, build_scene, to_device
+from .render.bsdf import register_bsdf
 from .render.integrators import (render, render_any, render_aovs,
                                   render_pass, render_with_variance)
+from .render.nif import train_shadow_nif
 from .render.stokes import render_polarized, render_stokes
-from .diff import (Adam, SGD, render_and_grad, render_l2_grad, scene_with,
-                   traverse)
+from .diff import (Adam, ParameterMap, SGD, render_and_grad, render_l2_grad,
+                   scene_with, traverse)
+from .diff.adjoint import diff_tables, with_tables
+from .dist.sharding import make_mesh, render_sharded
 
-__all__ = ["Adam", "RenderConfig", "SGD", "SceneData", "build_scene",
-           "cornell_box", "furnace", "instanced_field", "kitchen_sink",
-           "load_dict", "load_file", "load_string", "mesh_gallery",
-           "parse_variant", "read_bitmap", "render", "render_and_grad",
-           "render_any", "render_aovs", "render_l2_grad", "render_pass",
-           "render_polarized", "render_stokes", "render_with_variance",
-           "scene_from_numpy",
-           "scene_with", "set_variant", "smoke_box", "to_device", "traverse",
-           "variant", "variants", "veach_mis", "write_bitmap"]
+__all__ = ["Adam", "ParameterMap", "RenderConfig", "SGD", "SceneData",
+           "Transform4", "build_scene", "cornell_box", "diff_tables",
+           "furnace", "instanced_field", "kitchen_sink", "load_dict",
+           "load_file", "load_string", "make_mesh", "mesh_gallery",
+           "parse_variant", "presets", "read_bitmap", "register_bsdf",
+           "render", "render_and_grad", "render_any", "render_aovs",
+           "render_l2_grad", "render_pass", "render_polarized",
+           "render_sharded", "render_stokes", "render_with_variance",
+           "scene_from_numpy", "scene_with", "set_variant", "shapes",
+           "smoke_box", "to_device", "train_shadow_nif", "traverse",
+           "variant", "variants", "veach_mis", "with_tables",
+           "write_bitmap"]
 
 # set_variant / variant: the reference's variant switcher, as the JAX
 # package has it: a default applied to the configs the loaders return
@@ -67,8 +80,7 @@ _variant = None
 
 def set_variant(name: str) -> None:
     """Select the default variant of scenes loaded from now on
-    (mitsuba.set_variant). A variant the port does not render (the
-    _double ones) raises by name when a scene is loaded."""
+    (mitsuba.set_variant); a _double one renders them in float64."""
     global _variant
     parse_variant(name)  # validate
     _variant = name

@@ -102,6 +102,27 @@ class SphericalDomain:
         return np.ones(p.shape[:-1])
 
 
+class PlanarDomain:
+    """A rectangle of R^2 (the disk, tent, triangle and normal warps),
+    [-1, 1]^2 by default."""
+
+    def __init__(self, bounds=None):
+        self._bounds = (np.array([[-1.0, 1.0], [-1.0, 1.0]]) if bounds is None
+                        else np.asarray(bounds, np.float64))
+
+    def bounds(self):
+        return self._bounds
+
+    def map_forward(self, p):
+        return np.asarray(p)[..., :2]
+
+    def map_backward(self, p):
+        return p
+
+    def measure_factor(self, p):
+        return np.ones(p.shape[:-1])
+
+
 def _to_numpy(pts) -> np.ndarray:
     """A routine's points (a planar Vec3, a tuple of (N,) tensors or an
     (N, k) tensor) -> (N, k) numpy."""
@@ -191,6 +212,23 @@ class ChiSquareTest:
                                         test_count)
         self.messages.append(msg)
         return ok
+
+
+def warp_adapter(warp_fn, pdf_fn, **kw):
+    """(sample, pdf) of ChiSquareTest for a warp of core/warp.py: the
+    sample's (N, 2) columns go in as the warp's (ua, ub), the pdf's
+    points as a planar Vec3 (directions, (..., 3)) or as (px, py)."""
+    from .core.vec import Vec3
+
+    def sample(u):
+        return warp_fn(u[..., 0], u[..., 1], **kw)
+
+    def pdf(p):
+        if p.shape[-1] == 3:
+            return pdf_fn(Vec3(p[..., 0], p[..., 1], p[..., 2]), **kw)
+        return pdf_fn(p[..., 0], p[..., 1], **kw)
+
+    return sample, pdf
 
 
 def lobe_test(lobes: np.ndarray, probs: np.ndarray,

@@ -13,8 +13,8 @@ and the moment integrator's variance are written as sidecars too
 (`_<name>.exr`, `_variance.exr`). A `_polarized` variant renders the full
 polarized transport (render/stokes.py::render_polarized): the image is
 S0 and `_s1.exr`, `_s2.exr`, `_s3.exr` hold the other Stokes components;
-the stokes integrator writes its S0 and the same three sidecars. The
-`_double` variants raise NotImplementedError by name.
+the stokes integrator writes its S0 and the same three sidecars. A
+`_double` variant renders in float64 (the PFM or EXR stores float32).
 """
 from __future__ import annotations
 

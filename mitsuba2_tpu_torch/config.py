@@ -1,9 +1,10 @@
 """Render configuration (counterpart of mitsuba2_tpu/config.py).
 
 Same fields as the JAX package's `RenderConfig`, so a configuration reads
-the same in both. The port renders a subset of what the fields can name;
-a value it does not render yet raises `NotImplementedError` when the
-config is made, never later and never silently.
+the same in both. `dtype="float64"` is the reference's `_double` variant
+family: the render upcasts the scene's shading, emitter, medium and
+geometry tables (scene.to_float64) and carries float64 through the
+arithmetic they reach, for high-precision finite-difference oracles.
 """
 from __future__ import annotations
 
@@ -70,15 +71,12 @@ class RenderConfig:
             raise ValueError(f"unknown rfilter {self.rfilter!r}")
         if self.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.sampler!r}")
-        if self.dtype == "float64":
-            raise NotImplementedError(
-                "mitsuba2_tpu_torch does not render dtype='float64' yet")
         if self.reparam:
             check_kaux(self.reparam_kaux)
 
     @property
     def float_dtype(self) -> torch.dtype:
-        return torch.float32
+        return torch.float64 if self.dtype == "float64" else torch.float32
 
     @property
     def n_channels(self) -> int:
@@ -103,8 +101,7 @@ class RenderConfig:
 
 def variants() -> tuple:
     """The JAX package's variant strings (mitsuba.variants()):
-    {mono,rgb,spectral}[_polarized][_double]. The port renders the
-    single-precision ones; a config of a _double one raises."""
+    {mono,rgb,spectral}[_polarized][_double]."""
     return tuple(mode + pol + dbl for mode in COLOR_MODES
                  for pol in ("", "_polarized") for dbl in ("", "_double"))
 

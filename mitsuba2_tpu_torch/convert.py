@@ -331,3 +331,18 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], device=None) -> SceneData:
         inst_fuel=int(fields["inst_fuel"]) if inst else 0,
         inst_mxu_fuel=int(fields["inst_mxu_fuel"]) if inst else 0,
         param_paths=tuple(fields.get("param_paths", ())))
+
+
+# a ShadowNIF's arrays, in the JAX package's field order
+NIF_FIELDS = ("w0", "b0", "w1", "b1", "w2", "b2", "bb_min", "bb_inv")
+
+
+def shadow_nif_from_numpy(arrays: Dict[str, np.ndarray], device=None):
+    """The JAX package's ShadowNIF, carried as numpy (NIF_FIELDS and
+    n_freq), as the port's render/nif.py::ShadowNIF on `device` (None =
+    the CUDA device; raises without one)."""
+    from .render.nif import ShadowNIF
+    dev = resolve_device(device)
+    return ShadowNIF(**{k: torch.as_tensor(np.array(arrays[k], np.float32),
+                                           device=dev) for k in NIF_FIELDS},
+                     n_freq=int(arrays["n_freq"]))

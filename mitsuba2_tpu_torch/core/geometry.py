@@ -6,7 +6,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .vec import Vec3, vdot
+from . import math as m
+from .vec import Vec3, vdot, vmax_abs
 
 
 def coordinate_system(n: Vec3):
@@ -83,6 +84,38 @@ class RayDifferential(Ray):
             o_y=self.o + (self.o_y - self.o) * amount,
             d_x=self.d + (self.d_x - self.d) * amount,
             d_y=self.d + (self.d_y - self.d) * amount)
+
+
+def spawn_ray(p: Vec3, d: Vec3, n: Vec3 = None, maxt=None, wavelengths=None,
+              time=None) -> Ray:
+    """A ray from p along d, its origin pushed off the surface along the
+    geometric normal n where one is given (Interaction::spawn_ray)."""
+    o = p
+    if n is not None:
+        eps = m.mulsign(m.RAY_EPSILON * (1.0 + vmax_abs(p)), vdot(n, d))
+        o = p + n * eps
+    return Ray.make(o, d, maxt=maxt, wavelengths=wavelengths, time=time)
+
+
+def ray_bbox_slab(o, inv_d, bb_min, bb_max, maxt):
+    """The slab test (BoundingBox::ray_intersect) on (..., 3) tensors that
+    broadcast: (hit, tmin, tmax)."""
+    t0 = (bb_min - o) * inv_d
+    t1 = (bb_max - o) * inv_d
+    tmin = torch.minimum(t0, t1).amax(-1)
+    tmax = torch.maximum(t0, t1).amin(-1)
+    return (tmin <= tmax) & (tmax >= 0.0) & (tmin <= maxt), tmin, tmax
+
+
+def sph_dir(theta, phi) -> Vec3:
+    """Spherical angles -> unit Vec3 (z up)."""
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return Vec3(st * torch.cos(phi), st * torch.sin(phi), ct)
+
+
+def dir_sph(v: Vec3):
+    """Unit Vec3 -> (theta, phi)."""
+    return m.safe_acos(v.z), torch.atan2(v.y, v.x)
 
 
 class Transform4:
@@ -169,6 +202,25 @@ def quat_from_matrix(R) -> np.ndarray:
         q[j] = (R[j, i] + R[i, j]) / s
         q[k] = (R[k, i] + R[i, k]) / s
     return q / np.linalg.norm(q)
+
+
+def quat_slerp(q0, q1, t) -> torch.Tensor:
+    """Slerp of two quaternions (4,) at the times t (...,) -> (..., 4),
+    in f32 as the JAX package's device slerp."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    q0 = torch.as_tensor(q0, dtype=torch.float32, device=t.device)
+    q1 = torch.as_tensor(q1, dtype=torch.float32, device=t.device)
+    d = (q0 * q1).sum()
+    q1 = torch.where(d < 0, -q1, q1)
+    theta = torch.acos(torch.clamp(d.abs(), -1.0, 1.0))
+    sin_t = torch.sin(theta)
+    small = sin_t < 1e-5
+    w0 = torch.where(small, 1.0 - t, torch.sin((1 - t) * theta)
+                     / torch.clamp_min(sin_t, 1e-9))
+    w1 = torch.where(small, t, torch.sin(t * theta)
+                     / torch.clamp_min(sin_t, 1e-9))
+    q = w0[..., None] * q0 + w1[..., None] * q1
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
 def quat_rotate(q: torch.Tensor, v: Vec3) -> Vec3:

@@ -51,6 +51,15 @@ class _SafeAcos(torch.autograd.Function):
         return g * (-1.0 / _sqrt0(1.0 - xc * xc + 1e-12))
 
 
+def promote(x, like):
+    """x in the wider float dtype of x and `like`: torch keeps a lane
+    tensor's f32 against a 0-dim f64 scene scalar where the JAX package's
+    promotion (a float64 render's) widens it; an f32 value widens
+    exactly, so the op that follows rounds as the JAX package's."""
+    dt = torch.promote_types(x.dtype, like.dtype)
+    return x if x.dtype == dt else x.to(dt)
+
+
 def safe_sqrt(x):
     return _SafeSqrt.apply(x) if torch.is_grad_enabled() else _sqrt0(x)
 
@@ -75,3 +84,26 @@ def sinxx(x):
     """sin(x) / x with the limit 1 at 0."""
     return torch.where(torch.abs(x) < 1e-6, 1.0,
                        torch.sin(x) / torch.where(x == 0, 1.0, x))
+
+
+def solve_quadratic(a, b, c):
+    """(valid, x0, x1), x0 <= x1, of a x^2 + b x + c = 0, the linear case
+    where |a| < 1e-20 and the stable +-sqrt form (math::solve_quadratic)."""
+    is_linear = a.abs() < 1e-20
+    disc = b * b - 4.0 * a * c
+    sqrt_disc = safe_sqrt(disc)
+    temp = -0.5 * (b + mulsign(sqrt_disc, b))
+    x0q = temp / torch.where(is_linear, 1.0, a)
+    x1q = c / torch.where(temp.abs() < 1e-20, 1.0, temp)
+    lo, hi = torch.minimum(x0q, x1q), torch.maximum(x0q, x1q)
+    x_lin = -c / torch.where(b.abs() < 1e-20, 1.0, b)
+    valid = torch.where(is_linear, b.abs() >= 1e-20, disc >= 0.0)
+    return (valid, torch.where(is_linear, x_lin, lo),
+            torch.where(is_linear, x_lin, hi))
+
+
+def find_interval(values, x):
+    """The largest i with values[i] <= x, clamped to [0, len - 2]
+    (math::find_interval); `values` sorted and 1-D."""
+    idx = torch.searchsorted(values, x, right=True) - 1
+    return torch.clamp(idx, 0, values.shape[0] - 2)

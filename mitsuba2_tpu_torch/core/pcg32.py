@@ -101,6 +101,36 @@ def next_float32(s: PCG32State) -> Tuple[torch.Tensor, PCG32State]:
     return f - 1.0, s
 
 
+def next_uint32_bounded(s: PCG32State, bound: int):
+    """A draw in [0, bound): the high word of a uniform 32-bit draw times
+    bound (one multiply-shift round)."""
+    bits, s = next_uint32(s)
+    return mulhi32(bits, int(bound) & M32), s
+
+
+def advance(s: PCG32State, delta: int) -> PCG32State:
+    """PCG32::advance: `delta` steps ahead (mod 2^64) in O(log delta)."""
+    cur_mult_h, cur_mult_l = PCG32_MULT_HI, PCG32_MULT_LO
+    cur_plus_h, cur_plus_l = s.inc_hi, s.inc_lo
+    acc_mult_h, acc_mult_l = 0, 1
+    acc_plus_h, acc_plus_l = 0, 0
+    delta = int(delta) & ((1 << 64) - 1)
+    while delta > 0:
+        if delta & 1:
+            acc_mult_h, acc_mult_l = mul64(acc_mult_h, acc_mult_l,
+                                           cur_mult_h, cur_mult_l)
+            ph, pl = mul64(acc_plus_h, acc_plus_l, cur_mult_h, cur_mult_l)
+            acc_plus_h, acc_plus_l = add64(ph, pl, cur_plus_h, cur_plus_l)
+        mp1_h, mp1_l = add64(cur_mult_h, cur_mult_l, 0, 1)
+        cur_plus_h, cur_plus_l = mul64(cur_plus_h, cur_plus_l, mp1_h, mp1_l)
+        cur_mult_h, cur_mult_l = mul64(cur_mult_h, cur_mult_l,
+                                       cur_mult_h, cur_mult_l)
+        delta >>= 1
+    h, l = mul64(s.state_hi, s.state_lo, acc_mult_h, acc_mult_l)
+    h, l = add64(h, l, acc_plus_h, acc_plus_l)
+    return PCG32State(h, l, s.inc_hi, s.inc_lo)
+
+
 def sample_tea_32(v0, v1, rounds: int = 4):
     """TEA block cipher as a hash; returns the mixed (v0, v1) pair."""
     s = 0
@@ -111,6 +141,12 @@ def sample_tea_32(v0, v1, rounds: int = 4):
         v1 = (v1 + ((((v0 << 4) + 0xAD90777D) ^ (v0 + s)
                      ^ ((v0 >> 5) + 0x7E95761E)) & M32)) & M32
     return v0, v1
+
+
+def sample_tea_64(v0, v1, rounds: int = 4):
+    """The 64-bit TEA hash as its (hi, lo) words."""
+    a, b = sample_tea_32(v0, v1, rounds)
+    return b, a
 
 
 def seed_lanes(base_seed: int, lane_idx: torch.Tensor) -> PCG32State:

@@ -89,3 +89,8 @@ def swhere(mask, a, b) -> Spec:
             x = torch.full_like(y, float(x))
         out.append(torch.where(mask, x, y))
     return Spec(tuple(out))
+
+
+def slerp(a: Spec, b: Spec, t) -> Spec:
+    """The linear blend a + (b - a) t."""
+    return a + (b - a) * t

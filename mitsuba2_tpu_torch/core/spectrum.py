@@ -70,6 +70,11 @@ def cie1931_xyz(wl):
     return torch.stack(_tbl_lerp_t("cie", wl), -1)
 
 
+def cie1931_y(wl):
+    """The CIE 1931 ybar matching function at wl (nm)."""
+    return _tbl_lerp_t("cie", wl)[1]
+
+
 def cie1931_xyz_t(wl):
     """Planar CIE XYZ at one wavelength channel: a 3-tuple."""
     return _tbl_lerp_t("cie", wl)
@@ -106,6 +111,13 @@ def srgb_to_xyz(rgb):
     return _apply_color_matrix(SRGB_TO_XYZ, rgb)
 
 
+def luminance_rgb(rgb):
+    """Luminance of a linear-sRGB color (..., 3) (mitsuba `luminance`)."""
+    w = torch.tensor([0.212671, 0.715160, 0.072169], dtype=torch.float32,
+                     device=rgb.device)
+    return (rgb * w).sum(-1)
+
+
 def luminance_t(r, g, b):
     """Planar luminance of linear sRGB channels (mono mode)."""
     return 0.212671 * r + 0.715160 * g + 0.072169 * b
@@ -134,6 +146,16 @@ def srgb_model_eval(coeffs, wl):
 # ---------------------------------------------------------------------------
 # Hero-wavelength sampling (spectrum.h::sample_rgb_spectrum)
 # ---------------------------------------------------------------------------
+
+def srgb_model_mean(coeffs, n: int = 32):
+    """Mean reflectance of (..., 3) model coefficients over the visible
+    range (srgb_model_mean), at n wavelengths."""
+    wl = torch.linspace(WAVELENGTH_MIN, WAVELENGTH_MAX, n,
+                        dtype=torch.float32, device=coeffs.device)
+    shape = coeffs.shape[:-1]
+    vals = srgb_model_eval(coeffs[..., None, :], wl.expand(shape + (n,)))
+    return vals.mean(-1)
+
 
 def sample_rgb_spectrum(u):
     """Wavelengths importance-sampled for visible-range integration, pdf

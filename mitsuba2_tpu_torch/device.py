@@ -24,3 +24,12 @@ def resolve_device(device=None) -> torch.device:
                                "not available")
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_name(device) -> str:
+    """The name of `device` for a report line: the card's
+    (torch.cuda.get_device_name), or "cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type

@@ -40,7 +40,7 @@ from ..render import film as film_mod
 from ..render.integrators import pass_seeds, render_pass
 from ..scene.scene import (DIFF_TABLES, ENV_DIFF_TABLES, GRID_DIFF_TABLE,
                            MED_DIFF_TABLE, TEX_DIFF_TABLE, diff_tables,
-                           to_device)
+                           to_device, to_float64)
 
 
 def with_tables(scene, tables: Dict[str, torch.Tensor]):
@@ -71,13 +71,17 @@ def render_and_grad(scene, config: RenderConfig,
     """Render, loss and the loss's gradients with respect to
     diff_tables(scene), on `device` (None = the CUDA device; raises
     without one). Returns (image, loss, grads), grads keyed as
-    diff_tables."""
+    diff_tables; in float64 under RenderConfig(dtype="float64"), whose
+    render differentiates the scene's f64 upcast (scene.to_float64)."""
     dev = resolve_device(device)
     if seed is None:
         seed = config.seed
     sppc = min(config.spp_per_pass, config.spp)
     config = config.replace(spp_per_pass=sppc)
-    return adjoint_passes(to_device(scene, dev), config, loss_fn,
+    scene = to_device(scene, dev)
+    if config.dtype == "float64":
+        scene = to_float64(scene)
+    return adjoint_passes(scene, config, loss_fn,
                           pass_seeds(seed, (config.spp + sppc - 1) // sppc),
                           dev)
 

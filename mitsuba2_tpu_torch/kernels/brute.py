@@ -57,8 +57,8 @@ def sphere_test(cx, cy, cz, r, ox, oy, oz, dx, dy, dz):
     disc = B * B - 4.0 * A * C
     # the square root correctly rounded, as the kernels' sqrtf is: a float's
     # root taken in f64 rounds to the right f32, while torch's f32 root on
-    # the CPU can miss it by an ulp
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0).double()).float()
+    # the CPU can miss it by an ulp (a float64 render's in f64)
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0).double()).to(disc.dtype)
     qq = -0.5 * (B + torch.sign(B) * sq)
     t0 = torch.where(A.abs() > 1e-20, qq / A, inf)
     t1 = torch.where(qq.abs() > 1e-20, C / qq, inf)

@@ -275,9 +275,12 @@ class RoughConductor:
         return data
 
     @staticmethod
-    def _params(data, si, dtype=torch.float32):
+    def _params(data, si, dtype=None):
+        """(alpha_u, alpha_v, distribution), the alphas in `dtype` (else
+        the table's)."""
         au, av = _alpha_tex(data, si, torch.clamp_min(data.col(24), 1e-4),
                             torch.clamp_min(data.col(25), 1e-4))
+        dtype = dtype or au.dtype
         return au.to(dtype), av.to(dtype), data.col(26).to(torch.int32)
 
     @staticmethod
@@ -1150,6 +1153,57 @@ _BY_NAME = {"diffuse": Diffuse, "conductor": Conductor,
             "bumpmap": BumpMap, "measured": Measured,
             "measured_polarized": MeasuredPolarized,
             "polarizer": Polarizer, "retarder": Retarder}
+
+
+def register_bsdf(name: str, cls) -> None:
+    """Register a user-defined BSDF plugin under `name` (the reference's
+    Python plugins, pybind trampolines of BSDF; the JAX package's
+    register_bsdf). A plugin is a class of four static methods over the
+    port's own types:
+
+        class MyBSDF:
+            id = None            # given on registration, from 1000 up
+            flags = F_DIFFUSE_R  # its lobes (BSDFFlags)
+            @staticmethod
+            def pack(props, build_child) -> np.ndarray   # (MAT_W,) f32
+            @staticmethod
+            def sample(data, si, u1, u2, config) -> (BSDFSample, Spec)
+            @staticmethod
+            def eval(data, si, wo, config) -> Spec
+            @staticmethod
+            def pdf(data, si, wo, config) -> torch.Tensor
+
+    `data` is its lanes' rows (spectra.LaneRows: `_spec(data, k, si,
+    config)` reads spectrum slot k, `data.col(c)` a column), `si` the
+    shading record with wi in the local frame, u1 (N,) and u2 a Vec2 of
+    samples; core/warp.py has the warps. After registration the name
+    works wherever a built-in's does: XML `<bsdf type="name">`,
+    load_dict, build_scene; the dispatch runs the plugin on the rows of
+    its own family alone, as a built-in leaf family (no wrappers: a
+    wrapper's child re-dispatch is the transport loop's). A registration
+    lives in its process's registry alone: a process spawned or
+    launched apart (a torch.distributed rank, a CLI subprocess) does not
+    see it unless it registers the plugin itself."""
+    global _USER_ID_NEXT
+    if name in _BY_NAME:
+        raise ValueError(f"bsdf name {name!r} already registered")
+    for attr in ("flags", "pack", "sample", "eval", "pdf"):
+        if not hasattr(cls, attr):
+            raise TypeError(f"plugin {name!r} lacks required attribute "
+                            f"{attr!r}")
+    if getattr(cls, "id", None) is None:
+        cls.id = _USER_ID_NEXT
+        _USER_ID_NEXT += 1
+    if cls.id in FAMILIES or any(c.id == cls.id for c in _BY_NAME.values()):
+        raise ValueError(f"bsdf id {cls.id} already taken")
+    if not hasattr(cls, "param_spec"):
+        cls.param_spec = {}
+    _BY_NAME[name] = cls
+    LEAF_FAMILIES[cls.id] = cls
+    FAMILIES[cls.id] = cls
+
+
+_USER_ID_NEXT = 1000  # user plugins' ids; the built-ins' stay below
 
 
 def build_material(desc: dict, mats: List, staging: list = None) -> int:

@@ -193,9 +193,11 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None,
     whole pass. The pixel of a lane is its local index's, and the
     stratified and ld samplers take the local spp_per_pass, as in the
     JAX package."""
-    from ..scene.scene import to_device
+    from ..scene.scene import to_device, to_float64
     dev = resolve_device(device)
     scene = to_device(scene, dev)
+    if config.dtype == "float64":
+        scene = to_float64(scene)
     H, W = config.height, config.width
     sppc = config.spp_per_pass
     n = sppc * H * W
@@ -255,8 +257,8 @@ def render_pass(scene, config: RenderConfig, seed: int, device=None,
     spec = spec * scene.cam_weight  # sensor importance (irradiance meter)
     if wl is not None:
         spec = sp.spectrum_to_srgb_t(spec, wl, wl_pdf)
-    image = torch.zeros((H, W, config.n_image_channels), dtype=torch.float32,
-                        device=dev)
+    image = torch.zeros((H, W, config.n_image_channels),
+                        dtype=config.float_dtype, device=dev)
     return film_mod.accumulate_pass(image, film_mod.zero_weight(config, dev),
                                     spec, jitter, config)
 

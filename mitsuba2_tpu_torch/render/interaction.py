@@ -11,6 +11,33 @@ from ..core.vec import Vec2, Vec3, vdot, vmax_abs
 
 
 @dataclasses.dataclass
+class PreliminaryIntersection:
+    """A closest-hit query's answer before shading (scene_optix.inl's
+    PreliminaryIntersection): t (inf on a miss), the prim (-1 on a miss),
+    its barycentrics or sphere parameters, and on an instanced scene the
+    instance (None elsewhere)."""
+    t: torch.Tensor
+    prim_index: torch.Tensor
+    prim_uv: Vec2
+    inst: torch.Tensor = None
+
+    @property
+    def valid(self):
+        return torch.isfinite(self.t)
+
+
+@dataclasses.dataclass
+class PositionSample:
+    """PositionSample3f (records.h): a point, its normal and uv, the
+    area-measure pdf and whether it is a delta sample."""
+    p: Vec3
+    n: Vec3
+    uv: Vec2
+    pdf: torch.Tensor
+    delta: torch.Tensor
+
+
+@dataclasses.dataclass
 class SurfaceInteraction:
     """Full shading record; wi is in the LOCAL shading frame."""
     valid: torch.Tensor

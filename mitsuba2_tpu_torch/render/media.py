@@ -70,9 +70,13 @@ class GridVolume:
         iz = torch.clamp(torch.floor(xz), 0, D - 2).to(torch.int64)
         fx, fy, fz = xx - ix, xy - iy, xz - iz
         base = (iz * H + iy) * W + ix
-        corners = torch.stack([base + (dz * H + dy) * W + dx
-                               for dz in (0, 1) for dy in (0, 1)
-                               for dx in (0, 1)])
+        # a grid one voxel thick along an axis clamps its index to -1 (the
+        # range [0, -1]), whose corner the JAX package's indexing wraps to
+        # the last plane, its only one: wrapped here too (no index
+        # reaches past the end)
+        corners = torch.remainder(torch.stack(
+            [base + (dz * H + dy) * W + dx for dz in (0, 1)
+             for dy in (0, 1) for dx in (0, 1)]), D * H * W)
         (g000, g100, g010, g110, g001, g101, g011, g111) = lane_gather(
             self.data.reshape(-1), corners.reshape(-1)).view(
                 corners.shape).unbind(0)

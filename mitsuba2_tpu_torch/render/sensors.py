@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core import warp
+from ..core.math import promote
 from ..core.geometry import Ray, RayDifferential
 from ..core.vec import Vec2, Vec3, vnormalize
 
@@ -27,7 +28,8 @@ NEEDS_APERTURE_SAMPLE = ("thinlens", "irradiancemeter")
 def _film_to_cam_xy(scene, uv: Vec2):
     """Film uv -> direction components on the z = 1 camera plane."""
     tx = torch.tan(torch.deg2rad(scene.cam_fov_x) * 0.5)
-    return (1.0 - 2.0 * uv.x) * tx, (1.0 - 2.0 * uv.y) * tx
+    return (promote(1.0 - 2.0 * uv.x, tx) * tx,
+            promote(1.0 - 2.0 * uv.y, tx) * tx)
 
 
 def _bcast(v: torch.Tensor, like: torch.Tensor) -> Vec3:
@@ -38,6 +40,7 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> Vec3:
 
 def _apply(mat, v: Vec3, w: float) -> Vec3:
     """mat (4, 4) applied to v: a point (w = 1) or a vector (w = 0)."""
+    v = Vec3(promote(v.x, mat), promote(v.y, mat), promote(v.z, mat))
     out = [mat[r, 0] * v.x + mat[r, 1] * v.y + mat[r, 2] * v.z
            for r in range(3)]
     if w:

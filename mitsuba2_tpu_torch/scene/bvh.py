@@ -29,6 +29,18 @@ if CLUSTER_K < 32 or CLUSTER_K % 8 != 0:
 N_BINS = 16       # SAH bins per axis
 
 
+def set_cluster_k(k: int, force: bool = True) -> None:
+    """Pin the cluster size of scenes built from now on, as MI_CLUSTER_K
+    pins it (force=False restores the automatic policy,
+    scene.py::_pick_cluster_k). Each scene carries its own
+    (SceneData.cluster_k), so scenes of different sizes coexist."""
+    global CLUSTER_K, CK_FORCED
+    if k < 32 or k % 8 != 0 or k < LEAF_K:
+        raise ValueError(f"cluster size {k}: must be a multiple of 8, >= 32")
+    CLUSTER_K = int(k)
+    CK_FORCED = bool(force)
+
+
 @dataclasses.dataclass
 class BVH:
     bounds_min: np.ndarray   # (N, 3) f32

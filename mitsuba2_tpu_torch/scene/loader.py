@@ -5,8 +5,8 @@ Counterpart of mitsuba2's scene loading layer (src/libcore/xml.cpp ::
 xml::load_file/load_string + the dict loader): parsing produces the same
 descriptor dicts and MeshData the JAX package's loader does, and the
 port's build_scene packs them on the device asked for (the CUDA device
-unless `device` names another). A feature the port does not render yet
-raises NotImplementedError naming it, from RenderConfig or the build.
+unless `device` names another). A BSDF type registered with
+render/bsdf.py::register_bsdf loads as a built-in one does.
 
 Supported XML surface (the subset exercised by mitsuba's test scenes):
 - tags: scene, shape, bsdf, emitter, sensor, film, sampler, integrator,
@@ -571,8 +571,7 @@ def _load_root(root, base_dir, params) -> Tuple[SceneData, RenderConfig]:
     else:
         sensor = {"type": "perspective",
                   "to_world": np.eye(4, dtype=np.float32), "fov": 45.0}
-    # the config first: what the port does not render raises before
-    # the build
+    # the config first: a bad value raises before the build
     config = RenderConfig(**overrides)
     scene = build_scene(shape_list, sensor, emitters=emitters, device=device)
     return scene, config

@@ -191,6 +191,9 @@ class SceneData:
     measured: Optional[measured_mod.MeasuredData] = None
     # a keyframed camera's pose (core/geometry.py), None without
     cam_motion: Optional[AnimatedTransform] = None
+    # the neural shadow oracle (render/nif.py::ShadowNIF): set, it
+    # answers every ray_test in place of the walk. None by default
+    shadow_nif: Optional[object] = None
     has_media: bool = False     # a shape has an interior medium
     mat_families: Tuple[int, ...] = ()
     family_rows: Tuple[int, ...] = ()   # each family's first material row
@@ -249,7 +252,42 @@ def to_device(scene: SceneData, device) -> SceneData:
         moved["measured"] = scene.measured.to(dev)
     if scene.cam_motion is not None:
         moved["cam_motion"] = scene.cam_motion.to(dev)
+    if scene.shadow_nif is not None:
+        moved["shadow_nif"] = scene.shadow_nif.to(dev)
     return dataclasses.replace(scene, **moved)
+
+
+# the tables the walk kernels and the presort read, which stay f32 in a
+# float64 render (the wrappers take f32 alone: kernels/traverse.py)
+WALK_TABLES = ("bvh_min", "bvh_max", "mxu_node_f", "cluster_feat", "mxu_ccs",
+               "bvh_node", "bvh_prim", "bvh8_child", "bvh8c_child",
+               "inst_inv")
+# the scene's parts that hold tables of their own
+SUB_TABLES = ("envmap", "textures", "medium_grid", "measured", "cam_motion")
+
+
+def _float64(obj):
+    """A part of the scene with its floating tensors cast to f64."""
+    if torch.is_tensor(obj):
+        return obj.to(torch.float64) if obj.is_floating_point() else obj
+    return dataclasses.replace(obj, **{
+        f.name: _float64(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)
+        if torch.is_tensor(getattr(obj, f.name))})
+
+
+def to_float64(scene: SceneData) -> SceneData:
+    """The scene of a float64 render (the `_double` variants): its
+    floating shading, emitter, medium, camera and geometry tables cast to
+    f64, as the JAX package upcasts the scene; the walk tables
+    (WALK_TABLES) stay f32, for the kernels."""
+    cast = {f.name: _float64(getattr(scene, f.name))
+            for f in dataclasses.fields(scene)
+            if f.name not in WALK_TABLES
+            and torch.is_tensor(getattr(scene, f.name))}
+    cast.update({k: _float64(getattr(scene, k)) for k in SUB_TABLES
+                 if getattr(scene, k) is not None})
+    return dataclasses.replace(scene, **cast)
 
 
 def diff_tables(scene) -> dict:
@@ -1106,6 +1144,23 @@ def _walk_fns(scene, backend):
 
 SORT_MIN_LANES = 16384
 SORT_DIRBITS = 9    # direction bucket: 3 bits per axis, as the JAX default
+_SORT_RAYS = "auto"
+
+
+def set_ray_sort(mode) -> None:
+    """Force the wavefront presort: True | False | "auto" (wavefronts of
+    SORT_MIN_LANES lanes or more)."""
+    global _SORT_RAYS
+    if mode not in (True, False, "auto"):
+        raise ValueError(f"set_ray_sort: {mode!r} is not True, False or "
+                         "'auto'")
+    _SORT_RAYS = mode
+
+
+def _want_sort(n_lanes: int) -> bool:
+    if _SORT_RAYS == "auto":
+        return n_lanes >= SORT_MIN_LANES
+    return bool(_SORT_RAYS)
 
 
 def coherence_key(scene, ray_o: Vec3, ray_d: Vec3, t_max):
@@ -1165,6 +1220,19 @@ def _detached_scene(scene):
     return dataclasses.replace(scene, **cut) if cut else scene
 
 
+def _walk_ray(ray: Ray) -> Ray:
+    """The ray in f32, as the walk kernels and their twins take it: a
+    float64 render's rays rounded (its shading re-solves the hit in f64,
+    _hit_geometry)."""
+    if ray.o.x.dtype == torch.float32:
+        return ray
+
+    def f32(v: Vec3) -> Vec3:
+        return Vec3(v.x.float(), v.y.float(), v.z.float())
+
+    return Ray(o=f32(ray.o), d=f32(ray.d), maxt=ray.maxt.float())
+
+
 def _preliminary_dispatch(scene, ray: Ray, sort=None):
     """Closest-hit query: (t, prim, u, v, inst), inst None except on an
     instanced scene. `sort=None` presorts wavefronts of SORT_MIN_LANES
@@ -1178,8 +1246,8 @@ def _preliminary_dispatch(scene, ray: Ray, sort=None):
         return (*brute.ray_intersect_brute(scene, ray.o, ray.d, ray.maxt),
                 None)
     fn = _walk_fns(scene, backend)[0]
-    n = ray.o.x.shape[0]
-    if (n >= SORT_MIN_LANES) if sort is None else sort:
+    ray = _walk_ray(ray)
+    if _want_sort(ray.o.x.shape[0]) if sort is None else sort:
         outs, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
         # walks that emit u = v = 0 need no unsorting of them
         zero_uv = not traverse.emits_uv(scene, backend)
@@ -1214,14 +1282,20 @@ def ray_intersect_positions(scene, ray: Ray):
 
 
 def ray_test(scene, ray: Ray) -> torch.Tensor:
-    """Scene::ray_test — occlusion within ray.maxt, detached."""
+    """Scene::ray_test — occlusion within ray.maxt, detached; through the
+    scene's shadow_nif where it carries one (render/nif.py), before any
+    backend."""
     from ..kernels import brute
     ray, scene = _detached(ray), _detached_scene(scene)
+    if scene.shadow_nif is not None:
+        from ..render.nif import nif_ray_test
+        return nif_ray_test(scene.shadow_nif, ray.o, ray.d, ray.maxt)
     backend = _pick_backend(scene)
     if backend == "brute":
         return brute.ray_test_brute(scene, ray.o, ray.d, ray.maxt)
     fn = _walk_fns(scene, backend)[1]
-    if ray.o.x.shape[0] >= SORT_MIN_LANES:
+    ray = _walk_ray(ray)
+    if _want_sort(ray.o.x.shape[0]):
         occ, lane = _presorted(scene, ray.o, ray.d, ray.maxt, fn)
         return _unsort(occ, lane)
     return fn(scene, ray.o, ray.d, ray.maxt)

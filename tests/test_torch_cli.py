@@ -7,8 +7,8 @@ load_file + render_any of the same scene at the same seed, bit for bit
 exits non-zero. Its flags are the JAX package's: a bad `-m` exits through
 argparse, `-s` overrides the samples, `-D` substitutes parameters; a
 polarized variant, and the stokes integrator, write S0 as the image and
-the other Stokes components beside it (`_s1.exr` to `_s3.exr`); the
-double variants raise NotImplementedError by name.
+the other Stokes components beside it (`_s1.exr` to `_s3.exr`); a
+double variant writes the float64 render (rounded to the PFM's float32).
 """
 import os
 import subprocess
@@ -98,17 +98,22 @@ def _assert_stokes_files(out, stokes):
     # variants since the polarized slice (the cases keep their ids)
     pytest.param(["-m", "mono_polarized"], "polarized", id="args0-AOV"),
     (["-m", "rgb_polarized"], "polarized"),
+    # the _double variants render since the float64 slice
     (["-m", "rgb_double"], "float64")])
 def test_cli_refuses_by_name(scene_file, tmp_path, args, name):
-    """The _double variants raise by name; a _polarized one writes the
-    in-process render_polarized's S0 and its S1-S3 sidecars."""
+    """A _double variant writes the in-process float64 render (in the
+    PFM's float32); a _polarized one the in-process render_polarized's S0
+    and its S1-S3 sidecars."""
     out = str(tmp_path / "o.pfm")
     argv = [scene_file, "-o", out, "--device", "cpu", *args]
-    if name == "float64":
-        with pytest.raises(NotImplementedError, match=name):
-            cli.main(argv)
-        return
     assert cli.main(argv) == 0
+    if name == "float64":
+        scene, cfg = mt.load_file(scene_file, device="cpu")
+        cfg = cfg.replace(**mt.parse_variant(args[1]))
+        img = mt.render_any(scene, cfg, device="cpu").numpy()
+        assert img.dtype == np.float64 and cfg.variant == "rgb_double"
+        assert np.array_equal(mt.read_bitmap(out), img.astype(np.float32))
+        return
     scene, cfg = mt.load_file(scene_file, device="cpu")
     cfg = cfg.replace(**mt.parse_variant(args[1]))
     stokes = mt.render_polarized(scene, cfg, device="cpu").numpy()

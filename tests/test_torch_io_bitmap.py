@@ -187,3 +187,23 @@ def test_jpeg_without_imageio_raises_by_format(tmp_path, monkeypatch):
     p = str(tmp_path / "x.png")
     tio.write(p, a)
     assert os.path.exists(p) and tio.read(p).shape == (4, 4, 3)
+
+
+@pytest.mark.parametrize("ext", [".jpg", ".jpeg"])
+def test_jpeg_round_trip_matches_jax(tmp_path, ext):
+    """With imageio installed, the port writes a JPEG byte-equal to the
+    JAX package's and reads it byte-equal to the JAX package's read; the
+    decode of a smooth image is near the image it encoded."""
+    pytest.importorskip("imageio")
+    y, x = np.mgrid[0:24, 0:40] / np.array([23.0, 39.0])[:, None, None]
+    a = np.stack([x, y, 0.5 * (x + y)], -1).astype(np.float32)
+    pt, pj = str(tmp_path / f"t{ext}"), str(tmp_path / f"j{ext}")
+    tio.write(pt, a)
+    jio.write(pj, a)
+    assert open(pt, "rb").read() == open(pj, "rb").read()
+    back = tio.read(pt)
+    ref = np.asarray(jio.read(pt))
+    assert back.dtype == np.float32 and back.tobytes() == ref.tobytes()
+    assert back.shape == a.shape
+    srgb = np.clip(tio.linear_to_srgb(a), 0, 1)
+    assert np.abs(back - srgb).mean() < 0.05

@@ -357,15 +357,22 @@ def test_polarized_xml_loads_as_jax(rgl_file):
 
 
 def test_variants_refused_at_load(monkeypatch):
-    """set_variant applies to the loaded config: a _double variant raises
-    there by name; a _polarized one (since the polarized slice) loads the
-    JAX package's config under its set_variant and renders through
+    """set_variant applies to the loaded config: a _double variant (since
+    the float64 slice) loads a float64 mono config that renders a float64
+    image; a _polarized one (since the polarized slice) loads the JAX
+    package's config under its set_variant and renders through
     render_polarized."""
     import mitsuba2_tpu as mi
     monkeypatch.setattr(mt, "_variant", None)
     mt.set_variant("mono_double")
-    with pytest.raises(NotImplementedError, match="float64"):
-        mt.load_string(test_cli.XML, device="cpu")
+    sd, cd = mt.load_string(test_cli.XML, device="cpu")
+    assert cd.variant == "mono_double" and cd.dtype == "float64"
+    img = mt.render_any(sd, cd, device="cpu")
+    assert img.dtype == torch.float64 and img.shape[-1] == 1
+    img32 = mt.render_any(sd, cd.replace(dtype="float32"), device="cpu")
+    assert bool(torch.isfinite(img).all())
+    np.testing.assert_allclose(img.numpy(), img32.numpy(), rtol=2e-4,
+                               atol=2e-5)
     mt.set_variant("rgb_polarized")
     st, ct = mt.load_string(test_cli.XML, device="cpu")
     monkeypatch.setattr(mi, "_variant", None)

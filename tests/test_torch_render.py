@@ -248,6 +248,21 @@ img = sharding.render_sharded(mt.cornell_box(device="cpu"), mt.RenderConfig(
     width=8, height=8, spp=2, spp_per_pass=2, compact=True), mesh)
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
 assert checkpoint.CheckpointedRender and observability.render_instrumented
+from mitsuba2_tpu_torch import chi2 as _chi2
+from mitsuba2_tpu_torch.core import distr, pcg32, warp
+from mitsuba2_tpu_torch.render import nif
+assert _chi2.PlanarDomain and distr.Hierarchical2D and pcg32.advance
+assert warp.square_to_von_mises_fisher and nif.nif_ray_test
+img = mt.render(mt.cornell_box(device="cpu"), cfg.replace(dtype="float64"),
+                device="cpu")
+assert img.dtype == torch.float64 and bool(img.isfinite().all())
+net = mt.train_shadow_nif(mt.cornell_box(device="cpu"), steps=2,
+                          dataset_size=2048, width=8, n_freq=1, batch=512)
+assert net.w0.shape == (15, 8)
+chip_smoke.register_plugin()
+img = mt.render(chip_smoke.gallery_plugin(presets, 1, device="cpu"), cfg,
+                device="cpu")
+assert bool(img.isfinite().all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "mitsuba2_tpu"))
 print("BAD", bad)
@@ -373,3 +388,30 @@ def test_shading_chain_matches_jax(gallery):
         close(getattr(ds_j.d, c), getattr(ds_t.d, c), sel)
     for a, b in zip(e_j.ch, e_t.ch):
         close(a, b, sel)
+
+
+# the JAX package's public names (its __dir__: its module's names and its
+# lazy re-exports, and the subpackages a session has imported) that the
+# port has no counterpart of: none
+JAX_ONLY = frozenset()
+
+
+def test_exports_cover_the_jax_package():
+    """Every public name of mitsuba2_tpu.__dir__() resolves on
+    mitsuba2_tpu_torch, as an attribute or as a submodule of that name,
+    apart from JAX_ONLY."""
+    import importlib
+    import mitsuba2_tpu as mi
+    missing = set()
+    for name in mi.__dir__():
+        if name.startswith("_") or hasattr(mt, name):
+            continue
+        try:
+            importlib.import_module(f"mitsuba2_tpu_torch.{name}")
+        except ImportError:
+            missing.add(name)
+    assert missing == JAX_ONLY, sorted(missing)
+    for name in ("register_bsdf", "ParameterMap", "Transform4",
+                 "diff_tables", "with_tables", "make_mesh", "render_sharded",
+                 "shapes", "presets", "train_shadow_nif"):
+        assert name in mt.__all__ and getattr(mt, name) is not None

@@ -289,31 +289,35 @@ def test_scene_from_numpy_refuses_what_the_port_does_not_render(what):
     pytest.param({"integrator": "aov", "aov_child": "stokes"}, "stokes",
                  id="kw4-volpath"),
     # compact renders since the multi-process slice: its case holds a
-    # double polarized variant, refused by its first feature
+    # double polarized variant, which renders since the float64 slice
     pytest.param({"dtype": "float64", "polarized": True}, "float64",
                  id="kw5-compact"),
     pytest.param({"color_mode": "mono", "polarized": True}, "mono_polarized",
                  id="kw6-direct"),
 ])
 def test_config_refuses_what_the_port_does_not_render(kw, what):
-    """The _double variants raise by name; the polarized variants and the
-    stokes integrator make a config that renders: the variant string,
-    render_polarized's (H, W, C, 4) Stokes image, render_any's stokes
-    image (an aov's child too)."""
+    """Every variant makes a config that renders (the _double ones since
+    the float64 slice): the variant string, render_polarized's (H, W, C,
+    4) Stokes image (float32 under a _double variant too, as the JAX
+    package returns it), render_any's stokes image (an aov's child too),
+    a float64 config's float64 image."""
     assert mt.RenderConfig().float_dtype is torch.float32
-    if kw.get("dtype") == "float64":
-        with pytest.raises(NotImplementedError, match=what):
-            mt.RenderConfig(**kw)
-        return
     cfg = mt.RenderConfig(width=4, height=4, spp=2, spp_per_pass=2,
                           max_depth=2, **kw)
     scene = mt.cornell_box(device="cpu")
+    if kw.get("dtype") == "float64":
+        assert cfg.float_dtype is torch.float64 and "_double" in cfg.variant
     if cfg.polarized:
-        assert what in cfg.variant and cfg.variant.endswith("_polarized")
+        assert (what in cfg.variant or cfg.dtype == what) and (
+            "_polarized" in cfg.variant)
         img = mt.render_polarized(scene, cfg, device="cpu")
         assert img.shape == (4, 4, cfg.n_image_channels, 4)
+        assert img.dtype == torch.float32
     else:
         out = mt.render_any(scene, cfg, device="cpu")
         img = out["image"] if cfg.integrator == "aov" else out
-        assert img.shape == (4, 4, 4)
+        if kw.get("dtype") == "float64":
+            assert img.shape == (4, 4, 3) and img.dtype == torch.float64
+        else:
+            assert img.shape == (4, 4, 4)
     assert torch.isfinite(img).all() and float(img[..., 0].mean()) > 0
